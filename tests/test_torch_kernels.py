@@ -1,0 +1,213 @@
+"""The port's kernel modules against the JAX Pallas kernels (CPU).
+
+Each plain PyTorch version is held against the JAX function run as the JAX
+package's own tests run it (``interpret=True``), on the same numpy inputs
+made from a seeded ``np.random.default_rng``. The ``gpu``-marked test holds
+each CUDA kernel against its plain version on the card; a machine with a card
+but without JAX runs it alone, without the JAX-importing conftest:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_kernels.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+try:
+    import jax
+    import jax.numpy as jnp
+
+    from quant_tpu.core.qtensor import quantize_tensor as j_quantize
+    from quant_tpu.kernels.attention import flash_decode_int8 as j_flash
+    from quant_tpu.kernels.cache_insert import cache_insert_int8 as j_insert
+    from quant_tpu.kernels.dequant_matmul import dequant_matmul as j_dqmm
+except ModuleNotFoundError:   # only the gpu-marked test can run there
+    pass
+
+from quant_tpu_torch.core.qtensor import QTensor
+from quant_tpu_torch.kernels import _build
+from quant_tpu_torch.kernels.attention import (flash_decode_int8,
+                                               flash_decode_int8_reference)
+from quant_tpu_torch.kernels.cache_insert import (
+    cache_insert_int8, cache_insert_int8_reference)
+from quant_tpu_torch.kernels.dequant_matmul import (dequant_matmul,
+                                                    dequant_matmul_reference)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The shapes here are tiny: one intra-op thread runs them as fast and
+    leaves the other cores to the test processes beside this one."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _qt_pair(rng, bits, k, n, g, layers):
+    """(JAX QTensor, port QTensor) of the same codes; stacked [L, ...] when
+    ``layers`` is set."""
+    qs = [j_quantize(rng.standard_normal((k, n), dtype=np.float32), bits,
+                     group_size=g) for _ in range(layers or 1)]
+    if layers:
+        jq = jax.tree.map(lambda *a: np.stack(a), *qs)
+    else:
+        jq = qs[0]
+    tq = QTensor(codes=torch.from_numpy(np.asarray(jq.codes)),
+                 scales=torch.from_numpy(np.asarray(jq.scales)), bits=bits,
+                 group_size=g, shape=(k, n))
+    return jq, tq
+
+
+# (bits, stacked, M, K, N, G): every value of each axis appears
+_MM_CASES = [
+    (4, False, 1, 256, 512, 64),
+    (4, True, 5, 512, 256, 128),
+    (4, True, 130, 256, 384, 64),
+    (4, False, 130, 512, 512, 128),
+    (8, False, 5, 256, 256, 64),
+    (8, True, 1, 512, 384, 128),
+    (8, True, 130, 256, 512, 128),
+    (8, False, 1, 512, 256, 64),
+]
+
+
+@pytest.mark.parametrize("bits,stacked,m,k,n,g", _MM_CASES)
+def test_dequant_matmul_matches_jax(bits, stacked, m, k, n, g):
+    rng = np.random.default_rng(m * 1000 + k + n + g + bits)
+    jq, tq = _qt_pair(rng, bits, k, n, g, 3 if stacked else 0)
+    x = rng.standard_normal((m, k), dtype=np.float32)
+    layer = 2 if stacked else None
+    ref = np.asarray(j_dqmm(jnp.asarray(x), jq,
+                            None if layer is None else jnp.int32(layer),
+                            interpret=True))
+    got = dequant_matmul(torch.from_numpy(x), tq, layer)
+    plain = dequant_matmul_reference(
+        torch.from_numpy(x), tq.layer(layer) if stacked else tq)
+    assert torch.equal(got, plain)   # the CPU dispatch is the plain version
+    assert got.shape == (m, n) and got.dtype == torch.float32
+    err = np.max(np.abs(got.numpy() - ref))
+    assert err <= 1e-5 * np.max(np.abs(ref)), err
+
+
+def _cache(rng, l, b, h, s, d):
+    return (rng.integers(-127, 128, (l, b, h, s, d), dtype=np.int8),
+            rng.standard_normal((l, b, h, s), dtype=np.float32),
+            rng.integers(-127, 128, (l, b, h, s, d), dtype=np.int8),
+            rng.standard_normal((l, b, h, s), dtype=np.float32))
+
+
+@pytest.mark.parametrize("s0,lengths", [(0, [3, 127, 128, 50]),
+                                        (64, [3, 100, 191, 250])])
+def test_cache_insert_matches_jax(s0, lengths):
+    """Byte-equal; rows at or past S, or before s0, are dropped."""
+    rng = np.random.default_rng(11 + s0)
+    l, b, h, s, d = 3, 4, 2, 128, 64
+    cache = _cache(rng, l, b, h, s, d)
+    kn = rng.integers(-127, 128, (b, 1, h, d), dtype=np.int8)
+    kns = rng.standard_normal((b, 1, h), dtype=np.float32)
+    vn = rng.integers(-127, 128, (b, 1, h, d), dtype=np.int8)
+    vns = rng.standard_normal((b, 1, h), dtype=np.float32)
+    ln = np.asarray(lengths, np.int32)
+    ref = j_insert(*[jnp.asarray(a) for a in cache], jnp.asarray(kn),
+                   jnp.asarray(kns), jnp.asarray(vn), jnp.asarray(vns),
+                   jnp.asarray(ln), jnp.int32(1), s0, interpret=True)
+    tc = [torch.from_numpy(a.copy()) for a in cache]
+    got = cache_insert_int8(*tc, torch.from_numpy(kn), torch.from_numpy(kns),
+                            torch.from_numpy(vn), torch.from_numpy(vns),
+                            torch.from_numpy(ln), 1, s0)
+    for g_, r_, t_ in zip(got, ref, tc):
+        assert g_ is t_                  # written in place
+        np.testing.assert_array_equal(g_.numpy(), np.asarray(r_))
+    dropped = [i for i, n in enumerate(lengths) if not 0 <= n - s0 < s]
+    for i in dropped:
+        np.testing.assert_array_equal(got[0][:, i].numpy(), cache[0][:, i])
+
+
+@pytest.mark.parametrize("rep", [2, 4])
+@pytest.mark.parametrize("dh", [64, 128])
+def test_flash_decode_matches_jax(rep, dh):
+    """Lengths of 1 token, a partial block and the full S."""
+    rng = np.random.default_rng(rep * 10 + dh)
+    l, b, hkv, s = 2, 3, 2, 128
+    kc, ks, vc, vs = _cache(rng, l, b, hkv, s, dh)
+    ks, vs = np.abs(ks) * 0.02, np.abs(vs) * 0.02
+    q = rng.standard_normal((b, hkv * rep, dh), dtype=np.float32)
+    ln = np.asarray([1, 37, s], np.int32)
+    ref = np.asarray(j_flash(jnp.asarray(q), jnp.asarray(kc), jnp.asarray(ks),
+                             jnp.asarray(vc), jnp.asarray(vs),
+                             jnp.asarray(ln), jnp.int32(1), interpret=True,
+                             precision="highest", s_blk=64))
+    args = [torch.from_numpy(a) for a in (q, kc, ks, vc, vs, ln)]
+    got = flash_decode_int8(*args, 1)
+    assert got.shape == (b, hkv * rep, dh) and got.dtype == torch.float32
+    assert np.max(np.abs(got.numpy() - ref)) <= 1e-5
+
+
+def test_flash_decode_zero_length_is_finite():
+    rng = np.random.default_rng(5)
+    kc, ks, vc, vs = _cache(rng, 1, 2, 2, 64, 64)
+    q = torch.from_numpy(rng.standard_normal((2, 4, 64), dtype=np.float32))
+    out = flash_decode_int8_reference(
+        q, *[torch.from_numpy(a) for a in (kc, ks, vc, vs)],
+        torch.tensor([0, 5], dtype=torch.int32), 0)
+    assert torch.isfinite(out).all() and torch.all(out[0] == 0)
+
+
+@pytest.mark.gpu
+def test_cuda_kernels_match_plain_on_card():
+    """Each CUDA kernel against its plain version at small shapes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    _build.build()
+    for bits in (4, 8):
+        for m in (1, 5, 130):
+            k, n, g = 512, 768, 128
+            kp = k // 2 if bits == 4 else k
+            codes = torch.randint(0, 256, (kp, n), generator=gen, device=dev,
+                                  dtype=torch.int32)
+            codes = codes.to(torch.uint8) if bits == 4 else (codes - 128).to(
+                torch.int8)
+            qt = QTensor(codes=codes, scales=torch.rand(
+                (k // g, n), generator=gen, device=dev) * 0.1, bits=bits,
+                group_size=g, shape=(k, n))
+            # bf16 out (wqkv, w_gate_up in the forward) takes the kernel's
+            # bf16 stores: through the split-K buffer at decode M, direct
+            # at prefill M
+            for dt in (torch.float32, torch.bfloat16):
+                x = torch.randn((m, k), generator=gen, device=dev).to(dt)
+                for odt in (torch.float32, torch.bfloat16):
+                    ref = dequant_matmul_reference(x, qt, odt).float()
+                    got = dequant_matmul(x, qt, out_dtype=odt)
+                    assert got.dtype == odt
+                    tol = (1e-4 if dt == odt == torch.float32 else 2e-2)
+                    assert ((got.float() - ref).abs().max()
+                            <= tol * ref.abs().max())
+    # Llama-3-8B's head geometry and test-tiny's; S spans several of the
+    # flash kernel's 256-token chunks, the last one partial
+    for s, d, rep in ((600, 128, 4), (300, 64, 2)):
+        l, b, h = 2, 4, 2
+        cache = [t.to(dev) for t in (
+            torch.randint(-127, 128, (l, b, h, s, d), dtype=torch.int8),
+            torch.rand((l, b, h, s)) * 0.02,
+            torch.randint(-127, 128, (l, b, h, s, d), dtype=torch.int8),
+            torch.rand((l, b, h, s)) * 0.02)]
+        plain = [t.clone() for t in cache]
+        new = [t.to(dev) for t in (
+            torch.randint(-127, 128, (b, 1, h, d), dtype=torch.int8),
+            torch.rand((b, 1, h)),
+            torch.randint(-127, 128, (b, 1, h, d), dtype=torch.int8),
+            torch.rand((b, 1, h)))]
+        ln = torch.tensor([0, 17, 257, s], dtype=torch.int32, device=dev)
+        cache_insert_int8(*cache, *new, ln, 1)
+        cache_insert_int8_reference(*plain, *new, ln, 1)
+        for a, r in zip(cache, plain):
+            assert torch.equal(a, r)
+        q = torch.randn((b, h * rep, d), generator=gen, device=dev)
+        got = flash_decode_int8(q, *cache, ln, 1)
+        ref = flash_decode_int8_reference(q, *cache, ln, 1)
+        torch.cuda.synchronize()
+        assert (got - ref).abs().max() <= 1e-4
