@@ -14,17 +14,42 @@ Phases; the first failure ends the run with a non-zero exit code:
              Llama-3-8B shapes and the output dtypes the forward gives
              them, with its device time (``torch.profiler`` kernel events,
              operands rotated so each launch reads them from device
-             memory), its bound and the plain version's device time.
+             memory), its bound and the plain version's device time. The
+             paged insert and paged flash decode run over a 32-layer pool
+             holding the contiguous cache's rows under a shuffled page
+             table, at pages 128 and 512, beside the contiguous kernel's
+             time at the same lengths.
 4. serving   full-width Llama-3-8B (32 layers, random weights from seed 0,
              made on the card) behind ``Engine(max_slots=8, max_seq=2048)``:
              8 greedy requests of 32-1024 prompt tokens, 64 new tokens each.
              The launch counters must match the forwards run. Then
              ``torch.profiler`` over 3 decode forwards at B=8: device busy
              time, idle share and the kernels that take the most.
-5. model     one prefill and 4 decode steps at full width with the kernels
-             (kernel_mode "auto") and with the plain versions ("xla").
-6. cli       ``python -m quant_tpu_torch generate`` on a test-tiny
-             checkpoint written by the port.
+5. paged     the same model behind ``Engine(max_slots=8, max_seq=2048,
+             paged=True, page_size=128, prefix_cache=True)`` and
+             ``serve_async``: 16 greedy HTTP requests from 8 client threads
+             (half streamed), a shared 1024-token prefix plus a 16-256-token
+             suffix each, 64 new tokens each. Every answer must hold 64
+             tokens (a stream the same as its final answer), the paged
+             kernel pair must run n_layers times per decode forward and the
+             contiguous pair never, 15 of the 16 requests must reuse the
+             prefix, and after the drain every page must be free or hold a
+             cached block. Then ``torch.profiler`` over 3 paged decode
+             forwards at the traffic's final lengths, and paged and
+             contiguous decode forwards in turns at the same lengths. Last,
+             teacher forcing: each answer fed back through the contiguous
+             cache with the kernels; every served token must lie within
+             1e-1 of max|logit| of the maximum logit at its position (greedy
+             streams are not compared token for token: dequant_matmul's
+             split-K atomics make them differ from run to run), and no
+             answer read in another request's context may pass.
+6. model     one prefill and 4 decode steps at full width with the kernels
+             (kernel_mode "auto") and with the plain versions ("xla"), with
+             the kernels over a paged pool, and with the kernels again (the
+             run-to-run spread the paged difference is read against).
+7. cli       ``python -m quant_tpu_torch generate`` on a test-tiny
+             checkpoint written by the port, and ``serve --paged`` on it
+             (two /generate requests over HTTP).
 
 Before the last line it prints ``{"kernels": [...]}`` and the
 ``nvidia-smi`` line; the last line is ``{"ok": true, "device": {...}}``.
@@ -38,10 +63,13 @@ import json
 import math
 import os
 import pathlib
+import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
 
 import numpy as np
 import torch
@@ -61,11 +89,15 @@ REPLACES = {
     "dequant_matmul": "quant_tpu/kernels/dequant_matmul.py:312",
     "cache_insert_int8": "quant_tpu/kernels/cache_insert.py:131",
     "flash_decode_int8": "quant_tpu/kernels/attention.py:166",
+    "paged_cache_insert_int8": "quant_tpu/kernels/cache_insert.py:307",
+    "paged_flash_decode_int8": "quant_tpu/kernels/paged_attention.py:145",
 }
 SOURCES = {
     "dequant_matmul": "quant_tpu_torch/csrc/dequant_matmul.cu",
     "cache_insert_int8": "quant_tpu_torch/csrc/cache_insert.cu",
     "flash_decode_int8": "quant_tpu_torch/csrc/flash_decode.cu",
+    "paged_cache_insert_int8": "quant_tpu_torch/csrc/cache_insert.cu",
+    "paged_flash_decode_int8": "quant_tpu_torch/csrc/flash_decode.cu",
 }
 
 
@@ -304,10 +336,131 @@ def phase_kernels(detail: dict) -> dict:
                 f"lengths {lengths.tolist()}; device time, each call on "
                 f"the next layer of the 32-layer stack (L2-cold)"}
     rows.append({"kernel": "flash_decode_int8", "per_dtype": att})
+    paged_rows = []
+    for page in (128, 512):
+        paged_rows.append(paged_kernels(gen, summary, cache, new, lengths,
+                                        layer, page, att))
+    rows += paged_rows
     detail["kernels"] = rows
     del cache, new
     torch.cuda.empty_cache()
     return summary
+
+
+def paged_kernels(gen, summary: dict, cache, new, lengths, layer: int,
+                  page: int, contiguous: dict) -> dict:
+    """The paged insert and paged flash decode at the decode shape of the
+    kernels phase, over a 32-layer pool holding the contiguous cache's rows
+    under a page table shuffled from seed 0 (entries past each slot's pages
+    on the scratch page 0). Checked against their plain versions (insert
+    byte-equal; attention 1e-4 of max|ref| with f32 q, 1e-2 with bf16 q)
+    and, for attention, against the contiguous kernel on the same rows."""
+    from quant_tpu_torch.kernels.attention import flash_decode_int8
+    from quant_tpu_torch.kernels.cache_insert import (
+        paged_cache_insert_int8, paged_cache_insert_int8_reference)
+    from quant_tpu_torch.kernels.paged_attention import (
+        paged_attention_reference, paged_flash_decode_int8)
+    from quant_tpu_torch.utils.timing import cuda_time, device_time
+
+    dev = cache[0].device
+    L, B, H, S, D = cache[0].shape
+    rep = 4
+    max_pages = S // page
+    n_pool = 1 + B * max_pages
+    used = [-(-int(n) // page) for n in lengths.tolist()]
+    perm = np.random.default_rng(0).permutation(np.arange(1, n_pool))
+    tbl_np = np.zeros((B, max_pages), np.int32)
+    for b, u in enumerate(used):
+        tbl_np[b, :u] = perm[b * max_pages:b * max_pages + u]
+    tbl = torch.from_numpy(tbl_np).to(dev)
+    pool = []
+    for a in cache:
+        p = torch.zeros((L, n_pool, H, page) + tuple(a.shape[4:]),
+                        dtype=a.dtype, device=dev)
+        for b, u in enumerate(used):
+            for j in range(u):
+                p[:, tbl_np[b, j]] = a[:, b, :, j * page:(j + 1) * page]
+        pool.append(p)
+    plain = [t.clone() for t in pool]
+    paged_cache_insert_int8(*pool, *new, lengths, layer, tbl)
+    paged_cache_insert_int8_reference(*plain, *new, lengths, layer, tbl)
+    torch.cuda.synchronize()
+    for a, r in zip(pool, plain):
+        if not torch.equal(a, r):
+            raise AssertionError(f"paged_cache_insert_int8 (page {page}) is "
+                                 "not byte-equal to its plain version")
+    del plain
+    nxt_layer = cycle(range(L))
+
+    def insert():
+        return paged_cache_insert_int8(*pool, *new, lengths, nxt_layer(), tbl)
+    ms, ev = device_time(insert, L), cuda_time(insert, L)
+    plain_ms = device_time(lambda: paged_cache_insert_int8_reference(
+        *pool, *new, lengths, nxt_layer(), tbl), L)
+    row_bytes = B * H * (2 * D + 2 * 4)
+    b_ms, b_by = bound_ms(2 * row_bytes + 2 * B * 4, 0)
+    ins = {"max_abs_err": 0.0, "ms": ms, "event_ms": ev,
+           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": None,
+           "unit": f"one call: B=8, Hkv=8, Dh=128, page {page}, 32-layer "
+                   f"pool of {n_pool} pages; device time"}
+    log(f"[kernels] paged_cache_insert_int8 page={page}: byte-equal  "
+        f"{ms:.4f} ms (events {ev:.4f})  plain {plain_ms:.4f} ms  bound "
+        f"{b_ms:.6f} ms ({b_by})")
+
+    n_tok = int(lengths.clamp(max=S).sum())
+    tbl_bytes = 4 * sum(used)
+    att = {}
+    for qdt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
+        q = torch.randn((B, H * rep, D), generator=gen, device=dev).to(qdt)
+        ref = paged_attention_reference(q, *pool, tbl, lengths, layer)
+        got = paged_flash_decode_int8(q, *pool, tbl, lengths, layer)
+        contig = flash_decode_int8(q, *cache, lengths, layer)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError("paged_flash_decode_int8 gave non-finite "
+                                 "values")
+        err = float((got.float() - ref.float()).abs().max())
+        rel = err / float(ref.float().abs().max())
+        if not rel <= tol:
+            raise AssertionError(f"paged_flash_decode_int8 page {page} "
+                                 f"({qdt}): error {rel:.3g} of max|ref| > "
+                                 f"{tol}")
+        vs_contig = float((got.float() - contig.float()).abs().max())
+
+        def attend():
+            return paged_flash_decode_int8(q, *pool, tbl, lengths,
+                                           nxt_layer())
+        ms, ev = device_time(attend, L), cuda_time(attend, L)
+        plain_ms = device_time(lambda: paged_attention_reference(
+            q, *pool, tbl, lengths, nxt_layer()), L)
+        qb = q.element_size()
+        nbytes = (2 * B * H * rep * D * qb + n_tok * H * (2 * D + 8)
+                  + B * 4 + tbl_bytes)
+        b_ms, b_by = bound_ms(nbytes, 4 * n_tok * H * rep * D)
+        c_ms = contiguous[str(qdt)]["ms"]
+        att[str(qdt)] = {"max_abs_err": err, "rel_err": rel, "ms": ms,
+                         "event_ms": ev, "plain_ms": plain_ms,
+                         "bound_ms": b_ms, "bound_by": b_by,
+                         "contiguous_ms": c_ms,
+                         "max_abs_diff_vs_contiguous": vs_contig}
+        log(f"[kernels] paged_flash_decode_int8 {str(qdt)[6:]} page={page} "
+            f"ctx={n_tok}: err {rel:.2e} of max|ref|  {ms:.4f} ms (events "
+            f"{ev:.4f})  plain {plain_ms:.4f} ms  bound {b_ms:.4f} ms "
+            f"({b_by})  contiguous kernel {c_ms:.4f} ms, |paged - "
+            f"contiguous| <= {vs_contig:.2e}")
+    if page == 128:     # the serving phase's page size
+        summary["paged_cache_insert_int8"] = ins
+        summary["paged_flash_decode_int8"] = {
+            **att["torch.bfloat16"], "library_ms": None,
+            "unit": f"one call, bf16 q: B=8, Hkv=8, rep=4, Dh=128, page "
+                    f"128, 16-page tables, lengths {lengths.tolist()}; "
+                    f"device time, each call on the next layer of the "
+                    f"32-layer pool (L2-cold)"}
+    del pool
+    torch.cuda.empty_cache()
+    return {"kernel": "paged", "page": page, "insert": ins,
+            "attention": att}
 
 
 def phase_serving(detail: dict, params, cfg) -> dict:
@@ -383,7 +536,279 @@ def phase_serving(detail: dict, params, cfg) -> dict:
     return out
 
 
-def profile_decode(eng, steps: int = 3) -> dict:
+_HTTP = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+
+
+def http_json(url: str, payload=None, timeout: float = 600):
+    """GET (payload None) or POST JSON to a local server, bypassing any
+    proxy settings; returns the decoded JSON body."""
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data,
+                                 headers={"Content-Type": "application/json"})
+    with _HTTP.open(req, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def http_stream(url: str, payload, timeout: float = 600):
+    """POST a streaming /generate; returns (concatenated token_ids, the
+    final "done" object)."""
+    req = urllib.request.Request(
+        url, data=json.dumps({**payload, "stream": True}).encode(),
+        headers={"Content-Type": "application/json"})
+    toks = []
+    with _HTTP.open(req, timeout=timeout) as r:
+        for raw in r:
+            obj = json.loads(raw)
+            if obj.get("done"):
+                return toks, obj
+            toks += obj["token_ids"]
+    raise AssertionError("stream ended without its done line")
+
+
+def phase_paged_serving(detail: dict, params, cfg) -> dict:
+    """16 greedy requests over HTTP to a paged, prefix-cached engine: a
+    shared 1024-token prefix plus a 16-256-token suffix each, 64 new tokens,
+    from 8 client threads, half streamed. Then the paged decode step alone
+    (profiled, and in turns with a contiguous one), and every served stream
+    checked by teacher forcing through the contiguous cache."""
+    from quant_tpu_torch.engine import Engine
+    from quant_tpu_torch.engine.server import serve_async
+    from quant_tpu_torch.kernels import _build
+
+    n_req, n_new, prefix_len = 16, 64, 1024
+    rng = np.random.default_rng(0)
+    prefix = [int(t) for t in rng.integers(0, cfg.vocab_size, prefix_len)]
+    suffix_lens = rng.integers(16, 257, n_req)
+    prompts = [prefix + [int(t) for t in rng.integers(0, cfg.vocab_size, n)]
+               for n in suffix_lens]
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(params, cfg, max_slots=8, max_seq=2048, eos_id=-1,
+                 device="cuda", paged=True, page_size=128, prefix_cache=True)
+    c = eng.cache
+    pool_bytes = sum(t.numel() * t.element_size() for t in (
+        c.k_codes, c.k_scale, c.v_codes, c.v_scale))
+    page_bytes = pool_bytes // eng.n_pages
+    contiguous_bytes = page_bytes * 8 * 2048 // 128
+    # host clock around each scheduler step (each ends in a device sync:
+    # the sampled tokens come back to the host), the most pages in use, and
+    # the engine's Request objects (for their TTFT)
+    steps, held, admitted = [], [0], []
+    inner_step, inner_add = eng.step, eng.add_request
+
+    def add_request(req):
+        inner_add(req)
+        admitted.append(req)
+
+    def timed_step():
+        chunks0, dec0 = eng.prefill_chunks, eng.decode_forwards
+        t0 = time.perf_counter()
+        out = inner_step()
+        steps.append({"s": time.perf_counter() - t0,
+                      "chunks": eng.prefill_chunks - chunks0,
+                      "decode": eng.decode_forwards - dec0})
+        st = eng.stats
+        held[0] = max(held[0], st["total_pages"] - st["free_pages"])
+        return out
+    eng.step, eng.add_request = timed_step, add_request
+    httpd, srv = serve_async(eng, model_name="llama-3-8b")
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    results, errors = {}, []
+
+    def client(k):
+        try:
+            for i in (k, k + 8):
+                payload = {"prompt_ids": prompts[i], "max_new_tokens": n_new}
+                if i % 2 == 0:
+                    toks, done = http_stream(base + "/generate", payload)
+                    results[i] = {"stream": toks, **done}
+                else:
+                    results[i] = http_json(base + "/generate", payload)
+        except Exception as e:      # noqa: BLE001 (reported below)
+            errors.append(f"client {k}: {e!r}")
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    total = time.perf_counter() - t0
+    launches = dict(_build.launches)
+    health = http_json(base + "/healthz")
+    httpd.shutdown()
+    httpd.server_close()
+    srv.stop()
+    stats = eng.stats
+    if errors or len(results) != n_req:
+        raise AssertionError(f"paged serving: {len(results)} of {n_req} "
+                             f"answers; {errors}")
+    for i, r in results.items():
+        if len(r["output_ids"]) != n_new or r["timed_out"]:
+            raise AssertionError(f"request {i}: {len(r['output_ids'])} "
+                                 f"tokens, timed_out {r['timed_out']}")
+        if "stream" in r and r["stream"] != r["output_ids"]:
+            raise AssertionError(f"request {i}: the stream differs from its "
+                                 "final output_ids")
+    fwd = stats["prefill_chunks"] + stats["decode_forwards"]
+    expect = {"dequant_matmul": (4 * cfg.n_layers + 1) * fwd,
+              "paged_cache_insert_int8":
+                  cfg.n_layers * stats["decode_forwards"],
+              "paged_flash_decode_int8":
+                  cfg.n_layers * stats["decode_forwards"],
+              "cache_insert_int8": 0, "flash_decode_int8": 0}
+    for k, v in expect.items():
+        if launches[k] != v or (v == 0 and k.startswith("paged")):
+            raise AssertionError(f"paged serving: {k}: {launches[k]} "
+                                 f"launches, expected {v}")
+    if stats["prefix_hit_tokens"] != (n_req - 1) * prefix_len:
+        raise AssertionError(f"prefix_hit_tokens {stats['prefix_hit_tokens']}"
+                             f", expected {(n_req - 1) * prefix_len}")
+    if stats["free_pages"] + stats["cached_blocks"] != stats["total_pages"]:
+        raise AssertionError(f"after the drain, {stats['free_pages']} free + "
+                             f"{stats['cached_blocks']} cached pages of "
+                             f"{stats['total_pages']}")
+    pure = [s for s in steps if s["decode"] and not s["chunks"]]
+    decode_ms = 1e3 * sum(s["s"] for s in pure) / max(1, len(pure))
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    ttfts = sorted(1e3 * r.ttft for r in admitted)
+    log(f"[paged] {n_req} HTTP requests (8 clients, half streamed), shared "
+        f"{prefix_len}-token prefix + {suffix_lens.min()}-"
+        f"{suffix_lens.max()} suffix, {n_new} new tokens each: "
+        f"{stats['prefill_chunks']} prefill chunks, "
+        f"{stats['decode_forwards']} decode steps; launches {launches} "
+        f"(expected {expect})")
+    log(f"[paged] prefix_hit_tokens {stats['prefix_hit_tokens']}, after the "
+        f"drain {stats['free_pages']} free + {stats['cached_blocks']} cached "
+        f"= {stats['total_pages']} pages")
+    log(f"[paged] decode {decode_ms:.2f} ms/step, "
+        f"{n_req * n_new / total:.1f} tok/s overall, TTFT p50 "
+        f"{ttfts[len(ttfts) // 2]:.0f} ms max {ttfts[-1]:.0f} ms, "
+        f"max_memory_allocated {peak_gib:.2f} GiB; pool "
+        f"{pool_bytes / 2**20:.0f} MiB (contiguous cache "
+        f"{contiguous_bytes / 2**20:.0f} MiB), at most {held[0]} pages "
+        f"({held[0] * page_bytes / 2**20:.0f} MiB) in use")
+    # the decode step alone, without the server's threads: every slot
+    # holds the pages of its last request at its final length
+    del eng.step, eng.add_request
+    lens = [len(prompts[i]) + n_new for i in range(8, n_req)]
+    ids = iter(range(1, eng.n_pages))
+    tbl = np.zeros(tuple(c.page_tbl.shape), np.int32)
+    for b, n in enumerate(lens):
+        tbl[b, :-(-n // 128)] = [next(ids) for _ in range(-(-n // 128))]
+    c.page_tbl.copy_(torch.from_numpy(tbl))
+    c.lengths.copy_(torch.tensor(lens, dtype=torch.int32))
+    profile = profile_decode(eng, label="paged decode (page 128)")
+    # host time of a B=8 decode forward over the pool and over a contiguous
+    # cache at the same lengths, in turns (contiguous, paged, paged,
+    # contiguous): the host is shared and its pace drifts within a call
+    from quant_tpu_torch.models import llama
+    contig = llama.init_cache(cfg, 8, 2048, "cuda")
+    contig.lengths.copy_(c.lengths)
+    tokens = torch.zeros((8, 1), dtype=torch.int64, device="cuda")
+
+    def forward_ms(cache, n=8):
+        llama.forward(params, tokens, cache, cfg, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            _, cache = llama.forward(params, tokens, cache, cfg,
+                                     device="cuda")
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / n
+    turns = [("contiguous", contig), ("paged", c), ("paged", c),
+             ("contiguous", contig)]
+    ab = [(name, forward_ms(cache)) for name, cache in turns]
+    ab_ms = {k: [ms for name, ms in ab if name == k]
+             for k in ("contiguous", "paged")}
+    log(f"[paged] decode forward B=8 at the same lengths, host clock, in "
+        f"turns: contiguous {ab_ms['contiguous']} ms, paged "
+        f"{ab_ms['paged']} ms")
+    del eng, srv, httpd, c, contig
+    torch.cuda.empty_cache()
+
+    tf = teacher_forced(params, cfg, prompts, prefix_len,
+                        [results[i]["output_ids"] for i in range(n_req)])
+    out = {
+        "requests": n_req, "new_tokens": n_new, "prefix_len": prefix_len,
+        "suffix_lens": suffix_lens.tolist(),
+        "prefill_chunks": stats["prefill_chunks"],
+        "decode_forwards": stats["decode_forwards"],
+        "launches": launches, "expected_launches": expect,
+        "total_s": total, "tokens_per_s": n_req * n_new / total,
+        "decode_ms_per_step": decode_ms,
+        "ttft_ms_p50": ttfts[len(ttfts) // 2], "ttft_ms_max": ttfts[-1],
+        "max_memory_allocated_gib": peak_gib,
+        "pool_bytes": pool_bytes, "contiguous_cache_bytes": contiguous_bytes,
+        "peak_pages_in_use": held[0], "page_bytes": page_bytes,
+        "teacher_forced": tf, "profile": profile, "decode_ms_turns": ab,
+        "stats": stats, "healthz": health, "steps": steps,
+    }
+    detail["paged_serving"] = out
+    return out
+
+
+# a served token must lie within this share of max|logit| of the
+# teacher-forced maximum: twice the model phase's logits limit, since the
+# served logits and the teacher-forced ones may each stand 5e-2 from exact
+TF_MARGIN = 2 * 5e-2
+
+
+def teacher_forced(params, cfg, prompts, prefix_len: int, outs) -> dict:
+    """Each served stream fed back through the contiguous cache with the
+    kernels (one chunk of its suffix and all but its last token after the
+    shared prefix, prefilled once): at each served position, the gap from
+    the teacher-forced maximum logit to the served token's, over
+    max|logit|. Every served token must be within ``TF_MARGIN``. The
+    control reads each answer in the next request's context, as a fault in
+    prefix reuse would serve it: no such answer may pass."""
+    from quant_tpu_torch.models import llama
+
+    n_new = len(outs[0])
+    cache = llama.init_cache(cfg, 1, 2048, "cuda")
+    for a in range(0, prefix_len, 512):
+        _, cache = llama.forward(params, [prompts[0][a:a + 512]], cache, cfg,
+                                 device="cuda")
+    served, wrong, top1 = [], [], 0
+    for i, out in enumerate(outs):
+        at_prefix = dataclasses.replace(cache, lengths=torch.full(
+            (1,), prefix_len, dtype=torch.int32, device="cuda"))
+        lg, _ = llama.forward(params, [prompts[i][prefix_len:] + out[:-1]],
+                              at_prefix, cfg, device="cuda")
+        lg = lg[0, -n_new:]
+        top, scale = lg.max(-1).values, lg.abs().max(-1).values
+
+        def gap(toks):
+            t = torch.tensor(toks, device="cuda")[:, None]
+            return ((top - lg.gather(-1, t)[:, 0]) / scale).tolist()
+        served.append(gap(out))
+        wrong.append(gap(outs[(i + 1) % len(outs)]))
+        top1 += int((lg.argmax(-1).cpu() == torch.tensor(out)).sum())
+        del lg
+    flat = [g for gs in wrong for g in gs]
+    res = {"limit": TF_MARGIN, "max_gap": max(map(max, served)),
+           "top1_share": top1 / (len(outs) * n_new),
+           "control_passed": sum(max(gs) <= TF_MARGIN for gs in wrong),
+           "control_token_share_within": sum(g <= TF_MARGIN for g in flat)
+           / len(flat), "control_median_gap": float(np.median(flat))}
+    log(f"[paged] teacher-forced through the contiguous cache: "
+        f"{len(outs) * n_new} served tokens, {res['top1_share']:.3f} of them "
+        f"the argmax, largest gap to the max logit {res['max_gap']:.3e} of "
+        f"max|logit| (limit {TF_MARGIN}); control, each answer in the next "
+        f"request's context: {res['control_passed']} of {len(outs)} pass "
+        f"({res['control_token_share_within']:.3f} of tokens within the "
+        f"limit, median gap {res['control_median_gap']:.3e})")
+    if not res["max_gap"] <= TF_MARGIN:
+        raise AssertionError(f"a served token stands {res['max_gap']:.3g} of "
+                             "max|logit| below the teacher-forced maximum")
+    if res["control_passed"]:
+        raise AssertionError("the teacher-forced check passes answers read "
+                             "in the wrong context")
+    return res
+
+
+def profile_decode(eng, steps: int = 3, label: str = "decode") -> dict:
     """Device time of a few B=8 decode forwards over the engine's cache (the
     slots at their final lengths), from ``torch.profiler``: the busy share
     of the host-clock window and the kernels that take the most of it."""
@@ -424,22 +849,23 @@ def profile_decode(eng, steps: int = 3) -> dict:
         end = max(end, t)
     busy = busy_us / 1e3 / steps
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    host = sorted(((e.key, e.self_cpu_time_total / 1e3 / steps)
-                   for e in prof.key_averages()
+    host = sorted(((e.key, e.self_cpu_time_total / 1e3 / steps,
+                    e.count / steps) for e in prof.key_averages()
                    if e.self_cpu_time_total > 0), key=lambda kv: -kv[1])[:12]
     res = {"steps": steps, "wall_ms_per_step": wall_ms,
            "device_busy_ms_per_step": busy if busy else "not measured",
            "idle_share": 1 - busy / wall_ms if busy else "not measured",
            "top_kernels_ms_per_step": top,
            "top_host_ops_self_cpu_ms_per_step": host}
-    log(f"[profile] decode B=8 under torch.profiler: {wall_ms:.2f} ms/step "
+    log(f"[profile] {label} B=8 under torch.profiler: {wall_ms:.2f} ms/step "
         f"on the host clock, device busy "
         f"{busy:.2f} ms/step" + (f" (idle share {res['idle_share']:.2f})"
                                  if busy else " (no device time recorded)"))
     for name, ms in top[:6]:
         log(f"[profile]   device {ms:8.3f} ms/step  {name[:80]}")
-    for name, ms in host[:6]:
-        log(f"[profile]   host   {ms:8.3f} ms/step  {name[:80]}")
+    for name, ms, calls in host[:6]:
+        log(f"[profile]   host   {ms:8.3f} ms/step  {calls:6.0f} calls/step  "
+            f"{name[:80]}")
     return res
 
 
@@ -452,9 +878,18 @@ def phase_model(detail: dict, params, cfg) -> None:
     steps = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, 1)))
              for _ in range(4)]
     logits = {}
-    for mode in ("auto", "xla"):
-        c = dataclasses.replace(cfg, kernel_mode=mode)
-        cache = llama.init_cache(c, b, 256, "cuda")
+    # "auto2" repeats "auto": the run-to-run spread of the kernels
+    # (dequant_matmul's split-K atomics) is the yardstick for "paged"
+    for mode in ("auto", "xla", "paged", "auto2"):
+        c = dataclasses.replace(cfg, kernel_mode="xla" if mode == "xla"
+                                else "auto")
+        if mode == "paged":
+            # two 128-token pages per slot, in shuffled order
+            cache = llama.init_paged_cache(c, b, 256, n_pages=1 + 2 * b,
+                                           page=128, device="cuda")
+            cache.page_tbl.copy_(torch.tensor([[3, 1], [4, 2]]))
+        else:
+            cache = llama.init_cache(c, b, 256, "cuda")
         outs = []
         lg, cache = llama.forward(params, prompt, cache, c, device="cuda")
         outs.append(lg[:, -1])
@@ -468,12 +903,26 @@ def phase_model(detail: dict, params, cfg) -> None:
         raise AssertionError("non-finite logits")
     rel = float((a - r).abs().max() / r.abs().max())
     agree = float((a.argmax(-1) == r.argmax(-1)).float().mean())
+    p = logits["paged"]
+    p_rel = float((p - a).abs().max() / a.abs().max())
+    p_agree = float((p.argmax(-1) == a.argmax(-1)).float().mean())
+    a_rel = float((logits["auto2"] - a).abs().max() / a.abs().max())
     log(f"[model] full-width prefill(T=128) + 4 decode steps, B=2: kernels "
         f"vs plain max|dlogit| = {rel:.3e} of max|logit|, argmax agreement "
         f"{agree:.3f}")
-    detail["model"] = {"rel_err": rel, "argmax_agreement": agree}
+    log(f"[model] paged pool (page 128) vs contiguous cache, both with the "
+        f"kernels: max|dlogit| = {p_rel:.3e} of max|logit|, argmax "
+        f"agreement {p_agree:.3f}; the contiguous run repeated: "
+        f"{a_rel:.3e}")
+    detail["model"] = {"rel_err": rel, "argmax_agreement": agree,
+                       "paged_rel_err": p_rel,
+                       "paged_argmax_agreement": p_agree,
+                       "rerun_rel_err": a_rel}
     if not rel <= 5e-2:
         raise AssertionError(f"kernel vs plain logits differ by {rel:.3g}")
+    if not (bool(torch.isfinite(p).all()) and p_rel <= 5e-2):
+        raise AssertionError(f"paged vs contiguous logits differ by "
+                             f"{p_rel:.3g}")
 
 
 def phase_cli(detail: dict) -> None:
@@ -499,6 +948,63 @@ def phase_cli(detail: dict) -> None:
     log(f"[cli] generate printed {len(lines)} JSON lines, e.g. "
         f"{json.dumps(lines[0])}")
     detail["cli"] = {"lines": lines, "stderr": out.stderr[-2000:]}
+
+
+def phase_cli_serve(detail: dict) -> None:
+    """``python -m quant_tpu_torch serve`` on a test-tiny checkpoint with a
+    paged pool (no prefix cache: admission scatters the prefill cache into
+    pages): poll /healthz, two /generate requests, then stop it."""
+    from quant_tpu_torch.checkpoint import save_checkpoint
+    from quant_tpu_torch.models import PRESETS, llama
+
+    cfg = dataclasses.replace(PRESETS["test-tiny"], kernel_mode="auto")
+    params = llama.init_params(cfg, seed=0, device="cuda")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    base = f"http://127.0.0.1:{port}"
+    with tempfile.TemporaryDirectory() as tmp:
+        save_checkpoint(tmp, params, cfg)
+        log_path = pathlib.Path(tmp) / "serve.log"
+        with open(log_path, "w") as log_f:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "quant_tpu_torch", "serve", tmp,
+                 "--paged", "--page-size", "16", "--port", str(port),
+                 "--slots", "2", "--max-seq", "64", "--eos-id", "-1"],
+                cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)),
+                stdout=log_f, stderr=subprocess.STDOUT)
+            try:
+                t0 = time.perf_counter()
+                while True:
+                    try:
+                        health = http_json(base + "/healthz", timeout=10)
+                        break
+                    except OSError:
+                        if proc.poll() is not None or \
+                                time.perf_counter() - t0 > 300:
+                            raise RuntimeError(
+                                "cli serve did not come up:\n"
+                                + log_path.read_text()[-4000:]) from None
+                        time.sleep(0.5)
+                outs = [http_json(base + "/generate", {
+                    "prompt_ids": p, "max_new_tokens": 8})["output_ids"]
+                    for p in ([1, 2, 3], [4, 5, 6, 7, 8, 9] * 4)]
+            finally:
+                proc.terminate()
+                try:
+                    proc.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait()
+        server_log = log_path.read_text()[-2000:]
+    if any(len(o) != 8 for o in outs) or health.get("total_pages") != 2 * 4:
+        raise AssertionError(f"unexpected cli serve answers {outs}, "
+                             f"healthz {health}")
+    log(f"[cli] serve --paged --page-size 16 answered /healthz (up in "
+        f"{time.perf_counter() - t0:.1f}s) and two /generate requests: "
+        f"{outs}")
+    detail["cli_serve"] = {"outputs": outs, "healthz": health,
+                           "log": server_log}
 
 
 def write_detail(path, detail: dict) -> None:
@@ -542,18 +1048,22 @@ def main(argv=None) -> int:
         f"{time.perf_counter() - t0:.1f}s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     serving = phase_serving(detail, params, cfg)
+    paged = phase_paged_serving(detail, params, cfg)
     phase_model(detail, params, cfg)
     del params
     torch.cuda.empty_cache()
     phase_cli(detail)
+    phase_cli_serve(detail)
 
     kernels = []
-    for name in ("dequant_matmul", "cache_insert_int8", "flash_decode_int8"):
+    for name in REPLACES:
         s = summary[name]
+        # each kernel's launches from the serving run of its own path
+        run = paged if name.startswith("paged") else serving
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
-            "launches": serving["launches"][name],
+            "launches": run["launches"][name],
             "max_abs_err": s["max_abs_err"], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": s["bound_by"], "library_ms": s["library_ms"],

@@ -39,7 +39,9 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # kernel name -> launches since the last reset_launches()
 launches: dict[str, int] = {"dequant_matmul": 0, "cache_insert_int8": 0,
-                            "flash_decode_int8": 0}
+                            "flash_decode_int8": 0,
+                            "paged_cache_insert_int8": 0,
+                            "paged_flash_decode_int8": 0}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

@@ -1,0 +1,132 @@
+"""Paged INT8-KV flash-decode attention (decode step, T=1).
+
+The port of the JAX package's ``kernels/paged_attention.py``. The KV cache
+lives in a page pool shared by all slots::
+
+    pool codes  int8 [L, P, Hkv, page, Dh]
+    pool scales f32  [L, P, Hkv, page]
+
+and each slot owns an ordered list of page ids ``page_tbl int32
+[B, max_pages]`` that the engine's allocator fills. Entries past a slot's
+allocated pages may hold any valid id (often the scratch page 0); they are
+never read by the kernel and masked in the plain version.
+
+The CUDA kernel is ``paged_flash_decode_chunk`` in ``csrc/flash_decode.cu``
+(the contiguous kernel's body, addressing rows through the page table);
+:func:`paged_flash_decode_int8` launches it for tensors on the card and
+takes the plain version :func:`paged_attention_reference` only for tensors
+on the CPU. :func:`paged_gather` builds a slot-contiguous copy of one
+layer's pages for the plain versions and for prefill.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from quant_tpu_torch.kernels import _build
+from quant_tpu_torch.kernels.attention import (_CHUNK, _MAX_D, _MAX_REP,
+                                               flash_decode_int8_reference)
+
+__all__ = ["paged_flash_decode_int8", "paged_attention_reference",
+           "paged_gather"]
+
+
+def paged_gather(pool, page_tbl, layer):
+    """A slot-contiguous ``[B, Hkv, max_pages * page, ...]`` copy of layer
+    ``layer`` of ``pool`` (codes ``[L, P, Hkv, page, Dh]`` or scales
+    ``[L, P, Hkv, page]``) through ``page_tbl [B, max_pages]``."""
+    g = pool[layer][page_tbl.to(torch.int64)]   # [B, n_pages, Hkv, page, ...]
+    g = g.movedim(2, 1)                         # [B, Hkv, n_pages, page, ...]
+    b, hkv, n_pages, page = g.shape[:4]
+    return g.reshape(b, hkv, n_pages * page, *g.shape[4:])
+
+
+def paged_attention_reference(q, pool_kc, pool_ks, pool_vc, pool_vs,
+                              page_tbl, lengths, layer, *, scale=None):
+    """Plain version, in float32: gathers each slot's pages into a
+    contiguous view and attends over it like
+    :func:`~quant_tpu_torch.kernels.attention.flash_decode_int8_reference`
+    (a slot of length 0 gives zeros, as the kernel does)."""
+    return flash_decode_int8_reference(
+        q, paged_gather(pool_kc, page_tbl, layer),
+        paged_gather(pool_ks, page_tbl, layer),
+        paged_gather(pool_vc, page_tbl, layer),
+        paged_gather(pool_vs, page_tbl, layer), lengths, scale=scale)
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# q, q_bf16, k_codes, k_scale, v_codes, v_scale, page_tbl, lengths, out,
+# part_o, part_ml, layer, B, Hkv, P, page, max_pages, Dh, rep, scale, stream
+_ARGTYPES = [_P, _I] + [_P] * 9 + [_I] * 8 + [ctypes.c_float, _P]
+
+
+def paged_flash_decode_int8(q, pool_kc, pool_ks, pool_vc, pool_vs, page_tbl,
+                            lengths, layer, window=None, *,
+                            softcap: float = 0.0,
+                            scale: float | None = None):
+    """Attention output ``[B, Hq, Dh]`` in ``q.dtype`` over the page pool.
+
+    ``q`` ``[B, Hq, Dh]`` float32 or bfloat16; pools as in the module
+    docstring; ``page_tbl`` int32 ``[B, max_pages]``; ``lengths`` int32
+    ``[B]`` (keys at positions ``>= lengths[b]`` are masked); ``scale``
+    defaults to ``1/sqrt(Dh)``."""
+    if window is not None or softcap:
+        raise NotImplementedError("sliding windows and softcaps are not "
+                                  "ported")
+    if pool_kc.dtype != torch.int8 or pool_kc.shape[2] != pool_ks.shape[2]:
+        raise NotImplementedError("only the int8 pool is ported (kv_bits 8; "
+                                  "the kv4 head-pair pool is not)")
+    if q.device.type == "cpu":
+        return paged_attention_reference(q, pool_kc, pool_ks, pool_vc,
+                                         pool_vs, page_tbl, lengths, layer,
+                                         scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    l, n_pool, hkv, page, dh = pool_kc.shape
+    b, hq = q.shape[0], q.shape[1]
+    max_pages = page_tbl.shape[1]
+    if hq % hkv:
+        raise ValueError(f"Hq {hq} is not a multiple of Hkv {hkv}")
+    rep = hq // hkv
+    if rep > _MAX_REP or dh > _MAX_D or dh % 16:
+        raise ValueError(f"kernel takes rep <= {_MAX_REP} and Dh a multiple "
+                         f"of 16 up to {_MAX_D}, got rep {rep}, Dh {dh}")
+    if not 0 <= layer < l:
+        raise ValueError(f"layer {layer} outside [0, {l})")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"q must be float32 or bfloat16, got {q.dtype}")
+    checks = ((q, q.dtype, (b, hq, dh)),
+              (pool_vc, torch.int8, (l, n_pool, hkv, page, dh)),
+              (pool_ks, torch.float32, (l, n_pool, hkv, page)),
+              (pool_vs, torch.float32, (l, n_pool, hkv, page)),
+              (page_tbl, torch.int32, (b, max_pages)),
+              (lengths, torch.int32, (b,)))
+    for t, dt, shape in checks:
+        if t.dtype != dt or tuple(t.shape) != shape:
+            raise ValueError(f"expected {dt} {shape}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    for t in (q, pool_kc, pool_ks, pool_vc, pool_vs, page_tbl, lengths):
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError("all inputs must be contiguous on one device")
+    if pool_kc.data_ptr() % 16 or pool_vc.data_ptr() % 16:
+        raise ValueError("the code pools must be 16-byte aligned")
+    out = torch.empty_like(q)
+    chunks = -(-(max_pages * page) // _CHUNK)
+    part_o = torch.empty((b * hkv * chunks * rep * dh,), dtype=torch.float32,
+                         device=q.device)
+    part_ml = torch.empty((b * hkv * chunks * rep * 2,), dtype=torch.float32,
+                          device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    fn = _build.entry("flash_decode", "paged_flash_decode_int8_launch",
+                      _ARGTYPES)
+    rc = fn(q.data_ptr(), int(q.dtype == torch.bfloat16), pool_kc.data_ptr(),
+            pool_ks.data_ptr(), pool_vc.data_ptr(), pool_vs.data_ptr(),
+            page_tbl.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            part_o.data_ptr(), part_ml.data_ptr(), layer, b, hkv, n_pool,
+            page, max_pages, dh, rep,
+            float(scale if scale is not None else 1.0 / dh ** 0.5), stream)
+    _build.check(rc, "paged_flash_decode_int8", "flash_decode")
+    _build.count_launch("paged_flash_decode_int8")
+    return out

@@ -17,13 +17,18 @@ PyTorch idiom in place of JAX's:
 * randomness comes from explicit ``torch.Generator`` objects, and every
   entry point takes an explicit ``device`` (the card unless ``"cpu"``).
 
+The cache is either contiguous (:class:`KVCache`, ``[L, B, Hkv, S, Dh]``)
+or a page pool shared by all slots (:class:`PagedKVCache`,
+``[L, P, Hkv, page, Dh]`` addressed through per-slot page tables).
+
 Kernel selection mirrors the JAX ``make_layer_step``: decode (T=1) with an
-int8 cache takes ``cache_insert_int8`` then ``flash_decode_int8``; prefill
-(T>1) writes the cache with the plain scatter and runs the plain blockwise
-attention. ``kernel_mode="xla"`` selects the plain versions throughout;
-``"auto"``/``"pallas"`` select the CUDA kernels (whose wrappers take the
-plain versions only for tensors on the CPU). Everything outside the dense
-slice raises ``NotImplementedError``.
+int8 cache takes ``cache_insert_int8`` then ``flash_decode_int8`` (their
+paged counterparts over a pool); prefill (T>1) writes the cache with the
+plain scatter and runs the plain blockwise attention (over
+``paged_gather`` of the slot's pages for a pool). ``kernel_mode="xla"``
+selects the plain versions throughout; ``"auto"``/``"pallas"`` select the
+CUDA kernels (whose wrappers take the plain versions only for tensors on the
+CPU). Everything outside the dense slice raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -35,14 +40,19 @@ import torch
 
 from quant_tpu_torch.core.qtensor import QTensor, quantize_tensor_device
 from quant_tpu_torch.kernels.attention import flash_decode_int8
-from quant_tpu_torch.kernels.cache_insert import cache_insert_int8
+from quant_tpu_torch.kernels.cache_insert import (cache_insert_int8,
+                                                  paged_cache_insert_int8,
+                                                  paged_insert_rows)
 from quant_tpu_torch.kernels.dequant_matmul import (dequant_matmul,
                                                     dequant_matmul_reference)
+from quant_tpu_torch.kernels.paged_attention import (paged_flash_decode_int8,
+                                                     paged_gather)
 from quant_tpu_torch.models.config import ModelConfig
 from quant_tpu_torch.utils.device import check_on, resolve_device
 
-__all__ = ["LayerParams", "QEmbed", "LlamaParams", "KVCache", "init_params",
-           "init_cache", "forward", "check_supported"]
+__all__ = ["LayerParams", "QEmbed", "LlamaParams", "KVCache", "PagedKVCache",
+           "init_params", "init_cache", "init_paged_cache", "forward",
+           "check_supported"]
 
 
 # ── params ──────────────────────────────────────────────────────────────
@@ -97,6 +107,29 @@ class KVCache:
         return self.k_codes.shape[3]
 
 
+@dataclasses.dataclass
+class PagedKVCache:
+    """Paged INT8 KV cache: a page pool shared by all slots plus per-slot
+    page tables, so device memory is bounded by the pages in use, not by
+    slots x max_seq. The engine's allocator owns the tables; entries past a
+    slot's length may hold any valid page id (the kernels never read them,
+    the plain path masks them)."""
+    k_codes: torch.Tensor   # int8 [L, P, Hkv, page, Dh]
+    k_scale: torch.Tensor   # f32  [L, P, Hkv, page]
+    v_codes: torch.Tensor
+    v_scale: torch.Tensor
+    page_tbl: torch.Tensor  # int32 [B, max_pages]
+    lengths: torch.Tensor   # int32 [B]
+
+    @property
+    def page_size(self) -> int:
+        return self.k_codes.shape[3]
+
+    @property
+    def max_seq(self) -> int:
+        return self.page_tbl.shape[1] * self.page_size
+
+
 def _dtype(cfg: ModelConfig) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[cfg.dtype]
 
@@ -125,7 +158,6 @@ def check_supported(cfg: ModelConfig) -> None:
         "codebook (lut) weights": cfg.codebook is not None,
         f"kernel_mode={cfg.kernel_mode!r}":
             cfg.kernel_mode not in ("auto", "pallas", "xla"),
-        "paged attention": cfg.attn_kernel == "paged",
         f"embed_bits={cfg.embed_bits}": cfg.embed_bits not in (8, 16),
         f"dtype={cfg.dtype!r}": cfg.dtype not in ("bfloat16", "float32"),
         f"bits={cfg.bits}": cfg.bits not in (4, 8),
@@ -167,6 +199,35 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                             device=dev),
         v_scale=torch.zeros((l, batch, h, max_seq), dtype=torch.float32,
                             device=dev),
+        lengths=torch.zeros((batch,), dtype=torch.int32, device=dev),
+    )
+
+
+def init_paged_cache(cfg: ModelConfig, batch: int, max_seq: int,
+                     n_pages: int, page: int = 128, pipe: int = 1,
+                     device=None) -> PagedKVCache:
+    """Pool of ``n_pages`` pages (page 0 is the engine's scratch page);
+    per-slot tables sized for ``max_seq``. ``n_pages`` below
+    ``batch * max_seq / page`` oversubscribes device memory (the point).
+    Pipeline stages (``pipe``) are not ported."""
+    if pipe != 1:
+        raise NotImplementedError("pipeline parallelism is not ported")
+    check_supported(cfg)
+    dev = resolve_device(device)
+    if max_seq % page:
+        raise ValueError(f"max_seq {max_seq} must divide by page {page}")
+    l, h, d = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    return PagedKVCache(
+        k_codes=torch.zeros((l, n_pages, h, page, d), dtype=torch.int8,
+                            device=dev),
+        k_scale=torch.zeros((l, n_pages, h, page), dtype=torch.float32,
+                            device=dev),
+        v_codes=torch.zeros((l, n_pages, h, page, d), dtype=torch.int8,
+                            device=dev),
+        v_scale=torch.zeros((l, n_pages, h, page), dtype=torch.float32,
+                            device=dev),
+        page_tbl=torch.zeros((batch, max_seq // page), dtype=torch.int32,
+                             device=dev),
         lengths=torch.zeros((batch,), dtype=torch.int32, device=dev),
     )
 
@@ -349,6 +410,11 @@ def _cache_insert_at_layer(cc: torch.Tensor, cs: torch.Tensor,
     return cc, cs
 
 
+# Write T entries per slot into the page pool through the page table, in
+# place (the plain scatter; positions past the table's capacity drop).
+_paged_insert_at_layer = paged_insert_rows
+
+
 def attention(q, k_codes, k_scale, v_codes, v_scale, positions, lengths,
               cfg: ModelConfig):
     """GQA attention over one layer's int8 cache (plain torch; prefill and
@@ -432,23 +498,26 @@ def _mm(cfg: ModelConfig):
     return mm
 
 
-def _use_flash(cfg: ModelConfig, t: int) -> bool:
+def _use_kernels(cfg: ModelConfig, t: int, paged: bool) -> bool:
     """The decode kernel pair (in-place insert + flash decode) for T=1, as
-    ``make_layer_step`` selects it; the plain path otherwise."""
-    if cfg.kernel_mode == "xla" or cfg.attn_kernel == "xla":
+    ``make_layer_step`` selects it: ``attn_kernel`` "auto" or "flash", and
+    "paged" over a page pool; the plain path otherwise."""
+    if cfg.kernel_mode == "xla" or t != 1:
         return False
-    return t == 1
+    return cfg.attn_kernel in (("auto", "flash", "paged") if paged
+                               else ("auto", "flash"))
 
 
-def forward(params: LlamaParams, tokens, cache: KVCache, cfg: ModelConfig,
-            axis=None, seq_axis=None, expert_axis=None, adapter_ids=None,
-            return_hidden: bool = False, *,
-            device=None) -> tuple[torch.Tensor, KVCache]:
+def forward(params: LlamaParams, tokens, cache: KVCache | PagedKVCache,
+            cfg: ModelConfig, axis=None, seq_axis=None, expert_axis=None,
+            adapter_ids=None, return_hidden: bool = False, *,
+            device=None) -> tuple[torch.Tensor, KVCache | PagedKVCache]:
     """One model step (prefill if T>1, decode if T==1).
 
     Token t of slot b gets position ``cache.lengths[b] + t``. The cache's
-    code/scale tensors are written IN PLACE; the returned cache holds them
-    with ``lengths + T``. Returns (logits f32 ``[B, T, vocab_size]``,
+    code/scale tensors (a page pool's too) are written IN PLACE; the
+    returned cache holds them (and the same page table) with
+    ``lengths + T``. Returns (logits f32 ``[B, T, vocab_size]``,
     cache). ``device`` is where the step runs (the card unless "cpu");
     params and cache must already lie there, ``tokens`` ([B, T] ids) are
     moved there. The JAX package's mesh axes (``axis``, ``seq_axis``,
@@ -475,7 +544,9 @@ def forward(params: LlamaParams, tokens, cache: KVCache, cfg: ModelConfig,
     new_lengths = lengths + t
     positions = lengths[:, None] + torch.arange(t, device=dev,
                                                 dtype=lengths.dtype)[None]
-    flash = _use_flash(cfg, t)
+    paged = isinstance(cache, PagedKVCache)
+    tbl = cache.page_tbl if paged else None
+    kernels = _use_kernels(cfg, t, paged)
     kc, ks, vc, vs = cache.k_codes, cache.k_scale, cache.v_codes, cache.v_scale
     cos, sin = _rope_tables(positions, cfg.rope_theta, cfg.head_dim, cfg)
     units = cfg.n_heads + 2 * cfg.n_kv_heads
@@ -493,7 +564,20 @@ def forward(params: LlamaParams, tokens, cache: KVCache, cfg: ModelConfig,
         k = _rope_apply(k, cos, sin)
         k_q, k_s = quantize_kv(k, cfg.kv_bits)
         v_q, v_s = quantize_kv(v, cfg.kv_bits)
-        if flash:
+        if paged and kernels:
+            paged_cache_insert_int8(kc, ks, vc, vs, k_q, k_s, v_q, v_s,
+                                    lengths, i, tbl)
+            attn = paged_flash_decode_int8(
+                q[:, 0], kc, ks, vc, vs, tbl, new_lengths, i,
+                scale=_q_scale(cfg, cfg.head_dim))[:, None]
+        elif paged:
+            _paged_insert_at_layer(kc, ks, k_q, k_s, lengths, i, tbl)
+            _paged_insert_at_layer(vc, vs, v_q, v_s, lengths, i, tbl)
+            att = attention_blockwise if t > 1 else attention
+            attn = att(q, paged_gather(kc, tbl, i), paged_gather(ks, tbl, i),
+                       paged_gather(vc, tbl, i), paged_gather(vs, tbl, i),
+                       positions, new_lengths, cfg)
+        elif kernels:
             cache_insert_int8(kc, ks, vc, vs, k_q, k_s, v_q, v_s, lengths, i)
             attn = flash_decode_int8(
                 q[:, 0], kc, ks, vc, vs, new_lengths, i,
@@ -515,5 +599,9 @@ def forward(params: LlamaParams, tokens, cache: KVCache, cfg: ModelConfig,
     h = rmsnorm(h, params.final_norm, cfg.norm_eps)
     logits = mm(h, params.lm_head, out_dtype=torch.float32)
     logits = logits[..., :cfg.vocab_size]
+    if paged:
+        return logits, PagedKVCache(k_codes=kc, k_scale=ks, v_codes=vc,
+                                    v_scale=vs, page_tbl=tbl,
+                                    lengths=new_lengths)
     return logits, KVCache(k_codes=kc, k_scale=ks, v_codes=vc, v_scale=vs,
                            lengths=new_lengths)

@@ -1,0 +1,129 @@
+"""Contiguous decode time of two checkouts of the port, in turns on one card.
+
+    python -m quant_tpu_torch.tools.decode_ab TREE_A TREE_B
+
+Starts one worker process per tree; each imports ``quant_tpu_torch`` from
+its own tree and holds full-width Llama-3-8B (random weights, seed 0) behind
+``Engine(max_slots=8, max_seq=2048)`` with 8 greedy requests of 32-1024
+prompt tokens (``default_rng(0)``, as ``chip_smoke.py``'s serving phase) that
+do not finish within the run. After all are admitted the workers take turns,
+A B B A in each of 5 rounds, so that drift of the shared host falls on both
+alike. In its turn a worker times on the host clock 8 ``Engine.step()``
+calls (pure decode at B=8; each ends in a device sync) and 8 bare decode
+``llama.forward`` calls at the slots' lengths. One JSON line per turn, then
+a summary line with each tree's medians. Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+N, ROUNDS = 8, 5
+
+
+def worker(tree: str) -> None:
+    # the protocol goes to the original stdout; prints of the package (and
+    # of nvcc) go to stderr
+    proto = os.fdopen(os.dup(1), "w", buffering=1)
+    os.dup2(2, 1)
+    sys.path.insert(0, tree)
+    import numpy as np
+    import torch
+
+    from quant_tpu_torch.engine import Engine, Request
+    from quant_tpu_torch.models import PRESETS, llama
+
+    cfg = PRESETS["llama-3-8b"]
+    params = llama.init_params(cfg, seed=0, device="cuda")
+    eng = Engine(params, cfg, max_slots=8, max_seq=2048, eos_id=-1,
+                 device="cuda")
+    rng = np.random.default_rng(0)
+    reqs = [Request(req_id=i, prompt=[int(t) for t in rng.integers(
+        0, cfg.vocab_size, n)], max_new_tokens=512)
+        for i, n in enumerate(rng.integers(32, 1025, 8))]
+    for r in reqs:
+        eng.add_request(r)
+    while not all(r.output for r in reqs):
+        eng.step()
+    tokens = torch.zeros((8, 1), dtype=torch.int64, device="cuda")
+    for _ in range(2):                                   # warm
+        eng.step()
+        llama.forward(params, tokens, eng.cache, cfg, device="cuda")
+    torch.cuda.synchronize()
+    proto.write(json.dumps({"ready": tree}) + "\n")
+    for line in sys.stdin:
+        if line.strip() != "turn":
+            break
+        t0 = time.perf_counter()
+        for _ in range(N):
+            eng.step()
+        step_ms = 1e3 * (time.perf_counter() - t0) / N
+        lengths = eng.cache.lengths.tolist()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(N):
+            llama.forward(params, tokens, eng.cache, cfg, device="cuda")
+        torch.cuda.synchronize()
+        fwd_ms = 1e3 * (time.perf_counter() - t0) / N
+        proto.write(json.dumps({"step_ms": step_ms, "forward_ms": fwd_ms,
+                                "lengths": lengths}) + "\n")
+    if any(r.finished for r in reqs):
+        raise AssertionError("a request finished within the run")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("trees", nargs="*", help="roots of the two checkouts")
+    ap.add_argument("--worker", metavar="TREE", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.worker:
+        worker(args.worker)
+        return 0
+    if len(args.trees) != 2:
+        ap.error("give the roots of two checkouts")
+    import torch
+    if not torch.cuda.is_available():
+        print("decode_ab: no CUDA device is available", file=sys.stderr)
+        return 2
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--worker",
+         os.path.abspath(t)], cwd=t, env=env, stdin=subprocess.PIPE,
+        stdout=subprocess.PIPE, text=True, bufsize=1) for t in args.trees]
+    try:
+        for p in procs:
+            ready = p.stdout.readline()
+            if not ready:
+                raise RuntimeError("a worker ended before it was ready")
+        times = {t: [] for t in args.trees}
+        for r in range(ROUNDS):
+            for k in (0, 1, 1, 0):
+                procs[k].stdin.write("turn\n")
+                res = json.loads(procs[k].stdout.readline())
+                res.update(tree=args.trees[k], round=r)
+                times[args.trees[k]].append(res)
+                print(json.dumps(res), flush=True)
+        for p in procs:
+            p.stdin.close()
+            if p.wait(timeout=120):
+                raise RuntimeError(f"a worker exited with {p.returncode}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    summary = {t: {m: statistics.median(x[m] for x in ts)
+                   for m in ("step_ms", "forward_ms")}
+               for t, ts in times.items()}
+    print(json.dumps({"median": summary}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -102,10 +102,14 @@ def test_greedy_matches_jax_engine(jax_greedy, tparams, use_block):
                                   "mesh", "embed", "fsm", "top_logprobs",
                                   "penalty", "logit_bias"])
 def test_unported_engine_features_raise(tparams, what):
+    """The cases "paged" and "prefix_cache" are ported features: the paged
+    engine with speculation, and the prefix-cached one with LoRA adapters,
+    still raise."""
     from quant_tpu_torch.engine import SamplingConfig
 
-    engine_kw = {"paged": {"paged": True},
-                 "prefix_cache": {"prefix_cache": True},
+    engine_kw = {"paged": {"paged": True, "spec_gamma": 2},
+                 "prefix_cache": {"paged": True, "prefix_cache": True,
+                                  "loras": {"a": object()}},
                  "spec_gamma": {"spec_gamma": 2},
                  "mesh": {"mesh": object()}}.get(what, {})
     request_kw = {"fsm": {"fsm": object()},
@@ -121,6 +125,12 @@ def test_unported_engine_features_raise(tparams, what):
             eng.embed([1, 2])
         eng.add_request(TRequest(req_id=0, prompt=[1], max_new_tokens=1,
                                  **request_kw))
+
+
+def test_prefix_cache_requires_paged(tparams):
+    with pytest.raises(ValueError, match="paged"):
+        TEngine(tparams, TCFG, max_slots=1, max_seq=16, device="cpu",
+                prefix_cache=True)
 
 
 def test_filter_logits_and_logprob_match_jax():

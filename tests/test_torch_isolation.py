@@ -94,7 +94,16 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Engine(params, cfg, max_slots=1, max_seq=16)
     with pytest.raises(RuntimeError, match="no CUDA device"):
+        llama.init_paged_cache(cfg, 1, 16, n_pages=3, page=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Engine(params, cfg, max_slots=1, max_seq=16, paged=True,
+               prefix_cache=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         load_checkpoint(REPO / "no-such-checkpoint")
+    # the serve entry point loads its checkpoint onto the card first
+    from quant_tpu_torch.cli import main
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["serve", str(REPO / "no-such-checkpoint"), "--paged"])
     out = subprocess.run(
         [sys.executable, "-m", "quant_tpu_torch", "generate", "unused",
          "--prompt-ids", "1"], capture_output=True, text=True, timeout=120,

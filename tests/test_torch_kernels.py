@@ -30,8 +30,12 @@ from quant_tpu_torch.kernels.attention import (flash_decode_int8,
                                                flash_decode_int8_reference)
 from quant_tpu_torch.kernels.cache_insert import (
     cache_insert_int8, cache_insert_int8_reference)
+from quant_tpu_torch.kernels.cache_insert import (
+    paged_cache_insert_int8, paged_cache_insert_int8_reference)
 from quant_tpu_torch.kernels.dequant_matmul import (dequant_matmul,
                                                     dequant_matmul_reference)
+from quant_tpu_torch.kernels.paged_attention import (
+    paged_attention_reference, paged_flash_decode_int8)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -211,3 +215,60 @@ def test_cuda_kernels_match_plain_on_card():
         ref = flash_decode_int8_reference(q, *cache, ln, 1)
         torch.cuda.synchronize()
         assert (got - ref).abs().max() <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("page", [8, 16, 128])
+def test_paged_cuda_kernels_match_plain_on_card(page):
+    """The paged insert (byte-equal, with a slot at capacity and a parked
+    slot) and paged flash decode (f32 and bf16 q) against their plain
+    versions; a 256-token chunk spans several pages or part of one, and
+    table entries past each slot's pages point at the scratch page 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(page)
+    _build.build()
+    for d, rep in ((128, 4), (64, 2)):
+        l, h, max_pages = 2, 2, -(-600 // page)
+        cap = max_pages * page
+        lengths = [0, 17, 257, 599, cap]
+        b = len(lengths)
+        n_pool = 1 + b * max_pages
+        used = [-(-n // page) for n in lengths]
+        perm = torch.randperm(n_pool - 1, generator=gen, device=dev) + 1
+        tbl = torch.zeros((b, max_pages), dtype=torch.int32, device=dev)
+        for i, u in enumerate(used):
+            tbl[i, :u] = perm[i * max_pages:i * max_pages + u]
+        pool = [torch.randint(-127, 128, (l, n_pool, h, page, d),
+                              generator=gen, device=dev, dtype=torch.int8),
+                torch.rand((l, n_pool, h, page), generator=gen,
+                           device=dev) * 0.02,
+                torch.randint(-127, 128, (l, n_pool, h, page, d),
+                              generator=gen, device=dev, dtype=torch.int8),
+                torch.rand((l, n_pool, h, page), generator=gen,
+                           device=dev) * 0.02]
+        plain = [t.clone() for t in pool]
+        new = [torch.randint(-127, 128, (b, 1, h, d), generator=gen,
+                             device=dev, dtype=torch.int8),
+               torch.rand((b, 1, h), generator=gen, device=dev),
+               torch.randint(-127, 128, (b, 1, h, d), generator=gen,
+                             device=dev, dtype=torch.int8),
+               torch.rand((b, 1, h), generator=gen, device=dev)]
+        # insert at each slot's length: slot 0 is parked, the last at
+        # capacity
+        ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        paged_cache_insert_int8(*pool, *new, ln, 1, tbl)
+        paged_cache_insert_int8_reference(*plain, *new, ln, 1, tbl)
+        for a, r in zip(pool, plain):
+            assert torch.equal(a, r)
+        for qdt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
+            q = torch.randn((b, h * rep, d), generator=gen,
+                            device=dev).to(qdt)
+            got = paged_flash_decode_int8(q, *pool, tbl, ln, 1)
+            ref = paged_attention_reference(q, *pool, tbl, ln, 1)
+            torch.cuda.synchronize()
+            err = (got.float() - ref.float()).abs().max()
+            assert err <= tol * ref.float().abs().max()
+            assert not got[0].float().abs().max()

@@ -111,7 +111,7 @@ def test_config_matches_jax():
     ("test-tiny", {"sliding_window": 8}, {}),
     ("test-tiny", {"attn_softcap": 50.0}, {}),
     ("test-tiny", {"act_quant": True}, {}),
-    ("test-tiny", {"attn_kernel": "paged"}, {}),
+    ("test-tiny", {"qk_norm": True}, {}),
     ("test-tiny", {}, {"seq_axis": "seq"}),
     ("test-tiny", {}, {"axis": "model"}),
 ])
