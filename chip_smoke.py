@@ -18,7 +18,10 @@ Phases; the first failure ends the run with a non-zero exit code:
              paged insert and paged flash decode run over a 32-layer pool
              holding the contiguous cache's rows under a shuffled page
              table, at pages 128 and 512, beside the contiguous kernel's
-             time at the same lengths.
+             time at the same lengths. ``dequant_matmul_moe`` at the
+             Mixtral-8x7B and Qwen3-30B-A3B expert shapes: all experts at
+             decode and prefill M, and hot lists of n_hot experts, each
+             output handed out NaN-filled.
 4. serving   full-width Llama-3-8B (32 layers, random weights from seed 0,
              made on the card) behind ``Engine(max_slots=8, max_seq=2048)``:
              8 greedy requests of 32-1024 prompt tokens, 64 new tokens each.
@@ -47,17 +50,35 @@ Phases; the first failure ends the run with a non-zero exit code:
              (kernel_mode "auto") and with the plain versions ("xla"), with
              the kernels over a paged pool, and with the kernels again (the
              run-to-run spread the paged difference is read against).
-7. cli       ``python -m quant_tpu_torch generate`` on a test-tiny
-             checkpoint written by the port, and ``serve --paged`` on it
-             (two /generate requests over HTTP).
+7. moe       full-width Mixtral-8x7B (the Llama-3-8B params freed first)
+             over HTTP from the paged, prefix-cached engine: 8 requests
+             from 4 client threads, a shared 512-token prefix plus 16-128
+             suffix tokens, 32 new tokens each; exact launch counts (2 x 32
+             ``dequant_matmul_moe`` and 2 x 32 + 1 ``dequant_matmul`` per
+             forward), 7 prefix hits, every page free or cached, a profile
+             of 3 B=8 decode forwards, teacher forcing on the served
+             experts. Then one slot (the routed path: a hot list at every
+             decode step), and one prefill and 4 decode steps at B=4 with
+             the kernels, the plain versions, and the kernels with
+             ``moe_routed`` "on" and "off". Then full-width Qwen3-30B-A3B
+             in process: 8 requests of 64-256 prompt tokens, 16 new tokens,
+             hot lists at every decode step, teacher forcing, kernels
+             against plain. A MoE model's comparisons hold every token to
+             the experts one pass kept (``held_routing``), and its random
+             routers are scaled to unit gain (``unit_gain_router``).
+8. cli       ``python -m quant_tpu_torch generate`` on test-tiny and
+             test-tiny-moe checkpoints written by the port, and ``serve
+             --paged`` on each (two /generate requests over HTTP).
 
 Before the last line it prints ``{"kernels": [...]}`` and the
 ``nvidia-smi`` line; the last line is ``{"ok": true, "device": {...}}``.
-``--detail PATH`` writes the per-shape details as JSON.
+``--detail PATH`` writes the per-shape details as JSON (also when a phase
+fails).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -85,8 +106,13 @@ BF16, F32 = torch.bfloat16, torch.float32
 DMM_SHAPES = [(4096, 6144, 32, BF16), (4096, 4096, 32, F32),
               (4096, 28672, 32, BF16), (14336, 4096, 32, F32),
               (4096, 131072, 1, F32)]
+# MoE experts: (E, (K, N) of one expert's gate|up, (K, N) of its down with K
+# padded as llama.init_params pads it)
+MOE_SHAPES = {"mixtral-8x7b": (8, (4096, 28672), (14336, 4096)),
+              "qwen3-30b-a3b": (128, (2048, 1536), (1024, 2048))}
 REPLACES = {
     "dequant_matmul": "quant_tpu/kernels/dequant_matmul.py:312",
+    "dequant_matmul_moe": "quant_tpu/kernels/dequant_matmul.py:385",
     "cache_insert_int8": "quant_tpu/kernels/cache_insert.py:131",
     "flash_decode_int8": "quant_tpu/kernels/attention.py:166",
     "paged_cache_insert_int8": "quant_tpu/kernels/cache_insert.py:307",
@@ -94,6 +120,7 @@ REPLACES = {
 }
 SOURCES = {
     "dequant_matmul": "quant_tpu_torch/csrc/dequant_matmul.cu",
+    "dequant_matmul_moe": "quant_tpu_torch/csrc/dequant_matmul.cu",
     "cache_insert_int8": "quant_tpu_torch/csrc/cache_insert.cu",
     "flash_decode_int8": "quant_tpu_torch/csrc/flash_decode.cu",
     "paged_cache_insert_int8": "quant_tpu_torch/csrc/cache_insert.cu",
@@ -181,7 +208,7 @@ def phase_kernels(detail: dict) -> dict:
         cache_insert_int8, cache_insert_int8_reference)
     from quant_tpu_torch.kernels.dequant_matmul import (
         dequant_matmul, dequant_matmul_reference)
-    from quant_tpu_torch.utils.timing import cuda_time, device_time
+    from quant_tpu_torch.utils.timing import device_time, kernel_times
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -222,7 +249,7 @@ def phase_kernels(detail: dict) -> dict:
         iters = max(8, len(qts))
         def run():
             return dequant_matmul(x, nxt(), out_dtype=odt)
-        ms, ev = device_time(run, iters), cuda_time(run, iters)
+        ms, ev = kernel_times(run, iters)
         plain = device_time(lambda: dequant_matmul_reference(x, nxt(), odt),
                             iters)
         b_ms, b_by = bound_ms(m * k * 2 + wbytes + m * n * got.element_size(),
@@ -284,7 +311,7 @@ def phase_kernels(detail: dict) -> dict:
     nxt_layer = cycle(range(L))
     def insert():
         return cache_insert_int8(*cache, *new, lengths, nxt_layer())
-    ms, ev = device_time(insert, L), cuda_time(insert, L)
+    ms, ev = kernel_times(insert, L)
     plain = device_time(lambda: cache_insert_int8_reference(
         *cache, *new, lengths, nxt_layer()), L)
     row_bytes = B * H * (2 * D + 2 * 4)
@@ -317,7 +344,7 @@ def phase_kernels(detail: dict) -> dict:
                                  f"{rel:.3g} of max|ref| > {tol}")
         def attend():
             return flash_decode_int8(q, *cache, lengths, nxt_layer())
-        ms, ev = device_time(attend, L), cuda_time(attend, L)
+        ms, ev = kernel_times(attend, L)
         plain = device_time(lambda: flash_decode_int8_reference(
             q, *cache, lengths, nxt_layer()), L)
         qb = q.element_size()
@@ -347,6 +374,134 @@ def phase_kernels(detail: dict) -> dict:
     return summary
 
 
+def _rand_stack(gen, dev, entries: int, k: int, n: int, g=128):
+    """A random int4 stack [entries, K/2, N] of expert weights."""
+    from quant_tpu_torch.core.qtensor import QTensor
+
+    codes = torch.randint(0, 256, (entries, k // 2, n), generator=gen,
+                          device=dev, dtype=torch.int16).to(torch.uint8)
+    scales = (torch.rand((entries, k // g, n), generator=gen, device=dev)
+              * 0.02 + 1e-3)
+    return QTensor(codes=codes, scales=scales, bits=4, group_size=g,
+                   shape=(k, n))
+
+
+def _hot_lists(e: int, n_hot: int, dev) -> list:
+    """Hot lists [n_hot, ids..., last id repeated] over windows of n_hot
+    experts shifted by n_hot each: timed calls cycle through them, so each
+    launch streams experts the launch before did not (L2-cold)."""
+    out = []
+    for r in range(max(1, e // n_hot)):
+        ids = sorted((r * n_hot + j) % e for j in range(n_hot))
+        out.append(torch.tensor([n_hot] + ids + [ids[-1]] * (e - n_hot),
+                                dtype=torch.int32, device=dev))
+    return out
+
+
+def moe_kernels(gen, detail: dict) -> dict:
+    """dequant_matmul_moe against its plain version at the Mixtral-8x7B and
+    Qwen3-30B-A3B expert shapes, with the out dtype the forward gives each
+    projection (bf16 gate|up concat, f32 down psum): all experts at decode
+    and prefill M, and hot lists of n_hot experts. Each output comes out of
+    a NaN-filled block of the caching allocator, and in psum the x rows of
+    the slots past n_hot are NaN: a hot call must not read them, and its
+    concat tail must be exactly zero. Bound: the bytes of the n_hot slots'
+    codes and scales plus x and the output, or their operations at the bf16
+    peak. Returns the per-step summary of a Mixtral B=8 decode step (32
+    layers of all-experts concat and psum at M=8)."""
+    from quant_tpu_torch.kernels.dequant_matmul import (
+        dequant_matmul_moe, dequant_matmul_moe_reference)
+    from quant_tpu_torch.utils.timing import device_time, kernel_times
+
+    dev = torch.device("cuda")
+    nan = float("nan")
+    cases = [("mixtral-8x7b", mode, m, None)
+             for mode in ("concat", "psum") for m in (1, 8, 512)]
+    cases += [("mixtral-8x7b", mode, m, h) for m in (1, 4)
+              for h in (2, 4, 8) for mode in ("concat", "psum")]
+    cases += [("qwen3-30b-a3b", mode, 8, h) for h in (None, 8, 52, 128)
+              for mode in ("concat", "psum")]
+    stacks, rows = {}, []
+    step = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    max_err = 0.0
+    for model, mode, m, n_hot in cases:
+        e, gu, dn = MOE_SHAPES[model]
+        k, n = gu if mode == "concat" else dn
+        if (model, mode) not in stacks:
+            if any(key[0] != model for key in stacks):
+                stacks.clear()
+                torch.cuda.empty_cache()
+            stacks[model, mode] = _rand_stack(gen, dev, e, k, n)
+        qt = stacks[model, mode]
+        odt = BF16 if mode == "concat" else F32
+        nh = e if n_hot is None else n_hot
+        x = torch.randn((m, k) if mode == "concat" else (e, m, k),
+                        generator=gen, device=dev).to(BF16)
+        if mode != "concat":
+            x[nh:] = nan
+        hots = _hot_lists(e, nh, dev) if n_hot is not None else [None]
+        nxt = cycle(hots)
+        kw = dict(n_experts=e, stride=1, mode=mode, out_dtype=odt)
+        ref = dequant_matmul_moe_reference(x, qt, 0, hot=hots[0], **kw)
+        ref = ref.float()
+        width = e * n if mode == "concat" else n
+        blk = torch.full((m, width), nan, dtype=odt, device=dev)
+        ptr = blk.data_ptr()
+        del blk
+        got = dequant_matmul_moe(x, qt, 0, hot=hots[0], **kw)
+        torch.cuda.synchronize()
+        nan_preset = got.data_ptr() == ptr
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"dequant_matmul_moe {model} {mode} M={m} "
+                                 f"n_hot={nh}: non-finite output")
+        if mode == "concat" and bool(got.view(m, e, n)[:, nh:].any()):
+            raise AssertionError(f"dequant_matmul_moe {model} concat M={m} "
+                                 f"n_hot={nh}: the tail is not zero")
+        err = float((got.float() - ref).abs().max())
+        rel = err / float(ref.abs().max())
+        if not rel <= 2e-2:
+            raise AssertionError(f"dequant_matmul_moe {model} {mode} M={m} "
+                                 f"n_hot={nh}: error {rel:.3g} of max|ref| "
+                                 "> 2e-2")
+        max_err = max(max_err, err)
+        iters = max(8, len(hots))
+        ms, ev = kernel_times(lambda: dequant_matmul_moe(x, qt, 0, hot=nxt(),
+                                                         **kw), iters)
+        plain = device_time(lambda: dequant_matmul_moe_reference(
+            x, qt, 0, hot=nxt(), **kw), iters)
+        w_bytes = qt.codes[0].numel() + qt.scales[0].numel() * 4
+        x_bytes = m * k * 2 * (1 if mode == "concat" else nh)
+        b_ms, b_by = bound_ms(nh * w_bytes + x_bytes
+                              + m * width * got.element_size(),
+                              2 * m * k * n * nh)
+        del ref, got, x
+        rows.append({"kernel": "dequant_matmul_moe", "model": model,
+                     "mode": mode, "M": m, "K": k, "N": n, "experts": e,
+                     "n_hot": nh, "hot_list": n_hot is not None,
+                     "out_dtype": str(odt)[6:], "max_abs_err": err,
+                     "rel_err": rel, "nan_preset_output": nan_preset,
+                     "ms": ms, "event_ms": ev, "plain_ms": plain,
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "pct_of_bound": 100 * b_ms / ms, "library_ms": None})
+        log(f"[kernels] dequant_matmul_moe {model} {mode} M={m:<3d} {k}x{n} "
+            f"x{e} n_hot={nh}{' (hot list)' if n_hot else ''}: err "
+            f"{rel:.2e} of max|ref|  {ms:.4f} ms (events {ev:.4f})  plain "
+            f"{plain:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
+        if model == "mixtral-8x7b" and m == 8 and n_hot is None:
+            step["ms"] += 32 * ms
+            step["plain_ms"] += 32 * plain
+            step["bound_ms"] += 32 * b_ms
+    stacks.clear()
+    torch.cuda.empty_cache()
+    detail["moe_kernels"] = rows
+    return {"max_abs_err": max_err, **step, "bound_by": "bytes",
+            "library_ms": None,
+            "unit": "one Mixtral-8x7B decode step at B=8: 32 x (all 8 "
+                    "experts' gate|up concat 4096x28672 bf16 out + down "
+                    "psum 14336x4096 f32 out), int4 g128, bf16 x; device "
+                    "time, weights L2-cold"}
+
+
 def paged_kernels(gen, summary: dict, cache, new, lengths, layer: int,
                   page: int, contiguous: dict) -> dict:
     """The paged insert and paged flash decode at the decode shape of the
@@ -360,7 +515,7 @@ def paged_kernels(gen, summary: dict, cache, new, lengths, layer: int,
         paged_cache_insert_int8, paged_cache_insert_int8_reference)
     from quant_tpu_torch.kernels.paged_attention import (
         paged_attention_reference, paged_flash_decode_int8)
-    from quant_tpu_torch.utils.timing import cuda_time, device_time
+    from quant_tpu_torch.utils.timing import device_time, kernel_times
 
     dev = cache[0].device
     L, B, H, S, D = cache[0].shape
@@ -394,7 +549,7 @@ def paged_kernels(gen, summary: dict, cache, new, lengths, layer: int,
 
     def insert():
         return paged_cache_insert_int8(*pool, *new, lengths, nxt_layer(), tbl)
-    ms, ev = device_time(insert, L), cuda_time(insert, L)
+    ms, ev = kernel_times(insert, L)
     plain_ms = device_time(lambda: paged_cache_insert_int8_reference(
         *pool, *new, lengths, nxt_layer(), tbl), L)
     row_bytes = B * H * (2 * D + 2 * 4)
@@ -431,7 +586,7 @@ def paged_kernels(gen, summary: dict, cache, new, lengths, layer: int,
         def attend():
             return paged_flash_decode_int8(q, *pool, tbl, lengths,
                                            nxt_layer())
-        ms, ev = device_time(attend, L), cuda_time(attend, L)
+        ms, ev = kernel_times(attend, L)
         plain_ms = device_time(lambda: paged_attention_reference(
             q, *pool, tbl, lengths, nxt_layer()), L)
         qb = q.element_size()
@@ -565,33 +720,20 @@ def http_stream(url: str, payload, timeout: float = 600):
     raise AssertionError("stream ended without its done line")
 
 
-def phase_paged_serving(detail: dict, params, cfg) -> dict:
-    """16 greedy requests over HTTP to a paged, prefix-cached engine: a
-    shared 1024-token prefix plus a 16-256-token suffix each, 64 new tokens,
-    from 8 client threads, half streamed. Then the paged decode step alone
-    (profiled, and in turns with a contiguous one), and every served stream
-    checked by teacher forcing through the contiguous cache."""
-    from quant_tpu_torch.engine import Engine
+def http_traffic(eng, prompts, n_new: int, clients: int,
+                 model_name: str) -> dict:
+    """Every prompt as a greedy /generate request of ``n_new`` tokens to
+    ``serve_async`` in front of ``eng``, from ``clients`` threads (client c
+    sends requests c, c + clients, ... in turn; the even-numbered ones
+    streamed). Every answer must hold ``n_new`` tokens, and a stream the same
+    tokens as its final answer. Returns the answers, the launch counts (reset
+    just before the traffic), each scheduler step on the host clock (each
+    ends in a device sync: the sampled tokens come back to the host), the
+    most pages in use, the admitted Request objects (for their TTFT), the
+    total time, /healthz and the engine's stats."""
     from quant_tpu_torch.engine.server import serve_async
     from quant_tpu_torch.kernels import _build
 
-    n_req, n_new, prefix_len = 16, 64, 1024
-    rng = np.random.default_rng(0)
-    prefix = [int(t) for t in rng.integers(0, cfg.vocab_size, prefix_len)]
-    suffix_lens = rng.integers(16, 257, n_req)
-    prompts = [prefix + [int(t) for t in rng.integers(0, cfg.vocab_size, n)]
-               for n in suffix_lens]
-    torch.cuda.reset_peak_memory_stats()
-    eng = Engine(params, cfg, max_slots=8, max_seq=2048, eos_id=-1,
-                 device="cuda", paged=True, page_size=128, prefix_cache=True)
-    c = eng.cache
-    pool_bytes = sum(t.numel() * t.element_size() for t in (
-        c.k_codes, c.k_scale, c.v_codes, c.v_scale))
-    page_bytes = pool_bytes // eng.n_pages
-    contiguous_bytes = page_bytes * 8 * 2048 // 128
-    # host clock around each scheduler step (each ends in a device sync:
-    # the sampled tokens come back to the host), the most pages in use, and
-    # the engine's Request objects (for their TTFT)
     steps, held, admitted = [], [0], []
     inner_step, inner_add = eng.step, eng.add_request
 
@@ -610,13 +752,13 @@ def phase_paged_serving(detail: dict, params, cfg) -> dict:
         held[0] = max(held[0], st["total_pages"] - st["free_pages"])
         return out
     eng.step, eng.add_request = timed_step, add_request
-    httpd, srv = serve_async(eng, model_name="llama-3-8b")
+    httpd, srv = serve_async(eng, model_name=model_name)
     base = f"http://127.0.0.1:{httpd.server_address[1]}"
     results, errors = {}, []
 
     def client(k):
         try:
-            for i in (k, k + 8):
+            for i in range(k, len(prompts), clients):
                 payload = {"prompt_ids": prompts[i], "max_new_tokens": n_new}
                 if i % 2 == 0:
                     toks, done = http_stream(base + "/generate", payload)
@@ -629,7 +771,8 @@ def phase_paged_serving(detail: dict, params, cfg) -> dict:
     torch.cuda.synchronize()
     _build.reset_launches()
     t0 = time.perf_counter()
-    threads = [threading.Thread(target=client, args=(k,)) for k in range(8)]
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(clients)]
     for t in threads:
         t.start()
     for t in threads:
@@ -640,10 +783,10 @@ def phase_paged_serving(detail: dict, params, cfg) -> dict:
     httpd.shutdown()
     httpd.server_close()
     srv.stop()
-    stats = eng.stats
-    if errors or len(results) != n_req:
-        raise AssertionError(f"paged serving: {len(results)} of {n_req} "
-                             f"answers; {errors}")
+    del eng.step, eng.add_request
+    if errors or len(results) != len(prompts):
+        raise AssertionError(f"{model_name} over HTTP: {len(results)} of "
+                             f"{len(prompts)} answers; {errors}")
     for i, r in results.items():
         if len(r["output_ids"]) != n_new or r["timed_out"]:
             raise AssertionError(f"request {i}: {len(r['output_ids'])} "
@@ -651,13 +794,47 @@ def phase_paged_serving(detail: dict, params, cfg) -> dict:
         if "stream" in r and r["stream"] != r["output_ids"]:
             raise AssertionError(f"request {i}: the stream differs from its "
                                  "final output_ids")
+    return {"results": results, "launches": launches, "steps": steps,
+            "peak_pages_in_use": held[0], "admitted": admitted,
+            "total_s": total, "healthz": health, "stats": eng.stats}
+
+
+def phase_paged_serving(detail: dict, params, cfg) -> dict:
+    """16 greedy requests over HTTP to a paged, prefix-cached engine: a
+    shared 1024-token prefix plus a 16-256-token suffix each, 64 new tokens,
+    from 8 client threads, half streamed. Then the paged decode step alone
+    (profiled, and in turns with a contiguous one), and every served stream
+    checked by teacher forcing through the contiguous cache."""
+    from quant_tpu_torch.engine import Engine
+
+    n_req, n_new, prefix_len = 16, 64, 1024
+    rng = np.random.default_rng(0)
+    prefix = [int(t) for t in rng.integers(0, cfg.vocab_size, prefix_len)]
+    suffix_lens = rng.integers(16, 257, n_req)
+    prompts = [prefix + [int(t) for t in rng.integers(0, cfg.vocab_size, n)]
+               for n in suffix_lens]
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(params, cfg, max_slots=8, max_seq=2048, eos_id=-1,
+                 device="cuda", paged=True, page_size=128, prefix_cache=True)
+    c = eng.cache
+    pool_bytes = sum(t.numel() * t.element_size() for t in (
+        c.k_codes, c.k_scale, c.v_codes, c.v_scale))
+    page_bytes = pool_bytes // eng.n_pages
+    contiguous_bytes = page_bytes * 8 * 2048 // 128
+    traffic = http_traffic(eng, prompts, n_new, 8, "llama-3-8b")
+    results, launches = traffic["results"], traffic["launches"]
+    steps, stats, total = (traffic["steps"], traffic["stats"],
+                           traffic["total_s"])
+    held, admitted = traffic["peak_pages_in_use"], traffic["admitted"]
+    health = traffic["healthz"]
     fwd = stats["prefill_chunks"] + stats["decode_forwards"]
     expect = {"dequant_matmul": (4 * cfg.n_layers + 1) * fwd,
               "paged_cache_insert_int8":
                   cfg.n_layers * stats["decode_forwards"],
               "paged_flash_decode_int8":
                   cfg.n_layers * stats["decode_forwards"],
-              "cache_insert_int8": 0, "flash_decode_int8": 0}
+              "cache_insert_int8": 0, "flash_decode_int8": 0,
+              "dequant_matmul_moe": 0}
     for k, v in expect.items():
         if launches[k] != v or (v == 0 and k.startswith("paged")):
             raise AssertionError(f"paged serving: {k}: {launches[k]} "
@@ -687,18 +864,11 @@ def phase_paged_serving(detail: dict, params, cfg) -> dict:
         f"{ttfts[len(ttfts) // 2]:.0f} ms max {ttfts[-1]:.0f} ms, "
         f"max_memory_allocated {peak_gib:.2f} GiB; pool "
         f"{pool_bytes / 2**20:.0f} MiB (contiguous cache "
-        f"{contiguous_bytes / 2**20:.0f} MiB), at most {held[0]} pages "
-        f"({held[0] * page_bytes / 2**20:.0f} MiB) in use")
+        f"{contiguous_bytes / 2**20:.0f} MiB), at most {held} pages "
+        f"({held * page_bytes / 2**20:.0f} MiB) in use")
     # the decode step alone, without the server's threads: every slot
     # holds the pages of its last request at its final length
-    del eng.step, eng.add_request
-    lens = [len(prompts[i]) + n_new for i in range(8, n_req)]
-    ids = iter(range(1, eng.n_pages))
-    tbl = np.zeros(tuple(c.page_tbl.shape), np.int32)
-    for b, n in enumerate(lens):
-        tbl[b, :-(-n // 128)] = [next(ids) for _ in range(-(-n // 128))]
-    c.page_tbl.copy_(torch.from_numpy(tbl))
-    c.lengths.copy_(torch.tensor(lens, dtype=torch.int32))
+    park_at_lengths(eng, [len(prompts[i]) + n_new for i in range(8, n_req)])
     profile = profile_decode(eng, label="paged decode (page 128)")
     # host time of a B=8 decode forward over the pool and over a contiguous
     # cache at the same lengths, in turns (contiguous, paged, paged,
@@ -725,7 +895,7 @@ def phase_paged_serving(detail: dict, params, cfg) -> dict:
     log(f"[paged] decode forward B=8 at the same lengths, host clock, in "
         f"turns: contiguous {ab_ms['contiguous']} ms, paged "
         f"{ab_ms['paged']} ms")
-    del eng, srv, httpd, c, contig
+    del eng, c, contig, traffic
     torch.cuda.empty_cache()
 
     tf = teacher_forced(params, cfg, prompts, prefix_len,
@@ -741,7 +911,7 @@ def phase_paged_serving(detail: dict, params, cfg) -> dict:
         "ttft_ms_p50": ttfts[len(ttfts) // 2], "ttft_ms_max": ttfts[-1],
         "max_memory_allocated_gib": peak_gib,
         "pool_bytes": pool_bytes, "contiguous_cache_bytes": contiguous_bytes,
-        "peak_pages_in_use": held[0], "page_bytes": page_bytes,
+        "peak_pages_in_use": held, "page_bytes": page_bytes,
         "teacher_forced": tf, "profile": profile, "decode_ms_turns": ab,
         "stats": stats, "healthz": health, "steps": steps,
     }
@@ -755,50 +925,73 @@ def phase_paged_serving(detail: dict, params, cfg) -> dict:
 TF_MARGIN = 2 * 5e-2
 
 
-def teacher_forced(params, cfg, prompts, prefix_len: int, outs) -> dict:
+def teacher_forced(params, cfg, prompts, prefix_len: int, outs,
+                   tag: str = "paged", kept: dict | None = None) -> dict:
     """Each served stream fed back through the contiguous cache with the
     kernels (one chunk of its suffix and all but its last token after the
     shared prefix, prefilled once): at each served position, the gap from
     the teacher-forced maximum logit to the served token's, over
     max|logit|. Every served token must be within ``TF_MARGIN``. The
     control reads each answer in the next request's context, as a fault in
-    prefix reuse would serve it: no such answer may pass."""
+    prefix reuse would serve it: no such answer may pass.
+
+    ``kept``: for a MoE model, the experts the serving run kept, keyed by
+    (("prefix" or the request's index), position) and layer
+    (``held_routing``); the teacher-forced pass keeps the same ones."""
     from quant_tpu_torch.models import llama
 
     n_new = len(outs[0])
-    cache = llama.init_cache(cfg, 1, 2048, "cuda")
-    for a in range(0, prefix_len, 512):
-        _, cache = llama.forward(params, [prompts[0][a:a + 512]], cache, cfg,
-                                 device="cuda")
-    served, wrong, top1 = [], [], 0
-    for i, out in enumerate(outs):
-        at_prefix = dataclasses.replace(cache, lengths=torch.full(
-            (1,), prefix_len, dtype=torch.int32, device="cuda"))
-        lg, _ = llama.forward(params, [prompts[i][prefix_len:] + out[:-1]],
-                              at_prefix, cfg, device="cuda")
-        lg = lg[0, -n_new:]
-        top, scale = lg.max(-1).values, lg.abs().max(-1).values
+    cur = [None]
+    hold = (held_routing(cfg.n_layers, lambda x: cur[0], kept)
+            if kept is not None else contextlib.nullcontext(
+                {"swapped": 0, "held": 0, "decisions": 0}))
+    with hold as routing:
+        cache = llama.init_cache(cfg, 1, 2048, "cuda")
+        for a in range(0, prefix_len, 512):
+            chunk = prompts[0][a:a + 512]
+            cur[0] = [("prefix", a + j) for j in range(len(chunk))]
+            _, cache = llama.forward(params, [chunk], cache, cfg,
+                                     device="cuda")
+        served, wrong, top1 = [], [], 0
+        for i, out in enumerate(outs):
+            at_prefix = dataclasses.replace(cache, lengths=torch.full(
+                (1,), prefix_len, dtype=torch.int32, device="cuda"))
+            toks = prompts[i][prefix_len:] + out[:-1]
+            cur[0] = [(i, prefix_len + j) for j in range(len(toks))]
+            lg, _ = llama.forward(params, [toks], at_prefix, cfg,
+                                  device="cuda")
+            lg = lg[0, -n_new:]
+            top, scale = lg.max(-1).values, lg.abs().max(-1).values
 
-        def gap(toks):
-            t = torch.tensor(toks, device="cuda")[:, None]
-            return ((top - lg.gather(-1, t)[:, 0]) / scale).tolist()
-        served.append(gap(out))
-        wrong.append(gap(outs[(i + 1) % len(outs)]))
-        top1 += int((lg.argmax(-1).cpu() == torch.tensor(out)).sum())
-        del lg
+            def gap(toks):
+                t = torch.tensor(toks, device="cuda")[:, None]
+                return ((top - lg.gather(-1, t)[:, 0]) / scale).tolist()
+            served.append(gap(out))
+            wrong.append(gap(outs[(i + 1) % len(outs)]))
+            top1 += int((lg.argmax(-1).cpu() == torch.tensor(out)).sum())
+            del lg
+    if routing["held"] != routing["decisions"]:
+        raise AssertionError(f"{tag}: {routing['held']} of "
+                             f"{routing['decisions']} routing decisions of "
+                             "the teacher-forced pass were served")
     flat = [g for gs in wrong for g in gs]
     res = {"limit": TF_MARGIN, "max_gap": max(map(max, served)),
+           "routing_held": routing["held"],
+           "routing_swapped": routing["swapped"],
            "top1_share": top1 / (len(outs) * n_new),
            "control_passed": sum(max(gs) <= TF_MARGIN for gs in wrong),
            "control_token_share_within": sum(g <= TF_MARGIN for g in flat)
            / len(flat), "control_median_gap": float(np.median(flat))}
-    log(f"[paged] teacher-forced through the contiguous cache: "
+    log(f"[{tag}] teacher-forced through the contiguous cache: "
         f"{len(outs) * n_new} served tokens, {res['top1_share']:.3f} of them "
         f"the argmax, largest gap to the max logit {res['max_gap']:.3e} of "
         f"max|logit| (limit {TF_MARGIN}); control, each answer in the next "
         f"request's context: {res['control_passed']} of {len(outs)} pass "
         f"({res['control_token_share_within']:.3f} of tokens within the "
-        f"limit, median gap {res['control_median_gap']:.3e})")
+        f"limit, median gap {res['control_median_gap']:.3e})"
+        + (f"; routing held to the served experts in {routing['held']} "
+           f"(token, layer) decisions, {routing['swapped']} of which would "
+           f"have kept others" if kept is not None else ""))
     if not res["max_gap"] <= TF_MARGIN:
         raise AssertionError(f"a served token stands {res['max_gap']:.3g} of "
                              "max|logit| below the teacher-forced maximum")
@@ -808,10 +1001,13 @@ def teacher_forced(params, cfg, prompts, prefix_len: int, outs) -> dict:
     return res
 
 
-def profile_decode(eng, steps: int = 3, label: str = "decode") -> dict:
-    """Device time of a few B=8 decode forwards over the engine's cache (the
-    slots at their final lengths), from ``torch.profiler``: the busy share
-    of the host-clock window and the kernels that take the most of it."""
+def profile_decode(eng, steps: int = 3, label: str = "decode",
+                   cfg=None) -> dict:
+    """Host-clock time of a few decode forwards of all the engine's slots
+    over its cache (the slots at their final lengths), with nothing patched
+    in, then their device time from ``torch.profiler``: the busy share of the host-clock window, the kernels that take the most
+    of it, and the device time of each of the port's kernels (summed over
+    its instantiations). ``cfg`` overrides the engine's config."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -823,10 +1019,15 @@ def profile_decode(eng, steps: int = 3, label: str = "decode") -> dict:
 
     def step():
         nonlocal cache
-        _, cache = llama.forward(eng.params, tokens, cache, eng.cfg,
+        _, cache = llama.forward(eng.params, tokens, cache, cfg or eng.cfg,
                                  device="cuda")
     step()       # warm
     torch.cuda.synchronize()
+    t0 = time.perf_counter()      # the same forwards without the profiler
+    for _ in range(steps):
+        step()
+    torch.cuda.synchronize()
+    bare_ms = (time.perf_counter() - t0) * 1e3 / steps
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -852,12 +1053,22 @@ def profile_decode(eng, steps: int = 3, label: str = "decode") -> dict:
     host = sorted(((e.key, e.self_cpu_time_total / 1e3 / steps,
                     e.count / steps) for e in prof.key_averages()
                    if e.self_cpu_time_total > 0), key=lambda kv: -kv[1])[:12]
-    res = {"steps": steps, "wall_ms_per_step": wall_ms,
+    ours = {}
+    for name, ms in by_name.items():
+        for kernel in ("dequant_matmul_moe_kernel", "dequant_matmul_kernel",
+                       "paged_flash_decode", "flash_decode",
+                       "cache_insert_kernel"):
+            if kernel in name:
+                ours[kernel] = ours.get(kernel, 0.0) + ms
+                break
+    res = {"steps": steps, "batch": eng.max_slots,
+           "bare_forward_ms_per_step": bare_ms, "wall_ms_per_step": wall_ms,
            "device_busy_ms_per_step": busy if busy else "not measured",
            "idle_share": 1 - busy / wall_ms if busy else "not measured",
-           "top_kernels_ms_per_step": top,
+           "top_kernels_ms_per_step": top, "port_kernels_ms_per_step": ours,
            "top_host_ops_self_cpu_ms_per_step": host}
-    log(f"[profile] {label} B=8 under torch.profiler: {wall_ms:.2f} ms/step "
+    log(f"[profile] {label} B={eng.max_slots}: bare forward {bare_ms:.2f} "
+        f"ms/step; under torch.profiler {wall_ms:.2f} ms/step "
         f"on the host clock, device busy "
         f"{busy:.2f} ms/step" + (f" (idle share {res['idle_share']:.2f})"
                                  if busy else " (no device time recorded)"))
@@ -925,11 +1136,451 @@ def phase_model(detail: dict, params, cfg) -> None:
                              f"{p_rel:.3g}")
 
 
-def phase_cli(detail: dict) -> None:
+@contextlib.contextmanager
+def moe_dispatch():
+    """Count the model's ``dequant_matmul_moe`` calls with a hot list
+    (routed slots) and without (all experts), by wrapping the function the
+    model calls; the kernel's own launch counter is not touched."""
+    from quant_tpu_torch.models import llama
+
+    counts = {"hot": 0, "all": 0}
+    inner = llama.dequant_matmul_moe
+
+    def spy(*args, **kw):
+        counts["hot" if kw.get("hot") is not None else "all"] += 1
+        return inner(*args, **kw)
+    llama.dequant_matmul_moe = spy
+    try:
+        yield counts
+    finally:
+        llama.dequant_matmul_moe = inner
+
+
+def unit_gain_router(params, cfg) -> None:
+    """Scale the random router of ``llama.init_params`` (the JAX package's
+    std 0.5: router logits of std 0.5 * sqrt(D), 32 for Mixtral-8x7B) to
+    std 1/sqrt(D), logits of std 1, in place, by the std it was drawn with
+    (measured here, so the init's constant is known in one place). At std
+    0.5 the routing
+    weights are a high-gain function of the hidden state: the same forward
+    run twice, differing only in the order of its split-K atomics, gave
+    logits 0.09 (Mixtral-8x7B) and 0.54 (Qwen3-30B-A3B) of max|logit|
+    apart, with the experts held fixed, so no two paths could be compared
+    on such weights."""
+    router = params.layers.router
+    router.mul_(1.0 / (float(router.std()) * math.sqrt(cfg.dim)))
+
+
+@contextlib.contextmanager
+def held_routing(n_layers: int, rows, kept: dict | None = None):
+    """Record the experts ``moe_route`` keeps, or hold a later computation
+    to a record. Top-k routing is discontinuous: at a near-tie of two router
+    logits, rounding at another place (another kernel split, the order of
+    the split-K atomics) keeps the other expert, and the two outputs then
+    part by a whole expert's contribution. So a MoE model is compared on the
+    experts one pass chose.
+
+    ``rows(x)``, called at each forward's first layer with its input, gives
+    a key for each of its token rows (None: not recorded); the calls of a
+    forward come in layer order. Without ``kept``, every row's experts are
+    recorded (on the device while running; ``state["kept"]`` maps (key,
+    layer) to them when the block exits). With ``kept``, rows with a record
+    keep the recorded experts, with the weights this computation gives them;
+    ``state["held"]`` counts those (row, layer) decisions, of
+    ``state["decisions"]``, and ``state["swapped"]`` the held ones that
+    would have kept other experts. Softmax routers without groups or bias
+    only."""
+    from quant_tpu_torch.models import llama
+
+    inner = llama.moe_route
+    state = {"kept": {} if kept is None else kept, "swapped": 0, "held": 0,
+             "decisions": 0}
+    pending, at = [], {"call": 0, "keys": None}
+
+    def route(x, router, cfg, bias=None):
+        w = inner(x, router, cfg, bias)
+        layer = at["call"] % n_layers
+        at["call"] += 1
+        if layer == 0:
+            at["keys"] = rows(x)
+        own = (w > 0).reshape(-1, w.shape[-1])
+        if kept is None:
+            pending.append((at["keys"], layer, own))
+            return w
+        recs = [kept.get((k, layer)) for k in at["keys"]]
+        state["decisions"] += len(recs)
+        state["held"] += sum(r is not None for r in recs)
+        if all(r is None for r in recs):
+            return w
+        own = own.cpu()
+        held = torch.stack([own[i] if r is None else r
+                            for i, r in enumerate(recs)])
+        state["swapped"] += int((held != own).any(-1).sum())
+        w = (torch.softmax(x.float() @ router.float(), dim=-1)
+             * held.to(x.device).reshape(w.shape))
+        if cfg.norm_topk:
+            w = w / w.sum(dim=-1, keepdim=True).clamp_min(1e-20)
+        return w * cfg.routed_scaling
+    llama.moe_route = route
+    try:
+        yield state
+    finally:
+        llama.moe_route = inner
+        for keys, layer, own in pending:
+            own = own.cpu()
+            for i, k in enumerate(keys):
+                if k is not None:
+                    state["kept"][k, layer] = own[i]
+
+
+def check_launches(what: str, launches: dict, expect: dict) -> None:
+    for k, v in expect.items():
+        if launches[k] != v:
+            raise AssertionError(f"{what}: {k}: {launches[k]} launches, "
+                                 f"expected {v}")
+
+
+def moe_expected(cfg, chunks: int, decode: int, paged: bool) -> dict:
+    """Exact launches of a MoE model's forwards: wqkv, wo and lm_head
+    through dequant_matmul, gate|up and down through dequant_matmul_moe,
+    and the decode pair of the cache (paged or contiguous) per decode
+    forward and layer."""
+    fwd, ln = chunks + decode, cfg.n_layers
+    pair = (("paged_cache_insert_int8", "paged_flash_decode_int8") if paged
+            else ("cache_insert_int8", "flash_decode_int8"))
+    other = (("cache_insert_int8", "flash_decode_int8") if paged
+             else ("paged_cache_insert_int8", "paged_flash_decode_int8"))
+    return {"dequant_matmul": (2 * ln + 1) * fwd,
+            "dequant_matmul_moe": 2 * ln * fwd,
+            **{k: ln * decode for k in pair}, **{k: 0 for k in other}}
+
+
+def served_rows(eng, prompts, prefix_len: int):
+    """Row keys (``held_routing``) of an engine's forwards: the decode
+    forward's rows are its slots, each at the position of the token it
+    feeds; a prefill chunk's rows are the admitting request's positions.
+    A request is named by its prompt's index; positions in the shared
+    prefix by "prefix"."""
+    def key(req, pos):
+        return (("prefix", pos) if pos < prefix_len
+                else (prompts.index(req.prompt), pos))
+
+    def rows(x):
+        if x.shape[0] == eng.max_slots and x.shape[1] == 1:
+            return [None if r is None
+                    else key(r, len(r.prompt) + len(r.output) - 1)
+                    for r in eng.slots]
+        req, _, off = eng._prefilling
+        return [key(req, off + j) for j in range(x.shape[1])]
+    return rows
+
+
+def park_at_lengths(eng, lens) -> None:
+    """Give every slot of a paged engine fresh pages for ``lens`` tokens
+    (ids past the allocator's, for a throwaway measurement after the drain)
+    and those lengths."""
+    c = eng.cache
+    page = c.page_size
+    ids = iter(range(1, eng.n_pages))
+    tbl = np.zeros(tuple(c.page_tbl.shape), np.int32)
+    for b, n in enumerate(lens):
+        tbl[b, :-(-n // page)] = [next(ids) for _ in range(-(-n // page))]
+    c.page_tbl.copy_(torch.from_numpy(tbl))
+    c.lengths.copy_(torch.tensor(lens, dtype=torch.int32))
+
+
+def phase_moe_serving(detail: dict, params, cfg) -> dict:
+    """Full-width Mixtral-8x7B over HTTP from the paged, prefix-cached
+    engine: 8 greedy requests from 4 client threads, each a shared 512-token
+    prefix plus a 16-128-token suffix, 32 new tokens. At B=8 about 90% of
+    the experts are hot, so every forward takes all-experts slots. Exact
+    launch counts, 7 prefix hits, every page free or cached after the
+    drain, a profile of 3 B=8 decode forwards, and every answer checked by
+    teacher forcing through the contiguous cache."""
+    from quant_tpu_torch.engine import Engine
+
+    n_req, n_new, prefix_len = 8, 32, 512
+    rng = np.random.default_rng(0)
+    prefix = [int(t) for t in rng.integers(0, cfg.vocab_size, prefix_len)]
+    suffix_lens = rng.integers(16, 129, n_req)
+    prompts = [prefix + [int(t) for t in rng.integers(0, cfg.vocab_size, n)]
+               for n in suffix_lens]
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(params, cfg, max_slots=8, max_seq=2048, eos_id=-1,
+                 device="cuda", paged=True, page_size=128, prefix_cache=True)
+    # the experts every served token kept are recorded for the teacher
+    # forcing (two more small device ops per layer and forward, and host
+    # work per forward): the served times include the recorder, the
+    # profile's bare forwards do not
+    with moe_dispatch() as slots, held_routing(
+            cfg.n_layers, served_rows(eng, prompts, prefix_len)) as routing:
+        traffic = http_traffic(eng, prompts, n_new, 4, "mixtral-8x7b")
+    stats, launches, steps = (traffic["stats"], traffic["launches"],
+                              traffic["steps"])
+    expect = moe_expected(cfg, stats["prefill_chunks"],
+                          stats["decode_forwards"], paged=True)
+    check_launches("moe serving", launches, expect)
+    if slots["hot"] or slots["all"] != expect["dequant_matmul_moe"]:
+        raise AssertionError(f"moe serving: {slots} MoE calls; every one "
+                             "should take all experts at B=8")
+    if stats["prefix_hit_tokens"] != (n_req - 1) * prefix_len:
+        raise AssertionError(f"prefix_hit_tokens {stats['prefix_hit_tokens']}"
+                             f", expected {(n_req - 1) * prefix_len}")
+    if stats["free_pages"] + stats["cached_blocks"] != stats["total_pages"]:
+        raise AssertionError(f"after the drain, {stats['free_pages']} free + "
+                             f"{stats['cached_blocks']} cached pages of "
+                             f"{stats['total_pages']}")
+    pure = [st for st in steps if st["decode"] and not st["chunks"]]
+    decode_ms = 1e3 * sum(st["s"] for st in pure) / max(1, len(pure))
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    ttfts = sorted(1e3 * r.ttft for r in traffic["admitted"])
+    total = traffic["total_s"]
+    log(f"[moe-serving] {n_req} HTTP requests (4 clients, half streamed), "
+        f"shared {prefix_len}-token prefix + {suffix_lens.min()}-"
+        f"{suffix_lens.max()} suffix, {n_new} new tokens each: "
+        f"{stats['prefill_chunks']} prefill chunks, "
+        f"{stats['decode_forwards']} decode steps; launches {launches} "
+        f"(expected {expect}); MoE calls {slots}")
+    log(f"[moe-serving] prefix_hit_tokens {stats['prefix_hit_tokens']}, "
+        f"after the drain {stats['free_pages']} free + "
+        f"{stats['cached_blocks']} cached = {stats['total_pages']} pages; "
+        f"at most {traffic['peak_pages_in_use']} pages in use")
+    log(f"[moe-serving] decode {decode_ms:.2f} ms/step (B=8, routing "
+        f"recorded), "
+        f"{n_req * n_new / total:.1f} tok/s overall, TTFT p50 "
+        f"{ttfts[len(ttfts) // 2]:.0f} ms max {ttfts[-1]:.0f} ms, "
+        f"max_memory_allocated {peak_gib:.2f} GiB")
+    park_at_lengths(eng, [len(p) + n_new for p in prompts])
+    profile = profile_decode(eng, label="Mixtral-8x7B paged decode")
+    del eng
+    torch.cuda.empty_cache()
+    outs = [traffic["results"][i]["output_ids"] for i in range(n_req)]
+    tf = teacher_forced(params, cfg, prompts, prefix_len, outs,
+                        tag="moe-serving", kept=routing["kept"])
+    out = {"requests": n_req, "new_tokens": n_new, "prefix_len": prefix_len,
+           "suffix_lens": suffix_lens.tolist(),
+           "prefill_chunks": stats["prefill_chunks"],
+           "decode_forwards": stats["decode_forwards"],
+           "launches": launches, "expected_launches": expect,
+           "moe_calls": slots, "total_s": total,
+           "tokens_per_s": n_req * n_new / total,
+           "decode_ms_per_step": decode_ms,
+           "ttft_ms_p50": ttfts[len(ttfts) // 2], "ttft_ms_max": ttfts[-1],
+           "max_memory_allocated_gib": peak_gib,
+           "peak_pages_in_use": traffic["peak_pages_in_use"],
+           "teacher_forced": tf, "profile": profile, "stats": stats,
+           "healthz": traffic["healthz"], "steps": steps}
+    detail["moe_serving"] = out
+    return out
+
+
+def phase_moe_single(detail: dict, params, cfg) -> dict:
+    """The same model behind ``Engine(max_slots=1)``: one request of 32 new
+    tokens. B=1 takes the routed path, so every decode forward launches the
+    MoE kernel with a hot list of the 2 routed experts. Profiles 3 B=1
+    decode forwards routed and with all experts (``moe_routed="off"``)."""
+    from quant_tpu_torch.engine import Engine, Request
+    from quant_tpu_torch.kernels import _build
+
+    eng = Engine(params, cfg, max_slots=1, max_seq=2048, eos_id=-1,
+                 device="cuda")
+    rng = np.random.default_rng(1)
+    req = Request(req_id=0, prompt=[int(t) for t in rng.integers(
+        0, cfg.vocab_size, 64)], max_new_tokens=32)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    steps = []
+    with moe_dispatch() as slots:
+        eng.add_request(req)
+        while eng.has_work():
+            chunks0 = eng.prefill_chunks
+            t0 = time.perf_counter()
+            eng.step()
+            torch.cuda.synchronize()
+            steps.append((time.perf_counter() - t0,
+                          eng.prefill_chunks - chunks0))
+    launches = dict(_build.launches)
+    if len(req.output) != 32:
+        raise AssertionError(f"moe single: {len(req.output)} tokens")
+    chunks, dec = eng.prefill_chunks, eng.decode_forwards
+    expect = moe_expected(cfg, chunks, dec, paged=False)
+    check_launches("moe single", launches, expect)
+    if slots != {"hot": 2 * cfg.n_layers * dec,
+                 "all": 2 * cfg.n_layers * chunks}:
+        raise AssertionError(f"moe single: MoE calls {slots}, expected the "
+                             f"hot list at each of {dec} decode forwards")
+    # every step decodes; the first one also prefills the prompt
+    pure = [t for t, chunk in steps if not chunk]
+    decode_ms = 1e3 * sum(pure) / max(1, len(pure))
+    routed = profile_decode(eng, label="Mixtral-8x7B decode, routed")
+    dense = profile_decode(eng, label="Mixtral-8x7B decode, all experts",
+                           cfg=dataclasses.replace(cfg, moe_routed="off"))
+    moe_ms = {k: p["port_kernels_ms_per_step"].get(
+        "dequant_matmul_moe_kernel", 0.0) for k, p in (("routed", routed),
+                                                       ("all", dense))}
+    log(f"[moe-single] 1 request, 64-token prompt -> 32 tokens: {chunks} "
+        f"prefill chunk, {dec} decode steps, launches {launches}; MoE calls "
+        f"{slots}; decode {decode_ms:.2f} ms/step (B=1); MoE kernel device "
+        f"time per step: routed {moe_ms['routed']:.3f} ms, all experts "
+        f"{moe_ms['all']:.3f} ms")
+    out = {"launches": launches, "expected_launches": expect,
+           "moe_calls": slots, "decode_forwards": dec,
+           "decode_ms_per_step": decode_ms, "ttft_ms": 1e3 * req.ttft,
+           "moe_kernel_ms_per_step": moe_ms, "profile_routed": routed,
+           "profile_all_experts": dense}
+    detail["moe_single"] = out
+    return out
+
+
+def moe_model_check(detail: dict, tag: str, params, cfg, b: int, t: int,
+                    n_decode: int, variants: dict, pairs) -> None:
+    """One prefill of T tokens and ``n_decode`` decode steps at batch B
+    under each config variant (name -> field changes), every variant with
+    the experts the first one kept (``fixed_routing``); each pair of
+    variants must agree within 5e-2 of max|logit| (the model limit)."""
+    from quant_tpu_torch.models import llama
+
+    rng = np.random.default_rng(1)
+    tokens = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, t)))] + [
+        torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, 1)))
+        for _ in range(n_decode)]
+    logits, swapped, kept = {}, {}, None
+    at = [0]
+
+    def rows(x):
+        n = x.shape[1]
+        return [(i, at[0] + j) for i in range(b) for j in range(n)]
+    for name, change in variants.items():
+        c = dataclasses.replace(cfg, **change)
+        cache = llama.init_cache(c, b, t + n_decode, "cuda")
+        outs = []
+        with held_routing(cfg.n_layers, rows, kept) as routing:
+            at[0] = 0
+            for tok in tokens:
+                lg, cache = llama.forward(params, tok, cache, c,
+                                          device="cuda")
+                at[0] += tok.shape[1]
+                outs.append(lg[:, -1].float())
+        kept, swapped[name] = routing["kept"], routing["swapped"]
+        logits[name] = torch.stack(outs)
+        if not bool(torch.isfinite(logits[name]).all()):
+            raise AssertionError(f"{tag}: non-finite logits ({name})")
+        del cache, outs
+    log(f"[{tag}] routing held to the first variant's experts; (token, "
+        f"layer) decisions that would have kept others: {swapped} of "
+        f"{b * (t + n_decode) * cfg.n_layers} per variant")
+    res = {"swapped_routing_decisions": swapped}
+    for a, r in pairs:
+        x, y = logits[a], logits[r]
+        rel = float((x - y).abs().max() / y.abs().max())
+        agree = float((x.argmax(-1) == y.argmax(-1)).float().mean())
+        res[f"{a} vs {r}"] = {"rel_err": rel, "argmax_agreement": agree}
+        log(f"[{tag}] prefill(T={t}) + {n_decode} decode steps, B={b}: {a} "
+            f"vs {r} max|dlogit| = {rel:.3e} of max|logit|, argmax "
+            f"agreement {agree:.3f}")
+        if not rel <= 5e-2:
+            raise AssertionError(f"{tag}: {a} vs {r} logits differ by "
+                                 f"{rel:.3g}")
+    detail[f"{tag}_model"] = res
+
+
+def phase_qwen3(detail: dict, cfg) -> dict:
+    """Full-width Qwen3-30B-A3B (48 layers, 128 experts top-8, qk_norm,
+    down K padded 768 -> 1024, random weights from seed 0 on the card)
+    behind ``Engine(max_slots=8, max_seq=1024)`` in process: 8 greedy
+    requests of 64-256 prompt tokens, 16 new tokens each. Decode at B=8
+    routes (about 52 of 128 experts hot), so every decode forward launches
+    the hot-list kernel; prefill takes all experts. Exact launch counts,
+    teacher forcing, a profile of 3 decode forwards, and one prefill plus 2
+    decode steps with the kernels against the plain versions."""
+    from quant_tpu_torch.engine import Engine, Request
+    from quant_tpu_torch.kernels import _build
+    from quant_tpu_torch.models import llama
+
+    t0 = time.perf_counter()
+    params = llama.init_params(cfg, seed=0, device="cuda")
+    unit_gain_router(params, cfg)
+    torch.cuda.synchronize()
+    log(f"[qwen3-moe] qwen3-30b-a3b params made on the card in "
+        f"{time.perf_counter() - t0:.1f}s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    eng = Engine(params, cfg, max_slots=8, max_seq=1024, eos_id=-1,
+                 device="cuda")
+    rng = np.random.default_rng(0)
+    lens = rng.integers(64, 257, 8)
+    prompts = [[int(x) for x in rng.integers(0, cfg.vocab_size, n)]
+               for n in lens]
+    reqs = [Request(req_id=i, prompt=p, max_new_tokens=16)
+            for i, p in enumerate(prompts)]
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    calls = []
+    t0 = time.perf_counter()
+    # step(): one decode forward per call, so the recorded rows know their
+    # positions
+    with moe_dispatch() as slots, held_routing(
+            cfg.n_layers, served_rows(eng, prompts, 0)) as routing:
+        for r in reqs:
+            eng.add_request(r)
+        while eng.has_work():
+            c0 = time.perf_counter()
+            chunks0, dec0 = eng.prefill_chunks, eng.decode_forwards
+            eng.step()
+            torch.cuda.synchronize()
+            calls.append({"s": time.perf_counter() - c0,
+                          "chunks": eng.prefill_chunks - chunks0,
+                          "decode": eng.decode_forwards - dec0})
+    total = time.perf_counter() - t0
+    launches = dict(_build.launches)
+    if not all(r.finished and len(r.output) == 16 for r in reqs):
+        raise AssertionError("qwen3: not every request finished with 16 "
+                             "tokens")
+    chunks, dec = eng.prefill_chunks, eng.decode_forwards
+    expect = moe_expected(cfg, chunks, dec, paged=False)
+    check_launches("qwen3", launches, expect)
+    if slots != {"hot": 2 * cfg.n_layers * dec,
+                 "all": 2 * cfg.n_layers * chunks}:
+        raise AssertionError(f"qwen3: MoE calls {slots}, expected hot lists "
+                             f"at each of {dec} decode forwards")
+    pure = [c for c in calls if c["decode"] and not c["chunks"]]
+    decode_ms = (1e3 * sum(c["s"] for c in pure)
+                 / max(1, sum(c["decode"] for c in pure)))
+    ttfts = sorted(1e3 * r.ttft for r in reqs)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[qwen3-moe] 8 requests, prompts {lens.tolist()} -> 16 tokens "
+        f"each: {chunks} prefill chunks, {dec} decode steps; launches "
+        f"{launches} (expected {expect}); MoE calls {slots}")
+    log(f"[qwen3-moe] decode {decode_ms:.2f} ms/step (B=8, routing "
+        f"recorded), "
+        f"{8 * 16 / total:.1f} tok/s overall, TTFT p50 "
+        f"{ttfts[len(ttfts) // 2]:.0f} ms max {ttfts[-1]:.0f} ms, "
+        f"max_memory_allocated {peak_gib:.2f} GiB")
+    profile = profile_decode(eng, label="Qwen3-30B-A3B decode, routed")
+    del eng
+    torch.cuda.empty_cache()
+    tf = teacher_forced(params, cfg, prompts, 0, [r.output for r in reqs],
+                        tag="qwen3-moe", kept=routing["kept"])
+    moe_model_check(detail, "qwen3-moe", params, cfg, 8, 32, 2,
+                    {"kernels": {}, "plain": {"kernel_mode": "xla"}},
+                    [("kernels", "plain")])
+    out = {"prompt_lens": lens.tolist(), "prefill_chunks": chunks,
+           "decode_forwards": dec, "launches": launches,
+           "expected_launches": expect, "moe_calls": slots,
+           "total_s": total, "decode_ms_per_step": decode_ms,
+           "tokens_per_s": 8 * 16 / total,
+           "ttft_ms_p50": ttfts[len(ttfts) // 2], "ttft_ms_max": ttfts[-1],
+           "max_memory_allocated_gib": peak_gib, "teacher_forced": tf,
+           "profile": profile, "step_calls": calls}
+    detail["qwen3_moe"] = out
+    return out
+
+
+def phase_cli(detail: dict, preset: str) -> None:
     from quant_tpu_torch.checkpoint import save_checkpoint
     from quant_tpu_torch.models import PRESETS, llama
 
-    cfg = dataclasses.replace(PRESETS["test-tiny"], kernel_mode="auto")
+    cfg = dataclasses.replace(PRESETS[preset], kernel_mode="auto")
     params = llama.init_params(cfg, seed=0, device="cuda")
     with tempfile.TemporaryDirectory() as tmp:
         save_checkpoint(tmp, params, cfg)
@@ -945,19 +1596,19 @@ def phase_cli(detail: dict) -> None:
     lines = [json.loads(x) for x in out.stdout.strip().splitlines()]
     if len(lines) != 3 or any(len(x["output"]) != 8 for x in lines):
         raise AssertionError(f"unexpected cli output: {out.stdout!r}")
-    log(f"[cli] generate printed {len(lines)} JSON lines, e.g. "
+    log(f"[cli] generate ({preset}) printed {len(lines)} JSON lines, e.g. "
         f"{json.dumps(lines[0])}")
-    detail["cli"] = {"lines": lines, "stderr": out.stderr[-2000:]}
+    detail[f"cli_{preset}"] = {"lines": lines, "stderr": out.stderr[-2000:]}
 
 
-def phase_cli_serve(detail: dict) -> None:
-    """``python -m quant_tpu_torch serve`` on a test-tiny checkpoint with a
-    paged pool (no prefix cache: admission scatters the prefill cache into
-    pages): poll /healthz, two /generate requests, then stop it."""
+def phase_cli_serve(detail: dict, preset: str) -> None:
+    """``python -m quant_tpu_torch serve`` on a checkpoint of ``preset``
+    with a paged pool (no prefix cache: admission scatters the prefill cache
+    into pages): poll /healthz, two /generate requests, then stop it."""
     from quant_tpu_torch.checkpoint import save_checkpoint
     from quant_tpu_torch.models import PRESETS, llama
 
-    cfg = dataclasses.replace(PRESETS["test-tiny"], kernel_mode="auto")
+    cfg = dataclasses.replace(PRESETS[preset], kernel_mode="auto")
     params = llama.init_params(cfg, seed=0, device="cuda")
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -1000,10 +1651,11 @@ def phase_cli_serve(detail: dict) -> None:
     if any(len(o) != 8 for o in outs) or health.get("total_pages") != 2 * 4:
         raise AssertionError(f"unexpected cli serve answers {outs}, "
                              f"healthz {health}")
-    log(f"[cli] serve --paged --page-size 16 answered /healthz (up in "
+    log(f"[cli] serve --paged --page-size 16 ({preset}) answered /healthz "
+        f"(up in "
         f"{time.perf_counter() - t0:.1f}s) and two /generate requests: "
         f"{outs}")
-    detail["cli_serve"] = {"outputs": outs, "healthz": health,
+    detail[f"cli_serve_{preset}"] = {"outputs": outs, "healthz": health,
                            "log": server_log}
 
 
@@ -1029,16 +1681,25 @@ def main(argv=None) -> int:
         print(f"chip_smoke: the quant_tpu_torch package is missing ({e}); "
               "run from the root of the repository", file=sys.stderr)
         return 2
-    from quant_tpu_torch.models import PRESETS, llama
-
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     detail: dict = {}
+    try:
+        return run_all(args, detail)
+    finally:
+        write_detail(args.detail, detail)
+
+
+def run_all(args, detail: dict) -> int:
+    from quant_tpu_torch.models import PRESETS, llama
+
     t_start = time.perf_counter()
     dev = phase_device()
     detail["device"] = dev
     phase_build(detail)
     summary = phase_kernels(detail)
+    summary["dequant_matmul_moe"] = moe_kernels(
+        torch.Generator(device="cuda").manual_seed(0), detail)
 
     cfg = PRESETS["llama-3-8b"]
     t0 = time.perf_counter()
@@ -1052,14 +1713,37 @@ def main(argv=None) -> int:
     phase_model(detail, params, cfg)
     del params
     torch.cuda.empty_cache()
-    phase_cli(detail)
-    phase_cli_serve(detail)
+
+    cfg = PRESETS["mixtral-8x7b"]
+    t0 = time.perf_counter()
+    params = llama.init_params(cfg, seed=0, device="cuda")
+    unit_gain_router(params, cfg)
+    torch.cuda.synchronize()
+    log(f"[moe-serving] mixtral-8x7b params made on the card in "
+        f"{time.perf_counter() - t0:.1f}s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    moe = phase_moe_serving(detail, params, cfg)
+    phase_moe_single(detail, params, cfg)
+    moe_model_check(detail, "moe-model", params, cfg, 4, 128, 4,
+                    {"kernels": {}, "plain": {"kernel_mode": "xla"},
+                     "routed-on": {"moe_routed": "on"},
+                     "routed-off": {"moe_routed": "off"}},
+                    [("kernels", "plain"), ("routed-on", "routed-off"),
+                     ("routed-off", "plain")])
+    del params
+    torch.cuda.empty_cache()
+    phase_qwen3(detail, PRESETS["qwen3-30b-a3b"])
+    torch.cuda.empty_cache()
+    for preset in ("test-tiny", "test-tiny-moe"):
+        phase_cli(detail, preset)
+        phase_cli_serve(detail, preset)
 
     kernels = []
     for name in REPLACES:
         s = summary[name]
         # each kernel's launches from the serving run of its own path
-        run = paged if name.startswith("paged") else serving
+        run = (paged if name.startswith("paged")
+               else moe if name == "dequant_matmul_moe" else serving)
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
@@ -1069,7 +1753,6 @@ def main(argv=None) -> int:
             "bound_by": s["bound_by"], "library_ms": s["library_ms"],
             "unit": s["unit"]})
     detail["total_s"] = time.perf_counter() - t_start
-    write_detail(args.detail, detail)
     log(f"[done] {detail['total_s']:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(dev["smi"])

@@ -6,7 +6,8 @@ read each other's checkpoints::
     <dir>/manifest.json   format version, ModelConfig, tensor index
     <dir>/data.bin        concatenated blobs addressed by (offset, size)
 
-Tensors are stored per layer (``layers.{i}.wqkv`` ...). Quantized codes
+Tensors are stored per layer (``layers.{i}.wqkv`` ...), a MoE model's
+experts per layer and expert (``layers.{i}.we_gate_up.{e}``). Quantized codes
 (QTensor and QEmbed) are entropy-coded (canonical Huffman QREF frames,
 :mod:`quant_tpu_torch.core.entropy`); scales and float arrays are raw bytes.
 Checkpoints packed for tensor parallelism (tp>1, blobs split per rank) and

@@ -114,6 +114,62 @@ def decoded_size(comp: bytes) -> int:
     return n
 
 
+_TABLE_BITS = 24   # longest code the table decoder takes (2^24 entries)
+_CHUNK_BITS = 1 << 20   # bit positions decoded per pass (bounds the memory)
+
+
+def _decode_table(lengths: np.ndarray, payload: np.ndarray, n: int) -> bytes:
+    """Table-driven canonical-Huffman decode, vectorized, in chunks of
+    ``_CHUNK_BITS`` bit positions: the symbol and code length starting at
+    every position of a chunk come from one lookup of the next ``max_len``
+    bits; the chain of symbol starts p, p + len(p), ... inside the chunk is
+    found by pointer doubling (log2 of the chunk's gathers) instead of a
+    Python loop over bits, and the position after the chunk's last symbol
+    starts the next chunk. Memory is the table (2^max_len entries) plus
+    about 30 bytes per position of one chunk, whatever the blob's size."""
+    max_len = int(lengths.max())
+    codes = _canonical_codes(lengths)
+    size = 1 << max_len
+    t_sym = np.zeros(size, np.uint8)
+    t_len = np.zeros(size, np.uint8)       # 0: no code (an invalid stream)
+    for s in np.nonzero(lengths)[0]:
+        sh = max_len - int(lengths[s])
+        lo = int(codes[s]) << sh
+        t_sym[lo:lo + (1 << sh)] = s
+        t_len[lo:lo + (1 << sh)] = lengths[s]
+    out = np.empty(n, np.uint8)
+    total = payload.size * 8
+    p = done = 0                           # absolute bit position, symbols
+    while done < n:
+        if p >= total:
+            raise ValueError("truncated bitstream")
+        b0 = p >> 3
+        bits = np.unpackbits(payload[b0:b0 + (_CHUNK_BITS + max_len) // 8 + 2])
+        bits = np.concatenate([bits[p - 8 * b0:], np.zeros(max_len, np.uint8)])
+        nb = min(_CHUNK_BITS, bits.size - max_len)
+        window = np.zeros(nb, np.int32)
+        for j in range(max_len):
+            window = (window << 1) | bits[j:j + nb]
+        step = t_len[window]
+        # nb is the sentinel: the chain left the chunk or met no code
+        nxt = np.where(step > 0, np.minimum(
+            np.arange(nb, dtype=np.int32) + step, nb), nb).astype(np.int32)
+        nxt = np.append(nxt, np.int32(nb))
+        pos = np.zeros(1, np.int32)
+        while pos.size < n - done and pos[-1] < nb:
+            pos = np.concatenate([pos, nxt[pos]])
+            nxt = nxt[nxt]
+        pos = pos[pos < nb][:n - done]
+        if not step[pos].all():
+            raise ValueError("invalid code in bitstream")
+        out[done:done + pos.size] = t_sym[window[pos]]
+        done += pos.size
+        p += int(pos[-1]) + int(step[pos[-1]])
+    if p > total:
+        raise ValueError("truncated bitstream")
+    return out.tobytes()
+
+
 def decode(comp: bytes) -> bytes:
     """Entropy-decode a QREF frame (Python fallback; C++ path is faster)."""
     magic, version, flags, n = _HEADER.unpack_from(comp, 0)
@@ -127,6 +183,9 @@ def decode(comp: bytes) -> bytes:
     if n == 0:
         return b""
     max_len = int(lengths.max())
+    if max_len <= _TABLE_BITS:
+        return _decode_table(
+            lengths, np.frombuffer(comp, dtype=np.uint8, offset=off), n)
     sorted_syms: list[int] = []
     first_code = np.zeros(max_len + 2, dtype=np.uint64)
     first_idx = np.zeros(max_len + 2, dtype=np.int64)

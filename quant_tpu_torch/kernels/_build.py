@@ -38,8 +38,8 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
 # kernel name -> launches since the last reset_launches()
-launches: dict[str, int] = {"dequant_matmul": 0, "cache_insert_int8": 0,
-                            "flash_decode_int8": 0,
+launches: dict[str, int] = {"dequant_matmul": 0, "dequant_matmul_moe": 0,
+                            "cache_insert_int8": 0, "flash_decode_int8": 0,
                             "paged_cache_insert_int8": 0,
                             "paged_flash_decode_int8": 0}
 

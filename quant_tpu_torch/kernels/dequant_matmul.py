@@ -1,13 +1,16 @@
 """Fused dequantize + matmul: ``y = x @ dequantize(W)`` for a QTensor ``W``.
 
 The port of the JAX package's ``kernels/dequant_matmul.py``
-(``dequant_matmul``). The codes stay packed in device memory (int4: half a
-byte per weight) and are unpacked and scaled inside the CUDA kernel
-``csrc/dequant_matmul.cu``, whose header note gives its design.
+(``dequant_matmul`` and ``dequant_matmul_moe``). The codes stay packed in
+device memory (int4: half a byte per weight) and are unpacked and scaled
+inside the CUDA kernels of ``csrc/dequant_matmul.cu``, whose header note
+gives their design.
 
-:func:`dequant_matmul` launches that kernel for tensors on the card and
-takes the plain version :func:`dequant_matmul_reference` only for tensors on
-the CPU: on a CUDA tensor it launches or raises, it never falls back.
+:func:`dequant_matmul` and :func:`dequant_matmul_moe` launch those kernels
+for tensors on the card and take their plain versions
+(:func:`dequant_matmul_reference`, :func:`dequant_matmul_moe_reference`)
+only for tensors on the CPU: on a CUDA tensor they launch or raise, they
+never fall back.
 """
 
 from __future__ import annotations
@@ -19,7 +22,8 @@ import torch
 from quant_tpu_torch.core.qtensor import QTensor
 from quant_tpu_torch.kernels import _build
 
-__all__ = ["dequant_matmul", "dequant_matmul_reference"]
+__all__ = ["dequant_matmul", "dequant_matmul_reference", "dequant_matmul_moe",
+           "dequant_matmul_moe_reference"]
 
 _BN = 256          # columns per block (csrc/dequant_matmul.cu BN)
 _BKP = 64          # packed rows per staged tile (BKP)
@@ -40,12 +44,14 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _split_plan(m: int, k: int, n: int, bits: int) -> tuple[int, int]:
+def _split_plan(m: int, k: int, n: int, bits: int,
+                slots: int = 1) -> tuple[int, int]:
     """(splits, packed rows per split) of the kernel's split-K: enough
-    blocks to cover the card twice at decode M, once at prefill M."""
+    blocks to cover the card twice at decode M, once at prefill M. The
+    expert slots of the MoE kernel count as more tiles."""
     kp = k // 2 if bits == 4 else k
     m_tiles = 1 if m <= 8 else _cdiv(m, 64)
-    tiles = _cdiv(n, _BN) * m_tiles
+    tiles = _cdiv(n, _BN) * m_tiles * slots
     target = 2 * _SMS if m <= 8 else _SMS
     splits = max(1, min(_cdiv(target, tiles), _cdiv(kp, _BKP)))
     per = _cdiv(_cdiv(kp, splits), _BKP) * _BKP
@@ -56,11 +62,15 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # x, x_bf16, codes, scales, out, out_f32, partial, M, K, N, G, bits, splits,
 # kp_per_split, stream
 _ARGTYPES = [_P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P]
+# x, x_bf16, codes, scales, out, out_f32, partial, atomic, M, K, N, G, bits,
+# splits, slots, sum, layer, stride, experts, hot, stream
+_MOE_ARGTYPES = [_P, _I, _P, _P, _P, _I, _P] + [_I] * 12 + [_P, _P]
 
 
-def _launch(x: torch.Tensor, qt: QTensor, out_dtype) -> torch.Tensor:
-    m, k = x.shape
-    n = qt.n
+def _check_operands(x: torch.Tensor, qt: QTensor, out_dtype, lead: tuple):
+    """Raise on what the kernels do not take; ``lead`` is the codes' and
+    scales' leading (stack) shape."""
+    k, n = qt.shape
     if qt.lut is not None:
         raise NotImplementedError("codebook (lut) QTensors are not ported")
     if qt.bits == 4 and qt.kshards != 1:
@@ -70,12 +80,12 @@ def _launch(x: torch.Tensor, qt: QTensor, out_dtype) -> torch.Tensor:
         raise ValueError(f"bits must be 4 or 8, got {qt.bits}")
     kp = k // 2 if qt.bits == 4 else k
     want = torch.uint8 if qt.bits == 4 else torch.int8
-    if qt.codes.dtype != want or tuple(qt.codes.shape) != (kp, n):
-        raise ValueError(f"codes must be {want} [{kp}, {n}], got "
+    if qt.codes.dtype != want or tuple(qt.codes.shape) != lead + (kp, n):
+        raise ValueError(f"codes must be {want} {list(lead + (kp, n))}, got "
                          f"{qt.codes.dtype} {tuple(qt.codes.shape)}")
-    if (qt.scales.dtype != torch.float32
-            or tuple(qt.scales.shape) != (k // qt.group_size, n)):
-        raise ValueError("scales must be float32 [K/G, N]")
+    if (qt.scales.dtype != torch.float32 or tuple(qt.scales.shape)
+            != lead + (k // qt.group_size, n)):
+        raise ValueError("scales must be float32 [.., K/G, N]")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"x must be float32 or bfloat16, got {x.dtype}")
     if out_dtype not in (torch.float32, torch.bfloat16):
@@ -89,6 +99,12 @@ def _launch(x: torch.Tensor, qt: QTensor, out_dtype) -> torch.Tensor:
     if n % 4 or qt.codes.data_ptr() % 4 or qt.scales.data_ptr() % 16:
         raise ValueError("N must be a multiple of 4 and codes / scales "
                          "4 / 16-byte aligned")
+
+
+def _launch(x: torch.Tensor, qt: QTensor, out_dtype) -> torch.Tensor:
+    m, k = x.shape
+    n = qt.n
+    _check_operands(x, qt, out_dtype, ())
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0:
         return out
@@ -132,3 +148,138 @@ def dequant_matmul(x: torch.Tensor, qt: QTensor, layer: int | None = None,
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
     return _launch(x.view(-1, k), qt, out_dtype).view(*lead, n)
+
+
+# ── mixture of experts ──────────────────────────────────────────────────
+
+
+def _moe_checks(x: torch.Tensor, qt: QTensor, layer: int, n_experts: int,
+                stride: int, mode: str, hot) -> int:
+    """Validate a MoE call; returns the experts the stack holds."""
+    if mode == "grouped":
+        raise NotImplementedError(
+            "mode='grouped' (the capacity dispatch's grouped GEMM) is not "
+            "ported")
+    if mode not in ("concat", "sum", "psum"):
+        raise ValueError(f"mode must be concat|sum|psum, got {mode!r}")
+    if not qt.stacked:
+        raise ValueError("dequant_matmul_moe needs the merged [E*L, ...] "
+                         "expert stack")
+    entries = qt.codes.shape[0]
+    if stride < 1 or entries % stride or not 0 <= layer < stride:
+        raise ValueError(f"layer {layer} / stride {stride} do not address a "
+                         f"stack of {entries}")
+    experts = entries // stride
+    if hot is None and not 1 <= n_experts <= experts:
+        raise ValueError(f"n_experts {n_experts} outside the stack's "
+                         f"{experts} experts")
+    if hot is not None and (hot.dtype != torch.int32
+                            or tuple(hot.shape) != (1 + n_experts,)
+                            or hot.device != x.device):
+        raise ValueError(f"hot must be int32 [{1 + n_experts}] on "
+                         f"{x.device}")
+    k = qt.shape[0]
+    if x.shape[-1] != k:
+        raise ValueError(f"x last dim {x.shape[-1]} != K {k}")
+    if mode != "concat" and (x.dim() < 2 or x.shape[0] != n_experts):
+        raise ValueError(f"{mode} mode takes x [n_experts={n_experts}, .., "
+                         f"K], got {tuple(x.shape)}")
+    return experts
+
+
+def dequant_matmul_moe_reference(x: torch.Tensor, qt: QTensor, layer: int,
+                                 *, n_experts: int, stride: int,
+                                 mode: str = "concat", out_dtype=None,
+                                 hot: torch.Tensor | None = None
+                                 ) -> torch.Tensor:
+    """Plain version of :func:`dequant_matmul_moe`: a loop over the expert
+    slots through :func:`dequant_matmul_reference`. Slots at or past
+    ``n_hot`` give exact zeros (concat) or nothing (sum)."""
+    out_dtype = out_dtype or x.dtype
+    _moe_checks(x, qt, layer, n_experts, stride, mode, hot)
+    k, n = qt.shape
+    if hot is None:
+        n_hot, ids = n_experts, list(range(n_experts))
+    else:
+        h = hot.tolist()
+        n_hot, ids = min(max(h[0], 0), n_experts), h[1:]
+
+    def weight(j):
+        return qt.layer(ids[j] * stride + layer)
+
+    if mode == "concat":
+        x2 = x.reshape(-1, k)
+        ys = [dequant_matmul_reference(x2, weight(j), out_dtype)
+              if j < n_hot else
+              torch.zeros((x2.shape[0], n), dtype=out_dtype, device=x.device)
+              for j in range(n_experts)]
+        return torch.cat(ys, dim=-1).reshape(*x.shape[:-1], n_experts * n)
+    lead = x.shape[1:-1]
+    acc = torch.zeros((x[0].numel() // k, n), dtype=torch.float32,
+                      device=x.device)
+    for j in range(n_hot):
+        acc += dequant_matmul_reference(x[j].reshape(-1, k), weight(j),
+                                        torch.float32)
+    return acc.to(out_dtype).reshape(*lead, n)
+
+
+def dequant_matmul_moe(x: torch.Tensor, qt: QTensor, layer: int, *,
+                       n_experts: int, stride: int, mode: str = "concat",
+                       out_dtype=None, hot: torch.Tensor | None = None
+                       ) -> torch.Tensor:
+    """Every expert slot's matmul in ONE kernel launch, over the merged
+    expert-major stack ``qt`` [E*L, ...] (expert e of layer ``layer`` is
+    entry ``e * stride + layer``).
+
+    * ``mode="concat"``: x [.., K] -> [.., n_experts * N], every slot's
+      columns side by side.
+    * ``mode="sum"`` / ``"psum"``: x [n_experts, .., K] -> [.., N], the sum
+      over slots of x[j] @ W_j (fold the routing weights into x first). The
+      two names are one function here: the slots meet in the kernel's f32
+      accumulation buffer.
+    * ``hot``: int32 [1 + n_experts] on the device, ``[n_hot, ids...]``:
+      slot j uses expert ``hot[1 + j]``; slots at or past ``n_hot`` stream
+      no weights and give exact zeros (concat) or add nothing (sum). The
+      kernel reads the list on the device, so the call needs no host sync.
+    * ``mode="grouped"`` (the capacity dispatch) raises
+      ``NotImplementedError``.
+    """
+    out_dtype = out_dtype or x.dtype
+    if x.device.type == "cpu":
+        return dequant_matmul_moe_reference(
+            x, qt, layer, n_experts=n_experts, stride=stride, mode=mode,
+            out_dtype=out_dtype, hot=hot)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    experts = _moe_checks(x, qt, layer, n_experts, stride, mode, hot)
+    _check_operands(x, qt, out_dtype, (qt.codes.shape[0],))
+    k, n = qt.shape
+    total = 1 if mode == "concat" else n_experts
+    m = x.numel() // (k * total)
+    sum_mode = mode != "concat"
+    width = n if sum_mode else n_experts * n
+    lead = x.shape[1:-1] if sum_mode else x.shape[:-1]
+    out = torch.empty((m, width), dtype=out_dtype, device=x.device)
+    if m == 0:
+        return out.view(*lead, width)
+    splits, _ = _split_plan(m, k, n, qt.bits, n_experts)
+    # with a hot list the kernel shares the grid out among the hot slots
+    # only, so the cold slots' zeros come from the cleared buffer
+    atomic = splits > 1 or (sum_mode and n_experts > 1) or hot is not None
+    partial = None
+    if atomic and out_dtype != torch.float32:
+        partial = torch.empty((m, width), dtype=torch.float32,
+                              device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    fn = _build.entry("dequant_matmul", "dequant_matmul_moe_launch",
+                      _MOE_ARGTYPES)
+    rc = fn(x.data_ptr(), int(x.dtype == torch.bfloat16),
+            qt.codes.data_ptr(), qt.scales.data_ptr(), out.data_ptr(),
+            int(out_dtype == torch.float32),
+            None if partial is None else partial.data_ptr(), int(atomic),
+            m, k, n, qt.group_size, qt.bits, splits, n_experts,
+            int(sum_mode), layer, stride, experts,
+            None if hot is None else hot.data_ptr(), stream)
+    _build.check(rc, "dequant_matmul_moe", "dequant_matmul")
+    _build.count_launch("dequant_matmul_moe")
+    return out.view(*lead, width)

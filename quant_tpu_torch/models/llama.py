@@ -1,10 +1,13 @@
-"""Dense Llama in PyTorch: INT4/INT8 weights, INT8 KV cache.
+"""Llama-family models in PyTorch: INT4/INT8 weights, INT8 KV cache.
 
 The port of the JAX package's ``models/llama.py`` for the dense family
-(Llama-3 and its test configs): RMSNorm, rotate-half RoPE with ``none`` or
-``llama3`` scaling, GQA attention over an int8 cache with one f32 scale per
-(token, head), SwiGLU MLP. Every projection is a :class:`QTensor` consumed by
-:func:`quant_tpu_torch.kernels.dequant_matmul`.
+(Llama-3 and its test configs) and the sparse-MoE family (Mixtral,
+Qwen3-MoE): RMSNorm, optional per-head QK-RMSNorm (Qwen3), rotate-half RoPE
+with ``none`` or ``llama3`` scaling, GQA attention over an int8 cache with
+one f32 scale per (token, head), and a SwiGLU MLP, dense or a top-k routed
+mixture of experts. Every projection is a :class:`QTensor` consumed by
+:func:`quant_tpu_torch.kernels.dequant_matmul`; the experts by
+:func:`quant_tpu_torch.kernels.dequant_matmul.dequant_matmul_moe`.
 
 PyTorch idiom in place of JAX's:
 
@@ -28,7 +31,8 @@ plain scatter and runs the plain blockwise attention (over
 ``paged_gather`` of the slot's pages for a pool). ``kernel_mode="xla"``
 selects the plain versions throughout; ``"auto"``/``"pallas"`` select the
 CUDA kernels (whose wrappers take the plain versions only for tensors on the
-CPU). Everything outside the dense slice raises ``NotImplementedError``.
+CPU). The MoE dispatch is :func:`mlp_block`'s. Everything outside the ported
+slices raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ from quant_tpu_torch.kernels.cache_insert import (cache_insert_int8,
                                                   paged_cache_insert_int8,
                                                   paged_insert_rows)
 from quant_tpu_torch.kernels.dequant_matmul import (dequant_matmul,
+                                                    dequant_matmul_moe,
                                                     dequant_matmul_reference)
 from quant_tpu_torch.kernels.paged_attention import (paged_flash_decode_int8,
                                                      paged_gather)
@@ -52,7 +57,7 @@ from quant_tpu_torch.utils.device import check_on, resolve_device
 
 __all__ = ["LayerParams", "QEmbed", "LlamaParams", "KVCache", "PagedKVCache",
            "init_params", "init_cache", "init_paged_cache", "forward",
-           "check_supported"]
+           "check_supported", "moe_route", "mlp_block"]
 
 
 # ── params ──────────────────────────────────────────────────────────────
@@ -61,16 +66,26 @@ __all__ = ["LayerParams", "QEmbed", "LlamaParams", "KVCache", "PagedKVCache",
 @dataclasses.dataclass
 class LayerParams:
     """All layers, stacked along axis 0 (``QTensor`` leaves ``[L, ...]``).
-    Fused columns: ``wqkv`` packs q|k|v, ``w_gate_up`` packs gate|up."""
+    Fused columns: ``wqkv`` packs q|k|v, ``w_gate_up`` packs gate|up.
+
+    A MoE model (``cfg.n_experts > 0``) has no dense MLP: ``router`` scores
+    the experts and the expert projections are expert-major ``[E, L, ...]``
+    stacks (:func:`_merge_experts` views them as the ``[E*L, ...]`` stack the
+    MoE kernel addresses, entry ``e * L + layer``). The down projection's
+    contraction dim is zero-padded to a 1024 multiple
+    (:func:`_pad_moe_down_k`), as in the JAX package."""
     wqkv: QTensor        # [L] x [D, (Hq + 2*Hkv) * Dh]
     wo: QTensor          # [L] x [Hq*Dh, D]
-    w_gate_up: QTensor   # [L] x [D, 2*I]
-    w_down: QTensor      # [L] x [I, D]
+    w_gate_up: QTensor | None   # [L] x [D, 2*I]; None for MoE
+    w_down: QTensor | None      # [L] x [I, D]; None for MoE
     attn_norm: torch.Tensor   # f32 [L, D]
     mlp_norm: torch.Tensor    # f32 [L, D]
     qkv_bias: torch.Tensor    # f32 [L, (Hq + 2*Hkv) * Dh]; zeros for Llama
     q_norm: torch.Tensor      # f32 [L, Dh]; ones unless cfg.qk_norm
     k_norm: torch.Tensor      # f32 [L, Dh]
+    router: torch.Tensor | None = None    # f32 [L, D, E]
+    we_gate_up: QTensor | None = None     # [E, L] x [D, 2*I]
+    we_down: QTensor | None = None        # [E, L] x [I padded, D]
 
 
 @dataclasses.dataclass
@@ -135,15 +150,20 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for anything outside the dense slice."""
+    """Raise ``NotImplementedError`` for anything outside the ported dense
+    and sparse-MoE slices."""
     unsupported = {
-        "MoE (n_experts)": cfg.n_experts,
+        "shared experts (n_shared_experts)": cfg.n_shared_experts,
+        "dense-prefix layers (first_k_dense)": cfg.first_k_dense,
+        "router selection bias (router_bias)": cfg.router_bias,
+        "moe_prefill='capacity'": cfg.moe_prefill == "capacity",
+        "moe_fused=False (the per-expert loop is only the plain path)":
+            cfg.n_experts and not cfg.moe_fused,
         "MLA (kv_lora_rank)": cfg.is_mla,
         "sliding windows": cfg.sliding_window,
         "attention softcaps": cfg.attn_softcap,
         "final logit softcaps": cfg.final_softcap,
         "post-block norms": cfg.post_norms,
-        "qk_norm": cfg.qk_norm,
         "qkv_bias": cfg.qkv_bias,
         "norm_offset": cfg.norm_offset,
         "embed_scale": cfg.embed_scale,
@@ -164,8 +184,7 @@ def check_supported(cfg: ModelConfig) -> None:
     }
     bad = [name for name, on in unsupported.items() if on]
     if bad:
-        raise NotImplementedError(
-            "not in the port's dense Llama slice yet: " + ", ".join(bad))
+        raise NotImplementedError("not in the port yet: " + ", ".join(bad))
 
 
 def _pad_vocab(n: int) -> int:
@@ -252,36 +271,51 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> LlamaParams:
     def quant(w):
         return quantize_tensor_device(w, cfg.bits, cfg.group_size)
 
-    def stacked(k, n, make):
-        """Fill a preallocated [L, ...] stack one layer at a time."""
-        first = quant(make())
-        codes = torch.empty((n_l,) + tuple(first.codes.shape),
-                            dtype=first.codes.dtype, device=dev)
-        scales = torch.empty((n_l,) + tuple(first.scales.shape),
+    def stacked(k, n, make, lead=(n_l,)):
+        """Fill a preallocated ``lead + [...]`` stack (``[L]``, or
+        ``[E, L]`` for experts) one weight at a time: the stack is never
+        assembled from a list, which would double its peak memory."""
+        kp = k // 2 if cfg.bits == 4 else k
+        codes = torch.empty(lead + (kp, n), device=dev,
+                            dtype=torch.uint8 if cfg.bits == 4 else torch.int8)
+        scales = torch.empty(lead + (k // cfg.group_size, n),
                              dtype=torch.float32, device=dev)
-        codes[0], scales[0] = first.codes, first.scales
-        del first
-        for i in range(1, n_l):
+        for idx in np.ndindex(*lead):
             qt = quant(make())
-            codes[i], scales[i] = qt.codes, qt.scales
+            codes[idx], scales[idx] = qt.codes, qt.scales
             del qt
         return QTensor(codes=codes, scales=scales, bits=cfg.bits,
                        group_size=cfg.group_size, shape=(k, n))
 
+    def gate_up():
+        return torch.cat([dense(d, it), dense(d, it)], dim=1)
+
+    def norm_gains():
+        if not cfg.qk_norm:
+            return torch.ones((n_l, hd), dtype=torch.float32, device=dev)
+        return 1.0 + 0.1 * torch.randn((n_l, hd), generator=gen, device=dev)
+
+    moe = cfg.n_experts > 0
     layers = LayerParams(
         wqkv=stacked(d, qd + 2 * kvd, lambda: torch.cat(
             [dense(d, qd), dense(d, kvd), dense(d, kvd)], dim=1)),
         wo=stacked(qd, d, lambda: dense(qd, d)),
-        w_gate_up=stacked(d, 2 * it, lambda: torch.cat(
-            [dense(d, it), dense(d, it)], dim=1)),
-        w_down=stacked(it, d, lambda: dense(it, d)),
+        w_gate_up=None if moe else stacked(d, 2 * it, gate_up),
+        w_down=None if moe else stacked(it, d, lambda: dense(it, d)),
         attn_norm=torch.ones((n_l, d), dtype=torch.float32, device=dev),
         mlp_norm=torch.ones((n_l, d), dtype=torch.float32, device=dev),
         qkv_bias=torch.zeros((n_l, qd + 2 * kvd), dtype=torch.float32,
                              device=dev),
-        q_norm=torch.ones((n_l, hd), dtype=torch.float32, device=dev),
-        k_norm=torch.ones((n_l, hd), dtype=torch.float32, device=dev),
+        q_norm=norm_gains(),
+        k_norm=norm_gains(),
     )
+    if moe:
+        e = cfg.n_experts
+        layers.router = torch.randn((n_l, d, e), generator=gen,
+                                    device=dev) * 0.5
+        layers.we_gate_up = stacked(d, 2 * it, gate_up, (e, n_l))
+        layers.we_down = stacked(
+            _padded_k(it), d, lambda: _pad_moe_down_k(dense(it, d)), (e, n_l))
     embed = _make_embed(
         torch.randn((cfg.vocab_size, d), generator=gen, device=dev) * 0.02,
         cfg)
@@ -319,6 +353,150 @@ def _act(cfg: ModelConfig):
     if cfg.act_fn != "silu":
         raise NotImplementedError(f"act_fn {cfg.act_fn!r} is not ported")
     return torch.nn.functional.silu
+
+
+def _padded_k(k: int) -> int:
+    """Rows of a MoE down projection after :func:`_pad_moe_down_k`."""
+    return -(-k // 1024) * 1024
+
+
+def _pad_moe_down_k(w):
+    """Zero-pad the MoE down projection's [K, N] contraction dim (the
+    per-expert intermediate I) to a 1024 multiple before quantization, as
+    the JAX package does at tp=1 (Qwen3-30B-A3B: 768 -> 1024; Mixtral's
+    14336 needs none). Zero rows quantize to zero codes and
+    :func:`_pad_x_to_k` zero-pads x to match, so the product is exact.
+    Takes a numpy array or a tensor."""
+    pad = _padded_k(w.shape[0]) - w.shape[0]
+    if not pad:
+        return w
+    if isinstance(w, np.ndarray):
+        return np.pad(w, ((0, pad), (0, 0)))
+    return torch.nn.functional.pad(w, (0, 0, 0, pad))
+
+
+def _pad_x_to_k(a: torch.Tensor, k: int) -> torch.Tensor:
+    """Zero-pad the last dim of ``a`` to ``k``: the x side of a
+    :func:`_pad_moe_down_k`-padded weight."""
+    if a.shape[-1] == k:
+        return a
+    return torch.nn.functional.pad(a, (0, k - a.shape[-1]))
+
+
+def _merge_experts(qt: QTensor) -> QTensor:
+    """[E, L, ...] expert-major stack -> the [E*L, ...] view the MoE kernel
+    addresses (entry e * L + layer); a leading-dims reshape, no copy."""
+    return dataclasses.replace(
+        qt, codes=qt.codes.reshape((-1,) + tuple(qt.codes.shape[2:])),
+        scales=qt.scales.reshape((-1,) + tuple(qt.scales.shape[2:])))
+
+
+def moe_route(x: torch.Tensor, router: torch.Tensor, cfg: ModelConfig,
+              bias: torch.Tensor | None = None) -> torch.Tensor:
+    """Routing weights [.., E] in float32: score every expert, keep the top
+    ``experts_per_token``, zero the rest, renormalize if ``norm_topk``
+    (Mixtral / Qwen3-MoE), times ``routed_scaling``. As the JAX package:
+    ``score_fn`` "softmax" or "sigmoid"; ``bias`` is added to the scores
+    for the selection only; group-limited routing (``n_expert_groups``)
+    keeps the experts of the best ``topk_groups`` groups by group score
+    ("max", or "top2sum" of member scores) and zeroes the others' selection
+    scores."""
+    logits = x.to(torch.float32) @ router.to(torch.float32)
+    if cfg.score_fn == "sigmoid":
+        probs = torch.sigmoid(logits)
+    else:
+        probs = torch.softmax(logits, dim=-1)
+    sel = probs if bias is None else probs + bias
+    if cfg.n_expert_groups:
+        g = cfg.n_expert_groups
+        gsel = sel.reshape(sel.shape[:-1] + (g, cfg.n_experts // g))
+        if cfg.group_score == "top2sum":
+            gscore = gsel.topk(2, dim=-1).values.sum(dim=-1)
+        else:
+            gscore = gsel.amax(dim=-1)
+        gi = gscore.topk(cfg.topk_groups, dim=-1).indices
+        gmask = torch.zeros_like(gscore).scatter_(-1, gi, 1.0)
+        sel = torch.where(gmask[..., None] > 0, gsel,
+                          torch.zeros_like(gsel)).reshape(sel.shape)
+    top_i = sel.topk(cfg.experts_per_token, dim=-1).indices
+    w = probs * torch.zeros_like(probs).scatter_(-1, top_i, 1.0)
+    if cfg.norm_topk:
+        w = w / w.sum(dim=-1, keepdim=True).clamp_min(1e-20)
+    return w * cfg.routed_scaling
+
+
+def _hot_list(w: torch.Tensor):
+    """The routed experts of a step, built on the device: ``hot`` int32
+    [1 + E] = [n_hot, ids of the experts some token routed to (ascending),
+    the last id repeated], and the routing weights [.., E] in hot-slot
+    order, zero past n_hot."""
+    e = w.shape[-1]
+    any_e = (w > 0).reshape(-1, e).any(dim=0)
+    n_hot = any_e.sum(dtype=torch.int32)
+    order = torch.argsort((~any_e).to(torch.int32), stable=True)
+    slots = torch.arange(e, device=w.device)
+    hotc = order[torch.minimum(slots, (n_hot - 1).clamp_min(0))]
+    hot = torch.cat([n_hot.reshape(1), hotc.to(torch.int32)])
+    return hot, w.index_select(-1, hotc) * (slots < n_hot)
+
+
+def mlp_block(x: torch.Tensor, lay: LayerParams, i: int, cfg: ModelConfig,
+              mm, dt: torch.dtype) -> torch.Tensor:
+    """The MLP's residual delta, float32 [B, T, D], for layer ``i``.
+
+    Dense (``n_experts`` 0): fused gate|up, SwiGLU, down. Sparse MoE, with
+    the JAX package's dispatch:
+
+    * kernels (``kernel_mode`` other than "xla"): every expert slot's
+      gate|up in ONE ``dequant_matmul_moe`` launch (``concat``), the
+      activation times the routing weights, and ONE launch that sums the
+      slots' down projections (``psum``). At decode (T=1) with an expected
+      share of hot experts ``1 - (1 - k/E)^(B*T)`` below 7/8
+      (``moe_routed`` "auto"), or "on", or whenever ``B*T*k*2 <= E``, the
+      slots are the routed experts only: the hot list is built on the device
+      and the kernel streams no cold expert. ``moe_routed="off"`` keeps all
+      E slots.
+    * plain (``kernel_mode="xla"``): a loop over the experts some token
+      routed to, through the plain matmul.
+    """
+    if not cfg.n_experts:
+        gu = mm(x, lay.w_gate_up, i)
+        gate, up = gu.chunk(2, dim=-1)
+        a_in = _act(cfg)(gate.to(torch.float32)).to(dt) * up
+        return mm(a_in, lay.w_down, i, out_dtype=torch.float32)
+    w = moe_route(x, lay.router[i], cfg)                  # [B, T, E]
+    wgu = _merge_experts(lay.we_gate_up)
+    wdn = _merge_experts(lay.we_down)
+    e, n_l = cfg.n_experts, lay.attn_norm.shape[0]
+    b, t = x.shape[0], x.shape[1]
+    if cfg.kernel_mode == "xla":
+        out = torch.zeros((b, t, wdn.n), dtype=torch.float32,
+                          device=x.device)
+        routed = (w > 0).reshape(-1, e).any(dim=0).tolist()
+        for j in (j for j in range(e) if routed[j]):
+            gate, up = mm(x, wgu, j * n_l + i).chunk(2, dim=-1)
+            a_e = _act(cfg)(gate.to(torch.float32)).to(dt) * up
+            y = mm(_pad_x_to_k(a_e, wdn.k), wdn, j * n_l + i,
+                   out_dtype=torch.float32)
+            out = out + y * w[..., j:j + 1]
+        return out
+    n_tok = b * t
+    k = cfg.experts_per_token
+    exp_hot = 1.0 - (1.0 - k / e) ** n_tok
+    routed = cfg.moe_routed != "off" and (
+        n_tok * k * 2 <= e
+        or (t == 1 and (cfg.moe_routed == "on" or exp_hot < 0.875)))
+    hot = None
+    if routed:
+        hot, w = _hot_list(w)
+    gu = dequant_matmul_moe(x, wgu, i, n_experts=e, stride=n_l,
+                            mode="concat", hot=hot)      # [B, T, E * 2I]
+    gate, up = gu.reshape(b, t, e, -1).chunk(2, dim=-1)
+    a = _act(cfg)(gate.to(torch.float32)).to(dt) * up
+    a = _pad_x_to_k(a * w.to(dt)[..., None], wdn.k)
+    return dequant_matmul_moe(a.permute(2, 0, 1, 3).contiguous(), wdn, i,
+                              n_experts=e, stride=n_l, mode="psum",
+                              out_dtype=torch.float32, hot=hot)
 
 
 def _q_scale(cfg: ModelConfig, dh: int) -> float:
@@ -560,6 +738,10 @@ def forward(params: LlamaParams, tokens, cache: KVCache | PagedKVCache,
         q = qkv[..., :nq].reshape(b, t, -1, cfg.head_dim)
         k = qkv[..., nq:nq + nkv].reshape(b, t, -1, cfg.head_dim)
         v = qkv[..., nq + nkv:].reshape(b, t, -1, cfg.head_dim)
+        if cfg.qk_norm:
+            # Qwen3: per-head RMSNorm over Dh before RoPE
+            q = rmsnorm(q, lay.q_norm[i], cfg.norm_eps)
+            k = rmsnorm(k, lay.k_norm[i], cfg.norm_eps)
         q = _rope_apply(q, cos, sin)
         k = _rope_apply(k, cos, sin)
         k_q, k_s = quantize_kv(k, cfg.kv_bits)
@@ -592,10 +774,7 @@ def forward(params: LlamaParams, tokens, cache: KVCache | PagedKVCache,
                out_dtype=torch.float32)
         h = h + o.to(dt)
         x = rmsnorm(h, lay.mlp_norm[i], cfg.norm_eps)
-        gu = mm(x, lay.w_gate_up, i)
-        gate, up = gu.chunk(2, dim=-1)
-        a_in = _act(cfg)(gate.to(torch.float32)).to(dt) * up
-        h = h + mm(a_in, lay.w_down, i, out_dtype=torch.float32).to(dt)
+        h = h + mlp_block(x, lay, i, cfg, mm, dt).to(dt)
     h = rmsnorm(h, params.final_norm, cfg.norm_eps)
     logits = mm(h, params.lm_head, out_dtype=torch.float32)
     logits = logits[..., :cfg.vocab_size]

@@ -2,15 +2,19 @@
 
 The input uses the checkpoint naming of the JAX package's
 ``checkpoint/format.py`` ``_flatten_params``: ``"embed"``, ``"final_norm"``,
-``"lm_head"`` and ``"layers.{i}.{field}"``. Leaves are numpy arrays, or
+``"lm_head"``, ``"layers.{i}.{field}"`` and, for a MoE model's experts,
+``"layers.{i}.we_gate_up.{e}"`` / ``"layers.{i}.we_down.{e}"``. Leaves are numpy arrays, or
 objects with numpy ``codes``/``scales`` (and, for a quantized weight,
 ``bits``/``group_size``/``shape``/``kshards``/``lut``): the port's own
 :class:`QTensor`/:class:`QEmbed` from the checkpoint reader, or the JAX
 package's classes mapped through ``np.asarray`` in the tests. Per-layer
-leaves are stacked along a new leading ``L`` axis on ``device``.
+leaves are stacked along a new leading ``L`` axis on ``device``, expert
+leaves into expert-major ``[E, L, ...]`` stacks.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -23,8 +27,12 @@ from quant_tpu_torch.utils.device import resolve_device
 
 __all__ = ["params_from_flat", "to_torch", "flat_from_params"]
 
+# per-layer fields in the JAX package's LayerParams order (its checkpoint
+# writer's order); the expert fields hold one leaf per (layer, expert)
 _LAYER_FIELDS = ("wqkv", "wo", "w_gate_up", "w_down", "attn_norm",
-                 "mlp_norm", "qkv_bias", "q_norm", "k_norm")
+                 "mlp_norm", "qkv_bias", "q_norm", "k_norm", "router",
+                 "we_gate_up", "we_down")
+_EXPERT_FIELDS = ("we_gate_up", "we_down")
 
 
 def to_torch(a, device=None) -> torch.Tensor:
@@ -75,10 +83,20 @@ def params_from_flat(flat: dict, cfg: ModelConfig, device=None) -> LlamaParams:
                        and k.split(".")[2] not in _LAYER_FIELDS))
     if extra:
         raise NotImplementedError(
-            f"parameters outside the dense slice: {extra[:4]}")
+            f"parameters outside the ported slices: {extra[:4]}")
 
     def rows(field):
         return [flat[f"layers.{i}.{field}"] for i in range(n)]
+
+    def expert_stack(field):
+        """[E, L, ...] from the per-(layer, expert) leaves."""
+        qt = _stack_q([flat[f"layers.{i}.{field}.{e}"]
+                       for e in range(cfg.n_experts) for i in range(n)], dev)
+        return dataclasses.replace(
+            qt, codes=qt.codes.reshape((cfg.n_experts, n)
+                                       + tuple(qt.codes.shape[1:])),
+            scales=qt.scales.reshape((cfg.n_experts, n)
+                                     + tuple(qt.scales.shape[1:])))
 
     def dense_stack(field, default):
         if f"layers.0.{field}" not in flat:
@@ -88,17 +106,23 @@ def params_from_flat(flat: dict, cfg: ModelConfig, device=None) -> LlamaParams:
 
     d, hd = cfg.dim, cfg.head_dim
     qkv_n = (cfg.n_heads + 2 * cfg.n_kv_heads) * hd
+    moe = cfg.n_experts > 0
     layers = LayerParams(
         wqkv=_stack_q(rows("wqkv"), dev),
         wo=_stack_q(rows("wo"), dev),
-        w_gate_up=_stack_q(rows("w_gate_up"), dev),
-        w_down=_stack_q(rows("w_down"), dev),
+        w_gate_up=None if moe else _stack_q(rows("w_gate_up"), dev),
+        w_down=None if moe else _stack_q(rows("w_down"), dev),
         attn_norm=dense_stack("attn_norm", torch.ones((n, d))),
         mlp_norm=dense_stack("mlp_norm", torch.ones((n, d))),
         qkv_bias=dense_stack("qkv_bias", torch.zeros((n, qkv_n))),
         q_norm=dense_stack("q_norm", torch.ones((n, hd))),
         k_norm=dense_stack("k_norm", torch.ones((n, hd))),
     )
+    if moe:
+        layers.router = torch.stack(
+            [to_torch(a) for a in rows("router")]).to(dev, torch.float32)
+        layers.we_gate_up = expert_stack("we_gate_up")
+        layers.we_down = expert_stack("we_down")
     emb = flat["embed"]
     if hasattr(emb, "codes"):
         embed = QEmbed(codes=to_torch(emb.codes, dev),
@@ -112,13 +136,23 @@ def params_from_flat(flat: dict, cfg: ModelConfig, device=None) -> LlamaParams:
 
 
 def flat_from_params(params: LlamaParams) -> dict:
-    """The inverse: per-layer slices in checkpoint naming (tensors)."""
+    """The inverse: per-layer (and per-expert) slices in checkpoint naming
+    and order (tensors); absent (None) fields are left out."""
     out = {"embed": params.embed, "final_norm": params.final_norm,
            "lm_head": params.lm_head}
     lay = params.layers
     for i in range(lay.attn_norm.shape[0]):
         for f in _LAYER_FIELDS:
             leaf = getattr(lay, f)
-            out[f"layers.{i}.{f}"] = (leaf.layer(i) if isinstance(leaf, QTensor)
-                                      else leaf[i])
+            if leaf is None:
+                continue
+            if f in _EXPERT_FIELDS:
+                for e in range(leaf.codes.shape[0]):
+                    out[f"layers.{i}.{f}.{e}"] = dataclasses.replace(
+                        leaf, codes=leaf.codes[e, i],
+                        scales=leaf.scales[e, i])
+            else:
+                out[f"layers.{i}.{f}"] = (leaf.layer(i)
+                                          if isinstance(leaf, QTensor)
+                                          else leaf[i])
     return out

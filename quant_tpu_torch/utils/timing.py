@@ -7,15 +7,18 @@ divides the elapsed time by the count: for short kernels that still
 includes the host's enqueue time whenever the host is slower than the
 card. :func:`device_time` sums the durations of the kernels, copies and
 memsets the calls put on the card, from ``torch.profiler``: the card's own
-time, without launch gaps. A time from here is a time on the card; there
-is no CPU fallback.
+time, without launch gaps. :func:`kernel_times` takes both and refuses a
+device time far below the event time. A time from here is a time on the
+card; there is no CPU fallback.
 """
 
 from __future__ import annotations
 
+from collections import Counter
+
 import torch
 
-__all__ = ["cuda_time", "device_time"]
+__all__ = ["cuda_time", "device_time", "kernel_times"]
 
 
 def cuda_time(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -34,25 +37,71 @@ def cuda_time(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_time(fn, iters: int = 20, warmup: int = 1) -> float:
-    """Milliseconds of device work per call of ``fn()``: the summed
-    durations of the device-side events ``torch.profiler`` records over
-    ``iters`` calls. Raises if the profiler saw no device work."""
+_ATTEMPTS = 6      # traces device_time retakes before it gives up
+_MIN_SHARE = 0.01  # least device / event time a whole trace can give
+_WARM_CALLS = 2    # calls a trace makes before its marker
+_MARK_CYCLES = 1_000_000   # the marker: a spin kernel of about 0.5 ms
+
+
+def _trace(fn, calls: int):
+    """Device events of ``calls`` calls of ``fn()``: (name, microseconds).
+    The profiler loses device events near the start of a trace (a one-call
+    trace kept its kernel and lost its memset; a trace of 2048 launches of
+    one kernel held 2047), so each trace first makes ``_WARM_CALLS`` calls,
+    then a spin kernel as a marker, then the calls; only the events that
+    start after the marker ends (one stream, in order) are kept. A trace
+    whose marker went missing gives none."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(_WARM_CALLS):
+            fn()
+        torch.cuda._sleep(_MARK_CYCLES)
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    marks = [e.time_range.end for e in dev if "spin_kernel" in e.name]
+    if not marks:
+        return []
+    return [(e.name, e.time_range.end - e.time_range.start) for e in dev
+            if e.time_range.start >= marks[-1] and "spin_kernel" not in e.name]
+
+
+def device_time(fn, iters: int = 20, warmup: int = 1) -> float:
+    """Milliseconds of device work per call of ``fn()``: the summed
+    durations of the device-side events ``torch.profiler`` records over
+    ``iters`` calls. The profiler can lose events (see :func:`_trace`), so
+    a trace counts only when it holds some, each name a multiple of
+    ``iters`` times, the trace before it holds the same names as often and
+    no earlier trace held another; up to ``_ATTEMPTS`` traces past the
+    first are taken, then this raises."""
     if not torch.cuda.is_available():
         raise RuntimeError("device_time measures the card; no CUDA device")
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == DeviceType.CUDA)
-    if us <= 0:
-        raise RuntimeError("the profiler recorded no device time")
-    return us / 1e3 / iters
+    prev, names = None, set()
+    for _ in range(1 + _ATTEMPTS):
+        events = _trace(fn, iters)
+        seen = Counter(name for name, _ in events)
+        names |= seen.keys()
+        if (seen and seen == prev and seen.keys() == names
+                and all(n % iters == 0 for n in seen.values())):
+            return sum(us for _, us in events) / 1e3 / iters
+        prev = seen
+    raise RuntimeError(f"the profiler's device events of {iters} calls "
+                       f"disagree from trace to trace; the last: {dict(seen)}")
+
+
+def kernel_times(fn, iters: int = 20) -> tuple[float, float]:
+    """(:func:`device_time`, :func:`cuda_time`) of ``fn()``. The event time
+    holds the device time and the host's enqueue, so a device time below
+    ``_MIN_SHARE`` of it means the trace lost the work: this raises."""
+    ms, ev = device_time(fn, iters), cuda_time(fn, iters)
+    if ms < _MIN_SHARE * ev:
+        raise RuntimeError(f"device time {ms:.6f} ms is under {_MIN_SHARE} "
+                           f"of the {ev:.6f} ms between CUDA events")
+    return ms, ev

@@ -122,3 +122,25 @@ def test_entropy_decode_reads_jax_encode(kind):
     comp = j_entropy.encode(data)
     assert t_entropy.decode(comp) == data.tobytes()
     assert t_entropy.encode(data) == comp
+
+
+def test_entropy_decode_memory_is_bounded_by_its_chunk():
+    """A blob of several chunks decodes exactly, codes that cross a chunk's
+    end included, and the decoder's peak memory stays that of one chunk
+    (about 30 bytes per bit position) and not of the whole blob."""
+    import tracemalloc
+    rng = np.random.default_rng(4)
+    data = np.clip(rng.normal(128, 20, 1_000_000), 0, 255).astype(np.uint8)
+    comp = t_entropy.encode(data)
+    assert 8 * len(comp) > 5 * t_entropy._CHUNK_BITS          # 6 chunks
+    max_len = int(np.frombuffer(comp, np.uint8, 256, 14).max())
+    tracemalloc.start()
+    try:
+        got = t_entropy.decode(comp)
+        peak = tracemalloc.get_traced_memory()[1]
+    finally:
+        tracemalloc.stop()
+    assert got == data.tobytes()
+    # the output, one chunk's arrays and the table (measured 23 MiB); the
+    # whole blob's 6.1M positions at once took 95 MiB
+    assert peak < len(data) + 32 * t_entropy._CHUNK_BITS + 2 * 2 ** max_len

@@ -100,6 +100,16 @@ def test_entry_points_default_to_the_card():
                prefix_cache=True)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         load_checkpoint(REPO / "no-such-checkpoint")
+    # the sparse-MoE model: params, forward and engine
+    moe = PRESETS["test-tiny-moe"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        llama.init_params(moe, seed=0)
+    moe_params = llama.init_params(moe, seed=0, device="cpu")
+    moe_cache = llama.init_cache(moe, 1, 16, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        llama.forward(moe_params, [[1, 2]], moe_cache, moe)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Engine(moe_params, moe, max_slots=1, max_seq=16, paged=True)
     # the serve entry point loads its checkpoint onto the card first
     from quant_tpu_torch.cli import main
     with pytest.raises(RuntimeError, match="no CUDA device"):

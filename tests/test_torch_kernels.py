@@ -4,7 +4,7 @@ Each plain PyTorch version is held against the JAX function run as the JAX
 package's own tests run it (``interpret=True``), on the same numpy inputs
 made from a seeded ``np.random.default_rng``. The ``gpu``-marked test holds
 each CUDA kernel against its plain version on the card; a machine with a card
-but without JAX runs it alone, without the JAX-importing conftest:
+but without JAX runs them alone, without the JAX-importing conftest:
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels.py
 """
@@ -32,8 +32,9 @@ from quant_tpu_torch.kernels.cache_insert import (
     cache_insert_int8, cache_insert_int8_reference)
 from quant_tpu_torch.kernels.cache_insert import (
     paged_cache_insert_int8, paged_cache_insert_int8_reference)
-from quant_tpu_torch.kernels.dequant_matmul import (dequant_matmul,
-                                                    dequant_matmul_reference)
+from quant_tpu_torch.kernels.dequant_matmul import (
+    dequant_matmul, dequant_matmul_moe, dequant_matmul_moe_reference,
+    dequant_matmul_reference)
 from quant_tpu_torch.kernels.paged_attention import (
     paged_attention_reference, paged_flash_decode_int8)
 
@@ -272,3 +273,90 @@ def test_paged_cuda_kernels_match_plain_on_card(page):
             err = (got.float() - ref.float()).abs().max()
             assert err <= tol * ref.float().abs().max()
             assert not got[0].float().abs().max()
+
+
+def _rand_stack(gen, dev, entries, k, n, bits, g=128):
+    kp = k // 2 if bits == 4 else k
+    codes = torch.randint(0, 256, (entries, kp, n), generator=gen, device=dev,
+                          dtype=torch.int32)
+    codes = codes.to(torch.uint8) if bits == 4 else (codes - 128).to(
+        torch.int8)
+    scales = torch.rand((entries, k // g, n), generator=gen, device=dev) * 0.1
+    return QTensor(codes=codes, scales=scales, bits=bits, group_size=g,
+                   shape=(k, n))
+
+
+def _nan_block(shape, dtype, dev) -> int:
+    """Leave a NaN-filled block of ``shape`` in the caching allocator; the
+    next allocation of that size reuses it. Returns its address."""
+    blk = torch.full(shape, float("nan"), dtype=dtype, device=dev)
+    ptr = blk.data_ptr()
+    del blk
+    return ptr
+
+
+@pytest.mark.gpu
+def test_moe_cuda_kernel_matches_plain_on_card():
+    """dequant_matmul_moe against its plain version: concat and psum, int4
+    and int8, M at decode and prefill sizes, bf16 and f32 out, with and
+    without a hot list. The output buffer is handed out NaN-filled, and the
+    tail slots' x rows are NaN in psum: the tail must come out exactly zero
+    (concat) or not at all (psum). Then the last expert of the last layer
+    of a stack holding more than 2^32 bytes of codes (64-bit offsets),
+    where the card has the memory."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    _build.build()
+    e, nl, k, n = 4, 3, 512, 768
+    hot = torch.tensor([2, 3, 1, 1, 1], dtype=torch.int32, device=dev)
+    for bits in (4, 8):
+        qt = _rand_stack(gen, dev, e * nl, k, n, bits)
+        for m in (1, 5, 130):
+            for mode in ("concat", "psum"):
+                for h in (None, hot):
+                    shape = (m, k) if mode == "concat" else (e, m, k)
+                    x = torch.randn(shape, generator=gen, device=dev)
+                    if h is not None and mode == "psum":
+                        x[2:] = float("nan")
+                    for odt in (torch.float32, torch.bfloat16):
+                        xb = x.to(torch.bfloat16)
+                        kw = dict(n_experts=e, stride=nl, mode=mode,
+                                  out_dtype=odt, hot=h)
+                        ref = dequant_matmul_moe_reference(
+                            xb, qt, 2, **kw).float()
+                        width = e * n if mode == "concat" else n
+                        ptr = _nan_block((m, width), odt, dev)
+                        got = dequant_matmul_moe(xb, qt, 2, **kw)
+                        torch.cuda.synchronize()
+                        assert got.data_ptr() == ptr and got.dtype == odt
+                        assert torch.isfinite(got).all()
+                        if mode == "concat" and h is not None:
+                            assert not got.view(m, e, n)[:, 2:].any()
+                        err = (got.float() - ref).abs().max()
+                        assert err <= 2e-2 * ref.abs().max(), (
+                            bits, m, mode, h is not None, odt)
+    # 64-bit offsets: 2 layers of 4 experts, 671 MB of int4 codes each
+    k, n = 8192, 163840
+    need = 8 * (k // 2) * n + 8 * (k // 128) * n * 4 + 6 * k * n * 4
+    if torch.cuda.mem_get_info()[0] < need:
+        return
+    qt = QTensor(codes=torch.empty((8, k // 2, n), dtype=torch.uint8,
+                                   device=dev),
+                 scales=torch.rand((8, k // 128, n), generator=gen,
+                                   device=dev) * 0.1,
+                 bits=4, group_size=128, shape=(k, n))
+    assert qt.codes.numel() > 2 ** 32
+    qt.codes[7] = torch.randint(0, 256, (k // 2, n), generator=gen,
+                                device=dev, dtype=torch.int32).to(torch.uint8)
+    last = torch.tensor([1, 3, 3, 3, 3], dtype=torch.int32, device=dev)
+    x = torch.randn((4, 1, k), generator=gen, device=dev).to(torch.bfloat16)
+    ref = dequant_matmul_reference(x[0], qt.layer(7), torch.float32)
+    for mode, xs in (("concat", x[0]), ("psum", x)):
+        got = dequant_matmul_moe(xs, qt, 1, n_experts=4, stride=2, mode=mode,
+                                 out_dtype=torch.float32, hot=last)
+        torch.cuda.synchronize()
+        got = got[:, :n] if mode == "concat" else got
+        assert (got - ref).abs().max() <= 1e-4 * ref.abs().max(), mode

@@ -104,20 +104,22 @@ def test_config_matches_jax():
 
 
 @pytest.mark.parametrize("preset,change,kwargs", [
-    ("test-tiny-moe", {}, {}),
+    ("test-tiny-moe", {"n_shared_experts": 1}, {}),
     ("test-tiny-mla", {}, {}),
     ("test-tiny", {"kv_bits": 4}, {}),
     ("test-tiny", {"kv_bits": 16}, {}),
     ("test-tiny", {"sliding_window": 8}, {}),
     ("test-tiny", {"attn_softcap": 50.0}, {}),
     ("test-tiny", {"act_quant": True}, {}),
-    ("test-tiny", {"qk_norm": True}, {}),
+    ("test-tiny", {"n_experts": 4, "moe_prefill": "capacity"}, {}),
     ("test-tiny", {}, {"seq_axis": "seq"}),
     ("test-tiny", {}, {"axis": "model"}),
 ])
 def test_outside_the_slice_raises(preset, change, kwargs):
-    """A config or argument outside the dense int8-KV slice raises
-    NotImplementedError; nothing falls back silently."""
+    """A config or argument outside the ported slices (dense and sparse-MoE
+    Llama, int8 KV) raises NotImplementedError; nothing falls back
+    silently. MoE and qk_norm are ported: their cases ask for the parts
+    that are not (shared experts, the capacity dispatch)."""
     cfg = dataclasses.replace(TConfig(**dataclasses.asdict(
         JPRESETS[preset])), **change)
     base = TConfig(**dataclasses.asdict(JPRESETS["test-tiny"]))
