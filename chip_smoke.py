@@ -8,7 +8,7 @@ Run from the root of the repository, with one CUDA device:
 Phases; the first failure ends the run with a non-zero exit code:
 
 1. device    name, count, and ``nvidia-smi`` name / power limit.
-2. build     nvcc of the three CUDA sources (one process each, in parallel),
+2. build     nvcc of the four CUDA sources (one process each, in parallel),
              with the register / shared-memory report of ``-Xptxas -v``.
 3. kernels   each kernel against its plain PyTorch version at the
              Llama-3-8B shapes and the output dtypes the forward gives
@@ -19,9 +19,14 @@ Phases; the first failure ends the run with a non-zero exit code:
              holding the contiguous cache's rows under a shuffled page
              table, at pages 128 and 512, beside the contiguous kernel's
              time at the same lengths. ``dequant_matmul_moe`` at the
-             Mixtral-8x7B and Qwen3-30B-A3B expert shapes: all experts at
+             Mixtral-8x7B, Qwen3-30B-A3B, DeepSeek-V2-Lite (groups of 64,
+             down K padded) and DeepSeek-V3 expert shapes: all experts at
              decode and prefill M, and hot lists of n_hot experts, each
-             output handed out NaN-filled.
+             output handed out NaN-filled. The MLA pair over a 27-layer
+             DeepSeek latent cache (B=8, Dq=640, r=512, the attention rows'
+             lengths) at 16 and 128 heads, and ``dequant_matmul`` at the
+             DeepSeek-V2-Lite shapes (int4, groups of 64) and the
+             DeepSeek-V3 shapes (groups of 128).
 4. serving   full-width Llama-3-8B (32 layers, random weights from seed 0,
              made on the card) behind ``Engine(max_slots=8, max_seq=2048)``:
              8 greedy requests of 32-1024 prompt tokens, 64 new tokens each.
@@ -66,9 +71,29 @@ Phases; the first failure ends the run with a non-zero exit code:
              against plain. A MoE model's comparisons hold every token to
              the experts one pass kept (``held_routing``), and its random
              routers are scaled to unit gain (``unit_gain_router``).
-8. cli       ``python -m quant_tpu_torch generate`` on test-tiny and
-             test-tiny-moe checkpoints written by the port, and ``serve
-             --paged`` on each (two /generate requests over HTTP).
+8. deepseek  full-width DeepSeek-V2-Lite (27 layers: MLA, 64 experts top-6,
+             2 shared experts, one dense-prefix layer) over HTTP from
+             ``Engine(max_slots=8, max_seq=2048)``: 8 requests of 64-1024
+             prompt tokens, 64 new tokens each, 4 client threads (half
+             streamed); exact launch counts (27 of each MLA kernel per
+             decode forward, hot lists at decode), a profile of 3 decode
+             forwards, every answer teacher-forced through the plain path
+             with the served experts held. Then DeepSeek-V3 at full width
+             and 4 layers (3 dense-prefix, 1 of 256 experts; low-rank q,
+             sigmoid group-limited routing with a bias, 128 heads) in
+             process: 4 requests of 128 prompt and 8 new tokens, launch
+             counts, kernels against plain logits with the experts held.
+             Both random models get unit-gain routers and unit-gain
+             attention (``unit_gain_attention``: as drawn, their scores
+             amplify rounding differences too much to compare two paths).
+             On each, kernels against plain at a 5-8 token context, with a
+             planted control (the MLA kernel told each length less one)
+             that must fail the same comparison.
+9. cli       ``python -m quant_tpu_torch generate`` on test-tiny,
+             test-tiny-moe, test-tiny-mla and test-tiny-dsv3 checkpoints
+             written by the port; ``serve --paged`` on the first two (two
+             /generate requests over HTTP) and, refused with "not ported",
+             on the two MLA ones.
 
 Before the last line it prints ``{"kernels": [...]}`` and the
 ``nvidia-smi`` line; the last line is ``{"ok": true, "device": {...}}``.
@@ -107,9 +132,29 @@ DMM_SHAPES = [(4096, 6144, 32, BF16), (4096, 4096, 32, F32),
               (4096, 28672, 32, BF16), (14336, 4096, 32, F32),
               (4096, 131072, 1, F32)]
 # MoE experts: (E, (K, N) of one expert's gate|up, (K, N) of its down with K
-# padded as llama.init_params pads it)
-MOE_SHAPES = {"mixtral-8x7b": (8, (4096, 28672), (14336, 4096)),
-              "qwen3-30b-a3b": (128, (2048, 1536), (1024, 2048))}
+# padded as llama.init_params pads it, group size)
+MOE_SHAPES = {"mixtral-8x7b": (8, (4096, 28672), (14336, 4096), 128),
+              "qwen3-30b-a3b": (128, (2048, 1536), (1024, 2048), 128),
+              "deepseek-v2-lite": (64, (2048, 2816), (2048, 2048), 64),
+              "deepseek-v3": (256, (7168, 4096), (2048, 7168), 128)}
+# DeepSeek-V2-Lite projections at group size 64: (K, N, launches per
+# forward, out_dtype the forward gives): wqkv (q | c_kv | k_pe), wo, the
+# shared experts' gate|up and down (26 MoE layers), the dense prefix's
+# gate|up and down (1 layer), lm_head
+DSV2_SHAPES = [(2048, 3648, 27, BF16), (2048, 2048, 27, F32),
+               (2048, 5632, 26, BF16), (2816, 2048, 26, F32),
+               (2048, 21888, 1, BF16), (10944, 2048, 1, F32),
+               (2048, 102400, 1, F32)]
+# DeepSeek-V3 projections at group size 128, launches per forward at the
+# smoke's 4 layers (3 dense-prefix, 1 MoE): wqkv (q_a | c_kv | k_pe), w_q_b,
+# wo, the shared expert's gate|up and down, the dense prefix's gate|up and
+# down, lm_head
+DSV3_SHAPES = [(7168, 2112, 4, BF16), (1536, 24576, 4, BF16),
+               (16384, 7168, 4, F32), (7168, 4096, 1, BF16),
+               (2048, 7168, 1, F32), (7168, 36864, 3, BF16),
+               (18432, 7168, 3, F32), (7168, 129280, 1, F32)]
+# the decode attention rows' context: B=8, S=2048, 8014 tokens
+ATT_LENGTHS = [1, 100, 517, 1024, 1500, 2047, 2048, 777]
 REPLACES = {
     "dequant_matmul": "quant_tpu/kernels/dequant_matmul.py:312",
     "dequant_matmul_moe": "quant_tpu/kernels/dequant_matmul.py:385",
@@ -117,6 +162,8 @@ REPLACES = {
     "flash_decode_int8": "quant_tpu/kernels/attention.py:166",
     "paged_cache_insert_int8": "quant_tpu/kernels/cache_insert.py:307",
     "paged_flash_decode_int8": "quant_tpu/kernels/paged_attention.py:145",
+    "mla_cache_insert_int8": "quant_tpu/kernels/cache_insert.py:469",
+    "mla_flash_decode_int8": "quant_tpu/kernels/mla_attention.py:86",
 }
 SOURCES = {
     "dequant_matmul": "quant_tpu_torch/csrc/dequant_matmul.cu",
@@ -125,6 +172,8 @@ SOURCES = {
     "flash_decode_int8": "quant_tpu_torch/csrc/flash_decode.cu",
     "paged_cache_insert_int8": "quant_tpu_torch/csrc/cache_insert.cu",
     "paged_flash_decode_int8": "quant_tpu_torch/csrc/flash_decode.cu",
+    "mla_cache_insert_int8": "quant_tpu_torch/csrc/cache_insert.cu",
+    "mla_flash_decode_int8": "quant_tpu_torch/csrc/mla_attention.cu",
 }
 
 
@@ -201,13 +250,60 @@ def _rand_qt(gen, dev, k, n, bits, g=128):
                    shape=(k, n))
 
 
+def dmm_row(gen, bits: int, m: int, k: int, n: int, odt, g: int,
+            per: int) -> dict:
+    """dequant_matmul at one shape against its plain version (bf16 x), with
+    its device time (weights rotated L2-cold), event time, plain time and
+    bound. The bf16 outputs take the kernel's bf16 stores (split-K through
+    a float32 buffer at decode M, direct at prefill M) and are held against
+    the plain version rounded to bf16 the same way. ``per``: the shape's
+    launches per decode step of its model."""
+    from quant_tpu_torch.kernels.dequant_matmul import (
+        dequant_matmul, dequant_matmul_reference)
+    from quant_tpu_torch.utils.timing import device_time, kernel_times
+
+    dev = torch.device("cuda")
+    qt = _rand_qt(gen, dev, k, n, bits, g)
+    x = torch.randn((m, k), generator=gen, device=dev).to(BF16)
+    ref = dequant_matmul_reference(x, qt, odt).float()
+    got = dequant_matmul(x, qt, out_dtype=odt)
+    torch.cuda.synchronize()
+    if got.dtype != odt:
+        raise AssertionError(f"dequant_matmul gave {got.dtype}, not {odt}")
+    err = float((got.float() - ref).abs().max())
+    rel = err / float(ref.abs().max())
+    if not rel <= 2e-2:
+        raise AssertionError(f"dequant_matmul int{bits} g{g} M={m} {k}x{n} "
+                             f"{odt}: error {rel:.3g} of max|ref| > 2e-2")
+    wbytes = qt.codes.numel() + qt.scales.numel() * 4
+    qts = [qt] + rotating(lambda: _rand_qt(gen, dev, k, n, bits, g),
+                          wbytes)[1:]
+    nxt = cycle(qts)
+    iters = max(8, len(qts))
+    ms, ev = kernel_times(lambda: dequant_matmul(x, nxt(), out_dtype=odt),
+                          iters)
+    plain = device_time(lambda: dequant_matmul_reference(x, nxt(), odt),
+                        iters)
+    b_ms, b_by = bound_ms(m * k * 2 + wbytes + m * n * got.element_size(),
+                          2 * m * k * n)
+    dt_name = str(odt)[6:]
+    log(f"[kernels] dequant_matmul int{bits} g{g} M={m:<3d} {k}x{n} -> "
+        f"{dt_name}: err {rel:.2e} of max|ref|  {ms:.4f} ms (events "
+        f"{ev:.4f})  plain {plain:.4f} ms  bound {b_ms:.4f} ms ({b_by}), "
+        f"{per} launches per decode step")
+    return {"kernel": "dequant_matmul", "bits": bits, "group_size": g,
+            "M": m, "K": k, "N": n, "out_dtype": dt_name, "max_abs_err": err,
+            "launches_per_step": per,
+            "rel_err": rel, "ms": ms, "event_ms": ev, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by,
+            "pct_of_bound": 100 * b_ms / ms}
+
+
 def phase_kernels(detail: dict) -> dict:
     from quant_tpu_torch.kernels.attention import (
         flash_decode_int8, flash_decode_int8_reference)
     from quant_tpu_torch.kernels.cache_insert import (
         cache_insert_int8, cache_insert_int8_reference)
-    from quant_tpu_torch.kernels.dequant_matmul import (
-        dequant_matmul, dequant_matmul_reference)
     from quant_tpu_torch.utils.timing import device_time, kernel_times
 
     dev = torch.device("cuda")
@@ -219,56 +315,20 @@ def phase_kernels(detail: dict) -> dict:
     # no launch gaps); cuda_time puts CUDA events around back-to-back calls,
     # where the host's enqueue shows whenever it is slower than the kernel.
     # dequant_matmul, int4 at decode and prefill M with the out_dtype the
-    # forward gives each projection; int8 at one shape. The bf16 outputs
-    # take the kernel's bf16 stores (split-K through a float32 buffer at
-    # decode M, direct at prefill M) and are held against the plain
-    # version rounded to bf16 the same way.
+    # forward gives each projection; int8 at one shape.
     cases = [(4, m, k, n, per, odt) for m in (1, 8, 512)
              for k, n, per, odt in DMM_SHAPES]
     cases += [(8, 8, 4096, 4096, 0, F32), (8, 8, 4096, 6144, 0, BF16)]
     step = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
     max_err = 0.0
     for bits, m, k, n, per, odt in cases:
-        qt = _rand_qt(gen, dev, k, n, bits)
-        x = torch.randn((m, k), generator=gen, device=dev).to(BF16)
-        ref = dequant_matmul_reference(x, qt, odt).float()
-        got = dequant_matmul(x, qt, out_dtype=odt)
-        torch.cuda.synchronize()
-        if got.dtype != odt:
-            raise AssertionError(f"dequant_matmul gave {got.dtype}, not {odt}")
-        err = float((got.float() - ref).abs().max())
-        rel = err / float(ref.abs().max())
-        if not rel <= 2e-2:
-            raise AssertionError(f"dequant_matmul int{bits} M={m} {k}x{n} "
-                                 f"{odt}: error {rel:.3g} of max|ref| > 2e-2")
-        max_err = max(max_err, err)
-        wbytes = qt.codes.numel() + qt.scales.numel() * 4
-        qts = [qt] + rotating(lambda: _rand_qt(gen, dev, k, n, bits),
-                              wbytes)[1:]
-        nxt = cycle(qts)
-        iters = max(8, len(qts))
-        def run():
-            return dequant_matmul(x, nxt(), out_dtype=odt)
-        ms, ev = kernel_times(run, iters)
-        plain = device_time(lambda: dequant_matmul_reference(x, nxt(), odt),
-                            iters)
-        b_ms, b_by = bound_ms(m * k * 2 + wbytes + m * n * got.element_size(),
-                              2 * m * k * n)
-        del qts, ref, got
-        dt_name = str(odt)[6:]
-        row = {"kernel": "dequant_matmul", "bits": bits, "M": m, "K": k,
-               "N": n, "out_dtype": dt_name, "max_abs_err": err,
-               "rel_err": rel, "ms": ms, "event_ms": ev, "plain_ms": plain,
-               "bound_ms": b_ms, "bound_by": b_by,
-               "pct_of_bound": 100 * b_ms / ms}
+        row = dmm_row(gen, bits, m, k, n, odt, 128, per)
         rows.append(row)
-        log(f"[kernels] dequant_matmul int{bits} M={m:<3d} {k}x{n} -> "
-            f"{dt_name}: err {rel:.2e} of max|ref|  {ms:.4f} ms (events "
-            f"{ev:.4f})  plain {plain:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
+        max_err = max(max_err, row["max_abs_err"])
         if bits == 4 and m == 8:
-            step["ms"] += per * ms
-            step["plain_ms"] += per * plain
-            step["bound_ms"] += per * b_ms
+            step["ms"] += per * row["ms"]
+            step["plain_ms"] += per * row["plain_ms"]
+            step["bound_ms"] += per * row["bound_ms"]
     summary["dequant_matmul"] = {
         "max_abs_err": max_err, **step, "bound_by": "bytes",
         "library_ms": None,
@@ -279,8 +339,7 @@ def phase_kernels(detail: dict) -> dict:
 
     # decode attention pair at B=8, Hkv=8, rep=4, Dh=128, S=2048, 32 layers
     L, B, H, S, D, rep = 32, 8, 8, 2048, 128, 4
-    lengths = torch.tensor([1, 100, 517, 1024, 1500, 2047, 2048, 777],
-                           dtype=torch.int32, device=dev)
+    lengths = torch.tensor(ATT_LENGTHS, dtype=torch.int32, device=dev)
 
     def codes():
         return torch.randint(-127, 128, (L, B, H, S, D), generator=gen,
@@ -399,10 +458,13 @@ def _hot_lists(e: int, n_hot: int, dev) -> list:
 
 
 def moe_kernels(gen, detail: dict) -> dict:
-    """dequant_matmul_moe against its plain version at the Mixtral-8x7B and
-    Qwen3-30B-A3B expert shapes, with the out dtype the forward gives each
-    projection (bf16 gate|up concat, f32 down psum): all experts at decode
-    and prefill M, and hot lists of n_hot experts. Each output comes out of
+    """dequant_matmul_moe against its plain version at the Mixtral-8x7B,
+    Qwen3-30B-A3B, DeepSeek-V2-Lite (64 experts, down K padded 1408 -> 2048,
+    group size 64) and DeepSeek-V3 (256 experts of 7168 x 2048) expert
+    shapes, with the out dtype the forward gives each projection (bf16
+    gate|up concat, f32 down psum): all experts at decode and prefill M,
+    and hot lists of n_hot experts (V2-Lite at B=8 holds about 35 of 64
+    hot, V3 at B=4 at most 32 of 256). Each output comes out of
     a NaN-filled block of the caching allocator, and in psum the x rows of
     the slots past n_hot are NaN: a hot call must not read them, and its
     concat tail must be exactly zero. Bound: the bytes of the n_hot slots'
@@ -421,17 +483,24 @@ def moe_kernels(gen, detail: dict) -> dict:
               for h in (2, 4, 8) for mode in ("concat", "psum")]
     cases += [("qwen3-30b-a3b", mode, 8, h) for h in (None, 8, 52, 128)
               for mode in ("concat", "psum")]
+    cases += [("deepseek-v2-lite", mode, m, h)
+              for m, h in ((8, None), (512, None), (8, 6), (8, 35), (8, 64))
+              for mode in ("concat", "psum")]
+    cases += [("deepseek-v3", mode, m, h)
+              for m, h in ((4, None), (512, None), (4, 8), (4, 32))
+              for mode in ("concat", "psum")]
     stacks, rows = {}, []
     step = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
     max_err = 0.0
     for model, mode, m, n_hot in cases:
-        e, gu, dn = MOE_SHAPES[model]
+        t_row = time.perf_counter()
+        e, gu, dn, g = MOE_SHAPES[model]
         k, n = gu if mode == "concat" else dn
         if (model, mode) not in stacks:
             if any(key[0] != model for key in stacks):
                 stacks.clear()
                 torch.cuda.empty_cache()
-            stacks[model, mode] = _rand_stack(gen, dev, e, k, n)
+            stacks[model, mode] = _rand_stack(gen, dev, e, k, n, g)
         qt = stacks[model, mode]
         odt = BF16 if mode == "concat" else F32
         nh = e if n_hot is None else n_hot
@@ -464,16 +533,17 @@ def moe_kernels(gen, detail: dict) -> dict:
                                  f"n_hot={nh}: error {rel:.3g} of max|ref| "
                                  "> 2e-2")
         max_err = max(max_err, err)
-        iters = max(8, len(hots))
-        ms, ev = kernel_times(lambda: dequant_matmul_moe(x, qt, 0, hot=nxt(),
-                                                         **kw), iters)
-        plain = device_time(lambda: dequant_matmul_moe_reference(
-            x, qt, 0, hot=nxt(), **kw), iters)
         w_bytes = qt.codes[0].numel() + qt.scales[0].numel() * 4
         x_bytes = m * k * 2 * (1 if mode == "concat" else nh)
         b_ms, b_by = bound_ms(nh * w_bytes + x_bytes
                               + m * width * got.element_size(),
                               2 * m * k * n * nh)
+        # a call of a millisecond or more needs no average over 8 calls
+        iters = max(2 if b_ms >= 1.0 else 8, len(hots))
+        ms, ev = kernel_times(lambda: dequant_matmul_moe(x, qt, 0, hot=nxt(),
+                                                         **kw), iters)
+        plain = device_time(lambda: dequant_matmul_moe_reference(
+            x, qt, 0, hot=nxt(), **kw), iters)
         del ref, got, x
         rows.append({"kernel": "dequant_matmul_moe", "model": model,
                      "mode": mode, "M": m, "K": k, "N": n, "experts": e,
@@ -482,11 +552,13 @@ def moe_kernels(gen, detail: dict) -> dict:
                      "rel_err": rel, "nan_preset_output": nan_preset,
                      "ms": ms, "event_ms": ev, "plain_ms": plain,
                      "bound_ms": b_ms, "bound_by": b_by,
-                     "pct_of_bound": 100 * b_ms / ms, "library_ms": None})
+                     "pct_of_bound": 100 * b_ms / ms, "library_ms": None,
+                     "wall_s": time.perf_counter() - t_row})
         log(f"[kernels] dequant_matmul_moe {model} {mode} M={m:<3d} {k}x{n} "
             f"x{e} n_hot={nh}{' (hot list)' if n_hot else ''}: err "
             f"{rel:.2e} of max|ref|  {ms:.4f} ms (events {ev:.4f})  plain "
-            f"{plain:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
+            f"{plain:.4f} ms  bound {b_ms:.4f} ms ({b_by}); row in "
+            f"{rows[-1]['wall_s']:.1f}s")
         if model == "mixtral-8x7b" and m == 8 and n_hot is None:
             step["ms"] += 32 * ms
             step["plain_ms"] += 32 * plain
@@ -616,6 +688,121 @@ def paged_kernels(gen, summary: dict, cache, new, lengths, layer: int,
     torch.cuda.empty_cache()
     return {"kernel": "paged", "page": page, "insert": ins,
             "attention": att}
+
+
+def mla_kernels(gen, detail: dict) -> dict:
+    """The MLA pair over a DeepSeek latent cache: 27 layers, B=8, S=2048,
+    rows of Dq=640 int8 lanes (576 used) and one scale each, the attention
+    rows' lengths (8014 tokens). ``mla_cache_insert_int8`` byte-equal to
+    its plain version; ``mla_flash_decode_int8`` with r=512 at H=16
+    (DeepSeek-V2-Lite) and H=128 (DeepSeek-V3), f32 q within 1e-4 of
+    max|ref| and bf16 q within 1e-2, each call on the next layer (L2-cold).
+    Bound: q, the context's latent rows and scales once, the output; or
+    2 * H * (Dq + r) operations per token at the bf16 peak. Then
+    dequant_matmul at the V2-Lite shapes, int4 in groups of 64, and at the
+    V3 shapes in groups of 128."""
+    from quant_tpu_torch.kernels.cache_insert import (
+        mla_cache_insert_int8, mla_cache_insert_int8_reference)
+    from quant_tpu_torch.kernels.mla_attention import (
+        mla_flash_decode_int8, mla_flash_decode_int8_reference)
+    from quant_tpu_torch.models import PRESETS
+    from quant_tpu_torch.models.llama import _q_scale
+    from quant_tpu_torch.utils.timing import device_time, kernel_times
+
+    dev = torch.device("cuda")
+    v2 = PRESETS["deepseek-v2-lite"]
+    L, B, S, D, r = v2.n_layers, 8, 2048, v2.mla_cache_dim, v2.kv_lora_rank
+    scale = _q_scale(v2, v2.head_dim)
+    lengths = torch.tensor(ATT_LENGTHS, dtype=torch.int32, device=dev)
+    kc = torch.randint(-127, 128, (L, B, 1, S, D), generator=gen, device=dev,
+                       dtype=torch.int16).to(torch.int8)
+    ks = torch.rand((L, B, 1, S), generator=gen, device=dev) * 0.015 + 0.005
+    new_c = torch.randint(-127, 128, (B, 1, 1, D), generator=gen, device=dev,
+                          dtype=torch.int16).to(torch.int8)
+    new_s = torch.rand((B, 1, 1), generator=gen, device=dev)
+    layer = 5
+    plain = [kc.clone(), ks.clone()]
+    mla_cache_insert_int8(kc, ks, new_c, new_s, lengths, layer)
+    mla_cache_insert_int8_reference(*plain, new_c, new_s, lengths, layer)
+    torch.cuda.synchronize()
+    if not (torch.equal(kc, plain[0]) and torch.equal(ks, plain[1])):
+        raise AssertionError("mla_cache_insert_int8 is not byte-equal to its "
+                             "plain version")
+    del plain
+    nxt_layer = cycle(range(L))
+    ms, ev = kernel_times(lambda: mla_cache_insert_int8(
+        kc, ks, new_c, new_s, lengths, nxt_layer()), L)
+    plain_ms = device_time(lambda: mla_cache_insert_int8_reference(
+        kc, ks, new_c, new_s, lengths, nxt_layer()), L)
+    b_ms, b_by = bound_ms(2 * B * (D + 4) + B * 4, 0)
+    summary = {"mla_cache_insert_int8": {
+        "max_abs_err": 0.0, "ms": ms, "event_ms": ev, "plain_ms": plain_ms,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "unit": f"one call: B=8, Dq={D}, S=2048, {L}-layer latent cache; "
+                "device time"}}
+    log(f"[kernels] mla_cache_insert_int8 B=8 Dq={D} S=2048: byte-equal  "
+        f"{ms:.4f} ms (events {ev:.4f})  plain {plain_ms:.4f} ms  bound "
+        f"{b_ms:.6f} ms ({b_by}), {L} launches per decode step")
+    n_tok = int(lengths.sum())
+    att = {}
+    for h in (16, 128):
+        for qdt, tol in ((F32, 1e-4), (BF16, 1e-2)):
+            q = torch.randn((B, h, D), generator=gen, device=dev).to(qdt)
+            q[..., v2.mla_kv_dim:] = 0          # the padded lanes, as in use
+            ref = mla_flash_decode_int8_reference(q, kc, ks, lengths, layer,
+                                                  r=r, scale=scale)
+            got = mla_flash_decode_int8(q, kc, ks, lengths, layer, r=r,
+                                        scale=scale)
+            torch.cuda.synchronize()
+            if not bool(torch.isfinite(got).all()):
+                raise AssertionError("mla_flash_decode_int8 gave non-finite "
+                                     "values")
+            err = float((got.float() - ref.float()).abs().max())
+            rel = err / float(ref.float().abs().max())
+            if not rel <= tol:
+                raise AssertionError(f"mla_flash_decode_int8 H={h} ({qdt}): "
+                                     f"error {rel:.3g} of max|ref| > {tol}")
+            ms, ev = kernel_times(lambda: mla_flash_decode_int8(
+                q, kc, ks, lengths, nxt_layer(), r=r, scale=scale), L)
+            plain_ms = device_time(lambda: mla_flash_decode_int8_reference(
+                q, kc, ks, lengths, nxt_layer(), r=r, scale=scale), L)
+            qb = q.element_size()
+            nbytes = B * h * D * qb + n_tok * (D + 4) + B * 4 + B * h * r * qb
+            b_ms, b_by = bound_ms(nbytes, 2 * n_tok * h * (D + r))
+            att[f"H={h} {str(qdt)[6:]}"] = {
+                "max_abs_err": err, "rel_err": rel, "ms": ms, "event_ms": ev,
+                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
+            log(f"[kernels] mla_flash_decode_int8 {str(qdt)[6:]} B=8 H={h} "
+                f"Dq={D} r={r} S=2048 ctx={n_tok}: err {rel:.2e} of max|ref|"
+                f"  {ms:.4f} ms (events {ev:.4f})  plain {plain_ms:.4f} ms  "
+                f"bound {b_ms:.4f} ms ({b_by}), {L} launches per decode step")
+    summary["mla_flash_decode_int8"] = {
+        **att["H=16 bfloat16"], "library_ms": None,
+        "unit": f"one call, bf16 q: B=8, H=16, Dq={D}, r={r}, S=2048, "
+                f"lengths {ATT_LENGTHS}; device time, each call on the next "
+                f"layer of the {L}-layer latent cache (L2-cold)"}
+    del kc, ks
+    torch.cuda.empty_cache()
+    mm_rows = []
+    step = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    for m in (1, 8, 512):
+        for k, n, per, odt in DSV2_SHAPES:
+            row = dmm_row(gen, 4, m, k, n, odt, 64, per)
+            mm_rows.append(row)
+            if m == 8:
+                for key in step:
+                    step[key] += per * row[key]
+    log(f"[kernels] dequant_matmul, one DeepSeek-V2-Lite B=8 decode step's "
+        f"dense projections (int4 g64): {step['ms']:.3f} ms, plain "
+        f"{step['plain_ms']:.3f} ms, bound {step['bound_ms']:.3f} ms")
+    # DeepSeek-V3 at the smoke's depth: decode at B=4, a prefill chunk
+    v3_rows = [dmm_row(gen, 4, m, k, n, odt, 128, per) for m in (4, 512)
+               for k, n, per, odt in DSV3_SHAPES]
+    detail["mla_kernels"] = {"insert": summary["mla_cache_insert_int8"],
+                             "attention": att, "dsv2_matmul": mm_rows,
+                             "dsv2_matmul_step_m8": step,
+                             "dsv3_matmul": v3_rows}
+    return summary
 
 
 def phase_serving(detail: dict, params, cfg) -> dict:
@@ -749,7 +936,8 @@ def http_traffic(eng, prompts, n_new: int, clients: int,
                       "chunks": eng.prefill_chunks - chunks0,
                       "decode": eng.decode_forwards - dec0})
         st = eng.stats
-        held[0] = max(held[0], st["total_pages"] - st["free_pages"])
+        held[0] = max(held[0], st.get("total_pages", 0)
+                      - st.get("free_pages", 0))
         return out
     eng.step, eng.add_request = timed_step, add_request
     httpd, srv = serve_async(eng, model_name=model_name)
@@ -942,7 +1130,7 @@ def teacher_forced(params, cfg, prompts, prefix_len: int, outs,
 
     n_new = len(outs[0])
     cur = [None]
-    hold = (held_routing(cfg.n_layers, lambda x: cur[0], kept)
+    hold = (held_routing(moe_layers(cfg), lambda x: cur[0], kept)
             if kept is not None else contextlib.nullcontext(
                 {"swapped": 0, "held": 0, "decisions": 0}))
     with hold as routing:
@@ -1056,6 +1244,7 @@ def profile_decode(eng, steps: int = 3, label: str = "decode",
     ours = {}
     for name, ms in by_name.items():
         for kernel in ("dequant_matmul_moe_kernel", "dequant_matmul_kernel",
+                       "mla_decode", "mla_cache_insert_kernel",
                        "paged_flash_decode", "flash_decode",
                        "cache_insert_kernel"):
             if kernel in name:
@@ -1171,6 +1360,61 @@ def unit_gain_router(params, cfg) -> None:
     router.mul_(1.0 / (float(router.std()) * math.sqrt(cfg.dim)))
 
 
+def unit_gain_attention(params, cfg) -> None:
+    """Scale the random key up-projection ``w_uk`` of ``llama.init_params``
+    (drawn with std 1/sqrt(dn), as the JAX package draws it) so that the
+    no-rope part of the attention scores has std 1 at the model's score
+    scale, in place, by the std it was drawn with (measured here). As drawn,
+    the scores have std sqrt(r) * ``_q_scale``: 2.6 for V2-Lite, 3.1 for
+    V3, a sharp softmax over random keys that, with the rounding of the int8
+    latent, amplifies a rounding-size difference layer after layer, so the
+    kernel and plain paths could not be compared on such weights (see
+    PERF.md, Findings). Over hundreds of tokens the scaled softmax is soft,
+    so a fault of one token's weight moves those comparisons by about
+    1/length: ``mla_fault_check`` compares at a short context, where it
+    cannot hide."""
+    from quant_tpu_torch.models import llama
+
+    s = llama._q_scale(cfg, cfg.head_dim)
+    for lay in (params.layers0, params.layers):
+        if lay is not None:
+            lay.w_uk.mul_(1.0 / (float(lay.w_uk.float().std()) * s * math.sqrt(
+                cfg.qk_nope_head_dim * cfg.kv_lora_rank)))
+
+
+@contextlib.contextmanager
+def planted_mla_fault():
+    """The MLA decode kernel as the model calls it, given each slot's length
+    less one: the newest latent row, the one the step just inserted, is left
+    out, as an off-by-one in the kernel's mask or in its call would leave it
+    out."""
+    from quant_tpu_torch.models import llama
+
+    inner = llama.mla_flash_decode_int8
+
+    def short(q, kc, ks, lengths, layer, **kw):
+        return inner(q, kc, ks, lengths - 1, layer, **kw)
+    llama.mla_flash_decode_int8 = short
+    try:
+        yield
+    finally:
+        llama.mla_flash_decode_int8 = inner
+
+
+def mla_fault_check(detail: dict, tag: str, params, cfg) -> None:
+    """Kernels against plain at a short context (B=4, a 4-token prefill, 4
+    decode steps over 5 to 8 tokens), experts held, within the model limit;
+    and the control: the kernels with ``planted_mla_fault`` must stand more
+    than that limit from plain, or the comparison could not see a fault of
+    one token in the attention."""
+    moe_model_check(detail, tag, params, cfg, 4, 4, 4,
+                    {"kernels": {}, "plain": {"kernel_mode": "xla"},
+                     "planted": {}},
+                    [("kernels", "plain")],
+                    faults={"planted": planted_mla_fault},
+                    controls=[("planted", "plain")])
+
+
 @contextlib.contextmanager
 def held_routing(n_layers: int, rows, kept: dict | None = None):
     """Record the experts ``moe_route`` keeps, or hold a later computation
@@ -1188,8 +1432,11 @@ def held_routing(n_layers: int, rows, kept: dict | None = None):
     keep the recorded experts, with the weights this computation gives them;
     ``state["held"]`` counts those (row, layer) decisions, of
     ``state["decisions"]``, and ``state["swapped"]`` the held ones that
-    would have kept other experts. Softmax routers without groups or bias
-    only."""
+    would have kept other experts. The held weights are the router's scores
+    (softmax or sigmoid) of the held experts, renormalized and scaled as
+    ``moe_route`` does; a selection bias and expert groups only choose
+    experts, so holding the choice covers them. ``n_layers``: the layers
+    that route (a dense prefix does not)."""
     from quant_tpu_torch.models import llama
 
     inner = llama.moe_route
@@ -1216,8 +1463,10 @@ def held_routing(n_layers: int, rows, kept: dict | None = None):
         held = torch.stack([own[i] if r is None else r
                             for i, r in enumerate(recs)])
         state["swapped"] += int((held != own).any(-1).sum())
-        w = (torch.softmax(x.float() @ router.float(), dim=-1)
-             * held.to(x.device).reshape(w.shape))
+        logits = x.float() @ router.float()
+        probs = (torch.sigmoid(logits) if cfg.score_fn == "sigmoid"
+                 else torch.softmax(logits, dim=-1))
+        w = probs * held.to(x.device).reshape(w.shape)
         if cfg.norm_topk:
             w = w / w.sum(dim=-1, keepdim=True).clamp_min(1e-20)
         return w * cfg.routed_scaling
@@ -1233,6 +1482,11 @@ def held_routing(n_layers: int, rows, kept: dict | None = None):
                     state["kept"][k, layer] = own[i]
 
 
+def moe_layers(cfg) -> int:
+    """The layers that route (a DeepSeek dense prefix does not)."""
+    return cfg.n_layers - cfg.first_k_dense
+
+
 def check_launches(what: str, launches: dict, expect: dict) -> None:
     for k, v in expect.items():
         if launches[k] != v:
@@ -1241,18 +1495,22 @@ def check_launches(what: str, launches: dict, expect: dict) -> None:
 
 
 def moe_expected(cfg, chunks: int, decode: int, paged: bool) -> dict:
-    """Exact launches of a MoE model's forwards: wqkv, wo and lm_head
-    through dequant_matmul, gate|up and down through dequant_matmul_moe,
-    and the decode pair of the cache (paged or contiguous) per decode
-    forward and layer."""
-    fwd, ln = chunks + decode, cfg.n_layers
-    pair = (("paged_cache_insert_int8", "paged_flash_decode_int8") if paged
-            else ("cache_insert_int8", "flash_decode_int8"))
-    other = (("cache_insert_int8", "flash_decode_int8") if paged
-             else ("paged_cache_insert_int8", "paged_flash_decode_int8"))
-    return {"dequant_matmul": (2 * ln + 1) * fwd,
-            "dequant_matmul_moe": 2 * ln * fwd,
-            **{k: ln * decode for k in pair}, **{k: 0 for k in other}}
+    """Exact launches of a MoE model's forwards: wqkv, (w_q_b,) wo and
+    lm_head through dequant_matmul, and a DeepSeek model's dense-prefix MLP
+    and shared experts; gate|up and down of the routing layers through
+    dequant_matmul_moe; and the decode pair of the cache (paged, contiguous
+    or MLA latent) per decode forward and layer."""
+    fwd, ln, k0 = chunks + decode, cfg.n_layers, cfg.first_k_dense
+    pairs = {"paged": ("paged_cache_insert_int8", "paged_flash_decode_int8"),
+             "contiguous": ("cache_insert_int8", "flash_decode_int8"),
+             "mla": ("mla_cache_insert_int8", "mla_flash_decode_int8")}
+    kind = "mla" if cfg.is_mla else "paged" if paged else "contiguous"
+    dense = ((2 + bool(cfg.q_lora_rank)) * ln + 2 * k0
+             + 2 * moe_layers(cfg) * bool(cfg.n_shared_experts) + 1)
+    return {"dequant_matmul": dense * fwd,
+            "dequant_matmul_moe": 2 * moe_layers(cfg) * fwd,
+            **{k: ln * decode * (kind == name) for name, pair in pairs.items()
+               for k in pair}}
 
 
 def served_rows(eng, prompts, prefix_len: int):
@@ -1433,11 +1691,15 @@ def phase_moe_single(detail: dict, params, cfg) -> dict:
 
 
 def moe_model_check(detail: dict, tag: str, params, cfg, b: int, t: int,
-                    n_decode: int, variants: dict, pairs) -> None:
+                    n_decode: int, variants: dict, pairs, faults=None,
+                    controls=()) -> None:
     """One prefill of T tokens and ``n_decode`` decode steps at batch B
     under each config variant (name -> field changes), every variant with
-    the experts the first one kept (``fixed_routing``); each pair of
-    variants must agree within 5e-2 of max|logit| (the model limit)."""
+    the experts the first one kept (``held_routing``); each pair of
+    variants must agree within 5e-2 of max|logit| (the model limit).
+    ``faults``: variant name -> a context manager that plants a fault while
+    that variant runs; each pair of ``controls`` must differ by more than
+    the limit."""
     from quant_tpu_torch.models import llama
 
     rng = np.random.default_rng(1)
@@ -1454,7 +1716,8 @@ def moe_model_check(detail: dict, tag: str, params, cfg, b: int, t: int,
         c = dataclasses.replace(cfg, **change)
         cache = llama.init_cache(c, b, t + n_decode, "cuda")
         outs = []
-        with held_routing(cfg.n_layers, rows, kept) as routing:
+        fault = (faults or {}).get(name, contextlib.nullcontext)
+        with held_routing(moe_layers(cfg), rows, kept) as routing, fault():
             at[0] = 0
             for tok in tokens:
                 lg, cache = llama.forward(params, tok, cache, c,
@@ -1468,17 +1731,22 @@ def moe_model_check(detail: dict, tag: str, params, cfg, b: int, t: int,
         del cache, outs
     log(f"[{tag}] routing held to the first variant's experts; (token, "
         f"layer) decisions that would have kept others: {swapped} of "
-        f"{b * (t + n_decode) * cfg.n_layers} per variant")
+        f"{b * (t + n_decode) * moe_layers(cfg)} per variant")
     res = {"swapped_routing_decisions": swapped}
-    for a, r in pairs:
+    for (a, r), control in ([(p, False) for p in pairs]
+                            + [(p, True) for p in controls]):
         x, y = logits[a], logits[r]
         rel = float((x - y).abs().max() / y.abs().max())
         agree = float((x.argmax(-1) == y.argmax(-1)).float().mean())
         res[f"{a} vs {r}"] = {"rel_err": rel, "argmax_agreement": agree}
         log(f"[{tag}] prefill(T={t}) + {n_decode} decode steps, B={b}: {a} "
             f"vs {r} max|dlogit| = {rel:.3e} of max|logit|, argmax "
-            f"agreement {agree:.3f}")
-        if not rel <= 5e-2:
+            f"agreement {agree:.3f}" + (" (control: must exceed 5e-2)"
+                                        if control else ""))
+        if control and not rel > 5e-2:
+            raise AssertionError(f"{tag}: the control {a} vs {r} differs by "
+                                 f"only {rel:.3g}: the check cannot see it")
+        if not control and not rel <= 5e-2:
             raise AssertionError(f"{tag}: {a} vs {r} logits differ by "
                                  f"{rel:.3g}")
     detail[f"{tag}_model"] = res
@@ -1576,6 +1844,155 @@ def phase_qwen3(detail: dict, cfg) -> dict:
     return out
 
 
+def phase_dsv2_serving(detail: dict, params, cfg) -> dict:
+    """Full-width DeepSeek-V2-Lite (27 layers: MLA, 64 experts top-6 with 2
+    shared experts, one dense-prefix layer) over HTTP from the contiguous
+    engine ``Engine(max_slots=8, max_seq=2048)``: 8 greedy requests of
+    64-1024 prompt tokens, 64 new tokens each, from 4 client threads (half
+    streamed). Decode at B=8 routes (about 35 of 64 experts hot), so every
+    decode forward takes the hot-list MoE kernel, and the MLA pair 27 times;
+    prefill takes all experts. Exact launch counts, a profile of 3 decode
+    forwards at the final lengths, and every answer teacher-forced through
+    the plain path with the served experts held."""
+    from quant_tpu_torch.engine import Engine
+
+    n_req, n_new = 8, 64
+    rng = np.random.default_rng(0)
+    lens = rng.integers(64, 1025, n_req)
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, n)]
+               for n in lens]
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(params, cfg, max_slots=8, max_seq=2048, eos_id=-1,
+                 device="cuda")
+    cache_bytes = sum(t.numel() * t.element_size() for t in (
+        eng.cache.k_codes, eng.cache.k_scale))
+    with moe_dispatch() as slots, held_routing(
+            moe_layers(cfg), served_rows(eng, prompts, 0)) as routing:
+        traffic = http_traffic(eng, prompts, n_new, 4, "deepseek-v2-lite")
+    stats, launches, steps = (traffic["stats"], traffic["launches"],
+                              traffic["steps"])
+    chunks, dec = stats["prefill_chunks"], stats["decode_forwards"]
+    expect = moe_expected(cfg, chunks, dec, paged=False)
+    check_launches("dsv2 serving", launches, expect)
+    want = {"hot": 2 * moe_layers(cfg) * dec,
+            "all": 2 * moe_layers(cfg) * chunks}
+    if slots != want:
+        raise AssertionError(f"dsv2 serving: MoE calls {slots}, expected "
+                             f"{want} (hot lists at every decode forward)")
+    pure = [st for st in steps if st["decode"] and not st["chunks"]]
+    decode_ms = 1e3 * sum(st["s"] for st in pure) / max(1, len(pure))
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    ttfts = sorted(1e3 * r.ttft for r in traffic["admitted"])
+    total = traffic["total_s"]
+    log(f"[dsv2-serving] {n_req} HTTP requests (4 clients, half streamed), "
+        f"prompts {lens.tolist()}, {n_new} new tokens each: {chunks} prefill "
+        f"chunks, {dec} decode steps; launches {launches} (expected "
+        f"{expect}); MoE calls {slots}")
+    log(f"[dsv2-serving] decode {decode_ms:.2f} ms/step (B=8, routing "
+        f"recorded), {1e3 * 8 / decode_ms:.1f} decode tok/s, "
+        f"{n_req * n_new / total:.1f} tok/s overall, TTFT p50 "
+        f"{ttfts[len(ttfts) // 2]:.0f} ms max {ttfts[-1]:.0f} ms, "
+        f"max_memory_allocated {peak_gib:.2f} GiB (latent cache "
+        f"{cache_bytes / 2**20:.0f} MiB)")
+    # the decode step alone at the traffic's final lengths
+    eng.cache.lengths.copy_(torch.tensor([n + n_new for n in lens],
+                                         dtype=torch.int32))
+    profile = profile_decode(eng, label="DeepSeek-V2-Lite decode, routed")
+    del eng
+    torch.cuda.empty_cache()
+    outs = [traffic["results"][i]["output_ids"] for i in range(n_req)]
+    tf = teacher_forced(params, dataclasses.replace(cfg, kernel_mode="xla"),
+                        prompts, 0, outs, tag="dsv2-serving",
+                        kept=routing["kept"])
+    mla_fault_check(detail, "dsv2-short", params, cfg)
+    out = {"requests": n_req, "new_tokens": n_new,
+           "prompt_lens": lens.tolist(), "prefill_chunks": chunks,
+           "decode_forwards": dec, "launches": launches,
+           "expected_launches": expect, "moe_calls": slots,
+           "total_s": total, "tokens_per_s": n_req * n_new / total,
+           "decode_ms_per_step": decode_ms,
+           "decode_tokens_per_s": 1e3 * 8 / decode_ms,
+           "ttft_ms_p50": ttfts[len(ttfts) // 2], "ttft_ms_max": ttfts[-1],
+           "max_memory_allocated_gib": peak_gib,
+           "latent_cache_bytes": cache_bytes, "teacher_forced": tf,
+           "profile": profile, "stats": stats,
+           "healthz": traffic["healthz"], "steps": steps}
+    detail["dsv2_serving"] = out
+    return out
+
+
+def phase_dsv3(detail: dict, cfg) -> dict:
+    """DeepSeek-V3 at full width and reduced depth (3 dense-prefix layers
+    and 1 MoE layer of 256 experts; low-rank q, sigmoid group-limited
+    routing with a selection bias, 128 heads), random weights from seed 0
+    on the card, in process behind ``Engine(max_slots=4, max_seq=512)``: 4
+    greedy requests of 128 prompt tokens, 8 new tokens each. Decode at B=4
+    routes (at most 32 of 256 experts hot). Exact launch counts, then one
+    prefill and 2 decode steps with the kernels against the plain versions,
+    experts held."""
+    from quant_tpu_torch.engine import Engine, Request
+    from quant_tpu_torch.kernels import _build
+    from quant_tpu_torch.models import llama
+
+    t0 = time.perf_counter()
+    params = llama.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[dsv3] deepseek-v3 at {cfg.n_layers} layers made on the card in "
+        f"{time.perf_counter() - t0:.1f}s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    unit_gain_router(params, cfg)
+    unit_gain_attention(params, cfg)
+    eng = Engine(params, cfg, max_slots=4, max_seq=512, eos_id=-1,
+                 device="cuda")
+    rng = np.random.default_rng(0)
+    reqs = [Request(req_id=i, prompt=[int(x) for x in rng.integers(
+        0, cfg.vocab_size, 128)], max_new_tokens=8) for i in range(4)]
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with moe_dispatch() as slots:
+        for r in reqs:
+            eng.add_request(r)
+        while eng.has_work():
+            eng.step()
+        torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launches = dict(_build.launches)
+    if not all(r.finished and len(r.output) == 8 for r in reqs):
+        raise AssertionError("dsv3: not every request finished with 8 "
+                             "tokens")
+    chunks, dec = eng.prefill_chunks, eng.decode_forwards
+    expect = moe_expected(cfg, chunks, dec, paged=False)
+    check_launches("dsv3", launches, expect)
+    want = {"hot": 2 * moe_layers(cfg) * dec,
+            "all": 2 * moe_layers(cfg) * chunks}
+    if slots != want:
+        raise AssertionError(f"dsv3: MoE calls {slots}, expected {want}")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[dsv3] 4 requests of 128 tokens -> 8 tokens each in {total:.2f}s: "
+        f"{chunks} prefill chunks, {dec} decode steps; launches {launches} "
+        f"(expected {expect}); MoE calls {slots}; max_memory_allocated "
+        f"{peak_gib:.2f} GiB")
+    del eng
+    torch.cuda.empty_cache()
+    # "rerun" repeats "kernels": the run-to-run spread of the split-K
+    # atomics, the yardstick for kernels against plain
+    moe_model_check(detail, "dsv3", params, cfg, 4, 128, 2,
+                    {"kernels": {}, "plain": {"kernel_mode": "xla"},
+                     "rerun": {}},
+                    [("kernels", "plain"), ("rerun", "kernels")])
+    mla_fault_check(detail, "dsv3-short", params, cfg)
+    out = {"n_layers": cfg.n_layers, "prefill_chunks": chunks,
+           "decode_forwards": dec, "launches": launches,
+           "expected_launches": expect, "moe_calls": slots, "total_s": total,
+           "max_memory_allocated_gib": peak_gib}
+    detail["dsv3"] = out
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_cli(detail: dict, preset: str) -> None:
     from quant_tpu_torch.checkpoint import save_checkpoint
     from quant_tpu_torch.models import PRESETS, llama
@@ -1659,6 +2076,31 @@ def phase_cli_serve(detail: dict, preset: str) -> None:
                            "log": server_log}
 
 
+def phase_cli_paged_mla(detail: dict, preset: str) -> None:
+    """``serve --paged`` on an MLA checkpoint exits with code 2 and the
+    "not ported" message naming paged MLA (the paged latent pool is not
+    in this slice)."""
+    from quant_tpu_torch.checkpoint import save_checkpoint
+    from quant_tpu_torch.models import PRESETS, llama
+
+    cfg = dataclasses.replace(PRESETS[preset], kernel_mode="auto")
+    params = llama.init_params(cfg, seed=0, device="cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        save_checkpoint(tmp, params, cfg)
+        out = subprocess.run(
+            [sys.executable, "-m", "quant_tpu_torch", "serve", tmp,
+             "--paged", "--port", "0", "--max-seq", "64", "--device",
+             "cuda"],
+            capture_output=True, text=True, timeout=300, cwd=ROOT,
+            env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    if out.returncode != 2 or "paged MLA" not in out.stderr:
+        raise AssertionError(f"serve --paged on {preset}: exit "
+                             f"{out.returncode}, stderr {out.stderr[-2000:]}")
+    log(f"[cli] serve --paged ({preset}) refused: "
+        f"{out.stderr.strip().splitlines()[-1]}")
+    detail[f"cli_serve_paged_{preset}"] = out.stderr[-2000:]
+
+
 def write_detail(path, detail: dict) -> None:
     if path is not None:
         path.parent.mkdir(parents=True, exist_ok=True)
@@ -1694,12 +2136,25 @@ def run_all(args, detail: dict) -> int:
     from quant_tpu_torch.models import PRESETS, llama
 
     t_start = time.perf_counter()
+    laps, t_lap = detail.setdefault("phase_s", {}), [t_start]
+
+    def lap(name: str) -> None:
+        """Log and keep the wall time since the last lap."""
+        now = time.perf_counter()
+        laps[name], t_lap[0] = now - t_lap[0], now
+        log(f"[time] {name} {laps[name]:.1f}s")
     dev = phase_device()
     detail["device"] = dev
     phase_build(detail)
+    lap("build")
     summary = phase_kernels(detail)
+    lap("kernels")
     summary["dequant_matmul_moe"] = moe_kernels(
         torch.Generator(device="cuda").manual_seed(0), detail)
+    lap("moe kernels")
+    summary.update(mla_kernels(
+        torch.Generator(device="cuda").manual_seed(0), detail))
+    lap("mla kernels")
 
     cfg = PRESETS["llama-3-8b"]
     t0 = time.perf_counter()
@@ -1713,6 +2168,7 @@ def run_all(args, detail: dict) -> int:
     phase_model(detail, params, cfg)
     del params
     torch.cuda.empty_cache()
+    lap("llama")
 
     cfg = PRESETS["mixtral-8x7b"]
     t0 = time.perf_counter()
@@ -1732,17 +2188,41 @@ def run_all(args, detail: dict) -> int:
                      ("routed-off", "plain")])
     del params
     torch.cuda.empty_cache()
+    lap("mixtral")
     phase_qwen3(detail, PRESETS["qwen3-30b-a3b"])
     torch.cuda.empty_cache()
+    lap("qwen3")
+
+    cfg = PRESETS["deepseek-v2-lite"]
+    t0 = time.perf_counter()
+    params = llama.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[dsv2-serving] deepseek-v2-lite params made on the card in "
+        f"{time.perf_counter() - t0:.1f}s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    unit_gain_router(params, cfg)
+    unit_gain_attention(params, cfg)
+    mla = phase_dsv2_serving(detail, params, cfg)
+    del params
+    torch.cuda.empty_cache()
+    lap("deepseek-v2-lite")
+    phase_dsv3(detail, dataclasses.replace(PRESETS["deepseek-v3"],
+                                           n_layers=4))
+    lap("deepseek-v3")
     for preset in ("test-tiny", "test-tiny-moe"):
         phase_cli(detail, preset)
         phase_cli_serve(detail, preset)
+    for preset in ("test-tiny-mla", "test-tiny-dsv3"):
+        phase_cli(detail, preset)
+        phase_cli_paged_mla(detail, preset)
+    lap("cli")
 
     kernels = []
     for name in REPLACES:
         s = summary[name]
         # each kernel's launches from the serving run of its own path
         run = (paged if name.startswith("paged")
+               else mla if name.startswith("mla")
                else moe if name == "dequant_matmul_moe" else serving)
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],

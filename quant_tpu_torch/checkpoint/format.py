@@ -7,7 +7,11 @@ read each other's checkpoints::
     <dir>/data.bin        concatenated blobs addressed by (offset, size)
 
 Tensors are stored per layer (``layers.{i}.wqkv`` ...), a MoE model's
-experts per layer and expert (``layers.{i}.we_gate_up.{e}``). Quantized codes
+experts per layer and expert (``layers.{i}.we_gate_up.{e}``), a DeepSeek
+model's dense-prefix stack as ``layers0.{i}.*`` after the MoE stack, with
+the MLA fields (``w_q_b``, ``w_uk``, ``w_uv``, ``q_a_norm``, ``kv_a_norm``)
+and the shared experts and selection bias (``ws_gate_up``, ``ws_down``,
+``router_bias``) where the model has them. Quantized codes
 (QTensor and QEmbed) are entropy-coded (canonical Huffman QREF frames,
 :mod:`quant_tpu_torch.core.entropy`); scales and float arrays are raw bytes.
 Checkpoints packed for tensor parallelism (tp>1, blobs split per rank) and

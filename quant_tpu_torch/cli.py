@@ -9,7 +9,9 @@
 ``generate`` prints one JSON line per prompt (``{"prompt": [...],
 "output": [...]}``) and the engine stats on stderr. ``serve`` answers HTTP
 (``engine/server.py``) until interrupted. Both run on the card unless
-``--device cpu``.
+``--device cpu``. A model or option outside the ported slices (``serve
+--paged`` on an MLA checkpoint, say) exits with code 2 and a "not ported"
+message.
 """
 
 from __future__ import annotations
@@ -105,7 +107,12 @@ def main(argv=None) -> int:
     # flags of the JAX CLI whose features are not ported (--mesh, --lora,
     # --kv-bits, ...) are unknown here: argparse exits naming them
     args = p.parse_args(argv)
-    return args.fn(args)
+    try:
+        return args.fn(args)
+    except NotImplementedError as e:
+        # a model or option outside the ported slices (paged MLA, ...)
+        print(f"quant_tpu_torch: not ported: {e}", file=sys.stderr)
+        return 2
 
 
 if __name__ == "__main__":

@@ -2,12 +2,13 @@
 
 The port of the JAX package's ``kernels/cache_insert.py``
 (``cache_insert_int8`` into the contiguous cache, ``paged_cache_insert_int8``
-into the page pool). The JAX kernels alias their outputs to the cache
-buffers; here the cache tensors are written in place and returned.
-The CUDA kernels are in ``csrc/cache_insert.cu``; each wrapper launches its
-kernel for tensors on the card and takes its plain version
-(:func:`cache_insert_int8_reference`,
-:func:`paged_cache_insert_int8_reference`) only for tensors on the CPU.
+into the page pool, ``mla_cache_insert_int8`` into the contiguous MLA latent
+cache). The JAX kernels alias their outputs to the cache buffers; here the
+cache tensors are written in place and returned. The CUDA kernels are in
+``csrc/cache_insert.cu``; each wrapper launches its kernel for tensors on
+the card and takes its plain version (:func:`cache_insert_int8_reference`,
+:func:`paged_cache_insert_int8_reference`,
+:func:`mla_cache_insert_int8_reference`) only for tensors on the CPU.
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ from quant_tpu_torch.kernels import _build
 
 __all__ = ["cache_insert_int8", "cache_insert_int8_reference",
            "paged_cache_insert_int8", "paged_cache_insert_int8_reference",
-           "paged_insert_rows"]
+           "paged_insert_rows", "mla_cache_insert_int8",
+           "mla_cache_insert_int8_reference"]
 
 
 def cache_insert_int8_reference(kc, ks, vc, vs, k_new, k_s, v_new, v_s,
@@ -168,3 +170,60 @@ def paged_cache_insert_int8(kc, ks, vc, vs, k_new, k_s, v_new, v_s, lengths,
     _build.check(rc, "paged_cache_insert_int8", "cache_insert")
     _build.count_launch("paged_cache_insert_int8")
     return kc, ks, vc, vs
+
+
+def mla_cache_insert_int8_reference(kc, ks, k_new, k_s, lengths, layer: int,
+                                    s0: int = 0):
+    """Plain version: write each slot's latent row at row ``lengths[b] - s0``
+    of ``layer``; positions outside ``[0, S)`` are dropped. In place."""
+    if k_new.shape[1] != 1:
+        raise ValueError("mla_cache_insert_int8 is the decode (T=1) path")
+    pos = lengths.to(torch.int64) - s0
+    ok = (pos >= 0) & (pos < kc.shape[3])
+    bi = torch.nonzero(ok).flatten()
+    p = pos[bi]
+    kc[layer, bi, :, p] = k_new[bi, 0]
+    ks[layer, bi, :, p] = k_s[bi, 0]
+    return kc, ks
+
+
+# k_codes, k_scale, k_new, k_new_scale, lengths, layer, s0, B, S, D, stream
+_MLA_ARGTYPES = [_P] * 5 + [_I] * 5 + [_P]
+
+
+def mla_cache_insert_int8(kc, ks, k_new, k_s, lengths, layer: int,
+                          s0: int = 0):
+    """Write each slot's new latent row ``[B, 1, 1, Dq]`` int8 and scale
+    ``[B, 1, 1]`` f32 into the stacked latent cache ``[L, B, 1, S, Dq]`` /
+    ``[L, B, 1, S]`` at row ``lengths[b] - s0`` of ``layer``, in place (the
+    V side of an MLA cache is zero-width: nothing to insert). Returns the
+    two cache tensors."""
+    if kc.device.type == "cpu":
+        return mla_cache_insert_int8_reference(kc, ks, k_new, k_s, lengths,
+                                               layer, s0)
+    if kc.device.type != "cuda":
+        raise ValueError(f"unsupported device {kc.device}")
+    if kc.dim() != 5 or kc.shape[2] != 1:
+        raise ValueError("expected a stacked latent cache [L, B, 1, S, Dq]")
+    l, b, _, s, d = kc.shape
+    if not 0 <= layer < l:
+        raise ValueError(f"layer {layer} outside [0, {l})")
+    checks = ((kc, torch.int8, (l, b, 1, s, d)),
+              (ks, torch.float32, (l, b, 1, s)),
+              (k_new, torch.int8, (b, 1, 1, d)),
+              (k_s, torch.float32, (b, 1, 1)),
+              (lengths, torch.int32, (b,)))
+    for t, dt, shape in checks:
+        if t.dtype != dt or tuple(t.shape) != shape:
+            raise ValueError(f"expected {dt} {shape}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+        if t.device != kc.device or not t.is_contiguous():
+            raise ValueError("all inputs must be contiguous on one device")
+    stream = torch.cuda.current_stream(kc.device).cuda_stream
+    fn = _build.entry("cache_insert", "mla_cache_insert_int8_launch",
+                      _MLA_ARGTYPES)
+    rc = fn(kc.data_ptr(), ks.data_ptr(), k_new.data_ptr(), k_s.data_ptr(),
+            lengths.data_ptr(), layer, s0, b, s, d, stream)
+    _build.check(rc, "mla_cache_insert_int8", "cache_insert")
+    _build.count_launch("mla_cache_insert_int8")
+    return kc, ks

@@ -1,11 +1,15 @@
 """Llama-family models in PyTorch: INT4/INT8 weights, INT8 KV cache.
 
 The port of the JAX package's ``models/llama.py`` for the dense family
-(Llama-3 and its test configs) and the sparse-MoE family (Mixtral,
-Qwen3-MoE): RMSNorm, optional per-head QK-RMSNorm (Qwen3), rotate-half RoPE
-with ``none`` or ``llama3`` scaling, GQA attention over an int8 cache with
-one f32 scale per (token, head), and a SwiGLU MLP, dense or a top-k routed
-mixture of experts. Every projection is a :class:`QTensor` consumed by
+(Llama-3 and its test configs), the sparse-MoE family (Mixtral, Qwen3-MoE)
+and DeepSeek-V2/V3: RMSNorm, optional per-head QK-RMSNorm (Qwen3),
+rotate-half RoPE with ``none``, ``linear``, ``llama3`` or ``yarn`` scaling
+(interleaved pairs de-interleaved first), GQA attention over an int8 cache
+with one f32 scale per (token, head) or DeepSeek's multi-head latent
+attention (MLA) over an int8 latent cache with one scale per token, and a
+SwiGLU MLP, dense or a top-k routed mixture of experts (with DeepSeek's
+shared experts, selection bias, group-limited routing and dense-prefix
+layers). Every projection is a :class:`QTensor` consumed by
 :func:`quant_tpu_torch.kernels.dequant_matmul`; the experts by
 :func:`quant_tpu_torch.kernels.dequant_matmul.dequant_matmul_moe`.
 
@@ -26,7 +30,8 @@ or a page pool shared by all slots (:class:`PagedKVCache`,
 
 Kernel selection mirrors the JAX ``make_layer_step``: decode (T=1) with an
 int8 cache takes ``cache_insert_int8`` then ``flash_decode_int8`` (their
-paged counterparts over a pool); prefill (T>1) writes the cache with the
+paged counterparts over a pool; ``mla_cache_insert_int8`` then
+``mla_flash_decode_int8`` over an MLA latent cache); prefill (T>1) writes the cache with the
 plain scatter and runs the plain blockwise attention (over
 ``paged_gather`` of the slot's pages for a pool). ``kernel_mode="xla"``
 selects the plain versions throughout; ``"auto"``/``"pallas"`` select the
@@ -45,11 +50,13 @@ import torch
 from quant_tpu_torch.core.qtensor import QTensor, quantize_tensor_device
 from quant_tpu_torch.kernels.attention import flash_decode_int8
 from quant_tpu_torch.kernels.cache_insert import (cache_insert_int8,
+                                                  mla_cache_insert_int8,
                                                   paged_cache_insert_int8,
                                                   paged_insert_rows)
 from quant_tpu_torch.kernels.dequant_matmul import (dequant_matmul,
                                                     dequant_matmul_moe,
                                                     dequant_matmul_reference)
+from quant_tpu_torch.kernels.mla_attention import mla_flash_decode_int8
 from quant_tpu_torch.kernels.paged_attention import (paged_flash_decode_int8,
                                                      paged_gather)
 from quant_tpu_torch.models.config import ModelConfig
@@ -57,7 +64,7 @@ from quant_tpu_torch.utils.device import check_on, resolve_device
 
 __all__ = ["LayerParams", "QEmbed", "LlamaParams", "KVCache", "PagedKVCache",
            "init_params", "init_cache", "init_paged_cache", "forward",
-           "check_supported", "moe_route", "mlp_block"]
+           "check_supported", "moe_route", "mlp_block", "dense_prefix_cfg"]
 
 
 # ── params ──────────────────────────────────────────────────────────────
@@ -73,7 +80,14 @@ class LayerParams:
     stacks (:func:`_merge_experts` views them as the ``[E*L, ...]`` stack the
     MoE kernel addresses, entry ``e * L + layer``). The down projection's
     contraction dim is zero-padded to a 1024 multiple
-    (:func:`_pad_moe_down_k`), as in the JAX package."""
+    (:func:`_pad_moe_down_k`), as in the JAX package.
+
+    MLA (``cfg.is_mla``): ``wqkv`` is the fused down projection
+    ``[D, qpart + r + dr]`` with qpart ``H * (dn + dr)`` (direct q) or
+    ``q_lora_rank``, kv_a in the last ``r + dr`` columns; ``w_uk`` / ``w_uv``
+    are the per-head key / value up-projections folded into the query and
+    output sides (the absorbed form), dense. DeepSeek MoE adds the shared
+    experts' GLU (``ws_gate_up`` / ``ws_down``) and the selection bias."""
     wqkv: QTensor        # [L] x [D, (Hq + 2*Hkv) * Dh]
     wo: QTensor          # [L] x [Hq*Dh, D]
     w_gate_up: QTensor | None   # [L] x [D, 2*I]; None for MoE
@@ -86,6 +100,14 @@ class LayerParams:
     router: torch.Tensor | None = None    # f32 [L, D, E]
     we_gate_up: QTensor | None = None     # [E, L] x [D, 2*I]
     we_down: QTensor | None = None        # [E, L] x [I padded, D]
+    w_q_b: QTensor | None = None          # [L] x [q_lora_rank, H*(dn+dr)]
+    w_uk: torch.Tensor | None = None      # [L, H, dn, r]
+    w_uv: torch.Tensor | None = None      # [L, H, r, dv]
+    q_a_norm: torch.Tensor | None = None  # f32 [L, q_lora_rank]
+    kv_a_norm: torch.Tensor | None = None  # f32 [L, r]
+    ws_gate_up: QTensor | None = None     # [L] x [D, 2 * shared I]
+    ws_down: QTensor | None = None        # [L] x [shared I, D]
+    router_bias: torch.Tensor | None = None  # f32 [L, E]
 
 
 @dataclasses.dataclass
@@ -101,6 +123,10 @@ class LlamaParams:
     layers: LayerParams
     final_norm: torch.Tensor       # f32 [D]
     lm_head: QTensor               # [D, V padded]
+    # DeepSeek ``first_k_dense``: the dense-prefix stack (MLA attention, a
+    # dense MLP of width ``dense_intermediate``), run before ``layers``;
+    # None unless the config has one
+    layers0: LayerParams | None = None
 
     @property
     def device(self) -> torch.device:
@@ -110,7 +136,10 @@ class LlamaParams:
 @dataclasses.dataclass
 class KVCache:
     """INT8 KV cache at static ``max_seq``, per-(token, head) f32 scales.
-    ``lengths[b]`` = valid tokens of slot b (the next write position)."""
+    ``lengths[b]`` = valid tokens of slot b (the next write position).
+    An MLA cache holds one latent row per token on the K side
+    (``[L, B, 1, S, mla_cache_dim]``, one scale per row) and zero-width V
+    tensors, so slot copies treat both kinds alike."""
     k_codes: torch.Tensor   # int8 [L, B, Hkv, S, Dh]
     k_scale: torch.Tensor   # f32  [L, B, Hkv, S]
     v_codes: torch.Tensor
@@ -150,16 +179,12 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for anything outside the ported dense
-    and sparse-MoE slices."""
+    """Raise ``NotImplementedError`` for anything outside the ported dense,
+    sparse-MoE and DeepSeek (MLA) slices."""
     unsupported = {
-        "shared experts (n_shared_experts)": cfg.n_shared_experts,
-        "dense-prefix layers (first_k_dense)": cfg.first_k_dense,
-        "router selection bias (router_bias)": cfg.router_bias,
         "moe_prefill='capacity'": cfg.moe_prefill == "capacity",
         "moe_fused=False (the per-expert loop is only the plain path)":
             cfg.n_experts and not cfg.moe_fused,
-        "MLA (kv_lora_rank)": cfg.is_mla,
         "sliding windows": cfg.sliding_window,
         "attention softcaps": cfg.attn_softcap,
         "final logit softcaps": cfg.final_softcap,
@@ -168,11 +193,11 @@ def check_supported(cfg: ModelConfig) -> None:
         "norm_offset": cfg.norm_offset,
         "embed_scale": cfg.embed_scale,
         "act_fn other than silu": cfg.act_fn != "silu",
-        "query_pre_attn_scalar": cfg.query_pre_attn_scalar,
+        # MLA sets it to qk_nope + qk_rope (the score width)
+        "query_pre_attn_scalar": cfg.query_pre_attn_scalar and not cfg.is_mla,
         "rope_local_theta": cfg.rope_local_theta,
-        "rope_interleaved": cfg.rope_interleaved,
         f"rope_scaling={cfg.rope_scaling!r}":
-            cfg.rope_scaling not in ("none", "llama3"),
+            cfg.rope_scaling not in ("none", "linear", "llama3", "yarn"),
         f"kv_bits={cfg.kv_bits}": cfg.kv_bits != 8,
         "act_quant (W8A8)": cfg.act_quant,
         "codebook (lut) weights": cfg.codebook is not None,
@@ -209,15 +234,22 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     check_supported(cfg)
     dev = resolve_device(device)
     l, h, d = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    if cfg.is_mla:
+        # one latent row [c_kv | k_rope] per token, padded to a 128 multiple
+        # (the layout contract of the JAX package); V is zero-width
+        d = cfg.mla_cache_dim
+
+    def codes(width):
+        return torch.zeros((l, batch, h, max_seq, width), dtype=torch.int8,
+                           device=dev)
+
+    def scales(heads):
+        return torch.zeros((l, batch, heads, max_seq), dtype=torch.float32,
+                           device=dev)
     return KVCache(
-        k_codes=torch.zeros((l, batch, h, max_seq, d), dtype=torch.int8,
-                            device=dev),
-        k_scale=torch.zeros((l, batch, h, max_seq), dtype=torch.float32,
-                            device=dev),
-        v_codes=torch.zeros((l, batch, h, max_seq, d), dtype=torch.int8,
-                            device=dev),
-        v_scale=torch.zeros((l, batch, h, max_seq), dtype=torch.float32,
-                            device=dev),
+        k_codes=codes(d), k_scale=scales(h),
+        v_codes=codes(0 if cfg.is_mla else d),
+        v_scale=scales(0 if cfg.is_mla else h),
         lengths=torch.zeros((batch,), dtype=torch.int32, device=dev),
     )
 
@@ -228,9 +260,14 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_seq: int,
     """Pool of ``n_pages`` pages (page 0 is the engine's scratch page);
     per-slot tables sized for ``max_seq``. ``n_pages`` below
     ``batch * max_seq / page`` oversubscribes device memory (the point).
-    Pipeline stages (``pipe``) are not ported."""
+    Pipeline stages (``pipe``) and the paged MLA latent pool are not
+    ported."""
     if pipe != 1:
         raise NotImplementedError("pipeline parallelism is not ported")
+    if cfg.is_mla:
+        raise NotImplementedError("the paged MLA latent pool is not ported: "
+                                  "serve MLA models from the contiguous "
+                                  "cache (paged=False)")
     check_supported(cfg)
     dev = resolve_device(device)
     if max_seq % page:
@@ -251,17 +288,28 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_seq: int,
     )
 
 
+def dense_prefix_cfg(cfg: ModelConfig) -> ModelConfig:
+    """The config of the ``first_k_dense`` prefix stack: the same attention,
+    a plain dense MLP (no MoE knobs), as in the JAX package."""
+    return dataclasses.replace(
+        cfg, n_experts=0, first_k_dense=0, n_shared_experts=0,
+        router_bias=False, n_expert_groups=0, topk_groups=0)
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> LlamaParams:
     """Random quantized params made layer by layer on ``device`` from
     ``seed`` (a ``torch.Generator`` there) and quantized where they lie, so
     a full-size model never passes through the host. The weights differ
     from the JAX package's ``init_params`` (another generator); the
-    structure is the same."""
+    structure is the same: for a ``first_k_dense`` model, ``layers`` holds
+    the ``n_layers - first_k_dense`` MoE layers and ``layers0`` the dense
+    prefix; MLA's dense ``w_uk`` / ``w_uv`` are made in the activation
+    type."""
     check_supported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    d, hd, it, n_l = cfg.dim, cfg.head_dim, cfg.intermediate, cfg.n_layers
+    d, hd, it = cfg.dim, cfg.head_dim, cfg.intermediate
     qd, kvd = cfg.n_heads * hd, cfg.n_kv_heads * hd
 
     def dense(k, n):
@@ -271,7 +319,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> LlamaParams:
     def quant(w):
         return quantize_tensor_device(w, cfg.bits, cfg.group_size)
 
-    def stacked(k, n, make, lead=(n_l,)):
+    def stacked(k, n, make, lead):
         """Fill a preallocated ``lead + [...]`` stack (``[L]``, or
         ``[E, L]`` for experts) one weight at a time: the stack is never
         assembled from a list, which would double its peak memory."""
@@ -287,35 +335,73 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> LlamaParams:
         return QTensor(codes=codes, scales=scales, bits=cfg.bits,
                        group_size=cfg.group_size, shape=(k, n))
 
-    def gate_up():
-        return torch.cat([dense(d, it), dense(d, it)], dim=1)
+    def glu(n_l, width):
+        """(gate|up, down) stacks of a dense GLU of ``width``."""
+        return (stacked(d, 2 * width, lambda: torch.cat(
+            [dense(d, width), dense(d, width)], dim=1), (n_l,)),
+            stacked(width, d, lambda: dense(width, d), (n_l,)))
 
-    def norm_gains():
-        if not cfg.qk_norm:
-            return torch.ones((n_l, hd), dtype=torch.float32, device=dev)
-        return 1.0 + 0.1 * torch.randn((n_l, hd), generator=gen, device=dev)
+    def gains(shape, drawn: bool):
+        if not drawn:
+            return torch.ones(shape, dtype=torch.float32, device=dev)
+        return 1.0 + 0.1 * torch.randn(shape, generator=gen, device=dev)
+
+    def make_stack(n_l: int, moe_l: bool, inter: int) -> LayerParams:
+        if cfg.is_mla:
+            r, dr = cfg.kv_lora_rank, cfg.qk_rope_head_dim
+            dn, dv, h = cfg.qk_nope_head_dim, cfg.v_head_dim, cfg.n_heads
+            qw = cfg.q_lora_rank or h * (dn + dr)
+            dt = _dtype(cfg)
+            attn = dict(
+                wqkv=stacked(d, qw + r + dr, lambda: torch.cat(
+                    [dense(d, qw), dense(d, r + dr)], dim=1), (n_l,)),
+                wo=stacked(h * dv, d, lambda: dense(h * dv, d), (n_l,)),
+                qkv_bias=torch.zeros((n_l, qw + r + dr), device=dev),
+                w_uk=(torch.randn((n_l, h, dn, r), generator=gen, device=dev)
+                      / float(np.sqrt(dn))).to(dt),
+                w_uv=(torch.randn((n_l, h, r, dv), generator=gen, device=dev)
+                      / float(np.sqrt(r))).to(dt),
+                kv_a_norm=gains((n_l, r), True))
+            if cfg.q_lora_rank:
+                attn["w_q_b"] = stacked(cfg.q_lora_rank, h * (dn + dr),
+                                        lambda: dense(cfg.q_lora_rank,
+                                                      h * (dn + dr)), (n_l,))
+                attn["q_a_norm"] = gains((n_l, cfg.q_lora_rank), True)
+        else:
+            attn = dict(
+                wqkv=stacked(d, qd + 2 * kvd, lambda: torch.cat(
+                    [dense(d, qd), dense(d, kvd), dense(d, kvd)], dim=1),
+                    (n_l,)),
+                wo=stacked(qd, d, lambda: dense(qd, d), (n_l,)),
+                qkv_bias=torch.zeros((n_l, qd + 2 * kvd), device=dev))
+        lay = LayerParams(
+            w_gate_up=None, w_down=None,
+            attn_norm=torch.ones((n_l, d), device=dev),
+            mlp_norm=torch.ones((n_l, d), device=dev),
+            q_norm=gains((n_l, hd), cfg.qk_norm),
+            k_norm=gains((n_l, hd), cfg.qk_norm), **attn)
+        if not moe_l:
+            lay.w_gate_up, lay.w_down = glu(n_l, inter)
+            return lay
+        e = cfg.n_experts
+        lay.router = torch.randn((n_l, d, e), generator=gen, device=dev) * 0.5
+        lay.we_gate_up = stacked(d, 2 * it, lambda: torch.cat(
+            [dense(d, it), dense(d, it)], dim=1), (e, n_l))
+        lay.we_down = stacked(_padded_k(it), d,
+                              lambda: _pad_moe_down_k(dense(it, d)), (e, n_l))
+        if cfg.n_shared_experts:
+            lay.ws_gate_up, lay.ws_down = glu(n_l,
+                                              cfg.n_shared_experts * it)
+        if cfg.router_bias:
+            lay.router_bias = torch.randn((n_l, e), generator=gen,
+                                          device=dev) * 0.5
+        return lay
 
     moe = cfg.n_experts > 0
-    layers = LayerParams(
-        wqkv=stacked(d, qd + 2 * kvd, lambda: torch.cat(
-            [dense(d, qd), dense(d, kvd), dense(d, kvd)], dim=1)),
-        wo=stacked(qd, d, lambda: dense(qd, d)),
-        w_gate_up=None if moe else stacked(d, 2 * it, gate_up),
-        w_down=None if moe else stacked(it, d, lambda: dense(it, d)),
-        attn_norm=torch.ones((n_l, d), dtype=torch.float32, device=dev),
-        mlp_norm=torch.ones((n_l, d), dtype=torch.float32, device=dev),
-        qkv_bias=torch.zeros((n_l, qd + 2 * kvd), dtype=torch.float32,
-                             device=dev),
-        q_norm=norm_gains(),
-        k_norm=norm_gains(),
-    )
-    if moe:
-        e = cfg.n_experts
-        layers.router = torch.randn((n_l, d, e), generator=gen,
-                                    device=dev) * 0.5
-        layers.we_gate_up = stacked(d, 2 * it, gate_up, (e, n_l))
-        layers.we_down = stacked(
-            _padded_k(it), d, lambda: _pad_moe_down_k(dense(it, d)), (e, n_l))
+    k0 = cfg.first_k_dense
+    layers0 = (make_stack(k0, False, cfg.dense_intermediate or it)
+               if k0 else None)
+    layers = make_stack(cfg.n_layers - k0, moe, it)
     embed = _make_embed(
         torch.randn((cfg.vocab_size, d), generator=gen, device=dev) * 0.02,
         cfg)
@@ -328,7 +414,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> LlamaParams:
     return LlamaParams(embed=embed, layers=layers,
                        final_norm=torch.ones((d,), dtype=torch.float32,
                                              device=dev),
-                       lm_head=lm_head)
+                       lm_head=lm_head, layers0=layers0)
 
 
 # ── math blocks ─────────────────────────────────────────────────────────
@@ -445,7 +531,8 @@ def mlp_block(x: torch.Tensor, lay: LayerParams, i: int, cfg: ModelConfig,
     """The MLP's residual delta, float32 [B, T, D], for layer ``i``.
 
     Dense (``n_experts`` 0): fused gate|up, SwiGLU, down. Sparse MoE, with
-    the JAX package's dispatch:
+    the JAX package's dispatch (plus DeepSeek's shared experts, a dense GLU
+    added to the routed combination, and its selection bias):
 
     * kernels (``kernel_mode`` other than "xla"): every expert slot's
       gate|up in ONE ``dequant_matmul_moe`` launch (``concat``), the
@@ -460,11 +547,30 @@ def mlp_block(x: torch.Tensor, lay: LayerParams, i: int, cfg: ModelConfig,
       routed to, through the plain matmul.
     """
     if not cfg.n_experts:
-        gu = mm(x, lay.w_gate_up, i)
-        gate, up = gu.chunk(2, dim=-1)
-        a_in = _act(cfg)(gate.to(torch.float32)).to(dt) * up
-        return mm(a_in, lay.w_down, i, out_dtype=torch.float32)
-    w = moe_route(x, lay.router[i], cfg)                  # [B, T, E]
+        return _glu(x, lay.w_gate_up, lay.w_down, i, cfg, mm, dt)
+    routed = _moe(x, lay, i, cfg, mm, dt)
+    if cfg.n_shared_experts:
+        # DeepSeek: the always-on shared experts' GLU, added in f32
+        routed = routed + _glu(x, lay.ws_gate_up, lay.ws_down, i, cfg, mm,
+                               dt)
+    return routed
+
+
+def _glu(x, w_gate_up: QTensor, w_down: QTensor, i: int, cfg: ModelConfig,
+         mm, dt: torch.dtype) -> torch.Tensor:
+    """Dense SwiGLU of layer ``i``: fused gate|up, activation, down (f32)."""
+    gate, up = mm(x, w_gate_up, i).chunk(2, dim=-1)
+    a_in = _act(cfg)(gate.to(torch.float32)).to(dt) * up
+    return mm(a_in, w_down, i, out_dtype=torch.float32)
+
+
+def _moe(x: torch.Tensor, lay: LayerParams, i: int, cfg: ModelConfig, mm,
+         dt: torch.dtype) -> torch.Tensor:
+    """The routed experts' combination, float32 [B, T, D] (see
+    :func:`mlp_block`). The expert stacks are addressed at entry
+    ``e * L + i`` with L the depth of this (MoE) stack."""
+    bias = lay.router_bias[i] if cfg.router_bias else None
+    w = moe_route(x, lay.router[i], cfg, bias)            # [B, T, E]
     wgu = _merge_experts(lay.we_gate_up)
     wdn = _merge_experts(lay.we_down)
     e, n_l = cfg.n_experts, lay.attn_norm.shape[0]
@@ -500,17 +606,69 @@ def mlp_block(x: torch.Tensor, lay: LayerParams, i: int, cfg: ModelConfig,
 
 
 def _q_scale(cfg: ModelConfig, dh: int) -> float:
-    """Attention score scale 1/sqrt(head_dim)."""
+    """Attention score scale: 1/sqrt(query_pre_attn_scalar or head_dim),
+    times ``yarn_mscale(factor, mscale_all_dim)^2`` when ``score_mscale``
+    (DeepSeek's yarn), as in the JAX package."""
     s = cfg.query_pre_attn_scalar or dh
-    return float(1.0 / np.sqrt(s))
+    scale = 1.0 / np.sqrt(s)
+    if cfg.score_mscale:
+        m = _yarn_mscale(cfg.rope_factor, cfg.rope_mscale_all_dim or 1.0)
+        scale *= m * m
+    return float(scale)
+
+
+def _yarn_mscale(scale: float, mscale: float = 1.0) -> float:
+    if scale <= 1:
+        return 1.0
+    return 0.1 * mscale * float(np.log(scale)) + 1.0
+
+
+def yarn_attention_factor(cfg: ModelConfig) -> float:
+    """The cos/sin multiplier of yarn rope: an explicit
+    ``rope_attn_factor``, or the mscale ratio, or mscale(factor)."""
+    if cfg.rope_attn_factor:
+        return cfg.rope_attn_factor
+    if cfg.rope_mscale and cfg.rope_mscale_all_dim:
+        return (_yarn_mscale(cfg.rope_factor, cfg.rope_mscale)
+                / _yarn_mscale(cfg.rope_factor, cfg.rope_mscale_all_dim))
+    return _yarn_mscale(cfg.rope_factor)
+
+
+def _yarn_freqs(theta: float, half: int, cfg: ModelConfig) -> np.ndarray:
+    """Yarn NTK-by-parts inverse frequencies: interpolated (freq/factor)
+    below ``rope_beta_slow`` rotations at the original context,
+    extrapolated above ``rope_beta_fast``, a linear ramp between."""
+    dim = 2 * half
+    pos_freqs = theta ** (np.arange(0, dim, 2, dtype=np.float32) / dim)
+    inv_extra = 1.0 / pos_freqs
+    inv_inter = 1.0 / (cfg.rope_factor * pos_freqs)
+
+    def corr_dim(n_rot):
+        return (dim * np.log(cfg.rope_orig_max_pos
+                             / (n_rot * 2 * np.pi))) / (2 * np.log(theta))
+
+    low = max(np.floor(corr_dim(cfg.rope_beta_fast)), 0)
+    high = min(np.ceil(corr_dim(cfg.rope_beta_slow)), dim - 1)
+    if low == high:
+        high += 0.001
+    ramp = np.clip((np.arange(half, dtype=np.float32) - low)
+                   / (high - low), 0, 1)
+    extra_w = 1.0 - ramp
+    return (inv_inter * (1.0 - extra_w)
+            + inv_extra * extra_w).astype(np.float32)
 
 
 def _rope_freqs(theta: float, half: int, cfg: ModelConfig | None) -> np.ndarray:
-    """Inverse frequencies [half] with the config's rope scaling (``none``
-    or ``llama3`` NTK-by-parts), in float32 numpy like the JAX package."""
+    """Inverse frequencies [half] with the config's rope scaling (``none``,
+    ``linear``, ``llama3`` NTK-by-parts or ``yarn``), in float32 numpy like
+    the JAX package."""
     freqs = theta ** (-np.arange(0, half, dtype=np.float32) / half)
     if cfg is None or cfg.rope_scaling == "none":
         return freqs
+    if cfg.rope_scaling == "linear":
+        return freqs / cfg.rope_factor
+    if cfg.rope_scaling == "yarn":
+        return _yarn_freqs(theta, half, cfg)
     if cfg.rope_scaling != "llama3":
         raise NotImplementedError(
             f"rope_scaling {cfg.rope_scaling!r} is not ported")
@@ -537,19 +695,36 @@ def _rope_tables(positions: torch.Tensor, theta: float, dh: int,
     return torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
 
 
-def _rope_apply(x: torch.Tensor, cos: torch.Tensor,
-                sin: torch.Tensor) -> torch.Tensor:
+def _deinterleave(x: torch.Tensor) -> torch.Tensor:
+    """[..., d] with interleaved rotary pairs -> [evens | odds]: DeepSeek
+    rotates (x[2i], x[2i+1]) pairs; rotate-half RoPE on the de-interleaved
+    vector rotates the same pairs, in a fixed permutation of the lanes that
+    q and k share, as in the JAX package."""
+    *s, d = x.shape
+    return x.reshape(*s, d // 2, 2).transpose(-1, -2).reshape(*s, d)
+
+
+def _rope_apply(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                cfg: ModelConfig | None = None) -> torch.Tensor:
+    """Rotate-half RoPE with precomputed tables; ``cfg`` adds its
+    ``rope_interleaved`` pair layout and yarn's attention factor (which
+    multiplies the rotated output, as the JAX package applies it)."""
+    if cfg is not None and cfg.rope_interleaved:
+        x = _deinterleave(x)
     half = x.shape[-1] // 2
     x1 = x[..., :half].to(torch.float32)
     x2 = x[..., half:].to(torch.float32)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    if cfg is not None and cfg.rope_scaling == "yarn":
+        out = out * yarn_attention_factor(cfg)
     return out.to(x.dtype)
 
 
 def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
           cfg: ModelConfig | None = None) -> torch.Tensor:
     """Rotate-half RoPE. x [B, T, H, Dh], positions [B, T] int."""
-    return _rope_apply(x, *_rope_tables(positions, theta, x.shape[-1], cfg))
+    return _rope_apply(x, *_rope_tables(positions, theta, x.shape[-1], cfg),
+                       cfg)
 
 
 def quantize_kv(x: torch.Tensor, bits: int = 8):
@@ -598,9 +773,10 @@ def attention(q, k_codes, k_scale, v_codes, v_scale, positions, lengths,
     """GQA attention over one layer's int8 cache (plain torch; prefill and
     the plain decode path). q [B, T, Hq, Dh]; caches [B, Hkv, S, Dh] /
     [B, Hkv, S]; positions [B, T]; lengths [B] after insertion. Key s is
-    visible to a query iff s <= position and s < length."""
+    visible to a query iff s <= position and s < length. MLA passes the
+    latent's first ``r`` lanes as V: the output width is V's."""
     b, t, hq, dh = q.shape
-    hkv, s = k_scale.shape[1], k_codes.shape[2]
+    hkv, s, dv = k_scale.shape[1], k_codes.shape[2], v_codes.shape[-1]
     rep = hq // hkv
     qg = (q.to(torch.float32) * _q_scale(cfg, dh)).reshape(b, t, hkv, rep, dh)
     logits = torch.einsum("bthrd,bhsd->bhrts", qg, dequant_kv(k_codes))
@@ -612,7 +788,7 @@ def attention(q, k_codes, k_scale, v_codes, v_scale, positions, lengths,
     probs = torch.softmax(logits, dim=-1)
     pv = probs * v_scale[:, :, None, None, :]
     out = torch.einsum("bhrts,bhsd->bthrd", pv, dequant_kv(v_codes))
-    return out.reshape(b, t, hq, dh).to(q.dtype)
+    return out.reshape(b, t, hq, dv).to(q.dtype)
 
 
 def attention_blockwise(q, k_codes, k_scale, v_codes, v_scale, positions,
@@ -620,7 +796,7 @@ def attention_blockwise(q, k_codes, k_scale, v_codes, v_scale, positions,
     """Prefill attention with an online softmax over KV blocks (a Python
     loop where the JAX package scans), bounding memory at O(T * block)."""
     b, t, hq, dh = q.shape
-    hkv, s = k_scale.shape[1], k_codes.shape[2]
+    hkv, s, dv = k_scale.shape[1], k_codes.shape[2], v_codes.shape[-1]
     if s <= block:
         return attention(q, k_codes, k_scale, v_codes, v_scale, positions,
                          lengths, cfg)
@@ -632,7 +808,7 @@ def attention_blockwise(q, k_codes, k_scale, v_codes, v_scale, positions,
     lim = lengths[:, None, None, None, None]
     m = torch.full((b, hkv, rep, t, 1), -1e30, device=q.device)
     l_sum = torch.zeros((b, hkv, rep, t, 1), device=q.device)
-    o = torch.zeros((b, hkv, rep, t, dh), device=q.device)
+    o = torch.zeros((b, hkv, rep, t, dv), device=q.device)
     for j in range(s // block):
         sl = slice(j * block, (j + 1) * block)
         logits = torch.einsum("bthrd,bhsd->bhrts", qg,
@@ -652,7 +828,7 @@ def attention_blockwise(q, k_codes, k_scale, v_codes, v_scale, positions,
                                      dequant_kv(v_codes[:, :, sl]))
         m = m_new
     out = o / l_sum.clamp_min(1e-20)
-    out = out.permute(0, 3, 1, 2, 4).reshape(b, t, hq, dh)
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, t, hq, dv)
     return out.to(q.dtype)
 
 
@@ -679,11 +855,111 @@ def _mm(cfg: ModelConfig):
 def _use_kernels(cfg: ModelConfig, t: int, paged: bool) -> bool:
     """The decode kernel pair (in-place insert + flash decode) for T=1, as
     ``make_layer_step`` selects it: ``attn_kernel`` "auto" or "flash", and
-    "paged" over a page pool; the plain path otherwise."""
+    "paged" over a page pool; the plain path otherwise. An MLA cache takes
+    its own pair unless ``attn_kernel`` is "xla" (the port does not carry
+    over the TPU kernel's r and S alignment conditions)."""
     if cfg.kernel_mode == "xla" or t != 1:
         return False
+    if cfg.is_mla:
+        return cfg.attn_kernel != "xla"
     return cfg.attn_kernel in (("auto", "flash", "paged") if paged
                                else ("auto", "flash"))
+
+
+def _mla_attn(x, lay: LayerParams, i: int, gi: int, cfg: ModelConfig, mm,
+              dt: torch.dtype, rope, positions, lengths, new_lengths,
+              kc, ks, kernels: bool) -> torch.Tensor:
+    """DeepSeek multi-head latent attention in the absorbed form (the JAX
+    package's ``_mla_attn``): one matmul over the fused down projection
+    gives [q part | c_kv | k_pe]; the per-head key up-projection folds
+    into the query (``q_abs``), so attention is MQA over one quantized
+    latent row [c_kv | k_pe] per token (one joint scale, zero lanes up to
+    ``mla_cache_dim``), and the value read is the row's first ``r`` lanes.
+    Weights index with the stack position ``i``, the cache with the global
+    layer ``gi``. Returns the heads' outputs [B, T, H, dv] after the value
+    up-projection."""
+    b, t = x.shape[0], x.shape[1]
+    r, dr = cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    dn = cfg.qk_nope_head_dim
+    akv = mm(x, lay.wqkv, i)                     # [B, T, qpart + r + dr]
+    qp, ckv = akv[..., :-(r + dr)], akv[..., -(r + dr):]
+    if cfg.q_lora_rank:
+        qp = rmsnorm(qp, lay.q_a_norm[i], cfg.norm_eps)
+        qp = mm(qp.contiguous(), lay.w_q_b, i)
+    qh = qp.reshape(b, t, -1, dn + dr)
+    q_nope, q_pe = qh[..., :dn], qh[..., dn:]
+    c = rmsnorm(ckv[..., :r], lay.kv_a_norm[i], cfg.norm_eps)
+    q_pe = _rope_apply(q_pe, *rope, cfg)
+    k_pe = _rope_apply(ckv[..., r:][:, :, None, :], *rope, cfg)
+    # the absorbed up-projections run in the activation type, as in the
+    # JAX package
+    q_abs = torch.einsum("bthn,hnr->bthr", q_nope, lay.w_uk[i].to(dt))
+    q_eff = torch.cat([q_abs, q_pe.to(dt)], dim=-1)
+    lat = torch.cat([c, k_pe[:, :, 0].to(c.dtype)], dim=-1)[:, :, None, :]
+    pad = cfg.mla_cache_dim - cfg.mla_kv_dim
+    if pad:
+        # zero lanes up to the cache row width, in the query too: scores
+        # and the value prefix are exact
+        q_eff = torch.nn.functional.pad(q_eff, (0, pad))
+        lat = torch.nn.functional.pad(lat, (0, pad))
+    k_q, k_s = quantize_kv(lat.to(dt), cfg.kv_bits)
+    if kernels:
+        mla_cache_insert_int8(kc, ks, k_q, k_s, lengths, gi)
+        o_lat = mla_flash_decode_int8(
+            q_eff[:, 0].contiguous(), kc, ks, new_lengths, gi, r=r,
+            scale=_q_scale(cfg, cfg.head_dim))[:, None]
+    else:
+        _cache_insert_at_layer(kc, ks, k_q, k_s, lengths, gi)
+        att = attention_blockwise if t > 1 else attention
+        o_lat = att(q_eff, kc[gi], ks[gi], kc[gi][..., :r], ks[gi],
+                    positions, new_lengths, cfg)
+    return torch.einsum("bthr,hrv->bthv", o_lat.to(dt), lay.w_uv[i].to(dt))
+
+
+def _gqa_attn(x, lay: LayerParams, i: int, gi: int, cfg: ModelConfig, mm,
+              rope, positions, lengths, new_lengths, cache, kernels: bool):
+    """GQA attention of stack position ``i`` (cache layer ``gi``) over the
+    contiguous cache or the page pool, [B, T, Hq, Dh]."""
+    b, t = x.shape[0], x.shape[1]
+    kc, ks, vc, vs = cache.k_codes, cache.k_scale, cache.v_codes, cache.v_scale
+    paged = isinstance(cache, PagedKVCache)
+    tbl = cache.page_tbl if paged else None
+    units = cfg.n_heads + 2 * cfg.n_kv_heads
+    # no "+ qkv_bias": it is all zeros here (qkv_bias configs raise)
+    qkv = mm(x, lay.wqkv, i)
+    nq = (qkv.shape[-1] * cfg.n_heads) // units
+    nkv = (qkv.shape[-1] * cfg.n_kv_heads) // units
+    q = qkv[..., :nq].reshape(b, t, -1, cfg.head_dim)
+    k = qkv[..., nq:nq + nkv].reshape(b, t, -1, cfg.head_dim)
+    v = qkv[..., nq + nkv:].reshape(b, t, -1, cfg.head_dim)
+    if cfg.qk_norm:
+        # Qwen3: per-head RMSNorm over Dh before RoPE
+        q = rmsnorm(q, lay.q_norm[i], cfg.norm_eps)
+        k = rmsnorm(k, lay.k_norm[i], cfg.norm_eps)
+    q = _rope_apply(q, *rope, cfg)
+    k = _rope_apply(k, *rope, cfg)
+    k_q, k_s = quantize_kv(k, cfg.kv_bits)
+    v_q, v_s = quantize_kv(v, cfg.kv_bits)
+    scale = _q_scale(cfg, cfg.head_dim)
+    if paged and kernels:
+        paged_cache_insert_int8(kc, ks, vc, vs, k_q, k_s, v_q, v_s,
+                                lengths, gi, tbl)
+        return paged_flash_decode_int8(q[:, 0], kc, ks, vc, vs, tbl,
+                                       new_lengths, gi, scale=scale)[:, None]
+    att = attention_blockwise if t > 1 else attention
+    if paged:
+        _paged_insert_at_layer(kc, ks, k_q, k_s, lengths, gi, tbl)
+        _paged_insert_at_layer(vc, vs, v_q, v_s, lengths, gi, tbl)
+        return att(q, paged_gather(kc, tbl, gi), paged_gather(ks, tbl, gi),
+                   paged_gather(vc, tbl, gi), paged_gather(vs, tbl, gi),
+                   positions, new_lengths, cfg)
+    if kernels:
+        cache_insert_int8(kc, ks, vc, vs, k_q, k_s, v_q, v_s, lengths, gi)
+        return flash_decode_int8(q[:, 0], kc, ks, vc, vs, new_lengths, gi,
+                                 scale=scale)[:, None]
+    _cache_insert_at_layer(kc, ks, k_q, k_s, lengths, gi)
+    _cache_insert_at_layer(vc, vs, v_q, v_s, lengths, gi)
+    return att(q, kc[gi], ks[gi], vc[gi], vs[gi], positions, new_lengths, cfg)
 
 
 def forward(params: LlamaParams, tokens, cache: KVCache | PagedKVCache,
@@ -698,9 +974,12 @@ def forward(params: LlamaParams, tokens, cache: KVCache | PagedKVCache,
     ``lengths + T``. Returns (logits f32 ``[B, T, vocab_size]``,
     cache). ``device`` is where the step runs (the card unless "cpu");
     params and cache must already lie there, ``tokens`` ([B, T] ids) are
-    moved there. The JAX package's mesh axes (``axis``, ``seq_axis``,
-    ``expert_axis``), LoRA ``adapter_ids`` and ``return_hidden`` are not
-    ported and raise ``NotImplementedError`` when given.
+    moved there. A ``first_k_dense`` model runs its dense-prefix stack
+    ``layers0`` (config :func:`dense_prefix_cfg`) and then ``layers``,
+    whose cache rows start at ``first_k_dense``. The JAX package's mesh axes
+    (``axis``, ``seq_axis``, ``expert_axis``), LoRA ``adapter_ids`` and
+    ``return_hidden`` are not ported and raise ``NotImplementedError`` when
+    given.
     """
     asked = {"axis (tensor parallel)": axis, "seq_axis": seq_axis,
              "expert_axis": expert_axis, "adapter_ids (LoRA)": adapter_ids,
@@ -713,74 +992,40 @@ def forward(params: LlamaParams, tokens, cache: KVCache | PagedKVCache,
     dev = resolve_device(device)
     check_on(params.final_norm, dev, "params")
     check_on(cache.k_codes, dev, "cache")
+    paged = isinstance(cache, PagedKVCache)
+    k0 = cfg.first_k_dense
+    if k0 and params.layers0 is None:
+        raise ValueError("a first_k_dense model needs params.layers0")
     tokens = torch.as_tensor(tokens, device=dev)
     mm = _mm(cfg)
     dt = _dtype(cfg)
     b, t = tokens.shape
-    lay = params.layers
     lengths = cache.lengths
     new_lengths = lengths + t
     positions = lengths[:, None] + torch.arange(t, device=dev,
                                                 dtype=lengths.dtype)[None]
-    paged = isinstance(cache, PagedKVCache)
-    tbl = cache.page_tbl if paged else None
     kernels = _use_kernels(cfg, t, paged)
-    kc, ks, vc, vs = cache.k_codes, cache.k_scale, cache.v_codes, cache.v_scale
-    cos, sin = _rope_tables(positions, cfg.rope_theta, cfg.head_dim, cfg)
-    units = cfg.n_heads + 2 * cfg.n_kv_heads
+    rope_dim = cfg.qk_rope_head_dim if cfg.is_mla else cfg.head_dim
+    rope = _rope_tables(positions, cfg.rope_theta, rope_dim, cfg)
     h = _embed_lookup(params.embed, tokens.to(torch.int64), dt)
-    for i in range(cfg.n_layers):
-        x = rmsnorm(h, lay.attn_norm[i], cfg.norm_eps)
-        # no "+ qkv_bias": it is all zeros here (qkv_bias configs raise)
-        qkv = mm(x, lay.wqkv, i)
-        nq = (qkv.shape[-1] * cfg.n_heads) // units
-        nkv = (qkv.shape[-1] * cfg.n_kv_heads) // units
-        q = qkv[..., :nq].reshape(b, t, -1, cfg.head_dim)
-        k = qkv[..., nq:nq + nkv].reshape(b, t, -1, cfg.head_dim)
-        v = qkv[..., nq + nkv:].reshape(b, t, -1, cfg.head_dim)
-        if cfg.qk_norm:
-            # Qwen3: per-head RMSNorm over Dh before RoPE
-            q = rmsnorm(q, lay.q_norm[i], cfg.norm_eps)
-            k = rmsnorm(k, lay.k_norm[i], cfg.norm_eps)
-        q = _rope_apply(q, cos, sin)
-        k = _rope_apply(k, cos, sin)
-        k_q, k_s = quantize_kv(k, cfg.kv_bits)
-        v_q, v_s = quantize_kv(v, cfg.kv_bits)
-        if paged and kernels:
-            paged_cache_insert_int8(kc, ks, vc, vs, k_q, k_s, v_q, v_s,
-                                    lengths, i, tbl)
-            attn = paged_flash_decode_int8(
-                q[:, 0], kc, ks, vc, vs, tbl, new_lengths, i,
-                scale=_q_scale(cfg, cfg.head_dim))[:, None]
-        elif paged:
-            _paged_insert_at_layer(kc, ks, k_q, k_s, lengths, i, tbl)
-            _paged_insert_at_layer(vc, vs, v_q, v_s, lengths, i, tbl)
-            att = attention_blockwise if t > 1 else attention
-            attn = att(q, paged_gather(kc, tbl, i), paged_gather(ks, tbl, i),
-                       paged_gather(vc, tbl, i), paged_gather(vs, tbl, i),
-                       positions, new_lengths, cfg)
-        elif kernels:
-            cache_insert_int8(kc, ks, vc, vs, k_q, k_s, v_q, v_s, lengths, i)
-            attn = flash_decode_int8(
-                q[:, 0], kc, ks, vc, vs, new_lengths, i,
-                scale=_q_scale(cfg, cfg.head_dim))[:, None]
-        else:
-            _cache_insert_at_layer(kc, ks, k_q, k_s, lengths, i)
-            _cache_insert_at_layer(vc, vs, v_q, v_s, lengths, i)
-            att = attention_blockwise if t > 1 else attention
-            attn = att(q, kc[i], ks[i], vc[i], vs[i], positions, new_lengths,
-                       cfg)
-        o = mm(attn.reshape(b, t, -1).contiguous(), lay.wo, i,
-               out_dtype=torch.float32)
-        h = h + o.to(dt)
-        x = rmsnorm(h, lay.mlp_norm[i], cfg.norm_eps)
-        h = h + mlp_block(x, lay, i, cfg, mm, dt).to(dt)
+    stacks = [(params.layers0, dense_prefix_cfg(cfg), 0)] if k0 else []
+    stacks.append((params.layers, cfg, k0))
+    for lay, c, off in stacks:
+        for i in range(lay.attn_norm.shape[0]):
+            x = rmsnorm(h, lay.attn_norm[i], c.norm_eps)
+            if c.is_mla:
+                attn = _mla_attn(x, lay, i, i + off, c, mm, dt, rope,
+                                 positions, lengths, new_lengths,
+                                 cache.k_codes, cache.k_scale, kernels)
+            else:
+                attn = _gqa_attn(x, lay, i, i + off, c, mm, rope, positions,
+                                 lengths, new_lengths, cache, kernels)
+            o = mm(attn.reshape(b, t, -1).contiguous(), lay.wo, i,
+                   out_dtype=torch.float32)
+            h = h + o.to(dt)
+            x = rmsnorm(h, lay.mlp_norm[i], c.norm_eps)
+            h = h + mlp_block(x, lay, i, c, mm, dt).to(dt)
     h = rmsnorm(h, params.final_norm, cfg.norm_eps)
     logits = mm(h, params.lm_head, out_dtype=torch.float32)
     logits = logits[..., :cfg.vocab_size]
-    if paged:
-        return logits, PagedKVCache(k_codes=kc, k_scale=ks, v_codes=vc,
-                                    v_scale=vs, page_tbl=tbl,
-                                    lengths=new_lengths)
-    return logits, KVCache(k_codes=kc, k_scale=ks, v_codes=vc, v_scale=vs,
-                           lengths=new_lengths)
+    return logits, dataclasses.replace(cache, lengths=new_lengths)

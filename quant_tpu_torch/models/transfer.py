@@ -3,7 +3,10 @@
 The input uses the checkpoint naming of the JAX package's
 ``checkpoint/format.py`` ``_flatten_params``: ``"embed"``, ``"final_norm"``,
 ``"lm_head"``, ``"layers.{i}.{field}"`` and, for a MoE model's experts,
-``"layers.{i}.we_gate_up.{e}"`` / ``"layers.{i}.we_down.{e}"``. Leaves are numpy arrays, or
+``"layers.{i}.we_gate_up.{e}"`` / ``"layers.{i}.we_down.{e}"``. A DeepSeek
+model's ``first_k_dense`` prefix stack is ``"layers0.{i}.{field}"``, and its
+MoE stack ``"layers.{i}..."`` holds the ``n_layers - first_k_dense`` other
+layers. Leaves are numpy arrays, or
 objects with numpy ``codes``/``scales`` (and, for a quantized weight,
 ``bits``/``group_size``/``shape``/``kshards``/``lut``): the port's own
 :class:`QTensor`/:class:`QEmbed` from the checkpoint reader, or the JAX
@@ -31,8 +34,15 @@ __all__ = ["params_from_flat", "to_torch", "flat_from_params"]
 # writer's order); the expert fields hold one leaf per (layer, expert)
 _LAYER_FIELDS = ("wqkv", "wo", "w_gate_up", "w_down", "attn_norm",
                  "mlp_norm", "qkv_bias", "q_norm", "k_norm", "router",
-                 "we_gate_up", "we_down")
+                 "we_gate_up", "we_down", "w_q_b", "w_uk", "w_uv",
+                 "q_a_norm", "kv_a_norm", "ws_gate_up", "ws_down",
+                 "router_bias")
 _EXPERT_FIELDS = ("we_gate_up", "we_down")
+_QTENSOR_FIELDS = ("wqkv", "wo", "w_gate_up", "w_down", "w_q_b",
+                   "ws_gate_up", "ws_down")
+# dense MLA up-projections keep the dtype they were stored in (the forward
+# casts them to the activation type), so a checkpoint round-trips exactly
+_KEEP_DTYPE = ("w_uk", "w_uv")
 
 
 def to_torch(a, device=None) -> torch.Tensor:
@@ -77,52 +87,18 @@ def params_from_flat(flat: dict, cfg: ModelConfig, device=None) -> LlamaParams:
     from a flat dict in checkpoint naming."""
     check_supported(cfg)
     dev = resolve_device(device)
-    n = cfg.n_layers
-    extra = sorted(k for k in flat if k.startswith("layers0.")
-                   or (k.startswith("layers.")
-                       and k.split(".")[2] not in _LAYER_FIELDS))
+    k0 = cfg.first_k_dense
+    prefixes = ("layers", "layers0") if k0 else ("layers",)
+    extra = sorted(k for k in flat if k.startswith("layers")
+                   and (k.split(".")[0] not in prefixes
+                        or k.split(".")[2] not in _LAYER_FIELDS))
     if extra:
         raise NotImplementedError(
             f"parameters outside the ported slices: {extra[:4]}")
-
-    def rows(field):
-        return [flat[f"layers.{i}.{field}"] for i in range(n)]
-
-    def expert_stack(field):
-        """[E, L, ...] from the per-(layer, expert) leaves."""
-        qt = _stack_q([flat[f"layers.{i}.{field}.{e}"]
-                       for e in range(cfg.n_experts) for i in range(n)], dev)
-        return dataclasses.replace(
-            qt, codes=qt.codes.reshape((cfg.n_experts, n)
-                                       + tuple(qt.codes.shape[1:])),
-            scales=qt.scales.reshape((cfg.n_experts, n)
-                                     + tuple(qt.scales.shape[1:])))
-
-    def dense_stack(field, default):
-        if f"layers.0.{field}" not in flat:
-            return default.to(dev)
-        return torch.stack([to_torch(a) for a in rows(field)]).to(
-            dev, torch.float32)
-
-    d, hd = cfg.dim, cfg.head_dim
-    qkv_n = (cfg.n_heads + 2 * cfg.n_kv_heads) * hd
-    moe = cfg.n_experts > 0
-    layers = LayerParams(
-        wqkv=_stack_q(rows("wqkv"), dev),
-        wo=_stack_q(rows("wo"), dev),
-        w_gate_up=None if moe else _stack_q(rows("w_gate_up"), dev),
-        w_down=None if moe else _stack_q(rows("w_down"), dev),
-        attn_norm=dense_stack("attn_norm", torch.ones((n, d))),
-        mlp_norm=dense_stack("mlp_norm", torch.ones((n, d))),
-        qkv_bias=dense_stack("qkv_bias", torch.zeros((n, qkv_n))),
-        q_norm=dense_stack("q_norm", torch.ones((n, hd))),
-        k_norm=dense_stack("k_norm", torch.ones((n, hd))),
-    )
-    if moe:
-        layers.router = torch.stack(
-            [to_torch(a) for a in rows("router")]).to(dev, torch.float32)
-        layers.we_gate_up = expert_stack("we_gate_up")
-        layers.we_down = expert_stack("we_down")
+    layers = _stack_from_flat(flat, cfg, "layers", cfg.n_layers - k0,
+                              cfg.n_experts > 0, dev)
+    layers0 = _stack_from_flat(flat, cfg, "layers0", k0, False,
+                               dev) if k0 else None
     emb = flat["embed"]
     if hasattr(emb, "codes"):
         embed = QEmbed(codes=to_torch(emb.codes, dev),
@@ -132,27 +108,81 @@ def params_from_flat(flat: dict, cfg: ModelConfig, device=None) -> LlamaParams:
     return LlamaParams(embed=embed, layers=layers,
                        final_norm=to_torch(flat["final_norm"], dev).to(
                            torch.float32),
-                       lm_head=_qtensor(flat["lm_head"], dev))
+                       lm_head=_qtensor(flat["lm_head"], dev),
+                       layers0=layers0)
+
+
+def _stack_from_flat(flat: dict, cfg: ModelConfig, prefix: str, n: int,
+                     moe: bool, dev) -> LayerParams:
+    """The ``[n, ...]`` stack of ``{prefix}.{i}.*`` leaves (experts
+    ``[E, n, ...]``); fields absent from ``flat`` stay None, or take the
+    JAX package's defaults for the norms and the bias."""
+    def rows(field):
+        return [flat[f"{prefix}.{i}.{field}"] for i in range(n)]
+
+    def has(field):
+        return f"{prefix}.0.{field}" in flat
+
+    def expert_stack(field):
+        """[E, n, ...] from the per-(layer, expert) leaves."""
+        qt = _stack_q([flat[f"{prefix}.{i}.{field}.{e}"]
+                       for e in range(cfg.n_experts) for i in range(n)], dev)
+        return dataclasses.replace(
+            qt, codes=qt.codes.reshape((cfg.n_experts, n)
+                                       + tuple(qt.codes.shape[1:])),
+            scales=qt.scales.reshape((cfg.n_experts, n)
+                                     + tuple(qt.scales.shape[1:])))
+
+    def dense_stack(field, default=None):
+        if not has(field):
+            return None if default is None else default.to(dev)
+        t = torch.stack([to_torch(a) for a in rows(field)]).to(dev)
+        return t if field in _KEEP_DTYPE else t.to(torch.float32)
+
+    d, hd = cfg.dim, cfg.head_dim
+    qkv_n = (cfg.n_heads + 2 * cfg.n_kv_heads) * hd
+    lay = LayerParams(
+        wqkv=None, wo=None, w_gate_up=None, w_down=None,
+        attn_norm=dense_stack("attn_norm", torch.ones((n, d))),
+        mlp_norm=dense_stack("mlp_norm", torch.ones((n, d))),
+        qkv_bias=dense_stack("qkv_bias", torch.zeros((n, qkv_n))),
+        q_norm=dense_stack("q_norm", torch.ones((n, hd))),
+        k_norm=dense_stack("k_norm", torch.ones((n, hd))),
+    )
+    for f in _QTENSOR_FIELDS:
+        if has(f):
+            setattr(lay, f, _stack_q(rows(f), dev))
+    for f in ("w_uk", "w_uv", "q_a_norm", "kv_a_norm", "router_bias"):
+        setattr(lay, f, dense_stack(f))
+    if moe:
+        lay.router = dense_stack("router")
+        lay.we_gate_up = expert_stack("we_gate_up")
+        lay.we_down = expert_stack("we_down")
+    return lay
 
 
 def flat_from_params(params: LlamaParams) -> dict:
     """The inverse: per-layer (and per-expert) slices in checkpoint naming
-    and order (tensors); absent (None) fields are left out."""
+    and order (tensors), the ``layers`` stack before ``layers0``; absent
+    (None) fields are left out."""
     out = {"embed": params.embed, "final_norm": params.final_norm,
            "lm_head": params.lm_head}
-    lay = params.layers
-    for i in range(lay.attn_norm.shape[0]):
-        for f in _LAYER_FIELDS:
-            leaf = getattr(lay, f)
-            if leaf is None:
-                continue
-            if f in _EXPERT_FIELDS:
-                for e in range(leaf.codes.shape[0]):
-                    out[f"layers.{i}.{f}.{e}"] = dataclasses.replace(
-                        leaf, codes=leaf.codes[e, i],
-                        scales=leaf.scales[e, i])
-            else:
-                out[f"layers.{i}.{f}"] = (leaf.layer(i)
-                                          if isinstance(leaf, QTensor)
-                                          else leaf[i])
+    for prefix, lay in (("layers", params.layers),
+                        ("layers0", params.layers0)):
+        if lay is None:
+            continue
+        for i in range(lay.attn_norm.shape[0]):
+            for f in _LAYER_FIELDS:
+                leaf = getattr(lay, f)
+                if leaf is None:
+                    continue
+                if f in _EXPERT_FIELDS:
+                    for e in range(leaf.codes.shape[0]):
+                        out[f"{prefix}.{i}.{f}.{e}"] = dataclasses.replace(
+                            leaf, codes=leaf.codes[e, i],
+                            scales=leaf.scales[e, i])
+                else:
+                    out[f"{prefix}.{i}.{f}"] = (leaf.layer(i)
+                                                if isinstance(leaf, QTensor)
+                                                else leaf[i])
     return out

@@ -40,25 +40,32 @@ def cuda_time(fn, iters: int = 20, warmup: int = 3) -> float:
 _ATTEMPTS = 6      # traces device_time retakes before it gives up
 _MIN_SHARE = 0.01  # least device / event time a whole trace can give
 _WARM_CALLS = 2    # calls a trace makes before its marker
+_PAD_KERNELS = 256  # empty spin kernels a trace launches before its marker
 _MARK_CYCLES = 1_000_000   # the marker: a spin kernel of about 0.5 ms
 
 
 def _trace(fn, calls: int):
     """Device events of ``calls`` calls of ``fn()``: (name, microseconds).
-    The profiler loses device events near the start of a trace (a one-call
-    trace kept its kernel and lost its memset; a trace of 2048 launches of
-    one kernel held 2047), so each trace first makes ``_WARM_CALLS`` calls,
-    then a spin kernel as a marker, then the calls; only the events that
-    start after the marker ends (one stream, in order) are kept. A trace
-    whose marker went missing gives none."""
+    The profiler loses the first device events of a trace, the more the
+    longer the process has traced (none in a fresh process; after the
+    smoke's kernels phase, the warm calls, the markers and some timed calls
+    of every trace), so each trace first makes ``_WARM_CALLS`` calls and
+    launches ``_PAD_KERNELS`` empty spin kernels, then a long spin kernel as
+    the marker, then the calls; only the events that start after the last
+    spin kernel ends (one stream, in order) are kept. A trace whose marker
+    went missing gives none. Only device activity is traced: host operator
+    events give no device time, and the profiler takes milliseconds of
+    host time per expert to process them for a plain version that loops
+    over hundreds of experts."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(_WARM_CALLS):
             fn()
+        for _ in range(_PAD_KERNELS):
+            torch.cuda._sleep(1)
         torch.cuda._sleep(_MARK_CYCLES)
         for _ in range(calls):
             fn()
@@ -78,22 +85,23 @@ def device_time(fn, iters: int = 20, warmup: int = 1) -> float:
     a trace counts only when it holds some, each name a multiple of
     ``iters`` times, the trace before it holds the same names as often and
     no earlier trace held another; up to ``_ATTEMPTS`` traces past the
-    first are taken, then this raises."""
+    first are taken, then this raises, listing every trace."""
     if not torch.cuda.is_available():
         raise RuntimeError("device_time measures the card; no CUDA device")
     for _ in range(warmup):
         fn()
-    prev, names = None, set()
+    prev, names, traces = None, set(), []
     for _ in range(1 + _ATTEMPTS):
         events = _trace(fn, iters)
         seen = Counter(name for name, _ in events)
+        traces.append(dict(seen))
         names |= seen.keys()
         if (seen and seen == prev and seen.keys() == names
                 and all(n % iters == 0 for n in seen.values())):
             return sum(us for _, us in events) / 1e3 / iters
         prev = seen
     raise RuntimeError(f"the profiler's device events of {iters} calls "
-                       f"disagree from trace to trace; the last: {dict(seen)}")
+                       f"disagree from trace to trace: {traces}")
 
 
 def kernel_times(fn, iters: int = 20) -> tuple[float, float]:

@@ -110,6 +110,18 @@ def test_entry_points_default_to_the_card():
         llama.forward(moe_params, [[1, 2]], moe_cache, moe)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Engine(moe_params, moe, max_slots=1, max_seq=16, paged=True)
+    # the DeepSeek (MLA) model: params, cache, forward and engine
+    mla = PRESETS["test-tiny-dsv3"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        llama.init_params(mla, seed=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        llama.init_cache(mla, 1, 16)
+    mla_params = llama.init_params(mla, seed=0, device="cpu")
+    mla_cache = llama.init_cache(mla, 1, 16, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        llama.forward(mla_params, [[1, 2]], mla_cache, mla)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Engine(mla_params, mla, max_slots=1, max_seq=16)
     # the serve entry point loads its checkpoint onto the card first
     from quant_tpu_torch.cli import main
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -32,9 +32,13 @@ from quant_tpu_torch.kernels.cache_insert import (
     cache_insert_int8, cache_insert_int8_reference)
 from quant_tpu_torch.kernels.cache_insert import (
     paged_cache_insert_int8, paged_cache_insert_int8_reference)
+from quant_tpu_torch.kernels.cache_insert import (
+    mla_cache_insert_int8, mla_cache_insert_int8_reference)
 from quant_tpu_torch.kernels.dequant_matmul import (
     dequant_matmul, dequant_matmul_moe, dequant_matmul_moe_reference,
     dequant_matmul_reference)
+from quant_tpu_torch.kernels.mla_attention import (
+    mla_flash_decode_int8, mla_flash_decode_int8_reference)
 from quant_tpu_torch.kernels.paged_attention import (
     paged_attention_reference, paged_flash_decode_int8)
 
@@ -360,3 +364,46 @@ def test_moe_cuda_kernel_matches_plain_on_card():
         torch.cuda.synchronize()
         got = got[:, :n] if mode == "concat" else got
         assert (got - ref).abs().max() <= 1e-4 * ref.abs().max(), mode
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,r,dq", [(4, 64, 128), (16, 512, 640),
+                                    (128, 512, 640)])
+def test_mla_cuda_kernels_match_plain_on_card(h, r, dq):
+    """The MLA latent insert (byte-equal, with a slot at capacity and one
+    outside the shard) and MLA flash decode (f32 q within 1e-4 of
+    max|ref|, bf16 q within 1e-2) against their plain versions at the toy
+    shapes (test-tiny-mla), DeepSeek-V2-Lite's (16 heads) and
+    DeepSeek-V3's (128 heads: 8 head tiles); S spans several 64-token
+    tiles and chunks, the last one partial."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(h)
+    _build.build()
+    l, s = 3, 600
+    lengths = [0, 1, 65, 300, s - 1, s]
+    b = len(lengths)
+    kc = torch.randint(-127, 128, (l, b, 1, s, dq), generator=gen,
+                       device=dev, dtype=torch.int32).to(torch.int8)
+    ks = torch.rand((l, b, 1, s), generator=gen, device=dev) * 0.02
+    plain = [kc.clone(), ks.clone()]
+    new_c = torch.randint(-127, 128, (b, 1, 1, dq), generator=gen,
+                          device=dev, dtype=torch.int32).to(torch.int8)
+    new_s = torch.rand((b, 1, 1), generator=gen, device=dev)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    for s0 in (0, 64):
+        mla_cache_insert_int8(kc, ks, new_c, new_s, ln, 1, s0)
+        mla_cache_insert_int8_reference(*plain, new_c, new_s, ln, 1, s0)
+        assert torch.equal(kc, plain[0]) and torch.equal(ks, plain[1])
+    for qdt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
+        q = torch.randn((b, h, dq), generator=gen, device=dev).to(qdt)
+        got = mla_flash_decode_int8(q, kc, ks, ln, 1, r=r, scale=0.07)
+        ref = mla_flash_decode_int8_reference(q, kc, ks, ln, 1, r=r,
+                                              scale=0.07)
+        torch.cuda.synchronize()
+        assert got.dtype == qdt and got.shape == (b, h, r)
+        err = (got.float() - ref.float()).abs().max()
+        assert err <= tol * ref.float().abs().max(), (qdt, float(err))
+        assert not got[0].float().abs().max()

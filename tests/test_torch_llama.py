@@ -104,8 +104,8 @@ def test_config_matches_jax():
 
 
 @pytest.mark.parametrize("preset,change,kwargs", [
-    ("test-tiny-moe", {"n_shared_experts": 1}, {}),
-    ("test-tiny-mla", {}, {}),
+    ("test-tiny-moe", {"moe_fused": False}, {}),
+    ("test-tiny-mla", {"kv_bits": 16}, {}),
     ("test-tiny", {"kv_bits": 4}, {}),
     ("test-tiny", {"kv_bits": 16}, {}),
     ("test-tiny", {"sliding_window": 8}, {}),
@@ -117,9 +117,10 @@ def test_config_matches_jax():
 ])
 def test_outside_the_slice_raises(preset, change, kwargs):
     """A config or argument outside the ported slices (dense and sparse-MoE
-    Llama, int8 KV) raises NotImplementedError; nothing falls back
-    silently. MoE and qk_norm are ported: their cases ask for the parts
-    that are not (shared experts, the capacity dispatch)."""
+    Llama, DeepSeek MLA, int8 KV) raises NotImplementedError; nothing falls
+    back silently. MoE, qk_norm and MLA are ported: their cases ask for the
+    parts that are not (the per-expert loop, the capacity dispatch, an
+    unquantized latent cache)."""
     cfg = dataclasses.replace(TConfig(**dataclasses.asdict(
         JPRESETS[preset])), **change)
     base = TConfig(**dataclasses.asdict(JPRESETS["test-tiny"]))

@@ -480,10 +480,13 @@ def test_moe_checkpoint_round_trips_both_ways(tmp_path, jax_engine):
 
 
 @pytest.mark.parametrize("change", [
-    {"n_shared_experts": 1}, {"first_k_dense": 1},
-    {"moe_prefill": "capacity"}, {"router_bias": True},
+    {"act_quant": True}, {"kv_bits": 16},
+    {"moe_prefill": "capacity"}, {"codebook": "nf4"},
     {"moe_fused": False}])
 def test_moe_outside_the_slice_raises(change):
+    """Shared experts, dense-prefix layers and the selection bias are
+    ported (``tests/test_torch_mla.py``); the capacity dispatch, the
+    per-expert loop, W8A8, codebooks and kv16 are not."""
     cfg = dataclasses.replace(TTINY, **change)
     with pytest.raises(NotImplementedError):
         tllama.init_params(cfg, seed=0, device="cpu")
