@@ -8,7 +8,7 @@ Run from the root of the repository, with one CUDA device:
 Phases; the first failure ends the run with a non-zero exit code:
 
 1. device    name, count, and ``nvidia-smi`` name / power limit.
-2. build     nvcc of the four CUDA sources (one process each, in parallel),
+2. build     nvcc of the five CUDA sources (one process each, in parallel),
              with the register / shared-memory report of ``-Xptxas -v``.
 3. kernels   each kernel against its plain PyTorch version at the
              Llama-3-8B shapes and the output dtypes the forward gives
@@ -26,7 +26,10 @@ Phases; the first failure ends the run with a non-zero exit code:
              DeepSeek latent cache (B=8, Dq=640, r=512, the attention rows'
              lengths) at 16 and 128 heads, and ``dequant_matmul`` at the
              DeepSeek-V2-Lite shapes (int4, groups of 64) and the
-             DeepSeek-V3 shapes (groups of 128).
+             DeepSeek-V3 shapes (groups of 128). ``unpack_int4_device``
+             bit-exact against its plain version and the host codec (the
+             C++ oracle's unpack) at 512x512 random codes and Llama-3-8B's
+             ``w_gate_up`` and ``lm_head`` shapes.
 4. serving   full-width Llama-3-8B (32 layers, random weights from seed 0,
              made on the card) behind ``Engine(max_slots=8, max_seq=2048)``:
              8 greedy requests of 32-1024 prompt tokens, 64 new tokens each.
@@ -55,7 +58,21 @@ Phases; the first failure ends the run with a non-zero exit code:
              (kernel_mode "auto") and with the plain versions ("xla"), with
              the kernels over a paged pool, and with the kernels again (the
              run-to-run spread the paged difference is read against).
-7. moe       full-width Mixtral-8x7B (the Llama-3-8B params freed first)
+7. convert   full-width Llama-3-8B (32 layers) from a Hugging Face
+             directory: random bf16 weights made on the card from seed 0,
+             written as ``*.safetensors`` (16 GB), ``python -m
+             quant_tpu_torch convert`` (int4, g128; the C++ coder is
+             required), the checkpoint loaded on the card; layer 0's wqkv,
+             w_gate_up and w_down and lm_head byte-equal to
+             ``quantize_tensor_device`` of their source tensors, and their
+             codes unpacked by ``unpack_int4_device`` equal to the host
+             codec's (the launches counted); the first 512-token window of
+             README.md with the kernels against the plain versions (logits
+             within 5e-2 of max|logit|, mean NLL within 1e-2); then ``eval``
+             over 4 windows of 512 and ``generate`` on two prompts, each in
+             its own process. It prints the write, convert, load and eval
+             times and each process's peak RSS.
+8. moe       full-width Mixtral-8x7B (the Llama-3-8B params freed first)
              over HTTP from the paged, prefix-cached engine: 8 requests
              from 4 client threads, a shared 512-token prefix plus 16-128
              suffix tokens, 32 new tokens each; exact launch counts (2 x 32
@@ -71,7 +88,7 @@ Phases; the first failure ends the run with a non-zero exit code:
              against plain. A MoE model's comparisons hold every token to
              the experts one pass kept (``held_routing``), and its random
              routers are scaled to unit gain (``unit_gain_router``).
-8. deepseek  full-width DeepSeek-V2-Lite (27 layers: MLA, 64 experts top-6,
+9. deepseek  full-width DeepSeek-V2-Lite (27 layers: MLA, 64 experts top-6,
              2 shared experts, one dense-prefix layer) over HTTP from
              ``Engine(max_slots=8, max_seq=2048)``: 8 requests of 64-1024
              prompt tokens, 64 new tokens each, 4 client threads (half
@@ -89,11 +106,14 @@ Phases; the first failure ends the run with a non-zero exit code:
              On each, kernels against plain at a 5-8 token context, with a
              planted control (the MLA kernel told each length less one)
              that must fail the same comparison.
-9. cli       ``python -m quant_tpu_torch generate`` on test-tiny,
+10. cli      ``python -m quant_tpu_torch generate`` on test-tiny,
              test-tiny-moe, test-tiny-mla and test-tiny-dsv3 checkpoints
              written by the port; ``serve --paged`` on the first two (two
              /generate requests over HTTP) and, refused with "not ported",
-             on the two MLA ones.
+             on the two MLA ones; ``convert`` of tiny random HF directories
+             of the test-tiny (Llama), test-tiny-moe (Mixtral) and
+             test-tiny-dsv3 (DeepSeek-V3) shapes, each loaded and run once;
+             ``selftest`` (codes bit-exact against the C++ oracle).
 
 Before the last line it prints ``{"kernels": [...]}`` and the
 ``nvidia-smi`` line; the last line is ``{"ok": true, "device": {...}}``.
@@ -109,7 +129,9 @@ import json
 import math
 import os
 import pathlib
+import shutil
 import socket
+import struct
 import subprocess
 import sys
 import tempfile
@@ -164,6 +186,7 @@ REPLACES = {
     "paged_flash_decode_int8": "quant_tpu/kernels/paged_attention.py:145",
     "mla_cache_insert_int8": "quant_tpu/kernels/cache_insert.py:469",
     "mla_flash_decode_int8": "quant_tpu/kernels/mla_attention.py:86",
+    "unpack_int4_device": "quant_tpu/kernels/unpack.py:37",
 }
 SOURCES = {
     "dequant_matmul": "quant_tpu_torch/csrc/dequant_matmul.cu",
@@ -174,7 +197,14 @@ SOURCES = {
     "paged_flash_decode_int8": "quant_tpu_torch/csrc/flash_decode.cu",
     "mla_cache_insert_int8": "quant_tpu_torch/csrc/cache_insert.cu",
     "mla_flash_decode_int8": "quant_tpu_torch/csrc/mla_attention.cu",
+    "unpack_int4_device": "quant_tpu_torch/csrc/unpack.cu",
 }
+# depth of the converted full-width Llama-3-8B (all of it: the HF directory
+# and the packed checkpoint take 20.6 GB of the temporary disk's 74.7 GiB)
+CONVERT_LAYERS = 32
+# unpack_int4_device: (K, N) of 512x512 random codes and Llama-3-8B's
+# w_gate_up and lm_head (padded vocab)
+UNPACK_SHAPES = [(512, 512), (4096, 28672), (4096, 131072)]
 
 
 def log(msg: str) -> None:
@@ -803,6 +833,71 @@ def mla_kernels(gen, detail: dict) -> dict:
                              "dsv2_matmul_step_m8": step,
                              "dsv3_matmul": v3_rows}
     return summary
+
+
+def unpack_kernels(gen, detail: dict) -> dict:
+    """``unpack_int4_device`` against its plain version and the host codec
+    (the C++ oracle's ``unpack_int4`` read as the split-K layout), bit for
+    bit, at ``UNPACK_SHAPES``: 512x512 random codes packed by the numpy
+    codec (unpacked, they must give the codes back), then random bytes at
+    Llama-3-8B's ``w_gate_up`` and ``lm_head`` shapes; device time with the
+    operands rotated L2-cold, the plain version's time and the byte bound
+    (K/2·N read, K·N written)."""
+    from quant_tpu_torch.core import codec, oracle
+    from quant_tpu_torch.kernels.unpack import (unpack_int4_device,
+                                                unpack_int4_host,
+                                                unpack_int4_reference)
+    from quant_tpu_torch.utils.timing import device_time, kernel_times
+
+    if not oracle.available():
+        raise RuntimeError("the C++ oracle (cpp/quantref.cpp) did not build")
+    dev = torch.device("cuda")
+    rows = []
+    for k, n in UNPACK_SHAPES:
+        def rand_packed():
+            return torch.randint(0, 256, (k // 2, n), generator=gen,
+                                 device=dev, dtype=torch.int16).to(
+                                     torch.uint8)
+        codes = None
+        if (k, n) == (512, 512):
+            codes = np.random.default_rng(0).integers(-8, 8, (k, n)).astype(
+                np.int8)
+            packed = torch.from_numpy(codec.pack_int4_matmul(codes)).to(dev)
+        else:
+            packed = rand_packed()
+        got = unpack_int4_device(packed)
+        ref = unpack_int4_reference(packed)
+        torch.cuda.synchronize()
+        host = unpack_int4_host(packed.cpu().numpy())
+        got_np = got.cpu().numpy()
+        if not (torch.equal(got, ref) and np.array_equal(got_np, host)
+                and (codes is None or np.array_equal(got_np, codes))):
+            raise AssertionError(f"unpack_int4_device {k}x{n} is not "
+                                 "bit-exact against its plain version and "
+                                 "the host codec")
+        m = packed.numel()
+        ops = [packed] + rotating(rand_packed, m)[1:]
+        nxt = cycle(ops)
+        iters = max(8, len(ops))
+        ms, ev = kernel_times(lambda: unpack_int4_device(nxt()), iters)
+        plain = device_time(lambda: unpack_int4_reference(nxt()), iters)
+        b_ms, b_by = bound_ms(3 * m, 0)
+        log(f"[kernels] unpack_int4_device {k}x{n}: bit-exact (plain, host "
+            f"codec)  {ms:.4f} ms (events {ev:.4f})  plain {plain:.4f} ms  "
+            f"bound {b_ms:.4f} ms ({b_by}), {100 * b_ms / ms:.1f}% of it")
+        rows.append({"kernel": "unpack_int4_device", "K": k, "N": n,
+                     "max_abs_err": 0.0, "ms": ms, "event_ms": ev,
+                     "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+                     "pct_of_bound": 100 * b_ms / ms})
+        del ops, got, ref
+    detail["unpack"] = rows
+    torch.cuda.empty_cache()
+    head = rows[-1]
+    return {k: head[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                 "bound_by")} | {
+        "library_ms": None,
+        "unit": "one call at lm_head's 4096x131072 (268 MB packed); device "
+                "time, operand L2-cold"}
 
 
 def phase_serving(detail: dict, params, cfg) -> dict:
@@ -2101,6 +2196,373 @@ def phase_cli_paged_mla(detail: dict, preset: str) -> None:
     detail[f"cli_serve_paged_{preset}"] = out.stderr[-2000:]
 
 
+# ── Hugging Face checkpoints: convert, load, eval ─────────────────────
+
+_ST_DTYPES = {torch.bfloat16: "BF16", torch.float16: "F16",
+              torch.float32: "F32"}
+
+
+def write_safetensors(path, tensors: dict) -> int:
+    """A minimal ``.safetensors`` writer (this machine has no safetensors
+    package): 8-byte little-endian header length, a JSON header padded with
+    spaces to a multiple of 8, then each tensor's little-endian bytes in
+    the header's order. Returns the file's size."""
+    header, hosts, off = {}, [], 0
+    for name, t in tensors.items():
+        h = t.detach().contiguous().cpu()
+        nb = h.numel() * h.element_size()
+        header[name] = {"dtype": _ST_DTYPES[h.dtype], "shape": list(h.shape),
+                        "data_offsets": [off, off + nb]}
+        hosts.append(h)
+        off += nb
+    hb = json.dumps(header).encode()
+    hb += b" " * (-len(hb) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(hb)))
+        f.write(hb)
+        for h in hosts:
+            f.write(h.reshape(-1).view(torch.uint8).numpy())
+    return 8 + len(hb) + off
+
+
+def hf_config(cfg) -> dict:
+    """The HF ``config.json`` of a Llama, Mixtral or DeepSeek-V3 config."""
+    out = {"model_type": "llama", "vocab_size": cfg.vocab_size,
+           "hidden_size": cfg.dim, "num_hidden_layers": cfg.n_layers,
+           "num_attention_heads": cfg.n_heads,
+           "num_key_value_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim,
+           "intermediate_size": cfg.intermediate,
+           "rope_theta": cfg.rope_theta, "rms_norm_eps": cfg.norm_eps,
+           "tie_word_embeddings": False, "torch_dtype": "bfloat16"}
+    if cfg.is_mla:
+        out.update(
+            model_type="deepseek_v3", num_key_value_heads=cfg.n_heads,
+            head_dim=cfg.qk_rope_head_dim,
+            intermediate_size=cfg.dense_intermediate,
+            moe_intermediate_size=cfg.intermediate,
+            kv_lora_rank=cfg.kv_lora_rank, q_lora_rank=cfg.q_lora_rank,
+            qk_nope_head_dim=cfg.qk_nope_head_dim,
+            qk_rope_head_dim=cfg.qk_rope_head_dim,
+            v_head_dim=cfg.v_head_dim, n_routed_experts=cfg.n_experts,
+            num_experts_per_tok=cfg.experts_per_token,
+            n_shared_experts=cfg.n_shared_experts,
+            first_k_dense_replace=cfg.first_k_dense,
+            routed_scaling_factor=cfg.routed_scaling,
+            n_group=cfg.n_expert_groups, topk_group=cfg.topk_groups,
+            norm_topk_prob=cfg.norm_topk, rope_interleave=True)
+    elif cfg.n_experts:
+        out.update(model_type="mixtral", num_local_experts=cfg.n_experts,
+                   num_experts_per_tok=cfg.experts_per_token,
+                   sliding_window=None)
+    return out
+
+
+def hf_layer(cfg, i: int, gen) -> dict:
+    """Layer ``i``'s HF tensors (bf16 ``[out, in]`` linears with std
+    1/sqrt(in), unit norms), made on the card."""
+    dev, bf = "cuda", torch.bfloat16
+
+    def w(o, k):
+        return (torch.randn((o, k), generator=gen, device=dev)
+                / math.sqrt(k)).to(bf)
+
+    def ones(n):
+        return torch.ones((n,), dtype=bf, device=dev)
+    p, d, h = f"model.layers.{i}.", cfg.dim, cfg.n_heads
+    t = {p + "input_layernorm.weight": ones(d),
+         p + "post_attention_layernorm.weight": ones(d)}
+    if cfg.is_mla:
+        r, dr = cfg.kv_lora_rank, cfg.qk_rope_head_dim
+        dn, dv, ql = cfg.qk_nope_head_dim, cfg.v_head_dim, cfg.q_lora_rank
+        a = p + "self_attn."
+        t[a + "q_a_proj.weight"] = w(ql, d)
+        t[a + "q_a_layernorm.weight"] = ones(ql)
+        t[a + "q_b_proj.weight"] = w(h * (dn + dr), ql)
+        t[a + "kv_a_proj_with_mqa.weight"] = w(r + dr, d)
+        t[a + "kv_a_layernorm.weight"] = ones(r)
+        t[a + "kv_b_proj.weight"] = w(h * (dn + dv), r)
+        t[a + "o_proj.weight"] = w(d, h * dv)
+    else:
+        hd, hkv = cfg.head_dim, cfg.n_kv_heads
+        for name, o, k in (("q", h * hd, d), ("k", hkv * hd, d),
+                           ("v", hkv * hd, d), ("o", d, h * hd)):
+            t[p + f"self_attn.{name}_proj.weight"] = w(o, k)
+    it, e = cfg.intermediate, cfg.n_experts
+    if e and cfg.is_mla and i >= cfg.first_k_dense:
+        m = p + "mlp."
+        t[m + "gate.weight"] = w(e, d)
+        t[m + "gate.e_score_correction_bias"] = torch.zeros(
+            (e,), dtype=torch.float32, device=dev)
+        si = cfg.n_shared_experts * it
+        t[m + "shared_experts.gate_proj.weight"] = w(si, d)
+        t[m + "shared_experts.up_proj.weight"] = w(si, d)
+        t[m + "shared_experts.down_proj.weight"] = w(d, si)
+        for j in range(e):
+            t[m + f"experts.{j}.gate_proj.weight"] = w(it, d)
+            t[m + f"experts.{j}.up_proj.weight"] = w(it, d)
+            t[m + f"experts.{j}.down_proj.weight"] = w(d, it)
+    elif e and not cfg.is_mla:
+        m = p + "block_sparse_moe."
+        t[m + "gate.weight"] = w(e, d)
+        for j in range(e):
+            t[m + f"experts.{j}.w1.weight"] = w(it, d)
+            t[m + f"experts.{j}.w3.weight"] = w(it, d)
+            t[m + f"experts.{j}.w2.weight"] = w(d, it)
+    else:
+        it = cfg.dense_intermediate or it
+        t[p + "mlp.gate_proj.weight"] = w(it, d)
+        t[p + "mlp.up_proj.weight"] = w(it, d)
+        t[p + "mlp.down_proj.weight"] = w(d, it)
+    return t
+
+
+def write_hf_model(root: pathlib.Path, cfg, seed: int,
+                   keep=()) -> tuple[int, dict]:
+    """A random HF checkpoint of ``cfg`` (weights made on the card from
+    ``seed``, one ``.safetensors`` file for the embeddings and head and one
+    per layer) and its ``config.json``. Returns (bytes written, the tensors
+    named in ``keep``, still on the card)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    root.mkdir(parents=True)
+    v, d = cfg.vocab_size, cfg.dim
+    top = {"model.embed_tokens.weight":
+           (torch.randn((v, d), generator=gen, device="cuda") * 0.02).to(
+               torch.bfloat16),
+           "model.norm.weight": torch.ones((d,), dtype=torch.bfloat16,
+                                           device="cuda"),
+           "lm_head.weight": (torch.randn((v, d), generator=gen,
+                                          device="cuda")
+                              / math.sqrt(d)).to(torch.bfloat16)}
+    kept = {k: x for k, x in top.items() if k in keep}
+    total = write_safetensors(root / "model-00000.safetensors", top)
+    del top
+    for i in range(cfg.n_layers):
+        t = hf_layer(cfg, i, gen)
+        kept.update({k: x for k, x in t.items() if k in keep})
+        total += write_safetensors(root / f"model-{i + 1:05d}.safetensors",
+                                   t)
+        del t
+    (root / "config.json").write_text(json.dumps(hf_config(cfg)))
+    return total, kept
+
+
+def run_cli(args: list, timeout: float = 900) -> tuple[list, float, float]:
+    """``python -m quant_tpu_torch <args>`` from the repository root: (its
+    stdout's JSON lines, wall seconds, its peak RSS in GiB from
+    ``wait4``). Raises on a non-zero exit; kills it at ``timeout``."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryFile("w+") as fo, \
+            tempfile.TemporaryFile("w+") as fe:
+        p = subprocess.Popen([sys.executable, "-m", "quant_tpu_torch",
+                              *args], stdout=fo, stderr=fe, cwd=ROOT,
+                             env=dict(os.environ, PYTHONPATH=str(ROOT)))
+        timer = threading.Timer(timeout, p.kill)
+        timer.start()
+        try:
+            _, status, usage = os.wait4(p.pid, 0)
+        finally:
+            timer.cancel()
+        p.returncode = os.waitstatus_to_exitcode(status)
+        fo.seek(0)
+        fe.seek(0)
+        stdout, stderr = fo.read(), fe.read()
+    wall = time.perf_counter() - t0
+    if p.returncode != 0:
+        raise RuntimeError(f"cli {args[0]} exited {p.returncode}:\n"
+                           f"{stderr[-4000:]}")
+    return ([json.loads(x) for x in stdout.strip().splitlines()], wall,
+            usage.ru_maxrss / 2 ** 20)
+
+
+def dir_bytes(path: pathlib.Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def phase_convert_eval(detail: dict, n_layers: int) -> dict:
+    """Llama-3-8B at full width (``n_layers`` deep) from a Hugging Face
+    directory to perplexity: random bf16 weights in the HF layout written
+    to disk, ``convert`` (int4, g128, C++ coder) in a subprocess, the
+    checkpoint loaded onto the card; layer 0's wqkv, w_gate_up and w_down
+    and lm_head byte-equal (codes, scales) to ``quantize_tensor_device`` of
+    the same source tensors on the card, and their codes unpacked by
+    ``unpack_int4_device`` equal to the host codec's unpack of the same
+    bytes; the first 512-token window of README.md (byte ids) with the
+    kernels against the plain versions; then ``eval`` over 4 windows of
+    512 and ``generate`` on two prompts, each in a subprocess. The launch
+    counts cover the in-process load, checks and window."""
+    from quant_tpu_torch.checkpoint import load_checkpoint
+    from quant_tpu_torch.core.qtensor import quantize_tensor_device
+    from quant_tpu_torch.eval import tokens_from_file
+    from quant_tpu_torch.kernels import _build
+    from quant_tpu_torch.kernels.unpack import check_int4_layout
+    from quant_tpu_torch.models import PRESETS, llama
+
+    cfg = dataclasses.replace(PRESETS["llama-3-8b"], n_layers=n_layers)
+    p0 = "model.layers.0."
+    keep = [p0 + f"self_attn.{x}_proj.weight" for x in "qkv"] + [
+        p0 + f"mlp.{x}_proj.weight" for x in ("gate", "up", "down")] + [
+        "lm_head.weight"]
+    out: dict = {"n_layers": n_layers}
+    with tempfile.TemporaryDirectory() as tmp:
+        hf_dir, ck = pathlib.Path(tmp) / "hf", pathlib.Path(tmp) / "ckpt"
+        t0 = time.perf_counter()
+        out["hf_bytes"], src = write_hf_model(hf_dir, cfg, 0, keep)
+        out["hf_write_s"] = time.perf_counter() - t0
+        out["disk_free_gib"] = shutil.disk_usage(tmp).free / 2 ** 30
+        log(f"[convert] llama-3-8b ({n_layers} layers, full width) HF "
+            f"directory: {out['hf_bytes'] / 1e9:.2f} GB of bf16 "
+            f"safetensors written in {out['hf_write_s']:.1f}s "
+            f"({out['disk_free_gib']:.1f} GiB left on the temporary disk)")
+        lines, out["convert_s"], out["convert_rss_gib"] = run_cli(
+            ["convert", str(hf_dir), str(ck), "--bits", "4",
+             "--group-size", "128"])
+        conv = lines[-1]
+        out["coder"] = conv["coder"]
+        out["ckpt_bytes"] = dir_bytes(ck)
+        log(f"[convert] python -m quant_tpu_torch convert: "
+            f"{out['ckpt_bytes'] / 1e9:.3f} GB packed checkpoint in "
+            f"{out['convert_s']:.1f}s (in the converter "
+            f"{conv['seconds']:.1f}s, device peak "
+            f"{conv['device_peak_bytes'] / 2 ** 30:.2f} GiB, host peak RSS "
+            f"{out['convert_rss_gib']:.2f} GiB), coder {conv['coder']}")
+        if conv["coder"] != "c++":
+            raise AssertionError("the converter did not use the C++ coder")
+        shutil.rmtree(hf_dir)     # the temporary disk holds one copy
+
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        params, lcfg = load_checkpoint(ck, device="cuda")
+        torch.cuda.synchronize()
+        out["load_s"] = time.perf_counter() - t0
+        lay = params.layers
+        checks = {
+            "layers.0.wqkv": (lay.wqkv.layer(0), [
+                src[p0 + f"self_attn.{x}_proj.weight"] for x in "qkv"]),
+            "layers.0.w_gate_up": (lay.w_gate_up.layer(0), [
+                src[p0 + f"mlp.{x}_proj.weight"] for x in ("gate", "up")]),
+            "layers.0.w_down": (lay.w_down.layer(0),
+                                [src[p0 + "mlp.down_proj.weight"]]),
+            "lm_head": (params.lm_head, [src["lm_head.weight"]])}
+        for name, (qt, parts) in checks.items():
+            w = torch.cat([x.float().T for x in parts], dim=1)
+            if w.shape[1] < qt.shape[1]:
+                w = torch.nn.functional.pad(w, (0, qt.shape[1] - w.shape[1]))
+            direct = quantize_tensor_device(w, 4, 128)
+            if not (torch.equal(direct.codes, qt.codes)
+                    and torch.equal(direct.scales, qt.scales)):
+                raise AssertionError(f"{name}: the converted checkpoint "
+                                     "differs from quantize_tensor_device "
+                                     "of the same weights")
+            check_int4_layout(qt.codes)
+            del w, direct
+        log(f"[convert] loaded on the card in {out['load_s']:.1f}s; "
+            f"{', '.join(checks)} byte-equal to quantize_tensor_device of "
+            "the source tensors; their int4 codes unpacked on the card equal "
+            "the host codec's")
+        del src, checks
+
+        toks = tokens_from_file(str(ROOT / "README.md"))
+        win = torch.as_tensor(toks[:513].astype(np.int64), device="cuda")
+        res = {}
+        with torch.inference_mode():
+            for mode in ("auto", "xla"):
+                c = dataclasses.replace(lcfg, kernel_mode=mode)
+                cache = llama.init_cache(c, 1, 512, "cuda")
+                lg, _ = llama.forward(params, win[None, :-1], cache, c,
+                                      device="cuda")
+                lp = torch.log_softmax(lg[0].float(), dim=-1)
+                res[mode] = (lg[0].float(), float(
+                    -lp.gather(-1, win[1:, None]).mean()))
+                del cache
+        launches = dict(_build.launches)
+        out["launches"] = launches
+        out["device_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        (a, nll_a), (r, nll_r) = res["auto"], res["xla"]
+        rel = float((a - r).abs().max() / r.abs().max())
+        out.update(window_rel_err=rel, window_nll_kernels=nll_a,
+                   window_nll_plain=nll_r)
+        log(f"[convert] first 512-token window: kernels vs plain max|dlogit| "
+            f"= {rel:.3e} of max|logit|, mean NLL {nll_a:.5f} vs {nll_r:.5f}"
+            f"; launches {launches}; device peak "
+            f"{out['device_peak_gib']:.2f} GiB")
+        if not (bool(torch.isfinite(a).all()) and rel <= 5e-2
+                and abs(nll_a - nll_r) <= 1e-2):
+            raise AssertionError(f"converted model: kernels vs plain logits "
+                                 f"{rel:.3g}, NLL {nll_a} vs {nll_r}")
+        check_launches("convert-eval", launches, {
+            "unpack_int4_device": 4, "dequant_matmul": 4 * n_layers + 1,
+            "flash_decode_int8": 0, "cache_insert_int8": 0})
+        del params, res, a, r
+        torch.cuda.empty_cache()
+
+        (ev,), wall, rss = run_cli(["eval", str(ck), "--text",
+                                    str(ROOT / "README.md"), "--window",
+                                    "512", "--limit-windows", "4"])
+        out.update(eval=ev, eval_wall_s=wall, eval_rss_gib=rss)
+        if ev["tokens"] != 4 * 512 or not math.isfinite(ev["nll"]):
+            raise AssertionError(f"unexpected eval result {ev}")
+        log(f"[convert] python -m quant_tpu_torch eval --window 512 "
+            f"--limit-windows 4: nll {ev['nll']:.5f} ppl {ev['ppl']:.1f} "
+            f"over {ev['tokens']} tokens; load {ev['load_s']:.1f}s, eval "
+            f"{ev['eval_s']:.2f}s ({ev['tokens_per_s']:.0f} tokens/s); "
+            f"{wall:.1f}s in all, host peak RSS {rss:.2f} GiB")
+        gen_lines, wall, rss = run_cli(
+            ["generate", str(ck), "--prompt-ids",
+             ",".join(str(x) for x in toks[:64]) + ";"
+             + ",".join(str(x) for x in toks[64:80]),
+             "--max-new", "16", "--slots", "2", "--max-seq", "128",
+             "--eos-id", "-1"])
+        if len(gen_lines) != 2 or any(len(x["output"]) != 16
+                                      for x in gen_lines):
+            raise AssertionError(f"unexpected generate output {gen_lines}")
+        out.update(generate=[x["output"] for x in gen_lines],
+                   generate_wall_s=wall, generate_rss_gib=rss)
+        log(f"[convert] python -m quant_tpu_torch generate: 2 prompts (64 "
+            f"and 16 tokens), 16 new tokens each in {wall:.1f}s (host peak "
+            f"RSS {rss:.2f} GiB): {out['generate']}")
+    detail["convert_eval"] = out
+    return out
+
+
+def phase_cli_convert(detail: dict, preset: str) -> None:
+    """``convert`` of a tiny random HF directory of ``preset``'s shapes
+    (the converter's dense, Mixtral and DeepSeek-V3 branches), then the
+    checkpoint loaded on the card and one forward."""
+    from quant_tpu_torch.checkpoint import load_checkpoint
+    from quant_tpu_torch.models import PRESETS, llama
+
+    cfg = PRESETS[preset]
+    with tempfile.TemporaryDirectory() as tmp:
+        hf_dir, ck = pathlib.Path(tmp) / "hf", pathlib.Path(tmp) / "ckpt"
+        write_hf_model(hf_dir, cfg, 0)
+        (conv,), wall, _ = run_cli(["convert", str(hf_dir), str(ck),
+                                    "--bits", "4", "--group-size",
+                                    str(cfg.group_size)])
+        params, lcfg = load_checkpoint(ck, device="cuda")
+    for f in ("n_layers", "n_experts", "first_k_dense", "kv_lora_rank",
+              "q_lora_rank", "n_shared_experts"):
+        if getattr(lcfg, f) != getattr(cfg, f):
+            raise AssertionError(f"convert {preset}: {f} {getattr(lcfg, f)} "
+                                 f"!= {getattr(cfg, f)}")
+    cache = llama.init_cache(lcfg, 1, 16, "cuda")
+    lg, _ = llama.forward(params, [[1, 2, 3]], cache, lcfg, device="cuda")
+    if not bool(torch.isfinite(lg).all()):
+        raise AssertionError(f"convert {preset}: non-finite logits")
+    log(f"[cli] convert ({preset} shapes, HF {hf_config(cfg)['model_type']})"
+        f" in {wall:.1f}s, coder {conv['coder']}; loaded, one forward")
+    detail[f"cli_convert_{preset}"] = {"wall_s": wall, "coder": conv["coder"]}
+
+
+def phase_selftest(detail: dict) -> None:
+    lines, wall, _ = run_cli(["selftest"], timeout=300)
+    if not (lines[0].get("codes_bit_exact") and lines[-1].get("ok")):
+        raise AssertionError(f"selftest: {lines}")
+    log(f"[cli] selftest in {wall:.1f}s: {json.dumps(lines)}")
+    detail["selftest"] = lines
+
+
 def write_detail(path, detail: dict) -> None:
     if path is not None:
         path.parent.mkdir(parents=True, exist_ok=True)
@@ -2155,6 +2617,9 @@ def run_all(args, detail: dict) -> int:
     summary.update(mla_kernels(
         torch.Generator(device="cuda").manual_seed(0), detail))
     lap("mla kernels")
+    summary["unpack_int4_device"] = unpack_kernels(
+        torch.Generator(device="cuda").manual_seed(0), detail)
+    lap("unpack kernels")
 
     cfg = PRESETS["llama-3-8b"]
     t0 = time.perf_counter()
@@ -2169,6 +2634,8 @@ def run_all(args, detail: dict) -> int:
     del params
     torch.cuda.empty_cache()
     lap("llama")
+    convert = phase_convert_eval(detail, CONVERT_LAYERS)
+    lap("convert-eval")
 
     cfg = PRESETS["mixtral-8x7b"]
     t0 = time.perf_counter()
@@ -2215,6 +2682,9 @@ def run_all(args, detail: dict) -> int:
     for preset in ("test-tiny-mla", "test-tiny-dsv3"):
         phase_cli(detail, preset)
         phase_cli_paged_mla(detail, preset)
+    for preset in ("test-tiny", "test-tiny-moe", "test-tiny-dsv3"):
+        phase_cli_convert(detail, preset)
+    phase_selftest(detail)
     lap("cli")
 
     kernels = []
@@ -2223,7 +2693,8 @@ def run_all(args, detail: dict) -> int:
         # each kernel's launches from the serving run of its own path
         run = (paged if name.startswith("paged")
                else mla if name.startswith("mla")
-               else moe if name == "dequant_matmul_moe" else serving)
+               else moe if name == "dequant_matmul_moe"
+               else convert if name == "unpack_int4_device" else serving)
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],

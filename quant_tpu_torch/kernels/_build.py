@@ -33,7 +33,8 @@ __all__ = ["SOURCES", "BUILD_DIR", "build", "load", "entry", "check",
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-SOURCES = ("dequant_matmul", "cache_insert", "flash_decode", "mla_attention")
+SOURCES = ("dequant_matmul", "cache_insert", "flash_decode", "mla_attention",
+           "unpack")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -43,7 +44,8 @@ launches: dict[str, int] = {"dequant_matmul": 0, "dequant_matmul_moe": 0,
                             "paged_cache_insert_int8": 0,
                             "paged_flash_decode_int8": 0,
                             "mla_cache_insert_int8": 0,
-                            "mla_flash_decode_int8": 0}
+                            "mla_flash_decode_int8": 0,
+                            "unpack_int4_device": 0}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

@@ -64,8 +64,9 @@ def _stack_q(leaves, device) -> QTensor:
     if first.kshards != 1:
         raise NotImplementedError("kshards > 1 (tensor parallel packing) is "
                                   "not ported")
-    codes = torch.stack([to_torch(q.codes) for q in leaves]).to(device)
-    scales = torch.stack([to_torch(q.scales) for q in leaves]).to(device)
+    # stacked where they go: no second host copy of a whole stack
+    codes = torch.stack([to_torch(q.codes, device) for q in leaves])
+    scales = torch.stack([to_torch(q.scales, device) for q in leaves])
     return QTensor(codes=codes, scales=scales, bits=int(first.bits),
                    group_size=int(first.group_size),
                    shape=tuple(int(v) for v in first.shape))
@@ -136,7 +137,7 @@ def _stack_from_flat(flat: dict, cfg: ModelConfig, prefix: str, n: int,
     def dense_stack(field, default=None):
         if not has(field):
             return None if default is None else default.to(dev)
-        t = torch.stack([to_torch(a) for a in rows(field)]).to(dev)
+        t = torch.stack([to_torch(a, dev) for a in rows(field)])
         return t if field in _KEEP_DTYPE else t.to(torch.float32)
 
     d, hd = cfg.dim, cfg.head_dim

@@ -144,3 +144,58 @@ def test_entropy_decode_memory_is_bounded_by_its_chunk():
     # the output, one chunk's arrays and the table (measured 23 MiB); the
     # whole blob's 6.1M positions at once took 95 MiB
     assert peak < len(data) + 32 * t_entropy._CHUNK_BITS + 2 * 2 ** max_len
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_oracle_binding_bit_exact_1m_floats(bits):
+    """The port's binding to the C++ oracle (built from ``cpp/`` into the
+    port's build directory): 1M-float codes and scales, per tensor and per
+    group of 64, bit-exact against the port's numpy codec; nibble packing
+    both ways; the MSE within the uniform-quantization bound."""
+    from quant_tpu_torch.core import oracle
+
+    assert oracle.available()
+    x = np.random.default_rng(bits).standard_normal(1 << 20).astype(
+        np.float32)
+    c_codes, c_scale = oracle.quantize(x, bits)
+    p_codes, p_scale = t_codec.quantize(x, bits)
+    np.testing.assert_array_equal(c_codes, p_codes)
+    assert c_scale == float(p_scale)
+    g_codes, g_scales = oracle.quantize_grouped(x.reshape(-1, 1024), bits,
+                                                64)
+    p_codes, p_scales = t_codec.quantize(x.reshape(-1, 1024), bits,
+                                         group_size=64)
+    np.testing.assert_array_equal(g_codes, p_codes)
+    np.testing.assert_array_equal(g_scales, p_scales)
+    rec = oracle.dequantize(c_codes, c_scale)
+    np.testing.assert_array_equal(rec, t_codec.dequantize(c_codes, c_scale))
+    assert oracle.mse(x, rec) <= (c_scale / 2) ** 2
+    if bits == 4:
+        packed = oracle.pack_int4(c_codes)
+        np.testing.assert_array_equal(packed, t_codec.pack_int4(c_codes))
+        np.testing.assert_array_equal(oracle.unpack_int4(packed, x.size),
+                                      c_codes)
+
+
+@pytest.mark.parametrize("kind", ["int4", "int8", "stored", "empty"])
+def test_oracle_entropy_byte_equal_to_python_coder(kind):
+    """``oracle.entropy_encode`` writes the same QREF frame as the port's
+    Python coder (Huffman for quantized codes, stored for incompressible
+    bytes); each coder decodes the other's frame."""
+    from quant_tpu_torch.core import oracle
+
+    rng = np.random.default_rng(5)
+    if kind == "empty":
+        data = np.zeros(0, np.uint8)
+    elif kind == "stored":
+        data = rng.integers(0, 256, 4096).astype(np.uint8)
+    else:
+        bits = 4 if kind == "int4" else 8
+        codes, _ = t_codec.quantize(
+            rng.standard_normal(1 << 16).astype(np.float32), bits)
+        data = (t_codec.pack_int4(codes) if bits == 4
+                else codes.view(np.uint8))
+    frame = oracle.entropy_encode(data)
+    assert frame == t_entropy.encode(data)
+    assert oracle.entropy_decode(frame) == data.tobytes()
+    assert t_entropy.decode(frame) == data.tobytes()

@@ -215,6 +215,21 @@ def test_checkpoint_bf16_embed_round_trip(tmp_path):
         np.asarray(jp.embed).view(np.uint16))
 
 
+def test_checkpoint_files_byte_equal_to_jax(tmp_path, jparams, tparams):
+    """The streaming ``CheckpointWriter`` behind ``save_checkpoint`` writes
+    ``manifest.json`` (shard axes included) and ``data.bin`` byte for byte
+    as the JAX writer does; tp>1 packing is refused."""
+    from quant_tpu_torch.checkpoint.format import CheckpointWriter
+
+    j_save(tmp_path / "j", jparams, JCFG)
+    t_save(tmp_path / "t", tparams, TCFG)
+    for name in ("manifest.json", "data.bin"):
+        assert ((tmp_path / "t" / name).read_bytes()
+                == (tmp_path / "j" / name).read_bytes()), name
+    with pytest.raises(NotImplementedError, match="tp>1"):
+        CheckpointWriter(tmp_path / "x", TCFG, tp=2)
+
+
 def test_cli_generate_prints_json_lines(tmp_path, tparams):
     t_save(tmp_path / "ckpt", tparams, TCFG)
     env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")

@@ -2,7 +2,9 @@
 
 * An ``ast`` scan of ``quant_tpu_torch/**/*.py`` and ``chip_smoke.py`` finds
   no import of ``jax``, ``jaxlib`` or ``quant_tpu`` (other than
-  ``quant_tpu_torch``).
+  ``quant_tpu_torch``), and none of ``safetensors`` or ``transformers``
+  (packages the card's machine lacks) but one: ``transformers`` inside
+  ``tokens_from_file``, for an explicit ``--tokenizer``.
 * A subprocess imports every module of the port with ``jax`` blocked.
 * Entry points called without ``device="cpu"`` raise on a machine without a
   GPU instead of falling back to the CPU.
@@ -53,6 +55,42 @@ def _forbidden(name: str) -> bool:
 def test_no_jax_or_reference_imports(path):
     bad = [n for n in _imported(path) if _forbidden(n)]
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+# packages the card's machine lacks: (file, function) that may import them
+OPTIONAL = {"safetensors": set(),
+            "transformers": {("quant_tpu_torch/eval/perplexity.py",
+                              "tokens_from_file")}}
+
+
+def _optional_imports(path: pathlib.Path) -> list[tuple[str, str]]:
+    """(package, enclosing function or "<module>") of each import of an
+    ``OPTIONAL`` package in ``path``."""
+    found = []
+
+    def visit(node, where):
+        for child in ast.iter_child_nodes(node):
+            inner = (child.name if isinstance(
+                child, (ast.FunctionDef, ast.AsyncFunctionDef)) else where)
+            names = []
+            if isinstance(child, ast.Import):
+                names = [a.name for a in child.names]
+            elif isinstance(child, ast.ImportFrom) and child.module:
+                names = [child.module]
+            found.extend((n.split(".")[0], where) for n in names
+                         if n.split(".")[0] in OPTIONAL)
+            visit(child, inner)
+    visit(ast.parse(path.read_text(), str(path)), "<module>")
+    return found
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_safetensors_or_transformers_imports(path):
+    rel = str(path.relative_to(REPO))
+    bad = [(pkg, fn) for pkg, fn in _optional_imports(path)
+           if (rel, fn) not in OPTIONAL[pkg]]
+    assert not bad, f"{rel} imports {bad}"
 
 
 def test_port_imports_with_jax_blocked():
@@ -131,3 +169,21 @@ def test_entry_points_default_to_the_card():
          "--prompt-ids", "1"], capture_output=True, text=True, timeout=120,
         cwd=REPO, env=dict(os.environ, PYTHONPATH=str(REPO)))
     assert out.returncode != 0 and "no CUDA device" in out.stderr
+
+
+def test_convert_eval_selftest_default_to_the_card(tmp_path):
+    """``convert``, ``eval`` and ``selftest`` (functions and CLI) take the
+    card unless asked for the CPU: without a GPU they raise."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU: the card default is usable")
+    from quant_tpu_torch.checkpoint.hf import convert_hf_llama
+    from quant_tpu_torch.cli import main
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert_hf_llama(tmp_path / "hf", tmp_path / "out")
+    for argv in (["convert", str(tmp_path / "hf"), str(tmp_path / "out")],
+                 ["eval", str(REPO / "no-such-checkpoint"), "--text",
+                  str(REPO / "README.md")],
+                 ["selftest"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(argv)

@@ -21,6 +21,7 @@ try:
     from quant_tpu.kernels.attention import flash_decode_int8 as j_flash
     from quant_tpu.kernels.cache_insert import cache_insert_int8 as j_insert
     from quant_tpu.kernels.dequant_matmul import dequant_matmul as j_dqmm
+    from quant_tpu.kernels.unpack import unpack_int4_device as j_unpack
 except ModuleNotFoundError:   # only the gpu-marked test can run there
     pass
 
@@ -41,6 +42,9 @@ from quant_tpu_torch.kernels.mla_attention import (
     mla_flash_decode_int8, mla_flash_decode_int8_reference)
 from quant_tpu_torch.kernels.paged_attention import (
     paged_attention_reference, paged_flash_decode_int8)
+from quant_tpu_torch.kernels.unpack import (unpack_int4_device,
+                                            unpack_int4_host,
+                                            unpack_int4_reference)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -407,3 +411,47 @@ def test_mla_cuda_kernels_match_plain_on_card(h, r, dq):
         err = (got.float() - ref.float()).abs().max()
         assert err <= tol * ref.float().abs().max(), (qdt, float(err))
         assert not got[0].float().abs().max()
+
+
+@pytest.mark.parametrize("k,n", [(512, 512), (64, 1536), (6, 10)])
+def test_unpack_int4_reference_matches_jax_kernel(k, n):
+    """The plain unpack (the CPU path of ``unpack_int4_device``) equals the
+    JAX Pallas kernel in interpret mode and the host codec bit for bit;
+    unpacking the numpy codec's packing gives the codes back."""
+    from quant_tpu_torch.core import codec
+
+    codes = np.random.default_rng(k + n).integers(-8, 8, (k, n)).astype(
+        np.int8)
+    packed = codec.pack_int4_matmul(codes)
+    want = np.asarray(j_unpack(jnp.asarray(packed), interpret=True))
+    got = unpack_int4_device(torch.from_numpy(packed)).numpy()
+    assert got.dtype == np.int8 and got.shape == (k, n)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, codes)
+    np.testing.assert_array_equal(unpack_int4_host(packed), codes)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,n", [(512, 512), (64, 1536), (6, 10),
+                                 (4096, 28672)])
+def test_unpack_cuda_kernel_matches_plain_on_card(k, n):
+    """``unpack_int4_device`` against its plain version and the host codec,
+    bit for bit: the 16-byte vector path (K/2·N a multiple of 16), the
+    bytewise path (6x10: 30 bytes) and an offset view (layer 1 of a stack,
+    vector path only when its start stays 16-byte aligned)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(k + n)
+    _build.build(("unpack",))
+    stack = torch.randint(0, 256, (2, k // 2, n), generator=gen, device=dev,
+                          dtype=torch.int32).to(torch.uint8)
+    for packed in (stack[0], stack[1]):
+        got = unpack_int4_device(packed)
+        ref = unpack_int4_reference(packed)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int8 and got.shape == (k, n)
+        assert torch.equal(got, ref)
+        np.testing.assert_array_equal(got.cpu().numpy(),
+                                      unpack_int4_host(packed.cpu().numpy()))
