@@ -18,7 +18,12 @@ Phases; the first failure ends the run with a non-zero exit code:
              paged insert and paged flash decode run over a 32-layer pool
              holding the contiguous cache's rows under a shuffled page
              table, at pages 128 and 512, beside the contiguous kernel's
-             time at the same lengths. ``dequant_matmul_moe`` at the
+             time at the same lengths. Each matmul row names the tile that
+             served it (tc_decode, tc_prefill or cuda_core); a
+             ``dequant_matmul`` row also gives ``dense_bf16_ms``,
+             torch.matmul of the same x with the weights dequantized to
+             bf16 ahead of time (the prefill target; the port never calls
+             it). ``dequant_matmul_moe`` at the
              Mixtral-8x7B, Qwen3-30B-A3B, DeepSeek-V2-Lite (groups of 64,
              down K padded) and DeepSeek-V3 expert shapes: all experts at
              decode and prefill M, and hot lists of n_hot experts, each
@@ -33,7 +38,8 @@ Phases; the first failure ends the run with a non-zero exit code:
 4. serving   full-width Llama-3-8B (32 layers, random weights from seed 0,
              made on the card) behind ``Engine(max_slots=8, max_seq=2048)``:
              8 greedy requests of 32-1024 prompt tokens, 64 new tokens each.
-             The launch counters must match the forwards run. Then
+             The launch counters must match the forwards run, and every
+             matmul of a serving phase must take a tensor-core tile. Then
              ``torch.profiler`` over 3 decode forwards at B=8: device busy
              time, idle share and the kernels that take the most.
 5. paged     the same model behind ``Engine(max_slots=8, max_seq=2048,
@@ -51,8 +57,8 @@ Phases; the first failure ends the run with a non-zero exit code:
              teacher forcing: each answer fed back through the contiguous
              cache with the kernels; every served token must lie within
              1e-1 of max|logit| of the maximum logit at its position (greedy
-             streams are not compared token for token: dequant_matmul's
-             split-K atomics make them differ from run to run), and no
+             streams are not compared token for token: a token's rounding
+             depends on the chunk and the tile that computed it), and no
              answer read in another request's context may pass.
 6. model     one prefill and 4 decode steps at full width with the kernels
              (kernel_mode "auto") and with the plain versions ("xla"), with
@@ -280,14 +286,30 @@ def _rand_qt(gen, dev, k, n, bits, g=128):
                    shape=(k, n))
 
 
+def served_tile(kernel: str) -> str:
+    """The tile that served the one launch of ``kernel`` since the last
+    reset of the counters."""
+    from quant_tpu_torch.kernels import _build
+    from quant_tpu_torch.kernels.dequant_matmul import TILES
+
+    tiles = [t for t in TILES if _build.launches[f"{kernel}[{t}]"]]
+    if len(tiles) != 1 or _build.launches[kernel] != 1:
+        raise AssertionError(f"{kernel}: one launch expected, counted "
+                             f"{_build.launches[kernel]} over tiles {tiles}")
+    return tiles[0]
+
+
 def dmm_row(gen, bits: int, m: int, k: int, n: int, odt, g: int,
             per: int) -> dict:
     """dequant_matmul at one shape against its plain version (bf16 x), with
-    its device time (weights rotated L2-cold), event time, plain time and
-    bound. The bf16 outputs take the kernel's bf16 stores (split-K through
-    a float32 buffer at decode M, direct at prefill M) and are held against
-    the plain version rounded to bf16 the same way. ``per``: the shape's
+    the tile that served it, its device time (weights rotated L2-cold),
+    event time, plain time and bound. The bf16 outputs take the kernel's
+    bf16 stores and are held against the plain version rounded to bf16 the
+    same way. ``dense_bf16_ms`` beside it: torch.matmul of the same bf16 x
+    with the weights dequantized to bf16 ahead of time (the prefill target;
+    not the same function, never called by the port). ``per``: the shape's
     launches per decode step of its model."""
+    from quant_tpu_torch.kernels import _build
     from quant_tpu_torch.kernels.dequant_matmul import (
         dequant_matmul, dequant_matmul_reference)
     from quant_tpu_torch.utils.timing import device_time, kernel_times
@@ -296,8 +318,10 @@ def dmm_row(gen, bits: int, m: int, k: int, n: int, odt, g: int,
     qt = _rand_qt(gen, dev, k, n, bits, g)
     x = torch.randn((m, k), generator=gen, device=dev).to(BF16)
     ref = dequant_matmul_reference(x, qt, odt).float()
+    _build.reset_launches()
     got = dequant_matmul(x, qt, out_dtype=odt)
     torch.cuda.synchronize()
+    tile = served_tile("dequant_matmul")
     if got.dtype != odt:
         raise AssertionError(f"dequant_matmul gave {got.dtype}, not {odt}")
     err = float((got.float() - ref).abs().max())
@@ -314,18 +338,23 @@ def dmm_row(gen, bits: int, m: int, k: int, n: int, odt, g: int,
                           iters)
     plain = device_time(lambda: dequant_matmul_reference(x, nxt(), odt),
                         iters)
+    dense_w = [q.dequantize(BF16) for q in qts[:math.ceil(
+        2 * L2_BYTES / (k * n * 2))]]
+    nxt_w = cycle(dense_w)
+    dense = device_time(lambda: torch.matmul(x, nxt_w()), iters)
+    del dense_w
     b_ms, b_by = bound_ms(m * k * 2 + wbytes + m * n * got.element_size(),
                           2 * m * k * n)
     dt_name = str(odt)[6:]
     log(f"[kernels] dequant_matmul int{bits} g{g} M={m:<3d} {k}x{n} -> "
-        f"{dt_name}: err {rel:.2e} of max|ref|  {ms:.4f} ms (events "
-        f"{ev:.4f})  plain {plain:.4f} ms  bound {b_ms:.4f} ms ({b_by}), "
-        f"{per} launches per decode step")
+        f"{dt_name} [{tile}]: err {rel:.2e} of max|ref|  {ms:.4f} ms (events "
+        f"{ev:.4f})  plain {plain:.4f} ms  dense_bf16 {dense:.4f} ms  bound "
+        f"{b_ms:.4f} ms ({b_by}), {per} launches per decode step")
     return {"kernel": "dequant_matmul", "bits": bits, "group_size": g,
-            "M": m, "K": k, "N": n, "out_dtype": dt_name, "max_abs_err": err,
-            "launches_per_step": per,
+            "M": m, "K": k, "N": n, "out_dtype": dt_name, "tile": tile,
+            "max_abs_err": err, "launches_per_step": per,
             "rel_err": rel, "ms": ms, "event_ms": ev, "plain_ms": plain,
-            "bound_ms": b_ms, "bound_by": b_by,
+            "dense_bf16_ms": dense, "bound_ms": b_ms, "bound_by": b_by,
             "pct_of_bound": 100 * b_ms / ms}
 
 
@@ -348,6 +377,7 @@ def phase_kernels(detail: dict) -> dict:
     # forward gives each projection; int8 at one shape.
     cases = [(4, m, k, n, per, odt) for m in (1, 8, 512)
              for k, n, per, odt in DMM_SHAPES]
+    cases += [(4, 64, 4096, 6144, 0, BF16)]       # a short prefill chunk
     cases += [(8, 8, 4096, 4096, 0, F32), (8, 8, 4096, 6144, 0, BF16)]
     step = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
     max_err = 0.0
@@ -501,6 +531,7 @@ def moe_kernels(gen, detail: dict) -> dict:
     codes and scales plus x and the output, or their operations at the bf16
     peak. Returns the per-step summary of a Mixtral B=8 decode step (32
     layers of all-experts concat and psum at M=8)."""
+    from quant_tpu_torch.kernels import _build
     from quant_tpu_torch.kernels.dequant_matmul import (
         dequant_matmul_moe, dequant_matmul_moe_reference)
     from quant_tpu_torch.utils.timing import device_time, kernel_times
@@ -547,8 +578,10 @@ def moe_kernels(gen, detail: dict) -> dict:
         blk = torch.full((m, width), nan, dtype=odt, device=dev)
         ptr = blk.data_ptr()
         del blk
+        _build.reset_launches()
         got = dequant_matmul_moe(x, qt, 0, hot=hots[0], **kw)
         torch.cuda.synchronize()
+        tile = served_tile("dequant_matmul_moe")
         nan_preset = got.data_ptr() == ptr
         if not bool(torch.isfinite(got).all()):
             raise AssertionError(f"dequant_matmul_moe {model} {mode} M={m} "
@@ -578,14 +611,15 @@ def moe_kernels(gen, detail: dict) -> dict:
         rows.append({"kernel": "dequant_matmul_moe", "model": model,
                      "mode": mode, "M": m, "K": k, "N": n, "experts": e,
                      "n_hot": nh, "hot_list": n_hot is not None,
-                     "out_dtype": str(odt)[6:], "max_abs_err": err,
+                     "out_dtype": str(odt)[6:], "tile": tile,
+                     "max_abs_err": err,
                      "rel_err": rel, "nan_preset_output": nan_preset,
                      "ms": ms, "event_ms": ev, "plain_ms": plain,
                      "bound_ms": b_ms, "bound_by": b_by,
                      "pct_of_bound": 100 * b_ms / ms, "library_ms": None,
                      "wall_s": time.perf_counter() - t_row})
         log(f"[kernels] dequant_matmul_moe {model} {mode} M={m:<3d} {k}x{n} "
-            f"x{e} n_hot={nh}{' (hot list)' if n_hot else ''}: err "
+            f"x{e} n_hot={nh}{' (hot list)' if n_hot else ''} [{tile}]: err "
             f"{rel:.2e} of max|ref|  {ms:.4f} ms (events {ev:.4f})  plain "
             f"{plain:.4f} ms  bound {b_ms:.4f} ms ({b_by}); row in "
             f"{rows[-1]['wall_s']:.1f}s")
@@ -939,6 +973,7 @@ def phase_serving(detail: dict, params, cfg) -> dict:
     for k, v in expect.items():
         if launches[k] != v or v == 0:
             raise AssertionError(f"{k}: {launches[k]} launches, expected {v}")
+    check_tiles("serving", launches)
     pure = [c for c in calls if c["chunks"] == 0 and c["decode"]]
     decode_ms = (1e3 * sum(c["s"] for c in pure)
                  / max(1, sum(c["decode"] for c in pure)))
@@ -1122,6 +1157,7 @@ def phase_paged_serving(detail: dict, params, cfg) -> dict:
         if launches[k] != v or (v == 0 and k.startswith("paged")):
             raise AssertionError(f"paged serving: {k}: {launches[k]} "
                                  f"launches, expected {v}")
+    check_tiles("paged serving", launches)
     if stats["prefix_hit_tokens"] != (n_req - 1) * prefix_len:
         raise AssertionError(f"prefix_hit_tokens {stats['prefix_hit_tokens']}"
                              f", expected {(n_req - 1) * prefix_len}")
@@ -1373,8 +1409,8 @@ def phase_model(detail: dict, params, cfg) -> None:
     steps = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, 1)))
              for _ in range(4)]
     logits = {}
-    # "auto2" repeats "auto": the run-to-run spread of the kernels
-    # (dequant_matmul's split-K atomics) is the yardstick for "paged"
+    # "auto2" repeats "auto": the kernels' run-to-run spread is the
+    # yardstick for "paged"
     for mode in ("auto", "xla", "paged", "auto2"):
         c = dataclasses.replace(cfg, kernel_mode="xla" if mode == "xla"
                                 else "auto")
@@ -1582,11 +1618,25 @@ def moe_layers(cfg) -> int:
     return cfg.n_layers - cfg.first_k_dense
 
 
+def check_tiles(what: str, launches: dict) -> None:
+    """Every matmul of a bf16 run took a tensor-core tile: the CUDA-core
+    tile served none, and the tiles' counts add up to each kernel's."""
+    for k in ("dequant_matmul", "dequant_matmul_moe"):
+        tc = launches[f"{k}[tc_decode]"] + launches[f"{k}[tc_prefill]"]
+        if launches[f"{k}[cuda_core]"] or tc != launches[k]:
+            raise AssertionError(
+                f"{what}: {k}: {launches[k]} launches, "
+                f"{launches[f'{k}[tc_decode]']} tc_decode + "
+                f"{launches[f'{k}[tc_prefill]']} tc_prefill, "
+                f"{launches[f'{k}[cuda_core]']} cuda_core")
+
+
 def check_launches(what: str, launches: dict, expect: dict) -> None:
     for k, v in expect.items():
         if launches[k] != v:
             raise AssertionError(f"{what}: {k}: {launches[k]} launches, "
                                  f"expected {v}")
+    check_tiles(what, launches)
 
 
 def moe_expected(cfg, chunks: int, decode: int, paged: bool) -> dict:
@@ -2071,8 +2121,8 @@ def phase_dsv3(detail: dict, cfg) -> dict:
         f"{peak_gib:.2f} GiB")
     del eng
     torch.cuda.empty_cache()
-    # "rerun" repeats "kernels": the run-to-run spread of the split-K
-    # atomics, the yardstick for kernels against plain
+    # "rerun" repeats "kernels": the kernels' run-to-run spread, the
+    # yardstick for kernels against plain
     moe_model_check(detail, "dsv3", params, cfg, 4, 128, 2,
                     {"kernels": {}, "plain": {"kernel_mode": "xla"},
                      "rerun": {}},

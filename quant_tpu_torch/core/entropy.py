@@ -3,7 +3,8 @@
 Byte-exact against ``qr_entropy_encode``/``qr_entropy_decode`` in
 ``cpp/quantref.cpp``: a copy of the JAX package's ``core/entropy.py`` (the
 port imports nothing of that package). The port's checkpoint reader and
-writer use it; the C++ library binding is not ported yet.
+writer use the C++ library itself through ``core/oracle.py`` when it
+builds, and this mirror when no compiler is at hand.
 
 Container format (normative, from cpp/quantref.h):
   "QREF" | u8 version=1 | u8 flags | u64le n_bytes | body

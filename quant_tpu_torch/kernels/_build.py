@@ -38,7 +38,9 @@ SOURCES = ("dequant_matmul", "cache_insert", "flash_decode", "mla_attention",
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
-# kernel name -> launches since the last reset_launches()
+# kernel name -> launches since the last reset_launches(); the matmul
+# kernels also count each launch under the tile that served it,
+# "<kernel>[<tile>]"
 launches: dict[str, int] = {"dequant_matmul": 0, "dequant_matmul_moe": 0,
                             "cache_insert_int8": 0, "flash_decode_int8": 0,
                             "paged_cache_insert_int8": 0,
@@ -46,6 +48,9 @@ launches: dict[str, int] = {"dequant_matmul": 0, "dequant_matmul_moe": 0,
                             "mla_cache_insert_int8": 0,
                             "mla_flash_decode_int8": 0,
                             "unpack_int4_device": 0}
+launches.update({f"{k}[{tile}]": 0
+                 for k in ("dequant_matmul", "dequant_matmul_moe")
+                 for tile in ("tc_decode", "tc_prefill", "cuda_core")})
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

@@ -6,6 +6,12 @@ device memory (int4: half a byte per weight) and are unpacked and scaled
 inside the CUDA kernels of ``csrc/dequant_matmul.cu``, whose header note
 gives their design.
 
+Each call runs one of three tiles, chosen here from x's dtype, M and the
+shape (:func:`_tile`) and counted under its name beside the kernel's total
+(``dequant_matmul[tc_decode]``, ``[tc_prefill]``, ``[cuda_core]``): the
+tensor-core tiles take bf16 x (decode at M <= 16, prefill above), the
+CUDA-core tile f32 x and the bf16 shapes the tensor-core tiles do not take.
+
 :func:`dequant_matmul` and :func:`dequant_matmul_moe` launch those kernels
 for tensors on the card and take their plain versions
 (:func:`dequant_matmul_reference`, :func:`dequant_matmul_moe_reference`)
@@ -16,6 +22,7 @@ never fall back.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -25,9 +32,17 @@ from quant_tpu_torch.kernels import _build
 __all__ = ["dequant_matmul", "dequant_matmul_reference", "dequant_matmul_moe",
            "dequant_matmul_moe_reference"]
 
-_BN = 256          # columns per block (csrc/dequant_matmul.cu BN)
-_BKP = 64          # packed rows per staged tile (BKP)
-_SMS = 132         # streaming multiprocessors of an H100
+# csrc/dequant_matmul.cu: the CUDA-core tile's columns per block and packed
+# rows per staged tile (cc::BN, cc::BKP); the decode tile's packed rows per
+# stage, columns per block and largest M (Decode::BKP, BN, NT = 2); the
+# prefill tile's packed rows per stage and output tile (Prefill::BKP, BM, BN)
+_BN = 256
+_BKP = 64
+_TC_BKP = {"tc_decode": 64, "tc_prefill": 32}
+_TC_DECODE_BN = 256
+_TC_DECODE_M = 16
+_TC_PREFILL_BM = _TC_PREFILL_BN = 128
+TILES = ("tc_decode", "tc_prefill", "cuda_core")
 
 
 def dequant_matmul_reference(x: torch.Tensor, qt: QTensor,
@@ -44,18 +59,82 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _split_plan(m: int, k: int, n: int, bits: int,
-                slots: int = 1) -> tuple[int, int]:
-    """(splits, packed rows per split) of the kernel's split-K: enough
-    blocks to cover the card twice at decode M, once at prefill M. The
-    expert slots of the MoE kernel count as more tiles."""
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _split_plan(m: int, k: int, n: int, bits: int, slots: int = 1,
+                sms: int = 132) -> tuple[int, int]:
+    """CUDA-core tile: (splits, packed rows per split) of its split-K,
+    enough blocks to cover the card's ``sms`` twice at decode M, once at
+    prefill M. The expert slots of the MoE kernel count as more tiles."""
     kp = k // 2 if bits == 4 else k
     m_tiles = 1 if m <= 8 else _cdiv(m, 64)
     tiles = _cdiv(n, _BN) * m_tiles * slots
-    target = 2 * _SMS if m <= 8 else _SMS
+    target = 2 * sms if m <= 8 else sms
     splits = max(1, min(_cdiv(target, tiles), _cdiv(kp, _BKP)))
     per = _cdiv(_cdiv(kp, splits), _BKP) * _BKP
     return _cdiv(kp, per), per
+
+
+def _tile(x: torch.Tensor, qt: QTensor, m: int) -> str:
+    """The tile a call runs: the tensor-core tiles take bf16 x with packed
+    K rows, G and N multiples of 16 and 16-byte aligned x and codes (decode
+    at M <= 16, prefill above); the CUDA-core tile takes the rest."""
+    k, n = qt.shape
+    kp = k // 2 if qt.bits == 4 else k
+    if (x.dtype != torch.bfloat16 or kp % 16 or qt.group_size % 16
+            or n % 16 or x.data_ptr() % 16 or qt.codes.data_ptr() % 16):
+        return "cuda_core"
+    return "tc_decode" if m <= _TC_DECODE_M else "tc_prefill"
+
+
+def _out_tiles(tile: str, m: int, n: int) -> int:
+    """Output tiles of one slot: the blocks of the grid's x and y."""
+    if tile == "tc_decode":
+        return _cdiv(n, _TC_DECODE_BN)
+    return _cdiv(n, _TC_PREFILL_BN) * _cdiv(m, _TC_PREFILL_BM)
+
+
+def _tc_plan(tile: str, m: int, k: int, n: int, bits: int, slots: int = 1,
+             sum_mode: bool = False, sms: int = 132) -> tuple[int, int]:
+    """Tensor-core tiles: (partitions, packed rows each) of the contraction
+    (a slot's K/2 or K rows padded to the tile's stage; in sum mode the
+    slots' rows end to end). Decode: enough blocks to cover the card's
+    ``sms`` twice, so enough bytes stream; prefill: split only where the
+    output tiles would not fill the SMs. Every partition is a whole number
+    of stages and none is empty."""
+    kp = k // 2 if bits == 4 else k
+    bkp = _TC_BKP[tile]
+    kp_pad = _cdiv(kp, bkp) * bkp
+    total = kp_pad * (slots if sum_mode else 1)
+    tiles = _out_tiles(tile, m, n)
+    target = 2 * sms if tile == "tc_decode" else sms
+    if not sum_mode:
+        tiles *= slots
+    splits = max(1, min(_cdiv(target, tiles), total // bkp))
+    per = _cdiv(_cdiv(total, splits), bkp) * bkp
+    return _cdiv(total, per), per
+
+
+_counters: dict = {}
+
+
+def _tile_counters(device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` int32 zeros on ``device``: the tensor-core kernels'
+    per-output-tile counters. A kernel leaves them zero, so one buffer
+    serves every call on the stream."""
+    buf = _counters.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _counters[device] = buf
+    return buf
+
+
+def _count(name: str, tile: str) -> None:
+    _build.count_launch(name)
+    _build.count_launch(f"{name}[{tile}]")
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -65,6 +144,12 @@ _ARGTYPES = [_P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P]
 # x, x_bf16, codes, scales, out, out_f32, partial, atomic, M, K, N, G, bits,
 # splits, slots, sum, layer, stride, experts, hot, stream
 _MOE_ARGTYPES = [_P, _I, _P, _P, _P, _I, _P] + [_I] * 12 + [_P, _P]
+# x, codes, scales, out, out_f32, ws, counters, M, K, N, G, bits, tile,
+# splits, per, stream
+_TC_ARGTYPES = [_P, _P, _P, _P, _I, _P, _P] + [_I] * 8 + [_P]
+# x, codes, scales, out, out_f32, ws, counters, M, K, N, G, bits, tile,
+# splits, per, cap, slots, sum, layer, stride, experts, hot, stream
+_MOE_TC_ARGTYPES = [_P, _P, _P, _P, _I, _P, _P] + [_I] * 14 + [_P, _P]
 
 
 def _check_operands(x: torch.Tensor, qt: QTensor, out_dtype, lead: tuple):
@@ -108,19 +193,39 @@ def _launch(x: torch.Tensor, qt: QTensor, out_dtype) -> torch.Tensor:
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0:
         return out
-    splits, per = _split_plan(m, k, n, qt.bits)
-    partial = None
-    if splits > 1 and out_dtype != torch.float32:
-        partial = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    tile = _tile(x, qt, m)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    fn = _build.entry("dequant_matmul", "dequant_matmul_launch", _ARGTYPES)
-    rc = fn(x.data_ptr(), int(x.dtype == torch.bfloat16),
-            qt.codes.data_ptr(), qt.scales.data_ptr(), out.data_ptr(),
-            int(out_dtype == torch.float32),
-            None if partial is None else partial.data_ptr(),
-            m, k, n, qt.group_size, qt.bits, splits, per, stream)
+    sms = _sm_count(x.device)
+    if tile == "cuda_core":
+        splits, per = _split_plan(m, k, n, qt.bits, sms=sms)
+        partial = None
+        if splits > 1 and out_dtype != torch.float32:
+            partial = torch.empty((m, n), dtype=torch.float32,
+                                  device=x.device)
+        fn = _build.entry("dequant_matmul", "dequant_matmul_launch",
+                          _ARGTYPES)
+        rc = fn(x.data_ptr(), int(x.dtype == torch.bfloat16),
+                qt.codes.data_ptr(), qt.scales.data_ptr(), out.data_ptr(),
+                int(out_dtype == torch.float32),
+                None if partial is None else partial.data_ptr(),
+                m, k, n, qt.group_size, qt.bits, splits, per, stream)
+    else:
+        splits, per = _tc_plan(tile, m, k, n, qt.bits, sms=sms)
+        ws = counters = None
+        if splits > 1:
+            ws = torch.empty((splits, m, n), dtype=torch.float32,
+                             device=x.device)
+            counters = _tile_counters(x.device, _out_tiles(tile, m, n))
+        fn = _build.entry("dequant_matmul", "dequant_matmul_tc_launch",
+                          _TC_ARGTYPES)
+        rc = fn(x.data_ptr(), qt.codes.data_ptr(), qt.scales.data_ptr(),
+                out.data_ptr(), int(out_dtype == torch.float32),
+                None if ws is None else ws.data_ptr(),
+                None if counters is None else counters.data_ptr(),
+                m, k, n, qt.group_size, qt.bits, TILES.index(tile), splits,
+                per, stream)
     _build.check(rc, "dequant_matmul", "dequant_matmul")
-    _build.count_launch("dequant_matmul")
+    _count("dequant_matmul", tile)
     return out
 
 
@@ -208,12 +313,16 @@ def dequant_matmul_moe_reference(x: torch.Tensor, qt: QTensor, layer: int,
         return qt.layer(ids[j] * stride + layer)
 
     if mode == "concat":
+        # each slot's columns written in place (a torch.cat of the slots
+        # launches a varying set of copy kernels, which device timing of
+        # this version cannot count)
         x2 = x.reshape(-1, k)
-        ys = [dequant_matmul_reference(x2, weight(j), out_dtype)
-              if j < n_hot else
-              torch.zeros((x2.shape[0], n), dtype=out_dtype, device=x.device)
-              for j in range(n_experts)]
-        return torch.cat(ys, dim=-1).reshape(*x.shape[:-1], n_experts * n)
+        y = torch.zeros((x2.shape[0], n_experts * n), dtype=out_dtype,
+                        device=x.device)
+        for j in range(n_hot):
+            y[:, j * n:(j + 1) * n] = dequant_matmul_reference(
+                x2, weight(j), out_dtype)
+        return y.reshape(*x.shape[:-1], n_experts * n)
     lead = x.shape[1:-1]
     acc = torch.zeros((x[0].numel() // k, n), dtype=torch.float32,
                       device=x.device)
@@ -262,24 +371,51 @@ def dequant_matmul_moe(x: torch.Tensor, qt: QTensor, layer: int, *,
     out = torch.empty((m, width), dtype=out_dtype, device=x.device)
     if m == 0:
         return out.view(*lead, width)
-    splits, _ = _split_plan(m, k, n, qt.bits, n_experts)
-    # with a hot list the kernel shares the grid out among the hot slots
-    # only, so the cold slots' zeros come from the cleared buffer
-    atomic = splits > 1 or (sum_mode and n_experts > 1) or hot is not None
-    partial = None
-    if atomic and out_dtype != torch.float32:
-        partial = torch.empty((m, width), dtype=torch.float32,
-                              device=x.device)
+    tile = _tile(x, qt, m)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    fn = _build.entry("dequant_matmul", "dequant_matmul_moe_launch",
-                      _MOE_ARGTYPES)
-    rc = fn(x.data_ptr(), int(x.dtype == torch.bfloat16),
-            qt.codes.data_ptr(), qt.scales.data_ptr(), out.data_ptr(),
-            int(out_dtype == torch.float32),
-            None if partial is None else partial.data_ptr(), int(atomic),
-            m, k, n, qt.group_size, qt.bits, splits, n_experts,
-            int(sum_mode), layer, stride, experts,
-            None if hot is None else hot.data_ptr(), stream)
+    sms = _sm_count(x.device)
+    hot_ptr = None if hot is None else hot.data_ptr()
+    if tile == "cuda_core":
+        splits, _ = _split_plan(m, k, n, qt.bits, n_experts, sms)
+        # with a hot list the kernel shares the grid out among the hot
+        # slots only, so the cold slots' zeros come from the cleared buffer
+        atomic = splits > 1 or (sum_mode and n_experts > 1) or hot is not None
+        partial = None
+        if atomic and out_dtype != torch.float32:
+            partial = torch.empty((m, width), dtype=torch.float32,
+                                  device=x.device)
+        fn = _build.entry("dequant_matmul", "dequant_matmul_moe_launch",
+                          _MOE_ARGTYPES)
+        rc = fn(x.data_ptr(), int(x.dtype == torch.bfloat16),
+                qt.codes.data_ptr(), qt.scales.data_ptr(), out.data_ptr(),
+                int(out_dtype == torch.float32),
+                None if partial is None else partial.data_ptr(), int(atomic),
+                m, k, n, qt.group_size, qt.bits, splits, n_experts,
+                int(sum_mode), layer, stride, experts, hot_ptr, stream)
+    else:
+        splits, per = _tc_plan(tile, m, k, n, qt.bits, n_experts, sum_mode,
+                               sms)
+        grid_z = splits if sum_mode else n_experts * splits
+        # under a hot list a concat slot takes up to grid_z / n_hot
+        # partitions at decode M (the grid streams the hot experts' bytes),
+        # at most the planned ones at prefill M
+        cap = grid_z if tile == "tc_decode" else splits
+        multi = splits > 1 or (hot is not None and not sum_mode and cap > 1)
+        ws = counters = None
+        if multi:
+            ws = torch.empty((grid_z, m, n), dtype=torch.float32,
+                             device=x.device)
+            counters = _tile_counters(x.device, _out_tiles(tile, m, n)
+                                      * (1 if sum_mode else n_experts))
+        fn = _build.entry("dequant_matmul", "dequant_matmul_moe_tc_launch",
+                          _MOE_TC_ARGTYPES)
+        rc = fn(x.data_ptr(), qt.codes.data_ptr(), qt.scales.data_ptr(),
+                out.data_ptr(), int(out_dtype == torch.float32),
+                None if ws is None else ws.data_ptr(),
+                None if counters is None else counters.data_ptr(),
+                m, k, n, qt.group_size, qt.bits, TILES.index(tile), splits,
+                per, cap, n_experts, int(sum_mode), layer, stride, experts,
+                hot_ptr, stream)
     _build.check(rc, "dequant_matmul_moe", "dequant_matmul")
-    _build.count_launch("dequant_matmul_moe")
+    _count("dequant_matmul_moe", tile)
     return out.view(*lead, width)

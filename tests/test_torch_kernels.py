@@ -35,6 +35,7 @@ from quant_tpu_torch.kernels.cache_insert import (
     paged_cache_insert_int8, paged_cache_insert_int8_reference)
 from quant_tpu_torch.kernels.cache_insert import (
     mla_cache_insert_int8, mla_cache_insert_int8_reference)
+from quant_tpu_torch.kernels import dequant_matmul as dmm
 from quant_tpu_torch.kernels.dequant_matmul import (
     dequant_matmul, dequant_matmul_moe, dequant_matmul_moe_reference,
     dequant_matmul_reference)
@@ -103,6 +104,51 @@ def test_dequant_matmul_matches_jax(bits, stacked, m, k, n, g):
     assert err <= 1e-5 * np.max(np.abs(ref)), err
 
 
+# (K, N, G) of the projections chip_smoke.py drives through the tensor-core
+# tiles (Llama-3-8B, DeepSeek-V2-Lite, DeepSeek-V3) and (E, K, N, mode) of
+# its expert stacks (Mixtral-8x7B, Qwen3-30B-A3B, DeepSeek-V2-Lite and -V3)
+_PLAN_DENSE = [(4096, 6144, 128), (4096, 4096, 128), (4096, 28672, 128),
+               (14336, 4096, 128), (4096, 131072, 128), (2048, 3648, 64),
+               (2048, 2048, 64), (2048, 5632, 64), (2816, 2048, 64),
+               (2048, 21888, 64), (10944, 2048, 64), (2048, 102400, 64),
+               (7168, 2112, 128), (1536, 24576, 128), (16384, 7168, 128),
+               (7168, 36864, 128), (18432, 7168, 128), (7168, 129280, 128)]
+_PLAN_MOE = [(8, 4096, 28672, "concat"), (8, 14336, 4096, "psum"),
+             (128, 2048, 1536, "concat"), (128, 1024, 2048, "psum"),
+             (64, 2048, 2816, "concat"), (64, 2048, 2048, "psum"),
+             (256, 7168, 4096, "concat"), (256, 2048, 7168, "psum")]
+
+
+@pytest.mark.parametrize("m", [1, 4, 8, 16, 17, 64, 512])
+def test_tensor_core_plan_covers_k_once(m):
+    """The tensor-core tiles' split plan at the smoke's shapes: whole stages,
+    no empty partition, every packed row in exactly one, and a grid within
+    CUDA's limits."""
+    tile = "tc_decode" if m <= dmm._TC_DECODE_M else "tc_prefill"
+    bkp = dmm._TC_BKP[tile]
+    cases = [(k, n, 1, False) for k, n, _ in _PLAN_DENSE]
+    cases += [(k, n, e, mode != "concat") for e, k, n, mode in _PLAN_MOE]
+    for k, n, slots, sum_mode in cases:
+        parts, per = dmm._tc_plan(tile, m, k, n, 4, slots, sum_mode)
+        kp_pad = -(-(k // 2) // bkp) * bkp
+        total = kp_pad * (slots if sum_mode else 1)
+        assert per % bkp == 0 and parts >= 1
+        assert (parts - 1) * per < total <= parts * per, (k, n, slots)
+        grid_z = parts if sum_mode else slots * parts
+        assert grid_z <= 65535                      # CUDA's grid z limit
+        assert dmm._out_tiles(tile, m, n) * grid_z < 2 ** 31
+    # the tile each call takes: bf16 x with K/2, G and N multiples of 16
+    for (k, n, g), dt, want in (((512, 768, 128), torch.bfloat16, tile),
+                                ((512, 768, 128), torch.float32, "cuda_core"),
+                                ((512, 4, 128), torch.bfloat16, "cuda_core"),
+                                ((512, 768, 8), torch.bfloat16, "cuda_core"),
+                                ((192, 64, 64), torch.bfloat16, tile)):
+        qt = QTensor(codes=torch.zeros((k // 2, n), dtype=torch.uint8),
+                     scales=torch.ones((k // g, n)), bits=4, group_size=g,
+                     shape=(k, n))
+        assert dmm._tile(torch.zeros((m, k), dtype=dt), qt, m) == want
+
+
 def _cache(rng, l, b, h, s, d):
     return (rng.integers(-127, 128, (l, b, h, s, d), dtype=np.int8),
             rng.standard_normal((l, b, h, s), dtype=np.float32),
@@ -169,16 +215,22 @@ def test_flash_decode_zero_length_is_finite():
 
 @pytest.mark.gpu
 def test_cuda_kernels_match_plain_on_card():
-    """Each CUDA kernel against its plain version at small shapes."""
+    """Each CUDA kernel against its plain version at small shapes;
+    dequant_matmul at each tile's M, N and group edges, each call counted
+    under the tile it should take."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     _build.build()
+    # M across both tensor-core tiles and their edges; N ragged (V2-Lite's
+    # wqkv, 3648) and 4 (not a multiple of 16: the CUDA-core tile); groups
+    # of 64 and 128; K = 192 in groups of 64, whose high half starts in the
+    # middle of a group
+    shapes = ((512, 768, 128), (2048, 3648, 64), (512, 4, 128), (192, 64, 64))
     for bits in (4, 8):
-        for m in (1, 5, 130):
-            k, n, g = 512, 768, 128
+        for k, n, g in shapes:
             kp = k // 2 if bits == 4 else k
             codes = torch.randint(0, 256, (kp, n), generator=gen, device=dev,
                                   dtype=torch.int32)
@@ -187,18 +239,38 @@ def test_cuda_kernels_match_plain_on_card():
             qt = QTensor(codes=codes, scales=torch.rand(
                 (k // g, n), generator=gen, device=dev) * 0.1, bits=bits,
                 group_size=g, shape=(k, n))
-            # bf16 out (wqkv, w_gate_up in the forward) takes the kernel's
-            # bf16 stores: through the split-K buffer at decode M, direct
-            # at prefill M
-            for dt in (torch.float32, torch.bfloat16):
-                x = torch.randn((m, k), generator=gen, device=dev).to(dt)
-                for odt in (torch.float32, torch.bfloat16):
-                    ref = dequant_matmul_reference(x, qt, odt).float()
-                    got = dequant_matmul(x, qt, out_dtype=odt)
-                    assert got.dtype == odt
-                    tol = (1e-4 if dt == odt == torch.float32 else 2e-2)
-                    assert ((got.float() - ref).abs().max()
-                            <= tol * ref.abs().max())
+            for m in (1, 3, 8, 9, 16, 17, 64, 130, 512):
+                # bf16 out (wqkv, w_gate_up in the forward) takes the
+                # kernels' bf16 stores: after the split-K fix-up at decode M,
+                # direct at prefill M
+                for dt in (torch.float32, torch.bfloat16):
+                    x = torch.randn((m, k), generator=gen, device=dev).to(dt)
+                    tile = ("cuda_core" if dt == torch.float32 or n % 16
+                            else "tc_decode" if m <= 16 else "tc_prefill")
+                    for odt in (torch.float32, torch.bfloat16):
+                        _build.reset_launches()
+                        ref = dequant_matmul_reference(x, qt, odt).float()
+                        got = dequant_matmul(x, qt, out_dtype=odt)
+                        assert got.dtype == odt
+                        assert _build.launches[f"dequant_matmul[{tile}]"] == 1
+                        tol = (1e-4 if dt == odt == torch.float32 else 2e-2)
+                        assert ((got.float() - ref).abs().max()
+                                <= tol * ref.abs().max()), (bits, k, n, m, dt,
+                                                            odt)
+    # a layer of a stacked [L, ...] QTensor, by view
+    stack = QTensor(codes=torch.randint(0, 256, (3, 256, 768), generator=gen,
+                                        device=dev, dtype=torch.int32).to(
+                                            torch.uint8),
+                    scales=torch.rand((3, 4, 768), generator=gen,
+                                      device=dev) * 0.1,
+                    bits=4, group_size=128, shape=(512, 768))
+    for m, tile in ((8, "tc_decode"), (64, "tc_prefill")):
+        x = torch.randn((m, 512), generator=gen, device=dev).to(torch.bfloat16)
+        ref = dequant_matmul_reference(x, stack.layer(2), torch.float32)
+        _build.reset_launches()
+        got = dequant_matmul(x, stack, 2, out_dtype=torch.float32)
+        assert _build.launches[f"dequant_matmul[{tile}]"] == 1
+        assert (got - ref).abs().max() <= 2e-2 * ref.abs().max()
     # Llama-3-8B's head geometry and test-tiny's; S spans several of the
     # flash kernel's 256-token chunks, the last one partial
     for s, d, rep in ((600, 128, 4), (300, 64, 2)):
@@ -306,12 +378,13 @@ def _nan_block(shape, dtype, dev) -> int:
 @pytest.mark.gpu
 def test_moe_cuda_kernel_matches_plain_on_card():
     """dequant_matmul_moe against its plain version: concat and psum, int4
-    and int8, M at decode and prefill sizes, bf16 and f32 out, with and
-    without a hot list. The output buffer is handed out NaN-filled, and the
-    tail slots' x rows are NaN in psum: the tail must come out exactly zero
-    (concat) or not at all (psum). Then the last expert of the last layer
-    of a stack holding more than 2^32 bytes of codes (64-bit offsets),
-    where the card has the memory."""
+    and int8, M at both tensor-core tiles' sizes and edges, bf16 and f32
+    out, without a hot list and with hot lists of none, some and all of the
+    slots. The output buffer is handed out NaN-filled, and the tail slots' x
+    rows are NaN in psum: the tail must come out exactly zero (concat) or
+    not at all (psum). Then the last expert of the last layer of a stack
+    holding more than 2^32 bytes of codes (64-bit offsets), through the
+    CUDA-core and the decode tile, where the card has the memory."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda")
@@ -319,16 +392,20 @@ def test_moe_cuda_kernel_matches_plain_on_card():
     gen.manual_seed(1)
     _build.build()
     e, nl, k, n = 4, 3, 512, 768
-    hot = torch.tensor([2, 3, 1, 1, 1], dtype=torch.int32, device=dev)
+    # hot lists of none, some and all of the slots (ids past n_hot repeat)
+    hots = [torch.tensor(h, dtype=torch.int32, device=dev)
+            for h in ([0, 0, 0, 0, 0], [2, 3, 1, 1, 1], [4, 2, 0, 3, 1])]
     for bits in (4, 8):
         qt = _rand_stack(gen, dev, e * nl, k, n, bits)
-        for m in (1, 5, 130):
+        for m in (1, 5, 16, 17, 130):
+            tile = "tc_decode" if m <= 16 else "tc_prefill"
             for mode in ("concat", "psum"):
-                for h in (None, hot):
+                for h in [None] + hots:
+                    n_hot = e if h is None else int(h[0])
                     shape = (m, k) if mode == "concat" else (e, m, k)
                     x = torch.randn(shape, generator=gen, device=dev)
-                    if h is not None and mode == "psum":
-                        x[2:] = float("nan")
+                    if mode == "psum":
+                        x[n_hot:] = float("nan")
                     for odt in (torch.float32, torch.bfloat16):
                         xb = x.to(torch.bfloat16)
                         kw = dict(n_experts=e, stride=nl, mode=mode,
@@ -337,15 +414,19 @@ def test_moe_cuda_kernel_matches_plain_on_card():
                             xb, qt, 2, **kw).float()
                         width = e * n if mode == "concat" else n
                         ptr = _nan_block((m, width), odt, dev)
+                        _build.reset_launches()
                         got = dequant_matmul_moe(xb, qt, 2, **kw)
                         torch.cuda.synchronize()
+                        assert _build.launches[
+                            f"dequant_matmul_moe[{tile}]"] == 1
                         assert got.data_ptr() == ptr and got.dtype == odt
                         assert torch.isfinite(got).all()
-                        if mode == "concat" and h is not None:
-                            assert not got.view(m, e, n)[:, 2:].any()
+                        if mode == "concat":
+                            assert not got.view(m, e, n)[:, n_hot:].any()
                         err = (got.float() - ref).abs().max()
-                        assert err <= 2e-2 * ref.abs().max(), (
-                            bits, m, mode, h is not None, odt)
+                        assert err <= 2e-2 * max(float(ref.abs().max()),
+                                                 1e-30), (
+                            bits, m, mode, n_hot, odt)
     # 64-bit offsets: 2 layers of 4 experts, 671 MB of int4 codes each
     k, n = 8192, 163840
     need = 8 * (k // 2) * n + 8 * (k // 128) * n * 4 + 6 * k * n * 4
@@ -360,14 +441,27 @@ def test_moe_cuda_kernel_matches_plain_on_card():
     qt.codes[7] = torch.randint(0, 256, (k // 2, n), generator=gen,
                                 device=dev, dtype=torch.int32).to(torch.uint8)
     last = torch.tensor([1, 3, 3, 3, 3], dtype=torch.int32, device=dev)
-    x = torch.randn((4, 1, k), generator=gen, device=dev).to(torch.bfloat16)
-    ref = dequant_matmul_reference(x[0], qt.layer(7), torch.float32)
-    for mode, xs in (("concat", x[0]), ("psum", x)):
-        got = dequant_matmul_moe(xs, qt, 1, n_experts=4, stride=2, mode=mode,
-                                 out_dtype=torch.float32, hot=last)
-        torch.cuda.synchronize()
-        got = got[:, :n] if mode == "concat" else got
-        assert (got - ref).abs().max() <= 1e-4 * ref.abs().max(), mode
+    w = qt.layer(7).dequantize(torch.float32)
+    # f32 x through the CUDA-core tile, against the plain version; bf16 x
+    # through the decode tile, against the f32 product of the same bf16 x
+    # with the f32 weights (the tile multiplies exact bf16 codes and x and
+    # scales the f32 partial sums: the plain version's bf16 rounding of
+    # each weight is not its rounding)
+    for dt, tile in ((torch.float32, "cuda_core"), (torch.bfloat16,
+                                                     "tc_decode")):
+        x = torch.randn((4, 1, k), generator=gen, device=dev).to(dt)
+        ref = (dequant_matmul_reference(x[0], qt.layer(7), torch.float32)
+               if dt == torch.float32 else x[0].float() @ w)
+        for mode, xs in (("concat", x[0]), ("psum", x)):
+            _build.reset_launches()
+            got = dequant_matmul_moe(xs, qt, 1, n_experts=4, stride=2,
+                                     mode=mode, out_dtype=torch.float32,
+                                     hot=last)
+            torch.cuda.synchronize()
+            assert _build.launches[f"dequant_matmul_moe[{tile}]"] == 1
+            got = got[:, :n] if mode == "concat" else got
+            assert (got - ref).abs().max() <= 1e-4 * ref.abs().max(), (
+                mode, dt)
 
 
 @pytest.mark.gpu
