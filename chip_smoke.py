@@ -18,7 +18,16 @@ Phases; the first failure ends the run with a non-zero exit code:
              paged insert and paged flash decode run over a 32-layer pool
              holding the contiguous cache's rows under a shuffled page
              table, at pages 128 and 512, beside the contiguous kernel's
-             time at the same lengths. Each matmul row names the tile that
+             time at the same lengths. Each decode-attention row (B=8,
+             Hkv=8, rep=4 over 8014 tokens; Hkv=4, rep=8, Qwen3-30B-A3B's
+             heads; 8 slots of 8192 tokens over a 2-layer stack,
+             contiguous and paged at page 128) runs f32 q and bf16 q, is
+             counted under the path it should take (tc for bf16 q), must
+             give bit-equal outputs on a second call, and gives
+             ``sdpa_bf16_ms`` beside it: torch's
+             scaled_dot_product_attention over the same context
+             dequantized to bf16 ahead of time, with the backend that ran
+             (a yardstick; the port never calls it). Each matmul row names the tile that
              served it (tc_decode, tc_prefill or cuda_core); a
              ``dequant_matmul`` row also gives ``dense_bf16_ms``,
              torch.matmul of the same x with the weights dequantized to
@@ -39,7 +48,8 @@ Phases; the first failure ends the run with a non-zero exit code:
              made on the card) behind ``Engine(max_slots=8, max_seq=2048)``:
              8 greedy requests of 32-1024 prompt tokens, 64 new tokens each.
              The launch counters must match the forwards run, and every
-             matmul of a serving phase must take a tensor-core tile. Then
+             matmul of a serving phase must take a tensor-core tile and
+             every decode-attention call the tensor-core path. Then
              ``torch.profiler`` over 3 decode forwards at B=8: device busy
              time, idle share and the kernels that take the most.
 5. paged     the same model behind ``Engine(max_slots=8, max_seq=2048,
@@ -400,15 +410,7 @@ def phase_kernels(detail: dict) -> dict:
     # decode attention pair at B=8, Hkv=8, rep=4, Dh=128, S=2048, 32 layers
     L, B, H, S, D, rep = 32, 8, 8, 2048, 128, 4
     lengths = torch.tensor(ATT_LENGTHS, dtype=torch.int32, device=dev)
-
-    def codes():
-        return torch.randint(-127, 128, (L, B, H, S, D), generator=gen,
-                             device=dev, dtype=torch.int16).to(torch.int8)
-
-    def scales():
-        return torch.rand((L, B, H, S), generator=gen, device=dev) * 0.015 \
-            + 0.005
-    cache = [codes(), scales(), codes(), scales()]
+    cache = rand_cache(gen, L, B, H, S, D)
     new = [torch.randint(-127, 128, (B, 1, H, D), generator=gen, device=dev,
                          dtype=torch.int16).to(torch.int8),
            torch.rand((B, 1, H), generator=gen, device=dev),
@@ -446,50 +448,31 @@ def phase_kernels(detail: dict) -> dict:
         f"{ms:.4f} ms (events {ev:.4f})  plain {plain:.4f} ms  bound "
         f"{b_ms:.6f} ms ({b_by})")
 
-    ctx = lengths.clamp(max=S).to(torch.int64)
-    n_tok = int(ctx.sum())
+    n_tok = int(lengths.clamp(max=S).sum())
+    sdpa = sdpa_time(cache, lengths, rep)
     att = {}
     for qdt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
         q = torch.randn((B, H * rep, D), generator=gen, device=dev).to(qdt)
-        ref = flash_decode_int8_reference(q, *cache, lengths, layer)
-        got = flash_decode_int8(q, *cache, lengths, layer)
-        torch.cuda.synchronize()
-        if not bool(torch.isfinite(got).all()):
-            raise AssertionError("flash_decode_int8 gave non-finite values")
-        err = float((got.float() - ref.float()).abs().max())
-        rel = err / float(ref.float().abs().max())
-        if not rel <= tol:
-            raise AssertionError(f"flash_decode_int8 ({qdt}): error "
-                                 f"{rel:.3g} of max|ref| > {tol}")
-        def attend():
-            return flash_decode_int8(q, *cache, lengths, nxt_layer())
-        ms, ev = kernel_times(attend, L)
-        plain = device_time(lambda: flash_decode_int8_reference(
-            q, *cache, lengths, nxt_layer()), L)
-        qb = q.element_size()
-        nbytes = (2 * B * H * rep * D * qb + n_tok * H * (2 * D + 8) + B * 4)
-        b_ms, b_by = bound_ms(nbytes, 4 * n_tok * H * rep * D)
-        att[str(qdt)] = {"max_abs_err": err, "rel_err": rel, "ms": ms,
-                         "event_ms": ev, "plain_ms": plain, "bound_ms": b_ms,
-                         "bound_by": b_by}
-        log(f"[kernels] flash_decode_int8 {str(qdt)[6:]} B=8 Hkv=8 rep=4 "
-            f"D=128 S=2048 ctx={n_tok}: err {rel:.2e} of max|ref|  "
-            f"{ms:.4f} ms (events {ev:.4f})  plain {plain:.4f} ms  bound "
-            f"{b_ms:.4f} ms ({b_by})")
+        att[str(qdt)] = decode_row(
+            "flash_decode_int8",
+            lambda q, i: flash_decode_int8(q, *cache, lengths, i),
+            lambda q, i: flash_decode_int8_reference(q, *cache, lengths, i),
+            q, tol, layer, L, n_tok, H, sdpa,
+            f"B=8 Hkv=8 rep=4 D=128 S=2048 ctx={n_tok}")
+        att[str(qdt)].pop("out")
     summary["flash_decode_int8"] = {
         **att["torch.bfloat16"], "library_ms": None,
         "unit": f"one call, bf16 q: B=8, Hkv=8, rep=4, Dh=128, S=2048, "
                 f"lengths {lengths.tolist()}; device time, each call on "
                 f"the next layer of the 32-layer stack (L2-cold)"}
     rows.append({"kernel": "flash_decode_int8", "per_dtype": att})
-    paged_rows = []
     for page in (128, 512):
-        paged_rows.append(paged_kernels(gen, summary, cache, new, lengths,
-                                        layer, page, att))
-    rows += paged_rows
-    detail["kernels"] = rows
+        rows.append(paged_kernels(gen, summary, cache, new, lengths, layer,
+                                  page, {**att, "sdpa": sdpa}))
     del cache, new
     torch.cuda.empty_cache()
+    rows += attention_rows(gen)
+    detail["kernels"] = rows
     return summary
 
 
@@ -638,24 +621,13 @@ def moe_kernels(gen, detail: dict) -> dict:
                     "time, weights L2-cold"}
 
 
-def paged_kernels(gen, summary: dict, cache, new, lengths, layer: int,
-                  page: int, contiguous: dict) -> dict:
-    """The paged insert and paged flash decode at the decode shape of the
-    kernels phase, over a 32-layer pool holding the contiguous cache's rows
-    under a page table shuffled from seed 0 (entries past each slot's pages
-    on the scratch page 0). Checked against their plain versions (insert
-    byte-equal; attention 1e-4 of max|ref| with f32 q, 1e-2 with bf16 q)
-    and, for attention, against the contiguous kernel on the same rows."""
-    from quant_tpu_torch.kernels.attention import flash_decode_int8
-    from quant_tpu_torch.kernels.cache_insert import (
-        paged_cache_insert_int8, paged_cache_insert_int8_reference)
-    from quant_tpu_torch.kernels.paged_attention import (
-        paged_attention_reference, paged_flash_decode_int8)
-    from quant_tpu_torch.utils.timing import device_time, kernel_times
-
+def page_pool(cache, lengths, page: int):
+    """The rows of a contiguous cache ``[L, B, Hkv, S, ..]`` (codes or
+    scales) in a pool ``[L, 1 + B * S / page, Hkv, page, ..]`` under a page
+    table shuffled from seed 0, entries past each slot's pages on the
+    scratch page 0: (pool tensors, table, table entries in use)."""
     dev = cache[0].device
-    L, B, H, S, D = cache[0].shape
-    rep = 4
+    L, B, H, S = cache[0].shape[:4]
     max_pages = S // page
     n_pool = 1 + B * max_pages
     used = [-(-int(n) // page) for n in lengths.tolist()]
@@ -663,7 +635,6 @@ def paged_kernels(gen, summary: dict, cache, new, lengths, layer: int,
     tbl_np = np.zeros((B, max_pages), np.int32)
     for b, u in enumerate(used):
         tbl_np[b, :u] = perm[b * max_pages:b * max_pages + u]
-    tbl = torch.from_numpy(tbl_np).to(dev)
     pool = []
     for a in cache:
         p = torch.zeros((L, n_pool, H, page) + tuple(a.shape[4:]),
@@ -672,6 +643,162 @@ def paged_kernels(gen, summary: dict, cache, new, lengths, layer: int,
             for j in range(u):
                 p[:, tbl_np[b, j]] = a[:, b, :, j * page:(j + 1) * page]
         pool.append(p)
+    return pool, torch.from_numpy(tbl_np).to(dev), sum(used)
+
+
+def sdpa_time(cache, lengths, rep: int) -> dict:
+    """The yardstick beside each decode-attention row:
+    ``torch.nn.functional.scaled_dot_product_attention`` with bf16 q over
+    the same context dequantized to bf16 ahead of time (``[B, Hkv, S, Dh]``
+    K and V, ``enable_gqa``, positions past each length masked unless every
+    slot is full), on the first backend of flash, cuDNN, memory-efficient
+    and math that takes the call; device time, cycling enough dequantized
+    layers to exceed the L2 cache twice. Another function than the kernel
+    (it reads twice the bytes over all S positions); the port never calls
+    it."""
+    import warnings
+
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from quant_tpu_torch.utils.timing import device_time
+
+    kc, ks, vc, vs = cache
+    L, B, H, S, D = kc.shape
+    per_layer = 2 * B * H * S * D * 2
+    n = max(1, min(L, math.ceil(2 * L2_BYTES / per_layer)))
+    kv = [((kc[i].float() * ks[i][..., None]).to(BF16),
+           (vc[i].float() * vs[i][..., None]).to(BF16)) for i in range(n)]
+    q = torch.randn((B, H * rep, 1, D), device=kc.device).to(BF16)
+    mask = None
+    if bool((lengths < S).any()):
+        mask = (torch.arange(S, device=kc.device)[None, :]
+                < lengths[:, None])[:, None, None, :]
+    nxt = cycle(kv)
+
+    def call():
+        k, v = nxt()
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                              enable_gqa=True)
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        try:
+            with warnings.catch_warnings(), sdpa_kernel([backend]):
+                warnings.simplefilter("ignore")
+                call()
+                torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+        with sdpa_kernel([backend]):
+            ms = device_time(call, max(8, n))
+        del kv
+        torch.cuda.empty_cache()
+        return {"sdpa_bf16_ms": ms, "sdpa_backend": backend.name}
+    raise RuntimeError("no scaled_dot_product_attention backend took the "
+                       "call")
+
+
+def decode_row(name: str, kernel, plain, q, tol: float, layer: int,
+               layers: int, n_tok: int, hkv: int, sdpa: dict, what: str,
+               extra_bytes: int = 0) -> dict:
+    """One decode-attention row: ``kernel(q, layer)`` against
+    ``plain(q, layer)`` (``tol`` of max|ref|), one launch counted under the
+    path it should take (tc for bf16 q), a second call bit-equal to the
+    first, then its device time (each call on the next layer of the
+    ``layers``-deep stack, L2-cold), the plain version's, the bound of
+    ``n_tok`` tokens' K/V codes and scales (plus ``extra_bytes``), and
+    ``sdpa`` beside them."""
+    from quant_tpu_torch.kernels import _build
+    from quant_tpu_torch.utils.timing import device_time, kernel_times
+
+    qdt = q.dtype
+    path = "tc" if qdt == BF16 else "cuda_core"
+    _build.reset_launches()
+    got = kernel(q, layer)
+    if not _build.launches[name] == _build.launches[f"{name}[{path}]"] == 1:
+        raise AssertionError(f"{name} ({qdt}): one launch on the {path} path "
+                             f"expected, counted {_build.launches}")
+    again = kernel(q, layer)
+    ref = plain(q, layer).float()
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name} gave non-finite values")
+    err = float((got.float() - ref).abs().max())
+    rel = err / float(ref.abs().max())
+    if not rel <= tol:
+        raise AssertionError(f"{name} {what} ({qdt}): error {rel:.3g} of "
+                             f"max|ref| > {tol}")
+    if not torch.equal(got, again):
+        raise AssertionError(f"{name} {what} ({qdt}): two calls on the same "
+                             "inputs differ")
+    nxt = cycle(range(layers))
+    iters = max(8, layers)
+    ms, ev = kernel_times(lambda: kernel(q, nxt()), iters)
+    plain_ms = device_time(lambda: plain(q, nxt()), iters)
+    b, hq, d = q.shape
+    nbytes = (2 * b * hq * d * q.element_size() + n_tok * hkv * (2 * d + 8)
+              + b * 4 + extra_bytes)
+    b_ms, b_by = bound_ms(nbytes, 4 * n_tok * hq * d)
+    log(f"[kernels] {name} {str(qdt)[6:]} {what} [{path}]: err {rel:.2e} of "
+        f"max|ref|, rerun bit-equal  {ms:.4f} ms (events {ev:.4f})  plain "
+        f"{plain_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by}, "
+        f"{100 * b_ms / ms:.0f}%)  sdpa_bf16 {sdpa['sdpa_bf16_ms']:.4f} ms "
+        f"({sdpa['sdpa_backend']})")
+    return {"max_abs_err": err, "rel_err": rel, "path": path, "ms": ms,
+            "event_ms": ev, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "pct_of_bound": 100 * b_ms / ms, **sdpa,
+            "rerun_bit_equal": True, "out": got}
+
+
+def paged_rows(gen, cache, lengths, layer: int, page: int, rep: int,
+               sdpa: dict, what: str) -> dict:
+    """``paged_flash_decode_int8`` over ``cache``'s rows in a page pool
+    (:func:`page_pool`) against its plain version (1e-4 of max|ref| with
+    f32 q, 1e-2 with bf16 q) and against the contiguous kernel on the same
+    rows."""
+    from quant_tpu_torch.kernels.attention import flash_decode_int8
+    from quant_tpu_torch.kernels.paged_attention import (
+        paged_attention_reference, paged_flash_decode_int8)
+
+    L, B, H, S, D = cache[0].shape
+    pool, tbl, n_used = page_pool(cache, lengths, page)
+    n_tok = int(lengths.clamp(max=S).sum())
+    att = {}
+    for qdt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
+        q = torch.randn((B, H * rep, D), generator=gen,
+                        device=cache[0].device).to(qdt)
+        row = decode_row(
+            "paged_flash_decode_int8",
+            lambda q, i: paged_flash_decode_int8(q, *pool, tbl, lengths, i),
+            lambda q, i: paged_attention_reference(q, *pool, tbl, lengths,
+                                                   i),
+            q, tol, layer, L, n_tok, H, sdpa, f"page={page} {what}",
+            extra_bytes=4 * n_used)
+        contig = flash_decode_int8(q, *cache, lengths, layer)
+        row["max_abs_diff_vs_contiguous"] = float(
+            (row.pop("out").float() - contig.float()).abs().max())
+        log(f"[kernels]   |paged - contiguous| <= "
+            f"{row['max_abs_diff_vs_contiguous']:.2e}")
+        att[str(qdt)] = row
+    del pool
+    torch.cuda.empty_cache()
+    return att
+
+
+def paged_kernels(gen, summary: dict, cache, new, lengths, layer: int,
+                  page: int, contiguous: dict) -> dict:
+    """The paged insert and paged flash decode at the decode shape of the
+    kernels phase, over a 32-layer pool holding the contiguous cache's rows
+    under a page table shuffled from seed 0 (entries past each slot's pages
+    on the scratch page 0). Checked against their plain versions (insert
+    byte-equal; attention as :func:`paged_rows`)."""
+    from quant_tpu_torch.kernels.cache_insert import (
+        paged_cache_insert_int8, paged_cache_insert_int8_reference)
+    from quant_tpu_torch.utils.timing import device_time, kernel_times
+
+    L, B, H, S, D = cache[0].shape
+    pool, tbl, _ = page_pool(cache, lengths, page)
+    n_pool = pool[0].shape[1]
     plain = [t.clone() for t in pool]
     paged_cache_insert_int8(*pool, *new, lengths, layer, tbl)
     paged_cache_insert_int8_reference(*plain, *new, lengths, layer, tbl)
@@ -688,6 +815,7 @@ def paged_kernels(gen, summary: dict, cache, new, lengths, layer: int,
     ms, ev = kernel_times(insert, L)
     plain_ms = device_time(lambda: paged_cache_insert_int8_reference(
         *pool, *new, lengths, nxt_layer(), tbl), L)
+    del pool
     row_bytes = B * H * (2 * D + 2 * 4)
     b_ms, b_by = bound_ms(2 * row_bytes + 2 * B * 4, 0)
     ins = {"max_abs_err": 0.0, "ms": ms, "event_ms": ev,
@@ -699,47 +827,10 @@ def paged_kernels(gen, summary: dict, cache, new, lengths, layer: int,
         f"{ms:.4f} ms (events {ev:.4f})  plain {plain_ms:.4f} ms  bound "
         f"{b_ms:.6f} ms ({b_by})")
 
-    n_tok = int(lengths.clamp(max=S).sum())
-    tbl_bytes = 4 * sum(used)
-    att = {}
-    for qdt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
-        q = torch.randn((B, H * rep, D), generator=gen, device=dev).to(qdt)
-        ref = paged_attention_reference(q, *pool, tbl, lengths, layer)
-        got = paged_flash_decode_int8(q, *pool, tbl, lengths, layer)
-        contig = flash_decode_int8(q, *cache, lengths, layer)
-        torch.cuda.synchronize()
-        if not bool(torch.isfinite(got).all()):
-            raise AssertionError("paged_flash_decode_int8 gave non-finite "
-                                 "values")
-        err = float((got.float() - ref.float()).abs().max())
-        rel = err / float(ref.float().abs().max())
-        if not rel <= tol:
-            raise AssertionError(f"paged_flash_decode_int8 page {page} "
-                                 f"({qdt}): error {rel:.3g} of max|ref| > "
-                                 f"{tol}")
-        vs_contig = float((got.float() - contig.float()).abs().max())
-
-        def attend():
-            return paged_flash_decode_int8(q, *pool, tbl, lengths,
-                                           nxt_layer())
-        ms, ev = kernel_times(attend, L)
-        plain_ms = device_time(lambda: paged_attention_reference(
-            q, *pool, tbl, lengths, nxt_layer()), L)
-        qb = q.element_size()
-        nbytes = (2 * B * H * rep * D * qb + n_tok * H * (2 * D + 8)
-                  + B * 4 + tbl_bytes)
-        b_ms, b_by = bound_ms(nbytes, 4 * n_tok * H * rep * D)
-        c_ms = contiguous[str(qdt)]["ms"]
-        att[str(qdt)] = {"max_abs_err": err, "rel_err": rel, "ms": ms,
-                         "event_ms": ev, "plain_ms": plain_ms,
-                         "bound_ms": b_ms, "bound_by": b_by,
-                         "contiguous_ms": c_ms,
-                         "max_abs_diff_vs_contiguous": vs_contig}
-        log(f"[kernels] paged_flash_decode_int8 {str(qdt)[6:]} page={page} "
-            f"ctx={n_tok}: err {rel:.2e} of max|ref|  {ms:.4f} ms (events "
-            f"{ev:.4f})  plain {plain_ms:.4f} ms  bound {b_ms:.4f} ms "
-            f"({b_by})  contiguous kernel {c_ms:.4f} ms, |paged - "
-            f"contiguous| <= {vs_contig:.2e}")
+    att = paged_rows(gen, cache, lengths, layer, page, 4, contiguous["sdpa"],
+                     "B=8 Hkv=8 rep=4 D=128 S=2048")
+    for qdt, row in att.items():
+        row["contiguous_ms"] = contiguous[qdt]["ms"]
     if page == 128:     # the serving phase's page size
         summary["paged_cache_insert_int8"] = ins
         summary["paged_flash_decode_int8"] = {
@@ -748,10 +839,63 @@ def paged_kernels(gen, summary: dict, cache, new, lengths, layer: int,
                     f"128, 16-page tables, lengths {lengths.tolist()}; "
                     f"device time, each call on the next layer of the "
                     f"32-layer pool (L2-cold)"}
-    del pool
-    torch.cuda.empty_cache()
     return {"kernel": "paged", "page": page, "insert": ins,
             "attention": att}
+
+
+def rand_cache(gen, layers: int, b: int, hkv: int, s: int, d: int) -> list:
+    """A random int8 K/V cache stack and its f32 scales on the card."""
+    dev = torch.device("cuda")
+
+    def codes():
+        return torch.randint(-127, 128, (layers, b, hkv, s, d), generator=gen,
+                             device=dev, dtype=torch.int16).to(torch.int8)
+
+    def scales():
+        return torch.rand((layers, b, hkv, s), generator=gen,
+                          device=dev) * 0.015 + 0.005
+    return [codes(), scales(), codes(), scales()]
+
+
+def attention_rows(gen) -> list:
+    """Decode attention at Qwen3-30B-A3B's heads (Hkv=4, rep=8) over the
+    smoke's lengths and a 32-layer stack, and at long context: 8 slots of
+    8192 tokens over a 2-layer stack (268 MB of codes, over twice the L2
+    cache), contiguous and paged at page 128."""
+    from quant_tpu_torch.kernels.attention import (
+        flash_decode_int8, flash_decode_int8_reference)
+
+    rows = []
+    for what, L, B, H, S, rep, lens, pages in (
+            ("B=8 Hkv=4 rep=8 D=128 S=2048", 32, 8, 4, 2048, 8, ATT_LENGTHS,
+             ()),
+            ("B=8 Hkv=8 rep=4 D=128 S=8192 (long context)", 2, 8, 8, 8192,
+             4, [8192] * 8, (128,))):
+        cache = rand_cache(gen, L, B, H, S, 128)
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        n_tok = int(lengths.sum())
+        sdpa = sdpa_time(cache, lengths, rep)
+        att = {}
+        for qdt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
+            q = torch.randn((B, H * rep, 128), generator=gen,
+                            device="cuda").to(qdt)
+            att[str(qdt)] = decode_row(
+                "flash_decode_int8",
+                lambda q, i: flash_decode_int8(q, *cache, lengths, i),
+                lambda q, i: flash_decode_int8_reference(q, *cache, lengths,
+                                                         i),
+                q, tol, L - 1, L, n_tok, H, sdpa, f"{what} ctx={n_tok}")
+            att[str(qdt)].pop("out")
+        rows.append({"kernel": "flash_decode_int8", "rows": what,
+                     "per_dtype": att})
+        for page in pages:
+            rows.append({"kernel": "paged_flash_decode_int8", "rows": what,
+                         "page": page, "per_dtype": paged_rows(
+                             gen, cache, lengths, L - 1, page, rep, sdpa,
+                             what)})
+        del cache
+        torch.cuda.empty_cache()
+    return rows
 
 
 def mla_kernels(gen, detail: dict) -> dict:
@@ -1356,12 +1500,13 @@ def profile_decode(eng, steps: int = 3, label: str = "decode",
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     # device-side events only (kernels, copies, memsets): the CPU ops that
     # launched them carry the same device time again
-    by_name, spans = {}, []
+    by_name, calls, spans = {}, {}, []
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             tr = e.time_range
             by_name[e.name] = (by_name.get(e.name, 0.0)
                                + (tr.end - tr.start) / 1e3 / steps)
+            calls[e.name] = calls.get(e.name, 0) + 1 / steps
             spans.append((tr.start, tr.end))
     busy_us, end = 0.0, -math.inf
     for s, t in sorted(spans):        # union: overlapping spans count once
@@ -1386,6 +1531,11 @@ def profile_decode(eng, steps: int = 3, label: str = "decode",
            "device_busy_ms_per_step": busy if busy else "not measured",
            "idle_share": 1 - busy / wall_ms if busy else "not measured",
            "top_kernels_ms_per_step": top, "port_kernels_ms_per_step": ours,
+           # every attention kernel of the trace and its launches per
+           # step: one per layer and call, no separate merge kernel
+           "attention_launches_per_step": {
+               n: c for n, c in calls.items() if "flash_decode" in n
+               or "mla_decode" in n},
            "top_host_ops_self_cpu_ms_per_step": host}
     log(f"[profile] {label} B={eng.max_slots}: bare forward {bare_ms:.2f} "
         f"ms/step; under torch.profiler {wall_ms:.2f} ms/step "
@@ -1394,6 +1544,8 @@ def profile_decode(eng, steps: int = 3, label: str = "decode",
                                  if busy else " (no device time recorded)"))
     for name, ms in top[:6]:
         log(f"[profile]   device {ms:8.3f} ms/step  {name[:80]}")
+    for name, n in res["attention_launches_per_step"].items():
+        log(f"[profile]   attention {n:5.1f} launches/step  {name[:80]}")
     for name, ms, calls in host[:6]:
         log(f"[profile]   host   {ms:8.3f} ms/step  {calls:6.0f} calls/step  "
             f"{name[:80]}")
@@ -1620,7 +1772,8 @@ def moe_layers(cfg) -> int:
 
 def check_tiles(what: str, launches: dict) -> None:
     """Every matmul of a bf16 run took a tensor-core tile: the CUDA-core
-    tile served none, and the tiles' counts add up to each kernel's."""
+    tile served none, and the tiles' counts add up to each kernel's; every
+    GQA decode-attention call took the tensor-core path."""
     for k in ("dequant_matmul", "dequant_matmul_moe"):
         tc = launches[f"{k}[tc_decode]"] + launches[f"{k}[tc_prefill]"]
         if launches[f"{k}[cuda_core]"] or tc != launches[k]:
@@ -1628,6 +1781,12 @@ def check_tiles(what: str, launches: dict) -> None:
                 f"{what}: {k}: {launches[k]} launches, "
                 f"{launches[f'{k}[tc_decode]']} tc_decode + "
                 f"{launches[f'{k}[tc_prefill]']} tc_prefill, "
+                f"{launches[f'{k}[cuda_core]']} cuda_core")
+    for k in ("flash_decode_int8", "paged_flash_decode_int8"):
+        if launches[f"{k}[cuda_core]"] or launches[f"{k}[tc]"] != launches[k]:
+            raise AssertionError(
+                f"{what}: {k}: {launches[k]} launches, "
+                f"{launches[f'{k}[tc]']} tc, "
                 f"{launches[f'{k}[cuda_core]']} cuda_core")
 
 

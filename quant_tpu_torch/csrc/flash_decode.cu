@@ -1,5 +1,5 @@
 // INT8-KV flash-decode attention for Hopper (sm_90a): the contiguous cache
-// and the paged pool.
+// and the paged pool, one launch per call.
 //
 // Replaces: quant_tpu/kernels/attention.py, flash_decode_int8 -> _kernel, and
 //   quant_tpu/kernels/paged_attention.py, paged_flash_decode_int8 -> _kernel
@@ -20,24 +20,51 @@
 //               + t % page.
 // The scales use the same row index ([.., S] / [.., page] layouts).
 //
-// What bounds it on this card: the K/V code bytes of each slot's actual
-// context (1 byte per element, 264 bytes per token and kv head at Dh=128),
-// so device-memory bandwidth, and at short contexts launch latency.
+// What bounds it on this card: the K/V code bytes and scales of each slot's
+// actual context (264 bytes per token and kv head at Dh=128: 16.9 MB for
+// B=8 x 8014 tokens x 8 kv heads, 5 us at 3.35 TB/s), so device-memory
+// bandwidth; at rep 4 the work is 8 FLOP per byte, far below the tensor
+// cores' 295. At short contexts the launch and the first copies' latency
+// dominate.
 //
-// Design: split-S. Block (b*Hkv + h, c) owns the CH-token chunk c of slot b
-// and kv head h; chunks at or past the slot's length exit at once, so tokens
-// past the length are neither loaded nor computed, and a long context spreads
-// over many blocks. A paged block first loads the page ids of its own chunk
-// (at most CH / page + 2 table entries, none past the length) into shared
-// memory, so table entries past a slot's allocated pages are never read. A
-// block walks its chunk in TT-token tiles: each tile's K and V rows are
-// staged into shared memory by all threads with 16-byte loads (a 16-byte
-// unit never straddles a row since Dh % 16 == 0, so a tile may span pages
-// of any size); two threads score one token (half of Dh each) against the
-// rep query rows, one warp per query row runs the online-softmax step, and
-// each thread owns Dh columns of the p.v product. A block writes its
-// unnormalised (m, l, acc) per query row; a second kernel merges the chunks
-// of each (slot, kv head) by their maxima. TMA and tensor cores come later.
+// Design:
+// - Work split on the device. Block (bh, c) of a grid of B * Hkv * n_chunks
+//   blocks owns chunk c (`chunk` tokens, a multiple of the TT-token tile) of
+//   slot b and kv head h; the wrapper sizes grid and workspace from static
+//   ints only (kernels/attention.py decode_plan). A block reads its slot's
+//   length and exits when its chunk starts at or past it, so the work
+//   spreads over short chunks whatever the lengths, and tokens past the
+//   length are neither loaded nor computed. A paged block loads the page
+//   ids of its own chunk (none past the length) into shared memory.
+// - A copy ring: each TT-token tile's K rows, V rows and both scale runs
+//   are copied by cp.async (16 bytes a lane for codes, 4 for scales; rows
+//   past the chunk's end are zero-filled) into one of NST = 2 shared-memory
+//   stages, the next tile in flight while the block computes one (3 and 4
+//   stages measured slower), so no global load sits on the softmax chain.
+//   Each lane addresses its own rows, so a tile may span pages of any size. The 16-byte units of a row are XOR-swizzled (or
+//   rows padded) so the compute's shared-memory reads are conflict-free.
+// - Four warps each take 16 tokens of a tile and keep their own online
+//   softmax state; the block merges the four in warp order at its end.
+// - bf16 q on the tensor cores (mma.m16n8k16, bf16 in, f32 accumulate):
+//   scores S[16, 8] = Q K^T with q as A (the rep rows padded to 16, dh
+//   permuted within each 16-byte unit so a lane's K fragment is one 16-byte
+//   read of its token row) and the int8 codes as B; int8 -> bf16 is exact,
+//   two codes at a time by bit operations: 0x4300 | (c & 0x7f) is
+//   128 + (c & 0x7f), minus 128 or 256 by the sign bit. The key scale and
+//   the softmax scale act on the f32 scores; the online softmax runs in
+//   registers (exp2, a quad of lanes per query row). Then O^T[dh, 8] =
+//   V^T P^T: the score accumulators, times the value scale and rounded to
+//   bf16, are P^T's B fragment as they lie; V^T is A, two tokens of one dh
+//   column per register, paired by one byte permute of two staged rows.
+//   So no padded row enters the p.v product, and a lane ends up holding 4
+//   adjacent dh of two heads.
+// - f32 q keeps CUDA-core dots (its 1e-4 limit is out of reach of bf16
+//   products) on the same ring, split and merge.
+// - One launch: a block writes its chunk's unnormalised (m, l, acc) to the
+//   workspace; the last block of each (slot, kv head) to finish (a
+//   self-resetting counter) merges that pair's chunks in chunk order, so two
+//   calls on the same inputs give bit-equal outputs. A slot whose context
+//   fits one chunk skips the workspace.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -45,24 +72,61 @@
 
 namespace {
 
-constexpr int NT = 128;          // threads per block
-constexpr int TT = 64;           // tokens per staged tile (2 threads each)
-constexpr int CH = 256;          // tokens per block (split-S chunk)
+constexpr int NT = 128;              // threads per block
+constexpr int NW = NT / 32;          // warps, 16 tokens of a tile each
+constexpr int TT = 64;               // tokens per ring stage
+constexpr int NST = 2;               // ring stages (3 or 4 ran slower)
 constexpr int MAX_REP = 8;
-constexpr int MAX_D = 256;
-constexpr int KPAD = 16;         // K row padding: spreads rows over banks
-constexpr int DPT = MAX_D / NT;  // Dh columns per thread in the p.v product
+constexpr int MAX_IDS = 4096 / 8 + 2;  // page ids of a 4096-token chunk
 constexpr float NEG = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
 
-template <typename T> __device__ __forceinline__ float to_f32(T v);
-template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+struct Args {
+  const void* q;
+  const int8_t* kc;
+  const float* ks;
+  const int8_t* vc;
+  const float* vs;
+  const int* lengths;
+  const int* page_tbl;   // paged pool only
+  void* out;
+  float* part_o;         // [B*Hkv, n_chunks, rep, D]
+  float* part_ml;        // [B*Hkv, n_chunks, rep, 2]
+  int* counters;         // [B*Hkv], zero between launches
+  int layer, B, Hkv, S, D, rep, chunk, n_chunks;
+  int P, page, page_shift, max_pages;  // paged pool only; page_shift is
+                                        // log2(page), or -1
+  float qk_scale;        // softmax scale * log2(e)
+};
+
+// Shared-memory layout of one ring stage: K rows, V rows, K scales, V
+// scales. At Dh a multiple of 128 the 16-byte units of a row are
+// XOR-swizzled (K by row bit 0, V by row bits 1-2); otherwise V rows are
+// padded by 16 bytes. Either way the mma fragment reads are conflict-free.
+struct Stage {
+  int D, kp, vp;
+  bool swz;
+  __host__ __device__ explicit Stage(int d)
+      : D(d), kp(d), vp(d % 128 == 0 ? d : d + 16), swz(d % 128 == 0) {}
+  __host__ __device__ int bytes() const { return TT * (kp + vp) + 2 * TT * 4; }
+  __device__ int koff(int r, int c) const {
+    return r * kp + 16 * (swz ? c ^ ((r & 1) << 2) : c);
+  }
+  __device__ int voff(int r, int c) const {
+    return r * vp + 16 * (swz ? c ^ (((r >> 1) & 3) << 1) : c);
+  }
+};
+
+// Dynamic shared memory of a launch: the ring, which the four warps'
+// states reuse after the last tile, then the CUDA-core path's q rows and p
+// runs.
+__host__ __device__ inline int scratch_bytes(int D) {
+  const int ring = NST * Stage(D).bytes();
+  const int warps = NW * MAX_REP * (D + 2) * 4;
+  return ring > warps ? ring : warps;
 }
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
+__host__ __device__ inline int smem_bytes(int D, bool tc) {
+  return scratch_bytes(D) + (tc ? 0 : MAX_REP * D * 4 + NW * MAX_REP * 16 * 4);
 }
 
 // Row of token t in the contiguous cache: one run of rows per (slot, head).
@@ -76,303 +140,608 @@ struct ContigRows {
 struct PagedRows {
   const int* ids;
   size_t layer_pages;  // layer * P
-  int hkv, h, page, first;
+  int hkv, h, page, shift, first;  // shift: log2(page), or -1
   __device__ __forceinline__ size_t row(int t) const {
-    const int p = t / page;
+    const int p = shift >= 0 ? t >> shift : t / page;
     return ((layer_pages + ids[p - first]) * hkv + h) * (size_t)page + (t - p * page);
   }
 };
 
-// Copy the code rows of tokens [t0, t0 + n_tok) to shared memory, 16 bytes
-// per thread per pass; token r of the tile lands at r * pitch.
-template <class Rows>
-__device__ __forceinline__ void stage(int8_t* dst, const int8_t* __restrict__ src,
-                                      const Rows& rows, int t0, int n_tok, int D,
-                                      int pitch) {
-  const int n = n_tok * D;
-  for (int i = threadIdx.x * 16; i < n; i += NT * 16) {
-    const int r = i / D, c = i - r * D;
-    *reinterpret_cast<int4*>(dst + r * pitch + c) =
-        *reinterpret_cast<const int4*>(src + rows.row(t0 + r) * D + c);
-  }
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// 16- and 4-byte copies into shared memory; ok == false writes zeros and
+// reads nothing
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp4(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// One chunk [c0, c1) of one (slot, kv head): partial (m, l, acc) per query
-// row into part_o / part_ml at (bh, chunk).
-template <typename T, class Rows>
-__device__ __forceinline__ void attend_chunk(
-    const T* __restrict__ q, const int8_t* __restrict__ kc, const float* __restrict__ ks,
-    const int8_t* __restrict__ vc, const float* __restrict__ vs, const Rows& rows,
-    float* __restrict__ part_o, float* __restrict__ part_ml, int bh, int chunk,
-    int n_chunks, int c0, int c1, int D, int rep, float scale) {
-  __shared__ __align__(16) int8_t k_t[TT][MAX_D + KPAD];
-  __shared__ __align__(16) int8_t v_t[TT][MAX_D];
-  __shared__ float q_s[MAX_REP][MAX_D];
-  __shared__ float p_s[MAX_REP][TT];
-  __shared__ float m_s[MAX_REP], l_s[MAX_REP], alpha_s[MAX_REP];
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
+// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate
+__device__ __forceinline__ void mma(float (&d)[4], uint32_t a0, uint32_t a1,
+                                    uint32_t a2, uint32_t a3, uint32_t b0,
+                                    uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// Four int8 codes [c0 c1 c2 c3] (c0 the low byte) to bf16x2 (c0, c2) and
+// (c1, c3), exactly: 0x4300 | (c & 0x7f) is 128 + (c & 0x7f) and
+// 0x4300 | (c & 0x80) is 128 or 256, so their difference is c.
+__device__ __forceinline__ void codes_bf16(uint32_t w, uint32_t& lo, uint32_t& hi) {
+  const uint32_t w1 = w >> 8;
+  const uint32_t x0 = (w & 0x007f007fu) | 0x43004300u, y0 = (w & 0x00800080u) | 0x43004300u;
+  const uint32_t x1 = (w1 & 0x007f007fu) | 0x43004300u, y1 = (w1 & 0x00800080u) | 0x43004300u;
+  const __nv_bfloat162 d0 = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&x0),
+                                    *reinterpret_cast<const __nv_bfloat162*>(&y0));
+  const __nv_bfloat162 d1 = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&x1),
+                                    *reinterpret_cast<const __nv_bfloat162*>(&y1));
+  lo = *reinterpret_cast<const uint32_t*>(&d0);
+  hi = *reinterpret_cast<const uint32_t*>(&d1);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+template <typename T> __device__ __forceinline__ float to_f32(T v);
+template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }
+template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+__device__ __forceinline__ void store4(float* out, size_t i, float4 v) {
+  *reinterpret_cast<float4*>(out + i) = v;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* out, size_t i, float4 v) {
+  uint2 w;
+  w.x = pack_bf16(v.x, v.y);
+  w.y = pack_bf16(v.z, v.w);
+  *reinterpret_cast<uint2*>(out + i) = w;
+}
+
+// Copy tile [t0, t0 + TT) of the chunk (tokens at or past c1 zero-filled)
+// into stage st.
+template <class Rows>
+__device__ __forceinline__ void issue(uint8_t* st, const Stage& L, const Args& a,
+                                      const Rows& rows, int t0, int c1) {
+  const int cpr = L.D / 16, n = TT * cpr;
+  uint8_t* kd = st;
+  uint8_t* vd = st + TT * L.kp;
+  float* sd = reinterpret_cast<float*>(vd + TT * L.vp);
+  for (int e = threadIdx.x; e < n; e += NT) {
+    const int r = e / cpr, c = e - r * cpr, t = t0 + r;
+    const bool ok = t < c1;
+    const size_t off = ok ? rows.row(t) * L.D + 16 * c : 0;
+    cp16(kd + L.koff(r, c), a.kc + off, ok);
+    cp16(vd + L.voff(r, c), a.vc + off, ok);
+  }
+  // threads [0, TT) copy the key scales, [TT, 2 TT) the value scales
+  const int r = threadIdx.x % TT, t = t0 + r;
+  const bool ok = t < c1;
+  const size_t row = ok ? rows.row(t) : 0;
+  cp4(sd + threadIdx.x, (threadIdx.x < TT ? a.ks : a.vs) + row, ok);
+}
+
+// One chunk [c0, c1) of one (slot, kv head), the last block of the pair
+// merging all of its chunks.
+template <typename T, int DMAX, bool TC, bool FIX, class Rows>
+__device__ __forceinline__ void attend(const Args& a, const Rows& rows, int bh,
+                                       int chunk, int c0, int c1, int used) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ int last;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const size_t qoff = (size_t)bh * rep * D;
+  const int g = lane >> 2, t = lane & 3;  // mma fragment row / column pair
+  const int D = FIX ? DMAX : a.D, rep = a.rep;  // FIX: Dh known at compile time
+  const Stage L(D);
+  const T* q = reinterpret_cast<const T*>(a.q) + (size_t)bh * rep * D;
 
-  for (int i = tid; i < rep * D; i += NT) q_s[i / D][i % D] = to_f32(q[qoff + i]) * scale;
-  if (tid < rep) {
-    m_s[tid] = NEG;
-    l_s[tid] = 0.f;
-  }
-  float acc[MAX_REP][DPT];
+  // per-warp online-softmax state. tensor cores: m, l of query row g (l a
+  // partial over the lane's tokens), o[c][x][i] the O^T fragments of dh
+  // 32c + 4g + {0, 1} (x = 0) and {2, 3} (x = 1) for heads 2t, 2t + 1.
+  // CUDA cores: m[r], l[r] of every row, acc[r][i] of dh lane + 32i.
+  constexpr int NV = TC ? DMAX / 32 : 1;
+  constexpr int NA = TC ? 1 : DMAX / 32;
+  float m_tc = NEG, l_tc = 0.f;
+  float o[NV][2][4];
+  float m_cc[MAX_REP], l_cc[MAX_REP], acc[MAX_REP][NA];
 #pragma unroll
-  for (int r = 0; r < MAX_REP; ++r)
+  for (int c = 0; c < NV; ++c)
 #pragma unroll
-    for (int j = 0; j < DPT; ++j) acc[r][j] = 0.f;
-
-  const int half = D / 2;
-  for (int t0 = c0; t0 < c1; t0 += TT) {
-    const int n_tok = min(TT, c1 - t0);
-    stage(&k_t[0][0], kc, rows, t0, n_tok, D, MAX_D + KPAD);
-    stage(&v_t[0][0], vc, rows, t0, n_tok, D, MAX_D);
-    __syncthreads();
-
-    // scores: threads 2j and 2j+1 take the two halves of token j's row
-    const int j = tid >> 1, hoff = (tid & 1) * half;
-    float dots[MAX_REP];
+    for (int x = 0; x < 2; ++x)
 #pragma unroll
-    for (int r = 0; r < MAX_REP; ++r) dots[r] = 0.f;
-    if (j < n_tok) {
-      const int8_t* krow = &k_t[j][hoff];
-      for (int d0 = 0; d0 < half; d0 += 8) {
-        const int2 w = *reinterpret_cast<const int2*>(krow + d0);
-        const int8_t* kb = reinterpret_cast<const int8_t*>(&w);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const float kv = float(kb[e]);
-#pragma unroll
-          for (int r = 0; r < MAX_REP; ++r)
-            if (r < rep) dots[r] = fmaf(q_s[r][hoff + d0 + e], kv, dots[r]);
-        }
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < MAX_REP; ++r) dots[r] += __shfl_xor_sync(0xffffffffu, dots[r], 1);
-    if ((tid & 1) == 0) {
-      const float ksc = j < n_tok ? ks[rows.row(t0 + j)] : 0.f;
-#pragma unroll
-      for (int r = 0; r < MAX_REP; ++r)
-        if (r < rep) p_s[r][j] = j < n_tok ? dots[r] * ksc : NEG;
-    }
-    __syncthreads();
-
-    // online softmax: one warp per query row, two tokens per lane
-    for (int r = warp; r < rep; r += NT / 32) {
-      const float v0 = p_s[r][lane], v1 = p_s[r][lane + 32];
-      float mx = fmaxf(v0, v1);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_old = m_s[r];
-      const float m_new = fmaxf(m_old, mx);
-      const float p0 = lane < n_tok ? __expf(v0 - m_new) : 0.f;
-      const float p1 = lane + 32 < n_tok ? __expf(v1 - m_new) : 0.f;
-      float sum = p0 + p1;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      p_s[r][lane] = lane < n_tok ? p0 * vs[rows.row(t0 + lane)] : 0.f;
-      p_s[r][lane + 32] = lane + 32 < n_tok ? p1 * vs[rows.row(t0 + lane + 32)] : 0.f;
-      if (lane == 0) {
-        const float alpha = __expf(m_old - m_new);
-        l_s[r] = l_s[r] * alpha + sum;
-        m_s[r] = m_new;
-        alpha_s[r] = alpha;
-      }
-    }
-    __syncthreads();
-
-    // p.v: thread tid owns Dh columns tid, tid + NT
-#pragma unroll
-    for (int r = 0; r < MAX_REP; ++r)
-      if (r < rep) {
-        const float a = alpha_s[r];
-#pragma unroll
-        for (int c = 0; c < DPT; ++c) acc[r][c] *= a;
-      }
-#pragma unroll
-    for (int c = 0; c < DPT; ++c) {
-      const int d = tid + NT * c;
-      if (d < D) {
-#pragma unroll 4
-        for (int t = 0; t < n_tok; ++t) {
-          const float vv = float(v_t[t][d]);
-#pragma unroll
-          for (int r = 0; r < MAX_REP; ++r)
-            if (r < rep) acc[r][c] = fmaf(p_s[r][t], vv, acc[r][c]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  // unnormalised partial of this chunk: o [bh, chunk, r, d], (m, l) [bh, chunk, r]
-  const size_t pbase = ((size_t)bh * n_chunks + chunk) * rep;
+      for (int i = 0; i < 4; ++i) o[c][x][i] = 0.f;
 #pragma unroll
   for (int r = 0; r < MAX_REP; ++r) {
-    if (r >= rep) break;
+    m_cc[r] = NEG;
+    l_cc[r] = 0.f;
 #pragma unroll
-    for (int c = 0; c < DPT; ++c) {
-      const int d = tid + NT * c;
-      if (d < D) part_o[(pbase + r) * D + d] = acc[r][c];
+    for (int i = 0; i < NA; ++i) acc[r][i] = 0.f;
+  }
+
+  // the ring: NST - 1 tiles ahead
+  const int n_tiles = (c1 - c0 + TT - 1) / TT;
+#pragma unroll
+  for (int s = 0; s < NST - 1; ++s) {
+    if (s < n_tiles) issue(smem + s * L.bytes(), L, a, rows, c0 + s * TT, c1);
+    cp_commit();
+  }
+  // q, while the first tiles are in flight: tensor cores take bf16
+  // fragments in registers (row g; dh of 16-byte unit 4h + t, permuted as
+  // the K codes are; the softmax scale goes on the f32 scores), CUDA cores
+  // f32 rows times the softmax scale in shared memory.
+  constexpr int NH = TC ? DMAX / 64 : 1;
+  uint32_t qa[NH][4][2];
+#pragma unroll
+  for (int h = 0; h < NH; ++h)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) qa[h][j][0] = qa[h][j][1] = 0u;
+  float* q_s = reinterpret_cast<float*>(smem + scratch_bytes(D));
+  float* p_s = q_s + MAX_REP * D + warp * MAX_REP * 16;  // this warp's p run
+  if constexpr (TC) {
+    if (g < rep) {
+#pragma unroll
+      for (int h = 0; h < NH; ++h) {
+        const int c = 4 * h + t;
+        if (c < D / 16) {
+          const uint4* src = reinterpret_cast<const uint4*>(q + (size_t)g * D + 16 * c);
+          const uint4 u0 = src[0], u1 = src[1];
+          const uint32_t w[8] = {u0.x, u0.y, u0.z, u0.w, u1.x, u1.y, u1.z, u1.w};
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            qa[h][j][0] = __byte_perm(w[2 * j], w[2 * j + 1], 0x5410);  // dh 4j, 4j+2
+            qa[h][j][1] = __byte_perm(w[2 * j], w[2 * j + 1], 0x7632);  // 4j+1, 4j+3
+          }
+        }
+      }
+    }
+  } else {
+    for (int i = tid; i < rep * D; i += NT) q_s[i] = to_f32(q[i]) * a.qk_scale;
+    __syncthreads();
+  }
+
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_wait<NST - 2>();  // tile i has landed
+    __syncthreads();
+    if (i + NST - 1 < n_tiles)
+      issue(smem + ((i + NST - 1) % NST) * L.bytes(), L, a, rows, c0 + (i + NST - 1) * TT, c1);
+    cp_commit();
+    const int t0 = c0 + i * TT, w0 = 16 * warp;  // the warp's first token
+    if (t0 + w0 >= c1) continue;                   // nothing valid for this warp
+    const uint8_t* kt = smem + (i % NST) * L.bytes();
+    const uint8_t* vt = kt + TT * L.kp;
+    const float* kss = reinterpret_cast<const float*>(vt + TT * L.vp);
+    const float* vss = kss + TT;
+
+    if constexpr (TC) {
+      // scores of query row g against tokens w0 + 8n + 2t + {0, 1}
+      // one accumulator per 64 dh, so the mma chains are 4 long
+      float sc[2][4], part[NH][2][4];
+#pragma unroll
+      for (int h = 0; h < NH; ++h)
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) part[h][n][i] = 0.f;
+#pragma unroll
+      for (int h = 0; h < NH; ++h) {
+        if (4 * h >= D / 16) break;
+        const int c = 4 * h + t;
+        // tokens w0 + g and w0 + 8 + g share the swizzle (row bit 0)
+        const uint8_t* krow = kt + L.koff(w0 + g, c);
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          uint4 kw = make_uint4(0u, 0u, 0u, 0u);
+          if (c < D / 16) kw = *reinterpret_cast<const uint4*>(krow + 8 * n * L.kp);
+          const uint32_t kv[4] = {kw.x, kw.y, kw.z, kw.w};
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            uint32_t b0, b1;
+            codes_bf16(kv[j], b0, b1);
+            mma(part[h][n], qa[h][j][0], 0u, qa[h][j][1], 0u, b0, b1);
+          }
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          sc[n][i] = part[0][n][i];
+#pragma unroll
+          for (int h = 1; h < NH; ++h) sc[n][i] += part[h][n][i];
+        }
+      float s[2][2], p[2][2];
+      bool ok[2][2];
+      float mx = NEG;
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int r = w0 + 8 * n + 2 * t + e;
+          ok[n][e] = t0 + r < c1;
+          s[n][e] = sc[n][e] * a.qk_scale * kss[r];
+          if (ok[n][e]) mx = fmaxf(mx, s[n][e]);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_tc, mx);
+      const float alpha = ex2(m_tc - m_new);
+      m_tc = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          p[n][e] = ok[n][e] ? ex2(s[n][e] - m_new) : 0.f;
+          sum += p[n][e];
+        }
+      l_tc = l_tc * alpha + sum;
+      // P^T as B: tokens 2t, 2t + 1 (b0) and 8 + 2t, 9 + 2t (b1) of head g
+      const int r0 = w0 + 2 * t;
+      const uint32_t b0 = pack_bf16(p[0][0] * vss[r0], p[0][1] * vss[r0 + 1]);
+      const uint32_t b1 = pack_bf16(p[1][0] * vss[r0 + 8], p[1][1] * vss[r0 + 9]);
+      const float a_even = __shfl_sync(0xffffffffu, alpha, 8 * t);
+      const float a_odd = __shfl_sync(0xffffffffu, alpha, 8 * t + 4);
+#pragma unroll
+      for (int c = 0; c < NV; ++c) {
+        if (c >= D / 32) break;
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          o[c][x][0] *= a_even;
+          o[c][x][1] *= a_odd;
+          o[c][x][2] *= a_even;
+          o[c][x][3] *= a_odd;
+        }
+        // V^T as A: codes of dh 32c + 4g + {0..3}, tokens 2t, 2t+1, 2t+8, 2t+9
+        // rows r0, r0 + 1, r0 + 8 and r0 + 9 share the swizzle (row bits 1-2)
+        const uint8_t* vrow = vt + L.voff(r0, 2 * c + (g >> 2)) + 4 * (g & 3);
+        const uint32_t v0 = *reinterpret_cast<const uint32_t*>(vrow);
+        const uint32_t v1 = *reinterpret_cast<const uint32_t*>(vrow + L.vp);
+        const uint32_t v2 = *reinterpret_cast<const uint32_t*>(vrow + 8 * L.vp);
+        const uint32_t v3 = *reinterpret_cast<const uint32_t*>(vrow + 9 * L.vp);
+        uint32_t x0, x1, x2, x3, y0, y1, y2, y3;
+        codes_bf16(__byte_perm(v0, v1, 0x5410), x0, x1);  // dh +0 (x0), +1 (x1)
+        codes_bf16(__byte_perm(v0, v1, 0x7632), y0, y1);  // dh +2, +3
+        codes_bf16(__byte_perm(v2, v3, 0x5410), x2, x3);
+        codes_bf16(__byte_perm(v2, v3, 0x7632), y2, y3);
+        mma(o[c][0], x0, x1, x2, x3, b0, b1);
+        mma(o[c][1], y0, y1, y2, y3, b0, b1);
+      }
+    } else {
+      // scores: lanes 2j, 2j + 1 take alternate 16-byte units of token w0 + j
+      const int j = lane >> 1, half = lane & 1, r = w0 + j;
+      float dots[MAX_REP];
+#pragma unroll
+      for (int k = 0; k < MAX_REP; ++k) dots[k] = 0.f;
+      for (int c = half; c < D / 16; c += 2) {
+        const uint4 kw = *reinterpret_cast<const uint4*>(kt + L.koff(r, c));
+        const int8_t* kb = reinterpret_cast<const int8_t*>(&kw);
+#pragma unroll
+        for (int e = 0; e < 16; ++e) {
+          const float kv = float(kb[e]);
+#pragma unroll
+          for (int k = 0; k < MAX_REP; ++k)
+            if (k < rep) dots[k] = fmaf(q_s[k * D + 16 * c + e], kv, dots[k]);
+        }
+      }
+      const bool ok = t0 + r < c1;
+      const float ksc = kss[r], vsc = vss[r];
+      float alpha[MAX_REP];
+#pragma unroll
+      for (int k = 0; k < MAX_REP; ++k) {
+        alpha[k] = 1.f;
+        if (k >= rep) continue;
+        const float s = (dots[k] + __shfl_xor_sync(0xffffffffu, dots[k], 1)) * ksc;
+        float mx = ok ? s : NEG;
+#pragma unroll
+        for (int x = 2; x < 32; x <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, x));
+        const float m_new = fmaxf(m_cc[k], mx);
+        const float p = ok ? ex2(s - m_new) : 0.f;
+        float sum = p;
+#pragma unroll
+        for (int x = 2; x < 32; x <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, x);
+        alpha[k] = ex2(m_cc[k] - m_new);
+        l_cc[k] = l_cc[k] * alpha[k] + sum;
+        m_cc[k] = m_new;
+        if (!half) p_s[k * 16 + j] = p * vsc;
+      }
+      __syncwarp();
+      // p.v: lane owns dh lane + 32i
+#pragma unroll
+      for (int k = 0; k < MAX_REP; ++k)
+#pragma unroll
+        for (int i = 0; i < NA; ++i) acc[k][i] *= alpha[k];
+      for (int jj = 0; jj < 16; ++jj) {
+#pragma unroll
+        for (int i = 0; i < NA; ++i) {
+          const int d = lane + 32 * i;
+          if (d >= D) break;
+          const float vv = float(static_cast<int8_t>(vt[L.voff(w0 + jj, d >> 4) + (d & 15)]));
+#pragma unroll
+          for (int k = 0; k < MAX_REP; ++k)
+            if (k < rep) acc[k][i] = fmaf(p_s[k * 16 + jj], vv, acc[k][i]);
+        }
+      }
+      __syncwarp();
     }
   }
-  if (tid < rep) {
-    part_ml[(pbase + tid) * 2] = m_s[tid];
-    part_ml[(pbase + tid) * 2 + 1] = l_s[tid];
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(NT)
-flash_decode_chunk(const T* __restrict__ q, const int8_t* __restrict__ kc,
-                   const float* __restrict__ ks, const int8_t* __restrict__ vc,
-                   const float* __restrict__ vs, const int* __restrict__ lengths,
-                   float* __restrict__ part_o, float* __restrict__ part_ml,
-                   int layer, int B, int Hkv, int S, int D, int rep,
-                   float scale) {
-  const int bh = blockIdx.x, chunk = blockIdx.y;
-  const int b = bh / Hkv, h = bh % Hkv;
-  const int len = max(0, min(lengths[b], S));
-  const int c0 = chunk * CH;
-  if (c0 >= len) return;  // the combine reads only chunks below the length
-  const ContigRows rows{(((size_t)layer * B + b) * Hkv + h) * S};
-  attend_chunk(q, kc, ks, vc, vs, rows, part_o, part_ml, bh, chunk, gridDim.y, c0,
-               min(len, c0 + CH), D, rep, scale);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(NT)
-paged_flash_decode_chunk(const T* __restrict__ q, const int8_t* __restrict__ kc,
-                         const float* __restrict__ ks, const int8_t* __restrict__ vc,
-                         const float* __restrict__ vs, const int* __restrict__ page_tbl,
-                         const int* __restrict__ lengths, float* __restrict__ part_o,
-                         float* __restrict__ part_ml, int layer, int Hkv, int P,
-                         int page, int max_pages, int D, int rep, float scale) {
-  __shared__ int ids[CH + 2];
-  const int bh = blockIdx.x, chunk = blockIdx.y;
-  const int b = bh / Hkv, h = bh % Hkv;
-  const int len = max(0, min(lengths[b], max_pages * page));
-  const int c0 = chunk * CH;
-  if (c0 >= len) return;
-  const int c1 = min(len, c0 + CH);
-  const int first = c0 / page, n_ids = (c1 - 1) / page - first + 1;
-  for (int i = threadIdx.x; i < n_ids; i += NT)
-    ids[i] = page_tbl[(size_t)b * max_pages + first + i];
+  cp_wait<0>();
   __syncthreads();
-  const PagedRows rows{ids, (size_t)layer * P, Hkv, h, page, first};
-  attend_chunk(q, kc, ks, vc, vs, rows, part_o, part_ml, bh, chunk, gridDim.y, c0, c1,
-               D, rep, scale);
-}
 
-// Merge the chunks of each (slot, kv head): out = sum_c e^(m_c - M) o_c /
-// max(sum_c e^(m_c - M) l_c, 1e-20) over the chunks below the length.
-template <typename T>
-__global__ void __launch_bounds__(NT)
-flash_decode_combine(const float* __restrict__ part_o, const float* __restrict__ part_ml,
-                     const int* __restrict__ lengths, T* __restrict__ out, int Hkv,
-                     int S, int D, int rep, int n_chunks) {
-  const int bh = blockIdx.x, b = bh / Hkv;
-  const int len = max(0, min(lengths[b], S));
-  const int used = (len + CH - 1) / CH;
-  for (int i = threadIdx.x; i < rep * D; i += NT) {
-    const int r = i / D, d = i - r * D;
-    float mx = NEG;
-    for (int c = 0; c < used; ++c)
-      mx = fmaxf(mx, part_ml[(((size_t)bh * n_chunks + c) * rep + r) * 2]);
-    float l = 0.f, o = 0.f;
-    for (int c = 0; c < used; ++c) {
-      const size_t p = ((size_t)bh * n_chunks + c) * rep + r;
-      const float w = __expf(part_ml[p * 2] - mx);
-      l += w * part_ml[p * 2 + 1];
-      o += w * part_o[p * D + d];
+  // the four warps' states into the scratch (over the ring), then merged in
+  // warp order: o_s [warp][row][D], m_s / l_s [warp][row]
+  float* o_s = reinterpret_cast<float*>(smem);
+  float* m_s = o_s + NW * MAX_REP * D;
+  float* l_s = m_s + NW * MAX_REP;
+  if constexpr (TC) {
+    l_tc += __shfl_xor_sync(0xffffffffu, l_tc, 1);
+    l_tc += __shfl_xor_sync(0xffffffffu, l_tc, 2);
+#pragma unroll
+    for (int c = 0; c < NV; ++c) {
+      if (c >= D / 32) break;
+      const int d = 32 * c + 4 * g;
+      if (2 * t < rep)
+        store4(o_s, (size_t)(warp * MAX_REP + 2 * t) * D + d,
+               make_float4(o[c][0][0], o[c][0][2], o[c][1][0], o[c][1][2]));
+      if (2 * t + 1 < rep)
+        store4(o_s, (size_t)(warp * MAX_REP + 2 * t + 1) * D + d,
+               make_float4(o[c][0][1], o[c][0][3], o[c][1][1], o[c][1][3]));
     }
-    out[(size_t)bh * rep * D + i] = from_f32<T>(o / fmaxf(l, 1e-20f));
+    if (t == 0 && g < rep) {
+      m_s[warp * MAX_REP + g] = m_tc;
+      l_s[warp * MAX_REP + g] = l_tc;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < MAX_REP; ++k) {
+      if (k >= rep) break;
+#pragma unroll
+      for (int i = 0; i < NA; ++i) {
+        const int d = lane + 32 * i;
+        if (d < D) o_s[(warp * MAX_REP + k) * D + d] = acc[k][i];
+      }
+      if (lane == 0) {
+        m_s[warp * MAX_REP + k] = m_cc[k];
+        l_s[warp * MAX_REP + k] = l_cc[k];
+      }
+    }
   }
+  __syncthreads();
+
+  const int d4 = D / 4;
+  const size_t pbase = (size_t)bh * a.n_chunks;
+  float4 res[MAX_REP * DMAX / 4 / NT];   // this thread's float4s of the chunk
+  float res_m[MAX_REP * DMAX / 4 / NT], res_l[MAX_REP * DMAX / 4 / NT];
+#pragma unroll
+  for (int k = 0; k < MAX_REP * DMAX / 4 / NT; ++k) {
+    const int e = tid + k * NT;
+    if (e >= rep * d4) break;
+    const int r = e / d4, d = 4 * (e - r * d4);
+    float mx = NEG;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) mx = fmaxf(mx, m_s[w * MAX_REP + r]);
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    float l = 0.f;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      const float f = ex2(m_s[w * MAX_REP + r] - mx);
+      const float4 x = *reinterpret_cast<const float4*>(o_s + (w * MAX_REP + r) * D + d);
+      v = make_float4(v.x + f * x.x, v.y + f * x.y, v.z + f * x.z, v.w + f * x.w);
+      l += f * l_s[w * MAX_REP + r];
+    }
+    res[k] = v;
+    res_m[k] = mx;
+    res_l[k] = l;
+  }
+  T* out = reinterpret_cast<T*>(a.out) + (size_t)bh * rep * D;
+  if (used == 1) {  // the whole context in this chunk
+#pragma unroll
+    for (int k = 0; k < MAX_REP * DMAX / 4 / NT; ++k) {
+      const int e = tid + k * NT;
+      if (e >= rep * d4) break;
+      const float inv = 1.f / fmaxf(res_l[k], 1e-20f);
+      const float4 v = res[k];
+      store4(out, 4 * (size_t)e, make_float4(v.x * inv, v.y * inv, v.z * inv, v.w * inv));
+    }
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < MAX_REP * DMAX / 4 / NT; ++k) {
+    const int e = tid + k * NT;
+    if (e >= rep * d4) break;
+    const int r = e / d4;
+    const size_t p = (pbase + chunk) * rep + r;
+    store4(a.part_o, p * D + 4 * (e - r * d4), res[k]);
+    if (e == r * d4) {
+      a.part_ml[2 * p] = res_m[k];
+      a.part_ml[2 * p + 1] = res_l[k];
+    }
+  }
+
+  // the last block of the pair to finish merges the chunks in chunk order
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(a.counters + bh, 1) == used - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // one pass per float4 with a running maximum; its loads do not wait on
+  // the sums, so they are all in flight at once
+  const size_t step = (size_t)rep * D / 4;  // float4s per chunk
+  for (int e = tid; e < rep * d4; e += NT) {
+    const int r = e / d4;
+    const float4* src = reinterpret_cast<const float4*>(a.part_o + (pbase * rep + r) * D) + (e - r * d4);
+    const float2* ml = reinterpret_cast<const float2*>(a.part_ml) + pbase * rep + r;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    float mx = NEG, l = 0.f;
+#pragma unroll 4
+    for (int c = 0; c < used; ++c) {
+      const float2 w = __ldcg(ml + (size_t)c * rep);
+      const float4 x = __ldcg(src + c * step);
+      const float m_new = fmaxf(mx, w.x), fo = ex2(mx - m_new), fc = ex2(w.x - m_new);
+      v = make_float4(v.x * fo + x.x * fc, v.y * fo + x.y * fc, v.z * fo + x.z * fc,
+                      v.w * fo + x.w * fc);
+      l = l * fo + w.y * fc;
+      mx = m_new;
+    }
+    const float inv = 1.f / fmaxf(l, 1e-20f);
+    store4(out, 4 * (size_t)e, make_float4(v.x * inv, v.y * inv, v.z * inv, v.w * inv));
+  }
+  if (tid == 0) a.counters[bh] = 0;
 }
 
-template <typename T>
-int launch(const void* q, const int8_t* kc, const float* ks, const int8_t* vc,
-           const float* vs, const int* lengths, void* out, float* part_o,
-           float* part_ml, int layer, int B, int Hkv, int S, int D, int rep,
-           float scale, cudaStream_t st) {
-  const int n_chunks = (S + CH - 1) / CH;
-  flash_decode_chunk<T><<<dim3(B * Hkv, n_chunks), NT, 0, st>>>(
-      reinterpret_cast<const T*>(q), kc, ks, vc, vs, lengths, part_o, part_ml,
-      layer, B, Hkv, S, D, rep, scale);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  flash_decode_combine<T><<<B * Hkv, NT, 0, st>>>(
-      part_o, part_ml, lengths, reinterpret_cast<T*>(out), Hkv, S, D, rep, n_chunks);
+// DMAX: the largest Dh the instance takes (its register arrays), FIX: Dh is
+// DMAX. Up to Dh 128 four blocks fit an SM (128 registers a thread).
+template <typename T, int DMAX, bool TC, bool FIX>
+__global__ void __launch_bounds__(NT, DMAX <= 128 ? 4 : 2) flash_decode(const Args a) {
+  const int bh = blockIdx.x / a.n_chunks, chunk = blockIdx.x - bh * a.n_chunks;
+  const int b = bh / a.Hkv, h = bh - b * a.Hkv;
+  const int len = max(0, min(a.lengths[b], a.S));
+  const int used = max(1, (len + a.chunk - 1) / a.chunk);
+  if (chunk >= used) return;
+  const int c0 = chunk * a.chunk, c1 = min(len, c0 + a.chunk);
+  const ContigRows rows{(((size_t)a.layer * a.B + b) * a.Hkv + h) * a.S};
+  attend<T, DMAX, TC, FIX>(a, rows, bh, chunk, c0, c1, used);
+}
+
+template <typename T, int DMAX, bool TC, bool FIX>
+__global__ void __launch_bounds__(NT, DMAX <= 128 ? 4 : 2) paged_flash_decode(const Args a) {
+  __shared__ int ids[MAX_IDS];
+  const int bh = blockIdx.x / a.n_chunks, chunk = blockIdx.x - bh * a.n_chunks;
+  const int b = bh / a.Hkv, h = bh - b * a.Hkv;
+  const int len = max(0, min(a.lengths[b], a.S));
+  const int used = max(1, (len + a.chunk - 1) / a.chunk);
+  if (chunk >= used) return;
+  const int c0 = chunk * a.chunk, c1 = min(len, c0 + a.chunk);
+  const int first = c0 / a.page;
+  const int n_ids = c1 > c0 ? (c1 - 1) / a.page - first + 1 : 0;
+  for (int i = threadIdx.x; i < n_ids; i += NT)
+    ids[i] = a.page_tbl[(size_t)b * a.max_pages + first + i];
+  __syncthreads();
+  const PagedRows rows{ids, (size_t)a.layer * a.P, a.Hkv, h, a.page, a.page_shift, first};
+  attend<T, DMAX, TC, FIX>(a, rows, bh, chunk, c0, c1, used);
+}
+
+template <typename T, int DMAX, bool TC, bool FIX = false>
+int run(const Args& a, bool paged, cudaStream_t st) {
+  auto kernel = paged ? paged_flash_decode<T, DMAX, TC, FIX> : flash_decode<T, DMAX, TC, FIX>;
+  static bool sized[2] = {false, false};
+  if (!sized[paged]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes(DMAX, TC));
+    if (err != cudaSuccess) return (int)err;
+    sized[paged] = true;
+  }
+  kernel<<<a.B * a.Hkv * a.n_chunks, NT, smem_bytes(a.D, TC), st>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_paged(const void* q, const int8_t* kc, const float* ks, const int8_t* vc,
-                 const float* vs, const int* page_tbl, const int* lengths, void* out,
-                 float* part_o, float* part_ml, int layer, int B, int Hkv, int P,
-                 int page, int max_pages, int D, int rep, float scale,
-                 cudaStream_t st) {
-  const int S = max_pages * page;
-  const int n_chunks = (S + CH - 1) / CH;
-  paged_flash_decode_chunk<T><<<dim3(B * Hkv, n_chunks), NT, 0, st>>>(
-      reinterpret_cast<const T*>(q), kc, ks, vc, vs, page_tbl, lengths, part_o,
-      part_ml, layer, Hkv, P, page, max_pages, D, rep, scale);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  flash_decode_combine<T><<<B * Hkv, NT, 0, st>>>(
-      part_o, part_ml, lengths, reinterpret_cast<T*>(out), Hkv, S, D, rep, n_chunks);
-  return (int)cudaGetLastError();
+int dispatch(const Args& a, int q_bf16, int tc, bool paged, cudaStream_t st) {
+  if (a.rep < 1 || a.rep > MAX_REP || a.D % 16 || a.D > 256 || a.chunk % TT ||
+      a.chunk > 4096 || (tc && (!q_bf16 || a.D % 32)) ||
+      (paged && (a.page < 1 || a.chunk / a.page + 2 > MAX_IDS)))
+    return (int)cudaErrorInvalidValue;
+  using bf16 = __nv_bfloat16;
+  if (tc) {  // the serving Dh at compile time
+    if (a.D == 64) return run<bf16, 64, true, true>(a, paged, st);
+    if (a.D == 128) return run<bf16, 128, true, true>(a, paged, st);
+    if (a.D == 256) return run<bf16, 256, true, true>(a, paged, st);
+    return a.D <= 128 ? run<bf16, 128, true>(a, paged, st) : run<bf16, 256, true>(a, paged, st);
+  }
+  if (q_bf16)
+    return a.D <= 128 ? run<bf16, 128, false>(a, paged, st) : run<bf16, 256, false>(a, paged, st);
+  if (a.D == 128) return run<float, 128, false, true>(a, paged, st);
+  return a.D <= 128 ? run<float, 128, false>(a, paged, st) : run<float, 256, false>(a, paged, st);
 }
 
 }  // namespace
 
-// part_o: f32 [B * Hkv * ceil(S / 256) * rep * Dh], part_ml: f32 [... * rep * 2]
-extern "C" int flash_decode_int8_launch(const void* q, int q_bf16, const void* kc,
-                                        const void* ks, const void* vc,
-                                        const void* vs, const void* lengths,
-                                        void* out, void* part_o, void* part_ml,
-                                        int layer, int B, int Hkv, int S, int D,
-                                        int rep, float scale, void* stream) {
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const auto* k8 = reinterpret_cast<const int8_t*>(kc);
-  const auto* v8 = reinterpret_cast<const int8_t*>(vc);
-  const auto* kf = reinterpret_cast<const float*>(ks);
-  const auto* vf = reinterpret_cast<const float*>(vs);
-  const auto* ln = reinterpret_cast<const int*>(lengths);
-  auto* po = reinterpret_cast<float*>(part_o);
-  auto* pml = reinterpret_cast<float*>(part_ml);
-  if (q_bf16)
-    return launch<__nv_bfloat16>(q, k8, kf, v8, vf, ln, out, po, pml, layer, B, Hkv,
-                                 S, D, rep, scale, st);
-  return launch<float>(q, k8, kf, v8, vf, ln, out, po, pml, layer, B, Hkv, S, D,
-                       rep, scale, st);
+// part_o: f32 [B * Hkv * n_chunks * rep * Dh], part_ml: f32 [... * rep * 2]
+// (unused, and may be null, when n_chunks is 1); counters: int32 [B * Hkv],
+// zero, left zero. tc: the tensor-core path (bf16 q, Dh % 32 == 0).
+extern "C" int flash_decode_int8_launch(const void* q, int q_bf16, int tc, const void* kc,
+                                        const void* ks, const void* vc, const void* vs,
+                                        const void* lengths, void* out, void* part_o,
+                                        void* part_ml, void* counters, int layer, int B,
+                                        int Hkv, int S, int D, int rep, float scale,
+                                        int chunk, int n_chunks, void* stream) {
+  Args a{};
+  a.q = q;
+  a.kc = reinterpret_cast<const int8_t*>(kc);
+  a.ks = reinterpret_cast<const float*>(ks);
+  a.vc = reinterpret_cast<const int8_t*>(vc);
+  a.vs = reinterpret_cast<const float*>(vs);
+  a.lengths = reinterpret_cast<const int*>(lengths);
+  a.out = out;
+  a.part_o = reinterpret_cast<float*>(part_o);
+  a.part_ml = reinterpret_cast<float*>(part_ml);
+  a.counters = reinterpret_cast<int*>(counters);
+  a.layer = layer;
+  a.B = B;
+  a.Hkv = Hkv;
+  a.S = S;
+  a.D = D;
+  a.rep = rep;
+  a.chunk = chunk;
+  a.n_chunks = n_chunks;
+  a.qk_scale = scale * LOG2E;
+  return dispatch(a, q_bf16, tc, false, reinterpret_cast<cudaStream_t>(stream));
 }
 
 // Pools [L, P, Hkv, page, Dh] / [L, P, Hkv, page]; page_tbl int32
-// [B, max_pages]; part_o / part_ml as above with S = max_pages * page.
+// [B, max_pages]; the rest as above with S = max_pages * page.
 extern "C" int paged_flash_decode_int8_launch(
-    const void* q, int q_bf16, const void* kc, const void* ks, const void* vc,
+    const void* q, int q_bf16, int tc, const void* kc, const void* ks, const void* vc,
     const void* vs, const void* page_tbl, const void* lengths, void* out, void* part_o,
-    void* part_ml, int layer, int B, int Hkv, int P, int page, int max_pages, int D,
-    int rep, float scale, void* stream) {
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const auto* k8 = reinterpret_cast<const int8_t*>(kc);
-  const auto* v8 = reinterpret_cast<const int8_t*>(vc);
-  const auto* kf = reinterpret_cast<const float*>(ks);
-  const auto* vf = reinterpret_cast<const float*>(vs);
-  const auto* tb = reinterpret_cast<const int*>(page_tbl);
-  const auto* ln = reinterpret_cast<const int*>(lengths);
-  auto* po = reinterpret_cast<float*>(part_o);
-  auto* pml = reinterpret_cast<float*>(part_ml);
-  if (q_bf16)
-    return launch_paged<__nv_bfloat16>(q, k8, kf, v8, vf, tb, ln, out, po, pml, layer,
-                                       B, Hkv, P, page, max_pages, D, rep, scale, st);
-  return launch_paged<float>(q, k8, kf, v8, vf, tb, ln, out, po, pml, layer, B, Hkv,
-                             P, page, max_pages, D, rep, scale, st);
+    void* part_ml, void* counters, int layer, int B, int Hkv, int P, int page,
+    int max_pages, int D, int rep, float scale, int chunk, int n_chunks, void* stream) {
+  Args a{};
+  a.q = q;
+  a.kc = reinterpret_cast<const int8_t*>(kc);
+  a.ks = reinterpret_cast<const float*>(ks);
+  a.vc = reinterpret_cast<const int8_t*>(vc);
+  a.vs = reinterpret_cast<const float*>(vs);
+  a.page_tbl = reinterpret_cast<const int*>(page_tbl);
+  a.lengths = reinterpret_cast<const int*>(lengths);
+  a.out = out;
+  a.part_o = reinterpret_cast<float*>(part_o);
+  a.part_ml = reinterpret_cast<float*>(part_ml);
+  a.counters = reinterpret_cast<int*>(counters);
+  a.layer = layer;
+  a.B = B;
+  a.Hkv = Hkv;
+  a.S = max_pages * page;
+  a.D = D;
+  a.rep = rep;
+  a.chunk = chunk;
+  a.n_chunks = n_chunks;
+  a.P = P;
+  a.page = page;
+  a.page_shift = (page & (page - 1)) ? -1 : __builtin_ctz(page);
+  a.max_pages = max_pages;
+  a.qk_scale = scale * LOG2E;
+  return dispatch(a, q_bf16, tc, true, reinterpret_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* error_string(int err) {

@@ -29,7 +29,7 @@ import threading
 import time
 
 __all__ = ["SOURCES", "BUILD_DIR", "build", "load", "entry", "check",
-           "launches", "reset_launches", "count_launch"]
+           "launches", "reset_launches", "count_launch", "zero_counters"]
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
@@ -40,7 +40,8 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # kernel name -> launches since the last reset_launches(); the matmul
 # kernels also count each launch under the tile that served it,
-# "<kernel>[<tile>]"
+# "<kernel>[<tile>]", and the GQA decode-attention kernels under their path
+# ("tc": tensor cores for bf16 q, "cuda_core")
 launches: dict[str, int] = {"dequant_matmul": 0, "dequant_matmul_moe": 0,
                             "cache_insert_int8": 0, "flash_decode_int8": 0,
                             "paged_cache_insert_int8": 0,
@@ -51,9 +52,13 @@ launches: dict[str, int] = {"dequant_matmul": 0, "dequant_matmul_moe": 0,
 launches.update({f"{k}[{tile}]": 0
                  for k in ("dequant_matmul", "dequant_matmul_moe")
                  for tile in ("tc_decode", "tc_prefill", "cuda_core")})
+launches.update({f"{k}[{path}]": 0
+                 for k in ("flash_decode_int8", "paged_flash_decode_int8")
+                 for path in ("tc", "cuda_core")})
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_counters: dict = {}
 
 
 def reset_launches() -> None:
@@ -63,6 +68,21 @@ def reset_launches() -> None:
 
 def count_launch(name: str) -> None:
     launches[name] += 1
+
+
+def zero_counters(device, n: int):
+    """At least ``n`` int32 zeros on ``device``: the per-output-tile
+    counters of the kernels whose last block merges the partial results
+    (``dequant_matmul``'s tensor-core tiles, the decode-attention kernels).
+    A kernel leaves them zero, so one buffer serves every call on the
+    stream."""
+    import torch
+
+    buf = _counters.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _counters[device] = buf
+    return buf
 
 
 def _nvcc() -> str:

@@ -4,24 +4,111 @@ The port of the JAX package's ``kernels/attention.py``
 (``flash_decode_int8``): GQA attention over the int8 cache with
 per-(token, head) scales, the key scale applied to the logits and the value
 scale to the probabilities, masked by per-slot ``lengths``. The CUDA kernel
-is ``csrc/flash_decode.cu``; :func:`flash_decode_int8` launches it for
-tensors on the card and takes the plain version
-:func:`flash_decode_int8_reference` only for tensors on the CPU.
+is ``csrc/flash_decode.cu``, whose header note gives its design;
+:func:`flash_decode_int8` launches it for tensors on the card and takes the
+plain version :func:`flash_decode_int8_reference` only for tensors on the
+CPU: on a CUDA tensor it launches or raises, it never falls back.
+
+Each call runs one of two paths, chosen from q's dtype and Dh
+(:func:`decode_path`) and counted under its name beside the kernel's total
+(``flash_decode_int8[tc]``, ``[cuda_core]``): the tensor cores for bf16 q
+(the serving path), CUDA-core dots for f32 q. :func:`decode_plan` sizes the
+call's grid and workspace from static ints alone (B, Hkv, S, rep, Dh and
+the SM count), so the wrapper reads neither ``lengths`` nor a page table on
+the host.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
 from quant_tpu_torch.kernels import _build
+from quant_tpu_torch.kernels.dequant_matmul import _count, _sm_count
 
-__all__ = ["flash_decode_int8", "flash_decode_int8_reference"]
+__all__ = ["flash_decode_int8", "flash_decode_int8_reference", "decode_plan",
+           "decode_path", "DecodePlan"]
 
-_MAX_REP = 8     # csrc/flash_decode.cu MAX_REP
-_MAX_D = 256     # MAX_D
-_CHUNK = 256     # CH: tokens per block (split-S)
+_MAX_REP = 8       # csrc/flash_decode.cu MAX_REP
+_MAX_D = 256       # the largest Dh (DMAX)
+_TILE = 64         # TT: tokens per ring stage
+_MAX_CHUNK = 4096  # the largest chunk (MAX_IDS: its page ids)
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodePlan:
+    """A decode-attention call's split, from static ints only.
+
+    Block ``(bh, c)`` of the ``blocks = B * Hkv * n_chunks`` blocks owns
+    tokens ``[c * chunk, min(length, (c + 1) * chunk))`` of slot
+    ``bh // Hkv`` and kv head ``bh % Hkv``, walked in ``_TILE``-token
+    tiles; a block whose chunk starts at or past the length exits, except
+    chunk 0 of an empty slot, which writes its zeros. The
+    workspace holds, per (slot, kv head, chunk, query row), the chunk's
+    unnormalised output (``part_o`` floats in all) and its (max, sum)
+    (``part_ml``); ``counters`` int32 zeros, one per (slot, kv head), elect
+    the block that merges them."""
+    chunk: int
+    n_chunks: int
+    blocks: int
+    part_o: int
+    part_ml: int
+    counters: int
+
+
+def decode_plan(b: int, hkv: int, s: int, rep: int, dh: int,
+                sms: int = 132) -> DecodePlan:
+    """The split of a call over ``b`` slots of ``s`` tokens (contiguous S,
+    or ``max_pages * page``), ``hkv`` kv heads of ``rep`` query rows and
+    ``dh`` lanes, on a card of ``sms`` SMs. Chunks are the shortest that
+    keep a full batch within about 8 blocks per SM: short enough that a
+    skewed batch spreads over all SMs, long enough that a full one does not
+    spend its time writing and merging partials (a multiple of the tile, at
+    most ``_MAX_CHUNK``)."""
+    chunk = _TILE
+    while chunk < _MAX_CHUNK and b * hkv * -(-s // chunk) > 8 * sms:
+        chunk *= 2
+    n = max(1, -(-s // chunk))
+    if b * hkv * n >= 2 ** 31:
+        raise ValueError(f"{b * hkv * n} blocks exceed CUDA's grid")
+    parts = b * hkv * n * rep if n > 1 else 0
+    return DecodePlan(chunk=chunk, n_chunks=n, blocks=b * hkv * n,
+                      part_o=parts * dh, part_ml=parts * 2, counters=b * hkv)
+
+
+def decode_path(q: torch.Tensor, dh: int) -> str:
+    """The path a call takes: the tensor cores for bf16 q with Dh a
+    multiple of 32 and 16-byte aligned rows, CUDA-core dots otherwise."""
+    if q.dtype == torch.bfloat16 and dh % 32 == 0 and q.data_ptr() % 16 == 0:
+        return "tc"
+    return "cuda_core"
+
+
+def _workspace(plan: DecodePlan, device):
+    """(part_o, part_ml, counters) pointers of a call under ``plan``."""
+    if plan.n_chunks == 1:
+        return None, None, None
+    part_o = torch.empty(plan.part_o, dtype=torch.float32, device=device)
+    part_ml = torch.empty(plan.part_ml, dtype=torch.float32, device=device)
+    counters = _build.zero_counters(device, plan.counters)
+    return part_o, part_ml, counters
+
+
+def _check_q(q, hkv: int, dh: int) -> int:
+    """``rep`` of q ``[B, Hq, Dh]``; raises on what the kernel does not
+    take."""
+    hq = q.shape[1]
+    if hq % hkv:
+        raise ValueError(f"Hq {hq} is not a multiple of Hkv {hkv}")
+    rep = hq // hkv
+    if rep > _MAX_REP or dh > _MAX_D or dh % 16:
+        raise ValueError(f"kernel takes rep <= {_MAX_REP} and Dh a multiple "
+                         f"of 16 up to {_MAX_D}, got rep {rep}, Dh {dh}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"q must be float32 or bfloat16, got {q.dtype}")
+    return rep
 
 
 def _layer_view(a, layer):
@@ -58,9 +145,11 @@ def flash_decode_int8_reference(q, k_codes, k_scale, v_codes, v_scale,
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# q, q_bf16, k_codes, k_scale, v_codes, v_scale, lengths, out, part_o,
-# part_ml, layer, B, Hkv, S, Dh, rep, scale, stream
-_ARGTYPES = [_P, _I] + [_P] * 8 + [_I] * 6 + [ctypes.c_float, _P]
+# q, q_bf16, tc, k_codes, k_scale, v_codes, v_scale, lengths, out, part_o,
+# part_ml, counters, layer, B, Hkv, S, Dh, rep, scale, chunk, n_chunks,
+# stream
+_ARGTYPES = ([_P, _I, _I] + [_P] * 9 + [_I] * 6 + [ctypes.c_float]
+             + [_I] * 2 + [_P])
 
 
 def flash_decode_int8(q, k_codes, k_scale, v_codes, v_scale, lengths,
@@ -90,18 +179,10 @@ def flash_decode_int8(q, k_codes, k_scale, v_codes, v_scale, lengths,
         k_scale, v_scale = k_scale[None], v_scale[None]
         layer = 0
     l, b, hkv, s, dh = k_codes.shape
-    hq = q.shape[1]
-    if hq % hkv:
-        raise ValueError(f"Hq {hq} is not a multiple of Hkv {hkv}")
-    rep = hq // hkv
-    if rep > _MAX_REP or dh > _MAX_D or dh % 16:
-        raise ValueError(f"kernel takes rep <= {_MAX_REP} and Dh a multiple "
-                         f"of 16 up to {_MAX_D}, got rep {rep}, Dh {dh}")
+    rep = _check_q(q, hkv, dh)
     if not 0 <= layer < l:
         raise ValueError(f"layer {layer} outside [0, {l})")
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"q must be float32 or bfloat16, got {q.dtype}")
-    checks = ((q, q.dtype, (b, hq, dh)),
+    checks = ((q, q.dtype, (b, hkv * rep, dh)),
               (v_codes, torch.int8, (l, b, hkv, s, dh)),
               (k_scale, torch.float32, (l, b, hkv, s)),
               (v_scale, torch.float32, (l, b, hkv, s)),
@@ -116,20 +197,22 @@ def flash_decode_int8(q, k_codes, k_scale, v_codes, v_scale, lengths,
     if k_codes.data_ptr() % 16 or v_codes.data_ptr() % 16:
         raise ValueError("the code caches must be 16-byte aligned")
     out = torch.empty_like(q)
-    # per (slot, kv head, S chunk, query row): the chunk's unnormalised
-    # output and its (max, sum) for the kernel's merge pass
-    chunks = -(-s // _CHUNK)
-    part_o = torch.empty((b * hkv * chunks * rep * dh,), dtype=torch.float32,
-                         device=q.device)
-    part_ml = torch.empty((b * hkv * chunks * rep * 2,), dtype=torch.float32,
-                          device=q.device)
+    if b == 0:
+        return out
+    plan = decode_plan(b, hkv, s, rep, dh, _sm_count(q.device))
+    path = decode_path(q, dh)
+    part_o, part_ml, counters = _workspace(plan, q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     fn = _build.entry("flash_decode", "flash_decode_int8_launch", _ARGTYPES)
-    rc = fn(q.data_ptr(), int(q.dtype == torch.bfloat16),
+    rc = fn(q.data_ptr(), int(q.dtype == torch.bfloat16), int(path == "tc"),
             k_codes.data_ptr(), k_scale.data_ptr(), v_codes.data_ptr(),
             v_scale.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            part_o.data_ptr(), part_ml.data_ptr(), layer, b, hkv, s, dh, rep,
-            float(scale if scale is not None else 1.0 / dh ** 0.5), stream)
+            None if part_o is None else part_o.data_ptr(),
+            None if part_ml is None else part_ml.data_ptr(),
+            None if counters is None else counters.data_ptr(), layer, b,
+            hkv, s, dh, rep,
+            float(scale if scale is not None else 1.0 / dh ** 0.5),
+            plan.chunk, plan.n_chunks, stream)
     _build.check(rc, "flash_decode_int8", "flash_decode")
-    _build.count_launch("flash_decode_int8")
+    _count("flash_decode_int8", path)
     return out

@@ -118,20 +118,6 @@ def _tc_plan(tile: str, m: int, k: int, n: int, bits: int, slots: int = 1,
     return _cdiv(total, per), per
 
 
-_counters: dict = {}
-
-
-def _tile_counters(device: torch.device, n: int) -> torch.Tensor:
-    """At least ``n`` int32 zeros on ``device``: the tensor-core kernels'
-    per-output-tile counters. A kernel leaves them zero, so one buffer
-    serves every call on the stream."""
-    buf = _counters.get(device)
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
-        _counters[device] = buf
-    return buf
-
-
 def _count(name: str, tile: str) -> None:
     _build.count_launch(name)
     _build.count_launch(f"{name}[{tile}]")
@@ -215,7 +201,7 @@ def _launch(x: torch.Tensor, qt: QTensor, out_dtype) -> torch.Tensor:
         if splits > 1:
             ws = torch.empty((splits, m, n), dtype=torch.float32,
                              device=x.device)
-            counters = _tile_counters(x.device, _out_tiles(tile, m, n))
+            counters = _build.zero_counters(x.device, _out_tiles(tile, m, n))
         fn = _build.entry("dequant_matmul", "dequant_matmul_tc_launch",
                           _TC_ARGTYPES)
         rc = fn(x.data_ptr(), qt.codes.data_ptr(), qt.scales.data_ptr(),
@@ -405,7 +391,7 @@ def dequant_matmul_moe(x: torch.Tensor, qt: QTensor, layer: int, *,
         if multi:
             ws = torch.empty((grid_z, m, n), dtype=torch.float32,
                              device=x.device)
-            counters = _tile_counters(x.device, _out_tiles(tile, m, n)
+            counters = _build.zero_counters(x.device, _out_tiles(tile, m, n)
                                       * (1 if sum_mode else n_experts))
         fn = _build.entry("dequant_matmul", "dequant_matmul_moe_tc_launch",
                           _MOE_TC_ARGTYPES)

@@ -11,12 +11,17 @@ and each slot owns an ordered list of page ids ``page_tbl int32
 allocated pages may hold any valid id (often the scratch page 0); they are
 never read by the kernel and masked in the plain version.
 
-The CUDA kernel is ``paged_flash_decode_chunk`` in ``csrc/flash_decode.cu``
-(the contiguous kernel's body, addressing rows through the page table);
-:func:`paged_flash_decode_int8` launches it for tensors on the card and
-takes the plain version :func:`paged_attention_reference` only for tensors
-on the CPU. :func:`paged_gather` builds a slot-contiguous copy of one
-layer's pages for the plain versions and for prefill.
+The CUDA kernel is ``paged_flash_decode`` in ``csrc/flash_decode.cu`` (the
+contiguous kernel's body, addressing rows through the page table; each
+block loads the page ids of its own chunk on the card);
+:func:`paged_flash_decode_int8` launches it for tensors on the card, on the
+path and under the plan of the contiguous kernel
+(:func:`~quant_tpu_torch.kernels.attention.decode_path`, ``decode_plan`` at
+``S = max_pages * page``), counted as ``paged_flash_decode_int8[tc]`` or
+``[cuda_core]``, and takes the plain version
+:func:`paged_attention_reference` only for tensors on the CPU.
+:func:`paged_gather` builds a slot-contiguous copy of one layer's pages for
+the plain versions and for prefill.
 """
 
 from __future__ import annotations
@@ -26,8 +31,9 @@ import ctypes
 import torch
 
 from quant_tpu_torch.kernels import _build
-from quant_tpu_torch.kernels.attention import (_CHUNK, _MAX_D, _MAX_REP,
-                                               flash_decode_int8_reference)
+from quant_tpu_torch.kernels.attention import (
+    _check_q, _count, _sm_count, _workspace, decode_path, decode_plan,
+    flash_decode_int8_reference)
 
 __all__ = ["paged_flash_decode_int8", "paged_attention_reference",
            "paged_gather"]
@@ -56,10 +62,14 @@ def paged_attention_reference(q, pool_kc, pool_ks, pool_vc, pool_vs,
         paged_gather(pool_vs, page_tbl, layer), lengths, scale=scale)
 
 
+_MAX_IDS = 4096 // 8 + 2  # csrc/flash_decode.cu MAX_IDS: page ids per block
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# q, q_bf16, k_codes, k_scale, v_codes, v_scale, page_tbl, lengths, out,
-# part_o, part_ml, layer, B, Hkv, P, page, max_pages, Dh, rep, scale, stream
-_ARGTYPES = [_P, _I] + [_P] * 9 + [_I] * 8 + [ctypes.c_float, _P]
+# q, q_bf16, tc, k_codes, k_scale, v_codes, v_scale, page_tbl, lengths, out,
+# part_o, part_ml, counters, layer, B, Hkv, P, page, max_pages, Dh, rep,
+# scale, chunk, n_chunks, stream
+_ARGTYPES = ([_P, _I, _I] + [_P] * 10 + [_I] * 8 + [ctypes.c_float]
+             + [_I] * 2 + [_P])
 
 
 def paged_flash_decode_int8(q, pool_kc, pool_ks, pool_vc, pool_vs, page_tbl,
@@ -85,19 +95,12 @@ def paged_flash_decode_int8(q, pool_kc, pool_ks, pool_vc, pool_vs, page_tbl,
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     l, n_pool, hkv, page, dh = pool_kc.shape
-    b, hq = q.shape[0], q.shape[1]
+    b = q.shape[0]
     max_pages = page_tbl.shape[1]
-    if hq % hkv:
-        raise ValueError(f"Hq {hq} is not a multiple of Hkv {hkv}")
-    rep = hq // hkv
-    if rep > _MAX_REP or dh > _MAX_D or dh % 16:
-        raise ValueError(f"kernel takes rep <= {_MAX_REP} and Dh a multiple "
-                         f"of 16 up to {_MAX_D}, got rep {rep}, Dh {dh}")
+    rep = _check_q(q, hkv, dh)
     if not 0 <= layer < l:
         raise ValueError(f"layer {layer} outside [0, {l})")
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"q must be float32 or bfloat16, got {q.dtype}")
-    checks = ((q, q.dtype, (b, hq, dh)),
+    checks = ((q, q.dtype, (b, hkv * rep, dh)),
               (pool_vc, torch.int8, (l, n_pool, hkv, page, dh)),
               (pool_ks, torch.float32, (l, n_pool, hkv, page)),
               (pool_vs, torch.float32, (l, n_pool, hkv, page)),
@@ -113,20 +116,26 @@ def paged_flash_decode_int8(q, pool_kc, pool_ks, pool_vc, pool_vs, page_tbl,
     if pool_kc.data_ptr() % 16 or pool_vc.data_ptr() % 16:
         raise ValueError("the code pools must be 16-byte aligned")
     out = torch.empty_like(q)
-    chunks = -(-(max_pages * page) // _CHUNK)
-    part_o = torch.empty((b * hkv * chunks * rep * dh,), dtype=torch.float32,
-                         device=q.device)
-    part_ml = torch.empty((b * hkv * chunks * rep * 2,), dtype=torch.float32,
-                          device=q.device)
+    if b == 0:
+        return out
+    plan = decode_plan(b, hkv, max_pages * page, rep, dh, _sm_count(q.device))
+    if plan.chunk // page + 2 > _MAX_IDS:
+        raise ValueError(f"pages of {page} tokens are too small for chunks "
+                         f"of {plan.chunk}")
+    path = decode_path(q, dh)
+    part_o, part_ml, counters = _workspace(plan, q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     fn = _build.entry("flash_decode", "paged_flash_decode_int8_launch",
                       _ARGTYPES)
-    rc = fn(q.data_ptr(), int(q.dtype == torch.bfloat16), pool_kc.data_ptr(),
-            pool_ks.data_ptr(), pool_vc.data_ptr(), pool_vs.data_ptr(),
-            page_tbl.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            part_o.data_ptr(), part_ml.data_ptr(), layer, b, hkv, n_pool,
-            page, max_pages, dh, rep,
-            float(scale if scale is not None else 1.0 / dh ** 0.5), stream)
+    rc = fn(q.data_ptr(), int(q.dtype == torch.bfloat16), int(path == "tc"),
+            pool_kc.data_ptr(), pool_ks.data_ptr(), pool_vc.data_ptr(),
+            pool_vs.data_ptr(), page_tbl.data_ptr(), lengths.data_ptr(),
+            out.data_ptr(), None if part_o is None else part_o.data_ptr(),
+            None if part_ml is None else part_ml.data_ptr(),
+            None if counters is None else counters.data_ptr(), layer, b, hkv,
+            n_pool, page, max_pages, dh, rep,
+            float(scale if scale is not None else 1.0 / dh ** 0.5),
+            plan.chunk, plan.n_chunks, stream)
     _build.check(rc, "paged_flash_decode_int8", "flash_decode")
-    _build.count_launch("paged_flash_decode_int8")
+    _count("paged_flash_decode_int8", path)
     return out

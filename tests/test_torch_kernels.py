@@ -27,6 +27,7 @@ except ModuleNotFoundError:   # only the gpu-marked test can run there
 
 from quant_tpu_torch.core.qtensor import QTensor
 from quant_tpu_torch.kernels import _build
+from quant_tpu_torch.kernels import attention as att
 from quant_tpu_torch.kernels.attention import (flash_decode_int8,
                                                flash_decode_int8_reference)
 from quant_tpu_torch.kernels.cache_insert import (
@@ -203,6 +204,48 @@ def test_flash_decode_matches_jax(rep, dh):
     assert np.max(np.abs(got.numpy() - ref)) <= 1e-5
 
 
+_SMOKE_LENGTHS = [1, 100, 517, 1024, 1500, 2047, 2048, 777]
+
+
+@pytest.mark.parametrize("s,page", [(2048, None), (8192, None), (2048, 8),
+                                    (2048, 16), (2048, 128), (8192, 512)])
+def test_decode_plan_covers_each_token_once(s, page):
+    """The decode-attention plan, walked as the kernel walks it (blocks
+    exit at or past a slot's length, tiles of ``_TILE`` tokens, a paged
+    block reading the table entries of its own tokens' pages): each valid
+    token in exactly one block, no table entry past a slot's pages, a grid
+    within CUDA's limits, and the workspace sized from static ints alone."""
+    for b, hkv, rep, dh in ((8, 8, 4, 128), (8, 4, 8, 128), (3, 2, 1, 64),
+                            (1, 16, 1, 256)):
+        plan = att.decode_plan(b, hkv, s, rep, dh)
+        assert plan == att.decode_plan(b, hkv, s, rep, dh)
+        ch = plan.chunk
+        assert ch % att._TILE == 0 and ch <= att._MAX_CHUNK
+        assert plan.n_chunks == -(-s // ch)
+        assert plan.blocks == b * hkv * plan.n_chunks < 2 ** 31
+        assert plan.counters == b * hkv
+        parts = b * hkv * plan.n_chunks * rep if plan.n_chunks > 1 else 0
+        assert (plan.part_o, plan.part_ml) == (parts * dh, parts * 2)
+        edges = [0, 1, ch - 1, ch, ch + 1, s]
+        for length in _SMOKE_LENGTHS + edges:
+            seen = np.zeros(s, np.int32)
+            used = max(1, -(-length // ch))    # blocks past it exit at once
+            for c in range(plan.n_chunks):
+                if c >= used:
+                    continue
+                c0, c1 = c * ch, min(length, (c + 1) * ch)
+                assert c1 - c0 <= ch and (c0 < c1 or length == c == 0)
+                for t0 in range(c0, c1, att._TILE):
+                    seen[t0:min(c1, t0 + att._TILE)] += 1
+                if page and c1 > c0:
+                    assert (c1 - 1) // page < -(-length // page)
+            assert (seen[:length] == 1).all() and not seen[length:].any()
+    # a full batch stays within about 8 blocks per SM, a short S gets the
+    # shortest chunk
+    assert att.decode_plan(2, 8, 2048, 4, 128).chunk == att._TILE
+    assert att.decode_plan(8, 8, 8192, 4, 128, sms=132).blocks <= 8 * 132
+
+
 def test_flash_decode_zero_length_is_finite():
     rng = np.random.default_rng(5)
     kc, ks, vc, vs = _cache(rng, 1, 2, 2, 64, 64)
@@ -271,8 +314,7 @@ def test_cuda_kernels_match_plain_on_card():
         got = dequant_matmul(x, stack, 2, out_dtype=torch.float32)
         assert _build.launches[f"dequant_matmul[{tile}]"] == 1
         assert (got - ref).abs().max() <= 2e-2 * ref.abs().max()
-    # Llama-3-8B's head geometry and test-tiny's; S spans several of the
-    # flash kernel's 256-token chunks, the last one partial
+    # the insert at Llama-3-8B's head geometry and test-tiny's
     for s, d, rep in ((600, 128, 4), (300, 64, 2)):
         l, b, h = 2, 4, 2
         cache = [t.to(dev) for t in (
@@ -291,33 +333,75 @@ def test_cuda_kernels_match_plain_on_card():
         cache_insert_int8_reference(*plain, *new, ln, 1)
         for a, r in zip(cache, plain):
             assert torch.equal(a, r)
-        q = torch.randn((b, h * rep, d), generator=gen, device=dev)
-        got = flash_decode_int8(q, *cache, ln, 1)
-        ref = flash_decode_int8_reference(q, *cache, ln, 1)
+    # flash decode at rep 1, 2, 4, 8 and Dh 64, 96, 128, 256 over the
+    # plan's chunk edges (S spans several chunks, the last one partial)
+    s, l, b, h = 600, 2, 8, 2
+    for d in (64, 96, 128, 256):
+        cache = [torch.randint(-127, 128, (l, b, h, s, d), generator=gen,
+                               device=dev, dtype=torch.int8),
+                 torch.rand((l, b, h, s), generator=gen, device=dev) * 0.02,
+                 torch.randint(-127, 128, (l, b, h, s, d), generator=gen,
+                               device=dev, dtype=torch.int8),
+                 torch.rand((l, b, h, s), generator=gen, device=dev) * 0.02]
+        for rep in (1, 2, 4, 8):
+            ch = att.decode_plan(b, h, s, rep, d).chunk
+            ln = torch.tensor([0, 1, 17, ch - 1, ch, ch + 1, 257, s],
+                              dtype=torch.int32, device=dev)
+            _check_decode(gen, lambda q: flash_decode_int8(q, *cache, ln, 1),
+                          lambda q: flash_decode_int8_reference(
+                              q, *cache, ln, 1),
+                          "flash_decode_int8", (b, h * rep, d))
+
+
+def _check_decode(gen, kernel, plain, name, shape):
+    """A decode-attention kernel against its plain version with f32 q (1e-4
+    of max|ref|, and 1e-4 absolute) and bf16 q (1e-2): each call counted
+    once under the path it should take, slot 0 (length 0) all zeros, and
+    a second call bit-equal to the first."""
+    for qdt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
+        q = torch.randn(shape, generator=gen, device=gen.device).to(qdt)
+        _build.reset_launches()
+        got = kernel(q)
+        path = "tc" if qdt == torch.bfloat16 and shape[2] % 32 == 0 \
+            else "cuda_core"
+        assert _build.launches[f"{name}[{path}]"] == 1 == _build.launches[
+            name], (name, shape, qdt)
+        ref = plain(q).float()
+        again = kernel(q)
         torch.cuda.synchronize()
-        assert (got - ref).abs().max() <= 1e-4
+        bound = tol * float(ref.abs().max())
+        if qdt == torch.float32:
+            bound = min(bound, 1e-4)
+        err = float((got.float() - ref).abs().max())
+        assert err <= bound, (name, shape, qdt, err, bound)
+        assert not got[0].float().abs().max()
+        assert torch.equal(got, again), (name, shape, qdt)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("page", [8, 16, 128])
 def test_paged_cuda_kernels_match_plain_on_card(page):
     """The paged insert (byte-equal, with a slot at capacity and a parked
-    slot) and paged flash decode (f32 and bf16 q) against their plain
-    versions; a 256-token chunk spans several pages or part of one, and
-    table entries past each slot's pages point at the scratch page 0."""
+    slot) and paged flash decode (f32 and bf16 q, rep 1, 2, 4 and 8, Dh
+    64, 128 and 256) against their plain versions at the plan's chunk edges;
+    a chunk spans several pages or part of one, a tile crosses pages of 8
+    and 16, and table entries past each slot's pages point at the scratch
+    page 0."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(page)
     _build.build()
-    for d, rep in ((128, 4), (64, 2)):
+    for d in (64, 128, 256):
         l, h, max_pages = 2, 2, -(-600 // page)
         cap = max_pages * page
-        lengths = [0, 17, 257, 599, cap]
+        ch = att.decode_plan(9, h, cap, 8, d).chunk
+        lengths = [0, 1, 17, ch - 1, ch, ch + 1, 257, 599, cap]
         b = len(lengths)
         n_pool = 1 + b * max_pages
-        used = [-(-n // page) for n in lengths]
+        # each slot's pages, the one its next token goes to included
+        used = [min(max_pages, n // page + 1) if n else 0 for n in lengths]
         perm = torch.randperm(n_pool - 1, generator=gen, device=dev) + 1
         tbl = torch.zeros((b, max_pages), dtype=torch.int32, device=dev)
         for i, u in enumerate(used):
@@ -344,15 +428,11 @@ def test_paged_cuda_kernels_match_plain_on_card(page):
         paged_cache_insert_int8_reference(*plain, *new, ln, 1, tbl)
         for a, r in zip(pool, plain):
             assert torch.equal(a, r)
-        for qdt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
-            q = torch.randn((b, h * rep, d), generator=gen,
-                            device=dev).to(qdt)
-            got = paged_flash_decode_int8(q, *pool, tbl, ln, 1)
-            ref = paged_attention_reference(q, *pool, tbl, ln, 1)
-            torch.cuda.synchronize()
-            err = (got.float() - ref.float()).abs().max()
-            assert err <= tol * ref.float().abs().max()
-            assert not got[0].float().abs().max()
+        for rep in (1, 2, 4, 8):
+            _check_decode(gen, lambda q: paged_flash_decode_int8(
+                q, *pool, tbl, ln, 1), lambda q: paged_attention_reference(
+                    q, *pool, tbl, ln, 1), "paged_flash_decode_int8",
+                (b, h * rep, d))
 
 
 def _rand_stack(gen, dev, entries, k, n, bits, g=128):
