@@ -38,7 +38,11 @@ Phases; the first failure ends the run with a non-zero exit code:
              decode and prefill M, and hot lists of n_hot experts, each
              output handed out NaN-filled. The MLA pair over a 27-layer
              DeepSeek latent cache (B=8, Dq=640, r=512, the attention rows'
-             lengths) at 16 and 128 heads, and ``dequant_matmul`` at the
+             lengths) at 16 and 128 heads and over 8 slots of 8192 tokens
+             (4 layers) at 16, each decode row like the GQA rows (path
+             counted, rerun bit-equal, ``sdpa_bf16_ms`` over the latent
+             dequantized to bf16 as MQA with Dk=640, Dv=512), and
+             ``dequant_matmul`` at the
              DeepSeek-V2-Lite shapes (int4, groups of 64) and the
              DeepSeek-V3 shapes (groups of 128). ``unpack_int4_device``
              bit-exact against its plain version and the host codec (the
@@ -109,9 +113,11 @@ Phases; the first failure ends the run with a non-zero exit code:
              ``Engine(max_slots=8, max_seq=2048)``: 8 requests of 64-1024
              prompt tokens, 64 new tokens each, 4 client threads (half
              streamed); exact launch counts (27 of each MLA kernel per
-             decode forward, hot lists at decode), a profile of 3 decode
-             forwards, every answer teacher-forced through the plain path
-             with the served experts held. Then DeepSeek-V3 at full width
+             decode forward, all on the tensor-core path, hot lists at
+             decode), a profile of 3 decode forwards (one MLA kernel a
+             layer, no merge kernel), every answer teacher-forced through
+             the plain path with the served experts held. Then
+             DeepSeek-V3 at full width
              and 4 layers (3 dense-prefix, 1 of 256 experts; low-rank q,
              sigmoid group-limited routing with a bias, 128 heads) in
              process: 4 requests of 128 prompt and 8 new tokens, launch
@@ -646,16 +652,11 @@ def page_pool(cache, lengths, page: int):
     return pool, torch.from_numpy(tbl_np).to(dev), sum(used)
 
 
-def sdpa_time(cache, lengths, rep: int) -> dict:
-    """The yardstick beside each decode-attention row:
-    ``torch.nn.functional.scaled_dot_product_attention`` with bf16 q over
-    the same context dequantized to bf16 ahead of time (``[B, Hkv, S, Dh]``
-    K and V, ``enable_gqa``, positions past each length masked unless every
-    slot is full), on the first backend of flash, cuDNN, memory-efficient
-    and math that takes the call; device time, cycling enough dequantized
-    layers to exceed the L2 cache twice. Another function than the kernel
-    (it reads twice the bytes over all S positions); the port never calls
-    it."""
+def _sdpa_time(q, kv: list, mask, gqa: bool) -> dict:
+    """``torch.nn.functional.scaled_dot_product_attention`` of ``q`` over
+    each (K, V) of ``kv`` in turn (``mask`` or none; ``enable_gqa``), on the
+    first backend of flash, cuDNN, memory-efficient and math that takes the
+    call: its device time and the backend."""
     import warnings
 
     import torch.nn.functional as F
@@ -663,23 +664,12 @@ def sdpa_time(cache, lengths, rep: int) -> dict:
 
     from quant_tpu_torch.utils.timing import device_time
 
-    kc, ks, vc, vs = cache
-    L, B, H, S, D = kc.shape
-    per_layer = 2 * B * H * S * D * 2
-    n = max(1, min(L, math.ceil(2 * L2_BYTES / per_layer)))
-    kv = [((kc[i].float() * ks[i][..., None]).to(BF16),
-           (vc[i].float() * vs[i][..., None]).to(BF16)) for i in range(n)]
-    q = torch.randn((B, H * rep, 1, D), device=kc.device).to(BF16)
-    mask = None
-    if bool((lengths < S).any()):
-        mask = (torch.arange(S, device=kc.device)[None, :]
-                < lengths[:, None])[:, None, None, :]
     nxt = cycle(kv)
 
     def call():
         k, v = nxt()
         return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
-                                              enable_gqa=True)
+                                              enable_gqa=gqa)
     for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
                     SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
         try:
@@ -690,24 +680,72 @@ def sdpa_time(cache, lengths, rep: int) -> dict:
         except RuntimeError:
             continue
         with sdpa_kernel([backend]):
-            ms = device_time(call, max(8, n))
-        del kv
-        torch.cuda.empty_cache()
+            ms = device_time(call, max(8, len(kv)))
         return {"sdpa_bf16_ms": ms, "sdpa_backend": backend.name}
     raise RuntimeError("no scaled_dot_product_attention backend took the "
                        "call")
 
 
+def _length_mask(lengths, s: int):
+    """[B, 1, 1, S] True below each slot's length; None when all are full."""
+    if not bool((lengths < s).any()):
+        return None
+    return (torch.arange(s, device=lengths.device)[None, :]
+            < lengths[:, None])[:, None, None, :]
+
+
+def sdpa_time(cache, lengths, rep: int) -> dict:
+    """The yardstick beside each decode-attention row:
+    ``torch.nn.functional.scaled_dot_product_attention`` with bf16 q over
+    the same context dequantized to bf16 ahead of time (``[B, Hkv, S, Dh]``
+    K and V, ``enable_gqa``, positions past each length masked unless every
+    slot is full), cycling enough dequantized layers to exceed the L2 cache
+    twice. Another function than the kernel (it reads twice the bytes over
+    all S positions); the port never calls it."""
+    kc, ks, vc, vs = cache
+    L, B, H, S, D = kc.shape
+    per_layer = 2 * B * H * S * D * 2
+    n = max(1, min(L, math.ceil(2 * L2_BYTES / per_layer)))
+    kv = [((kc[i].float() * ks[i][..., None]).to(BF16),
+           (vc[i].float() * vs[i][..., None]).to(BF16)) for i in range(n)]
+    q = torch.randn((B, H * rep, 1, D), device=kc.device).to(BF16)
+    res = _sdpa_time(q, kv, _length_mask(lengths, S), gqa=True)
+    del kv
+    torch.cuda.empty_cache()
+    return res
+
+
+def mla_sdpa_time(kc, ks, lengths, h: int, r: int) -> dict:
+    """The yardstick beside each MLA row: ``scaled_dot_product_attention``
+    with bf16 q over the latent rows dequantized to bf16 ahead of time, as
+    MQA with the H heads as H query rows of one head (``[B, 1, H, Dq]``):
+    K the whole rows (Dk = Dq), V their first r lanes (Dv = r), all S
+    positions under the length mask, cycling enough layers to exceed the L2
+    cache twice. Another function than the kernel (it reads K and V apart,
+    over all S positions); the port never calls it."""
+    L, B, _, S, D = kc.shape
+    n = max(1, min(L, math.ceil(2 * L2_BYTES / (B * S * (D + r) * 2))))
+    kv = []
+    for i in range(n):
+        k = (kc[i].float() * ks[i][..., None]).to(BF16)
+        kv.append((k, k[..., :r].contiguous()))
+    q = torch.randn((B, 1, h, D), device=kc.device).to(BF16)
+    res = _sdpa_time(q, kv, _length_mask(lengths, S), gqa=False)
+    del kv
+    torch.cuda.empty_cache()
+    return res
+
+
 def decode_row(name: str, kernel, plain, q, tol: float, layer: int,
                layers: int, n_tok: int, hkv: int, sdpa: dict, what: str,
-               extra_bytes: int = 0) -> dict:
+               extra_bytes: int = 0, work: tuple | None = None) -> dict:
     """One decode-attention row: ``kernel(q, layer)`` against
     ``plain(q, layer)`` (``tol`` of max|ref|), one launch counted under the
     path it should take (tc for bf16 q), a second call bit-equal to the
     first, then its device time (each call on the next layer of the
     ``layers``-deep stack, L2-cold), the plain version's, the bound of
-    ``n_tok`` tokens' K/V codes and scales (plus ``extra_bytes``), and
-    ``sdpa`` beside them."""
+    ``n_tok`` tokens' K/V codes and scales (plus ``extra_bytes``; or
+    ``work``, the call's (bytes, operations)), and ``sdpa`` beside them."""
     from quant_tpu_torch.kernels import _build
     from quant_tpu_torch.utils.timing import device_time, kernel_times
 
@@ -738,7 +776,7 @@ def decode_row(name: str, kernel, plain, q, tol: float, layer: int,
     b, hq, d = q.shape
     nbytes = (2 * b * hq * d * q.element_size() + n_tok * hkv * (2 * d + 8)
               + b * 4 + extra_bytes)
-    b_ms, b_by = bound_ms(nbytes, 4 * n_tok * hq * d)
+    b_ms, b_by = bound_ms(*(work or (nbytes, 4 * n_tok * hq * d)))
     log(f"[kernels] {name} {str(qdt)[6:]} {what} [{path}]: err {rel:.2e} of "
         f"max|ref|, rerun bit-equal  {ms:.4f} ms (events {ev:.4f})  plain "
         f"{plain_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by}, "
@@ -898,21 +936,54 @@ def attention_rows(gen) -> list:
     return rows
 
 
+def mla_rows(gen, kc, ks, lengths, layer: int, r: int, scale: float,
+             heads: tuple, kv_dim: int, what: str, key: str = "") -> dict:
+    """``mla_flash_decode_int8`` rows over one latent cache stack: at each
+    of ``heads``, f32 q (CUDA cores, 1e-4 of max|ref|) and bf16 q (tensor
+    cores, 1e-2), each through :func:`decode_row` (path counted, rerun
+    bit-equal, device time L2-cold, plain version), q's lanes past
+    ``kv_dim`` zero as the model pads them. Bound: q, the context's latent
+    rows and scales, the lengths and the output once, or 2 H (Dq + r)
+    operations a token at the bf16 peak. ``sdpa_bf16_ms`` beside each
+    (:func:`mla_sdpa_time`)."""
+    from quant_tpu_torch.kernels.mla_attention import (
+        mla_flash_decode_int8, mla_flash_decode_int8_reference)
+
+    L, B, _, S, D = kc.shape
+    n_tok = int(lengths.clamp(max=S).sum())
+    att = {}
+    for h in heads:
+        sdpa = mla_sdpa_time(kc, ks, lengths, h, r)
+        for qdt, tol in ((F32, 1e-4), (BF16, 1e-2)):
+            q = torch.randn((B, h, D), generator=gen, device=kc.device).to(qdt)
+            q[..., kv_dim:] = 0          # the padded lanes, as in use
+            qb = q.element_size()
+            work = (B * h * D * qb + n_tok * (D + 4) + B * 4 + B * h * r * qb,
+                    2 * n_tok * h * (D + r))
+            row = decode_row(
+                "mla_flash_decode_int8",
+                lambda q, i: mla_flash_decode_int8(q, kc, ks, lengths, i,
+                                                   r=r, scale=scale),
+                lambda q, i: mla_flash_decode_int8_reference(
+                    q, kc, ks, lengths, i, r=r, scale=scale),
+                q, tol, layer, L, n_tok, 1, sdpa,
+                f"{what} H={h} ctx={n_tok}", work=work)
+            row.pop("out")
+            att[f"{key}H={h} {str(qdt)[6:]}"] = row
+    return att
+
+
 def mla_kernels(gen, detail: dict) -> dict:
     """The MLA pair over a DeepSeek latent cache: 27 layers, B=8, S=2048,
     rows of Dq=640 int8 lanes (576 used) and one scale each, the attention
     rows' lengths (8014 tokens). ``mla_cache_insert_int8`` byte-equal to
     its plain version; ``mla_flash_decode_int8`` with r=512 at H=16
-    (DeepSeek-V2-Lite) and H=128 (DeepSeek-V3), f32 q within 1e-4 of
-    max|ref| and bf16 q within 1e-2, each call on the next layer (L2-cold).
-    Bound: q, the context's latent rows and scales once, the output; or
-    2 * H * (Dq + r) operations per token at the bf16 peak. Then
+    (DeepSeek-V2-Lite) and H=128 (DeepSeek-V3) (:func:`mla_rows`), and at
+    H=16 over 8 slots of 8192 tokens on a 4-layer stack. Then
     dequant_matmul at the V2-Lite shapes, int4 in groups of 64, and at the
     V3 shapes in groups of 128."""
     from quant_tpu_torch.kernels.cache_insert import (
         mla_cache_insert_int8, mla_cache_insert_int8_reference)
-    from quant_tpu_torch.kernels.mla_attention import (
-        mla_flash_decode_int8, mla_flash_decode_int8_reference)
     from quant_tpu_torch.models import PRESETS
     from quant_tpu_torch.models.llama import _q_scale
     from quant_tpu_torch.utils.timing import device_time, kernel_times
@@ -951,44 +1022,25 @@ def mla_kernels(gen, detail: dict) -> dict:
     log(f"[kernels] mla_cache_insert_int8 B=8 Dq={D} S=2048: byte-equal  "
         f"{ms:.4f} ms (events {ev:.4f})  plain {plain_ms:.4f} ms  bound "
         f"{b_ms:.6f} ms ({b_by}), {L} launches per decode step")
-    n_tok = int(lengths.sum())
-    att = {}
-    for h in (16, 128):
-        for qdt, tol in ((F32, 1e-4), (BF16, 1e-2)):
-            q = torch.randn((B, h, D), generator=gen, device=dev).to(qdt)
-            q[..., v2.mla_kv_dim:] = 0          # the padded lanes, as in use
-            ref = mla_flash_decode_int8_reference(q, kc, ks, lengths, layer,
-                                                  r=r, scale=scale)
-            got = mla_flash_decode_int8(q, kc, ks, lengths, layer, r=r,
-                                        scale=scale)
-            torch.cuda.synchronize()
-            if not bool(torch.isfinite(got).all()):
-                raise AssertionError("mla_flash_decode_int8 gave non-finite "
-                                     "values")
-            err = float((got.float() - ref.float()).abs().max())
-            rel = err / float(ref.float().abs().max())
-            if not rel <= tol:
-                raise AssertionError(f"mla_flash_decode_int8 H={h} ({qdt}): "
-                                     f"error {rel:.3g} of max|ref| > {tol}")
-            ms, ev = kernel_times(lambda: mla_flash_decode_int8(
-                q, kc, ks, lengths, nxt_layer(), r=r, scale=scale), L)
-            plain_ms = device_time(lambda: mla_flash_decode_int8_reference(
-                q, kc, ks, lengths, nxt_layer(), r=r, scale=scale), L)
-            qb = q.element_size()
-            nbytes = B * h * D * qb + n_tok * (D + 4) + B * 4 + B * h * r * qb
-            b_ms, b_by = bound_ms(nbytes, 2 * n_tok * h * (D + r))
-            att[f"H={h} {str(qdt)[6:]}"] = {
-                "max_abs_err": err, "rel_err": rel, "ms": ms, "event_ms": ev,
-                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
-            log(f"[kernels] mla_flash_decode_int8 {str(qdt)[6:]} B=8 H={h} "
-                f"Dq={D} r={r} S=2048 ctx={n_tok}: err {rel:.2e} of max|ref|"
-                f"  {ms:.4f} ms (events {ev:.4f})  plain {plain_ms:.4f} ms  "
-                f"bound {b_ms:.4f} ms ({b_by}), {L} launches per decode step")
+    att = mla_rows(gen, kc, ks, lengths, layer, r, scale, (16, 128),
+                   v2.mla_kv_dim, f"B=8 Dq={D} r={r} S=2048")
     summary["mla_flash_decode_int8"] = {
         **att["H=16 bfloat16"], "library_ms": None,
         "unit": f"one call, bf16 q: B=8, H=16, Dq={D}, r={r}, S=2048, "
                 f"lengths {ATT_LENGTHS}; device time, each call on the next "
                 f"layer of the {L}-layer latent cache (L2-cold)"}
+    del kc, ks
+    torch.cuda.empty_cache()
+    # long context: 8 slots of 8192 tokens over a 4-layer stack (168 MB,
+    # past twice the L2 cache), H=16
+    kc = torch.randint(-127, 128, (4, B, 1, 8192, D), generator=gen,
+                       device=dev, dtype=torch.int16).to(torch.int8)
+    ks = torch.rand((4, B, 1, 8192), generator=gen,
+                    device=dev) * 0.015 + 0.005
+    long_len = torch.full((B,), 8192, dtype=torch.int32, device=dev)
+    att.update(mla_rows(gen, kc, ks, long_len, 3, r, scale, (16,),
+                        v2.mla_kv_dim, f"B=8 Dq={D} r={r} S=8192 (long "
+                        "context)", key="8x8192 "))
     del kc, ks
     torch.cuda.empty_cache()
     mm_rows = []
@@ -1773,7 +1825,7 @@ def moe_layers(cfg) -> int:
 def check_tiles(what: str, launches: dict) -> None:
     """Every matmul of a bf16 run took a tensor-core tile: the CUDA-core
     tile served none, and the tiles' counts add up to each kernel's; every
-    GQA decode-attention call took the tensor-core path."""
+    decode-attention call (GQA and MLA) took the tensor-core path."""
     for k in ("dequant_matmul", "dequant_matmul_moe"):
         tc = launches[f"{k}[tc_decode]"] + launches[f"{k}[tc_prefill]"]
         if launches[f"{k}[cuda_core]"] or tc != launches[k]:
@@ -1782,12 +1834,26 @@ def check_tiles(what: str, launches: dict) -> None:
                 f"{launches[f'{k}[tc_decode]']} tc_decode + "
                 f"{launches[f'{k}[tc_prefill]']} tc_prefill, "
                 f"{launches[f'{k}[cuda_core]']} cuda_core")
-    for k in ("flash_decode_int8", "paged_flash_decode_int8"):
+    for k in ("flash_decode_int8", "paged_flash_decode_int8",
+              "mla_flash_decode_int8"):
         if launches[f"{k}[cuda_core]"] or launches[f"{k}[tc]"] != launches[k]:
             raise AssertionError(
                 f"{what}: {k}: {launches[k]} launches, "
                 f"{launches[f'{k}[tc]']} tc, "
                 f"{launches[f'{k}[cuda_core]']} cuda_core")
+
+
+def check_mla_profile(profile: dict, n_layers: int) -> None:
+    """One MLA decode kernel, launched once per layer and step, and no
+    separate merge kernel, in a decode profile (the profiler may lose a
+    trace's first events, so fewer launches are tolerated, more are not)."""
+    att = profile["attention_launches_per_step"]
+    mla = {n: c for n, c in att.items() if "mla_decode" in n}
+    log(f"[profile]   MLA decode kernels per step: {mla}")
+    if (len(mla) != 1 or any("combine" in n for n in att)
+            or not 0 < sum(mla.values()) <= n_layers + 1e-9):
+        raise AssertionError(f"decode profile: one MLA kernel, {n_layers} "
+                             f"launches a step, expected; got {att}")
 
 
 def check_launches(what: str, launches: dict, expect: dict) -> None:
@@ -2202,6 +2268,7 @@ def phase_dsv2_serving(detail: dict, params, cfg) -> dict:
     eng.cache.lengths.copy_(torch.tensor([n + n_new for n in lens],
                                          dtype=torch.int32))
     profile = profile_decode(eng, label="DeepSeek-V2-Lite decode, routed")
+    check_mla_profile(profile, cfg.n_layers)
     del eng
     torch.cuda.empty_cache()
     outs = [traffic["results"][i]["output_ids"] for i in range(n_req)]

@@ -1,4 +1,5 @@
-// MLA (DeepSeek multi-head latent attention) flash decode for Hopper (sm_90a).
+// MLA (DeepSeek multi-head latent attention) flash decode for Hopper
+// (sm_90a), one launch per call.
 //
 // Replaces: quant_tpu/kernels/mla_attention.py, mla_flash_decode_int8 ->
 //   _kernel (the Pallas TPU kernel).
@@ -13,36 +14,68 @@
 // Output [B, H, r] = acc / max(l, 1e-20): a slot of length 0 gives zeros.
 //
 // What bounds it on this card: the latent bytes of each slot's actual
-// context (Dq + 4 bytes per token, shared by all H heads), so device-memory
-// bandwidth at the roofline; this first kernel computes both dots on the
-// CUDA cores in f32 (H * (Dq + r) multiply-adds per token), so in practice
-// it is bound by instruction issue, the more so at H=128.
+// context (Dq + 4 bytes per token, shared by all H heads: 5.2 MB for B=8 x
+// 8014 tokens at Dq=640, 1.5 us at 3.35 TB/s) and, at many heads, the
+// 2 * H * (Dq + r) operations per token (H=128: 2.4 us at the bf16 peak).
+// Both dots have as many rows as heads, so bf16 q maps onto mma tiles with
+// the heads as M; the int8 codes have to be turned into bf16 operands on
+// the way, and at short contexts the launch, the first copies' latency and
+// the merge of the chunks dominate.
 //
-// Design: split-S, each latent row read from device memory once per head
-// tile. Block (b, head tile, chunk) owns HT=16 heads of slot b and a chunk
-// of chunk_tiles * 64 tokens; chunks at or past the slot's length exit at
-// once, so tokens past the length are neither loaded nor computed. A block
-// walks its chunk in 64-token tiles: all threads stage the tile's rows into
-// shared memory (16-byte loads; a row pitch of Dq + 4 bytes keeps the score
-// pass's reads on distinct banks) and the one staged copy feeds both dots:
-// the score pass (thread (h, j) dots head h's pre-scaled query over all Dq
-// lanes with tokens j, j + 16, j + 32, j + 48), the softmax step (one warp
-// per two heads), and the value pass over the first r lanes (thread t owns
-// value lanes 2t and 2t + 1 for all 16 heads, 32 accumulators in
-// registers). A second kernel merges the chunks of each (slot, head) by
-// their maxima.
-//
-// The head count is where the shapes part: at H=16 (DeepSeek-V2-Lite) one
-// head tile holds the whole query (16 x 640 f32 = 40 KB of shared memory)
-// and the accumulator (16 x 512 f32, 32 registers a thread). At H=128
-// (DeepSeek-V3) the query alone (320 KB) and the accumulator (256 KB) exceed
-// what a block has, so the grid splits the heads into 8 tiles of 16 and each
-// tile re-reads the chunk's rows, mostly from L2 (the tiles of one chunk run
-// side by side). Splitting the r value lanes instead would have every split
-// recompute the full-width scores. The wrapper gives a chunk more tiles
-// when the grid at full lengths would hold many more blocks than two per SM,
-// so fewer partials are written and merged. TMA, wgmma and tuning come
-// later.
+// Design:
+// - Work split on the device. Block (bg, c) of a grid of B * NG * n_chunks
+//   blocks owns the HB heads [h0, h0 + HB) of slot b (NG = ceil(H / HB)
+//   head groups) and chunk c of `chunk` tokens (a multiple of the TT-token
+//   tile); the wrapper sizes grid and workspace from static ints only
+//   (kernels/mla_attention.py mla_decode_plan). A block reads its slot's
+//   length and exits when its chunk starts at or past it.
+// - A copy ring: each TT-token tile's latent rows (all Dq lanes, 16 bytes a
+//   lane) and their scales arrive by cp.async into one of NST = 2
+//   shared-memory stages (rows past the chunk's end zero-filled), the next
+//   tile in flight while the block computes one. Row pitch is Dq rounded up
+//   to 128 bytes; the 16-byte units of a row are XOR-swizzled by row bits
+//   0-2 so that both dots' fragment reads below are conflict-free. One
+//   staged row feeds both dots: the scores over all Dq lanes, the values
+//   over the first r.
+// - bf16 q on the tensor cores (mma.m16n8k16, bf16 in, f32 accumulate), in
+//   blocks of RT row tiles of 16 heads (HB = 16 RT; fewer heads than 16
+//   are zero rows) and 16 warps, so that one tile keeps a whole SM busy:
+//   - scores S[16 heads, 16 tokens] = Q K^T: warp w takes the 16 tokens
+//     16 (w % 4) + [0, 16) of the tile against row tile (w / 4) % RT and
+//     one of KS = 4 / RT parts of Dq; the first warp of each (row tile,
+//     token group) adds the other parts' sums, in part order. q is A,
+//     loaded once per block into shared memory in fragment order (d
+//     permuted within each 16-byte unit, so a lane's K fragment is one
+//     16-byte read of its token's row); the codes are B, two codes to a
+//     bf16x2 exactly by bit operations (0x4300 | (c & 0x7f) is
+//     128 + (c & 0x7f), minus 128 or 256 by the sign bit). Each staged
+//     code is converted once per block, whatever the number of heads.
+//   - softmax in registers (exp2, a quad of lanes per head row): the warp
+//     holding a token group's scores takes the maximum and sum of its 16
+//     tokens and leaves its probabilities times the row scales (f32, in
+//     A-fragment order) and its (max, sum) per row in shared memory; one
+//     barrier; then every warp computes the tile's maximum per row from the
+//     four, rescales its accumulators, and scales each token group's
+//     probabilities to the common maximum as it rounds them to bf16 (one
+//     rounding).
+//   - values O[16 heads, r] += P V: P is A (16 tokens a k-step), the same
+//     staged rows' first r lanes are B: 4 adjacent codes of 4 token rows
+//     per lane, paired by byte permutes into 4 n-tiles' fragments. Warp w
+//     takes value lanes [32 w, 32 w + 32) of every row tile.
+//   So a tile costs three barriers, and every staged row is read from
+//   device memory once per block: HB = 32 reads it once for 32 heads.
+//   What bounds it (tools/attn_probe.py mla): not the mma (a copy of the
+//   kernel without either dot's mma took the same time) but issuing the
+//   rest (the int8 -> bf16 conversions of both dots, shared-memory reads,
+//   barriers): one block spends about 3 us of compute and 1.4 us of copies
+//   on a 64-token tile.
+// - f32 q (and any shape the tensor cores do not take) keeps CUDA-core dots
+//   in f32 on the same ring, split and merge, 16 heads a block.
+// - One launch: a block writes its chunk's unnormalised (m, l, acc) to the
+//   workspace; the last block of each (slot, head group) to finish (a
+//   self-resetting counter) merges that group's chunks in chunk order, so
+//   two calls on the same inputs give bit-equal outputs. A slot whose
+//   context fits one chunk skips the workspace.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -50,13 +83,108 @@
 
 namespace {
 
-constexpr int NT = 256;          // threads per block
-constexpr int HT = 16;           // heads per block (head tile)
-constexpr int TT = 64;           // tokens per staged tile
-constexpr int TPT = TT / 16;     // tokens per thread in the score pass
-constexpr int KPAD = 4;          // latent row padding in shared memory (bytes)
-constexpr int CT = 128;          // threads of the merge kernel
+constexpr int TT = 64;        // tokens per ring stage
+constexpr int NST = 2;        // ring stages
+constexpr int HT = 16;        // heads per row tile (the mma's M)
+constexpr int MAX_R = 512;    // the largest value width
+constexpr int MAX_DQ = 1024;  // the largest row
+constexpr int SMEM_MAX = 232448;
 constexpr float NEG = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+
+struct Args {
+  const void* q;
+  const int8_t* kc;
+  const float* ks;
+  const int* lengths;
+  void* out;
+  float* part_o;    // [B * NG, n_chunks, HB, r]
+  float* part_ml;   // [B * NG, n_chunks, HB, 2]
+  int* counters;    // [B * NG], zero between launches
+  int layer, B, H, S, Dq, r, chunk, n_chunks;
+  float qk_scale;   // softmax scale * log2(e)
+};
+
+// Ring stage: TT rows of kp = Dq rounded up to 128 bytes, then TT scales.
+__host__ __device__ inline int row_pitch(int dq) { return (dq + 127) & ~127; }
+__host__ __device__ inline int stage_bytes(int dq) { return TT * row_pitch(dq) + TT * 4; }
+__host__ __device__ inline int ring_bytes(int dq) { return NST * stage_bytes(dq); }
+
+// The XOR of a row's 16-byte units (within each aligned group of 8): row
+// bits 1-2 on unit bits 1-2, row bit 0 on unit bit 2.
+__device__ __forceinline__ int swz(int row) { return (((row >> 1) & 3) << 1) ^ ((row & 1) << 2); }
+__device__ __forceinline__ int koff(int kp, int row, int u) { return row * kp + 16 * (u ^ swz(row)); }
+
+// Shared memory of the tensor-core path past the ring: q fragments
+// [RT][G][4][32] uint4, probabilities [RT][4][2][32] float4, (max, sum)
+// [RT][4][16] float2, partial scores [4 / RT - 1][RT][4][2][32] float4.
+__host__ __device__ inline int tc_smem(int dq, int rt) {
+  const int g = (dq / 16 + 3) / 4;
+  return ring_bytes(dq) + rt * (g * 4 * 32 * 16 + 4 * 2 * 32 * 16 + 4 * HT * 8) +
+         (4 / rt - 1) * rt * 4 * 2 * 32 * 16;
+}
+// CUDA-core path: q [16][Dq + 4] f32, scores [16][TT + 4] f32, m, l, alpha.
+constexpr int QPAD = 4, SP = TT + 4;
+__host__ __device__ inline int cc_smem(int dq) {
+  return ring_bytes(dq) + 4 * (HT * (dq + QPAD) + HT * SP + 3 * HT);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// 16- and 4-byte copies into shared memory; ok == false writes zeros and
+// reads nothing
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp4(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate
+__device__ __forceinline__ void mma(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                    uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// Four int8 codes [c0 c1 c2 c3] (c0 the low byte) to bf16x2 (c0, c2) and
+// (c1, c3), exactly: 0x4300 | (c & 0x7f) is 128 + (c & 0x7f) and
+// 0x4300 | (c & 0x80) is 128 or 256, so their difference is c.
+__device__ __forceinline__ void codes_bf16(uint32_t w, uint32_t& lo, uint32_t& hi) {
+  const uint32_t w1 = w >> 8;
+  const uint32_t x0 = (w & 0x007f007fu) | 0x43004300u, y0 = (w & 0x00800080u) | 0x43004300u;
+  const uint32_t x1 = (w1 & 0x007f007fu) | 0x43004300u, y1 = (w1 & 0x00800080u) | 0x43004300u;
+  const __nv_bfloat162 d0 = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&x0),
+                                    *reinterpret_cast<const __nv_bfloat162*>(&y0));
+  const __nv_bfloat162 d1 = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&x1),
+                                    *reinterpret_cast<const __nv_bfloat162*>(&y1));
+  lo = *reinterpret_cast<const uint32_t*>(&d0);
+  hi = *reinterpret_cast<const uint32_t*>(&d1);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
 
 template <typename T> __device__ __forceinline__ float to_f32(T v);
 template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }
@@ -69,245 +197,664 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16_rn(v);
 }
 
-// dynamic shared memory: q [HT][Dq] f32, p [TT][HT] f32, row scales [TT],
-// (m, l, alpha) [HT] each, then the staged rows [TT][Dq + KPAD] int8
-size_t smem_bytes(int Dq) {
-  return sizeof(float) * ((size_t)HT * Dq + TT * HT + TT + 3 * HT) +
-         (size_t)TT * (Dq + KPAD);
+// Copy tile [t0, t0 + TT) of the slot (tokens at or past c1 zero-filled)
+// into stage st: NT threads, the (row, unit) pairs stepped without a
+// division.
+template <int NT>
+__device__ __forceinline__ void issue(uint8_t* st, int kp, const Args& a, size_t row0, int t0,
+                                      int c1) {
+  const int units = a.Dq / 16;
+  const int dr = NT / units, du = NT - dr * units;
+  int r = threadIdx.x / units, u = threadIdx.x - r * units;
+  while (r < TT) {
+    const int t = t0 + r;
+    const bool ok = t < c1;
+    cp16(st + koff(kp, r, u), a.kc + (ok ? (row0 + t) * a.Dq + 16 * u : 0), ok);
+    r += dr;
+    u += du;
+    if (u >= units) {
+      u -= units;
+      ++r;
+    }
+  }
+  if (threadIdx.x < TT) {
+    const int t = t0 + threadIdx.x;
+    const bool ok = t < c1;
+    cp4(st + TT * kp + 4 * threadIdx.x, a.ks + (ok ? row0 + t : 0), ok);
+  }
 }
 
+struct Block {
+  int bg, chunk, b, h0, nh, used, c0, c1;
+};
+
+// The block's (slot, head group, chunk); false when its chunk starts at or
+// past the slot's length (chunk 0 of an empty slot works: it writes zeros).
+__device__ __forceinline__ bool locate(const Args& a, int hb, Block& k) {
+  const int ng = (a.H + hb - 1) / hb;
+  k.bg = blockIdx.x / a.n_chunks;
+  k.chunk = blockIdx.x - k.bg * a.n_chunks;
+  k.b = k.bg / ng;
+  k.h0 = (k.bg - k.b * ng) * hb;
+  k.nh = min(hb, a.H - k.h0);
+  const int len = max(0, min(a.lengths[k.b], a.S));
+  k.used = max(1, (len + a.chunk - 1) / a.chunk);
+  k.c0 = k.chunk * a.chunk;
+  k.c1 = min(len, k.c0 + a.chunk);
+  return k.chunk < k.used;
+}
+
+// After a block wrote its partial: the last block of the (slot, head
+// group) merges the group's chunks in chunk order into out, V floats at a
+// time, U positions a thread, CU chunks' loads in flight, and resets the
+// counter. smem: at least used * hb floats, free.
+template <typename T, int NT, int V, int U, int CU>
+__device__ void merge(const Args& a, const Block& k, int hb, uint8_t* smem) {
+  __shared__ int last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(a.counters + k.bg, 1) == k.used - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // weights e^(m_c - M) / L per chunk and head
+  float* w = reinterpret_cast<float*>(smem);
+  const size_t p0 = (size_t)k.bg * a.n_chunks;
+  for (int hh = threadIdx.x; hh < k.nh; hh += NT) {
+    float mx = NEG;
+    for (int c = 0; c < k.used; ++c) mx = fmaxf(mx, __ldcg(a.part_ml + ((p0 + c) * hb + hh) * 2));
+    float l = 0.f;
+    for (int c = 0; c < k.used; ++c) {
+      const float2 ml = __ldcg(reinterpret_cast<const float2*>(a.part_ml) + (p0 + c) * hb + hh);
+      l += ex2(ml.x - mx) * ml.y;
+    }
+    const float inv = 1.f / fmaxf(l, 1e-20f);
+    for (int c = 0; c < k.used; ++c)
+      w[c * hb + hh] = ex2(__ldcg(a.part_ml + ((p0 + c) * hb + hh) * 2) - mx) * inv;
+  }
+  __syncthreads();
+  const int rv = a.r / V, n = k.nh * rv;
+  const size_t step = (size_t)hb * a.r;  // floats per chunk
+  T* out = reinterpret_cast<T*>(a.out) + ((size_t)k.b * a.H + k.h0) * a.r;
+  for (int e0 = threadIdx.x; e0 < n; e0 += NT * U) {
+    int off[U], head[U];
+    float acc[U][V];
+#pragma unroll
+    for (int x = 0; x < U; ++x) {
+      const int e = min(e0 + x * NT, n - 1);
+      head[x] = e / rv;
+      off[x] = head[x] * a.r + V * (e - head[x] * rv);
+#pragma unroll
+      for (int y = 0; y < V; ++y) acc[x][y] = 0.f;
+    }
+    const float* src = a.part_o + p0 * step;
+#pragma unroll(CU)
+    for (int c = 0; c < k.used; ++c, src += step) {
+#pragma unroll
+      for (int x = 0; x < U; ++x) {
+        const float f = w[c * hb + head[x]];
+        float val[V];
+        if constexpr (V == 4) {
+          const float4 t = __ldcg(reinterpret_cast<const float4*>(src + off[x]));
+          val[0] = t.x, val[1] = t.y, val[2] = t.z, val[3] = t.w;
+        } else {
+          const float2 t = __ldcg(reinterpret_cast<const float2*>(src + off[x]));
+          val[0] = t.x, val[1] = t.y;
+        }
+#pragma unroll
+        for (int y = 0; y < V; ++y) acc[x][y] = fmaf(f, val[y], acc[x][y]);
+      }
+    }
+#pragma unroll
+    for (int x = 0; x < U; ++x) {
+      if (e0 + x * NT >= n) break;
+#pragma unroll
+      for (int y = 0; y < V; ++y) out[off[x] + y] = from_f32<T>(acc[x][y]);
+    }
+  }
+  if (threadIdx.x == 0) a.counters[k.bg] = 0;
+}
+
+// ---------------------------------------------------------------------------
+// bf16 q on the tensor cores: RT row tiles of 16 heads, 16 warps. The
+// scores split each row tile's Dq over KS = 4 / RT warps (the first of
+// them adds the others' partial sums), the values split r over all 16.
+// DQF: Dq known at compile time (0: read it from the arguments); DeepSeek's
+// 640-byte rows run 4-6% faster so (tools/attn_probe.py mla, A B B A).
+template <int RT, int DQF>
+__global__ void __launch_bounds__(512, 1) mla_decode_tc(const Args a) {
+  constexpr int NW = 16, NT = 32 * NW, HB = HT * RT, KS = 4 / RT;
+  constexpr int NSLOT = MAX_R / 32 / NW;  // value groups of 32 lanes per warp
+  constexpr int PC = 2;                    // score accumulators per n-tile (mma chains)
+  constexpr int GM = DQF ? (DQF / 16 + 3) / 4 : MAX_DQ / 64;  // the most unit groups
+  constexpr int QE = (RT * GM * 128 + NT - 1) / NT;          // q fragments per thread
+  extern __shared__ __align__(16) uint8_t smem[];
+  Block k;
+  if (!locate(a, HB, k)) return;
+  const int Dq = DQF ? DQF : a.Dq;
+  const int kp = row_pitch(Dq), sb = stage_bytes(Dq);
+  const int units = Dq / 16, G = (units + 3) / 4;
+  uint4* qf = reinterpret_cast<uint4*>(smem + ring_bytes(Dq));  // [RT][G][4][32]
+  float4* ps = reinterpret_cast<float4*>(qf + RT * G * 128);     // [RT][4][2][32]
+  float2* mls = reinterpret_cast<float2*>(ps + RT * 256);         // [RT][4][16]
+  float4* spart = reinterpret_cast<float4*>(mls + RT * 64);       // [KS - 1][RT][4][2][32]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;  // mma fragment row / column pair
+  // scores: token group, row tile, and the unit groups [g_lo, g_hi) of Dq
+  const int tg = warp & 3, rs = (warp >> 2) % RT, kq = warp / (4 * RT);
+  const int g_lo = kq * G / KS, g_hi = (kq + 1) * G / KS;
+  const size_t row0 = ((size_t)a.layer * a.B + k.b) * a.S;  // cache row of token 0
+  // values: this lane's 4 codes of value group s * NW + warp sit at byte
+  // voff[s][0] of token rows 16 kk + 2t and + 8, voff[s][1] of rows + 1 and
+  // + 9 (row bits 0-2 set the swizzle)
+  int voff[NSLOT][2];
+#pragma unroll
+  for (int s = 0; s < NSLOT; ++s) {
+    const int u = 2 * (s * NW + warp) + (g >> 2), byte = 4 * (g & 3);
+    voff[s][0] = koff(kp, 2 * t, u) + byte;
+    voff[s][1] = koff(kp, 2 * t + 1, u) + byte;
+  }
+
+  // the ring: NST - 1 tiles ahead
+  const int n_tiles = (k.c1 - k.c0 + TT - 1) / TT;
+#pragma unroll
+  for (int s = 0; s < NST - 1; ++s) {
+    if (s < n_tiles) issue<NT>(smem + s * sb, kp, a, row0, k.c0 + s * TT, k.c1);
+    cp_commit();
+  }
+  // q fragments, while the first tiles are in flight, every load issued
+  // before the first store: entry e = (rt, h, j, lane (gg, tt)) holds heads
+  // 16 rt + gg (a0, a2) and + 8 (a1, a3) at dq 16 (4h + tt) + 4j + {0, 2}
+  // (a0, a1) and + {1, 3} (a2, a3)
+  {
+    const __nv_bfloat16* q =
+        reinterpret_cast<const __nv_bfloat16*>(a.q) + ((size_t)k.b * a.H + k.h0) * Dq;
+    uint2 qv[QE][2];
+#pragma unroll
+    for (int i = 0; i < QE; ++i) {
+      const int e = tid + i * NT, j = (e >> 5) & 3, hg = (e >> 7) % G, rt = (e >> 7) / G;
+      const int u = 4 * hg + (lane & 3), d = 16 * u + 4 * j;
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        const int hh = HT * rt + g + 8 * x;
+        qv[i][x] = make_uint2(0u, 0u);
+        if (e < RT * G * 128 && hh < k.nh && u < units)
+          qv[i][x] = *reinterpret_cast<const uint2*>(q + (size_t)hh * Dq + d);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < QE; ++i) {
+      const int e = tid + i * NT;
+      if (e < RT * G * 128)
+        qf[e] = make_uint4(__byte_perm(qv[i][0].x, qv[i][0].y, 0x5410),
+                           __byte_perm(qv[i][1].x, qv[i][1].y, 0x5410),
+                           __byte_perm(qv[i][0].x, qv[i][0].y, 0x7632),
+                           __byte_perm(qv[i][1].x, qv[i][1].y, 0x7632));
+    }
+  }
+
+  // running max and sum of rows g (x = 0) and g + 8 (x = 1) of each row
+  // tile, the same in every warp; acc[rt][slot][c] the fragments of n-tile
+  // c of value group slot * NW + warp: lanes v = 32 group + 4 n + c
+  float m_run[RT][2], l_run[RT][2];
+  float acc[RT][NSLOT][4][4];
+#pragma unroll
+  for (int rt = 0; rt < RT; ++rt) {
+    m_run[rt][0] = m_run[rt][1] = NEG;
+    l_run[rt][0] = l_run[rt][1] = 0.f;
+#pragma unroll
+    for (int s = 0; s < NSLOT; ++s)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[rt][s][c][i] = 0.f;
+  }
+
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_wait<NST - 2>();  // tile i has landed
+    __syncthreads();
+    if (i + NST - 1 < n_tiles)
+      issue<NT>(smem + ((i + NST - 1) % NST) * sb, kp, a, row0, k.c0 + (i + NST - 1) * TT, k.c1);
+    cp_commit();
+    const int t0 = k.c0 + i * TT;
+    const uint8_t* kt = smem + (i % NST) * sb;
+    const float* kss = reinterpret_cast<const float*>(kt + TT * kp);
+
+    // scores of row tile rs against tokens 16 tg + 8 n + 2 t + {0, 1}, over
+    // this warp's unit groups
+    {
+      float sc[PC][2][4];
+#pragma unroll
+      for (int p = 0; p < PC; ++p)
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int x = 0; x < 4; ++x) sc[p][n][x] = 0.f;
+      const uint4* qa = qf + rs * G * 128 + lane;
+      const uint8_t* krow0 = kt + (16 * tg + g) * kp;  // tokens 16 tg + g, + 8 (same swizzle)
+      const int sw = swz(16 * tg + g);
+      for (int h0 = g_lo; h0 < g_hi; h0 += PC) {
+#pragma unroll
+        for (int p = 0; p < PC; ++p) {
+          const int hg = h0 + p;
+          if (hg >= g_hi) break;
+          const int off = 16 * ((4 * hg + t) ^ sw);
+          const uint4 k0 = *reinterpret_cast<const uint4*>(krow0 + off);
+          const uint4 k1 = *reinterpret_cast<const uint4*>(krow0 + 8 * kp + off);
+          const uint32_t w0[4] = {k0.x, k0.y, k0.z, k0.w}, w1[4] = {k1.x, k1.y, k1.z, k1.w};
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const uint4 av = qa[(4 * hg + j) * 32];
+            uint32_t b0, b1, b2, b3;
+            codes_bf16(w0[j], b0, b1);
+            codes_bf16(w1[j], b2, b3);
+            mma(sc[p][0], av.x, av.y, av.z, av.w, b0, b1);
+            mma(sc[p][1], av.x, av.y, av.z, av.w, b2, b3);
+          }
+        }
+      }
+#pragma unroll
+      for (int p = 1; p < PC; ++p)
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int x = 0; x < 4; ++x) sc[0][n][x] += sc[p][n][x];
+      // the other Dq parts' sums to the first warp of (row tile, token
+      // group), added in part order
+      float4* sp = spart + (rs * 4 + tg) * 64 + lane;
+      if (KS > 1) {
+        if (kq > 0) {
+          sp[((kq - 1) * RT * 4) * 64] = make_float4(sc[0][0][0], sc[0][0][1], sc[0][0][2], sc[0][0][3]);
+          sp[((kq - 1) * RT * 4) * 64 + 32] = make_float4(sc[0][1][0], sc[0][1][1], sc[0][1][2], sc[0][1][3]);
+        }
+        __syncthreads();
+        if (kq == 0) {
+#pragma unroll
+          for (int o = 1; o < KS; ++o) {
+            const float4 u0 = sp[((o - 1) * RT * 4) * 64], u1 = sp[((o - 1) * RT * 4) * 64 + 32];
+            sc[0][0][0] += u0.x, sc[0][0][1] += u0.y, sc[0][0][2] += u0.z, sc[0][0][3] += u0.w;
+            sc[0][1][0] += u1.x, sc[0][1][1] += u1.y, sc[0][1][2] += u1.z, sc[0][1][3] += u1.w;
+          }
+        }
+      }
+      if (kq == 0) {
+        // this token group's softmax: rows g (x = 0), g + 8
+        float s[2][2][2], mloc[2] = {NEG, NEG};
+        bool ok[2][2];
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int tok = 16 * tg + 8 * n + 2 * t + e;
+            ok[n][e] = t0 + tok < k.c1;
+            const float f = a.qk_scale * kss[tok];
+#pragma unroll
+            for (int x = 0; x < 2; ++x) {
+              s[n][x][e] = sc[0][n][2 * x + e] * f;
+              if (ok[n][e]) mloc[x] = fmaxf(mloc[x], s[n][x][e]);
+            }
+          }
+        float lloc[2] = {0.f, 0.f}, pv[2][2][2];
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          mloc[x] = fmaxf(mloc[x], __shfl_xor_sync(0xffffffffu, mloc[x], 1));
+          mloc[x] = fmaxf(mloc[x], __shfl_xor_sync(0xffffffffu, mloc[x], 2));
+#pragma unroll
+          for (int n = 0; n < 2; ++n)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float p = ok[n][e] ? ex2(s[n][x][e] - mloc[x]) : 0.f;
+              lloc[x] += p;
+              pv[n][x][e] = p * kss[16 * tg + 8 * n + 2 * t + e];
+            }
+          lloc[x] += __shfl_xor_sync(0xffffffffu, lloc[x], 1);
+          lloc[x] += __shfl_xor_sync(0xffffffffu, lloc[x], 2);
+        }
+        // A fragment of k-step tg: (a0, a1) = n-tile 0 rows g, g + 8, (a2, a3) n-tile 1
+        float4* pw = ps + (rs * 4 + tg) * 64 + lane;
+        pw[0] = make_float4(pv[0][0][0], pv[0][0][1], pv[0][1][0], pv[0][1][1]);
+        pw[32] = make_float4(pv[1][0][0], pv[1][0][1], pv[1][1][0], pv[1][1][1]);
+        if (t == 0) {
+          mls[(rs * 4 + tg) * HT + g] = make_float2(mloc[0], lloc[0]);
+          mls[(rs * 4 + tg) * HT + g + 8] = make_float2(mloc[1], lloc[1]);
+        }
+      }
+    }
+    __syncthreads();
+
+    // the tile's maximum per row from the four token groups, the same in
+    // every warp; rescale the accumulators
+#pragma unroll
+    for (int rt = 0; rt < RT; ++rt)
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        float2 ml[4];
+        float mx = NEG;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          ml[j] = mls[(rt * 4 + j) * HT + g + 8 * x];
+          mx = fmaxf(mx, ml[j].x);
+        }
+        const float m_new = fmaxf(m_run[rt][x], mx);
+        const float alpha = ex2(m_run[rt][x] - m_new);
+        float l = l_run[rt][x] * alpha;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) l = fmaf(ex2(ml[j].x - m_new), ml[j].y, l);
+        l_run[rt][x] = l;
+        m_run[rt][x] = m_new;
+#pragma unroll
+        for (int s = 0; s < NSLOT; ++s)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            acc[rt][s][c][2 * x] *= alpha;
+            acc[rt][s][c][2 * x + 1] *= alpha;
+          }
+      }
+
+    // values: k-step kk is token group kk
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t pa[RT][4];
+#pragma unroll
+      for (int rt = 0; rt < RT; ++rt) {
+        const float f0 = ex2(mls[(rt * 4 + kk) * HT + g].x - m_run[rt][0]);
+        const float f1 = ex2(mls[(rt * 4 + kk) * HT + g + 8].x - m_run[rt][1]);
+        const float4 u0 = ps[(rt * 4 + kk) * 64 + lane], u1 = ps[(rt * 4 + kk) * 64 + 32 + lane];
+        pa[rt][0] = pack_bf16(u0.x * f0, u0.y * f0);
+        pa[rt][1] = pack_bf16(u0.z * f1, u0.w * f1);
+        pa[rt][2] = pack_bf16(u1.x * f0, u1.y * f0);
+        pa[rt][3] = pack_bf16(u1.z * f1, u1.w * f1);
+      }
+      // B: codes of lanes 32 group + 4 g + {0..3} (n-tiles 0..3), tokens
+      // 16 kk + 2t, 2t + 1 (b0) and 2t + 8, 2t + 9 (b1); rows 2t, 2t + 1,
+      // 2t + 8 and 2t + 9 share row bits 1-2, so the swizzle is conflict-free
+      const uint8_t* kr = kt + 16 * kk * kp;
+#pragma unroll
+      for (int s = 0; s < NSLOT; ++s) {
+        if (32 * (s * NW + warp) >= a.r) break;
+        const uint32_t v0 = *reinterpret_cast<const uint32_t*>(kr + voff[s][0]);
+        const uint32_t v1 = *reinterpret_cast<const uint32_t*>(kr + voff[s][1]);
+        const uint32_t v2 = *reinterpret_cast<const uint32_t*>(kr + 8 * kp + voff[s][0]);
+        const uint32_t v3 = *reinterpret_cast<const uint32_t*>(kr + 8 * kp + voff[s][1]);
+        uint32_t lo[4], hi[4];
+        codes_bf16(__byte_perm(v0, v1, 0x5410), lo[0], lo[1]);
+        codes_bf16(__byte_perm(v0, v1, 0x7632), lo[2], lo[3]);
+        codes_bf16(__byte_perm(v2, v3, 0x5410), hi[0], hi[1]);
+        codes_bf16(__byte_perm(v2, v3, 0x7632), hi[2], hi[3]);
+#pragma unroll
+        for (int rt = 0; rt < RT; ++rt)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            mma(acc[rt][s][c], pa[rt][0], pa[rt][1], pa[rt][2], pa[rt][3], lo[c], hi[c]);
+      }
+    }
+  }
+  cp_wait<0>();
+
+  // lanes 32 group + 8t + {0..3} (fragment 2x, n-tiles 0..3) and
+  // + 4 + {0..3} (fragment 2x + 1) of rows g + 8x
+  __nv_bfloat16* out = reinterpret_cast<__nv_bfloat16*>(a.out) + ((size_t)k.b * a.H + k.h0) * a.r;
+  const size_t part = ((size_t)k.bg * a.n_chunks + k.chunk) * HB;
+#pragma unroll
+  for (int rt = 0; rt < RT; ++rt)
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      const int hh = HT * rt + g + 8 * x;
+      const float inv = k.used == 1 ? 1.f / fmaxf(l_run[rt][x], 1e-20f) : 1.f;
+#pragma unroll
+      for (int s = 0; s < NSLOT; ++s) {
+        const int grp = s * NW + warp;
+        if (32 * grp >= a.r) break;
+        const int v = 32 * grp + 8 * t;
+        float o[8];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          o[c] = acc[rt][s][c][2 * x] * inv;
+          o[4 + c] = acc[rt][s][c][2 * x + 1] * inv;
+        }
+        if (k.used == 1) {
+          if (hh < k.nh)
+            *reinterpret_cast<uint4*>(out + (size_t)hh * a.r + v) =
+                make_uint4(pack_bf16(o[0], o[1]), pack_bf16(o[2], o[3]), pack_bf16(o[4], o[5]),
+                           pack_bf16(o[6], o[7]));
+        } else {
+          float4* dst = reinterpret_cast<float4*>(a.part_o + (part + hh) * a.r + v);
+          dst[0] = make_float4(o[0], o[1], o[2], o[3]);
+          dst[1] = make_float4(o[4], o[5], o[6], o[7]);
+        }
+      }
+      if (k.used > 1 && warp == 0 && t == 0)
+        *reinterpret_cast<float2*>(a.part_ml + (part + hh) * 2) =
+            make_float2(m_run[rt][x], l_run[rt][x]);
+    }
+  if (k.used == 1) return;
+  merge<__nv_bfloat16, NT, 4, 4 * RT, 4 / RT>(a, k, HB, smem);
+}
+
+// ---------------------------------------------------------------------------
+// CUDA-core dots in f32: 16 heads a block, 4 warps.
 template <typename T>
-__global__ void __launch_bounds__(NT)
-mla_decode_chunk(const T* __restrict__ q, const int8_t* __restrict__ kc,
-                 const float* __restrict__ ks, const int* __restrict__ lengths,
-                 float* __restrict__ part_o, float* __restrict__ part_ml, int layer,
-                 int B, int H, int S, int Dq, int r, int chunk_tok, int n_chunks,
-                 float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* q_s = reinterpret_cast<float*>(smem);   // [HT][Dq], pre-scaled
-  float* p_s = q_s + HT * Dq;                    // [TT][HT]: scores, then p * ks
-  float* ks_s = p_s + TT * HT;                   // [TT]
-  float* m_s = ks_s + TT;
+__global__ void __launch_bounds__(128, 2) mla_decode_cc(const Args a) {
+  constexpr int NT = 128, NSLOT = MAX_R / 32 / 4;
+  extern __shared__ __align__(16) uint8_t smem[];
+  Block k;
+  if (!locate(a, HT, k)) return;
+  const int Dq = a.Dq, QP = Dq + QPAD;
+  const int kp = row_pitch(Dq), sb = stage_bytes(Dq), units = Dq / 16;
+  float* q_s = reinterpret_cast<float*>(smem + ring_bytes(Dq));  // [16][QP], times qk_scale
+  float* s_s = q_s + HT * QP;                                     // [16][SP]: scores, then p * ks
+  float* m_s = s_s + HT * SP;
   float* l_s = m_s + HT;
   float* a_s = l_s + HT;
-  int8_t* k_t = reinterpret_cast<int8_t*>(a_s + HT);  // [TT][Dq + KPAD]
-  const int KP = Dq + KPAD;
-
-  const int n_ht = (H + HT - 1) / HT;
-  const int b = blockIdx.x / n_ht, h0 = (blockIdx.x % n_ht) * HT;
-  const int nh = min(HT, H - h0);
-  const int chunk = blockIdx.y;
-  const int len = max(0, min(lengths[b], S));
-  const int c0 = chunk * chunk_tok;
-  if (c0 >= len) return;  // the merge reads only chunks below the length
-  const int c1 = min(len, c0 + chunk_tok);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const size_t row0 = ((size_t)a.layer * a.B + k.b) * a.S;
 
-  for (int i = tid; i < HT * Dq; i += NT) {
-    const int hh = i / Dq, d = i - hh * Dq;
-    q_s[i] = hh < nh ? to_f32(q[((size_t)b * H + h0 + hh) * Dq + d]) * scale : 0.f;
+  const int n_tiles = (k.c1 - k.c0 + TT - 1) / TT;
+#pragma unroll
+  for (int s = 0; s < NST - 1; ++s) {
+    if (s < n_tiles) issue<NT>(smem + s * sb, kp, a, row0, k.c0 + s * TT, k.c1);
+    cp_commit();
+  }
+  const T* q = reinterpret_cast<const T*>(a.q) + ((size_t)k.b * a.H + k.h0) * Dq;
+#pragma unroll 8
+  for (int e = tid; e < HT * Dq; e += NT) {
+    const int hh = e / Dq, d = e - hh * Dq;
+    q_s[hh * QP + d] = hh < k.nh ? to_f32(q[(size_t)hh * Dq + d]) * a.qk_scale : 0.f;
   }
   if (tid < HT) {
     m_s[tid] = NEG;
     l_s[tid] = 0.f;
-    a_s[tid] = 1.f;
   }
-  const int col = 2 * tid;  // this thread's value lanes: col, col + 1
-  const bool has_col = col < r;
-  float acc[HT][2];
+  float acc[NSLOT][HT];  // value lane 32 (slot * 4 + warp) + lane of each head
 #pragma unroll
-  for (int hh = 0; hh < HT; ++hh) acc[hh][0] = acc[hh][1] = 0.f;
+  for (int s = 0; s < NSLOT; ++s)
+#pragma unroll
+    for (int hh = 0; hh < HT; ++hh) acc[s][hh] = 0.f;
 
-  const size_t row0 = ((size_t)layer * B + b) * S;  // latent row of token 0
-  const int8_t* src = kc + row0 * Dq;
-  const int units_per_row = Dq / 16;
-
-  for (int t0 = c0; t0 < c1; t0 += TT) {
-    const int n_tok = min(TT, c1 - t0);
-    for (int u = tid; u < n_tok * units_per_row; u += NT) {
-      const int j = u / units_per_row, c = (u - j * units_per_row) * 16;
-      const int4 w = *reinterpret_cast<const int4*>(src + (size_t)(t0 + j) * Dq + c);
-      int* dst = reinterpret_cast<int*>(k_t + j * KP + c);
-      dst[0] = w.x;
-      dst[1] = w.y;
-      dst[2] = w.z;
-      dst[3] = w.w;
-    }
-    if (tid < TT) ks_s[tid] = tid < n_tok ? ks[row0 + t0 + tid] : 0.f;
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_wait<NST - 2>();
     __syncthreads();
+    if (i + NST - 1 < n_tiles)
+      issue<NT>(smem + ((i + NST - 1) % NST) * sb, kp, a, row0, k.c0 + (i + NST - 1) * TT, k.c1);
+    cp_commit();
+    const int t0 = k.c0 + i * TT, n_ok = min(TT, k.c1 - t0);
+    const uint8_t* kt = smem + (i % NST) * sb;
+    const float* kss = reinterpret_cast<const float*>(kt + TT * kp);
 
-    // scores over all Dq lanes: head hh, tokens jj + 16 i
+    // scores: token j of the tile, heads hf + 2x
     {
-      const int hh = tid >> 4, jj = tid & 15;
-      const float* qrow = q_s + hh * Dq;
-      float dots[TPT];
+      const int j = 16 * warp + (lane & 15), hf = lane >> 4, sw = swz(j);
+      const uint8_t* krow = kt + j * kp;
+      float dots[8];
 #pragma unroll
-      for (int i = 0; i < TPT; ++i) dots[i] = 0.f;
-      for (int d = 0; d < Dq; d += 4) {
-        const float4 qv = *reinterpret_cast<const float4*>(qrow + d);
+      for (int x = 0; x < 8; ++x) dots[x] = 0.f;
+      for (int u = 0; u < units; ++u) {
+        const uint4 kw = *reinterpret_cast<const uint4*>(krow + 16 * (u ^ sw));
+        const uint32_t words[4] = {kw.x, kw.y, kw.z, kw.w};
 #pragma unroll
-        for (int i = 0; i < TPT; ++i) {
-          const char4 k4 = *reinterpret_cast<const char4*>(k_t + (jj + 16 * i) * KP + d);
-          dots[i] = fmaf(qv.x, float(k4.x), dots[i]);
-          dots[i] = fmaf(qv.y, float(k4.y), dots[i]);
-          dots[i] = fmaf(qv.z, float(k4.z), dots[i]);
-          dots[i] = fmaf(qv.w, float(k4.w), dots[i]);
+        for (int e4 = 0; e4 < 4; ++e4) {
+          const float c0 = float(int8_t(words[e4])), c1 = float(int8_t(words[e4] >> 8));
+          const float c2 = float(int8_t(words[e4] >> 16)), c3 = float(int8_t(words[e4] >> 24));
+#pragma unroll
+          for (int x = 0; x < 8; ++x) {
+            const float4 qv =
+                *reinterpret_cast<const float4*>(q_s + (hf + 2 * x) * QP + 16 * u + 4 * e4);
+            dots[x] = fmaf(qv.x, c0, fmaf(qv.y, c1, fmaf(qv.z, c2, fmaf(qv.w, c3, dots[x]))));
+          }
         }
       }
+      const bool ok = j < n_ok;
 #pragma unroll
-      for (int i = 0; i < TPT; ++i) {
-        const int j = jj + 16 * i;
-        p_s[j * HT + hh] = j < n_tok ? dots[i] * ks_s[j] : NEG;
-      }
+      for (int x = 0; x < 8; ++x) s_s[(hf + 2 * x) * SP + j] = ok ? dots[x] * kss[j] : NEG;
     }
     __syncthreads();
 
-    // online softmax: one warp per head, two tokens per lane; heads past
-    // the last get zero probabilities
-    for (int hh = warp; hh < HT; hh += NT / 32) {
-      if (hh >= nh) {
-        p_s[lane * HT + hh] = 0.f;
-        p_s[(lane + 32) * HT + hh] = 0.f;
-        continue;
-      }
-      const float v0 = p_s[lane * HT + hh], v1 = p_s[(lane + 32) * HT + hh];
-      float mx = fmaxf(v0, v1);
+    // online softmax: warp w takes heads 4w .. 4w + 3, two tokens a lane
+#pragma unroll
+    for (int y = 0; y < 4; ++y) {
+      const int hh = 4 * warp + y;
+      const bool ok0 = lane < n_ok, ok1 = lane + 32 < n_ok;
+      const float v0 = s_s[hh * SP + lane], v1 = s_s[hh * SP + lane + 32];
+      float mx = fmaxf(ok0 ? v0 : NEG, ok1 ? v1 : NEG);
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_old = m_s[hh];
-      const float m_new = fmaxf(m_old, mx);
-      const float p0 = lane < n_tok ? __expf(v0 - m_new) : 0.f;
-      const float p1 = lane + 32 < n_tok ? __expf(v1 - m_new) : 0.f;
+      const float m_old = m_s[hh], m_new = fmaxf(m_old, mx);
+      const float p0 = ok0 ? ex2(v0 - m_new) : 0.f, p1 = ok1 ? ex2(v1 - m_new) : 0.f;
       float sum = p0 + p1;
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      p_s[lane * HT + hh] = p0 * ks_s[lane];
-      p_s[(lane + 32) * HT + hh] = p1 * ks_s[lane + 32];
+      s_s[hh * SP + lane] = p0 * kss[lane];
+      s_s[hh * SP + lane + 32] = p1 * kss[lane + 32];
       if (lane == 0) {
-        const float alpha = __expf(m_old - m_new);
+        const float alpha = ex2(m_old - m_new);
+        a_s[hh] = alpha;
         l_s[hh] = l_s[hh] * alpha + sum;
         m_s[hh] = m_new;
-        a_s[hh] = alpha;
       }
     }
     __syncthreads();
 
-    // values: the first r lanes of the same staged rows
-    if (has_col) {
+    // values: lanes of the first r of the same staged rows
+#pragma unroll
+    for (int s = 0; s < NSLOT; ++s)
+#pragma unroll
+      for (int hh = 0; hh < HT; ++hh) acc[s][hh] *= a_s[hh];
+    for (int j0 = 0; j0 < n_ok; j0 += 4) {
+      float code[NSLOT][4];
+#pragma unroll
+      for (int s = 0; s < NSLOT; ++s) {
+        const int v = 32 * (s * 4 + warp) + lane;
+#pragma unroll
+        for (int y = 0; y < 4; ++y)
+          code[s][y] = v < a.r ? float(int8_t(kt[koff(kp, j0 + y, v >> 4) + (v & 15)])) : 0.f;
+      }
 #pragma unroll
       for (int hh = 0; hh < HT; ++hh) {
-        const float a = a_s[hh];
-        acc[hh][0] *= a;
-        acc[hh][1] *= a;
-      }
-      for (int j = 0; j < n_tok; ++j) {
-        const char2 kv = *reinterpret_cast<const char2*>(k_t + j * KP + col);
-        const float k0 = float(kv.x), k1 = float(kv.y);
-        const float4* pj = reinterpret_cast<const float4*>(p_s + j * HT);
+        const float4 p = *reinterpret_cast<const float4*>(s_s + hh * SP + j0);
 #pragma unroll
-        for (int q4 = 0; q4 < HT / 4; ++q4) {
-          const float4 pv = pj[q4];
-          acc[4 * q4 + 0][0] = fmaf(pv.x, k0, acc[4 * q4 + 0][0]);
-          acc[4 * q4 + 0][1] = fmaf(pv.x, k1, acc[4 * q4 + 0][1]);
-          acc[4 * q4 + 1][0] = fmaf(pv.y, k0, acc[4 * q4 + 1][0]);
-          acc[4 * q4 + 1][1] = fmaf(pv.y, k1, acc[4 * q4 + 1][1]);
-          acc[4 * q4 + 2][0] = fmaf(pv.z, k0, acc[4 * q4 + 2][0]);
-          acc[4 * q4 + 2][1] = fmaf(pv.z, k1, acc[4 * q4 + 2][1]);
-          acc[4 * q4 + 3][0] = fmaf(pv.w, k0, acc[4 * q4 + 3][0]);
-          acc[4 * q4 + 3][1] = fmaf(pv.w, k1, acc[4 * q4 + 3][1]);
-        }
+        for (int s = 0; s < NSLOT; ++s)
+          acc[s][hh] = fmaf(p.x, code[s][0], fmaf(p.y, code[s][1],
+                            fmaf(p.z, code[s][2], fmaf(p.w, code[s][3], acc[s][hh]))));
       }
     }
-    __syncthreads();
   }
+  cp_wait<0>();
+  __syncthreads();
 
-  // unnormalised partial of this chunk: o [b, h, chunk, r], (m, l) [b, h, chunk]
-  if (has_col) {
+  T* out = reinterpret_cast<T*>(a.out) + ((size_t)k.b * a.H + k.h0) * a.r;
+  const size_t part = ((size_t)k.bg * a.n_chunks + k.chunk) * HT;
+#pragma unroll
+  for (int s = 0; s < NSLOT; ++s) {
+    const int v = 32 * (s * 4 + warp) + lane;
+    if (v >= a.r) continue;
 #pragma unroll
     for (int hh = 0; hh < HT; ++hh) {
-      if (hh < nh) {
-        const size_t p = ((size_t)b * H + h0 + hh) * n_chunks + chunk;
-        *reinterpret_cast<float2*>(part_o + p * r + col) = make_float2(acc[hh][0], acc[hh][1]);
-      }
+      if (hh >= k.nh) break;
+      if (k.used == 1)
+        out[(size_t)hh * a.r + v] = from_f32<T>(acc[s][hh] / fmaxf(l_s[hh], 1e-20f));
+      else
+        a.part_o[(part + hh) * a.r + v] = acc[s][hh];
     }
   }
-  if (tid < nh) {
-    const size_t p = ((size_t)b * H + h0 + tid) * n_chunks + chunk;
-    part_ml[p * 2] = m_s[tid];
-    part_ml[p * 2 + 1] = l_s[tid];
+  if (k.used == 1) return;
+  if (tid < HT) {
+    a.part_ml[(part + tid) * 2] = m_s[tid];
+    a.part_ml[(part + tid) * 2 + 1] = l_s[tid];
   }
+  merge<T, NT, 2, 8, 2>(a, k, HT, smem);
 }
 
-// Merge the chunks of each (slot, head): out = sum_c e^(m_c - M) o_c /
-// max(sum_c e^(m_c - M) l_c, 1e-20) over the chunks below the length.
-template <typename T>
-__global__ void __launch_bounds__(CT)
-mla_decode_combine(const float* __restrict__ part_o, const float* __restrict__ part_ml,
-                   const int* __restrict__ lengths, T* __restrict__ out, int H, int S,
-                   int r, int chunk_tok, int n_chunks) {
-  const int bh = blockIdx.x, b = bh / H;
-  const int len = max(0, min(lengths[b], S));
-  const int used = (len + chunk_tok - 1) / chunk_tok;
-  const size_t p0 = (size_t)bh * n_chunks;
-  float mx = NEG;
-  for (int c = 0; c < used; ++c) mx = fmaxf(mx, part_ml[(p0 + c) * 2]);
-  float l = 0.f;
-  for (int c = 0; c < used; ++c)
-    l += __expf(part_ml[(p0 + c) * 2] - mx) * part_ml[(p0 + c) * 2 + 1];
-  for (int col = threadIdx.x; col < r; col += CT) {
-    float o = 0.f;
-    for (int c = 0; c < used; ++c)
-      o += __expf(part_ml[(p0 + c) * 2] - mx) * part_o[(p0 + c) * r + col];
-    out[(size_t)bh * r + col] = from_f32<T>(o / fmaxf(l, 1e-20f));
+template <auto Kernel>
+int launch(int threads, int smem, const Args& a, int hb, cudaStream_t st) {
+  static int sized = 0;  // the dynamic shared memory this kernel may use
+  if (smem > sized) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    sized = smem;
   }
-}
-
-template <typename T>
-int launch(const void* q, const int8_t* kc, const float* ks, const int* lengths,
-           void* out, float* part_o, float* part_ml, int layer, int B, int H, int S,
-           int Dq, int r, int tiles, float scale, cudaStream_t st) {
-  const int chunk_tok = TT * tiles;
-  const int n_chunks = (S + chunk_tok - 1) / chunk_tok;
-  const int n_ht = (H + HT - 1) / HT;
-  const size_t smem = smem_bytes(Dq);
-  cudaError_t err = cudaFuncSetAttribute(
-      mla_decode_chunk<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  mla_decode_chunk<T><<<dim3(B * n_ht, n_chunks), NT, smem, st>>>(
-      reinterpret_cast<const T*>(q), kc, ks, lengths, part_o, part_ml, layer, B, H, S,
-      Dq, r, chunk_tok, n_chunks, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  mla_decode_combine<T><<<B * H, CT, 0, st>>>(part_o, part_ml, lengths,
-                                               reinterpret_cast<T*>(out), H, S, r,
-                                               chunk_tok, n_chunks);
+  const int ng = (a.H + hb - 1) / hb;
+  Kernel<<<a.B * ng * a.n_chunks, threads, smem, st>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <int RT>
+int run_tc(const Args& a, cudaStream_t st) {
+  const int smem = tc_smem(a.Dq, RT);
+  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  if (a.Dq == 640)
+    return launch<mla_decode_tc<RT, 640>>(512, smem, a, HT * RT, st);
+  return launch<mla_decode_tc<RT, 0>>(512, smem, a, HT * RT, st);
 }
 
 }  // namespace
 
-// q [B, H, Dq] (f32, or bf16 when q_bf16); latent cache [L, B, 1, S, Dq] int8 /
-// [L, B, 1, S] f32; out [B, H, r] in q's type; part_o f32
-// [B * H * n_chunks * r], part_ml f32 [B * H * n_chunks * 2] with
-// n_chunks = ceil(S / (64 * chunk_tiles)). Dq a multiple of 16 up to 1024,
-// r even, up to min(Dq, 512).
-extern "C" int mla_flash_decode_int8_launch(const void* q, int q_bf16, const void* kc,
-                                            const void* ks, const void* lengths,
-                                            void* out, void* part_o, void* part_ml,
-                                            int layer, int B, int H, int S, int Dq,
-                                            int r, int chunk_tiles, float scale,
-                                            void* stream) {
+// q [B, H, Dq] (f32, or bf16 when q_bf16); latent cache [L, B, 1, S, Dq]
+// int8 / [L, B, 1, S] f32; out [B, H, r] in q's type. tc: the tensor-core
+// path (bf16 q, Dq and r multiples of 32) with heads_per_block 16 or 32;
+// otherwise CUDA cores, heads_per_block 16. chunk: tokens per block, a
+// multiple of 64. part_o f32 [B * NG * n_chunks * heads_per_block * r],
+// part_ml f32 [... * 2] (NG = ceil(H / heads_per_block); unused, and may be
+// null, when n_chunks is 1); counters int32 [B * NG], zero, left zero. Dq a
+// multiple of 16 up to 1024, r even, up to min(Dq, 512).
+extern "C" int mla_flash_decode_int8_launch(const void* q, int q_bf16, int tc, const void* kc,
+                                            const void* ks, const void* lengths, void* out,
+                                            void* part_o, void* part_ml, void* counters,
+                                            int layer, int B, int H, int S, int Dq, int r,
+                                            int heads_per_block, int chunk, int n_chunks,
+                                            float scale, void* stream) {
+  Args a{};
+  a.q = q;
+  a.kc = reinterpret_cast<const int8_t*>(kc);
+  a.ks = reinterpret_cast<const float*>(ks);
+  a.lengths = reinterpret_cast<const int*>(lengths);
+  a.out = out;
+  a.part_o = reinterpret_cast<float*>(part_o);
+  a.part_ml = reinterpret_cast<float*>(part_ml);
+  a.counters = reinterpret_cast<int*>(counters);
+  a.layer = layer;
+  a.B = B;
+  a.H = H;
+  a.S = S;
+  a.Dq = Dq;
+  a.r = r;
+  a.chunk = chunk;
+  a.n_chunks = n_chunks;
+  a.qk_scale = scale * LOG2E;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const auto* k8 = reinterpret_cast<const int8_t*>(kc);
-  const auto* kf = reinterpret_cast<const float*>(ks);
-  const auto* ln = reinterpret_cast<const int*>(lengths);
-  auto* po = reinterpret_cast<float*>(part_o);
-  auto* pml = reinterpret_cast<float*>(part_ml);
-  if (q_bf16)
-    return launch<__nv_bfloat16>(q, k8, kf, ln, out, po, pml, layer, B, H, S, Dq, r,
-                                 chunk_tiles, scale, st);
-  return launch<float>(q, k8, kf, ln, out, po, pml, layer, B, H, S, Dq, r, chunk_tiles,
-                       scale, st);
+  if (Dq % 16 || Dq > MAX_DQ || r % 2 || r < 2 || r > Dq || r > MAX_R || chunk % TT ||
+      chunk < TT || n_chunks < 1 || (size_t)n_chunks * heads_per_block * 4 > (size_t)ring_bytes(Dq))
+    return (int)cudaErrorInvalidValue;
+  if (tc) {
+    if (!q_bf16 || Dq % 32 || r % 32) return (int)cudaErrorInvalidValue;
+    if (heads_per_block == 16) return run_tc<1>(a, st);
+    if (heads_per_block == 32) return run_tc<2>(a, st);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (heads_per_block != HT) return (int)cudaErrorInvalidValue;
+  const int smem = cc_smem(Dq);
+  if (q_bf16) return launch<mla_decode_cc<__nv_bfloat16>>(128, smem, a, HT, st);
+  return launch<mla_decode_cc<float>>(128, smem, a, HT, st);
 }
 
 extern "C" const char* error_string(int err) {

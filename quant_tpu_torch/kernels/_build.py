@@ -40,7 +40,7 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # kernel name -> launches since the last reset_launches(); the matmul
 # kernels also count each launch under the tile that served it,
-# "<kernel>[<tile>]", and the GQA decode-attention kernels under their path
+# "<kernel>[<tile>]", and the decode-attention kernels under their path
 # ("tc": tensor cores for bf16 q, "cuda_core")
 launches: dict[str, int] = {"dequant_matmul": 0, "dequant_matmul_moe": 0,
                             "cache_insert_int8": 0, "flash_decode_int8": 0,
@@ -53,7 +53,8 @@ launches.update({f"{k}[{tile}]": 0
                  for k in ("dequant_matmul", "dequant_matmul_moe")
                  for tile in ("tc_decode", "tc_prefill", "cuda_core")})
 launches.update({f"{k}[{path}]": 0
-                 for k in ("flash_decode_int8", "paged_flash_decode_int8")
+                 for k in ("flash_decode_int8", "paged_flash_decode_int8",
+                           "mla_flash_decode_int8")
                  for path in ("tc", "cuda_core")})
 
 _lock = threading.Lock()

@@ -6,26 +6,123 @@ with one shared latent row per token: queries ``q_eff [B, H, Dq]`` against
 cache rows ``[c_kv | k_rope | zero pad]`` (``Dq`` int8 codes and one f32
 scale per row), and the value read is the row's first ``r`` lanes:
 ``out = softmax(scale * q_eff . k * ks) @ (ks * k[:, :r])``. The CUDA kernel
-is ``csrc/mla_attention.cu``; :func:`mla_flash_decode_int8` launches it for
-tensors on the card and takes the plain version
-:func:`mla_flash_decode_int8_reference` only for tensors on the CPU.
+is ``csrc/mla_attention.cu``, whose header note gives its design;
+:func:`mla_flash_decode_int8` launches it for tensors on the card and takes
+the plain version :func:`mla_flash_decode_int8_reference` only for tensors
+on the CPU: on a CUDA tensor it launches or raises, it never falls back.
+
+Each call runs one of two paths, chosen from q's dtype and the widths
+(:func:`mla_decode_path`) and counted under its name beside the kernel's
+total (``mla_flash_decode_int8[tc]``, ``[cuda_core]``): the tensor cores
+for bf16 q (the serving path), CUDA-core dots otherwise.
+:func:`mla_decode_plan` sizes the call's grid and workspace from static ints
+alone (B, H, S, Dq, r and the SM count), so the wrapper never reads
+``lengths`` on the host.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
+import dataclasses
 
 import torch
 
 from quant_tpu_torch.kernels import _build
+from quant_tpu_torch.kernels.dequant_matmul import _count, _sm_count
 
-__all__ = ["mla_flash_decode_int8", "mla_flash_decode_int8_reference"]
+__all__ = ["mla_flash_decode_int8", "mla_flash_decode_int8_reference",
+           "mla_decode_plan", "mla_decode_path", "MlaDecodePlan"]
 
-_HT = 16          # csrc/mla_attention.cu HT: heads per block
-_TT = 64          # TT: tokens per staged tile
-_NT = 256         # NT: threads per block (2 value lanes each)
-_MAX_DQ = 1024    # MAX_DQ
+_TILE = 64         # csrc/mla_attention.cu TT: tokens per ring stage
+_HT = 16           # HT: heads per mma row tile
+_MAX_DQ = 1024     # MAX_DQ
+_MAX_R = 512       # MAX_R
+_SMEM_MAX = 232448  # SMEM_MAX: the dynamic shared memory a block may use
+_MAX_CHUNK = 4096  # the largest chunk
+_WIDE_HEADS = 32   # heads per block of the tensor-core path at many heads
+
+
+def _ring_bytes(dq: int) -> int:
+    """``ring_bytes``: two stages of 64 rows of Dq rounded up to 128 bytes
+    and 64 scales."""
+    return 2 * (_TILE * -(-dq // 128) * 128 + _TILE * 4)
+
+
+def _tc_smem(dq: int, heads: int) -> int:
+    """``tc_smem``: the ring, then per row tile of 16 heads the q fragments,
+    the probabilities and the (max, sum) per token group, then the partial
+    scores of the Dq parts past the first."""
+    groups, rt = -(-(dq // 16) // 4), heads // _HT
+    return (_ring_bytes(dq) + rt * (groups * 2048 + 4096 + 512)
+            + (4 // rt - 1) * rt * 4096)
+
+
+@dataclasses.dataclass(frozen=True)
+class MlaDecodePlan:
+    """A latent-attention call's split, from static ints only.
+
+    Block ``(bg, c)`` of the ``blocks = B * groups * n_chunks`` blocks owns
+    heads ``[g * heads, (g + 1) * heads)`` (``g = bg % groups``) of slot
+    ``bg // groups`` and tokens ``[c * chunk, min(length, (c + 1) *
+    chunk))``, walked in ``_TILE``-token tiles; a block whose chunk starts
+    at or past the length exits, except chunk 0 of an empty slot, which
+    writes its zeros. The workspace holds, per (slot, head group, chunk,
+    head of the block), the chunk's unnormalised output (``part_o`` floats
+    in all) and its (max, sum) (``part_ml``); ``counters`` int32 zeros, one
+    per (slot, head group), elect the block that merges them."""
+    heads: int
+    groups: int
+    chunk: int
+    n_chunks: int
+    blocks: int
+    part_o: int
+    part_ml: int
+    counters: int
+
+
+def mla_decode_plan(b: int, h: int, s: int, dq: int, r: int,
+                    sms: int = 132, path: str = "tc") -> MlaDecodePlan:
+    """The split of a call on ``path`` (:func:`mla_decode_path`) over ``b``
+    slots of ``s`` tokens, ``h`` heads, rows of ``dq`` lanes and values of
+    ``r``, on a card of ``sms`` SMs. Heads per block: 16 on the CUDA cores;
+    on the tensor cores up to ``_WIDE_HEADS`` (each staged row read once
+    for all of a block's heads) where the shared memory fits. Chunks are the
+    shortest that keep a full batch's grid within two blocks per SM (one
+    for the tensor cores' 16-head blocks: their 64-token tile takes about
+    3.7 us and merging each chunk's partial about 0.36 us, so fewer, longer
+    chunks win there) and the merge's weights within the ring (a multiple
+    of the tile, at most ``_MAX_CHUNK``; ``tools/attn_probe.py mla
+    plan``)."""
+    heads = _HT
+    while (path == "tc" and heads < min(h, _WIDE_HEADS)
+           and _tc_smem(dq, 2 * heads) <= _SMEM_MAX):
+        heads *= 2
+    per_sm = 1 if path == "tc" and heads == _HT else 2
+    groups = -(-h // heads)
+
+    def n(c: int) -> int:
+        return max(1, -(-s // c))
+    chunk = _TILE
+    while chunk < _MAX_CHUNK and (
+            b * groups * n(chunk) > per_sm * sms
+            or n(chunk) * heads * 4 > _ring_bytes(dq)):
+        chunk *= 2
+    nc = n(chunk)
+    if b * groups * nc >= 2 ** 31:
+        raise ValueError(f"{b * groups * nc} blocks exceed CUDA's grid")
+    parts = b * groups * nc * heads if nc > 1 else 0
+    return MlaDecodePlan(heads=heads, groups=groups, chunk=chunk, n_chunks=nc,
+                         blocks=b * groups * nc, part_o=parts * r,
+                         part_ml=parts * 2, counters=b * groups)
+
+
+def mla_decode_path(q: torch.Tensor, dq: int, r: int) -> str:
+    """The path a call takes: the tensor cores for bf16 q with Dq and r
+    multiples of 32 and 16-byte aligned rows, CUDA-core dots otherwise."""
+    if (q.dtype == torch.bfloat16 and dq % 32 == 0 and r % 32 == 0
+            and q.data_ptr() % 16 == 0):
+        return "tc"
+    return "cuda_core"
 
 
 def mla_flash_decode_int8_reference(q, k_codes, k_scale, lengths, layer=None,
@@ -53,25 +150,10 @@ def mla_flash_decode_int8_reference(q, k_codes, k_scale, lengths, layer=None,
     return out.to(q.dtype)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
-def chunk_tiles(b: int, h: int, s: int, sms: int) -> int:
-    """Tiles of ``_TT`` tokens per block (the split-S chunk): one tile when
-    the grid at full lengths already holds about two blocks per SM of the
-    card's ``sms``, more (up to 8) when it would hold many more, so fewer
-    chunk partials are written and merged (H=128 has 8 head tiles per
-    slot)."""
-    units = b * -(-h // _HT) * -(-s // _TT)
-    return max(1, min(8, units // (2 * sms)))
-
-
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# q, q_bf16, k_codes, k_scale, lengths, out, part_o, part_ml, layer, B, H, S,
-# Dq, r, chunk_tiles, scale, stream
-_ARGTYPES = [_P, _I] + [_P] * 6 + [_I] * 7 + [ctypes.c_float, _P]
+# q, q_bf16, tc, k_codes, k_scale, lengths, out, part_o, part_ml, counters,
+# layer, B, H, S, Dq, r, heads_per_block, chunk, n_chunks, scale, stream
+_ARGTYPES = [_P, _I, _I] + [_P] * 7 + [_I] * 9 + [ctypes.c_float, _P]
 
 
 def mla_flash_decode_int8(q, k_codes, k_scale, lengths, layer=None, *,
@@ -101,9 +183,9 @@ def mla_flash_decode_int8(q, k_codes, k_scale, lengths, layer=None, *,
     if one != 1:
         raise ValueError(f"an MLA cache holds one latent row per token, got "
                          f"{one} heads")
-    if dq % 16 or dq > _MAX_DQ or r % 2 or not 0 < r <= min(dq, 2 * _NT):
+    if dq % 16 or dq > _MAX_DQ or r % 2 or not 0 < r <= min(dq, _MAX_R):
         raise ValueError(f"kernel takes Dq a multiple of 16 up to {_MAX_DQ} "
-                         f"and an even r up to min(Dq, {2 * _NT}), got Dq "
+                         f"and an even r up to min(Dq, {_MAX_R}), got Dq "
                          f"{dq}, r {r}")
     if not 0 <= layer < l:
         raise ValueError(f"layer {layer} outside [0, {l})")
@@ -121,22 +203,28 @@ def mla_flash_decode_int8(q, k_codes, k_scale, lengths, layer=None, *,
             raise ValueError("all inputs must be contiguous on one device")
     if k_codes.data_ptr() % 16:
         raise ValueError("the latent cache must be 16-byte aligned")
-    tiles = chunk_tiles(b, h, s, _sm_count(q.device))
-    chunks = -(-s // (_TT * tiles))
     out = torch.empty((b, h, r), dtype=q.dtype, device=q.device)
-    # per (slot, head, S chunk): the chunk's unnormalised output and its
-    # (max, sum) for the kernel's merge pass
-    part_o = torch.empty((b * h * chunks * r,), dtype=torch.float32,
-                         device=q.device)
-    part_ml = torch.empty((b * h * chunks * 2,), dtype=torch.float32,
-                          device=q.device)
+    if b == 0 or h == 0:
+        return out
+    path = mla_decode_path(q, dq, r)
+    plan = mla_decode_plan(b, h, s, dq, r, _sm_count(q.device), path)
+    part_o = part_ml = counters = None
+    if plan.n_chunks > 1:
+        part_o = torch.empty(plan.part_o, dtype=torch.float32,
+                             device=q.device)
+        part_ml = torch.empty(plan.part_ml, dtype=torch.float32,
+                              device=q.device)
+        counters = _build.zero_counters(q.device, plan.counters)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     fn = _build.entry("mla_attention", "mla_flash_decode_int8_launch",
                       _ARGTYPES)
-    rc = fn(q.data_ptr(), int(q.dtype == torch.bfloat16), k_codes.data_ptr(),
-            k_scale.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            part_o.data_ptr(), part_ml.data_ptr(), layer, b, h, s, dq, r,
-            tiles, float(scale), stream)
+    rc = fn(q.data_ptr(), int(q.dtype == torch.bfloat16), int(path == "tc"),
+            k_codes.data_ptr(), k_scale.data_ptr(), lengths.data_ptr(),
+            out.data_ptr(), None if part_o is None else part_o.data_ptr(),
+            None if part_ml is None else part_ml.data_ptr(),
+            None if counters is None else counters.data_ptr(), layer, b, h,
+            s, dq, r, plan.heads, plan.chunk, plan.n_chunks, float(scale),
+            stream)
     _build.check(rc, "mla_flash_decode_int8", "mla_attention")
-    _build.count_launch("mla_flash_decode_int8")
+    _count("mla_flash_decode_int8", path)
     return out

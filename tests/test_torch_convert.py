@@ -28,6 +28,7 @@ Every JAX conversion runs once per module (``jax_converted``).
 
 import dataclasses
 import json
+import os
 
 import numpy as np
 import pytest
@@ -49,6 +50,11 @@ from quant_tpu_torch.checkpoint.safetensors import SafetensorsDir
 from quant_tpu_torch.cli import main as t_cli
 from quant_tpu_torch.eval import perplexity as t_perplexity
 from quant_tpu_torch.models import llama as tllama
+
+# transformers, imported by the tests below, would import TensorFlow too
+# (about 7 s of set-up under the test run's load); they use only its
+# PyTorch models
+os.environ.setdefault("USE_TF", "0")
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -37,6 +37,7 @@ from quant_tpu_torch.kernels.cache_insert import (
 from quant_tpu_torch.kernels.cache_insert import (
     mla_cache_insert_int8, mla_cache_insert_int8_reference)
 from quant_tpu_torch.kernels import dequant_matmul as dmm
+from quant_tpu_torch.kernels import mla_attention as mla
 from quant_tpu_torch.kernels.dequant_matmul import (
     dequant_matmul, dequant_matmul_moe, dequant_matmul_moe_reference,
     dequant_matmul_reference)
@@ -244,6 +245,57 @@ def test_decode_plan_covers_each_token_once(s, page):
     # shortest chunk
     assert att.decode_plan(2, 8, 2048, 4, 128).chunk == att._TILE
     assert att.decode_plan(8, 8, 8192, 4, 128, sms=132).blocks <= 8 * 132
+
+
+@pytest.mark.parametrize("s", [600, 2048, 8192])
+@pytest.mark.parametrize("h", [4, 16, 128])
+def test_mla_decode_plan_covers_each_token_once(h, s):
+    """The latent-attention plan, walked as the kernel walks it (blocks of
+    ``heads`` heads exit at or past a slot's length, tiles of ``_TILE``
+    tokens): each valid token of each head in exactly one block, a grid
+    within CUDA's limits, the merge's weights within the ring, and grid,
+    workspace and counters from static ints alone (no lengths); both paths'
+    head splits (16 heads a block on the CUDA cores)."""
+    b, dq, r = 8, 640, 512
+    for path in ("tc", "cuda_core"):
+        plan = mla.mla_decode_plan(b, h, s, dq, r, path=path)
+        assert plan == mla.mla_decode_plan(b, h, s, dq, r, path=path)
+        hb, ch = plan.heads, plan.chunk
+        assert hb % mla._HT == 0 and hb <= mla._WIDE_HEADS
+        assert path == "tc" or hb == mla._HT
+        assert mla._tc_smem(dq, hb) <= mla._SMEM_MAX
+        assert plan.groups == -(-h // hb)
+        assert ch % mla._TILE == 0 and ch <= mla._MAX_CHUNK
+        assert plan.n_chunks == -(-s // ch)
+        assert plan.n_chunks * hb * 4 <= mla._ring_bytes(dq)
+        assert plan.blocks == b * plan.groups * plan.n_chunks < 2 ** 31
+        assert plan.counters == b * plan.groups
+        parts = (b * plan.groups * plan.n_chunks * hb
+                 if plan.n_chunks > 1 else 0)
+        assert (plan.part_o, plan.part_ml) == (parts * r, parts * 2)
+        for length in sorted({0, 1, 63, 64, 65, ch - 1, ch, ch + 1, s}):
+            if length > s:
+                continue
+            seen = np.zeros((h, s), np.int32)
+            used = max(1, -(-length // ch))    # blocks past it exit at once
+            for grp in range(plan.groups):
+                h0 = grp * hb
+                for c in range(used):
+                    c0, c1 = c * ch, min(length, (c + 1) * ch)
+                    assert c1 - c0 <= ch and (c0 < c1 or length == c == 0)
+                    for t0 in range(c0, c1, mla._TILE):
+                        seen[h0:h0 + hb, t0:min(c1, t0 + mla._TILE)] += 1
+            assert (seen[:, :length] == 1).all() and not seen[:, length:].any()
+    # the tensor-core path reads each row once for up to 32 heads; a full
+    # batch stays within two blocks per SM, one for 16-head tensor-core
+    # blocks
+    assert mla.mla_decode_plan(8, 128, 2048, dq, r).heads == 32
+    assert mla.mla_decode_plan(8, 16, 2048, dq, r).heads == 16
+    for hq, path, per_sm in ((16, "tc", 1), (128, "tc", 2),
+                             (16, "cuda_core", 2), (128, "cuda_core", 2)):
+        plan = mla.mla_decode_plan(8, hq, 8192, dq, r, sms=132, path=path)
+        assert plan.chunk == mla._TILE or plan.blocks <= per_sm * 132
+        assert plan.blocks > per_sm * 132 // 2
 
 
 def test_flash_decode_zero_length_is_finite():
@@ -545,46 +597,61 @@ def test_moe_cuda_kernel_matches_plain_on_card():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("h,r,dq", [(4, 64, 128), (16, 512, 640),
-                                    (128, 512, 640)])
-def test_mla_cuda_kernels_match_plain_on_card(h, r, dq):
+@pytest.mark.parametrize("dq", [128, 576, 640])
+@pytest.mark.parametrize("h", [4, 16, 32, 128])
+def test_mla_cuda_kernels_match_plain_on_card(h, dq):
     """The MLA latent insert (byte-equal, with a slot at capacity and one
-    outside the shard) and MLA flash decode (f32 q within 1e-4 of
-    max|ref|, bf16 q within 1e-2) against their plain versions at the toy
-    shapes (test-tiny-mla), DeepSeek-V2-Lite's (16 heads) and
-    DeepSeek-V3's (128 heads: 8 head tiles); S spans several 64-token
-    tiles and chunks, the last one partial."""
+    outside the shard) and MLA flash decode against their plain versions at
+    test-tiny-mla's rows (Dq 128, r 64) and DeepSeek's (Dq 576 unpadded and
+    640, r 512), 4 (zero-padded row tile), 16 (DeepSeek-V2-Lite), 32 and
+    128 heads (DeepSeek-V3): each heads-per-block instance of the tensor-core
+    path. f32 q on the CUDA-core path within 1e-4 of max|ref|, bf16 q on the
+    tensor-core path within 1e-2; each call counted under its path, a second
+    call bit-equal, the empty slot all zeros. S 600 spans several tiles and
+    chunks, the last one partial; S 4096 gives each block several tiles
+    through the copy ring."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
-    gen.manual_seed(h)
+    gen.manual_seed(h + dq)
     _build.build()
-    l, s = 3, 600
-    lengths = [0, 1, 65, 300, s - 1, s]
-    b = len(lengths)
-    kc = torch.randint(-127, 128, (l, b, 1, s, dq), generator=gen,
-                       device=dev, dtype=torch.int32).to(torch.int8)
-    ks = torch.rand((l, b, 1, s), generator=gen, device=dev) * 0.02
-    plain = [kc.clone(), ks.clone()]
-    new_c = torch.randint(-127, 128, (b, 1, 1, dq), generator=gen,
-                          device=dev, dtype=torch.int32).to(torch.int8)
-    new_s = torch.rand((b, 1, 1), generator=gen, device=dev)
-    ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
-    for s0 in (0, 64):
-        mla_cache_insert_int8(kc, ks, new_c, new_s, ln, 1, s0)
-        mla_cache_insert_int8_reference(*plain, new_c, new_s, ln, 1, s0)
-        assert torch.equal(kc, plain[0]) and torch.equal(ks, plain[1])
-    for qdt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
-        q = torch.randn((b, h, dq), generator=gen, device=dev).to(qdt)
-        got = mla_flash_decode_int8(q, kc, ks, ln, 1, r=r, scale=0.07)
-        ref = mla_flash_decode_int8_reference(q, kc, ks, ln, 1, r=r,
-                                              scale=0.07)
-        torch.cuda.synchronize()
-        assert got.dtype == qdt and got.shape == (b, h, r)
-        err = (got.float() - ref.float()).abs().max()
-        assert err <= tol * ref.float().abs().max(), (qdt, float(err))
-        assert not got[0].float().abs().max()
+    r = 64 if dq == 128 else 512
+    l = 3
+    for s in (600, 4096):
+        lengths = [0, 1, 65, 300, s - 1, s]
+        b = len(lengths)
+        kc = torch.randint(-127, 128, (l, b, 1, s, dq), generator=gen,
+                           device=dev, dtype=torch.int32).to(torch.int8)
+        ks = torch.rand((l, b, 1, s), generator=gen, device=dev) * 0.02
+        ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        if s == 600:
+            plain = [kc.clone(), ks.clone()]
+            new_c = torch.randint(-127, 128, (b, 1, 1, dq), generator=gen,
+                                  device=dev, dtype=torch.int32).to(torch.int8)
+            new_s = torch.rand((b, 1, 1), generator=gen, device=dev)
+            for s0 in (0, 64):
+                mla_cache_insert_int8(kc, ks, new_c, new_s, ln, 1, s0)
+                mla_cache_insert_int8_reference(*plain, new_c, new_s, ln, 1,
+                                                s0)
+                assert torch.equal(kc, plain[0]) and torch.equal(ks, plain[1])
+        for qdt, tol, path in ((torch.float32, 1e-4, "cuda_core"),
+                               (torch.bfloat16, 1e-2, "tc")):
+            q = torch.randn((b, h, dq), generator=gen, device=dev).to(qdt)
+            _build.reset_launches()
+            got = mla_flash_decode_int8(q, kc, ks, ln, 1, r=r, scale=0.07)
+            assert _build.launches["mla_flash_decode_int8"] == 1
+            assert _build.launches[f"mla_flash_decode_int8[{path}]"] == 1
+            again = mla_flash_decode_int8(q, kc, ks, ln, 1, r=r, scale=0.07)
+            ref = mla_flash_decode_int8_reference(q, kc, ks, ln, 1, r=r,
+                                                  scale=0.07)
+            torch.cuda.synchronize()
+            assert got.dtype == qdt and got.shape == (b, h, r)
+            assert torch.isfinite(got).all()
+            err = (got.float() - ref.float()).abs().max()
+            assert err <= tol * ref.float().abs().max(), (s, qdt, float(err))
+            assert torch.equal(got, again), (s, qdt)
+            assert not got[0].float().abs().max()
 
 
 @pytest.mark.parametrize("k,n", [(512, 512), (64, 1536), (6, 10)])
