@@ -15,7 +15,13 @@ Phases; the first failure ends the run with a non-zero exit code:
              them, with its device time (``torch.profiler`` kernel events,
              operands rotated so each launch reads them from device
              memory), its bound and the plain version's device time. The
-             paged insert and paged flash decode run over a 32-layer pool
+             GQA inserts are fused with RoPE and K/V quantization: q, k
+             and v bf16 views of one wqkv row at B=8, Hq 32, Hkv 8, Dh 128,
+             into the 32-layer contiguous cache (S=2048) and page pools
+             (pages 128 and 16), codes and scales byte-equal to the plain
+             chain and q bit-equal, beside the plain chain's device time;
+             how PyTorch's ``absmax / 127.0`` rounds on the card is
+             counted first. Paged flash decode runs over a 32-layer pool
              holding the contiguous cache's rows under a shuffled page
              table, at pages 128 and 512, beside the contiguous kernel's
              time at the same lengths. Each decode-attention row (B=8,
@@ -51,11 +57,14 @@ Phases; the first failure ends the run with a non-zero exit code:
 4. serving   full-width Llama-3-8B (32 layers, random weights from seed 0,
              made on the card) behind ``Engine(max_slots=8, max_seq=2048)``:
              8 greedy requests of 32-1024 prompt tokens, 64 new tokens each.
-             The launch counters must match the forwards run, and every
-             matmul of a serving phase must take a tensor-core tile and
-             every decode-attention call the tensor-core path. Then
-             ``torch.profiler`` over 3 decode forwards at B=8: device busy
-             time, idle share and the kernels that take the most.
+             The launch counters must match the forwards run (every GQA
+             serving phase: one fused insert per layer and decode forward,
+             all under [fused]), and every matmul of a serving phase must
+             take a tensor-core tile and every decode-attention call the
+             tensor-core path. Then ``torch.profiler`` over 3 decode
+             forwards at B=8: device busy time, idle share, device kernels
+             and kernel-launch calls per step, and the kernels that take
+             the most.
 5. paged     the same model behind ``Engine(max_slots=8, max_seq=2048,
              paged=True, page_size=128, prefix_cache=True)`` and
              ``serve_async``: 16 greedy HTTP requests from 8 client threads
@@ -377,9 +386,6 @@ def dmm_row(gen, bits: int, m: int, k: int, n: int, odt, g: int,
 def phase_kernels(detail: dict) -> dict:
     from quant_tpu_torch.kernels.attention import (
         flash_decode_int8, flash_decode_int8_reference)
-    from quant_tpu_torch.kernels.cache_insert import (
-        cache_insert_int8, cache_insert_int8_reference)
-    from quant_tpu_torch.utils.timing import device_time, kernel_times
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -417,42 +423,22 @@ def phase_kernels(detail: dict) -> dict:
     L, B, H, S, D, rep = 32, 8, 8, 2048, 128, 4
     lengths = torch.tensor(ATT_LENGTHS, dtype=torch.int32, device=dev)
     cache = rand_cache(gen, L, B, H, S, D)
-    new = [torch.randint(-127, 128, (B, 1, H, D), generator=gen, device=dev,
-                         dtype=torch.int16).to(torch.int8),
-           torch.rand((B, 1, H), generator=gen, device=dev),
-           torch.randint(-127, 128, (B, 1, H, D), generator=gen, device=dev,
-                         dtype=torch.int16).to(torch.int8),
-           torch.rand((B, 1, H), generator=gen, device=dev)]
     layer = 5
-    plain_cache = [t.clone() for t in cache]
-    cache_insert_int8(*cache, *new, lengths, layer)
-    cache_insert_int8_reference(*plain_cache, *new, lengths, layer)
-    torch.cuda.synchronize()
-    for a, r in zip(cache, plain_cache):
-        if not torch.equal(a, r):
-            raise AssertionError("cache_insert_int8 is not byte-equal to "
-                                 "its plain version")
-    del plain_cache
-    # timed launches walk the 32-layer stack, as a decode step does, so no
-    # layer's rows are still in the L2 cache from the launch before
-    nxt_layer = cycle(range(L))
-    def insert():
-        return cache_insert_int8(*cache, *new, lengths, nxt_layer())
-    ms, ev = kernel_times(insert, L)
-    plain = device_time(lambda: cache_insert_int8_reference(
-        *cache, *new, lengths, nxt_layer()), L)
-    row_bytes = B * H * (2 * D + 2 * 4)
-    b_ms, b_by = bound_ms(2 * row_bytes + B * 4, 0)
-    summary["cache_insert_int8"] = {
-        "max_abs_err": 0.0, "ms": ms, "event_ms": ev, "plain_ms": plain,
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        "unit": "one call: B=8, Hkv=8, Dh=128, S=2048, 32-layer stack; "
-                "device time"}
-    rows.append({"kernel": "cache_insert_int8", **summary[
-        "cache_insert_int8"]})
-    log(f"[kernels] cache_insert_int8 B=8 H=8 D=128 S=2048: byte-equal  "
-        f"{ms:.4f} ms (events {ev:.4f})  plain {plain:.4f} ms  bound "
-        f"{b_ms:.6f} ms ({b_by})")
+    detail["plain_scalar_division"] = plain_division_check(dev)
+    # the fused RoPE + K/V quantize + insert: contiguous, then the page
+    # pools at pages 128 (the serving phase's) and 16
+    summary["cache_insert_int8"] = fused_row(gen, cache, lengths, layer)
+    rows.append({"kernel": "cache_insert_int8",
+                 **summary["cache_insert_int8"]})
+    for page in (128, 16):
+        pool, tbl, _ = page_pool(cache, lengths, page)
+        row = fused_row(gen, pool, lengths, layer, tbl)
+        del pool
+        torch.cuda.empty_cache()
+        rows.append({"kernel": "paged_cache_insert_int8", "page": page,
+                     **row})
+        if page == 128:
+            summary["paged_cache_insert_int8"] = row
 
     n_tok = int(lengths.clamp(max=S).sum())
     sdpa = sdpa_time(cache, lengths, rep)
@@ -473,9 +459,9 @@ def phase_kernels(detail: dict) -> dict:
                 f"the next layer of the 32-layer stack (L2-cold)"}
     rows.append({"kernel": "flash_decode_int8", "per_dtype": att})
     for page in (128, 512):
-        rows.append(paged_kernels(gen, summary, cache, new, lengths, layer,
-                                  page, {**att, "sdpa": sdpa}))
-    del cache, new
+        rows.append(paged_kernels(gen, summary, cache, lengths, layer, page,
+                                  {**att, "sdpa": sdpa}))
+    del cache
     torch.cuda.empty_cache()
     rows += attention_rows(gen)
     detail["kernels"] = rows
@@ -823,62 +809,123 @@ def paged_rows(gen, cache, lengths, layer: int, page: int, rep: int,
     return att
 
 
-def paged_kernels(gen, summary: dict, cache, new, lengths, layer: int,
+def paged_kernels(gen, summary: dict, cache, lengths, layer: int,
                   page: int, contiguous: dict) -> dict:
-    """The paged insert and paged flash decode at the decode shape of the
-    kernels phase, over a 32-layer pool holding the contiguous cache's rows
-    under a page table shuffled from seed 0 (entries past each slot's pages
-    on the scratch page 0). Checked against their plain versions (insert
-    byte-equal; attention as :func:`paged_rows`)."""
-    from quant_tpu_torch.kernels.cache_insert import (
-        paged_cache_insert_int8, paged_cache_insert_int8_reference)
-    from quant_tpu_torch.utils.timing import device_time, kernel_times
-
-    L, B, H, S, D = cache[0].shape
-    pool, tbl, _ = page_pool(cache, lengths, page)
-    n_pool = pool[0].shape[1]
-    plain = [t.clone() for t in pool]
-    paged_cache_insert_int8(*pool, *new, lengths, layer, tbl)
-    paged_cache_insert_int8_reference(*plain, *new, lengths, layer, tbl)
-    torch.cuda.synchronize()
-    for a, r in zip(pool, plain):
-        if not torch.equal(a, r):
-            raise AssertionError(f"paged_cache_insert_int8 (page {page}) is "
-                                 "not byte-equal to its plain version")
-    del plain
-    nxt_layer = cycle(range(L))
-
-    def insert():
-        return paged_cache_insert_int8(*pool, *new, lengths, nxt_layer(), tbl)
-    ms, ev = kernel_times(insert, L)
-    plain_ms = device_time(lambda: paged_cache_insert_int8_reference(
-        *pool, *new, lengths, nxt_layer(), tbl), L)
-    del pool
-    row_bytes = B * H * (2 * D + 2 * 4)
-    b_ms, b_by = bound_ms(2 * row_bytes + 2 * B * 4, 0)
-    ins = {"max_abs_err": 0.0, "ms": ms, "event_ms": ev,
-           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-           "library_ms": None,
-           "unit": f"one call: B=8, Hkv=8, Dh=128, page {page}, 32-layer "
-                   f"pool of {n_pool} pages; device time"}
-    log(f"[kernels] paged_cache_insert_int8 page={page}: byte-equal  "
-        f"{ms:.4f} ms (events {ev:.4f})  plain {plain_ms:.4f} ms  bound "
-        f"{b_ms:.6f} ms ({b_by})")
-
+    """Paged flash decode at the decode shape of the kernels phase, over a
+    32-layer pool holding the contiguous cache's rows under a page table
+    shuffled from seed 0 (entries past each slot's pages on the scratch
+    page 0), as :func:`paged_rows`, beside the contiguous kernel's time."""
     att = paged_rows(gen, cache, lengths, layer, page, 4, contiguous["sdpa"],
                      "B=8 Hkv=8 rep=4 D=128 S=2048")
     for qdt, row in att.items():
         row["contiguous_ms"] = contiguous[qdt]["ms"]
     if page == 128:     # the serving phase's page size
-        summary["paged_cache_insert_int8"] = ins
         summary["paged_flash_decode_int8"] = {
             **att["torch.bfloat16"], "library_ms": None,
             "unit": f"one call, bf16 q: B=8, Hkv=8, rep=4, Dh=128, page "
                     f"128, 16-page tables, lengths {lengths.tolist()}; "
                     f"device time, each call on the next layer of the "
                     f"32-layer pool (L2-cold)"}
-    return {"kernel": "paged", "page": page, "insert": ins,
+    return {"kernel": "paged_flash_decode_int8", "page": page,
             "attention": att}
+
+
+def plain_division_check(dev) -> dict:
+    """How the plain quantizer's ``absmax / 127.0`` rounds on this card:
+    PyTorch's CUDA division by a Python scalar may multiply by the f32
+    reciprocal instead of dividing. Counts, over 2^20 random values, the
+    quotients that differ from ``x * fl(1/127)`` and from an IEEE division
+    (a tensor divisor); the fused kernel multiplies by the reciprocal."""
+    x = torch.rand(1 << 20, generator=torch.Generator(device=dev).manual_seed(
+        0), device=dev) * 16
+    got = x / 127.0
+    inv = float(torch.tensor(1.0) / torch.tensor(127.0))   # f32 reciprocal
+    res = {"values": x.numel(),
+           "differ_from_reciprocal_mul": int((got != x * inv).sum()),
+           "differ_from_ieee_div": int(
+               (got != x / torch.full_like(x, 127.0)).sum())}
+    log(f"[kernels] plain absmax / 127.0 on the card: "
+        f"{res['differ_from_reciprocal_mul']} of {res['values']} differ from "
+        f"x * fl(1/127), {res['differ_from_ieee_div']} from an IEEE "
+        f"division")
+    return res
+
+
+def fused_row(gen, cache, lengths, layer: int, tbl=None) -> dict:
+    """The fused RoPE + K/V quantize + insert at Llama-3-8B's B=8 decode
+    shapes: q, k and v bf16 views of one random ``wqkv`` output row (Hq 32,
+    Hkv 8, Dh 128), the model's llama3 rope tables at the slots' lengths,
+    into ``cache`` (a 32-layer stack, or a page pool under ``tbl``). Codes
+    and scales byte-equal to the plain chain (RoPE, ``quantize_kv``, the
+    codes-in insert) and the rotated q bit-equal, one launch counted under
+    [fused]; then its device time (each call on the next layer, L2-cold),
+    the plain chain's device time, and the bound of the bytes the call must
+    move (q, k, v, the tables, the lengths and table entries read; q and
+    the rows of the slots whose position lies in the cache written)."""
+    from quant_tpu_torch.kernels import _build
+    from quant_tpu_torch.kernels.cache_insert import (
+        cache_insert_int8_fused, cache_insert_int8_fused_reference,
+        paged_cache_insert_int8_fused,
+        paged_cache_insert_int8_fused_reference)
+    from quant_tpu_torch.models import PRESETS, llama
+    from quant_tpu_torch.utils.timing import device_time, kernel_times
+
+    cfg = PRESETS["llama-3-8b"]
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dev, layers, b = cache[0].device, cache[0].shape[0], lengths.shape[0]
+    paged = tbl is not None
+    name = "paged_cache_insert_int8" if paged else "cache_insert_int8"
+    kernel, plain = ((paged_cache_insert_int8_fused,
+                      paged_cache_insert_int8_fused_reference) if paged else
+                     (cache_insert_int8_fused,
+                      cache_insert_int8_fused_reference))
+    extra = (tbl,) if paged else ()
+    row = torch.randn((b, 1, (hq + 2 * hkv) * dh), generator=gen,
+                      device=dev).to(BF16)
+    q = row[..., :hq * dh].view(b, 1, hq, dh)
+    k = row[..., hq * dh:(hq + hkv) * dh].view(b, 1, hkv, dh)
+    v = row[..., (hq + hkv) * dh:].view(b, 1, hkv, dh)
+    cos, sin = llama._rope_tables(lengths[:, None], cfg.rope_theta, dh, cfg)
+    ref_cache = [t.clone() for t in cache]
+    _build.reset_launches()
+    got = kernel(q, k, v, cos, sin, *cache, lengths, layer, *extra)
+    ref = plain(q, k, v, cos, sin, *ref_cache, lengths, layer, *extra)
+    torch.cuda.synchronize()
+    what = f"{name} page {cache[0].shape[3]}" if paged else name
+    if _build.launches[name] != 1 or _build.launches[f"{name}[fused]"] != 1:
+        raise AssertionError(f"{what}: one launch under [fused] expected, "
+                             f"counted {_build.launches}")
+    if not torch.equal(got.view(torch.int16), ref.view(torch.int16)):
+        raise AssertionError(f"{what}: q is not bit-equal to the plain "
+                             "chain's")
+    for a, r in zip(cache, ref_cache):
+        if not torch.equal(a.view(torch.int8), r.view(torch.int8)):
+            raise AssertionError(f"{what}: the cache is not byte-equal to "
+                                 "the plain chain's")
+    del ref_cache
+    nxt = cycle(range(layers))
+    ms, ev = kernel_times(lambda: kernel(q, k, v, cos, sin, *cache, lengths,
+                                         nxt(), *extra), layers)
+    plain_ms = device_time(lambda: plain(q, k, v, cos, sin, *cache, lengths,
+                                         nxt(), *extra), layers)
+    cap = tbl.shape[1] * cache[0].shape[3] if paged else cache[0].shape[3]
+    written = int(((lengths >= 0) & (lengths < cap)).sum())
+    nbytes = (row.numel() * 2 + 2 * cos.numel() * 4 + b * 4 * (1 + paged)
+              + b * hq * dh * 2 + written * 2 * hkv * (dh + 4))
+    b_ms, b_by = bound_ms(nbytes, 0)
+    where = (f"page {cache[0].shape[3]}, {layers}-layer pool of "
+             f"{cache[0].shape[1]} pages" if paged
+             else f"S={cache[0].shape[3]}, {layers}-layer stack")
+    log(f"[kernels] {name} [fused] B=8 Hq=32 Hkv=8 D=128 bf16 {where}: "
+        f"codes and scales byte-equal, q bit-equal  {ms:.4f} ms (events "
+        f"{ev:.4f})  plain chain {plain_ms:.4f} ms  bound {b_ms:.6f} ms "
+        f"({b_by}, {nbytes} bytes)")
+    return {"max_abs_err": 0.0, "ms": ms, "event_ms": ev,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "bytes": nbytes, "library_ms": None,
+            "unit": f"one call, RoPE + K/V quantize + insert fused: B=8, "
+                    f"Hq=32, Hkv=8, Dh=128, bf16 q/k/v views of one wqkv "
+                    f"row, {where}, lengths {lengths.tolist()}; device time"}
 
 
 def rand_cache(gen, layers: int, b: int, hkv: int, s: int, d: int) -> list:
@@ -1164,6 +1211,7 @@ def phase_serving(detail: dict, params, cfg) -> dict:
         "dequant_matmul": (4 * cfg.n_layers + 1)
         * (eng.prefill_chunks + eng.decode_forwards),
         "cache_insert_int8": cfg.n_layers * eng.decode_forwards,
+        "cache_insert_int8[fused]": cfg.n_layers * eng.decode_forwards,
         "flash_decode_int8": cfg.n_layers * eng.decode_forwards,
     }
     for k, v in expect.items():
@@ -1344,6 +1392,8 @@ def phase_paged_serving(detail: dict, params, cfg) -> dict:
     fwd = stats["prefill_chunks"] + stats["decode_forwards"]
     expect = {"dequant_matmul": (4 * cfg.n_layers + 1) * fwd,
               "paged_cache_insert_int8":
+                  cfg.n_layers * stats["decode_forwards"],
+              "paged_cache_insert_int8[fused]":
                   cfg.n_layers * stats["decode_forwards"],
               "paged_flash_decode_int8":
                   cfg.n_layers * stats["decode_forwards"],
@@ -1552,7 +1602,7 @@ def profile_decode(eng, steps: int = 3, label: str = "decode",
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     # device-side events only (kernels, copies, memsets): the CPU ops that
     # launched them carry the same device time again
-    by_name, calls, spans = {}, {}, []
+    by_name, calls, spans, kernels = {}, {}, [], 0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             tr = e.time_range
@@ -1560,21 +1610,27 @@ def profile_decode(eng, steps: int = 3, label: str = "decode",
                                + (tr.end - tr.start) / 1e3 / steps)
             calls[e.name] = calls.get(e.name, 0) + 1 / steps
             spans.append((tr.start, tr.end))
+            kernels += not e.name.startswith(("Memcpy", "Memset"))
     busy_us, end = 0.0, -math.inf
     for s, t in sorted(spans):        # union: overlapping spans count once
         busy_us += max(0.0, t - max(s, end))
         end = max(end, t)
     busy = busy_us / 1e3 / steps
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    averages = prof.key_averages()
     host = sorted(((e.key, e.self_cpu_time_total / 1e3 / steps,
-                    e.count / steps) for e in prof.key_averages()
+                    e.count / steps) for e in averages
                    if e.self_cpu_time_total > 0), key=lambda kv: -kv[1])[:12]
+    # the CUDA API calls that launch a kernel (cudaLaunchKernel,
+    # cuLaunchKernel, ...), per step
+    launch_calls = {e.key: e.count / steps for e in averages
+                    if "LaunchKernel" in e.key}
     ours = {}
     for name, ms in by_name.items():
         for kernel in ("dequant_matmul_moe_kernel", "dequant_matmul_kernel",
                        "mla_decode", "mla_cache_insert_kernel",
                        "paged_flash_decode", "flash_decode",
-                       "cache_insert_kernel"):
+                       "rope_kv_insert_kernel"):
             if kernel in name:
                 ours[kernel] = ours.get(kernel, 0.0) + ms
                 break
@@ -1582,6 +1638,8 @@ def profile_decode(eng, steps: int = 3, label: str = "decode",
            "bare_forward_ms_per_step": bare_ms, "wall_ms_per_step": wall_ms,
            "device_busy_ms_per_step": busy if busy else "not measured",
            "idle_share": 1 - busy / wall_ms if busy else "not measured",
+           "device_kernels_per_step": kernels / steps,
+           "launch_calls_per_step": launch_calls,
            "top_kernels_ms_per_step": top, "port_kernels_ms_per_step": ours,
            # every attention kernel of the trace and its launches per
            # step: one per layer and call, no separate merge kernel
@@ -1594,6 +1652,8 @@ def profile_decode(eng, steps: int = 3, label: str = "decode",
         f"on the host clock, device busy "
         f"{busy:.2f} ms/step" + (f" (idle share {res['idle_share']:.2f})"
                                  if busy else " (no device time recorded)"))
+    log(f"[profile]   {kernels / steps:.1f} device kernels/step; launch "
+        f"calls/step {launch_calls}")
     for name, ms in top[:6]:
         log(f"[profile]   device {ms:8.3f} ms/step  {name[:80]}")
     for name, n in res["attention_launches_per_step"].items():
@@ -1869,10 +1929,13 @@ def moe_expected(cfg, chunks: int, decode: int, paged: bool) -> dict:
     lm_head through dequant_matmul, and a DeepSeek model's dense-prefix MLP
     and shared experts; gate|up and down of the routing layers through
     dequant_matmul_moe; and the decode pair of the cache (paged, contiguous
-    or MLA latent) per decode forward and layer."""
+    or MLA latent) per decode forward and layer, a GQA insert's also under
+    [fused]."""
     fwd, ln, k0 = chunks + decode, cfg.n_layers, cfg.first_k_dense
-    pairs = {"paged": ("paged_cache_insert_int8", "paged_flash_decode_int8"),
-             "contiguous": ("cache_insert_int8", "flash_decode_int8"),
+    pairs = {"paged": ("paged_cache_insert_int8", "paged_flash_decode_int8",
+                       "paged_cache_insert_int8[fused]"),
+             "contiguous": ("cache_insert_int8", "flash_decode_int8",
+                            "cache_insert_int8[fused]"),
              "mla": ("mla_cache_insert_int8", "mla_flash_decode_int8")}
     kind = "mla" if cfg.is_mla else "paged" if paged else "contiguous"
     dense = ((2 + bool(cfg.q_lora_rank)) * ln + 2 * k0

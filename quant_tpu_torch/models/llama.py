@@ -29,8 +29,9 @@ or a page pool shared by all slots (:class:`PagedKVCache`,
 ``[L, P, Hkv, page, Dh]`` addressed through per-slot page tables).
 
 Kernel selection mirrors the JAX ``make_layer_step``: decode (T=1) with an
-int8 cache takes ``cache_insert_int8`` then ``flash_decode_int8`` (their
-paged counterparts over a pool; ``mla_cache_insert_int8`` then
+int8 cache takes ``cache_insert_int8_fused`` (RoPE of q and k, K/V
+quantization and the insert in one launch) then ``flash_decode_int8``
+(their paged counterparts over a pool; ``mla_cache_insert_int8`` then
 ``mla_flash_decode_int8`` over an MLA latent cache); prefill (T>1) writes the cache with the
 plain scatter and runs the plain blockwise attention (over
 ``paged_gather`` of the slot's pages for a pool). ``kernel_mode="xla"``
@@ -49,16 +50,16 @@ import torch
 
 from quant_tpu_torch.core.qtensor import QTensor, quantize_tensor_device
 from quant_tpu_torch.kernels.attention import flash_decode_int8
-from quant_tpu_torch.kernels.cache_insert import (cache_insert_int8,
-                                                  mla_cache_insert_int8,
-                                                  paged_cache_insert_int8,
-                                                  paged_insert_rows)
+from quant_tpu_torch.kernels.cache_insert import (
+    cache_insert_int8_fused, mla_cache_insert_int8,
+    paged_cache_insert_int8_fused, paged_insert_rows)
 from quant_tpu_torch.kernels.dequant_matmul import (dequant_matmul,
                                                     dequant_matmul_moe,
                                                     dequant_matmul_reference)
 from quant_tpu_torch.kernels.mla_attention import mla_flash_decode_int8
 from quant_tpu_torch.kernels.paged_attention import (paged_flash_decode_int8,
                                                      paged_gather)
+from quant_tpu_torch.kernels.rope_kv import quantize_kv, rope_apply
 from quant_tpu_torch.models.config import ModelConfig
 from quant_tpu_torch.utils.device import check_on, resolve_device
 
@@ -695,29 +696,21 @@ def _rope_tables(positions: torch.Tensor, theta: float, dh: int,
     return torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
 
 
-def _deinterleave(x: torch.Tensor) -> torch.Tensor:
-    """[..., d] with interleaved rotary pairs -> [evens | odds]: DeepSeek
-    rotates (x[2i], x[2i+1]) pairs; rotate-half RoPE on the de-interleaved
-    vector rotates the same pairs, in a fixed permutation of the lanes that
-    q and k share, as in the JAX package."""
-    *s, d = x.shape
-    return x.reshape(*s, d // 2, 2).transpose(-1, -2).reshape(*s, d)
-
-
 def _rope_apply(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
                 cfg: ModelConfig | None = None) -> torch.Tensor:
     """Rotate-half RoPE with precomputed tables; ``cfg`` adds its
-    ``rope_interleaved`` pair layout and yarn's attention factor (which
-    multiplies the rotated output, as the JAX package applies it)."""
-    if cfg is not None and cfg.rope_interleaved:
-        x = _deinterleave(x)
-    half = x.shape[-1] // 2
-    x1 = x[..., :half].to(torch.float32)
-    x2 = x[..., half:].to(torch.float32)
-    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
-    if cfg is not None and cfg.rope_scaling == "yarn":
-        out = out * yarn_attention_factor(cfg)
-    return out.to(x.dtype)
+    ``rope_interleaved`` pair layout and yarn's attention factor."""
+    return rope_apply(x, cos, sin, **_rope_options(cfg))
+
+
+def _rope_options(cfg: ModelConfig | None) -> dict:
+    """``cfg``'s rotary pair layout and yarn's attention factor, as
+    :func:`quant_tpu_torch.kernels.rope_kv.rope_apply` takes them."""
+    if cfg is None:
+        return {}
+    return {"interleaved": cfg.rope_interleaved,
+            "attn_factor": (yarn_attention_factor(cfg)
+                            if cfg.rope_scaling == "yarn" else None)}
 
 
 def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
@@ -725,18 +718,6 @@ def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     """Rotate-half RoPE. x [B, T, H, Dh], positions [B, T] int."""
     return _rope_apply(x, *_rope_tables(positions, theta, x.shape[-1], cfg),
                        cfg)
-
-
-def quantize_kv(x: torch.Tensor, bits: int = 8):
-    """Per-(token, head) symmetric int8: x [B, T, H, Dh] -> (codes int8
-    [B, T, H, Dh], scales f32 [B, T, H])."""
-    if bits != 8:
-        raise NotImplementedError(f"kv_bits {bits} is not ported")
-    xf = x.to(torch.float32)
-    absmax = xf.abs().amax(dim=-1)
-    scale = torch.where(absmax == 0, torch.ones_like(absmax), absmax / 127.0)
-    codes = torch.round(xf / scale[..., None])
-    return codes.to(torch.int8), scale
 
 
 def dequant_kv(codes: torch.Tensor, bits: int = 8) -> torch.Tensor:
@@ -936,16 +917,25 @@ def _gqa_attn(x, lay: LayerParams, i: int, gi: int, cfg: ModelConfig, mm,
         # Qwen3: per-head RMSNorm over Dh before RoPE
         q = rmsnorm(q, lay.q_norm[i], cfg.norm_eps)
         k = rmsnorm(k, lay.k_norm[i], cfg.norm_eps)
+    scale = _q_scale(cfg, cfg.head_dim)
+    if kernels:
+        # one launch: RoPE of q and k, K/V quantization and the insert,
+        # reading q, k and v where the projection left them
+        opts = dict(_rope_options(cfg), kv_bits=cfg.kv_bits)
+        if paged:
+            q = paged_cache_insert_int8_fused(q, k, v, *rope, kc, ks, vc, vs,
+                                              lengths, gi, tbl, **opts)
+            return paged_flash_decode_int8(q, kc, ks, vc, vs, tbl,
+                                           new_lengths, gi,
+                                           scale=scale)[:, None]
+        q = cache_insert_int8_fused(q, k, v, *rope, kc, ks, vc, vs, lengths,
+                                    gi, **opts)
+        return flash_decode_int8(q, kc, ks, vc, vs, new_lengths, gi,
+                                 scale=scale)[:, None]
     q = _rope_apply(q, *rope, cfg)
     k = _rope_apply(k, *rope, cfg)
     k_q, k_s = quantize_kv(k, cfg.kv_bits)
     v_q, v_s = quantize_kv(v, cfg.kv_bits)
-    scale = _q_scale(cfg, cfg.head_dim)
-    if paged and kernels:
-        paged_cache_insert_int8(kc, ks, vc, vs, k_q, k_s, v_q, v_s,
-                                lengths, gi, tbl)
-        return paged_flash_decode_int8(q[:, 0], kc, ks, vc, vs, tbl,
-                                       new_lengths, gi, scale=scale)[:, None]
     att = attention_blockwise if t > 1 else attention
     if paged:
         _paged_insert_at_layer(kc, ks, k_q, k_s, lengths, gi, tbl)
@@ -953,10 +943,6 @@ def _gqa_attn(x, lay: LayerParams, i: int, gi: int, cfg: ModelConfig, mm,
         return att(q, paged_gather(kc, tbl, gi), paged_gather(ks, tbl, gi),
                    paged_gather(vc, tbl, gi), paged_gather(vs, tbl, gi),
                    positions, new_lengths, cfg)
-    if kernels:
-        cache_insert_int8(kc, ks, vc, vs, k_q, k_s, v_q, v_s, lengths, gi)
-        return flash_decode_int8(q[:, 0], kc, ks, vc, vs, new_lengths, gi,
-                                 scale=scale)[:, None]
     _cache_insert_at_layer(kc, ks, k_q, k_s, lengths, gi)
     _cache_insert_at_layer(vc, vs, v_q, v_s, lengths, gi)
     return att(q, kc[gi], ks[gi], vc[gi], vs[gi], positions, new_lengths, cfg)

@@ -10,8 +10,12 @@ do not finish within the run. After all are admitted the workers take turns,
 A B B A in each of 5 rounds, so that drift of the shared host falls on both
 alike. In its turn a worker times on the host clock 8 ``Engine.step()``
 calls (pure decode at B=8; each ends in a device sync) and 8 bare decode
-``llama.forward`` calls at the slots' lengths. One JSON line per turn, then
-a summary line with each tree's medians. Needs a CUDA device.
+``llama.forward`` calls at the slots' lengths. After the turns each worker
+traces 3 bare decode forwards with ``torch.profiler`` (A, then B): device
+kernels per step, the runtime's kernel-launch calls per step, device busy
+time per step and the host-clock time of the traced steps. One JSON line
+per turn and per profile, then a summary line with each tree's medians and
+profile. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -24,7 +28,38 @@ import subprocess
 import sys
 import time
 
-N, ROUNDS = 8, 5
+N, ROUNDS, PROFILED = 8, 5, 3
+
+
+def profile(fn, steps: int = PROFILED) -> dict:
+    """Device kernels, kernel-launch calls (by CUDA API entry point),
+    device busy time (the union of the device events) and host-clock time,
+    each per call of ``fn()``, from one ``torch.profiler`` trace."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as trace
+
+    fn()
+    torch.cuda.synchronize()
+    with trace(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in dev):
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    kernels = [e for e in dev if not e.name.startswith(("Memcpy", "Memset"))]
+    return {"device_kernels_per_step": len(kernels) / steps,
+            "launch_calls_per_step": {
+                e.key: e.count / steps for e in prof.key_averages()
+                if "LaunchKernel" in e.key},
+            "device_busy_ms_per_step": busy / 1e3 / steps,
+            "traced_ms_per_step": 1e3 * wall / steps}
 
 
 def worker(tree: str) -> None:
@@ -58,6 +93,11 @@ def worker(tree: str) -> None:
     torch.cuda.synchronize()
     proto.write(json.dumps({"ready": tree}) + "\n")
     for line in sys.stdin:
+        if line.strip() == "profile":
+            res = profile(lambda: llama.forward(params, tokens, eng.cache, cfg,
+                                                device="cuda"))
+            proto.write(json.dumps(res) + "\n")
+            continue
         if line.strip() != "turn":
             break
         t0 = time.perf_counter()
@@ -109,6 +149,11 @@ def main(argv=None) -> int:
                 res.update(tree=args.trees[k], round=r)
                 times[args.trees[k]].append(res)
                 print(json.dumps(res), flush=True)
+        profiles = {}
+        for k, t in enumerate(args.trees):
+            procs[k].stdin.write("profile\n")
+            profiles[t] = json.loads(procs[k].stdout.readline())
+            print(json.dumps({"tree": t, "profile": profiles[t]}), flush=True)
         for p in procs:
             p.stdin.close()
             if p.wait(timeout=120):
@@ -121,7 +166,7 @@ def main(argv=None) -> int:
     summary = {t: {m: statistics.median(x[m] for x in ts)
                    for m in ("step_ms", "forward_ms")}
                for t, ts in times.items()}
-    print(json.dumps({"median": summary}))
+    print(json.dumps({"median": summary, "profile": profiles}))
     return 0
 
 

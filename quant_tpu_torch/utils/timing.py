@@ -83,23 +83,24 @@ def device_time(fn, iters: int = 20, warmup: int = 1) -> float:
     durations of the device-side events ``torch.profiler`` records over
     ``iters`` calls. The profiler can lose events (see :func:`_trace`), so
     a trace counts only when it holds some, each name a multiple of
-    ``iters`` times, the trace before it holds the same names as often and
-    no earlier trace held another; up to ``_ATTEMPTS`` traces past the
-    first are taken, then this raises, listing every trace."""
+    ``iters`` times, an earlier trace held the same names as often (not
+    only the one just before: a long trace can lose a few events every
+    other time) and no earlier trace held another; up to ``_ATTEMPTS``
+    traces past the first are taken, then this raises, listing every
+    trace."""
     if not torch.cuda.is_available():
         raise RuntimeError("device_time measures the card; no CUDA device")
     for _ in range(warmup):
         fn()
-    prev, names, traces = None, set(), []
+    names, traces = set(), []
     for _ in range(1 + _ATTEMPTS):
         events = _trace(fn, iters)
         seen = Counter(name for name, _ in events)
-        traces.append(dict(seen))
         names |= seen.keys()
-        if (seen and seen == prev and seen.keys() == names
+        if (seen and seen in traces and seen.keys() == names
                 and all(n % iters == 0 for n in seen.values())):
             return sum(us for _, us in events) / 1e3 / iters
-        prev = seen
+        traces.append(dict(seen))
     raise RuntimeError(f"the profiler's device events of {iters} calls "
                        f"disagree from trace to trace: {traces}")
 

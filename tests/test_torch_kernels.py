@@ -20,8 +20,11 @@ try:
     from quant_tpu.core.qtensor import quantize_tensor as j_quantize
     from quant_tpu.kernels.attention import flash_decode_int8 as j_flash
     from quant_tpu.kernels.cache_insert import cache_insert_int8 as j_insert
+    from quant_tpu.kernels.cache_insert import (
+        paged_cache_insert_int8 as j_paged_insert)
     from quant_tpu.kernels.dequant_matmul import dequant_matmul as j_dqmm
     from quant_tpu.kernels.unpack import unpack_int4_device as j_unpack
+    from quant_tpu.models import llama as jllama
 except ModuleNotFoundError:   # only the gpu-marked test can run there
     pass
 
@@ -31,9 +34,9 @@ from quant_tpu_torch.kernels import attention as att
 from quant_tpu_torch.kernels.attention import (flash_decode_int8,
                                                flash_decode_int8_reference)
 from quant_tpu_torch.kernels.cache_insert import (
-    cache_insert_int8, cache_insert_int8_reference)
-from quant_tpu_torch.kernels.cache_insert import (
-    paged_cache_insert_int8, paged_cache_insert_int8_reference)
+    cache_insert_int8_fused, cache_insert_int8_fused_reference,
+    cache_insert_int8_reference, paged_cache_insert_int8_fused,
+    paged_cache_insert_int8_fused_reference)
 from quant_tpu_torch.kernels.cache_insert import (
     mla_cache_insert_int8, mla_cache_insert_int8_reference)
 from quant_tpu_torch.kernels import dequant_matmul as dmm
@@ -48,6 +51,7 @@ from quant_tpu_torch.kernels.paged_attention import (
 from quant_tpu_torch.kernels.unpack import (unpack_int4_device,
                                             unpack_int4_host,
                                             unpack_int4_reference)
+from quant_tpu_torch.models.llama import _rope_tables
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -161,7 +165,9 @@ def _cache(rng, l, b, h, s, d):
 @pytest.mark.parametrize("s0,lengths", [(0, [3, 127, 128, 50]),
                                         (64, [3, 100, 191, 250])])
 def test_cache_insert_matches_jax(s0, lengths):
-    """Byte-equal; rows at or past S, or before s0, are dropped."""
+    """The codes-in plain insert (which the fused insert's plain version
+    runs after RoPE and quantization) byte-equal to the JAX kernel; rows at
+    or past S, or before s0, are dropped."""
     rng = np.random.default_rng(11 + s0)
     l, b, h, s, d = 3, 4, 2, 128, 64
     cache = _cache(rng, l, b, h, s, d)
@@ -174,15 +180,162 @@ def test_cache_insert_matches_jax(s0, lengths):
                    jnp.asarray(kns), jnp.asarray(vn), jnp.asarray(vns),
                    jnp.asarray(ln), jnp.int32(1), s0, interpret=True)
     tc = [torch.from_numpy(a.copy()) for a in cache]
-    got = cache_insert_int8(*tc, torch.from_numpy(kn), torch.from_numpy(kns),
-                            torch.from_numpy(vn), torch.from_numpy(vns),
-                            torch.from_numpy(ln), 1, s0)
+    got = cache_insert_int8_reference(
+        *tc, torch.from_numpy(kn), torch.from_numpy(kns), torch.from_numpy(vn),
+        torch.from_numpy(vns), torch.from_numpy(ln), 1, s0)
     for g_, r_, t_ in zip(got, ref, tc):
         assert g_ is t_                  # written in place
         np.testing.assert_array_equal(g_.numpy(), np.asarray(r_))
     dropped = [i for i, n in enumerate(lengths) if not 0 <= n - s0 < s]
     for i in dropped:
         np.testing.assert_array_equal(got[0][:, i].numpy(), cache[0][:, i])
+
+
+# the fused insert: (layout, s0 or page, Dh) in float32 and bfloat16 at rep
+# 1 and 4; the contiguous cache at s0 0 and 64 with Dh 64 (the shapes of
+# test_cache_insert_matches_jax, whose JAX kernel build it shares) and 128,
+# the page pool at pages 8 (Dh 128) and 16 (Dh 64)
+_FUSED_CASES = [(layout, at, dh, dtype, rep)
+                for layout, at, dh in (("contiguous", 0, 64),
+                                       ("contiguous", 0, 128),
+                                       ("contiguous", 64, 64),
+                                       ("contiguous", 64, 128),
+                                       ("paged", 8, 128), ("paged", 16, 64))
+                for dtype in ("float32", "bfloat16") for rep in (1, 4)]
+_THETA = 500000.0
+
+
+def _fused_inputs(layout, at, dh):
+    """(projection row [B, 1, (8 + 2 Hkv) Dh] f32 at rep 4, caches, lengths,
+    page table or None) of one layout: 4 slots, Hkv 2 (the rotary and
+    quantizer inputs of a Dh and dtype have one shape for every layout, so
+    the JAX chain is traced once for each). Contiguous: S 128, a slot whose
+    row lies past S or before s0 (dropped). Paged: 32 tokens a slot, one
+    writing on its third page (at page 8), one at capacity (dropped) and a
+    parked one (length 0, table row 0: its row goes to the scratch page
+    0)."""
+    rng = np.random.default_rng([at, dh])
+    b, hkv = 4, 2
+    row = rng.standard_normal((b, 1, (4 * hkv + 2 * hkv) * dh),
+                              dtype=np.float32)
+    if layout == "contiguous":
+        lengths = [3, 127, 128, 0] if at == 0 else [3, 100, 191, 64]
+        return (row, _cache(rng, 3, b, hkv, 128, dh),
+                np.asarray(lengths, np.int32), None)
+    max_pages = 32 // at
+    lengths = np.asarray([19, max_pages * at, 0, 5], np.int32)
+    n_pool = 1 + b * max_pages
+    cache = _cache(rng, 2, n_pool, hkv, at, dh)
+    perm = rng.permutation(np.arange(1, n_pool)).reshape(b, max_pages)
+    used = -(-lengths // at)
+    tbl = np.where(np.arange(max_pages)[None] < used[:, None], perm, 0)
+    return row, cache, lengths, tbl.astype(np.int32)
+
+
+def _qkv(row, rep, dh, cat):
+    """q [B, 1, 2 rep, Dh] (the first heads of rep 4's), k and v [B, 1, 2,
+    Dh] of a rep-4 projection row; in torch, views of one projection row
+    at ``rep``."""
+    b, hq = row.shape[0], 2 * rep
+    row = cat([row[..., :hq * dh], row[..., 8 * dh:]], -1)
+    return (row[..., :hq * dh].reshape(b, 1, hq, dh),
+            row[..., hq * dh:(hq + 2) * dh].reshape(b, 1, 2, dh),
+            row[..., (hq + 2) * dh:].reshape(b, 1, 2, dh))
+
+
+def _jax_chain(q, k, v, pos):
+    """The JAX forward's RoPE of q and k and ``quantize_kv`` of k and v,
+    eagerly (under ``jax.jit`` XLA may divide by another rounding of the
+    scale, which moves codes at ties)."""
+    q = jllama._rope(q, pos, _THETA)
+    kq, ks = jllama.quantize_kv(jllama._rope(k, pos, _THETA))
+    return (q, kq, ks, *jllama.quantize_kv(v))
+
+
+@pytest.fixture(scope="module")
+def jax_fused():
+    """(layout, s0 or page, Dh, dtype) -> (rotated q of rep 4 as f32, caches
+    after the insert): the JAX chain ``_rope`` of q and k, ``quantize_kv``
+    of k and v, then the Pallas insert (contiguous or paged) with
+    ``interpret=True``. The rep-1 cases read the first heads of the q."""
+    out = {}
+    for layout, at, dh, dtype, rep in _FUSED_CASES:
+        if rep != 4:
+            continue
+        row, cache, lengths, tbl = _fused_inputs(layout, at, dh)
+        q, k, v = _qkv(jnp.asarray(row).astype(getattr(jnp, dtype)), 4, dh,
+                       jnp.concatenate)
+        q, kq, ks, vq, vs = _jax_chain(q, k, v,
+                                       jnp.asarray(lengths[:, None]))
+        args = [jnp.asarray(a) for a in cache] + [kq, ks, vq, vs,
+                                                  jnp.asarray(lengths),
+                                                  jnp.int32(1)]
+        res = (j_insert(*args, at, interpret=True) if tbl is None else
+               j_paged_insert(*args, jnp.asarray(tbl), interpret=True))
+        out[layout, at, dh, dtype] = (np.asarray(q[:, 0].astype(jnp.float32)),
+                                      [np.asarray(a) for a in res])
+    return out
+
+
+@pytest.mark.parametrize("layout,at,dh,dtype,rep", _FUSED_CASES)
+def test_fused_insert_matches_jax(jax_fused, layout, at, dh, dtype, rep):
+    """The fused insert on the CPU (its plain version: the port's RoPE,
+    ``quantize_kv`` and codes-in insert) against the JAX chain, with q, k
+    and v as views of one projection row: the rotated q within 1e-5 in
+    float32 (``test_rope_matches_jax``: cos/sin of one float32 angle in two
+    libraries) and within one bfloat16 step (2**-7 of |q|, plus 1e-5) in
+    bfloat16; cache codes equal except in at most 0.1% of the written
+    entries, which differ by exactly 1 (a rounding tie of the quantizer,
+    ``tests/test_torch_llama.py``'s rule), scales within 1e-5 relative,
+    and every entry that was not written untouched."""
+    ref_q, ref_cache = jax_fused[layout, at, dh, dtype]
+    ref_q = ref_q[:, :2 * rep]
+    row, cache, lengths, tbl = _fused_inputs(layout, at, dh)
+    q, k, v = _qkv(torch.from_numpy(row).to(getattr(torch, dtype)), rep, dh,
+                   torch.cat)
+    assert not (q.is_contiguous() or k.is_contiguous()
+                or v.is_contiguous())
+    cos, sin = _rope_tables(torch.from_numpy(lengths)[:, None], _THETA, dh)
+    ln = torch.from_numpy(lengths)
+    got_cache = [torch.from_numpy(a.copy()) for a in cache]
+    plain_cache = [torch.from_numpy(a.copy()) for a in cache]
+    if tbl is None:
+        got = cache_insert_int8_fused(q, k, v, cos, sin, *got_cache, ln, 1,
+                                      at)
+        plain = cache_insert_int8_fused_reference(
+            q, k, v, cos, sin, *plain_cache, ln, 1, at)
+    else:
+        t = torch.from_numpy(tbl)
+        got = paged_cache_insert_int8_fused(q, k, v, cos, sin, *got_cache,
+                                            ln, 1, t)
+        plain = paged_cache_insert_int8_fused_reference(
+            q, k, v, cos, sin, *plain_cache, ln, 1, t)
+    # the CPU dispatch is the plain version
+    assert torch.equal(got, plain)
+    assert all(torch.equal(a, b) for a, b in zip(got_cache, plain_cache))
+    assert got.dtype == q.dtype and got.shape == (len(lengths), 2 * rep, dh)
+    g = got.float().numpy()
+    if dtype == "float32":
+        assert np.max(np.abs(g - ref_q)) <= 1e-5
+    else:
+        assert np.all(np.abs(g - ref_q) <= 2.0 ** -7 * np.abs(ref_q) + 1e-5)
+    # [L, B or P, H, S or page]: the rows the step writes (layer 1)
+    rows = np.zeros(cache[1].shape, bool)
+    for b, n in enumerate(lengths):
+        if tbl is None and 0 <= n - at < rows.shape[3]:
+            rows[1, b, :, n - at] = True
+        elif tbl is not None and n < tbl.shape[1] * at:
+            rows[1, tbl[b, n // at], :, n % at] = True
+    assert rows.sum() == 2 * (len(lengths) - 1)   # one slot drops its row
+    for i in (0, 2):
+        t_c, j_c = got_cache[i].numpy(), ref_cache[i]
+        np.testing.assert_array_equal(t_c[~rows], cache[i][~rows])
+        np.testing.assert_array_equal(j_c[~rows], cache[i][~rows])
+        d = np.abs(t_c[rows].astype(np.int32) - j_c[rows].astype(np.int32))
+        assert d.max() <= 1 and np.mean(d > 0) <= 1e-3, (i, np.sum(d > 0))
+    for i in (1, 3):
+        np.testing.assert_allclose(got_cache[i].numpy(), ref_cache[i],
+                                   rtol=1e-5, atol=0)
 
 
 @pytest.mark.parametrize("rep", [2, 4])
@@ -310,9 +463,10 @@ def test_flash_decode_zero_length_is_finite():
 
 @pytest.mark.gpu
 def test_cuda_kernels_match_plain_on_card():
-    """Each CUDA kernel against its plain version at small shapes;
-    dequant_matmul at each tile's M, N and group edges, each call counted
-    under the tile it should take."""
+    """dequant_matmul and flash decode against their plain versions at
+    small shapes; dequant_matmul at each tile's M, N and group edges, each
+    call counted under the tile it should take (the inserts are
+    ``test_fused_insert_matches_plain_on_card``)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda")
@@ -366,25 +520,6 @@ def test_cuda_kernels_match_plain_on_card():
         got = dequant_matmul(x, stack, 2, out_dtype=torch.float32)
         assert _build.launches[f"dequant_matmul[{tile}]"] == 1
         assert (got - ref).abs().max() <= 2e-2 * ref.abs().max()
-    # the insert at Llama-3-8B's head geometry and test-tiny's
-    for s, d, rep in ((600, 128, 4), (300, 64, 2)):
-        l, b, h = 2, 4, 2
-        cache = [t.to(dev) for t in (
-            torch.randint(-127, 128, (l, b, h, s, d), dtype=torch.int8),
-            torch.rand((l, b, h, s)) * 0.02,
-            torch.randint(-127, 128, (l, b, h, s, d), dtype=torch.int8),
-            torch.rand((l, b, h, s)) * 0.02)]
-        plain = [t.clone() for t in cache]
-        new = [t.to(dev) for t in (
-            torch.randint(-127, 128, (b, 1, h, d), dtype=torch.int8),
-            torch.rand((b, 1, h)),
-            torch.randint(-127, 128, (b, 1, h, d), dtype=torch.int8),
-            torch.rand((b, 1, h)))]
-        ln = torch.tensor([0, 17, 257, s], dtype=torch.int32, device=dev)
-        cache_insert_int8(*cache, *new, ln, 1)
-        cache_insert_int8_reference(*plain, *new, ln, 1)
-        for a, r in zip(cache, plain):
-            assert torch.equal(a, r)
     # flash decode at rep 1, 2, 4, 8 and Dh 64, 96, 128, 256 over the
     # plan's chunk edges (S spans several chunks, the last one partial)
     s, l, b, h = 600, 2, 8, 2
@@ -433,12 +568,12 @@ def _check_decode(gen, kernel, plain, name, shape):
 @pytest.mark.gpu
 @pytest.mark.parametrize("page", [8, 16, 128])
 def test_paged_cuda_kernels_match_plain_on_card(page):
-    """The paged insert (byte-equal, with a slot at capacity and a parked
-    slot) and paged flash decode (f32 and bf16 q, rep 1, 2, 4 and 8, Dh
-    64, 128 and 256) against their plain versions at the plan's chunk edges;
-    a chunk spans several pages or part of one, a tile crosses pages of 8
-    and 16, and table entries past each slot's pages point at the scratch
-    page 0."""
+    """Paged flash decode (f32 and bf16 q, rep 1, 2, 4 and 8, Dh 64, 128
+    and 256) against its plain version at the plan's chunk edges; a chunk
+    spans several pages or part of one, a tile crosses pages of 8 and 16,
+    and table entries past each slot's pages point at the scratch page 0
+    (the paged insert is a case of
+    ``test_fused_insert_matches_plain_on_card``)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda")
@@ -466,25 +601,106 @@ def test_paged_cuda_kernels_match_plain_on_card(page):
                               generator=gen, device=dev, dtype=torch.int8),
                 torch.rand((l, n_pool, h, page), generator=gen,
                            device=dev) * 0.02]
-        plain = [t.clone() for t in pool]
-        new = [torch.randint(-127, 128, (b, 1, h, d), generator=gen,
-                             device=dev, dtype=torch.int8),
-               torch.rand((b, 1, h), generator=gen, device=dev),
-               torch.randint(-127, 128, (b, 1, h, d), generator=gen,
-                             device=dev, dtype=torch.int8),
-               torch.rand((b, 1, h), generator=gen, device=dev)]
-        # insert at each slot's length: slot 0 is parked, the last at
-        # capacity
         ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
-        paged_cache_insert_int8(*pool, *new, ln, 1, tbl)
-        paged_cache_insert_int8_reference(*plain, *new, ln, 1, tbl)
-        for a, r in zip(pool, plain):
-            assert torch.equal(a, r)
         for rep in (1, 2, 4, 8):
             _check_decode(gen, lambda q: paged_flash_decode_int8(
                 q, *pool, tbl, ln, 1), lambda q: paged_attention_reference(
                     q, *pool, tbl, ln, 1), "paged_flash_decode_int8",
                 (b, h * rep, d))
+
+
+def _bits(t):
+    """A float tensor's bits, for bit-equality (NaN, -0.0 included)."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16)
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+# (layout, s0 or page) of the gpu test of the fused insert
+_FUSED_LAYOUTS = [("contiguous", 0), ("contiguous", 64), ("paged", 8),
+                  ("paged", 16), ("paged", 128)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layout,at", _FUSED_LAYOUTS)
+def test_fused_insert_matches_plain_on_card(layout, at, dtype):
+    """The fused RoPE + K/V quantize + insert kernel against its plain
+    version (the unfused chain) on the card: every cache byte equal (codes
+    and scales), the rotated q bit-equal; Dh 64, 128 and 256 at rep 1, 4
+    and 8; q, k and v as strided views of one projection row, and again
+    with q and k contiguous (as after Qwen3's QK-norm) and a yarn attention
+    factor; a slot at capacity, a parked slot (paged: into the scratch page
+    0, the only slot writing there), at s0 64 positions another shard owns.
+    Each call counted once, under [fused]."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(at + len(dtype))
+    _build.build(("cache_insert",))
+    l, hkv, s = 2, 2, 256
+    paged = layout == "paged"
+    lengths = [0, 1, 37, 127, 128, 200, s - 1, s + (0 if paged else at)]
+    b = len(lengths)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    name = "paged_cache_insert_int8" if paged else "cache_insert_int8"
+    if paged:
+        max_pages = s // at
+        n_pool = 1 + b * max_pages
+        # each slot's pages, the one its next token goes to included
+        used = [min(max_pages, n // at + 1) if n else 0 for n in lengths]
+        perm = torch.randperm(n_pool - 1, generator=gen, device=dev) + 1
+        tbl = torch.zeros((b, max_pages), dtype=torch.int32, device=dev)
+        for i, u in enumerate(used):
+            tbl[i, :u] = perm[i * max_pages:i * max_pages + u]
+    for dh in (64, 128, 256):
+        lead = (l, n_pool, hkv, at) if paged else (l, b, hkv, s)
+        cache = [torch.randint(-127, 128, lead + (dh,), generator=gen,
+                               device=dev, dtype=torch.int8),
+                 torch.rand(lead, generator=gen, device=dev) * 0.02,
+                 torch.randint(-127, 128, lead + (dh,), generator=gen,
+                               device=dev, dtype=torch.int8),
+                 torch.rand(lead, generator=gen, device=dev) * 0.02]
+        freqs = 500000.0 ** (-torch.arange(dh // 2, device=dev,
+                                           dtype=torch.float64) / (dh // 2))
+        ang = ln.double()[:, None, None, None] * freqs
+        cos, sin = ang.cos().float(), ang.sin().float()
+        for rep in (1, 4, 8):
+            hq = hkv * rep
+            row = torch.randn((b, 1, (hq + 2 * hkv) * dh), generator=gen,
+                              device=dev).to(dt)
+            q = row[..., :hq * dh].view(b, 1, hq, dh)
+            k = row[..., hq * dh:(hq + hkv) * dh].view(b, 1, hkv, dh)
+            v = row[..., (hq + hkv) * dh:].view(b, 1, hkv, dh)
+            for views, factor in ((True, None), (False, 1.2247)):
+                if not views:
+                    q, k = q.contiguous(), k.contiguous()
+                plain = [t.clone() for t in cache]
+                _build.reset_launches()
+                if paged:
+                    got = paged_cache_insert_int8_fused(
+                        q, k, v, cos, sin, *cache, ln, 1, tbl,
+                        attn_factor=factor)
+                    ref = paged_cache_insert_int8_fused_reference(
+                        q, k, v, cos, sin, *plain, ln, 1, tbl,
+                        attn_factor=factor)
+                else:
+                    got = cache_insert_int8_fused(
+                        q, k, v, cos, sin, *cache, ln, 1, at,
+                        attn_factor=factor)
+                    ref = cache_insert_int8_fused_reference(
+                        q, k, v, cos, sin, *plain, ln, 1, at,
+                        attn_factor=factor)
+                torch.cuda.synchronize()
+                what = (layout, at, dtype, dh, rep, views)
+                assert _build.launches[name] == 1, what
+                assert _build.launches[f"{name}[fused]"] == 1, what
+                assert got.dtype == dt and got.shape == (b, hq, dh), what
+                assert torch.equal(_bits(got), _bits(ref)), what
+                for a, r in zip(cache, plain):
+                    assert torch.equal(_bits(a), _bits(r)), what
 
 
 def _rand_stack(gen, dev, entries, k, n, bits, g=128):

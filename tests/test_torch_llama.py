@@ -14,9 +14,10 @@ relative. A code that differs sits on a rounding tie of ``quantize_kv``
 another order), and every later position of that slot then reads a value
 one int8 step away. Those positions are held to 1e-3 * max|logit|, the
 effect of one code step; positions before the slot's first differing code
-are held to 1e-4. Measured on these inputs: test-tiny has two differing
-codes, and the 14 logit rows after them are off by at most 7.2e-4 of
-max|logit|; hd128-rep4 has none; every other row is within 1.1e-6.
+are held to 1e-4. Measured on these inputs, with the JAX forward under
+``jax.jit``: test-tiny has two differing codes, and the 14 logit rows
+after them are off by at most 7.1e-4 of max|logit| (7.2e-4 from the eager
+forward); hd128-rep4 has none; every other row is within 1.1e-6.
 bfloat16: logits within 3e-2 * max|logit|.
 """
 
@@ -66,13 +67,18 @@ def _flat(jparams):
     return jax.tree.map(np.asarray, _flatten_params(jparams))
 
 
+# one trace for the prefill and one for the decode steps (eager, each step
+# took as long as a trace)
+_jit_forward = jax.jit(jllama.forward, static_argnames=("cfg",))
+
+
 def _run_jax(jparams, jc, prompt, steps, max_seq):
     cache = jllama.init_cache(jc, prompt.shape[0], max_seq)
     outs = []
-    lg, cache = jllama.forward(jparams, jnp.asarray(prompt), cache, jc)
+    lg, cache = _jit_forward(jparams, jnp.asarray(prompt), cache, cfg=jc)
     outs.append(np.asarray(lg, np.float32))
     for s in steps:
-        lg, cache = jllama.forward(jparams, jnp.asarray(s), cache, jc)
+        lg, cache = _jit_forward(jparams, jnp.asarray(s), cache, cfg=jc)
         outs.append(np.asarray(lg, np.float32))
     return outs, jax.tree.map(np.asarray, cache)
 
@@ -195,3 +201,38 @@ def test_forward_matches_jax(name, dtype):
         for js, ts in ((jcache.k_scale, tcache.k_scale),
                        (jcache.v_scale, tcache.v_scale)):
             np.testing.assert_allclose(ts.numpy(), js, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_kernel_mode_takes_the_fused_insert(monkeypatch, paged):
+    """Decode in kernel mode calls the fused RoPE + K/V quantize + insert
+    entry and its flash decode once per layer, with the layer's cache index,
+    and rotates nothing itself; prefill never calls the fused entry and
+    rotates q and k of every layer."""
+    from quant_tpu_torch.models import PRESETS as TPRESETS
+
+    tc = dataclasses.replace(TPRESETS["test-tiny"], kernel_mode="auto")
+    params = tllama.init_params(tc, seed=0, device="cpu")
+    if paged:
+        cache = tllama.init_paged_cache(tc, 2, 32, 9, 8, device="cpu")
+        cache.page_tbl.copy_(torch.arange(1, 9, dtype=torch.int32).reshape(
+            2, 4))
+        names = ("paged_cache_insert_int8_fused", "paged_flash_decode_int8")
+    else:
+        cache = tllama.init_cache(tc, 2, 32, "cpu")
+        names = ("cache_insert_int8_fused", "flash_decode_int8")
+    calls = []
+    for name in names + ("_rope_apply",):
+        def spy(*a, _n=name, _f=getattr(tllama, name), **kw):
+            # the fused entry's layer argument follows q, k, v, cos, sin,
+            # the four caches and the lengths
+            calls.append((_n, a[10]) if _n == names[0] else _n)
+            return _f(*a, **kw)
+        monkeypatch.setattr(tllama, name, spy)
+    _, cache = tllama.forward(params, [[1, 2, 3], [4, 5, 6]], cache, tc,
+                              device="cpu")
+    assert calls == ["_rope_apply"] * 2 * tc.n_layers
+    calls.clear()
+    _, cache = tllama.forward(params, [[7], [8]], cache, tc, device="cpu")
+    assert calls == [c for layer in range(tc.n_layers)
+                     for c in ((names[0], layer), names[1])]

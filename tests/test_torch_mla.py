@@ -370,14 +370,15 @@ def test_mla_forward_matches_jax(jax_forward, routing_margins, name):
 
 def test_mla_kernel_mode_takes_the_mla_pair(jax_forward, monkeypatch):
     """Decode in kernel mode calls the MLA insert and flash decode once per
-    layer (the dense prefix's included), prefill never; the GQA pair is
-    never called."""
+    layer (the dense prefix's included), prefill never; the GQA pair (the
+    fused RoPE + quantize + insert entry and its flash decode) is never
+    called."""
     jc, tc = _configs("test-tiny-dsv3")
     tparams = params_from_flat(jax_forward["dsv3-float32"][0], tc, "cpu")
     calls = []
     # each wrapper's position of the layer argument, as the forward calls it
     at = {"mla_cache_insert_int8": 5, "mla_flash_decode_int8": 4,
-          "cache_insert_int8": 9, "flash_decode_int8": 6}
+          "cache_insert_int8_fused": 10, "flash_decode_int8": 6}
     for name, i in at.items():
         def spy(*a, _n=name, _i=i, _f=getattr(tllama, name), **kw):
             calls.append((_n, a[_i]))

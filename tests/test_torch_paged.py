@@ -6,7 +6,10 @@
   tolerance), pages 8 and 16, lengths 0 to a full slot. A slot of length 0
   gives zeros in both kernels; the JAX reference averages it uniformly, so
   only slots with a length are held against it.
-* Paged insert: byte-equal to ``llama._paged_insert_at_layer`` and
+* Paged insert: the codes-in plain version
+  ``paged_cache_insert_int8_reference`` (which the fused insert's plain
+  version runs after RoPE and quantization) byte-equal to
+  ``llama._paged_insert_at_layer`` and
   ``paged_cache_insert_int8(interpret=True)``, with a position at the
   table's capacity (skipped) and a parked slot (length 0, table row 0).
 * ``forward`` over a ``PagedKVCache`` against the JAX paged forward
@@ -42,7 +45,8 @@ from quant_tpu.models import llama as jllama
 from quant_tpu_torch.engine import Engine as TEngine
 from quant_tpu_torch.engine import Request as TRequest
 from quant_tpu_torch.engine import SamplingConfig
-from quant_tpu_torch.kernels.cache_insert import paged_cache_insert_int8
+from quant_tpu_torch.kernels.cache_insert import (
+    paged_cache_insert_int8_reference)
 from quant_tpu_torch.kernels.paged_attention import (
     paged_attention_reference, paged_flash_decode_int8)
 from quant_tpu_torch.models import llama as tllama
@@ -122,10 +126,9 @@ def test_paged_insert_matches_jax(page):
                                                layer, jtbl))
     kernel = j_paged_insert(*j, layer, jtbl, interpret=True)
     tpool = [torch.from_numpy(a.copy()) for a in pool]
-    got = paged_cache_insert_int8(*tpool,
-                                  *[torch.from_numpy(a) for a in new],
-                                  torch.from_numpy(lens), layer,
-                                  torch.from_numpy(tbl))
+    got = paged_cache_insert_int8_reference(
+        *tpool, *[torch.from_numpy(a) for a in new], torch.from_numpy(lens),
+        layer, torch.from_numpy(tbl))
     for g, t, s, k in zip(got, tpool, scatter, kernel):
         assert g is t                         # written in place
         np.testing.assert_array_equal(g.numpy(), np.asarray(s))
@@ -168,8 +171,10 @@ def test_paged_forward_matches_jax():
         jllama.init_paged_cache(JCFG, b, max_seq, n_pool, page),
         page_tbl=jnp.asarray(tbl))
     ref = []
+    # one trace for the prefill and one for the decode steps
+    fwd = jax.jit(jllama.forward, static_argnames=("cfg",))
     for toks in [prompt] + steps:
-        lg, jc = jllama.forward(jparams, jnp.asarray(toks), jc, JCFG)
+        lg, jc = fwd(jparams, jnp.asarray(toks), jc, cfg=JCFG)
         ref.append(np.asarray(lg, np.float32))
     jpool = [np.asarray(a) for a in (jc.k_codes, jc.k_scale, jc.v_codes,
                                      jc.v_scale)]
