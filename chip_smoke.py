@@ -44,7 +44,14 @@ Phases; the first failure ends the run with a non-zero exit code:
              decode and prefill M, and hot lists of n_hot experts, each
              output handed out NaN-filled. The MLA pair over a 27-layer
              DeepSeek latent cache (B=8, Dq=640, r=512, the attention rows'
-             lengths) at 16 and 128 heads and over 8 slots of 8192 tokens
+             lengths): the fused latent insert (RMSNorm, interleaved yarn
+             RoPE of k_pe and q_pe, quantization, insert and q_eff in one
+             launch) at DeepSeek-V2-Lite's (H=16) and V3's (H=128, low-rank
+             q) widths, ckv and q_pe bf16 views of the projection rows,
+             q_eff bit-equal to the plain chain and the latent byte-equal
+             or within one code (differing codes counted, at most 1e-3),
+             beside the plain chain's device time; the decode kernel at
+             16 and 128 heads and over 8 slots of 8192 tokens
              (4 layers) at 16, each decode row like the GQA rows (path
              counted, rerun bit-equal, ``sdpa_bf16_ms`` over the latent
              dequantized to bf16 as MQA with Dk=640, Dv=512), and
@@ -122,9 +129,11 @@ Phases; the first failure ends the run with a non-zero exit code:
              ``Engine(max_slots=8, max_seq=2048)``: 8 requests of 64-1024
              prompt tokens, 64 new tokens each, 4 client threads (half
              streamed); exact launch counts (27 of each MLA kernel per
-             decode forward, all on the tensor-core path, hot lists at
-             decode), a profile of 3 decode forwards (one MLA kernel a
-             layer, no merge kernel), every answer teacher-forced through
+             decode forward, every insert fused, every decode on the
+             tensor-core path, hot lists at decode), a profile of 3 decode
+             forwards (one MLA decode and one fused insert kernel a layer,
+             no merge kernel; device kernels per step), every answer
+             teacher-forced through
              the plain path with the served experts held. Then
              DeepSeek-V3 at full width
              and 4 layers (3 dense-prefix, 1 of 256 experts; low-rank q,
@@ -1020,20 +1029,121 @@ def mla_rows(gen, kc, ks, lengths, layer: int, r: int, scale: float,
     return att
 
 
+def fused_mla_row(gen, kc, ks, lengths, cfg, agree: dict) -> dict:
+    """The fused MLA latent insert (RMSNorm of c, interleaved yarn RoPE of
+    k_pe and q_pe, the latent row quantized and inserted, q_eff written) at
+    ``cfg``'s widths and B=8 into the latent cache ``kc`` / ``ks`` (27
+    layers, S=2048): ckv and q_pe bf16 views of one random down-projection
+    row (V2-Lite), or q_pe a view of a separate ``w_q_b`` output row (V3's
+    low-rank q), q_abs the einsum with a random bf16 ``w_uk`` as the model
+    computes it, the model's rope tables at the slots' lengths. q_eff
+    bit-equal to the plain chain's and the latent byte-equal, or every code
+    within 1 and every scale within 2^-7 relative (the RMSNorm's sum is
+    taken in another order than ATen's): ``agree`` adds up the written and
+    the differing codes over the smoke's rows. One launch counted under
+    [fused]; then its device time (each call on the next layer's rows),
+    event time, the plain chain's device time, and the bound of the bytes
+    the call must move (q_abs, q_pe, ckv, the gain, tables and lengths
+    read; q_eff and the rows of the slots whose position lies in the cache
+    written)."""
+    from quant_tpu_torch.kernels import _build
+    from quant_tpu_torch.kernels.cache_insert import (
+        mla_cache_insert_int8_fused, mla_cache_insert_int8_fused_reference)
+    from quant_tpu_torch.models import llama
+    from quant_tpu_torch.utils.timing import device_time, kernel_times
+
+    dev, (L, B, _, S, D) = kc.device, kc.shape
+    h, r, dr = cfg.n_heads, cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    dn, qw = cfg.qk_nope_head_dim, cfg.n_heads * cfg.head_dim
+    akv = torch.randn((B, 1, (cfg.q_lora_rank or qw) + r + dr),
+                      generator=gen, device=dev).to(BF16)
+    q_src = (torch.randn((B, 1, qw), generator=gen, device=dev).to(BF16)
+             if cfg.q_lora_rank else akv[..., :qw])
+    qh = q_src.view(B, 1, h, dn + dr)
+    ckv, q_pe = akv[..., -(r + dr):], qh[..., dn:]
+    w_uk = (torch.randn((h, dn, r), generator=gen, device=dev)
+            / math.sqrt(dn)).to(BF16)
+    q_abs = torch.einsum("bthn,hnr->bthr", qh[..., :dn], w_uk)
+    w = 1.0 + 0.1 * torch.randn(r, generator=gen, device=dev)
+    rope = llama._rope_tables(lengths[:, None], cfg.rope_theta, dr, cfg)
+    opts = dict(llama._rope_options(cfg), eps=cfg.norm_eps)
+    layer = 5
+    ref_c = [kc.clone(), ks.clone()]
+    _build.reset_launches()
+    got = mla_cache_insert_int8_fused(ckv, q_pe, q_abs, w, *rope, kc, ks,
+                                      lengths, layer, **opts)
+    ref = mla_cache_insert_int8_fused_reference(ckv, q_pe, q_abs, w, *rope,
+                                                *ref_c, lengths, layer,
+                                                **opts)
+    torch.cuda.synchronize()
+    what = f"mla_cache_insert_int8 [fused] H={h}"
+    if (_build.launches["mla_cache_insert_int8"] != 1
+            or _build.launches["mla_cache_insert_int8[fused]"] != 1):
+        raise AssertionError(f"{what}: one launch under [fused] expected, "
+                             f"counted {_build.launches}")
+    if not torch.equal(got.view(torch.int16), ref.view(torch.int16)):
+        raise AssertionError(f"{what}: q_eff is not bit-equal to the plain "
+                             "chain's")
+    written = int(((lengths >= 0) & (lengths < S)).sum())
+    for a, b in zip((kc, ks), ref_c):
+        if not (torch.equal(a[:layer], b[:layer])
+                and torch.equal(a[layer + 1:], b[layer + 1:])):
+            raise AssertionError(f"{what}: a layer other than {layer} "
+                                 "changed")
+    kl, sl, rkl, rsl = kc[layer], ks[layer], ref_c[0][layer], ref_c[1][layer]
+    d = (kl.int() - rkl.int()).abs()
+    differ = int((d > 0).sum())
+    scale_rel = float(((sl - rsl).abs() / rsl).max())
+    # the dequantized latent of the two caches' layer
+    err = float((kl.float() * sl[..., None] - rkl.float()
+                 * rsl[..., None]).abs().max())
+    log(f"[kernels] {what}: q_eff bit-equal; {differ} of {written * D} "
+        f"written latent codes differ (max {int(d.max())}), scales within "
+        f"{scale_rel:.3g} relative")
+    if int(d.max()) > 1 or scale_rel > 2.0 ** -7:
+        raise AssertionError(f"{what}: latent codes differ by more than 1 "
+                             "or scales by more than 2^-7 relative")
+    agree["codes"] = agree.get("codes", 0) + written * D
+    agree["differ"] = agree.get("differ", 0) + differ
+    del ref_c, d
+    nxt = cycle(range(L))
+    ms, ev = kernel_times(lambda: mla_cache_insert_int8_fused(
+        ckv, q_pe, q_abs, w, *rope, kc, ks, lengths, nxt(), **opts), L)
+    plain_ms = device_time(lambda: mla_cache_insert_int8_fused_reference(
+        ckv, q_pe, q_abs, w, *rope, kc, ks, lengths, nxt(), **opts), L)
+    nbytes = (2 * B * h * (r + dr) + 2 * B * (r + dr) + 4 * r
+              + 2 * rope[0].numel() * 4 + B * 4 + 2 * B * h * D
+              + written * (D + 4))
+    b_ms, b_by = bound_ms(nbytes, 0)
+    where = (f"B=8 H={h} r={r} dr={dr} Dq={D} bf16, {L}-layer latent "
+             f"cache S={S}")
+    log(f"[kernels] mla_cache_insert_int8 [fused] {where}: {ms:.4f} ms "
+        f"(events {ev:.4f})  plain "
+        f"chain {plain_ms:.4f} ms  bound {b_ms:.6f} ms ({b_by}, {nbytes} "
+        f"bytes)")
+    return {"max_abs_err": err, "codes_differ": differ,
+            "codes_written": written * D, "max_scale_rel": scale_rel,
+            "ms": ms, "event_ms": ev, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+            "library_ms": None,
+            "unit": f"one call, RMSNorm + RoPE + latent quantize + insert + "
+                    f"q_eff fused: {where}, ckv and q_pe bf16 views of the "
+                    f"projection rows, lengths {lengths.tolist()}; device "
+                    f"time, each call on the next layer's rows"}
+
+
 def mla_kernels(gen, detail: dict) -> dict:
     """The MLA pair over a DeepSeek latent cache: 27 layers, B=8, S=2048,
     rows of Dq=640 int8 lanes (576 used) and one scale each, the attention
-    rows' lengths (8014 tokens). ``mla_cache_insert_int8`` byte-equal to
-    its plain version; ``mla_flash_decode_int8`` with r=512 at H=16
-    (DeepSeek-V2-Lite) and H=128 (DeepSeek-V3) (:func:`mla_rows`), and at
-    H=16 over 8 slots of 8192 tokens on a 4-layer stack. Then
-    dequant_matmul at the V2-Lite shapes, int4 in groups of 64, and at the
-    V3 shapes in groups of 128."""
-    from quant_tpu_torch.kernels.cache_insert import (
-        mla_cache_insert_int8, mla_cache_insert_int8_reference)
+    rows' lengths (8014 tokens, one slot at capacity). The fused latent
+    insert (:func:`fused_mla_row`) at DeepSeek-V2-Lite's widths (H=16) and
+    DeepSeek-V3's (H=128, low-rank q), at most 1e-3 of the written codes
+    differing over both rows; ``mla_flash_decode_int8`` with r=512 at H=16
+    and H=128 (:func:`mla_rows`), and at H=16 over 8 slots of 8192 tokens on
+    a 4-layer stack. Then dequant_matmul at the V2-Lite shapes, int4 in
+    groups of 64, and at the V3 shapes in groups of 128."""
     from quant_tpu_torch.models import PRESETS
     from quant_tpu_torch.models.llama import _q_scale
-    from quant_tpu_torch.utils.timing import device_time, kernel_times
 
     dev = torch.device("cuda")
     v2 = PRESETS["deepseek-v2-lite"]
@@ -1043,32 +1153,21 @@ def mla_kernels(gen, detail: dict) -> dict:
     kc = torch.randint(-127, 128, (L, B, 1, S, D), generator=gen, device=dev,
                        dtype=torch.int16).to(torch.int8)
     ks = torch.rand((L, B, 1, S), generator=gen, device=dev) * 0.015 + 0.005
-    new_c = torch.randint(-127, 128, (B, 1, 1, D), generator=gen, device=dev,
-                          dtype=torch.int16).to(torch.int8)
-    new_s = torch.rand((B, 1, 1), generator=gen, device=dev)
     layer = 5
-    plain = [kc.clone(), ks.clone()]
-    mla_cache_insert_int8(kc, ks, new_c, new_s, lengths, layer)
-    mla_cache_insert_int8_reference(*plain, new_c, new_s, lengths, layer)
-    torch.cuda.synchronize()
-    if not (torch.equal(kc, plain[0]) and torch.equal(ks, plain[1])):
-        raise AssertionError("mla_cache_insert_int8 is not byte-equal to its "
-                             "plain version")
-    del plain
-    nxt_layer = cycle(range(L))
-    ms, ev = kernel_times(lambda: mla_cache_insert_int8(
-        kc, ks, new_c, new_s, lengths, nxt_layer()), L)
-    plain_ms = device_time(lambda: mla_cache_insert_int8_reference(
-        kc, ks, new_c, new_s, lengths, nxt_layer()), L)
-    b_ms, b_by = bound_ms(2 * B * (D + 4) + B * 4, 0)
+    agree: dict = {}
+    inserts = {f"H={c.n_heads}": fused_mla_row(gen, kc, ks, lengths, c,
+                                               agree)
+               for c in (v2, PRESETS["deepseek-v3"])}
+    share = agree["differ"] / agree["codes"]
+    log(f"[kernels] mla_cache_insert_int8 [fused]: {agree['differ']} of "
+        f"{agree['codes']} written latent codes differ from the plain "
+        f"chain's ({share:.2e})")
+    if share > 1e-3:
+        raise AssertionError("mla_cache_insert_int8 [fused]: more than 1e-3 "
+                             "of the written latent codes differ")
     summary = {"mla_cache_insert_int8": {
-        "max_abs_err": 0.0, "ms": ms, "event_ms": ev, "plain_ms": plain_ms,
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        "unit": f"one call: B=8, Dq={D}, S=2048, {L}-layer latent cache; "
-                "device time"}}
-    log(f"[kernels] mla_cache_insert_int8 B=8 Dq={D} S=2048: byte-equal  "
-        f"{ms:.4f} ms (events {ev:.4f})  plain {plain_ms:.4f} ms  bound "
-        f"{b_ms:.6f} ms ({b_by}), {L} launches per decode step")
+        **inserts["H=16"], "max_abs_err": max(
+            row["max_abs_err"] for row in inserts.values())}}
     att = mla_rows(gen, kc, ks, lengths, layer, r, scale, (16, 128),
                    v2.mla_kv_dim, f"B=8 Dq={D} r={r} S=2048")
     summary["mla_flash_decode_int8"] = {
@@ -1105,7 +1204,7 @@ def mla_kernels(gen, detail: dict) -> dict:
     # DeepSeek-V3 at the smoke's depth: decode at B=4, a prefill chunk
     v3_rows = [dmm_row(gen, 4, m, k, n, odt, 128, per) for m in (4, 512)
                for k, n, per, odt in DSV3_SHAPES]
-    detail["mla_kernels"] = {"insert": summary["mla_cache_insert_int8"],
+    detail["mla_kernels"] = {"insert": inserts, "insert_codes": agree,
                              "attention": att, "dsv2_matmul": mm_rows,
                              "dsv2_matmul_step_m8": step,
                              "dsv3_matmul": v3_rows}
@@ -1628,7 +1727,7 @@ def profile_decode(eng, steps: int = 3, label: str = "decode",
     ours = {}
     for name, ms in by_name.items():
         for kernel in ("dequant_matmul_moe_kernel", "dequant_matmul_kernel",
-                       "mla_decode", "mla_cache_insert_kernel",
+                       "mla_decode", "mla_rope_insert_kernel",
                        "paged_flash_decode", "flash_decode",
                        "rope_kv_insert_kernel"):
             if kernel in name:
@@ -1646,6 +1745,10 @@ def profile_decode(eng, steps: int = 3, label: str = "decode",
            "attention_launches_per_step": {
                n: c for n, c in calls.items() if "flash_decode" in n
                or "mla_decode" in n},
+           # every cache-insert kernel and its launches per step: one per
+           # layer (the fused GQA or MLA insert)
+           "insert_launches_per_step": {
+               n: c for n, c in calls.items() if "insert_kernel" in n},
            "top_host_ops_self_cpu_ms_per_step": host}
     log(f"[profile] {label} B={eng.max_slots}: bare forward {bare_ms:.2f} "
         f"ms/step; under torch.profiler {wall_ms:.2f} ms/step "
@@ -1904,16 +2007,26 @@ def check_tiles(what: str, launches: dict) -> None:
 
 
 def check_mla_profile(profile: dict, n_layers: int) -> None:
-    """One MLA decode kernel, launched once per layer and step, and no
-    separate merge kernel, in a decode profile (the profiler may lose a
-    trace's first events, so fewer launches are tolerated, more are not)."""
+    """One MLA decode kernel and one fused latent insert kernel, each
+    launched once per layer and step, and no separate merge kernel or other
+    insert kernel, in a decode profile (the profiler may lose a trace's
+    first events, so fewer launches are tolerated, more are not)."""
     att = profile["attention_launches_per_step"]
+    ins = profile["insert_launches_per_step"]
     mla = {n: c for n, c in att.items() if "mla_decode" in n}
-    log(f"[profile]   MLA decode kernels per step: {mla}")
+    kernels = profile["device_kernels_per_step"]
+    log(f"[profile]   MLA decode kernels per step: {mla}; insert kernels "
+        f"per step: {ins}; {kernels:.1f} device kernels per step "
+        f"({kernels / n_layers:.2f} a layer)")
     if (len(mla) != 1 or any("combine" in n for n in att)
             or not 0 < sum(mla.values()) <= n_layers + 1e-9):
         raise AssertionError(f"decode profile: one MLA kernel, {n_layers} "
                              f"launches a step, expected; got {att}")
+    if (len(ins) != 1 or not all("mla_rope_insert_kernel" in n for n in ins)
+            or not 0 < sum(ins.values()) <= n_layers + 1e-9):
+        raise AssertionError(f"decode profile: one fused MLA insert kernel, "
+                             f"{n_layers} launches a step, expected; got "
+                             f"{ins}")
 
 
 def check_launches(what: str, launches: dict, expect: dict) -> None:
@@ -1936,7 +2049,8 @@ def moe_expected(cfg, chunks: int, decode: int, paged: bool) -> dict:
                        "paged_cache_insert_int8[fused]"),
              "contiguous": ("cache_insert_int8", "flash_decode_int8",
                             "cache_insert_int8[fused]"),
-             "mla": ("mla_cache_insert_int8", "mla_flash_decode_int8")}
+             "mla": ("mla_cache_insert_int8", "mla_flash_decode_int8",
+                     "mla_cache_insert_int8[fused]")}
     kind = "mla" if cfg.is_mla else "paged" if paged else "contiguous"
     dense = ((2 + bool(cfg.q_lora_rank)) * ln + 2 * k0
              + 2 * moe_layers(cfg) * bool(cfg.n_shared_experts) + 1)

@@ -17,8 +17,16 @@ the unchanged pieces: :func:`~quant_tpu_torch.kernels.rope_kv.rope_apply`,
 :func:`~quant_tpu_torch.kernels.rope_kv.quantize_kv` and the codes-in
 inserts :func:`cache_insert_int8_reference` /
 :func:`paged_cache_insert_int8_reference` (which the unfused prefill and
-plain paths also run). Each wrapper launches its kernel for tensors on the
-card and takes its plain version only for tensors on the CPU.
+plain paths also run). The MLA latent insert is fused likewise:
+:func:`mla_cache_insert_int8_fused` takes the latent's ``ckv`` and the
+query's ``q_pe`` as the projections left them and ``q_abs``, applies the
+latent's RMSNorm and RoPE to k_pe and q_pe, quantizes the latent row, writes
+it and returns the decode kernel's query ``q_eff``, in one launch where the
+chain takes about 45; its plain version is :func:`mla_latent_rows` (which
+the model's unfused path runs), ``quantize_kv`` and
+:func:`mla_cache_insert_int8_reference`. Each wrapper launches its kernel
+for tensors on the card and takes its plain version only for tensors on the
+CPU.
 """
 
 from __future__ import annotations
@@ -28,13 +36,15 @@ import ctypes
 import torch
 
 from quant_tpu_torch.kernels import _build
-from quant_tpu_torch.kernels.rope_kv import quantize_kv, rope_apply
+from quant_tpu_torch.kernels.rope_kv import quantize_kv, rmsnorm, rope_apply
 
 __all__ = ["cache_insert_int8_fused", "cache_insert_int8_fused_reference",
            "cache_insert_int8_reference", "paged_cache_insert_int8_fused",
            "paged_cache_insert_int8_fused_reference",
            "paged_cache_insert_int8_reference", "paged_insert_rows",
-           "mla_cache_insert_int8", "mla_cache_insert_int8_reference"]
+           "mla_cache_insert_int8_fused",
+           "mla_cache_insert_int8_fused_reference",
+           "mla_cache_insert_int8_reference", "mla_latent_rows"]
 
 
 def cache_insert_int8_reference(kc, ks, vc, vs, k_new, k_s, v_new, v_s,
@@ -275,43 +285,149 @@ def mla_cache_insert_int8_reference(kc, ks, k_new, k_s, lengths, layer: int,
     return kc, ks
 
 
-# k_codes, k_scale, k_new, k_new_scale, lengths, layer, s0, B, S, D, stream
-_MLA_ARGTYPES = [_P] * 5 + [_I] * 5 + [_P]
+def mla_latent_rows(ckv, q_pe, q_abs, norm_w, cos, sin, dq: int, *,
+                    eps: float, attn_factor: float | None = None,
+                    interleaved: bool = False):
+    """The MLA step's query and latent rows before quantization, in plain
+    PyTorch (the model's unfused path and the fused insert's plain version
+    both run this): ``c = rmsnorm(ckv[..., :r], norm_w, eps)``, RoPE of
+    ``q_pe`` ``[B, T, H, dr]`` and of ``k_pe = ckv[..., r:]`` with the
+    tables ``cos`` / ``sin`` ``[B, T, 1, dr/2]`` (``interleaved`` pairs
+    de-interleaved first, times ``attn_factor``), then ``q_eff = [q_abs |
+    q_pe | 0]`` ``[B, T, H, dq]`` and ``lat = [c | k_pe | 0]`` ``[B, T, 1,
+    dq]``, both in ``q_abs``'s dtype. ``ckv`` ``[B, T, r + dr]``."""
+    dt = q_abs.dtype
+    r = norm_w.shape[-1]
+    opts = {"interleaved": interleaved, "attn_factor": attn_factor}
+    c = rmsnorm(ckv[..., :r], norm_w, eps)
+    q_pe = rope_apply(q_pe, cos, sin, **opts)
+    k_pe = rope_apply(ckv[..., r:][:, :, None, :], cos, sin, **opts)
+    q_eff = torch.cat([q_abs, q_pe.to(dt)], dim=-1)
+    lat = torch.cat([c, k_pe[:, :, 0].to(c.dtype)], dim=-1)[:, :, None, :]
+    pad = dq - lat.shape[-1]
+    if pad:
+        # zero lanes up to the cache row width, in the query too: scores
+        # and the value prefix are exact
+        q_eff = torch.nn.functional.pad(q_eff, (0, pad))
+        lat = torch.nn.functional.pad(lat, (0, pad))
+    return q_eff, lat.to(dt)
 
 
-def mla_cache_insert_int8(kc, ks, k_new, k_s, lengths, layer: int,
-                          s0: int = 0):
-    """Write each slot's new latent row ``[B, 1, 1, Dq]`` int8 and scale
-    ``[B, 1, 1]`` f32 into the stacked latent cache ``[L, B, 1, S, Dq]`` /
-    ``[L, B, 1, S]`` at row ``lengths[b] - s0`` of ``layer``, in place (the
-    V side of an MLA cache is zero-width: nothing to insert). Returns the
-    two cache tensors."""
-    if kc.device.type == "cpu":
-        return mla_cache_insert_int8_reference(kc, ks, k_new, k_s, lengths,
-                                               layer, s0)
-    if kc.device.type != "cuda":
-        raise ValueError(f"unsupported device {kc.device}")
+def mla_cache_insert_int8_fused_reference(ckv, q_pe, q_abs, norm_w, cos,
+                                          sin, kc, ks, lengths, layer: int,
+                                          s0: int = 0, *, eps: float,
+                                          attn_factor: float | None = None,
+                                          interleaved: bool = False):
+    """Plain version of :func:`mla_cache_insert_int8_fused`: the chain the
+    model runs without the kernel, unchanged (:func:`mla_latent_rows`, i.e.
+    :func:`rmsnorm`, :func:`rope_apply`, ``torch.cat`` and the pad; then
+    :func:`quantize_kv` and :func:`mla_cache_insert_int8_reference`).
+    Returns q_eff ``[B, H, Dq]``."""
+    q_eff, lat = mla_latent_rows(ckv, q_pe, q_abs, norm_w, cos, sin,
+                                 kc.shape[-1], eps=eps,
+                                 attn_factor=attn_factor,
+                                 interleaved=interleaved)
+    k_q, k_s = quantize_kv(lat)
+    mla_cache_insert_int8_reference(kc, ks, k_q, k_s, lengths, layer, s0)
+    return q_eff[:, 0]
+
+
+# q_out, q_abs, q_pe, ckv, slot and head strides of q_abs and q_pe, slot
+# stride of ckv, norm_w, cos, sin, k_codes, k_scale, lengths, layer, s0, S,
+# B, H, r, dr, Dq, eps, attn_factor, interleaved, vec, bf16, stream
+_MLA_FUSED_ARGTYPES = ([_P] * 4 + [_L] * 5 + [_P] * 6 + [_I] * 8 + [_F] * 2
+                       + [_I] * 3 + [_P])
+
+
+def mla_cache_insert_int8_fused(ckv, q_pe, q_abs, norm_w, cos, sin, kc, ks,
+                                lengths, layer: int, s0: int = 0, *,
+                                eps: float, attn_factor: float | None = None,
+                                interleaved: bool = False, kv_bits: int = 8,
+                                page_tbl=None):
+    """One decode step's MLA latent row and query of one layer, in one
+    launch: ``c = rmsnorm(ckv[:, 0, :r], norm_w, eps)``; RoPE of ``k_pe =
+    ckv[:, 0, r:]`` and of ``q_pe`` ``[B, 1, H, dr]`` with the tables
+    ``cos`` / ``sin`` ``[B, 1, 1, dr/2]`` f32 (``interleaved`` rotary pairs,
+    times ``attn_factor``); the latent row ``[c | k_pe | 0]`` of the cache's
+    ``Dq`` lanes quantized to int8 with one f32 scale and written in place
+    into the stacked latent cache ``[L, B, 1, S, Dq]`` / ``[L, B, 1, S]`` at
+    row ``lengths[b] - s0`` of ``layer`` (positions outside ``[0, S)``
+    write nothing). ``ckv`` ``[B, 1, r + dr]``, ``q_pe`` and ``q_abs``
+    (``[B, 1, H, r]``, the ``w_uk`` product) are bf16 or f32 and may be
+    strided views (unit lane stride); ``norm_w`` is the f32 gain ``[r]``.
+    The kernel takes r up to 512 and an even dr up to 256. Returns ``q_eff =
+    [q_abs | RoPE(q_pe) | 0]`` ``[B, H, Dq]`` in their dtype, for every
+    slot. ``kv_bits`` other than 8, a paged latent pool (``page_tbl``) and
+    T > 1 raise."""
+    if kv_bits != 8:
+        raise NotImplementedError(f"kv_bits {kv_bits} is not ported for the "
+                                  "MLA latent")
+    if page_tbl is not None:
+        raise NotImplementedError("the paged MLA latent pool is not ported")
+    if q_abs.dim() != 4 or q_abs.shape[1] != 1:
+        raise ValueError("the fused MLA insert is the decode (T=1) path: "
+                         f"q_abs [B, 1, H, r], got {tuple(q_abs.shape)}")
+    opts = {"eps": eps, "attn_factor": attn_factor,
+            "interleaved": interleaved}
+    if q_abs.device.type == "cpu":
+        return mla_cache_insert_int8_fused_reference(
+            ckv, q_pe, q_abs, norm_w, cos, sin, kc, ks, lengths, layer, s0,
+            **opts)
+    dev = q_abs.device
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
     if kc.dim() != 5 or kc.shape[2] != 1:
         raise ValueError("expected a stacked latent cache [L, B, 1, S, Dq]")
-    l, b, _, s, d = kc.shape
-    if not 0 <= layer < l:
-        raise ValueError(f"layer {layer} outside [0, {l})")
-    checks = ((kc, torch.int8, (l, b, 1, s, d)),
+    b, _, h, r = q_abs.shape
+    dr = q_pe.shape[-1]
+    l, _, _, s, dq = kc.shape
+    if q_abs.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"activations must be bf16 or f32, got "
+                         f"{q_abs.dtype}")
+    if not (r <= 512 and dr % 2 == 0 and 2 <= dr <= 256 and r + dr <= dq):
+        raise ValueError(f"the kernel takes r <= 512 and an even dr up to "
+                         f"256 with r + dr <= Dq, got r {r}, dr {dr}, Dq "
+                         f"{dq}")
+    for t, shape in ((ckv, (b, 1, r + dr)), (q_pe, (b, 1, h, dr)),
+                     (q_abs, (b, 1, h, r))):
+        # views into the projections' outputs: any slot and head stride
+        if (t.dtype != q_abs.dtype or tuple(t.shape) != shape
+                or t.device != dev or t.stride(-1) != 1):
+            raise ValueError(f"expected {q_abs.dtype} {shape} with unit "
+                             f"lane stride on {dev}, got {t.dtype} "
+                             f"{tuple(t.shape)} strides {t.stride()}")
+    checks = ((kc, torch.int8, (l, b, 1, s, dq)),
               (ks, torch.float32, (l, b, 1, s)),
-              (k_new, torch.int8, (b, 1, 1, d)),
-              (k_s, torch.float32, (b, 1, 1)),
+              (norm_w, torch.float32, (r,)),
+              (cos, torch.float32, (b, 1, 1, dr // 2)),
+              (sin, torch.float32, (b, 1, 1, dr // 2)),
               (lengths, torch.int32, (b,)))
     for t, dt, shape in checks:
         if t.dtype != dt or tuple(t.shape) != shape:
             raise ValueError(f"expected {dt} {shape}, got {t.dtype} "
                              f"{tuple(t.shape)}")
-        if t.device != kc.device or not t.is_contiguous():
-            raise ValueError("all inputs must be contiguous on one device")
-    stream = torch.cuda.current_stream(kc.device).cuda_stream
-    fn = _build.entry("cache_insert", "mla_cache_insert_int8_launch",
-                      _MLA_ARGTYPES)
-    rc = fn(kc.data_ptr(), ks.data_ptr(), k_new.data_ptr(), k_s.data_ptr(),
-            lengths.data_ptr(), layer, s0, b, s, d, stream)
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError("caches, gain, tables and lengths must be "
+                             "contiguous on the activations' device")
+    if not 0 <= layer < l:
+        raise ValueError(f"layer {layer} outside [0, {l})")
+    esz = q_abs.element_size()
+    # q_abs rows copied with 16-byte accesses where every row is aligned
+    vec = all((n * esz) % 16 == 0 for n in (r, dq, q_abs.stride(0),
+                                              q_abs.stride(2)))
+    vec = vec and q_abs.data_ptr() % 16 == 0
+    out = torch.empty((b, h, dq), dtype=q_abs.dtype, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    fn = _build.entry("cache_insert", "mla_cache_insert_int8_fused_launch",
+                      _MLA_FUSED_ARGTYPES)
+    rc = fn(out.data_ptr(), q_abs.data_ptr(), q_pe.data_ptr(),
+            ckv.data_ptr(), q_abs.stride(0), q_abs.stride(2),
+            q_pe.stride(0), q_pe.stride(2), ckv.stride(0), norm_w.data_ptr(),
+            cos.data_ptr(), sin.data_ptr(), kc.data_ptr(), ks.data_ptr(),
+            lengths.data_ptr(), layer, s0, s, b, h, r, dr, dq, eps,
+            1.0 if attn_factor is None else attn_factor, int(interleaved),
+            int(vec), int(q_abs.dtype == torch.bfloat16), stream)
     _build.check(rc, "mla_cache_insert_int8", "cache_insert")
     _build.count_launch("mla_cache_insert_int8")
-    return kc, ks
+    _build.count_launch("mla_cache_insert_int8[fused]")
+    return out

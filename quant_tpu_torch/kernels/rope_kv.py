@@ -1,18 +1,29 @@
-"""Rotate-half RoPE and per-(token, head) int8 KV quantization, in plain
-PyTorch.
+"""RMSNorm, rotate-half RoPE and per-(token, head) int8 KV quantization,
+in plain PyTorch.
 
-The model's unfused chain (``models/llama.py``: prefill, the plain paths,
-the MLA latent) and the plain version of the fused GQA insert
-(``kernels/cache_insert.py``) both run these, so the fused kernel is held
-to the very arithmetic the model runs without it. They sit here and not in
-``models/llama.py`` because that module imports the kernels.
+The model's unfused chain (``models/llama.py``: prefill, the plain paths)
+and the plain versions of the fused inserts (``kernels/cache_insert.py``:
+the GQA pair, and the MLA latent with its RMSNorm) both run these, so each
+fused kernel is held to the very arithmetic the model runs without it. They
+sit here and not in ``models/llama.py`` because that module imports the
+kernels.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["deinterleave", "rope_apply", "quantize_kv"]
+__all__ = ["deinterleave", "rmsnorm", "rope_apply", "quantize_kv"]
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float,
+            offset: float = 0.0) -> torch.Tensor:
+    """RMSNorm over the last axis in float32 (square, mean, ``rsqrt(var +
+    eps)``, then the two products), times the gain ``offset + w``, returned
+    in ``x``'s dtype."""
+    xf = x.to(torch.float32)
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * (offset + w)).to(x.dtype)
 
 
 def deinterleave(x: torch.Tensor) -> torch.Tensor:

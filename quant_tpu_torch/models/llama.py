@@ -31,8 +31,10 @@ or a page pool shared by all slots (:class:`PagedKVCache`,
 Kernel selection mirrors the JAX ``make_layer_step``: decode (T=1) with an
 int8 cache takes ``cache_insert_int8_fused`` (RoPE of q and k, K/V
 quantization and the insert in one launch) then ``flash_decode_int8``
-(their paged counterparts over a pool; ``mla_cache_insert_int8`` then
-``mla_flash_decode_int8`` over an MLA latent cache); prefill (T>1) writes the cache with the
+(their paged counterparts over a pool; over an MLA latent cache
+``mla_cache_insert_int8_fused``, the latent's RMSNorm, RoPE, quantization
+and insert and the query ``q_eff`` in one launch, then
+``mla_flash_decode_int8``); prefill (T>1) writes the cache with the
 plain scatter and runs the plain blockwise attention (over
 ``paged_gather`` of the slot's pages for a pool). ``kernel_mode="xla"``
 selects the plain versions throughout; ``"auto"``/``"pallas"`` select the
@@ -51,7 +53,7 @@ import torch
 from quant_tpu_torch.core.qtensor import QTensor, quantize_tensor_device
 from quant_tpu_torch.kernels.attention import flash_decode_int8
 from quant_tpu_torch.kernels.cache_insert import (
-    cache_insert_int8_fused, mla_cache_insert_int8,
+    cache_insert_int8_fused, mla_cache_insert_int8_fused, mla_latent_rows,
     paged_cache_insert_int8_fused, paged_insert_rows)
 from quant_tpu_torch.kernels.dequant_matmul import (dequant_matmul,
                                                     dequant_matmul_moe,
@@ -59,7 +61,7 @@ from quant_tpu_torch.kernels.dequant_matmul import (dequant_matmul,
 from quant_tpu_torch.kernels.mla_attention import mla_flash_decode_int8
 from quant_tpu_torch.kernels.paged_attention import (paged_flash_decode_int8,
                                                      paged_gather)
-from quant_tpu_torch.kernels.rope_kv import quantize_kv, rope_apply
+from quant_tpu_torch.kernels.rope_kv import quantize_kv, rmsnorm, rope_apply
 from quant_tpu_torch.models.config import ModelConfig
 from quant_tpu_torch.utils.device import check_on, resolve_device
 
@@ -426,13 +428,6 @@ def _embed_lookup(embed, tokens: torch.Tensor, dt: torch.dtype):
         rows = embed.codes[tokens].to(torch.float32)
         return (rows * embed.scales[tokens][..., None]).to(dt)
     return embed[tokens].to(dt)
-
-
-def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float,
-            offset: float = 0.0) -> torch.Tensor:
-    xf = x.to(torch.float32)
-    var = (xf * xf).mean(dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps) * (offset + w)).to(x.dtype)
 
 
 def _act(cfg: ModelConfig):
@@ -869,27 +864,24 @@ def _mla_attn(x, lay: LayerParams, i: int, gi: int, cfg: ModelConfig, mm,
         qp = mm(qp.contiguous(), lay.w_q_b, i)
     qh = qp.reshape(b, t, -1, dn + dr)
     q_nope, q_pe = qh[..., :dn], qh[..., dn:]
-    c = rmsnorm(ckv[..., :r], lay.kv_a_norm[i], cfg.norm_eps)
-    q_pe = _rope_apply(q_pe, *rope, cfg)
-    k_pe = _rope_apply(ckv[..., r:][:, :, None, :], *rope, cfg)
     # the absorbed up-projections run in the activation type, as in the
     # JAX package
     q_abs = torch.einsum("bthn,hnr->bthr", q_nope, lay.w_uk[i].to(dt))
-    q_eff = torch.cat([q_abs, q_pe.to(dt)], dim=-1)
-    lat = torch.cat([c, k_pe[:, :, 0].to(c.dtype)], dim=-1)[:, :, None, :]
-    pad = cfg.mla_cache_dim - cfg.mla_kv_dim
-    if pad:
-        # zero lanes up to the cache row width, in the query too: scores
-        # and the value prefix are exact
-        q_eff = torch.nn.functional.pad(q_eff, (0, pad))
-        lat = torch.nn.functional.pad(lat, (0, pad))
-    k_q, k_s = quantize_kv(lat.to(dt), cfg.kv_bits)
+    opts = dict(_rope_options(cfg), eps=cfg.norm_eps)
     if kernels:
-        mla_cache_insert_int8(kc, ks, k_q, k_s, lengths, gi)
+        # one launch: the latent's RMSNorm, RoPE of k_pe and q_pe, the
+        # latent row quantized and inserted, q_eff written, reading ckv and
+        # q_pe where the projections left them
+        q_eff = mla_cache_insert_int8_fused(
+            ckv, q_pe, q_abs, lay.kv_a_norm[i], *rope, kc, ks, lengths, gi,
+            kv_bits=cfg.kv_bits, **opts)
         o_lat = mla_flash_decode_int8(
-            q_eff[:, 0].contiguous(), kc, ks, new_lengths, gi, r=r,
+            q_eff, kc, ks, new_lengths, gi, r=r,
             scale=_q_scale(cfg, cfg.head_dim))[:, None]
     else:
+        q_eff, lat = mla_latent_rows(ckv, q_pe, q_abs, lay.kv_a_norm[i],
+                                     *rope, cfg.mla_cache_dim, **opts)
+        k_q, k_s = quantize_kv(lat, cfg.kv_bits)
         _cache_insert_at_layer(kc, ks, k_q, k_s, lengths, gi)
         att = attention_blockwise if t > 1 else attention
         o_lat = att(q_eff, kc[gi], ks[gi], kc[gi][..., :r], ks[gi],

@@ -1,12 +1,17 @@
 """Contiguous decode time of two checkouts of the port, in turns on one card.
 
     python -m quant_tpu_torch.tools.decode_ab TREE_A TREE_B
+    python -m quant_tpu_torch.tools.decode_ab --preset deepseek-v2-lite A B
 
 Starts one worker process per tree; each imports ``quant_tpu_torch`` from
-its own tree and holds full-width Llama-3-8B (random weights, seed 0) behind
-``Engine(max_slots=8, max_seq=2048)`` with 8 greedy requests of 32-1024
-prompt tokens (``default_rng(0)``, as ``chip_smoke.py``'s serving phase) that
-do not finish within the run. After all are admitted the workers take turns,
+its own tree and holds a full-width model (random weights, seed 0) behind
+``Engine(max_slots=8, max_seq=2048)`` with 8 greedy requests that do not
+finish within the run: Llama-3-8B (the default) with 32-1024 prompt tokens
+each (``default_rng(0)``, as ``chip_smoke.py``'s serving phase), or all 27
+layers of DeepSeek-V2-Lite with 64-1024 prompt tokens each and its routers
+and ``w_uk`` scaled to unit gain (as ``chip_smoke.py``'s dsv2-serving phase
+draws and scales them, with the smoke's own ``unit_gain_router`` and
+``unit_gain_attention``). After all are admitted the workers take turns,
 A B B A in each of 5 rounds, so that drift of the shared host falls on both
 alike. In its turn a worker times on the host clock 8 ``Engine.step()``
 calls (pure decode at B=8; each ends in a device sync) and 8 bare decode
@@ -21,14 +26,35 @@ profile. Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import os
+import pathlib
 import statistics
 import subprocess
 import sys
 import time
 
 N, ROUNDS, PROFILED = 8, 5, 3
+# preset -> the shortest prompt of the 8 requests (the longest is 1024)
+PRESETS = {"llama-3-8b": 32, "deepseek-v2-lite": 64}
+SMOKE = pathlib.Path(__file__).resolve().parents[2] / "chip_smoke.py"
+
+
+def unit_gain(params, cfg) -> None:
+    """A MoE model's routers and a DeepSeek model's ``w_uk`` scaled to unit
+    gain in place, by ``chip_smoke.py``'s own functions (loaded from the
+    checkout that holds this file, so both trees' weights are scaled
+    alike)."""
+    if not (cfg.n_experts or cfg.is_mla):
+        return
+    spec = importlib.util.spec_from_file_location("chip_smoke", SMOKE)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    if cfg.n_experts:
+        smoke.unit_gain_router(params, cfg)
+    if cfg.is_mla:
+        smoke.unit_gain_attention(params, cfg)
 
 
 def profile(fn, steps: int = PROFILED) -> dict:
@@ -62,7 +88,7 @@ def profile(fn, steps: int = PROFILED) -> dict:
             "traced_ms_per_step": 1e3 * wall / steps}
 
 
-def worker(tree: str) -> None:
+def worker(tree: str, preset: str) -> None:
     # the protocol goes to the original stdout; prints of the package (and
     # of nvcc) go to stderr
     proto = os.fdopen(os.dup(1), "w", buffering=1)
@@ -72,16 +98,18 @@ def worker(tree: str) -> None:
     import torch
 
     from quant_tpu_torch.engine import Engine, Request
-    from quant_tpu_torch.models import PRESETS, llama
+    from quant_tpu_torch.models import PRESETS as MODELS
+    from quant_tpu_torch.models import llama
 
-    cfg = PRESETS["llama-3-8b"]
+    cfg = MODELS[preset]
     params = llama.init_params(cfg, seed=0, device="cuda")
+    unit_gain(params, cfg)
     eng = Engine(params, cfg, max_slots=8, max_seq=2048, eos_id=-1,
                  device="cuda")
     rng = np.random.default_rng(0)
     reqs = [Request(req_id=i, prompt=[int(t) for t in rng.integers(
         0, cfg.vocab_size, n)], max_new_tokens=512)
-        for i, n in enumerate(rng.integers(32, 1025, 8))]
+        for i, n in enumerate(rng.integers(PRESETS[preset], 1025, 8))]
     for r in reqs:
         eng.add_request(r)
     while not all(r.output for r in reqs):
@@ -120,10 +148,13 @@ def worker(tree: str) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("trees", nargs="*", help="roots of the two checkouts")
+    ap.add_argument("--preset", choices=list(PRESETS),
+                    default="llama-3-8b", help="the model (default "
+                    "%(default)s)")
     ap.add_argument("--worker", metavar="TREE", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.worker:
-        worker(args.worker)
+        worker(args.worker, args.preset)
         return 0
     if len(args.trees) != 2:
         ap.error("give the roots of two checkouts")
@@ -134,7 +165,8 @@ def main(argv=None) -> int:
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--worker",
-         os.path.abspath(t)], cwd=t, env=env, stdin=subprocess.PIPE,
+         os.path.abspath(t), "--preset", args.preset], cwd=t, env=env,
+        stdin=subprocess.PIPE,
         stdout=subprocess.PIPE, text=True, bufsize=1) for t in args.trees]
     try:
         for p in procs:
@@ -166,7 +198,8 @@ def main(argv=None) -> int:
     summary = {t: {m: statistics.median(x[m] for x in ts)
                    for m in ("step_ms", "forward_ms")}
                for t, ts in times.items()}
-    print(json.dumps({"median": summary, "profile": profiles}))
+    print(json.dumps({"preset": args.preset, "median": summary,
+                      "profile": profiles}))
     return 0
 
 

@@ -38,7 +38,7 @@ from quant_tpu_torch.kernels.cache_insert import (
     cache_insert_int8_reference, paged_cache_insert_int8_fused,
     paged_cache_insert_int8_fused_reference)
 from quant_tpu_torch.kernels.cache_insert import (
-    mla_cache_insert_int8, mla_cache_insert_int8_reference)
+    mla_cache_insert_int8_fused, mla_cache_insert_int8_fused_reference)
 from quant_tpu_torch.kernels import dequant_matmul as dmm
 from quant_tpu_torch.kernels import mla_attention as mla
 from quant_tpu_torch.kernels.dequant_matmul import (
@@ -51,6 +51,7 @@ from quant_tpu_torch.kernels.paged_attention import (
 from quant_tpu_torch.kernels.unpack import (unpack_int4_device,
                                             unpack_int4_host,
                                             unpack_int4_reference)
+from quant_tpu_torch.models import PRESETS
 from quant_tpu_torch.models.llama import _rope_tables
 
 
@@ -816,10 +817,9 @@ def test_moe_cuda_kernel_matches_plain_on_card():
 @pytest.mark.parametrize("dq", [128, 576, 640])
 @pytest.mark.parametrize("h", [4, 16, 32, 128])
 def test_mla_cuda_kernels_match_plain_on_card(h, dq):
-    """The MLA latent insert (byte-equal, with a slot at capacity and one
-    outside the shard) and MLA flash decode against their plain versions at
-    test-tiny-mla's rows (Dq 128, r 64) and DeepSeek's (Dq 576 unpadded and
-    640, r 512), 4 (zero-padded row tile), 16 (DeepSeek-V2-Lite), 32 and
+    """MLA flash decode against its plain version at test-tiny-mla's rows
+    (Dq 128, r 64) and DeepSeek's (Dq 576 unpadded and 640, r 512), 4
+    (zero-padded row tile), 16 (DeepSeek-V2-Lite), 32 and
     128 heads (DeepSeek-V3): each heads-per-block instance of the tensor-core
     path. f32 q on the CUDA-core path within 1e-4 of max|ref|, bf16 q on the
     tensor-core path within 1e-2; each call counted under its path, a second
@@ -841,16 +841,6 @@ def test_mla_cuda_kernels_match_plain_on_card(h, dq):
                            device=dev, dtype=torch.int32).to(torch.int8)
         ks = torch.rand((l, b, 1, s), generator=gen, device=dev) * 0.02
         ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
-        if s == 600:
-            plain = [kc.clone(), ks.clone()]
-            new_c = torch.randint(-127, 128, (b, 1, 1, dq), generator=gen,
-                                  device=dev, dtype=torch.int32).to(torch.int8)
-            new_s = torch.rand((b, 1, 1), generator=gen, device=dev)
-            for s0 in (0, 64):
-                mla_cache_insert_int8(kc, ks, new_c, new_s, ln, 1, s0)
-                mla_cache_insert_int8_reference(*plain, new_c, new_s, ln, 1,
-                                                s0)
-                assert torch.equal(kc, plain[0]) and torch.equal(ks, plain[1])
         for qdt, tol, path in ((torch.float32, 1e-4, "cuda_core"),
                                (torch.bfloat16, 1e-2, "tc")):
             q = torch.randn((b, h, dq), generator=gen, device=dev).to(qdt)
@@ -868,6 +858,80 @@ def test_mla_cuda_kernels_match_plain_on_card(h, dq):
             assert err <= tol * ref.float().abs().max(), (s, qdt, float(err))
             assert torch.equal(got, again), (s, qdt)
             assert not got[0].float().abs().max()
+
+
+def latent_agrees(cache, plain, rows: int) -> int:
+    """The fused MLA insert's latent cache against its plain chain's, where
+    ``rows`` rows were written: byte-equal, or (the RMSNorm's sum of
+    squares is taken in another order than ATen's) every scale within
+    2**-7 relative, every code within 1, and at most 1e-3 of the written
+    codes different. Returns the count of codes that differ."""
+    d = (cache[0].int() - plain[0].int()).abs()
+    n = int((d > 0).sum())
+    assert int(d.max()) <= 1 and n <= 1e-3 * rows * d.shape[-1], n
+    assert ((cache[1] - plain[1]).abs() <= 2.0 ** -7 * plain[1].abs()).all()
+    return n
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("h,dq", [(16, 640), (128, 640), (4, 128)])
+def test_mla_fused_insert_matches_plain_on_card(h, dq, dtype):
+    """The fused MLA latent kernel (RMSNorm of c, interleaved RoPE of k_pe
+    and q_pe, the latent row quantized and inserted, q_eff written) against
+    its plain version (the unfused chain) on the card, at DeepSeek's widths
+    (r 512, dr 64, Dq 640; H 16 as V2-Lite, 128 as V3) and test-tiny-mla's
+    (r 64, dr 16, Dq 128, H 4): q_eff bit-equal, the latent cache
+    byte-equal or within :func:`latent_agrees`; ckv and q_pe views of one
+    down-projection row (V2-Lite) and q_pe a view of a separate w_q_b row
+    with yarn's attention factor (V3), q_abs as the einsum leaves it; s0 0
+    and 64, slots at 0, S - 1, S and past it (dropped at capacity or before
+    s0). Each call counted once, under [fused]."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(h + dq + len(dtype))
+    _build.build(("cache_insert",))
+    cfg = PRESETS["deepseek-v2-lite" if dq == 640 else "test-tiny-mla"]
+    r, dr, dn = cfg.kv_lora_rank, cfg.qk_rope_head_dim, cfg.qk_nope_head_dim
+    l, s = 3, 256
+    lengths = [0, 1, 65, 200, s - 1, s, s + 63, s + 64]
+    b = len(lengths)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    cos, sin = _rope_tables(ln[:, None], cfg.rope_theta, dr, cfg)
+    w = 1.0 + 0.1 * torch.randn(r, generator=gen, device=dev)
+    w_uk = torch.randn((h, dn, r), generator=gen, device=dev).to(dt) * 0.1
+    for s0 in (0, 64):
+        for split, factor in (("akv", None), ("q_b", 1.0857)):
+            qw = h * (dn + dr)
+            akv = torch.randn((b, 1, (qw if split == "akv" else 1536) + r
+                               + dr), generator=gen, device=dev).to(dt)
+            src = (akv[..., :qw] if split == "akv" else torch.randn(
+                (b, 1, qw), generator=gen, device=dev).to(dt))
+            qh = src.view(b, 1, h, dn + dr)
+            ckv, q_pe = akv[..., -(r + dr):], qh[..., dn:]
+            q_abs = torch.einsum("bthn,hnr->bthr", qh[..., :dn], w_uk)
+            cache = [torch.randint(-127, 128, (l, b, 1, s, dq), generator=gen,
+                                   device=dev, dtype=torch.int8),
+                     torch.rand((l, b, 1, s), generator=gen, device=dev)]
+            plain = [t.clone() for t in cache]
+            opts = dict(eps=cfg.norm_eps, attn_factor=factor,
+                        interleaved=True)
+            _build.reset_launches()
+            got = mla_cache_insert_int8_fused(ckv, q_pe, q_abs, w, cos, sin,
+                                              *cache, ln, 1, s0, **opts)
+            ref = mla_cache_insert_int8_fused_reference(
+                ckv, q_pe, q_abs, w, cos, sin, *plain, ln, 1, s0, **opts)
+            torch.cuda.synchronize()
+            what = (h, dq, dtype, s0, split)
+            assert _build.launches["mla_cache_insert_int8"] == 1, what
+            assert _build.launches["mla_cache_insert_int8[fused]"] == 1, what
+            assert got.dtype == dt and got.shape == (b, h, dq), what
+            assert torch.equal(_bits(got), _bits(ref)), what
+            latent_agrees(cache, plain,
+                          sum(0 <= n - s0 < s for n in lengths))
 
 
 @pytest.mark.parametrize("k,n", [(512, 512), (64, 1536), (6, 10)])

@@ -14,8 +14,13 @@ with a selection bias) in float32, and ``test-tiny-mla`` in bfloat16.
   two libraries).
 * ``mla_flash_decode_int8_reference`` against the JAX kernel run with
   ``interpret=True``: within 1e-4 (the tolerance of ``tests/test_mla.py``'s
-  kernel unit test). ``mla_cache_insert_int8`` on the CPU (its plain
-  version) against the JAX kernel in interpret mode: byte-equal.
+  kernel unit test). ``mla_cache_insert_int8_reference`` (the codes-in
+  insert) against the JAX kernel in interpret mode: byte-equal. The fused
+  latent insert ``mla_cache_insert_int8_fused`` on the CPU (its plain
+  version) against the JAX chain (``rmsnorm``, interleaved yarn ``_rope``,
+  concatenate and pad, ``quantize_kv``, the Pallas insert in interpret
+  mode): q_eff as the rope tolerance below, codes within the rounding-tie
+  rule.
 * ``forward`` logits and the whole latent cache against
   ``llama.forward(kernel_mode="xla")`` for a prefill then three decode
   steps, in the port's plain mode ("xla") and its kernel mode ("auto"), and
@@ -42,6 +47,7 @@ at least 1e-5 in float32.
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -62,7 +68,9 @@ from quant_tpu_torch.checkpoint.format import save_checkpoint as t_save
 from quant_tpu_torch.cli import main as t_cli
 from quant_tpu_torch.engine import Engine as TEngine
 from quant_tpu_torch.engine import Request as TRequest
-from quant_tpu_torch.kernels.cache_insert import mla_cache_insert_int8
+from quant_tpu_torch.kernels.cache_insert import (
+    mla_cache_insert_int8_fused, mla_cache_insert_int8_fused_reference,
+    mla_cache_insert_int8_reference)
 from quant_tpu_torch.kernels.mla_attention import (
     mla_flash_decode_int8, mla_flash_decode_int8_reference)
 from quant_tpu_torch.models import PRESETS as TPRESETS
@@ -187,6 +195,11 @@ def test_mla_flash_decode_matches_jax(jax_mla_attention, h, r, dq, s,
     assert not got[0].any()             # a slot of length 0 gives zeros
 
 
+# the Pallas latent insert in interpret mode, layer and s0 traced: one trace
+# for the codes-in test and the fused test's reference (the same shapes)
+_jit_insert = jax.jit(functools.partial(j_insert, interpret=True))
+
+
 @pytest.mark.parametrize("s0,lengths", [(0, [0, 5, 63, 64]),
                                         (32, [10, 40, 95, 96])])
 def test_mla_cache_insert_matches_jax(s0, lengths):
@@ -198,16 +211,171 @@ def test_mla_cache_insert_matches_jax(s0, lengths):
     new_c, new_s = _latent(rng, (b, 1), 1, dq)
     new_c, new_s = new_c[:, :, 0], new_s[:, :, 0]     # [B, 1, 1, Dq] / [B, 1, 1]
     ln = np.asarray(lengths, np.int32)
-    jkc, jks = j_insert(jnp.asarray(kc), jnp.asarray(ks), jnp.asarray(new_c),
-                        jnp.asarray(new_s), jnp.asarray(ln), 2, s0,
-                        interpret=True)
+    jkc, jks = _jit_insert(jnp.asarray(kc), jnp.asarray(ks),
+                           jnp.asarray(new_c), jnp.asarray(new_s),
+                           jnp.asarray(ln), jnp.int32(2), jnp.int32(s0))
     tkc, tks = torch.from_numpy(kc.copy()), torch.from_numpy(ks.copy())
-    mla_cache_insert_int8(tkc, tks, torch.from_numpy(new_c),
-                          torch.from_numpy(new_s), torch.from_numpy(ln), 2,
-                          s0)
+    mla_cache_insert_int8_reference(tkc, tks, torch.from_numpy(new_c),
+                                    torch.from_numpy(new_s),
+                                    torch.from_numpy(ln), 2, s0)
     assert tkc.numpy().tobytes() == np.asarray(jkc).tobytes()
     assert tks.numpy().tobytes() == np.asarray(jks).tobytes()
     assert not np.array_equal(tkc.numpy(), kc)
+
+
+# the fused latent insert: (variant, dtype, s0). "mla": q_pe and ckv views
+# of one down-projection row (test-tiny-mla's direct q); "dsv3": q_pe a
+# view of the separate w_q_b output row (test-tiny-dsv3's low-rank q). Both
+# take test-tiny-mla's widths (the two toys share them) and DeepSeek's yarn
+# with mscale 1.0 over mscale_all_dim 0.707: an attention factor of 1.0857,
+# so its product is exercised (the presets' factor is 1.0)
+_FUSED_MLA = [(variant, dtype, s0) for variant in ("mla", "dsv3")
+              for dtype in ("float32", "bfloat16") for s0 in (0, 32)]
+_FUSED_LENGTHS = {0: [0, 5, 63, 64], 32: [10, 40, 95, 96]}
+_FUSED_CFG = _configs("test-tiny-mla", rope_scaling="yarn", rope_factor=40.0,
+                      rope_orig_max_pos=4096, rope_mscale=1.0,
+                      rope_mscale_all_dim=0.707)
+
+
+def _fused_mla_inputs(variant, s0):
+    """Numpy inputs at 4 slots: the down-projection row ``akv`` ``[B, 1, q
+    part + r + dr]`` (its q part the heads' [q_nope | q_pe] for "mla", the
+    low-rank q for "dsv3"), the w_q_b output row (``None`` for "mla"),
+    q_abs as ``[H, B, 1, r]`` (the einsum's layout), the RMSNorm gain, a
+    3-layer latent cache of S 64 and the lengths: a slot at capacity, at
+    s0 32 one before s0 (both dropped)."""
+    jc = _FUSED_CFG[0]
+    rng = np.random.default_rng([s0, variant == "mla"])
+    b, h, r, dr = 4, jc.n_heads, jc.kv_lora_rank, jc.qk_rope_head_dim
+    qw = h * (jc.qk_nope_head_dim + dr)
+    q_part = (qw if variant == "mla"
+              else JPRESETS["test-tiny-dsv3"].q_lora_rank)
+    akv = rng.standard_normal((b, 1, q_part + r + dr), dtype=np.float32)
+    q_row = (None if variant == "mla" else
+             rng.standard_normal((b, 1, qw), dtype=np.float32))
+    q_abs = rng.standard_normal((h, b, 1, r), dtype=np.float32)
+    w = (1.0 + 0.1 * rng.standard_normal(r)).astype(np.float32)
+    kc, ks = _latent(rng, (3, b), 64, jc.mla_cache_dim)
+    return (akv, q_row, q_abs, w, kc, ks,
+            np.asarray(_FUSED_LENGTHS[s0], np.int32))
+
+
+def _split(akv, q_row, cfg):
+    """(ckv, q_pe) of the projection rows, as the model slices them."""
+    r, dr = cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    src = akv[..., :-(r + dr)] if q_row is None else q_row
+    b = akv.shape[0]
+    q_pe = src.reshape(b, 1, cfg.n_heads, -1)[..., cfg.qk_nope_head_dim:]
+    return akv[..., -(r + dr):], q_pe
+
+
+def _j_fused_rows(ckv, q_pe, q_abs, w, lengths, cfg):
+    """The JAX forward's latent rows: ``rmsnorm`` of c, ``_rope`` of q_pe
+    and k_pe, concatenate and pad: (q_eff, lat)."""
+    r, dt = cfg.kv_lora_rank, q_abs.dtype
+    pos = lengths[:, None]
+    c = jllama.rmsnorm(ckv[..., :r], w, cfg.norm_eps)
+    q_pe = jllama._rope(q_pe, pos, cfg.rope_theta, cfg)
+    k_pe = jllama._rope(ckv[..., r:][:, :, None, :], pos, cfg.rope_theta,
+                        cfg)
+    pad = ((0, 0), (0, 0), (0, 0), (0, cfg.mla_cache_dim - cfg.mla_kv_dim))
+    q_eff = jnp.pad(jnp.concatenate([q_abs, q_pe.astype(dt)], axis=-1), pad)
+    lat = jnp.pad(jnp.concatenate([c, k_pe[:, :, 0].astype(c.dtype)],
+                                  axis=-1)[:, :, None, :], pad)
+    return q_eff, lat.astype(dt)
+
+
+_jit_fused_rows = jax.jit(_j_fused_rows, static_argnames=("cfg",))
+
+
+@pytest.fixture(scope="module")
+def jax_fused_mla():
+    """(variant, dtype, s0) -> (q_eff as f32, latent codes, scales) of the
+    JAX chain: the rows jitted (one trace per dtype), ``quantize_kv``
+    eagerly (under ``jax.jit`` XLA may divide by another rounding of the
+    scale, which moves codes at ties), then the Pallas latent insert at
+    layer 2 with ``interpret=True``, jitted (s0 traced: one trace)."""
+    out = {}
+    for variant, dtype, s0 in _FUSED_MLA:
+        jc = dataclasses.replace(_FUSED_CFG[0], dtype=dtype)
+        akv, q_row, q_abs, w, kc, ks, lengths = _fused_mla_inputs(variant,
+                                                                  s0)
+        dt = getattr(jnp, dtype)
+        ckv, q_pe = _split(jnp.asarray(akv).astype(dt),
+                           None if q_row is None
+                           else jnp.asarray(q_row).astype(dt), jc)
+        q_abs = jnp.asarray(q_abs).astype(dt).transpose(1, 2, 0, 3)
+        q_eff, lat = _jit_fused_rows(ckv, q_pe, q_abs, jnp.asarray(w),
+                                     jnp.asarray(lengths), cfg=jc)
+        k_q, k_s = jllama.quantize_kv(lat)
+        res = _jit_insert(jnp.asarray(kc), jnp.asarray(ks), k_q, k_s,
+                          jnp.asarray(lengths), jnp.int32(2), jnp.int32(s0))
+        out[variant, dtype, s0] = [np.asarray(q_eff[:, 0], np.float32),
+                                   *[np.asarray(a) for a in res]]
+    return out
+
+
+@pytest.mark.parametrize("variant,dtype,s0", _FUSED_MLA)
+def test_mla_fused_insert_matches_jax(jax_fused_mla, variant, dtype, s0):
+    """The fused latent insert on the CPU (its plain version: the port's
+    ``rmsnorm``, interleaved yarn ``rope_apply``, cat and pad,
+    ``quantize_kv`` and the codes-in insert) against the JAX chain, with
+    ckv and q_pe strided views of the projection rows and q_abs strided as
+    the einsum leaves it: q_eff within 1e-5 in float32 (the rope
+    tolerance above: cos/sin of one float32 angle in two libraries) and
+    within one bfloat16 step (2**-7 of |q| plus 1e-5) in bfloat16, its
+    q_abs lanes and zero pad exact, for every slot; the written latent
+    codes within one step of JAX's in at most 0.1% of them (the rounding
+    ties of ``_check_chain``), scales within 1e-5 relative, every entry
+    not written untouched."""
+    ref_q, ref_kc, ref_ks = jax_fused_mla[variant, dtype, s0]
+    tc = _FUSED_CFG[1]
+    akv, q_row, q_abs, w, kc, ks, lengths = _fused_mla_inputs(variant, s0)
+    dt = getattr(torch, dtype)
+    ckv, q_pe = _split(torch.from_numpy(akv).to(dt),
+                       None if q_row is None
+                       else torch.from_numpy(q_row).to(dt), tc)
+    qa = torch.from_numpy(q_abs).to(dt).permute(1, 2, 0, 3)
+    assert not (ckv.is_contiguous() or q_pe.is_contiguous()
+                or qa.is_contiguous())
+    ln = torch.from_numpy(lengths)
+    rope = tllama._rope_tables(ln[:, None], tc.rope_theta,
+                               tc.qk_rope_head_dim, tc)
+    opts = dict(tllama._rope_options(tc), eps=tc.norm_eps)
+    tw = torch.from_numpy(w)
+    got_c = [torch.from_numpy(a.copy()) for a in (kc, ks)]
+    plain_c = [torch.from_numpy(a.copy()) for a in (kc, ks)]
+    got = mla_cache_insert_int8_fused(ckv, q_pe, qa, tw, *rope, *got_c, ln,
+                                      2, s0, **opts)
+    plain = mla_cache_insert_int8_fused_reference(ckv, q_pe, qa, tw, *rope,
+                                                  *plain_c, ln, 2, s0,
+                                                  **opts)
+    # the CPU dispatch is the plain version
+    assert torch.equal(got, plain)
+    assert all(torch.equal(a, b) for a, b in zip(got_c, plain_c))
+    r, dr = tc.kv_lora_rank, tc.qk_rope_head_dim
+    assert got.dtype == dt and got.shape == (4, tc.n_heads,
+                                             tc.mla_cache_dim)
+    g = got.float().numpy()
+    np.testing.assert_array_equal(g[..., :r], ref_q[..., :r])
+    assert not g[..., r + dr:].any() and not ref_q[..., r + dr:].any()
+    if dtype == "float32":
+        assert np.max(np.abs(g - ref_q)) <= 1e-5
+    else:
+        assert np.all(np.abs(g - ref_q) <= 2.0 ** -7 * np.abs(ref_q) + 1e-5)
+    rows = np.zeros(ks.shape, bool)                     # [L, B, 1, S]
+    for b, n in enumerate(lengths):
+        if 0 <= n - s0 < rows.shape[3]:
+            rows[2, b, 0, n - s0] = True
+    assert rows.sum() == (2 if s0 else 3)
+    t_kc, t_ks = (a.numpy() for a in got_c)
+    for t_a, j_a, a in ((t_kc, ref_kc, kc), (t_ks, ref_ks, ks)):
+        np.testing.assert_array_equal(t_a[~rows], a[~rows])
+        np.testing.assert_array_equal(j_a[~rows], a[~rows])
+    d = np.abs(t_kc[rows].astype(np.int32) - ref_kc[rows].astype(np.int32))
+    assert d.max() <= 1 and np.mean(d > 0) <= 1e-3, np.sum(d > 0)
+    assert not t_kc[rows][:, tc.mla_kv_dim:].any()
+    np.testing.assert_allclose(t_ks[rows], ref_ks[rows], rtol=1e-5, atol=0)
 
 
 # ── forward ─────────────────────────────────────────────────────────────
@@ -369,26 +537,32 @@ def test_mla_forward_matches_jax(jax_forward, routing_margins, name):
 
 
 def test_mla_kernel_mode_takes_the_mla_pair(jax_forward, monkeypatch):
-    """Decode in kernel mode calls the MLA insert and flash decode once per
-    layer (the dense prefix's included), prefill never; the GQA pair (the
-    fused RoPE + quantize + insert entry and its flash decode) is never
+    """Decode in kernel mode calls the fused MLA insert (RMSNorm, RoPE,
+    quantization, insert and q_eff) and the MLA flash decode once per layer
+    (the dense prefix's included), prefill never; the unfused latent chain
+    (``mla_latent_rows``) runs at prefill only; the GQA pair (the fused
+    RoPE + quantize + insert entry and its flash decode) is never
     called."""
     jc, tc = _configs("test-tiny-dsv3")
     tparams = params_from_flat(jax_forward["dsv3-float32"][0], tc, "cpu")
     calls = []
     # each wrapper's position of the layer argument, as the forward calls it
-    at = {"mla_cache_insert_int8": 5, "mla_flash_decode_int8": 4,
-          "cache_insert_int8_fused": 10, "flash_decode_int8": 6}
+    at = {"mla_cache_insert_int8_fused": 9, "mla_flash_decode_int8": 4,
+          "cache_insert_int8_fused": 10, "flash_decode_int8": 6,
+          "mla_latent_rows": None}
     for name, i in at.items():
         def spy(*a, _n=name, _i=i, _f=getattr(tllama, name), **kw):
-            calls.append((_n, a[_i]))
+            calls.append((_n, None if _i is None else a[_i]))
             return _f(*a, **kw)
         monkeypatch.setattr(tllama, name, spy)
     prompt, steps = _fwd_inputs(jc.vocab_size)
     tcm = dataclasses.replace(tc, kernel_mode="auto")
-    _port_run(tparams, tcm, [prompt] + steps[:1])
+    _, cache = _port_run(tparams, tcm, [prompt])
+    assert calls == [("mla_latent_rows", None)] * jc.n_layers
+    calls.clear()
+    _port_run(tparams, tcm, steps[:1], cache)
     assert calls == [(n, layer) for layer in range(jc.n_layers)
-                     for n in ("mla_cache_insert_int8",
+                     for n in ("mla_cache_insert_int8_fused",
                                "mla_flash_decode_int8")]
 
 
