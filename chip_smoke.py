@@ -60,7 +60,14 @@ Phases; the first failure ends the run with a non-zero exit code:
              DeepSeek-V3 shapes (groups of 128). ``unpack_int4_device``
              bit-exact against its plain version and the host codec (the
              C++ oracle's unpack) at 512x512 random codes and Llama-3-8B's
-             ``w_gate_up`` and ``lm_head`` shapes.
+             ``w_gate_up`` and ``lm_head`` shapes. Both GQA decode kernels
+             with a sliding window and a logit softcap, contiguous and
+             paged (page 128), f32 and bf16 q, like the other decode rows,
+             at Gemma-2-9B's decode shape (B=8, Hkv=8, rep=2, Dh=256, 42
+             layers of S=8192, lengths from 1 to 8192; a local layer,
+             window 4096 and softcap 50 at scale 1/16, and a global one,
+             softcap 50) and Mistral-7B's (Dh=128, rep=4, window 4096),
+             each bound counting the min(window, length) keys a slot reads.
 4. serving   full-width Llama-3-8B (32 layers, random weights from seed 0,
              made on the card) behind ``Engine(max_slots=8, max_seq=2048)``:
              8 greedy requests of 32-1024 prompt tokens, 64 new tokens each.
@@ -146,7 +153,25 @@ Phases; the first failure ends the run with a non-zero exit code:
              On each, kernels against plain at a 5-8 token context, with a
              planted control (the MLA kernel told each length less one)
              that must fail the same comparison.
-10. cli      ``python -m quant_tpu_torch generate`` on test-tiny,
+10. gemma    full-width Gemma-2-9B (42 layers, random INT4 g128 weights
+             from seed 0 made on the card): slots prefilled to 1500-5200
+             tokens one at a time, then 4 decode steps at B=4, kernels
+             against plain logits (5e-2 of max|logit|); then 8 greedy
+             requests (two prompts past the 4096-token window) served in
+             process by ``Engine(max_slots=8, max_seq=6144)``, contiguous
+             and paged (page 128): exact launch counts (one fused insert
+             and one decode kernel a layer and decode forward, 21 of them
+             windowed and all softcapped, every matmul on a tensor-core
+             tile and every attention call on the tc path), a profile of
+             3 B=8 decode forwards at the final lengths, and every served
+             token teacher-forced (no answer read in another request's
+             context may pass). Then kernels against plain logits on
+             Qwen2-7B, Mistral-7B (also paged against contiguous, past its
+             window) and Gemma-7B at full width and 4 layers, and
+             Gemma-3-1B whole (local and global layers); and Llama-3-8B at
+             4 layers with the unquantized cache (``kv_bits=16``, the
+             plain decode path), paged against contiguous.
+11. cli      ``python -m quant_tpu_torch generate`` on test-tiny,
              test-tiny-moe, test-tiny-mla and test-tiny-dsv3 checkpoints
              written by the port; ``serve --paged`` on the first two (two
              /generate requests over HTTP) and, refused with "not ported",
@@ -473,6 +498,8 @@ def phase_kernels(detail: dict) -> dict:
     del cache
     torch.cuda.empty_cache()
     rows += attention_rows(gen)
+    windowed, summary["windowed"] = window_rows(gen)
+    rows += windowed
     detail["kernels"] = rows
     return summary
 
@@ -681,22 +708,27 @@ def _sdpa_time(q, kv: list, mask, gqa: bool) -> dict:
                        "call")
 
 
-def _length_mask(lengths, s: int):
-    """[B, 1, 1, S] True below each slot's length; None when all are full."""
-    if not bool((lengths < s).any()):
+def _length_mask(lengths, s: int, window: int = 0):
+    """[B, 1, 1, S] True below each slot's length (and, with a window, at or
+    past ``length - window``); None when every position is visible."""
+    pos = torch.arange(s, device=lengths.device)[None, :]
+    mask = pos < lengths[:, None]
+    if window:
+        mask = mask & (pos >= lengths[:, None] - window)
+    if bool(mask.all()):
         return None
-    return (torch.arange(s, device=lengths.device)[None, :]
-            < lengths[:, None])[:, None, None, :]
+    return mask[:, None, None, :]
 
 
-def sdpa_time(cache, lengths, rep: int) -> dict:
+def sdpa_time(cache, lengths, rep: int, window: int = 0) -> dict:
     """The yardstick beside each decode-attention row:
     ``torch.nn.functional.scaled_dot_product_attention`` with bf16 q over
     the same context dequantized to bf16 ahead of time (``[B, Hkv, S, Dh]``
-    K and V, ``enable_gqa``, positions past each length masked unless every
-    slot is full), cycling enough dequantized layers to exceed the L2 cache
-    twice. Another function than the kernel (it reads twice the bytes over
-    all S positions); the port never calls it."""
+    K and V, ``enable_gqa``, positions past each length, or before a
+    ``window``, masked unless every position is visible), cycling enough
+    dequantized layers to exceed the L2 cache twice. Another function than
+    the kernel (it reads twice the bytes over all S positions, and takes no
+    softcap); the port never calls it."""
     kc, ks, vc, vs = cache
     L, B, H, S, D = kc.shape
     per_layer = 2 * B * H * S * D * 2
@@ -704,7 +736,7 @@ def sdpa_time(cache, lengths, rep: int) -> dict:
     kv = [((kc[i].float() * ks[i][..., None]).to(BF16),
            (vc[i].float() * vs[i][..., None]).to(BF16)) for i in range(n)]
     q = torch.randn((B, H * rep, 1, D), device=kc.device).to(BF16)
-    res = _sdpa_time(q, kv, _length_mask(lengths, S), gqa=True)
+    res = _sdpa_time(q, kv, _length_mask(lengths, S, window), gqa=True)
     del kv
     torch.cuda.empty_cache()
     return res
@@ -3016,6 +3048,435 @@ def phase_selftest(detail: dict) -> None:
     detail["selftest"] = lines
 
 
+# ── the dense families past Llama (windows, softcaps, kv16) ─────────────
+
+# the windowed decode rows' context: 8 slots spread from 1 to 8192 tokens
+# (8 x 8192-token caches), on both sides of the 4096-token window
+WINDOW_LENGTHS = [1, 517, 2048, 3000, 4095, 4097, 6000, 8192]
+# (label, layers, Hkv, rep, Dh, window, softcap, scale) of the windowed
+# decode rows: Gemma-2-9B's local and global layers (query_pre_attn_scalar
+# 256: scale 1/16), Mistral-7B's sliding window
+WINDOW_ROWS = [("gemma-2-9b local", 42, 8, 2, 256, 4096, 50.0, 1 / 16),
+               ("gemma-2-9b global", 42, 8, 2, 256, 0, 50.0, 1 / 16),
+               ("mistral-7b", 32, 8, 4, 128, 4096, 0.0, None)]
+
+
+def window_rows(gen) -> tuple[list, dict]:
+    """Both GQA decode kernels with a sliding window and a logit softcap at
+    Gemma-2-9B's decode shape (B=8, Hkv=8, rep=2, Dh=256, 42 layers of
+    S=8192, the lengths above; a local layer: window 4096, softcap 50,
+    scale 1/16; a global one: softcap 50) and Mistral-7B's (Dh=128, rep=4,
+    32 layers, window 4096), contiguous and paged at page 128, f32 and bf16
+    q: each through :func:`decode_row` (one launch on its path, rerun
+    bit-equal, 1e-4 / 1e-2 of max|ref| against the plain version, device
+    time L2-cold), its bound counting the min(window, length) keys each
+    slot reads (and, paged, the table entries of their pages). Returns the
+    rows and the bf16 rows by (kernel, label) for the kernels line."""
+    from quant_tpu_torch.kernels.attention import (
+        flash_decode_int8, flash_decode_int8_reference)
+    from quant_tpu_torch.kernels.paged_attention import (
+        paged_attention_reference, paged_flash_decode_int8)
+
+    rows, bf16 = [], {}
+    lengths = torch.tensor(WINDOW_LENGTHS, dtype=torch.int32, device="cuda")
+    B, S, page = len(WINDOW_LENGTHS), 8192, 128
+    shapes = {}
+    for row in WINDOW_ROWS:
+        shapes.setdefault(row[1:5], []).append(row)
+    for (L, H, rep, D), group in shapes.items():
+        cache = rand_cache(gen, L, B, H, S, D)
+        pool, tbl, _ = page_pool(cache, lengths, page)
+        for label, _, _, _, _, w, cap, scale in group:
+            n_tok = sum(min(n, w) if w else n for n in WINDOW_LENGTHS)
+            n_ids = sum((n - 1) // page - max(0, n - w if w else 0) // page
+                        + 1 for n in WINDOW_LENGTHS if n)
+            sdpa = sdpa_time(cache, lengths, rep, w)
+            opts = dict(softcap=cap, scale=scale)
+            what = (f"{label}: B=8 Hkv={H} rep={rep} D={D} S=8192 window {w} "
+                    f"softcap {cap:g} ctx={n_tok}")
+            for name, kernel, plain, extra in (
+                    ("flash_decode_int8",
+                     lambda q, i: flash_decode_int8(q, *cache, lengths, i, w,
+                                                    **opts),
+                     lambda q, i: flash_decode_int8_reference(
+                         q, *cache, lengths, i, w, **opts), 0),
+                    ("paged_flash_decode_int8",
+                     lambda q, i: paged_flash_decode_int8(
+                         q, *pool, tbl, lengths, i, w, **opts),
+                     lambda q, i: paged_attention_reference(
+                         q, *pool, tbl, lengths, i, w, **opts), 4 * n_ids)):
+                att = {}
+                for qdt, tol in ((torch.float32, 1e-4),
+                                 (torch.bfloat16, 1e-2)):
+                    q = torch.randn((B, H * rep, D), generator=gen,
+                                    device="cuda").to(qdt)
+                    att[str(qdt)] = decode_row(
+                        name, kernel, plain, q, tol, L - 1, L, n_tok, H, sdpa,
+                        (f"page={page} " if extra else "") + what,
+                        extra_bytes=extra)
+                    att[str(qdt)].pop("out")
+                rows.append({"kernel": name, "rows": label, "window": w,
+                             "softcap": cap, "keys": n_tok,
+                             "per_dtype": att})
+                bf16[name, label] = dict(att["torch.bfloat16"], keys=n_tok)
+        del cache, pool
+        torch.cuda.empty_cache()
+    for name in ("flash_decode_int8", "paged_flash_decode_int8"):
+        loc, glo = (bf16[name, f"gemma-2-9b {k}"] for k in ("local", "global"))
+        log(f"[kernels] {name} bf16, Gemma-2-9B local layer / global layer: "
+            f"time {loc['ms'] / glo['ms']:.3f}, keys read "
+            f"{loc['keys'] / glo['keys']:.3f}")
+    return rows, bf16
+
+
+def slot_cache(cache, b: int):
+    """Slot ``b`` of a cache as a batch-1 cache over the same tensors (a
+    view: a prefill through it writes the slot in place), at length 0."""
+    from quant_tpu_torch.models import llama
+
+    zero = torch.zeros((1,), dtype=torch.int32, device="cuda")
+    if isinstance(cache, llama.PagedKVCache):
+        return dataclasses.replace(cache, page_tbl=cache.page_tbl[b:b + 1],
+                                   lengths=zero)
+    return llama.KVCache(*(t[:, b:b + 1] for t in (
+        cache.k_codes, cache.k_scale, cache.v_codes, cache.v_scale)),
+        lengths=zero)
+
+
+def family_cache(cfg, b: int, max_seq: int, paged: bool, page: int = 128):
+    """A contiguous cache, or a pool with each slot's pages in shuffled
+    order (seed 0)."""
+    from quant_tpu_torch.models import llama
+
+    if not paged:
+        return llama.init_cache(cfg, b, max_seq, "cuda")
+    n = max_seq // page
+    cache = llama.init_paged_cache(cfg, b, max_seq, 1 + b * n, page,
+                                   device="cuda")
+    perm = np.random.default_rng(0).permutation(np.arange(1, 1 + b * n))
+    cache.page_tbl.copy_(torch.from_numpy(perm.reshape(b, n).astype(
+        np.int32)))
+    return cache
+
+
+def family_model_check(detail: dict, tag: str, params, cfg, lens: list,
+                       n_decode: int = 4, paged: bool = False,
+                       variants: dict | None = None,
+                       pairs=(("kernels", "plain"),)) -> dict:
+    """Slots prefilled one at a time to ``lens`` tokens (512-token chunks,
+    through a batch-1 view of the slot), then ``n_decode`` decode steps of
+    all slots, under each variant (name -> (config changes, paged)):
+    by default the kernels (``kernel_mode="auto"``) and the plain versions
+    ("xla"), and with ``paged`` the kernels over a page pool (page 128,
+    shuffled pages) against the contiguous kernels. Each prefill's last
+    logits and every decode step's must agree within 5e-2 of max|logit|
+    for each pair of variants (the model limit). A kernel variant's decode
+    launches must be one decode kernel a layer and step, windowed on the
+    local layers, softcapped where the config caps; they are returned."""
+    from quant_tpu_torch.kernels import _build
+    from quant_tpu_torch.models import llama
+
+    if variants is None:
+        variants = {"kernels": ({}, False),
+                    "plain": ({"kernel_mode": "xla"}, False)}
+        if paged:
+            variants["kernels-paged"] = ({}, True)
+            pairs = tuple(pairs) + (("kernels-paged", "kernels"),)
+    rng = np.random.default_rng(1)
+    b = len(lens)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
+    steps = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, 1)))
+             for _ in range(n_decode)]
+    max_seq = -(-(max(lens) + n_decode) // 128) * 128
+    logits, launches = {}, {}
+    for name, (change, paged) in variants.items():
+        c = dataclasses.replace(cfg, **change)
+        cache = family_cache(c, b, max_seq, paged)
+        outs = []
+        for i, p in enumerate(prompts):
+            one = slot_cache(cache, i)
+            for a in range(0, len(p), 512):
+                lg, one = llama.forward(params, [p[a:a + 512]], one, c,
+                                        device="cuda")
+            outs.append(lg[0, -1].float())
+            del lg
+        cache = dataclasses.replace(cache, lengths=torch.tensor(
+            lens, dtype=torch.int32, device="cuda"))
+        _build.reset_launches()
+        dec = []
+        for tok in steps:
+            lg, cache = llama.forward(params, tok, cache, c, device="cuda")
+            dec.append(lg[:, -1].float())
+        torch.cuda.synchronize()
+        launches[name] = dict(_build.launches)
+        logits[name] = torch.cat([torch.stack(outs), torch.cat(dec)])
+        if not bool(torch.isfinite(logits[name]).all()):
+            raise AssertionError(f"{tag}: non-finite logits ({name})")
+        del cache, outs, dec
+        torch.cuda.empty_cache()
+    res = {"lens": lens, "n_decode": n_decode}
+    for a, r in pairs:
+        x, y = logits[a], logits[r]
+        rel = float((x - y).abs().max() / y.abs().max())
+        agree = float((x.argmax(-1) == y.argmax(-1)).float().mean())
+        res[f"{a} vs {r}"] = {"rel_err": rel, "argmax_agreement": agree}
+        log(f"[{tag}] slots prefilled to {lens} tokens + {n_decode} decode "
+            f"steps: {a} vs {r} max|dlogit| = {rel:.3e} of max|logit|, "
+            f"argmax agreement {agree:.3f}")
+        if not rel <= 5e-2:
+            raise AssertionError(f"{tag}: {a} vs {r} logits differ by "
+                                 f"{rel:.3g}")
+    for name in launches:
+        if not name.startswith("kernels") or cfg.kv_bits != 8:
+            continue
+        k = launches[name]
+        res[f"{name} decode_launches"] = {n: v for n, v in k.items() if v}
+        att = ("paged_" if variants[name][1] else "") + "flash_decode_int8"
+        check_launches(f"{tag} {name}", k, {
+            att: cfg.n_layers * n_decode,
+            f"{att}[window]": sum(map(bool, llama.layer_windows(cfg)))
+            * n_decode,
+            f"{att}[softcap]": cfg.n_layers * n_decode * bool(
+                cfg.attn_softcap)})
+        log(f"[{tag}] {name} decode launches: "
+            f"{res[f'{name} decode_launches']}")
+    detail[f"{tag}_model"] = res
+    return res
+
+
+def teacher_force_each(params, cfg, prompts, outs, tag: str) -> dict:
+    """Each served stream fed back through a batch-1 contiguous cache with
+    the kernels (its prompt and all but its last token; the last 32
+    positions in one chunk): at each served position the gap from the
+    teacher-forced maximum logit to the served token's, over max|logit|,
+    must be within ``TF_MARGIN``; each answer read in the next request's
+    context (the control) must not pass."""
+    from quant_tpu_torch.models import llama
+
+    served, wrong, top1 = [], [], 0
+    n_new = len(outs[0])
+    max_seq = -(-max(len(p) for p in prompts) // 128) * 128 + 128
+    for i, out in enumerate(outs):
+        toks = prompts[i] + out[:-1]
+        head, tail = toks[:-n_new], toks[-n_new:]
+        cache = llama.init_cache(cfg, 1, max_seq, "cuda")
+        for a in range(0, len(head), 512):
+            _, cache = llama.forward(params, [head[a:a + 512]], cache, cfg,
+                                     device="cuda")
+        lg, _ = llama.forward(params, [tail], cache, cfg, device="cuda")
+        lg = lg[0]
+        top, scale = lg.max(-1).values, lg.abs().max(-1).values
+
+        def gap(toks):
+            t = torch.tensor(toks, device="cuda")[:, None]
+            return ((top - lg.gather(-1, t)[:, 0]) / scale).tolist()
+        served.append(gap(out))
+        wrong.append(gap(outs[(i + 1) % len(outs)]))
+        top1 += int((lg.argmax(-1).cpu() == torch.tensor(out)).sum())
+        del cache, lg
+    flat = [g for gs in wrong for g in gs]
+    res = {"limit": TF_MARGIN, "max_gap": max(map(max, served)),
+           "top1_share": top1 / (len(outs) * n_new),
+           "control_passed": sum(max(gs) <= TF_MARGIN for gs in wrong),
+           "control_median_gap": float(np.median(flat))}
+    log(f"[{tag}] teacher-forced: {len(outs) * n_new} served tokens, "
+        f"{res['top1_share']:.3f} of them the argmax, largest gap "
+        f"{res['max_gap']:.3e} of max|logit| (limit {TF_MARGIN}); control: "
+        f"{res['control_passed']} of {len(outs)} pass (median gap "
+        f"{res['control_median_gap']:.3e})")
+    if not res["max_gap"] <= TF_MARGIN:
+        raise AssertionError(f"{tag}: a served token stands "
+                             f"{res['max_gap']:.3g} of max|logit| below the "
+                             "teacher-forced maximum")
+    if res["control_passed"]:
+        raise AssertionError(f"{tag}: the teacher-forced check passes "
+                             "answers read in the wrong context")
+    return res
+
+
+# Gemma-2-9B serving: 8 prompts, two past the 4096-token window, 32 new
+# tokens each
+GEMMA2_PROMPTS = [4500, 5000, 64, 200, 517, 1024, 300, 777]
+GEMMA2_NEW = 32
+
+
+def phase_gemma2_serving(detail: dict, params, cfg, paged: bool) -> dict:
+    """Full-width Gemma-2-9B behind ``Engine(max_slots=8, max_seq=6144)``,
+    contiguous or paged (page 128): 8 greedy requests (two past the
+    window, so the local layers' window masks keys at decode), exact
+    launch counts (one fused insert and one decode kernel a layer and
+    decode forward, 21 of them windowed, all 42 softcapped, every matmul
+    on a tensor-core tile and every attention call on the tc path), the
+    decode step's time, a profile of 3 B=8 decode forwards, and every
+    served token teacher-forced."""
+    from quant_tpu_torch.engine import Engine, Request
+    from quant_tpu_torch.kernels import _build
+    from quant_tpu_torch.models import llama
+
+    tag = "gemma2-paged" if paged else "gemma2-serving"
+    eng = Engine(params, cfg, max_slots=8, max_seq=6144, eos_id=-1,
+                 device="cuda", paged=paged, page_size=128 if paged else None)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in GEMMA2_PROMPTS]
+    reqs = [Request(req_id=i, prompt=p, max_new_tokens=GEMMA2_NEW)
+            for i, p in enumerate(prompts)]
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.add_request(r)
+    calls = []
+    while eng.has_work():
+        c0 = time.perf_counter()
+        chunks0, dec0 = eng.prefill_chunks, eng.decode_forwards
+        eng.step_block(8)
+        torch.cuda.synchronize()
+        calls.append({"s": time.perf_counter() - c0,
+                      "chunks": eng.prefill_chunks - chunks0,
+                      "decode": eng.decode_forwards - dec0})
+    total = time.perf_counter() - t0
+    launches = dict(_build.launches)
+    if not all(r.finished and len(r.output) == GEMMA2_NEW for r in reqs):
+        raise AssertionError(f"{tag}: not every request finished")
+    pre = "paged_" if paged else ""
+    att, ins = f"{pre}flash_decode_int8", f"{pre}cache_insert_int8"
+    n_l, dec = cfg.n_layers, eng.decode_forwards
+    local = sum(map(bool, llama.layer_windows(cfg)))
+    expect = {"dequant_matmul": (4 * n_l + 1) * (eng.prefill_chunks + dec),
+              ins: n_l * dec, f"{ins}[fused]": n_l * dec, att: n_l * dec,
+              f"{att}[tc]": n_l * dec, f"{att}[window]": local * dec,
+              f"{att}[softcap]": n_l * dec}
+    if not dec:
+        raise AssertionError(f"{tag}: no decode forward")
+    check_launches(tag, launches, expect)
+    pure = [c for c in calls if c["chunks"] == 0 and c["decode"]]
+    decode_ms = (1e3 * sum(c["s"] for c in pure)
+                 / max(1, sum(c["decode"] for c in pure)))
+    ttfts = sorted(r.ttft for r in reqs)
+    out = {"prompt_lens": GEMMA2_PROMPTS, "prefill_chunks": eng.prefill_chunks,
+           "decode_forwards": dec, "launches": launches,
+           "expected_launches": expect, "total_s": total,
+           "decode_ms_per_step": decode_ms,
+           "ttft_ms_p50": 1e3 * ttfts[len(ttfts) // 2],
+           "max_memory_allocated_gib":
+               torch.cuda.max_memory_allocated() / 2**30}
+    log(f"[{tag}] 8 requests, prompts {GEMMA2_PROMPTS} -> {GEMMA2_NEW} "
+        f"tokens each in {total:.1f}s; {eng.prefill_chunks} prefill chunks, "
+        f"{dec} decode steps, decode {decode_ms:.2f} ms/step (B=8), TTFT "
+        f"p50 {out['ttft_ms_p50']:.0f} ms, max_memory_allocated "
+        f"{out['max_memory_allocated_gib']:.2f} GiB; launches as expected "
+        f"{expect}")
+    # the profile's step at the traffic's final lengths
+    final = [n + GEMMA2_NEW for n in GEMMA2_PROMPTS]
+    if paged:
+        park_at_lengths(eng, final)
+    else:
+        eng.cache.lengths.copy_(torch.tensor(final, dtype=torch.int32))
+    out["profile"] = profile_decode(eng, label=tag)
+    outs = [r.output for r in reqs]
+    del eng
+    torch.cuda.empty_cache()
+    out["teacher_forced"] = teacher_force_each(params, cfg, prompts, outs,
+                                               tag)
+    detail[tag] = out
+    return out
+
+
+def phase_gemma2(detail: dict) -> dict:
+    """Full-width Gemma-2-9B (all 42 layers, random INT4 g128 weights made
+    on the card from seed 0): kernels against plain logits at B=4 over
+    contexts on both sides of the 4096-token window, then served by the
+    contiguous and by the paged engine."""
+    from quant_tpu_torch.models import PRESETS, llama
+
+    cfg = PRESETS["gemma-2-9b"]
+    t0 = time.perf_counter()
+    params = llama.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[gemma-2-9b] params made on the card in "
+        f"{time.perf_counter() - t0:.1f}s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    family_model_check(detail, "gemma-2-9b", params, cfg,
+                       [1500, 3900, 4300, 5200])
+    res = {"contiguous": phase_gemma2_serving(detail, params, cfg, False),
+           "paged": phase_gemma2_serving(detail, params, cfg, True)}
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+# the other dense presets: (preset, layers or None for all, slot lengths,
+# a paged kernel variant too); each crosses its window where it has one
+FAMILY_CHECKS = [("qwen2-7b", 4, [200, 900], False),
+                 ("mistral-7b", 4, [300, 4300], True),
+                 ("gemma-7b", 4, [200, 900], False),
+                 ("gemma-3-1b", None, [64, 300, 700, 1300], False)]
+
+
+def phase_families(detail: dict) -> dict:
+    """Qwen2-7B, Mistral-7B and Gemma-7B at full width and 4 layers, and
+    Gemma-3-1B whole (local and global layers): kernels against plain
+    logits each; then Llama-3-8B at 4 layers with the unquantized cache
+    (``kv_bits=16``, decoded on the plain path), contiguous against paged.
+    Returns each check's result (its kernel variants' decode launches)."""
+    from quant_tpu_torch.models import PRESETS, llama
+
+    out = {}
+    for preset, layers, lens, paged in FAMILY_CHECKS:
+        cfg = PRESETS[preset]
+        if layers:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        params = llama.init_params(cfg, seed=0, device="cuda")
+        out[preset] = family_model_check(detail, preset, params, cfg, lens,
+                                         paged=paged)
+        del params
+        torch.cuda.empty_cache()
+    cfg = dataclasses.replace(PRESETS["llama-3-8b"], n_layers=4, kv_bits=16)
+    params = llama.init_params(cfg, seed=0, device="cuda")
+    family_model_check(detail, "llama-3-8b-kv16", params, cfg,
+                       [100, 700, 1500], variants={
+                           "contiguous": ({}, False), "paged": ({}, True)},
+                       pairs=(("paged", "contiguous"),))
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def windowed_entries(rows: dict, gemma2: dict, families: dict) -> list:
+    """The kernels line's entries of the windowed and softcapped decode
+    rows (bf16 q), each with its launches from its own path's run: the
+    Gemma-2-9B rows from the contiguous and paged serving runs (local
+    layers: the windowed launches; global: the others), the Mistral-7B rows
+    from its model check's kernel variants."""
+    out = []
+    for (name, label), s in rows.items():
+        w = next(r[5] for r in WINDOW_ROWS if r[0] == label)
+        cap = next(r[6] for r in WINDOW_ROWS if r[0] == label)
+        if label.startswith("gemma-2-9b"):
+            run = gemma2["paged" if name.startswith("paged") else
+                         "contiguous"]["launches"]
+            n = (run[f"{name}[window]"] if w
+                 else run[name] - run[f"{name}[window]"])
+        else:
+            variant = ("kernels-paged" if name.startswith("paged")
+                       else "kernels")
+            n = families["mistral-7b"][f"{variant} decode_launches"][
+                f"{name}[window]"]
+        out.append({
+            "name": f"{name} [{label}: window {w}, softcap {cap:g}]",
+            "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": n,
+            "max_abs_err": s["max_abs_err"], "ms": s["ms"],
+            "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+            "bound_by": s["bound_by"], "library_ms": None,
+            "unit": f"one call, bf16 q, {label}: B=8, lengths "
+                    f"{WINDOW_LENGTHS}, S=8192; device time, each call on the "
+                    f"next layer (L2-cold)"})
+    return out
+
+
 def write_detail(path, detail: dict) -> None:
     if path is not None:
         path.parent.mkdir(parents=True, exist_ok=True)
@@ -3129,6 +3590,10 @@ def run_all(args, detail: dict) -> int:
     phase_dsv3(detail, dataclasses.replace(PRESETS["deepseek-v3"],
                                            n_layers=4))
     lap("deepseek-v3")
+    gemma2 = phase_gemma2(detail)
+    lap("gemma-2-9b")
+    families = phase_families(detail)
+    lap("families")
     for preset in ("test-tiny", "test-tiny-moe"):
         phase_cli(detail, preset)
         phase_cli_serve(detail, preset)
@@ -3156,6 +3621,7 @@ def run_all(args, detail: dict) -> int:
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": s["bound_by"], "library_ms": s["library_ms"],
             "unit": s["unit"]})
+    kernels += windowed_entries(summary["windowed"], gemma2, families)
     detail["total_s"] = time.perf_counter() - t_start
     log(f"[done] {detail['total_s']:.1f}s")
     print(json.dumps({"kernels": kernels}))

@@ -45,7 +45,7 @@ _FORMAT_V1 = "quant-tpu-ckpt-v1"
 
 __all__ = ["FORMAT", "CheckpointWriter", "coder", "entropy_encode",
            "entropy_decode", "save_checkpoint", "load_checkpoint",
-           "read_flat"]
+           "read_flat", "read_manifest"]
 
 
 def _to_numpy(t) -> np.ndarray:
@@ -194,10 +194,9 @@ def _read_leaf(fd: int, meta: dict) -> torch.Tensor:
     return t.view(torch.bfloat16) if dt == "bfloat16" else t
 
 
-def read_flat(path) -> tuple[dict, ModelConfig]:
-    """(flat dict of host leaves in checkpoint naming, ModelConfig). The
-    blobs decode in a pool of up to 8 threads, as the JAX loader's do: the
-    C++ decoder releases the GIL."""
+def read_manifest(path) -> tuple[dict, ModelConfig]:
+    """(manifest, ModelConfig) of a packed checkpoint; raises on a format
+    or packing the port does not read, before any blob is decoded."""
     path = pathlib.Path(path)
     manifest = json.loads((path / "manifest.json").read_text())
     if manifest["format"] == _FORMAT_V1:
@@ -212,6 +211,15 @@ def read_flat(path) -> tuple[dict, ModelConfig]:
         if "lut" in meta:
             raise NotImplementedError(f"{name}: codebook (lut) weights are "
                                       "not ported")
+    return manifest, cfg
+
+
+def read_flat(path) -> tuple[dict, ModelConfig]:
+    """(flat dict of host leaves in checkpoint naming, ModelConfig). The
+    blobs decode in a pool of up to 8 threads, as the JAX loader's do: the
+    C++ decoder releases the GIL."""
+    path = pathlib.Path(path)
+    manifest, cfg = read_manifest(path)
     fd = os.open(path / "data.bin", os.O_RDONLY)
     try:
         with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) \
@@ -245,8 +253,9 @@ def read_flat(path) -> tuple[dict, ModelConfig]:
 
 def load_checkpoint(path, device=None) -> tuple[LlamaParams, ModelConfig]:
     """Read a packed checkpoint -> (LlamaParams on ``device``, ModelConfig).
-    ``device`` is the card unless "cpu"; codes stay packed."""
+    ``device`` is the card unless "cpu"; codes stay packed. A config the
+    port does not serve raises before any blob is decoded."""
     device = resolve_device(device)
+    check_supported(read_manifest(path)[1])
     flat, cfg = read_flat(path)
-    check_supported(cfg)
     return params_from_flat(flat, cfg, device), cfg

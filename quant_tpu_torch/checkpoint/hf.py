@@ -15,10 +15,10 @@ F16 or BF16 files: the weights are upcast to float32 first, exactly).
 Families: the dense Llama family (tied embeddings; llama3, linear and yarn
 rope; Qwen2 q/k/v biases; Qwen3 ``qk_norm``; Gemma-2's four norms; Phi-3's
 fused ``qkv_proj`` / ``gate_up_proj``), the Mixtral and Qwen3-MoE experts,
-and DeepSeek-V2/V3 (MLA, shared experts, selection bias, dense prefix). A
-config the port's forward does not serve yet (Qwen2 biases, Gemma) still
-converts; ``load_checkpoint`` refuses it (``llama.check_supported``).
-GPTQ/AWQ calibration, codebooks and tp>1 packing raise
+and DeepSeek-V2/V3 (MLA, shared experts, selection bias, dense prefix).
+The port's forward serves all of them (Gemma, Gemma-2 and Gemma-3 too). A
+config outside it still converts; ``load_checkpoint`` refuses it
+(``llama.check_supported``) before it decodes a blob. GPTQ/AWQ calibration, codebooks and tp>1 packing raise
 ``NotImplementedError`` naming the feature.
 """
 

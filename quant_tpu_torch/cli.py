@@ -8,7 +8,7 @@
         [--port 8400] [--paged [--page-size N] [--n-pages N]] \
         [--prefix-cache] [--max-pending N] [--device cuda]
     python -m quant_tpu_torch eval <ckpt_dir> --text file.txt \
-        [--window 512] [--limit-windows N] [--device cuda]
+        [--window 512] [--limit-windows N] [--kv-bits 8|16] [--device cuda]
     python -m quant_tpu_torch selftest [--device cuda]
     python -m quant_tpu_torch encode|decode <infile> <outfile> [--bits 8]
     python -m quant_tpu_torch roundtrip <infile> [--bits 8]
@@ -32,6 +32,7 @@ gptq``, ``serve --paged`` on an MLA checkpoint, ``bench``) exits with code
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import logging
 import struct
@@ -104,12 +105,14 @@ def _cmd_eval(args) -> int:
     from quant_tpu_torch.checkpoint import load_checkpoint
     from quant_tpu_torch.eval import perplexity, tokens_from_file
 
-    if args.kv_bits not in (0, 8):
-        raise NotImplementedError(f"--kv-bits {args.kv_bits} (the port's "
-                                  "cache is int8: 0 or 8)")
+    if args.kv_bits == 4:
+        raise NotImplementedError("--kv-bits 4 (the port's cache is int8 "
+                                  "or unquantized: 0, 8 or 16)")
     toks = tokens_from_file(args.text, args.tokenizer)
     t0 = time.perf_counter()
     params, cfg = load_checkpoint(args.ckpt, device=args.device)
+    if args.kv_bits:
+        cfg = dataclasses.replace(cfg, kv_bits=args.kv_bits)
     t1 = time.perf_counter()
     res = perplexity(params, cfg, toks, window=args.window,
                      limit_windows=args.limit_windows)
@@ -292,8 +295,8 @@ def main(argv=None) -> int:
                    help="local HF tokenizer dir (needs transformers)")
     e.add_argument("--window", type=int, default=512)
     e.add_argument("--kv-bits", type=int, default=0, choices=(0, 4, 8, 16),
-                   help="KV cache override: 0 (checkpoint's) and 8 are "
-                        "ported")
+                   help="KV cache override: 0 (checkpoint's), 8 (int8) "
+                        "and 16 (unquantized) are ported")
     e.add_argument("--limit-windows", type=int, default=None)
     e.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     e.set_defaults(fn=_cmd_eval)

@@ -12,6 +12,18 @@
 // of the Dh sum), with an online softmax. Output = acc / max(l, 1e-20): a
 // slot of length 0 gives zeros.
 //
+// Two per-layer options of the JAX kernels, both launch arguments:
+// - A sliding window w (Mistral, Gemma-2/3 local layers; 0 = full causal):
+//   the valid keys of slot b are [wstart, len) with wstart = max(0, len - w).
+//   Chunks are counted from wstart, so no block is launched for, or reads,
+//   keys before the window, and the wrapper sizes the grid from min(S, w).
+// - A logit softcap c (Gemma-2; 0 = off): the natural logit x (after the
+//   key scale) becomes c * tanh(x / c) before the mask. The kernel's logits
+//   are base 2 (x * log2 e), so it computes cl * tanhf(y / cl) of the
+//   base-2 logit y with cl = c * log2 e: the same value. tanhf is the
+//   accurate one (tanh.approx.f32's error moves a logit at c = 50 by about
+//   0.02, past the f32 path's 1e-4).
+//
 // Where token t of (slot b, kv head h) lives is the only difference between
 // the two caches, so one kernel body serves both through a row policy:
 //   contiguous  [L, B, Hkv, S, Dh]: row ((layer * B + b) * Hkv + h) * S + t;
@@ -29,10 +41,11 @@
 //
 // Design:
 // - Work split on the device. Block (bh, c) of a grid of B * Hkv * n_chunks
-//   blocks owns chunk c (`chunk` tokens, a multiple of the TT-token tile) of
-//   slot b and kv head h; the wrapper sizes grid and workspace from static
-//   ints only (kernels/attention.py decode_plan). A block reads its slot's
-//   length and exits when its chunk starts at or past it, so the work
+//   blocks owns chunk c (`chunk` tokens from the window's start, a multiple
+//   of the TT-token tile) of slot b and kv head h; the wrapper sizes grid
+//   and workspace from static ints only (kernels/attention.py decode_plan).
+//   A block reads its slot's length and exits when its chunk starts at or
+//   past it, so the work
 //   spreads over short chunks whatever the lengths, and tokens past the
 //   length are neither loaded nor computed. A paged block loads the page
 //   ids of its own chunk (none past the length) into shared memory.
@@ -96,8 +109,20 @@ struct Args {
   int layer, B, Hkv, S, D, rep, chunk, n_chunks;
   int P, page, page_shift, max_pages;  // paged pool only; page_shift is
                                         // log2(page), or -1
+  int window;            // sliding window in tokens; 0 = full causal
   float qk_scale;        // softmax scale * log2(e)
+  float cap;             // logit softcap * log2(e); 0 = off
 };
+
+// Base-2 logit y after the softcap (cap = c * log2 e, 0 = off).
+__device__ __forceinline__ float softcap(float y, float cap) {
+  return cap > 0.f ? cap * tanhf(y / cap) : y;
+}
+
+// First valid key of a slot of `len` tokens under `window`.
+__device__ __forceinline__ int window_start(int len, int window) {
+  return window > 0 ? max(0, len - window) : 0;
+}
 
 // Shared-memory layout of one ring stage: K rows, V rows, K scales, V
 // scales. At Dh a multiple of 128 the 16-byte units of a row are
@@ -380,7 +405,7 @@ __device__ __forceinline__ void attend(const Args& a, const Rows& rows, int bh,
         for (int e = 0; e < 2; ++e) {
           const int r = w0 + 8 * n + 2 * t + e;
           ok[n][e] = t0 + r < c1;
-          s[n][e] = sc[n][e] * a.qk_scale * kss[r];
+          s[n][e] = softcap(sc[n][e] * a.qk_scale * kss[r], a.cap);
           if (ok[n][e]) mx = fmaxf(mx, s[n][e]);
         }
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
@@ -452,7 +477,8 @@ __device__ __forceinline__ void attend(const Args& a, const Rows& rows, int bh,
       for (int k = 0; k < MAX_REP; ++k) {
         alpha[k] = 1.f;
         if (k >= rep) continue;
-        const float s = (dots[k] + __shfl_xor_sync(0xffffffffu, dots[k], 1)) * ksc;
+        const float s =
+            softcap((dots[k] + __shfl_xor_sync(0xffffffffu, dots[k], 1)) * ksc, a.cap);
         float mx = ok ? s : NEG;
 #pragma unroll
         for (int x = 2; x < 32; x <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, x));
@@ -617,10 +643,10 @@ template <typename T, int DMAX, bool TC, bool FIX>
 __global__ void __launch_bounds__(NT, DMAX <= 128 ? 4 : 2) flash_decode(const Args a) {
   const int bh = blockIdx.x / a.n_chunks, chunk = blockIdx.x - bh * a.n_chunks;
   const int b = bh / a.Hkv, h = bh - b * a.Hkv;
-  const int len = max(0, min(a.lengths[b], a.S));
-  const int used = max(1, (len + a.chunk - 1) / a.chunk);
+  const int len = max(0, min(a.lengths[b], a.S)), ws = window_start(len, a.window);
+  const int used = max(1, (len - ws + a.chunk - 1) / a.chunk);
   if (chunk >= used) return;
-  const int c0 = chunk * a.chunk, c1 = min(len, c0 + a.chunk);
+  const int c0 = ws + chunk * a.chunk, c1 = min(len, c0 + a.chunk);
   const ContigRows rows{(((size_t)a.layer * a.B + b) * a.Hkv + h) * a.S};
   attend<T, DMAX, TC, FIX>(a, rows, bh, chunk, c0, c1, used);
 }
@@ -630,10 +656,10 @@ __global__ void __launch_bounds__(NT, DMAX <= 128 ? 4 : 2) paged_flash_decode(co
   __shared__ int ids[MAX_IDS];
   const int bh = blockIdx.x / a.n_chunks, chunk = blockIdx.x - bh * a.n_chunks;
   const int b = bh / a.Hkv, h = bh - b * a.Hkv;
-  const int len = max(0, min(a.lengths[b], a.S));
-  const int used = max(1, (len + a.chunk - 1) / a.chunk);
+  const int len = max(0, min(a.lengths[b], a.S)), ws = window_start(len, a.window);
+  const int used = max(1, (len - ws + a.chunk - 1) / a.chunk);
   if (chunk >= used) return;
-  const int c0 = chunk * a.chunk, c1 = min(len, c0 + a.chunk);
+  const int c0 = ws + chunk * a.chunk, c1 = min(len, c0 + a.chunk);
   const int first = c0 / a.page;
   const int n_ids = c1 > c0 ? (c1 - 1) / a.page - first + 1 : 0;
   for (int i = threadIdx.x; i < n_ids; i += NT)
@@ -659,7 +685,7 @@ int run(const Args& a, bool paged, cudaStream_t st) {
 
 int dispatch(const Args& a, int q_bf16, int tc, bool paged, cudaStream_t st) {
   if (a.rep < 1 || a.rep > MAX_REP || a.D % 16 || a.D > 256 || a.chunk % TT ||
-      a.chunk > 4096 || (tc && (!q_bf16 || a.D % 32)) ||
+      a.chunk > 4096 || a.window < 0 || !(a.cap >= 0.f) || (tc && (!q_bf16 || a.D % 32)) ||
       (paged && (a.page < 1 || a.chunk / a.page + 2 > MAX_IDS)))
     return (int)cudaErrorInvalidValue;
   using bf16 = __nv_bfloat16;
@@ -679,13 +705,15 @@ int dispatch(const Args& a, int q_bf16, int tc, bool paged, cudaStream_t st) {
 
 // part_o: f32 [B * Hkv * n_chunks * rep * Dh], part_ml: f32 [... * rep * 2]
 // (unused, and may be null, when n_chunks is 1); counters: int32 [B * Hkv],
-// zero, left zero. tc: the tensor-core path (bf16 q, Dh % 32 == 0).
+// zero, left zero. tc: the tensor-core path (bf16 q, Dh % 32 == 0). window:
+// sliding window (0 = full causal); cap: logit softcap (0 = off).
 extern "C" int flash_decode_int8_launch(const void* q, int q_bf16, int tc, const void* kc,
                                         const void* ks, const void* vc, const void* vs,
                                         const void* lengths, void* out, void* part_o,
                                         void* part_ml, void* counters, int layer, int B,
                                         int Hkv, int S, int D, int rep, float scale,
-                                        int chunk, int n_chunks, void* stream) {
+                                        int window, float cap, int chunk, int n_chunks,
+                                        void* stream) {
   Args a{};
   a.q = q;
   a.kc = reinterpret_cast<const int8_t*>(kc);
@@ -706,6 +734,8 @@ extern "C" int flash_decode_int8_launch(const void* q, int q_bf16, int tc, const
   a.chunk = chunk;
   a.n_chunks = n_chunks;
   a.qk_scale = scale * LOG2E;
+  a.window = window;
+  a.cap = cap * LOG2E;
   return dispatch(a, q_bf16, tc, false, reinterpret_cast<cudaStream_t>(stream));
 }
 
@@ -715,7 +745,8 @@ extern "C" int paged_flash_decode_int8_launch(
     const void* q, int q_bf16, int tc, const void* kc, const void* ks, const void* vc,
     const void* vs, const void* page_tbl, const void* lengths, void* out, void* part_o,
     void* part_ml, void* counters, int layer, int B, int Hkv, int P, int page,
-    int max_pages, int D, int rep, float scale, int chunk, int n_chunks, void* stream) {
+    int max_pages, int D, int rep, float scale, int window, float cap, int chunk,
+    int n_chunks, void* stream) {
   Args a{};
   a.q = q;
   a.kc = reinterpret_cast<const int8_t*>(kc);
@@ -741,6 +772,8 @@ extern "C" int paged_flash_decode_int8_launch(
   a.page_shift = (page & (page - 1)) ? -1 : __builtin_ctz(page);
   a.max_pages = max_pages;
   a.qk_scale = scale * LOG2E;
+  a.window = window;
+  a.cap = cap * LOG2E;
   return dispatch(a, q_bf16, tc, true, reinterpret_cast<cudaStream_t>(stream));
 }
 

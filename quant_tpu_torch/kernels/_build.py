@@ -41,7 +41,9 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # kernel name -> launches since the last reset_launches(); the matmul
 # kernels also count each launch under the tile that served it,
 # "<kernel>[<tile>]", the decode-attention kernels under their path
-# ("tc": tensor cores for bf16 q, "cuda_core"), and the inserts under
+# ("tc": tensor cores for bf16 q, "cuda_core"; the GQA pair's calls with a
+# sliding window or a logit softcap also under "[window]" / "[softcap]"),
+# and the inserts under
 # "[fused]" (RoPE and K/V quantization in the same launch; the MLA latent's
 # RMSNorm too)
 launches: dict[str, int] = {"dequant_matmul": 0, "dequant_matmul_moe": 0,
@@ -58,6 +60,9 @@ launches.update({f"{k}[{path}]": 0
                  for k in ("flash_decode_int8", "paged_flash_decode_int8",
                            "mla_flash_decode_int8")
                  for path in ("tc", "cuda_core")})
+launches.update({f"{k}[{opt}]": 0
+                 for k in ("flash_decode_int8", "paged_flash_decode_int8")
+                 for opt in ("window", "softcap")})
 launches.update({f"{k}[fused]": 0
                  for k in ("cache_insert_int8", "paged_cache_insert_int8",
                            "mla_cache_insert_int8")})

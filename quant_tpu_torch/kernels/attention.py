@@ -3,7 +3,10 @@
 The port of the JAX package's ``kernels/attention.py``
 (``flash_decode_int8``): GQA attention over the int8 cache with
 per-(token, head) scales, the key scale applied to the logits and the value
-scale to the probabilities, masked by per-slot ``lengths``. The CUDA kernel
+scale to the probabilities, masked by per-slot ``lengths`` and, per call, a
+sliding ``window`` (the last ``window`` keys of each slot; Mistral, the
+local layers of Gemma-2/3) with an optional tanh logit ``softcap`` (Gemma-2)
+before the mask, as the JAX kernel computes them. The CUDA kernel
 is ``csrc/flash_decode.cu``, whose header note gives its design;
 :func:`flash_decode_int8` launches it for tensors on the card and takes the
 plain version :func:`flash_decode_int8_reference` only for tensors on the
@@ -11,11 +14,12 @@ CPU: on a CUDA tensor it launches or raises, it never falls back.
 
 Each call runs one of two paths, chosen from q's dtype and Dh
 (:func:`decode_path`) and counted under its name beside the kernel's total
-(``flash_decode_int8[tc]``, ``[cuda_core]``): the tensor cores for bf16 q
+(``flash_decode_int8[tc]``, ``[cuda_core]``; a call with a window or a
+softcap also under ``[window]`` / ``[softcap]``): the tensor cores for bf16 q
 (the serving path), CUDA-core dots for f32 q. :func:`decode_plan` sizes the
 call's grid and workspace from static ints alone (B, Hkv, S, rep, Dh and
-the SM count), so the wrapper reads neither ``lengths`` nor a page table on
-the host.
+the SM count; a window caps S at its width), so the wrapper reads neither
+``lengths`` nor a page table on the host.
 """
 
 from __future__ import annotations
@@ -42,9 +46,10 @@ class DecodePlan:
     """A decode-attention call's split, from static ints only.
 
     Block ``(bh, c)`` of the ``blocks = B * Hkv * n_chunks`` blocks owns
-    tokens ``[c * chunk, min(length, (c + 1) * chunk))`` of slot
-    ``bh // Hkv`` and kv head ``bh % Hkv``, walked in ``_TILE``-token
-    tiles; a block whose chunk starts at or past the length exits, except
+    tokens ``[w0 + c * chunk, min(length, w0 + (c + 1) * chunk))`` of slot
+    ``bh // Hkv`` and kv head ``bh % Hkv`` (``w0`` the window's first key,
+    0 without a window), walked in ``_TILE``-token tiles; a block whose
+    chunk starts at or past the length exits, except
     chunk 0 of an empty slot, which writes its zeros. The
     workspace holds, per (slot, kv head, chunk, query row), the chunk's
     unnormalised output (``part_o`` floats in all) and its (max, sum)
@@ -59,14 +64,18 @@ class DecodePlan:
 
 
 def decode_plan(b: int, hkv: int, s: int, rep: int, dh: int,
-                sms: int = 132) -> DecodePlan:
+                sms: int = 132, window: int = 0) -> DecodePlan:
     """The split of a call over ``b`` slots of ``s`` tokens (contiguous S,
     or ``max_pages * page``), ``hkv`` kv heads of ``rep`` query rows and
-    ``dh`` lanes, on a card of ``sms`` SMs. Chunks are the shortest that
+    ``dh`` lanes, on a card of ``sms`` SMs; a ``window`` above 0 reads at
+    most that many keys a slot, so it takes the place of ``s`` when it is
+    the smaller. Chunks are the shortest that
     keep a full batch within about 8 blocks per SM: short enough that a
     skewed batch spreads over all SMs, long enough that a full one does not
     spend its time writing and merging partials (a multiple of the tile, at
     most ``_MAX_CHUNK``)."""
+    if window > 0:
+        s = min(s, window)
     chunk = _TILE
     while chunk < _MAX_CHUNK and b * hkv * -(-s // chunk) > 8 * sms:
         chunk *= 2
@@ -111,19 +120,36 @@ def _check_q(q, hkv: int, dh: int) -> int:
     return rep
 
 
+def _count_call(name: str, path: str, window: int, softcap: float) -> None:
+    """One launch of ``name`` on ``path``, and its window and softcap."""
+    _count(name, path)
+    if window:
+        _build.count_launch(f"{name}[window]")
+    if softcap:
+        _build.count_launch(f"{name}[softcap]")
+
+
 def _layer_view(a, layer):
     if layer is None:
         return a
     return a[layer]
 
 
+def _window(window) -> int:
+    """A call's window as a Python int (None or <= 0: full causal)."""
+    return max(0, int(window)) if window is not None else 0
+
+
 def flash_decode_int8_reference(q, k_codes, k_scale, v_codes, v_scale,
-                                lengths, layer=None, *, scale=None):
+                                lengths, layer=None, window=None, *,
+                                softcap: float = 0.0, scale=None):
     """Plain version, in float32: q ``[B, Hq, Dh]`` against caches
-    ``[B, Hkv, S, Dh]`` (or stacked ``[L, ...]`` with ``layer``). Keys at
-    positions ``>= lengths[b]`` are masked; the output is
-    ``sum(p * v_scale * v) / max(sum(p), 1e-20)``, so a slot of length 0
-    gives zeros like the kernel."""
+    ``[B, Hkv, S, Dh]`` (or stacked ``[L, ...]`` with ``layer``). The
+    logits (after the key scale) go through ``softcap * tanh(x / softcap)``
+    when ``softcap`` is set; then keys at positions ``>= lengths[b]``, and
+    with a ``window`` above 0 those before ``lengths[b] - window``, are
+    masked; the output is ``sum(p * v_scale * v) / max(sum(p), 1e-20)``,
+    so a slot of length 0 gives zeros like the kernel."""
     kc, ks = _layer_view(k_codes, layer), _layer_view(k_scale, layer)
     vc, vs = _layer_view(v_codes, layer), _layer_view(v_scale, layer)
     b, hq, dh = q.shape
@@ -133,8 +159,15 @@ def flash_decode_int8_reference(q, k_codes, k_scale, v_codes, v_scale,
     qg = q.to(torch.float32).reshape(b, hkv, rep, dh) * scale
     logits = torch.einsum("bhrd,bhsd->bhrs", qg, kc.to(torch.float32))
     logits = logits * ks[:, :, None, :]
-    valid = (torch.arange(s, device=q.device)[None, :]
-             < lengths.to(q.device)[:, None])[:, None, None, :]
+    if softcap:
+        logits = softcap * torch.tanh(logits / softcap)
+    pos = torch.arange(s, device=q.device)[None, :]
+    lens = lengths.to(q.device)[:, None]
+    valid = pos < lens
+    w = _window(window)
+    if w:
+        valid = valid & (pos >= lens - w)
+    valid = valid[:, None, None, :]
     logits = torch.where(valid, logits, torch.full_like(logits, -1e30))
     m = logits.amax(dim=-1, keepdim=True)
     p = torch.where(valid, torch.exp(logits - m), torch.zeros_like(logits))
@@ -146,9 +179,10 @@ def flash_decode_int8_reference(q, k_codes, k_scale, v_codes, v_scale,
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # q, q_bf16, tc, k_codes, k_scale, v_codes, v_scale, lengths, out, part_o,
-# part_ml, counters, layer, B, Hkv, S, Dh, rep, scale, chunk, n_chunks,
-# stream
-_ARGTYPES = ([_P, _I, _I] + [_P] * 9 + [_I] * 6 + [ctypes.c_float]
+# part_ml, counters, layer, B, Hkv, S, Dh, rep, scale, window, softcap,
+# chunk, n_chunks, stream
+_ARGTYPES = ([_P, _I, _I] + [_P] * 9 + [_I] * 6 + [ctypes.c_float, _I,
+                                                   ctypes.c_float]
              + [_I] * 2 + [_P])
 
 
@@ -159,16 +193,17 @@ def flash_decode_int8(q, k_codes, k_scale, v_codes, v_scale, lengths,
 
     ``k_codes``/``v_codes`` int8 ``[B, Hkv, S, Dh]``, or stacked
     ``[L, B, Hkv, S, Dh]`` with ``layer``; scales f32 ``[.., Hkv, S]``;
-    ``lengths`` int32 ``[B]``; ``scale`` defaults to ``1/sqrt(Dh)``."""
-    if window is not None or softcap:
-        raise NotImplementedError("sliding windows and softcaps are not "
-                                  "ported")
+    ``lengths`` int32 ``[B]``; ``window`` a Python int (None or 0: full
+    causal), ``softcap`` a float (0: off), both read on the host only;
+    ``scale`` defaults to ``1/sqrt(Dh)``."""
+    if softcap < 0:
+        raise ValueError(f"softcap must be >= 0, got {softcap}")
     if k_codes.dtype != torch.int8:
         raise NotImplementedError("only the int8 cache is ported (kv_bits 8)")
     if q.device.type == "cpu":
         return flash_decode_int8_reference(q, k_codes, k_scale, v_codes,
-                                           v_scale, lengths, layer,
-                                           scale=scale)
+                                           v_scale, lengths, layer, window,
+                                           softcap=softcap, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     stacked = k_codes.dim() == 5
@@ -199,7 +234,8 @@ def flash_decode_int8(q, k_codes, k_scale, v_codes, v_scale, lengths,
     out = torch.empty_like(q)
     if b == 0:
         return out
-    plan = decode_plan(b, hkv, s, rep, dh, _sm_count(q.device))
+    w = _window(window)
+    plan = decode_plan(b, hkv, s, rep, dh, _sm_count(q.device), w)
     path = decode_path(q, dh)
     part_o, part_ml, counters = _workspace(plan, q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -211,8 +247,8 @@ def flash_decode_int8(q, k_codes, k_scale, v_codes, v_scale, lengths,
             None if part_ml is None else part_ml.data_ptr(),
             None if counters is None else counters.data_ptr(), layer, b,
             hkv, s, dh, rep,
-            float(scale if scale is not None else 1.0 / dh ** 0.5),
-            plan.chunk, plan.n_chunks, stream)
+            float(scale if scale is not None else 1.0 / dh ** 0.5), w,
+            float(softcap), plan.chunk, plan.n_chunks, stream)
     _build.check(rc, "flash_decode_int8", "flash_decode")
-    _count("flash_decode_int8", path)
+    _count_call("flash_decode_int8", path, w, softcap)
     return out

@@ -18,7 +18,7 @@ block loads the page ids of its own chunk on the card);
 path and under the plan of the contiguous kernel
 (:func:`~quant_tpu_torch.kernels.attention.decode_path`, ``decode_plan`` at
 ``S = max_pages * page``), counted as ``paged_flash_decode_int8[tc]`` or
-``[cuda_core]``, and takes the plain version
+``[cuda_core]`` (and ``[window]`` / ``[softcap]``), and takes the plain version
 :func:`paged_attention_reference` only for tensors on the CPU.
 :func:`paged_gather` builds a slot-contiguous copy of one layer's pages for
 the plain versions and for prefill.
@@ -32,8 +32,8 @@ import torch
 
 from quant_tpu_torch.kernels import _build
 from quant_tpu_torch.kernels.attention import (
-    _check_q, _count, _sm_count, _workspace, decode_path, decode_plan,
-    flash_decode_int8_reference)
+    _check_q, _count_call, _sm_count, _window, _workspace, decode_path,
+    decode_plan, flash_decode_int8_reference)
 
 __all__ = ["paged_flash_decode_int8", "paged_attention_reference",
            "paged_gather"]
@@ -50,16 +50,19 @@ def paged_gather(pool, page_tbl, layer):
 
 
 def paged_attention_reference(q, pool_kc, pool_ks, pool_vc, pool_vs,
-                              page_tbl, lengths, layer, *, scale=None):
+                              page_tbl, lengths, layer, window=None, *,
+                              softcap: float = 0.0, scale=None):
     """Plain version, in float32: gathers each slot's pages into a
     contiguous view and attends over it like
     :func:`~quant_tpu_torch.kernels.attention.flash_decode_int8_reference`
-    (a slot of length 0 gives zeros, as the kernel does)."""
+    (window and softcap included; a slot of length 0 gives zeros, as the
+    kernel does)."""
     return flash_decode_int8_reference(
         q, paged_gather(pool_kc, page_tbl, layer),
         paged_gather(pool_ks, page_tbl, layer),
         paged_gather(pool_vc, page_tbl, layer),
-        paged_gather(pool_vs, page_tbl, layer), lengths, scale=scale)
+        paged_gather(pool_vs, page_tbl, layer), lengths, None, window,
+        softcap=softcap, scale=scale)
 
 
 _MAX_IDS = 4096 // 8 + 2  # csrc/flash_decode.cu MAX_IDS: page ids per block
@@ -67,8 +70,9 @@ _MAX_IDS = 4096 // 8 + 2  # csrc/flash_decode.cu MAX_IDS: page ids per block
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # q, q_bf16, tc, k_codes, k_scale, v_codes, v_scale, page_tbl, lengths, out,
 # part_o, part_ml, counters, layer, B, Hkv, P, page, max_pages, Dh, rep,
-# scale, chunk, n_chunks, stream
-_ARGTYPES = ([_P, _I, _I] + [_P] * 10 + [_I] * 8 + [ctypes.c_float]
+# scale, window, softcap, chunk, n_chunks, stream
+_ARGTYPES = ([_P, _I, _I] + [_P] * 10 + [_I] * 8 + [ctypes.c_float, _I,
+                                                    ctypes.c_float]
              + [_I] * 2 + [_P])
 
 
@@ -80,17 +84,19 @@ def paged_flash_decode_int8(q, pool_kc, pool_ks, pool_vc, pool_vs, page_tbl,
 
     ``q`` ``[B, Hq, Dh]`` float32 or bfloat16; pools as in the module
     docstring; ``page_tbl`` int32 ``[B, max_pages]``; ``lengths`` int32
-    ``[B]`` (keys at positions ``>= lengths[b]`` are masked); ``scale``
-    defaults to ``1/sqrt(Dh)``."""
-    if window is not None or softcap:
-        raise NotImplementedError("sliding windows and softcaps are not "
-                                  "ported")
+    ``[B]`` (keys at positions ``>= lengths[b]`` are masked); ``window`` and
+    ``softcap`` as :func:`~quant_tpu_torch.kernels.attention.flash_decode_int8`
+    takes them (no page before the window is read); ``scale`` defaults to
+    ``1/sqrt(Dh)``."""
+    if softcap < 0:
+        raise ValueError(f"softcap must be >= 0, got {softcap}")
     if pool_kc.dtype != torch.int8 or pool_kc.shape[2] != pool_ks.shape[2]:
         raise NotImplementedError("only the int8 pool is ported (kv_bits 8; "
                                   "the kv4 head-pair pool is not)")
     if q.device.type == "cpu":
         return paged_attention_reference(q, pool_kc, pool_ks, pool_vc,
                                          pool_vs, page_tbl, lengths, layer,
+                                         window, softcap=softcap,
                                          scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
@@ -118,7 +124,9 @@ def paged_flash_decode_int8(q, pool_kc, pool_ks, pool_vc, pool_vs, page_tbl,
     out = torch.empty_like(q)
     if b == 0:
         return out
-    plan = decode_plan(b, hkv, max_pages * page, rep, dh, _sm_count(q.device))
+    w = _window(window)
+    plan = decode_plan(b, hkv, max_pages * page, rep, dh, _sm_count(q.device),
+                       w)
     if plan.chunk // page + 2 > _MAX_IDS:
         raise ValueError(f"pages of {page} tokens are too small for chunks "
                          f"of {plan.chunk}")
@@ -134,8 +142,8 @@ def paged_flash_decode_int8(q, pool_kc, pool_ks, pool_vc, pool_vs, page_tbl,
             None if part_ml is None else part_ml.data_ptr(),
             None if counters is None else counters.data_ptr(), layer, b, hkv,
             n_pool, page, max_pages, dh, rep,
-            float(scale if scale is not None else 1.0 / dh ** 0.5),
-            plan.chunk, plan.n_chunks, stream)
+            float(scale if scale is not None else 1.0 / dh ** 0.5), w,
+            float(softcap), plan.chunk, plan.n_chunks, stream)
     _build.check(rc, "paged_flash_decode_int8", "flash_decode")
-    _count("paged_flash_decode_int8", path)
+    _count_call("paged_flash_decode_int8", path, w, softcap)
     return out

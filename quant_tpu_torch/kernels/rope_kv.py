@@ -1,5 +1,5 @@
-"""RMSNorm, rotate-half RoPE and per-(token, head) int8 KV quantization,
-in plain PyTorch.
+"""RMSNorm, rotate-half RoPE and per-(token, head) int8 KV quantization
+(or the unquantized cache at 16 bits), in plain PyTorch.
 
 The model's unfused chain (``models/llama.py``: prefill, the plain paths)
 and the plain versions of the fused inserts (``kernels/cache_insert.py``:
@@ -57,7 +57,12 @@ def rope_apply(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, *,
 
 def quantize_kv(x: torch.Tensor, bits: int = 8):
     """Per-(token, head) symmetric int8: x [B, T, H, Dh] -> (codes int8
-    [B, T, H, Dh], scales f32 [B, T, H])."""
+    [B, T, H, Dh], scales f32 [B, T, H]). ``bits=16`` keeps the cache
+    unquantized, as the JAX package does: the codes are ``x`` itself and
+    the scales ones, so every reader's ``codes * scale`` is unchanged."""
+    if bits == 16:
+        return x, torch.ones(x.shape[:-1], dtype=torch.float32,
+                             device=x.device)
     if bits != 8:
         raise NotImplementedError(f"kv_bits {bits} is not ported")
     xf = x.to(torch.float32)

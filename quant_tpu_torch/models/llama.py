@@ -1,15 +1,22 @@
-"""Llama-family models in PyTorch: INT4/INT8 weights, INT8 KV cache.
+"""Llama-family models in PyTorch: INT4/INT8 weights, INT8 or unquantized
+KV cache.
 
-The port of the JAX package's ``models/llama.py`` for the dense family
-(Llama-3 and its test configs), the sparse-MoE family (Mixtral, Qwen3-MoE)
-and DeepSeek-V2/V3: RMSNorm, optional per-head QK-RMSNorm (Qwen3),
-rotate-half RoPE with ``none``, ``linear``, ``llama3`` or ``yarn`` scaling
-(interleaved pairs de-interleaved first), GQA attention over an int8 cache
-with one f32 scale per (token, head) or DeepSeek's multi-head latent
-attention (MLA) over an int8 latent cache with one scale per token, and a
-SwiGLU MLP, dense or a top-k routed mixture of experts (with DeepSeek's
+The port of the JAX package's ``models/llama.py`` for the dense families
+(Llama-3, Qwen2, Mistral, Gemma, Gemma-2, Gemma-3 and the test configs),
+the sparse-MoE family (Mixtral, Qwen3-MoE) and DeepSeek-V2/V3: RMSNorm
+(with Gemma's ``offset + w`` gain and Gemma-2's post-block norms),
+optional per-head QK-RMSNorm (Qwen3, Gemma-3), rotate-half RoPE with
+``none``, ``linear``, ``llama3`` or ``yarn`` scaling (interleaved pairs
+de-interleaved first; Gemma-3's local layers on their own base), GQA
+attention with an optional q/k/v bias (Qwen2) over an int8 cache with one
+f32 scale per (token, head), or over an unquantized one (``kv_bits=16``),
+under per-layer sliding windows and a tanh logit softcap (Mistral,
+Gemma-2/3), or DeepSeek's multi-head latent attention (MLA) over an int8
+latent cache with one scale per token, and a GLU MLP (SwiGLU, or Gemma's
+tanh GeLU), dense or a top-k routed mixture of experts (with DeepSeek's
 shared experts, selection bias, group-limited routing and dense-prefix
-layers). Every projection is a :class:`QTensor` consumed by
+layers), then Gemma-2's final logit softcap. Every projection is a
+:class:`QTensor` consumed by
 :func:`quant_tpu_torch.kernels.dequant_matmul`; the experts by
 :func:`quant_tpu_torch.kernels.dequant_matmul.dequant_matmul_moe`.
 
@@ -29,12 +36,15 @@ or a page pool shared by all slots (:class:`PagedKVCache`,
 ``[L, P, Hkv, page, Dh]`` addressed through per-slot page tables).
 
 Kernel selection mirrors the JAX ``make_layer_step``: decode (T=1) with an
-int8 cache takes ``cache_insert_int8_fused`` (RoPE of q and k, K/V
-quantization and the insert in one launch) then ``flash_decode_int8``
+int8 cache (``kv_bits=8``) takes ``cache_insert_int8_fused`` (RoPE of q
+and k, K/V quantization and the insert in one launch) then
+``flash_decode_int8``
 (their paged counterparts over a pool; over an MLA latent cache
 ``mla_cache_insert_int8_fused``, the latent's RMSNorm, RoPE, quantization
 and insert and the query ``q_eff`` in one launch, then
-``mla_flash_decode_int8``); prefill (T>1) writes the cache with the
+``mla_flash_decode_int8``), each layer's window and the softcap passed to
+the decode kernel; ``kv_bits=16`` decodes on the plain path, as the JAX
+package does; prefill (T>1) writes the cache with the
 plain scatter and runs the plain blockwise attention (over
 ``paged_gather`` of the slot's pages for a pool). ``kernel_mode="xla"``
 selects the plain versions throughout; ``"auto"``/``"pallas"`` select the
@@ -67,7 +77,8 @@ from quant_tpu_torch.utils.device import check_on, resolve_device
 
 __all__ = ["LayerParams", "QEmbed", "LlamaParams", "KVCache", "PagedKVCache",
            "init_params", "init_cache", "init_paged_cache", "forward",
-           "check_supported", "moe_route", "mlp_block", "dense_prefix_cfg"]
+           "check_supported", "moe_route", "mlp_block", "dense_prefix_cfg",
+           "layer_windows"]
 
 
 # ── params ──────────────────────────────────────────────────────────────
@@ -111,6 +122,10 @@ class LayerParams:
     ws_gate_up: QTensor | None = None     # [L] x [D, 2 * shared I]
     ws_down: QTensor | None = None        # [L] x [shared I, D]
     router_bias: torch.Tensor | None = None  # f32 [L, E]
+    # Gemma-2/3 post-block norms on the attention and MLP outputs;
+    # None unless cfg.post_norms
+    post_attn_norm: torch.Tensor | None = None  # f32 [L, D]
+    post_mlp_norm: torch.Tensor | None = None   # f32 [L, D]
 
 
 @dataclasses.dataclass
@@ -138,7 +153,8 @@ class LlamaParams:
 
 @dataclasses.dataclass
 class KVCache:
-    """INT8 KV cache at static ``max_seq``, per-(token, head) f32 scales.
+    """INT8 KV cache at static ``max_seq``, per-(token, head) f32 scales
+    (at ``kv_bits=16`` the codes are the activations and the scales ones).
     ``lengths[b]`` = valid tokens of slot b (the next write position).
     An MLA cache holds one latent row per token on the K side
     (``[L, B, 1, S, mla_cache_dim]``, one scale per row) and zero-width V
@@ -188,20 +204,11 @@ def check_supported(cfg: ModelConfig) -> None:
         "moe_prefill='capacity'": cfg.moe_prefill == "capacity",
         "moe_fused=False (the per-expert loop is only the plain path)":
             cfg.n_experts and not cfg.moe_fused,
-        "sliding windows": cfg.sliding_window,
-        "attention softcaps": cfg.attn_softcap,
-        "final logit softcaps": cfg.final_softcap,
-        "post-block norms": cfg.post_norms,
-        "qkv_bias": cfg.qkv_bias,
-        "norm_offset": cfg.norm_offset,
-        "embed_scale": cfg.embed_scale,
-        "act_fn other than silu": cfg.act_fn != "silu",
-        # MLA sets it to qk_nope + qk_rope (the score width)
-        "query_pre_attn_scalar": cfg.query_pre_attn_scalar and not cfg.is_mla,
-        "rope_local_theta": cfg.rope_local_theta,
+        f"act_fn={cfg.act_fn!r}": cfg.act_fn not in ("silu", "gelu_tanh"),
         f"rope_scaling={cfg.rope_scaling!r}":
             cfg.rope_scaling not in ("none", "linear", "llama3", "yarn"),
-        f"kv_bits={cfg.kv_bits}": cfg.kv_bits != 8,
+        f"kv_bits={cfg.kv_bits}": cfg.kv_bits not in (8, 16),
+        "the MLA latent cache at kv_bits=16": cfg.is_mla and cfg.kv_bits != 8,
         "act_quant (W8A8)": cfg.act_quant,
         "codebook (lut) weights": cfg.codebook is not None,
         f"kernel_mode={cfg.kernel_mode!r}":
@@ -232,18 +239,25 @@ def _make_embed(table: torch.Tensor, cfg: ModelConfig):
     return table.to(_dtype(cfg))
 
 
+def _kv_dtype(cfg: ModelConfig) -> torch.dtype:
+    """The cache codes' dtype: int8, or the activation type at
+    ``kv_bits=16``."""
+    return torch.int8 if cfg.kv_bits == 8 else _dtype(cfg)
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                device=None) -> KVCache:
     check_supported(cfg)
     dev = resolve_device(device)
     l, h, d = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    cdt = _kv_dtype(cfg)
     if cfg.is_mla:
         # one latent row [c_kv | k_rope] per token, padded to a 128 multiple
         # (the layout contract of the JAX package); V is zero-width
         d = cfg.mla_cache_dim
 
     def codes(width):
-        return torch.zeros((l, batch, h, max_seq, width), dtype=torch.int8,
+        return torch.zeros((l, batch, h, max_seq, width), dtype=cdt,
                            device=dev)
 
     def scales(heads):
@@ -276,12 +290,13 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_seq: int,
     if max_seq % page:
         raise ValueError(f"max_seq {max_seq} must divide by page {page}")
     l, h, d = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    cdt = _kv_dtype(cfg)
     return PagedKVCache(
-        k_codes=torch.zeros((l, n_pages, h, page, d), dtype=torch.int8,
+        k_codes=torch.zeros((l, n_pages, h, page, d), dtype=cdt,
                             device=dev),
         k_scale=torch.zeros((l, n_pages, h, page), dtype=torch.float32,
                             device=dev),
-        v_codes=torch.zeros((l, n_pages, h, page, d), dtype=torch.int8,
+        v_codes=torch.zeros((l, n_pages, h, page, d), dtype=cdt,
                             device=dev),
         v_scale=torch.zeros((l, n_pages, h, page), dtype=torch.float32,
                             device=dev),
@@ -304,7 +319,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> LlamaParams:
     ``seed`` (a ``torch.Generator`` there) and quantized where they lie, so
     a full-size model never passes through the host. The weights differ
     from the JAX package's ``init_params`` (another generator); the
-    structure is the same: for a ``first_k_dense`` model, ``layers`` holds
+    structure is the same, but every norm has a gain of about 1: a Gemma
+    norm's weights are stored as deltas from its offset, as its checkpoints
+    store them (the JAX init's ones give Gemma's pre-norms a gain of 2,
+    which leaves a deep random Gemma chaotic under rounding). For a
+    ``first_k_dense`` model, ``layers`` holds
     the ``n_layers - first_k_dense`` MoE layers and ``layers0`` the dense
     prefix; MLA's dense ``w_uk`` / ``w_uv`` are made in the activation
     type."""
@@ -344,10 +363,14 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> LlamaParams:
             [dense(d, width), dense(d, width)], dim=1), (n_l,)),
             stacked(width, d, lambda: dense(width, d), (n_l,)))
 
-    def gains(shape, drawn: bool):
+    def gains(shape, drawn: bool, offset: float = 0.0):
+        """Norm weights of gain 1 (drawn: 1 + 0.1 N(0, 1)), stored less
+        ``offset`` (a Gemma norm's ``offset + w``)."""
         if not drawn:
-            return torch.ones(shape, dtype=torch.float32, device=dev)
-        return 1.0 + 0.1 * torch.randn(shape, generator=gen, device=dev)
+            return torch.full(shape, 1.0 - offset, dtype=torch.float32,
+                              device=dev)
+        return (1.0 - offset) + 0.1 * torch.randn(shape, generator=gen,
+                                                  device=dev)
 
     def make_stack(n_l: int, moe_l: bool, inter: int) -> LayerParams:
         if cfg.is_mla:
@@ -371,18 +394,25 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> LlamaParams:
                                                       h * (dn + dr)), (n_l,))
                 attn["q_a_norm"] = gains((n_l, cfg.q_lora_rank), True)
         else:
+            bias = (0.02 * torch.randn((n_l, qd + 2 * kvd), generator=gen,
+                                       device=dev) if cfg.qkv_bias
+                    else torch.zeros((n_l, qd + 2 * kvd), device=dev))
             attn = dict(
                 wqkv=stacked(d, qd + 2 * kvd, lambda: torch.cat(
                     [dense(d, qd), dense(d, kvd), dense(d, kvd)], dim=1),
                     (n_l,)),
                 wo=stacked(qd, d, lambda: dense(qd, d), (n_l,)),
-                qkv_bias=torch.zeros((n_l, qd + 2 * kvd), device=dev))
+                qkv_bias=bias)
+        off = cfg.norm_offset
         lay = LayerParams(
             w_gate_up=None, w_down=None,
-            attn_norm=torch.ones((n_l, d), device=dev),
-            mlp_norm=torch.ones((n_l, d), device=dev),
-            q_norm=gains((n_l, hd), cfg.qk_norm),
-            k_norm=gains((n_l, hd), cfg.qk_norm), **attn)
+            attn_norm=gains((n_l, d), False, off),
+            mlp_norm=gains((n_l, d), False, off),
+            q_norm=gains((n_l, hd), cfg.qk_norm, off),
+            k_norm=gains((n_l, hd), cfg.qk_norm, off), **attn)
+        if cfg.post_norms:
+            lay.post_attn_norm = gains((n_l, d), True, off)
+            lay.post_mlp_norm = gains((n_l, d), True, off)
         if not moe_l:
             lay.w_gate_up, lay.w_down = glu(n_l, inter)
             return lay
@@ -415,23 +445,36 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> LlamaParams:
     lm_head = quant(head)
     del head
     return LlamaParams(embed=embed, layers=layers,
-                       final_norm=torch.ones((d,), dtype=torch.float32,
-                                             device=dev),
+                       final_norm=gains((d,), False, cfg.norm_offset),
                        lm_head=lm_head, layers0=layers0)
 
 
 # ── math blocks ─────────────────────────────────────────────────────────
 
 
-def _embed_lookup(embed, tokens: torch.Tensor, dt: torch.dtype):
+def _embed_lookup(embed, tokens: torch.Tensor, dt: torch.dtype,
+                  cfg: ModelConfig | None = None):
+    """Embedding rows in ``dt``; Gemma's (``embed_scale``) times
+    ``sqrt(dim)`` rounded to ``dt``, as the JAX package scales them."""
     if isinstance(embed, QEmbed):
         rows = embed.codes[tokens].to(torch.float32)
-        return (rows * embed.scales[tokens][..., None]).to(dt)
-    return embed[tokens].to(dt)
+        h = (rows * embed.scales[tokens][..., None]).to(dt)
+    else:
+        h = embed[tokens].to(dt)
+    if cfg is not None and cfg.embed_scale:
+        h = h * torch.tensor(float(np.sqrt(cfg.dim)), dtype=dt)
+    return h
+
+
+def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    return torch.nn.functional.gelu(x, approximate="tanh")
 
 
 def _act(cfg: ModelConfig):
-    """Gate activation of the GLU MLP (computed in f32)."""
+    """Gate activation of the GLU MLP (computed in f32): SiLU, or Gemma's
+    tanh-approximated GeLU."""
+    if cfg.act_fn == "gelu_tanh":
+        return _gelu_tanh
     if cfg.act_fn != "silu":
         raise NotImplementedError(f"act_fn {cfg.act_fn!r} is not ported")
     return torch.nn.functional.silu
@@ -715,9 +758,32 @@ def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
                        cfg)
 
 
+def layer_windows(cfg: ModelConfig) -> list[int]:
+    """Each layer's attention window as a Python int (0 = full causal), as
+    the JAX package's ``layer_windows``: with ``sliding_pattern`` p, layer
+    i is global iff (i + 1) % p == 0 (Gemma-2/3), else every layer takes
+    ``sliding_window`` (Mistral)."""
+    p = cfg.sliding_pattern
+    return [0 if (p and (i + 1) % p == 0) else cfg.sliding_window
+            for i in range(cfg.n_layers)]
+
+
+def _rope_sets(positions: torch.Tensor, cfg: ModelConfig, dh: int) -> dict:
+    """The step's rope tables by layer kind: ``{"global": (cos, sin)}``,
+    and for a ``rope_local_theta`` model (Gemma-3) ``"local"``, the sliding
+    layers' tables on the local base, unscaled, as the JAX package's
+    ``_layer_theta`` gives them (its global layers keep only a linear
+    factor)."""
+    if not cfg.rope_local_theta:
+        return {"global": _rope_tables(positions, cfg.rope_theta, dh, cfg)}
+    return {"global": _rope_tables(positions, cfg.rope_theta, dh, cfg),
+            "local": _rope_tables(positions, cfg.rope_local_theta, dh)}
+
+
 def dequant_kv(codes: torch.Tensor, bits: int = 8) -> torch.Tensor:
-    """Cache codes -> float32 values (codes*scale is the caller's job)."""
-    if bits != 8:
+    """Cache codes -> float32 values (codes*scale is the caller's job); at
+    16 bits the codes are the values."""
+    if bits not in (8, 16):
         raise NotImplementedError(f"kv_bits {bits} is not ported")
     return codes.to(torch.float32)
 
@@ -744,38 +810,64 @@ def _cache_insert_at_layer(cc: torch.Tensor, cs: torch.Tensor,
 _paged_insert_at_layer = paged_insert_rows
 
 
+def _softcap_scores(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Gemma-2's tanh softcap of the attention logits, before the mask."""
+    if cfg.attn_softcap:
+        cap = cfg.attn_softcap
+        logits = cap * torch.tanh(logits / cap)
+    return logits
+
+
+def _visible(key_pos, qpos, lim, window: int):
+    """Key ``key_pos`` is visible to query ``qpos`` iff it is at or before
+    it, below the length, and (window above 0) within the last ``window``
+    positions."""
+    valid = (key_pos <= qpos) & (key_pos < lim)
+    if window > 0:
+        valid = valid & (key_pos > qpos - window)
+    return valid
+
+
 def attention(q, k_codes, k_scale, v_codes, v_scale, positions, lengths,
-              cfg: ModelConfig):
-    """GQA attention over one layer's int8 cache (plain torch; prefill and
-    the plain decode path). q [B, T, Hq, Dh]; caches [B, Hkv, S, Dh] /
+              cfg: ModelConfig, window: int = 0):
+    """GQA attention over one layer's cache (plain torch; prefill and the
+    plain decode path). q [B, T, Hq, Dh]; caches [B, Hkv, S, Dh] /
     [B, Hkv, S]; positions [B, T]; lengths [B] after insertion. Key s is
-    visible to a query iff s <= position and s < length. MLA passes the
-    latent's first ``r`` lanes as V: the output width is V's."""
+    visible to a query iff s <= position and s < length, and with a
+    ``window`` above 0 iff s > position - window; the logits take
+    ``cfg.attn_softcap`` before the mask. MLA passes the latent's first
+    ``r`` lanes as V: the output width is V's."""
     b, t, hq, dh = q.shape
     hkv, s, dv = k_scale.shape[1], k_codes.shape[2], v_codes.shape[-1]
     rep = hq // hkv
     qg = (q.to(torch.float32) * _q_scale(cfg, dh)).reshape(b, t, hkv, rep, dh)
-    logits = torch.einsum("bthrd,bhsd->bhrts", qg, dequant_kv(k_codes))
+    logits = torch.einsum("bthrd,bhsd->bhrts", qg,
+                          dequant_kv(k_codes, cfg.kv_bits))
     logits = logits * k_scale[:, :, None, None, :]
+    logits = _softcap_scores(logits, cfg)
     key_pos = torch.arange(s, device=q.device)[None, None, None, None, :]
     qpos = positions[:, None, None, :, None]
-    valid = (key_pos <= qpos) & (key_pos < lengths[:, None, None, None, None])
+    valid = _visible(key_pos, qpos, lengths[:, None, None, None, None],
+                     window)
     logits = torch.where(valid, logits, torch.full_like(logits, -1e30))
     probs = torch.softmax(logits, dim=-1)
     pv = probs * v_scale[:, :, None, None, :]
-    out = torch.einsum("bhrts,bhsd->bthrd", pv, dequant_kv(v_codes))
+    out = torch.einsum("bhrts,bhsd->bthrd", pv,
+                       dequant_kv(v_codes, cfg.kv_bits))
     return out.reshape(b, t, hq, dv).to(q.dtype)
 
 
 def attention_blockwise(q, k_codes, k_scale, v_codes, v_scale, positions,
-                        lengths, cfg: ModelConfig, block: int = 1024):
+                        lengths, cfg: ModelConfig, block: int = 1024,
+                        window: int = 0):
     """Prefill attention with an online softmax over KV blocks (a Python
-    loop where the JAX package scans), bounding memory at O(T * block)."""
+    loop where the JAX package scans), bounding memory at O(T * block);
+    masks and softcap as :func:`attention`."""
     b, t, hq, dh = q.shape
     hkv, s, dv = k_scale.shape[1], k_codes.shape[2], v_codes.shape[-1]
     if s <= block:
         return attention(q, k_codes, k_scale, v_codes, v_scale, positions,
-                         lengths, cfg)
+                         lengths, cfg, window)
     if s % block:
         block = s
     rep = hq // hkv
@@ -788,11 +880,12 @@ def attention_blockwise(q, k_codes, k_scale, v_codes, v_scale, positions,
     for j in range(s // block):
         sl = slice(j * block, (j + 1) * block)
         logits = torch.einsum("bthrd,bhsd->bhrts", qg,
-                              dequant_kv(k_codes[:, :, sl]))
+                              dequant_kv(k_codes[:, :, sl], cfg.kv_bits))
         logits = logits * k_scale[:, :, None, None, sl]
+        logits = _softcap_scores(logits, cfg)
         key_pos = j * block + torch.arange(block, device=q.device)[
             None, None, None, None, :]
-        valid = (key_pos <= qpos) & (key_pos < lim)
+        valid = _visible(key_pos, qpos, lim, window)
         logits = torch.where(valid, logits, torch.full_like(logits, -1e30))
         m_new = torch.maximum(m, logits.amax(dim=-1, keepdim=True))
         p = torch.where(valid, torch.exp(logits - m_new),
@@ -801,7 +894,8 @@ def attention_blockwise(q, k_codes, k_scale, v_codes, v_scale, positions,
         l_sum = l_sum * alpha + p.sum(dim=-1, keepdim=True)
         pv = p * v_scale[:, :, None, None, sl]
         o = o * alpha + torch.einsum("bhrts,bhsd->bhrtd", pv,
-                                     dequant_kv(v_codes[:, :, sl]))
+                                     dequant_kv(v_codes[:, :, sl],
+                                                cfg.kv_bits))
         m = m_new
     out = o / l_sum.clamp_min(1e-20)
     out = out.permute(0, 3, 1, 2, 4).reshape(b, t, hq, dv)
@@ -829,12 +923,13 @@ def _mm(cfg: ModelConfig):
 
 
 def _use_kernels(cfg: ModelConfig, t: int, paged: bool) -> bool:
-    """The decode kernel pair (in-place insert + flash decode) for T=1, as
-    ``make_layer_step`` selects it: ``attn_kernel`` "auto" or "flash", and
-    "paged" over a page pool; the plain path otherwise. An MLA cache takes
-    its own pair unless ``attn_kernel`` is "xla" (the port does not carry
-    over the TPU kernel's r and S alignment conditions)."""
-    if cfg.kernel_mode == "xla" or t != 1:
+    """The decode kernel pair (in-place insert + flash decode) for T=1 over
+    an int8 cache, as ``make_layer_step`` selects it: ``attn_kernel``
+    "auto" or "flash", and "paged" over a page pool; the plain path
+    otherwise (``kv_bits=16`` too, as in the JAX package). An MLA cache
+    takes its own pair unless ``attn_kernel`` is "xla" (the port does not
+    carry over the TPU kernel's r and S alignment conditions)."""
+    if cfg.kernel_mode == "xla" or t != 1 or cfg.kv_bits != 8:
         return False
     if cfg.is_mla:
         return cfg.attn_kernel != "xla"
@@ -890,40 +985,47 @@ def _mla_attn(x, lay: LayerParams, i: int, gi: int, cfg: ModelConfig, mm,
 
 
 def _gqa_attn(x, lay: LayerParams, i: int, gi: int, cfg: ModelConfig, mm,
-              rope, positions, lengths, new_lengths, cache, kernels: bool):
+              rope, positions, lengths, new_lengths, cache, kernels: bool,
+              window: int = 0):
     """GQA attention of stack position ``i`` (cache layer ``gi``) over the
-    contiguous cache or the page pool, [B, T, Hq, Dh]."""
+    contiguous cache or the page pool, [B, T, Hq, Dh], under the layer's
+    ``window`` (0: full causal) and ``cfg.attn_softcap``."""
     b, t = x.shape[0], x.shape[1]
     kc, ks, vc, vs = cache.k_codes, cache.k_scale, cache.v_codes, cache.v_scale
     paged = isinstance(cache, PagedKVCache)
     tbl = cache.page_tbl if paged else None
     units = cfg.n_heads + 2 * cfg.n_kv_heads
-    # no "+ qkv_bias": it is all zeros here (qkv_bias configs raise)
     qkv = mm(x, lay.wqkv, i)
+    if cfg.qkv_bias:
+        # Qwen2; a Llama bias is all zeros, and adding it is left out
+        qkv = qkv + lay.qkv_bias[i].to(qkv.dtype)
     nq = (qkv.shape[-1] * cfg.n_heads) // units
     nkv = (qkv.shape[-1] * cfg.n_kv_heads) // units
     q = qkv[..., :nq].reshape(b, t, -1, cfg.head_dim)
     k = qkv[..., nq:nq + nkv].reshape(b, t, -1, cfg.head_dim)
     v = qkv[..., nq + nkv:].reshape(b, t, -1, cfg.head_dim)
     if cfg.qk_norm:
-        # Qwen3: per-head RMSNorm over Dh before RoPE
-        q = rmsnorm(q, lay.q_norm[i], cfg.norm_eps)
-        k = rmsnorm(k, lay.k_norm[i], cfg.norm_eps)
+        # Qwen3, Gemma-3 (zero-centred gains): per-head RMSNorm over Dh
+        # before RoPE
+        q = rmsnorm(q, lay.q_norm[i], cfg.norm_eps, cfg.norm_offset)
+        k = rmsnorm(k, lay.k_norm[i], cfg.norm_eps, cfg.norm_offset)
     scale = _q_scale(cfg, cfg.head_dim)
     if kernels:
         # one launch: RoPE of q and k, K/V quantization and the insert,
-        # reading q, k and v where the projection left them
+        # reading q, k and v where the projection left them; the window
+        # and the softcap go into the decode kernel
         opts = dict(_rope_options(cfg), kv_bits=cfg.kv_bits)
+        att = dict(softcap=cfg.attn_softcap, scale=scale)
         if paged:
             q = paged_cache_insert_int8_fused(q, k, v, *rope, kc, ks, vc, vs,
                                               lengths, gi, tbl, **opts)
             return paged_flash_decode_int8(q, kc, ks, vc, vs, tbl,
-                                           new_lengths, gi,
-                                           scale=scale)[:, None]
+                                           new_lengths, gi, window,
+                                           **att)[:, None]
         q = cache_insert_int8_fused(q, k, v, *rope, kc, ks, vc, vs, lengths,
                                     gi, **opts)
-        return flash_decode_int8(q, kc, ks, vc, vs, new_lengths, gi,
-                                 scale=scale)[:, None]
+        return flash_decode_int8(q, kc, ks, vc, vs, new_lengths, gi, window,
+                                 **att)[:, None]
     q = _rope_apply(q, *rope, cfg)
     k = _rope_apply(k, *rope, cfg)
     k_q, k_s = quantize_kv(k, cfg.kv_bits)
@@ -934,10 +1036,11 @@ def _gqa_attn(x, lay: LayerParams, i: int, gi: int, cfg: ModelConfig, mm,
         _paged_insert_at_layer(vc, vs, v_q, v_s, lengths, gi, tbl)
         return att(q, paged_gather(kc, tbl, gi), paged_gather(ks, tbl, gi),
                    paged_gather(vc, tbl, gi), paged_gather(vs, tbl, gi),
-                   positions, new_lengths, cfg)
+                   positions, new_lengths, cfg, window=window)
     _cache_insert_at_layer(kc, ks, k_q, k_s, lengths, gi)
     _cache_insert_at_layer(vc, vs, v_q, v_s, lengths, gi)
-    return att(q, kc[gi], ks[gi], vc[gi], vs[gi], positions, new_lengths, cfg)
+    return att(q, kc[gi], ks[gi], vc[gi], vs[gi], positions, new_lengths, cfg,
+               window=window)
 
 
 def forward(params: LlamaParams, tokens, cache: KVCache | PagedKVCache,
@@ -984,26 +1087,41 @@ def forward(params: LlamaParams, tokens, cache: KVCache | PagedKVCache,
                                                 dtype=lengths.dtype)[None]
     kernels = _use_kernels(cfg, t, paged)
     rope_dim = cfg.qk_rope_head_dim if cfg.is_mla else cfg.head_dim
-    rope = _rope_tables(positions, cfg.rope_theta, rope_dim, cfg)
-    h = _embed_lookup(params.embed, tokens.to(torch.int64), dt)
+    ropes = _rope_sets(positions, cfg, rope_dim)
+    windows = layer_windows(cfg)
+    off_n = cfg.norm_offset
+    h = _embed_lookup(params.embed, tokens.to(torch.int64), dt, cfg)
     stacks = [(params.layers0, dense_prefix_cfg(cfg), 0)] if k0 else []
     stacks.append((params.layers, cfg, k0))
     for lay, c, off in stacks:
         for i in range(lay.attn_norm.shape[0]):
-            x = rmsnorm(h, lay.attn_norm[i], c.norm_eps)
+            gi = i + off
+            x = rmsnorm(h, lay.attn_norm[i], c.norm_eps, off_n)
             if c.is_mla:
-                attn = _mla_attn(x, lay, i, i + off, c, mm, dt, rope,
+                attn = _mla_attn(x, lay, i, gi, c, mm, dt, ropes["global"],
                                  positions, lengths, new_lengths,
                                  cache.k_codes, cache.k_scale, kernels)
             else:
-                attn = _gqa_attn(x, lay, i, i + off, c, mm, rope, positions,
-                                 lengths, new_lengths, cache, kernels)
+                w = windows[gi]
+                rope = ropes["local" if w and "local" in ropes else "global"]
+                attn = _gqa_attn(x, lay, i, gi, c, mm, rope, positions,
+                                 lengths, new_lengths, cache, kernels, w)
             o = mm(attn.reshape(b, t, -1).contiguous(), lay.wo, i,
                    out_dtype=torch.float32)
+            if c.post_norms:
+                # Gemma-2/3: the block's output normed before the residual
+                o = rmsnorm(o, lay.post_attn_norm[i], c.norm_eps, off_n)
             h = h + o.to(dt)
-            x = rmsnorm(h, lay.mlp_norm[i], c.norm_eps)
-            h = h + mlp_block(x, lay, i, c, mm, dt).to(dt)
-    h = rmsnorm(h, params.final_norm, cfg.norm_eps)
+            x = rmsnorm(h, lay.mlp_norm[i], c.norm_eps, off_n)
+            m = mlp_block(x, lay, i, c, mm, dt)
+            if c.post_norms:
+                m = rmsnorm(m, lay.post_mlp_norm[i], c.norm_eps, off_n)
+            h = h + m.to(dt)
+    h = rmsnorm(h, params.final_norm, cfg.norm_eps, off_n)
     logits = mm(h, params.lm_head, out_dtype=torch.float32)
     logits = logits[..., :cfg.vocab_size]
+    if cfg.final_softcap:
+        # Gemma-2's final logit softcap, after the vocab slice
+        cap = cfg.final_softcap
+        logits = cap * torch.tanh(logits / cap)
     return logits, dataclasses.replace(cache, lengths=new_lengths)

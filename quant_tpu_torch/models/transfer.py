@@ -34,9 +34,9 @@ __all__ = ["params_from_flat", "to_torch", "flat_from_params"]
 # writer's order); the expert fields hold one leaf per (layer, expert)
 _LAYER_FIELDS = ("wqkv", "wo", "w_gate_up", "w_down", "attn_norm",
                  "mlp_norm", "qkv_bias", "q_norm", "k_norm", "router",
-                 "we_gate_up", "we_down", "w_q_b", "w_uk", "w_uv",
-                 "q_a_norm", "kv_a_norm", "ws_gate_up", "ws_down",
-                 "router_bias")
+                 "we_gate_up", "we_down", "post_attn_norm", "post_mlp_norm",
+                 "w_q_b", "w_uk", "w_uv", "q_a_norm", "kv_a_norm",
+                 "ws_gate_up", "ws_down", "router_bias")
 _EXPERT_FIELDS = ("we_gate_up", "we_down")
 _QTENSOR_FIELDS = ("wqkv", "wo", "w_gate_up", "w_down", "w_q_b",
                    "ws_gate_up", "ws_down")
@@ -153,7 +153,8 @@ def _stack_from_flat(flat: dict, cfg: ModelConfig, prefix: str, n: int,
     for f in _QTENSOR_FIELDS:
         if has(f):
             setattr(lay, f, _stack_q(rows(f), dev))
-    for f in ("w_uk", "w_uv", "q_a_norm", "kv_a_norm", "router_bias"):
+    for f in ("w_uk", "w_uv", "q_a_norm", "kv_a_norm", "router_bias",
+              "post_attn_norm", "post_mlp_norm"):
         setattr(lay, f, dense_stack(f))
     if moe:
         lay.router = dense_stack("router")

@@ -138,8 +138,10 @@ def plan(gen) -> None:
     real = attention.decode_plan
     cases = _cases(gen)
     for chunk in (64, 128, 256, 512):
-        def forced(b, hkv, s, rep, dh, sms=132, c=chunk):
-            p = real(b, hkv, s, rep, dh, sms)
+        def forced(b, hkv, s, rep, dh, sms=132, window=0, c=chunk):
+            p = real(b, hkv, s, rep, dh, sms, window)
+            if window > 0:
+                s = min(s, window)
             n = max(1, -(-s // c))
             parts = b * hkv * n * rep if n > 1 else 0
             return attention.DecodePlan(c, n, b * hkv * n, parts * dh,

@@ -5,7 +5,7 @@ JAX package (CPU).
   ``data.bin`` byte-equal to the JAX ``convert_hf_llama`` on the same
   safetensors directory, one tiny random directory per family: Llama
   untied and Llama tied with llama3 rope (both int4 g64), Llama int8,
-  Qwen2 (q/k/v biases: converts, refused at load), Mixtral, Qwen3-MoE and
+  Qwen2 (q/k/v biases), Mixtral, Qwen3-MoE and
   a DeepSeek-V3 toy (``test-tiny-dsv3``'s shapes, the HF model's own random
   init, as ``tests/test_mla.py`` builds it). The JAX reader takes no BF16,
   so a BF16 directory goes through the port and its F32 twin (the same
@@ -268,12 +268,10 @@ def test_convert_byte_equal_to_jax(fam, jax_converted, tmp_path):
                     device="cpu")
     _assert_same_files(tmp_path / "t", jdir)
     assert cfg.bits == bits and cfg.group_size == g
-    if fam == "qwen2":   # converts, but the port's forward refuses biases
-        with pytest.raises(NotImplementedError, match="qkv_bias"):
-            t_load(tmp_path / "t", device="cpu")
-    else:
-        params, lcfg = t_load(tmp_path / "t", device="cpu")
-        assert lcfg.n_layers == FAMILIES.get(fam, ("", TINY))[1].n_layers
+    params, lcfg = t_load(tmp_path / "t", device="cpu")
+    assert lcfg.n_layers == FAMILIES.get(fam, ("", TINY))[1].n_layers
+    if fam == "qwen2":   # the q/k/v biases load with the weights
+        assert lcfg.qkv_bias and params.layers.qkv_bias.abs().max() > 0
 
 
 @pytest.mark.parametrize("kw,feature", [

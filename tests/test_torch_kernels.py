@@ -401,6 +401,43 @@ def test_decode_plan_covers_each_token_once(s, page):
     assert att.decode_plan(8, 8, 8192, 4, 128, sms=132).blocks <= 8 * 132
 
 
+@pytest.mark.parametrize("s,page", [(8192, None), (600, 16), (8192, 128)])
+def test_windowed_decode_plan_covers_the_window_once(s, page):
+    """Under a sliding window the plan is sized from min(S, window), and
+    chunks counted from the window's first key (as the kernel counts them)
+    cover each key of ``[max(0, length - window), length)`` once, none
+    before it: no block, and no table entry, lies wholly before the
+    window."""
+    b, hkv, rep, dh = 8, 8, 2, 256
+    for w in (1, 63, 64, 65, 700, 4096, s + 1):
+        plan = att.decode_plan(b, hkv, s, rep, dh, window=w)
+        assert plan == att.decode_plan(b, hkv, min(s, w), rep, dh)
+        ch = plan.chunk
+        for length in sorted({0, 1, 17, w - 1, w, w + 1, ch + 1, s - 1, s}):
+            if not 0 <= length <= s:
+                continue
+            ws = max(0, length - w)
+            used = max(1, -(-(length - ws) // ch))
+            assert used <= plan.n_chunks
+            seen = np.zeros(s, np.int32)
+            for c in range(used):
+                c0, c1 = ws + c * ch, min(length, ws + (c + 1) * ch)
+                assert c0 < c1 or length == c == 0
+                seen[c0:c1] += 1
+                if page and c1 > c0:
+                    assert c0 // page >= ws // page
+                    # the page ids a block loads fit the kernel's array
+                    assert (c1 - 1) // page - c0 // page + 1 <= (
+                        ch // page + 2)
+            assert (seen[ws:length] == 1).all()
+            assert not seen[:ws].any() and not seen[length:].any()
+    # a Gemma-2 local layer (window 4096) at S = 8192 reads half the keys
+    # of a global one, in chunks of half the length
+    local = att.decode_plan(8, 8, 8192, 2, 256, window=4096)
+    full = att.decode_plan(8, 8, 8192, 2, 256)
+    assert local.chunk * local.n_chunks * 2 == full.chunk * full.n_chunks
+
+
 @pytest.mark.parametrize("s", [600, 2048, 8192])
 @pytest.mark.parametrize("h", [4, 16, 128])
 def test_mla_decode_plan_covers_each_token_once(h, s):
@@ -608,6 +645,70 @@ def test_paged_cuda_kernels_match_plain_on_card(page):
                 q, *pool, tbl, ln, 1), lambda q: paged_attention_reference(
                     q, *pool, tbl, ln, 1), "paged_flash_decode_int8",
                 (b, h * rep, d))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("page", [None, 16, 128])
+def test_windowed_softcapped_decode_matches_plain_on_card(page):
+    """Both GQA decode kernels with a sliding window and a logit softcap
+    (50, under Gemma-2's scale of 1/16; and 0) against their plain
+    versions: Dh 128 and 256, rep 1, 2, 4 and 8, f32 and bf16 q, windows
+    at the 64-token tile's and the plan's chunk edges, longer than the
+    context, and 0; contiguous and paged at pages 16 and 128 (table entries
+    past each slot's pages on the scratch page 0). Each call one launch on
+    its path, a rerun bit-equal (``_check_decode``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(page or 1)
+    _build.build()
+    l, h, s = 2, 2, 600
+    for d in (128, 256):
+        if page:
+            max_pages = -(-s // page)
+            cap = max_pages * page
+            shape = lambda x: (l, 1 + 8 * max_pages, h, page) + x
+        else:
+            cap = s
+            shape = lambda x: (l, 8, h, s) + x
+        kv = [torch.randint(-127, 128, shape((d,)), generator=gen, device=dev,
+                            dtype=torch.int8),
+              torch.rand(shape(()), generator=gen, device=dev) * 0.05,
+              torch.randint(-127, 128, shape((d,)), generator=gen, device=dev,
+                            dtype=torch.int8),
+              torch.rand(shape(()), generator=gen, device=dev) * 0.05]
+        for w in (0, 1, 63, 64, 65, 257, 1000):
+            ch = att.decode_plan(8, h, cap, 8, d, window=w).chunk
+            lengths = [0, 1, 65, ch - 1, ch + 1, 300, 599, cap]
+            ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+            tbl = None
+            if page:
+                used = [min(max_pages, n // page + 1) if n else 0
+                        for n in lengths]
+                perm = torch.randperm(8 * max_pages, generator=gen,
+                                      device=dev) + 1
+                tbl = torch.zeros((8, max_pages), dtype=torch.int32,
+                                  device=dev)
+                for i, u in enumerate(used):
+                    tbl[i, :u] = perm[i * max_pages:i * max_pages + u]
+            for cap_, scale in ((50.0, 1 / 16), (0.0, None)):
+                opts = dict(softcap=cap_, scale=scale)
+                for rep in (1, 2, 4, 8):
+                    if page:
+                        _check_decode(
+                            gen, lambda q: paged_flash_decode_int8(
+                                q, *kv, tbl, ln, 1, w, **opts),
+                            lambda q: paged_attention_reference(
+                                q, *kv, tbl, ln, 1, w, **opts),
+                            "paged_flash_decode_int8", (8, h * rep, d))
+                    else:
+                        _check_decode(
+                            gen, lambda q: flash_decode_int8(
+                                q, *kv, ln, 1, w, **opts),
+                            lambda q: flash_decode_int8_reference(
+                                q, *kv, ln, 1, w, **opts),
+                            "flash_decode_int8", (8, h * rep, d))
 
 
 def _bits(t):

@@ -113,20 +113,21 @@ def test_config_matches_jax():
     ("test-tiny-moe", {"moe_fused": False}, {}),
     ("test-tiny-mla", {"kv_bits": 16}, {}),
     ("test-tiny", {"kv_bits": 4}, {}),
-    ("test-tiny", {"kv_bits": 16}, {}),
-    ("test-tiny", {"sliding_window": 8}, {}),
-    ("test-tiny", {"attn_softcap": 50.0}, {}),
+    ("test-tiny", {"codebook": "nf4"}, {}),
+    ("test-tiny", {"embed_bits": 4}, {}),
+    ("test-tiny", {}, {"return_hidden": True}),
     ("test-tiny", {"act_quant": True}, {}),
     ("test-tiny", {"n_experts": 4, "moe_prefill": "capacity"}, {}),
     ("test-tiny", {}, {"seq_axis": "seq"}),
     ("test-tiny", {}, {"axis": "model"}),
 ])
 def test_outside_the_slice_raises(preset, change, kwargs):
-    """A config or argument outside the ported slices (dense and sparse-MoE
-    Llama, DeepSeek MLA, int8 KV) raises NotImplementedError; nothing falls
-    back silently. MoE, qk_norm and MLA are ported: their cases ask for the
-    parts that are not (the per-expert loop, the capacity dispatch, an
-    unquantized latent cache)."""
+    """A config or argument outside the ported slices (the dense families,
+    sparse-MoE Llama, DeepSeek MLA; int8 or unquantized GQA KV) raises
+    NotImplementedError; nothing falls back silently. MoE, qk_norm, MLA,
+    windows, softcaps and the unquantized cache are ported: their cases ask
+    for the parts that are not (the per-expert loop, the capacity dispatch,
+    an unquantized latent cache)."""
     cfg = dataclasses.replace(TConfig(**dataclasses.asdict(
         JPRESETS[preset])), **change)
     base = TConfig(**dataclasses.asdict(JPRESETS["test-tiny"]))

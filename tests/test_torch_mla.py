@@ -315,8 +315,8 @@ def jax_fused_mla():
     return out
 
 
-@pytest.mark.parametrize("variant,dtype,s0", _FUSED_MLA)
-def test_mla_fused_insert_matches_jax(jax_fused_mla, variant, dtype, s0):
+@pytest.mark.parametrize("variant,dtype", sorted({c[:2] for c in _FUSED_MLA}))
+def test_mla_fused_insert_matches_jax(jax_fused_mla, variant, dtype):
     """The fused latent insert on the CPU (its plain version: the port's
     ``rmsnorm``, interleaved yarn ``rope_apply``, cat and pad,
     ``quantize_kv`` and the codes-in insert) against the JAX chain, with
@@ -327,8 +327,14 @@ def test_mla_fused_insert_matches_jax(jax_fused_mla, variant, dtype, s0):
     q_abs lanes and zero pad exact, for every slot; the written latent
     codes within one step of JAX's in at most 0.1% of them (the rounding
     ties of ``_check_chain``), scales within 1e-5 relative, every entry
-    not written untouched."""
-    ref_q, ref_kc, ref_ks = jax_fused_mla[variant, dtype, s0]
+    not written untouched. Each case runs at both cache offsets s0."""
+    for s0 in sorted({c[2] for c in _FUSED_MLA}):
+        _check_fused_insert(jax_fused_mla[variant, dtype, s0], variant,
+                            dtype, s0)
+
+
+def _check_fused_insert(jax_res, variant, dtype, s0):
+    ref_q, ref_kc, ref_ks = jax_res
     tc = _FUSED_CFG[1]
     akv, q_row, q_abs, w, kc, ks, lengths = _fused_mla_inputs(variant, s0)
     dt = getattr(torch, dtype)
