@@ -68,6 +68,15 @@ Phases; the first failure ends the run with a non-zero exit code:
              window 4096 and softcap 50 at scale 1/16, and a global one,
              softcap 50) and Mistral-7B's (Dh=128, rep=4, window 4096),
              each bound counting the min(window, length) keys a slot reads.
+             The int4 head-pair cache (``kv_bits=4``): both fused inserts
+             at the Llama-3-8B B=8 shapes (codes and scales byte-equal to
+             the plain chain; how ``absmax / 7.0`` rounds on the card is
+             counted beside the 127.0 one), both decode kernels over the
+             8014-token lengths (32 layers) and 8 slots of 8192 tokens,
+             contiguous and paged at page 128, and Gemma-2-9B's local
+             layer (window 4096, softcap 50), each like the int8 rows and
+             counted under [kv4], its bound counting Dh bytes of K and V
+             codes a token and real head.
 4. serving   full-width Llama-3-8B (32 layers, random weights from seed 0,
              made on the card) behind ``Engine(max_slots=8, max_seq=2048)``:
              8 greedy requests of 32-1024 prompt tokens, 64 new tokens each.
@@ -101,6 +110,15 @@ Phases; the first failure ends the run with a non-zero exit code:
              (kernel_mode "auto") and with the plain versions ("xla"), with
              the kernels over a paged pool, and with the kernels again (the
              run-to-run spread the paged difference is read against).
+   kv4       the same params over the int4 head-pair cache: slots
+             prefilled to 100-2000 tokens and 4 decode steps, kernels
+             against plain and paged against contiguous logits (5e-2 of
+             max|logit|); then 8 requests of 32-1024 prompt tokens, 32 new
+             each, served in process by the contiguous and the paged engine
+             (page 128): exactly 32 kv4 decode and 32 kv4 fused insert
+             launches a decode forward, no decode on the plain attention
+             path, a profile of 3 B=8 decode forwards, every served token
+             teacher-forced, peak device memory beside the int8 phase's.
 7. convert   full-width Llama-3-8B (32 layers) from a Hugging Face
              directory: random bf16 weights made on the card from seed 0,
              written as ``*.safetensors`` (16 GB), ``python -m
@@ -170,10 +188,14 @@ Phases; the first failure ends the run with a non-zero exit code:
              window) and Gemma-7B at full width and 4 layers, and
              Gemma-3-1B whole (local and global layers); and Llama-3-8B at
              4 layers with the unquantized cache (``kv_bits=16``, the
-             plain decode path), paged against contiguous.
-11. cli      ``python -m quant_tpu_torch generate`` on test-tiny,
+             plain decode path), paged against contiguous; and one T=1
+             step of DeepSeek-V2-Lite at full width and 2 layers over the
+             unquantized latent cache (the plain MLA path: finite logits,
+             no MLA kernel launched).
+11. cli      (its checks at once, 6 at a time; each runs processes of its
+             own) ``python -m quant_tpu_torch generate`` on test-tiny,
              test-tiny-moe, test-tiny-mla and test-tiny-dsv3 checkpoints
-             written by the port; ``serve --paged`` on the first two (two
+             written by the port, and on test-tiny with ``--kv-bits 4``; ``serve --paged`` on the first two (two
              /generate requests over HTTP) and, refused with "not ported",
              on the two MLA ones; ``convert`` of tiny random HF directories
              of the test-tiny (Llama), test-tiny-moe (Mixtral) and
@@ -500,6 +522,8 @@ def phase_kernels(detail: dict) -> dict:
     rows += attention_rows(gen)
     windowed, summary["windowed"] = window_rows(gen)
     rows += windowed
+    kv4, summary["kv4"] = kv4_rows(gen)
+    rows += kv4
     detail["kernels"] = rows
     return summary
 
@@ -612,12 +636,15 @@ def moe_kernels(gen, detail: dict) -> dict:
         b_ms, b_by = bound_ms(nh * w_bytes + x_bytes
                               + m * width * got.element_size(),
                               2 * m * k * n * nh)
-        # a call of a millisecond or more needs no average over 8 calls
+        # a call of a millisecond or more needs no average over 8 calls;
+        # the plain version (one launch or more per expert, 0.4-290 ms a
+        # call) is averaged over 2: its trace's events, not its calls, set
+        # the wall time of a row
         iters = max(2 if b_ms >= 1.0 else 8, len(hots))
         ms, ev = kernel_times(lambda: dequant_matmul_moe(x, qt, 0, hot=nxt(),
                                                          **kw), iters)
         plain = device_time(lambda: dequant_matmul_moe_reference(
-            x, qt, 0, hot=nxt(), **kw), iters)
+            x, qt, 0, hot=nxt(), **kw), 2)
         del ref, got, x
         rows.append({"kernel": "dequant_matmul_moe", "model": model,
                      "mode": mode, "M": m, "K": k, "N": n, "experts": e,
@@ -650,12 +677,13 @@ def moe_kernels(gen, detail: dict) -> dict:
 
 
 def page_pool(cache, lengths, page: int):
-    """The rows of a contiguous cache ``[L, B, Hkv, S, ..]`` (codes or
-    scales) in a pool ``[L, 1 + B * S / page, Hkv, page, ..]`` under a page
-    table shuffled from seed 0, entries past each slot's pages on the
-    scratch page 0: (pool tensors, table, table entries in use)."""
+    """The rows of a contiguous cache ``[L, B, H, S, ..]`` (codes or
+    scales, each with its own head count) in a pool ``[L, 1 + B * S / page,
+    H, page, ..]`` under a page table shuffled from seed 0, entries past
+    each slot's pages on the scratch page 0: (pool tensors, table, table
+    entries in use)."""
     dev = cache[0].device
-    L, B, H, S = cache[0].shape[:4]
+    L, B, _, S = cache[0].shape[:4]
     max_pages = S // page
     n_pool = 1 + B * max_pages
     used = [-(-int(n) // page) for n in lengths.tolist()]
@@ -665,7 +693,7 @@ def page_pool(cache, lengths, page: int):
         tbl_np[b, :u] = perm[b * max_pages:b * max_pages + u]
     pool = []
     for a in cache:
-        p = torch.zeros((L, n_pool, H, page) + tuple(a.shape[4:]),
+        p = torch.zeros((L, n_pool, a.shape[2], page) + tuple(a.shape[4:]),
                         dtype=a.dtype, device=dev)
         for b, u in enumerate(used):
             for j in range(u):
@@ -728,13 +756,19 @@ def sdpa_time(cache, lengths, rep: int, window: int = 0) -> dict:
     ``window``, masked unless every position is visible), cycling enough
     dequantized layers to exceed the L2 cache twice. Another function than
     the kernel (it reads twice the bytes over all S positions, and takes no
-    softcap); the port never calls it."""
+    softcap; an int4 cache is unpacked to its real heads first); the port
+    never calls it."""
+    from quant_tpu_torch.kernels.rope_kv import dequant_kv4
+
     kc, ks, vc, vs = cache
-    L, B, H, S, D = kc.shape
+    L, B, _, S, D = kc.shape
+    H = ks.shape[2]
     per_layer = 2 * B * H * S * D * 2
     n = max(1, min(L, math.ceil(2 * L2_BYTES / per_layer)))
-    kv = [((kc[i].float() * ks[i][..., None]).to(BF16),
-           (vc[i].float() * vs[i][..., None]).to(BF16)) for i in range(n)]
+    unpack = dequant_kv4 if kc.dtype == torch.uint8 else (
+        lambda c: c.float())
+    kv = [((unpack(kc[i]) * ks[i][..., None]).to(BF16),
+           (unpack(vc[i]) * vs[i][..., None]).to(BF16)) for i in range(n)]
     q = torch.randn((B, H * rep, 1, D), device=kc.device).to(BF16)
     res = _sdpa_time(q, kv, _length_mask(lengths, S, window), gqa=True)
     del kv
@@ -765,14 +799,17 @@ def mla_sdpa_time(kc, ks, lengths, h: int, r: int) -> dict:
 
 def decode_row(name: str, kernel, plain, q, tol: float, layer: int,
                layers: int, n_tok: int, hkv: int, sdpa: dict, what: str,
-               extra_bytes: int = 0, work: tuple | None = None) -> dict:
+               extra_bytes: int = 0, work: tuple | None = None,
+               kv4: bool = False) -> dict:
     """One decode-attention row: ``kernel(q, layer)`` against
     ``plain(q, layer)`` (``tol`` of max|ref|), one launch counted under the
-    path it should take (tc for bf16 q), a second call bit-equal to the
-    first, then its device time (each call on the next layer of the
-    ``layers``-deep stack, L2-cold), the plain version's, the bound of
-    ``n_tok`` tokens' K/V codes and scales (plus ``extra_bytes``; or
-    ``work``, the call's (bytes, operations)), and ``sdpa`` beside them."""
+    path it should take (tc for bf16 q; over the int4 cache, ``kv4``, also
+    under [kv4]), a second call bit-equal to the first, then its device
+    time (each call on the next layer of the ``layers``-deep stack,
+    L2-cold), the plain version's, the bound of ``n_tok`` tokens' K/V codes
+    (Dh bytes a token and real head each for K and V, Dh / 2 at int4) and
+    scales (plus ``extra_bytes``; or ``work``, the call's (bytes,
+    operations)), and ``sdpa`` beside them."""
     from quant_tpu_torch.kernels import _build
     from quant_tpu_torch.utils.timing import device_time, kernel_times
 
@@ -780,7 +817,8 @@ def decode_row(name: str, kernel, plain, q, tol: float, layer: int,
     path = "tc" if qdt == BF16 else "cuda_core"
     _build.reset_launches()
     got = kernel(q, layer)
-    if not _build.launches[name] == _build.launches[f"{name}[{path}]"] == 1:
+    if not (_build.launches[name] == _build.launches[f"{name}[{path}]"] == 1
+            and _build.launches.get(f"{name}[kv4]", 0) == int(kv4)):
         raise AssertionError(f"{name} ({qdt}): one launch on the {path} path "
                              f"expected, counted {_build.launches}")
     again = kernel(q, layer)
@@ -801,10 +839,11 @@ def decode_row(name: str, kernel, plain, q, tol: float, layer: int,
     ms, ev = kernel_times(lambda: kernel(q, nxt()), iters)
     plain_ms = device_time(lambda: plain(q, nxt()), iters)
     b, hq, d = q.shape
-    nbytes = (2 * b * hq * d * q.element_size() + n_tok * hkv * (2 * d + 8)
-              + b * 4 + extra_bytes)
+    nbytes = (2 * b * hq * d * q.element_size()
+              + n_tok * hkv * ((d if kv4 else 2 * d) + 8) + b * 4 + extra_bytes)
     b_ms, b_by = bound_ms(*(work or (nbytes, 4 * n_tok * hq * d)))
-    log(f"[kernels] {name} {str(qdt)[6:]} {what} [{path}]: err {rel:.2e} of "
+    log(f"[kernels] {name} {str(qdt)[6:]} {what} [{path}"
+        f"{', kv4' if kv4 else ''}]: err {rel:.2e} of "
         f"max|ref|, rerun bit-equal  {ms:.4f} ms (events {ev:.4f})  plain "
         f"{plain_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by}, "
         f"{100 * b_ms / ms:.0f}%)  sdpa_bf16 {sdpa['sdpa_bf16_ms']:.4f} ms "
@@ -825,7 +864,8 @@ def paged_rows(gen, cache, lengths, layer: int, page: int, rep: int,
     from quant_tpu_torch.kernels.paged_attention import (
         paged_attention_reference, paged_flash_decode_int8)
 
-    L, B, H, S, D = cache[0].shape
+    L, B, _, S, D = cache[0].shape
+    H, kv4 = cache[1].shape[2], cache[0].dtype == torch.uint8
     pool, tbl, n_used = page_pool(cache, lengths, page)
     n_tok = int(lengths.clamp(max=S).sum())
     att = {}
@@ -838,7 +878,7 @@ def paged_rows(gen, cache, lengths, layer: int, page: int, rep: int,
             lambda q, i: paged_attention_reference(q, *pool, tbl, lengths,
                                                    i),
             q, tol, layer, L, n_tok, H, sdpa, f"page={page} {what}",
-            extra_bytes=4 * n_used)
+            extra_bytes=4 * n_used, kv4=kv4)
         contig = flash_decode_int8(q, *cache, lengths, layer)
         row["max_abs_diff_vs_contiguous"] = float(
             (row.pop("out").float() - contig.float()).abs().max())
@@ -872,23 +912,26 @@ def paged_kernels(gen, summary: dict, cache, lengths, layer: int,
 
 
 def plain_division_check(dev) -> dict:
-    """How the plain quantizer's ``absmax / 127.0`` rounds on this card:
-    PyTorch's CUDA division by a Python scalar may multiply by the f32
-    reciprocal instead of dividing. Counts, over 2^20 random values, the
-    quotients that differ from ``x * fl(1/127)`` and from an IEEE division
-    (a tensor divisor); the fused kernel multiplies by the reciprocal."""
+    """How the plain quantizer's ``absmax / 127.0`` (int8) and ``absmax /
+    7.0`` (int4) round on this card: PyTorch's CUDA division by a Python
+    scalar may multiply by the f32 reciprocal instead of dividing. Counts,
+    over 2^20 random values, the quotients that differ from ``x * fl(1/d)``
+    and from an IEEE division (a tensor divisor); the fused kernel
+    multiplies by the reciprocal."""
     x = torch.rand(1 << 20, generator=torch.Generator(device=dev).manual_seed(
         0), device=dev) * 16
-    got = x / 127.0
-    inv = float(torch.tensor(1.0) / torch.tensor(127.0))   # f32 reciprocal
-    res = {"values": x.numel(),
-           "differ_from_reciprocal_mul": int((got != x * inv).sum()),
-           "differ_from_ieee_div": int(
-               (got != x / torch.full_like(x, 127.0)).sum())}
-    log(f"[kernels] plain absmax / 127.0 on the card: "
-        f"{res['differ_from_reciprocal_mul']} of {res['values']} differ from "
-        f"x * fl(1/127), {res['differ_from_ieee_div']} from an IEEE "
-        f"division")
+    res = {"values": x.numel()}
+    for d in (127.0, 7.0):
+        got = x / d
+        inv = float(torch.tensor(1.0) / torch.tensor(d))   # f32 reciprocal
+        tag = str(int(d))
+        res[f"differ_from_reciprocal_mul_{tag}"] = int((got != x * inv).sum())
+        res[f"differ_from_ieee_div_{tag}"] = int(
+            (got != x / torch.full_like(x, d)).sum())
+        log(f"[kernels] plain absmax / {d} on the card: "
+            f"{res[f'differ_from_reciprocal_mul_{tag}']} of {res['values']} "
+            f"differ from x * fl(1/{tag}), "
+            f"{res[f'differ_from_ieee_div_{tag}']} from an IEEE division")
     return res
 
 
@@ -902,7 +945,9 @@ def fused_row(gen, cache, lengths, layer: int, tbl=None) -> dict:
     [fused]; then its device time (each call on the next layer, L2-cold),
     the plain chain's device time, and the bound of the bytes the call must
     move (q, k, v, the tables, the lengths and table entries read; q and
-    the rows of the slots whose position lies in the cache written)."""
+    the rows of the slots whose position lies in the cache written). A
+    uint8 ``cache`` is the int4 head-pair cache (``kv_bits=4``, counted
+    under [kv4] too)."""
     from quant_tpu_torch.kernels import _build
     from quant_tpu_torch.kernels.cache_insert import (
         cache_insert_int8_fused, cache_insert_int8_fused_reference,
@@ -920,7 +965,9 @@ def fused_row(gen, cache, lengths, layer: int, tbl=None) -> dict:
                       paged_cache_insert_int8_fused_reference) if paged else
                      (cache_insert_int8_fused,
                       cache_insert_int8_fused_reference))
+    kv4 = cache[0].dtype == torch.uint8
     extra = (tbl,) if paged else ()
+    kw = {"kv_bits": 4} if kv4 else {}
     row = torch.randn((b, 1, (hq + 2 * hkv) * dh), generator=gen,
                       device=dev).to(BF16)
     q = row[..., :hq * dh].view(b, 1, hq, dh)
@@ -929,11 +976,13 @@ def fused_row(gen, cache, lengths, layer: int, tbl=None) -> dict:
     cos, sin = llama._rope_tables(lengths[:, None], cfg.rope_theta, dh, cfg)
     ref_cache = [t.clone() for t in cache]
     _build.reset_launches()
-    got = kernel(q, k, v, cos, sin, *cache, lengths, layer, *extra)
-    ref = plain(q, k, v, cos, sin, *ref_cache, lengths, layer, *extra)
+    got = kernel(q, k, v, cos, sin, *cache, lengths, layer, *extra, **kw)
+    ref = plain(q, k, v, cos, sin, *ref_cache, lengths, layer, *extra, **kw)
     torch.cuda.synchronize()
-    what = f"{name} page {cache[0].shape[3]}" if paged else name
-    if _build.launches[name] != 1 or _build.launches[f"{name}[fused]"] != 1:
+    what = (f"{name} page {cache[0].shape[3]}" if paged else name) + (
+        " kv4" if kv4 else "")
+    if (_build.launches[name] != 1 or _build.launches[f"{name}[fused]"] != 1
+            or _build.launches[f"{name}[kv4]"] != int(kv4)):
         raise AssertionError(f"{what}: one launch under [fused] expected, "
                              f"counted {_build.launches}")
     if not torch.equal(got.view(torch.int16), ref.view(torch.int16)):
@@ -946,27 +995,31 @@ def fused_row(gen, cache, lengths, layer: int, tbl=None) -> dict:
     del ref_cache
     nxt = cycle(range(layers))
     ms, ev = kernel_times(lambda: kernel(q, k, v, cos, sin, *cache, lengths,
-                                         nxt(), *extra), layers)
+                                         nxt(), *extra, **kw), layers)
     plain_ms = device_time(lambda: plain(q, k, v, cos, sin, *cache, lengths,
-                                         nxt(), *extra), layers)
+                                         nxt(), *extra, **kw), layers)
     cap = tbl.shape[1] * cache[0].shape[3] if paged else cache[0].shape[3]
     written = int(((lengths >= 0) & (lengths < cap)).sum())
     nbytes = (row.numel() * 2 + 2 * cos.numel() * 4 + b * 4 * (1 + paged)
-              + b * hq * dh * 2 + written * 2 * hkv * (dh + 4))
+              + b * hq * dh * 2
+              + written * 2 * hkv * ((dh // 2 if kv4 else dh) + 4))
     b_ms, b_by = bound_ms(nbytes, 0)
     where = (f"page {cache[0].shape[3]}, {layers}-layer pool of "
              f"{cache[0].shape[1]} pages" if paged
              else f"S={cache[0].shape[3]}, {layers}-layer stack")
-    log(f"[kernels] {name} [fused] B=8 Hq=32 Hkv=8 D=128 bf16 {where}: "
+    log(f"[kernels] {name} [fused{', kv4' if kv4 else ''}] B=8 Hq=32 "
+        f"Hkv=8 D=128 bf16 {where}: "
         f"codes and scales byte-equal, q bit-equal  {ms:.4f} ms (events "
         f"{ev:.4f})  plain chain {plain_ms:.4f} ms  bound {b_ms:.6f} ms "
         f"({b_by}, {nbytes} bytes)")
     return {"max_abs_err": 0.0, "ms": ms, "event_ms": ev,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "bytes": nbytes, "library_ms": None,
-            "unit": f"one call, RoPE + K/V quantize + insert fused: B=8, "
-                    f"Hq=32, Hkv=8, Dh=128, bf16 q/k/v views of one wqkv "
-                    f"row, {where}, lengths {lengths.tolist()}; device time"}
+            "unit": f"one call, RoPE + K/V quantize + insert fused"
+                    f"{' into the int4 head-pair cache' if kv4 else ''}: "
+                    f"B=8, Hq=32, Hkv=8, Dh=128, bf16 q/k/v views of one "
+                    f"wqkv row, {where}, lengths {lengths.tolist()}; device "
+                    f"time"}
 
 
 def rand_cache(gen, layers: int, b: int, hkv: int, s: int, d: int) -> list:
@@ -981,6 +1034,100 @@ def rand_cache(gen, layers: int, b: int, hkv: int, s: int, d: int) -> list:
         return torch.rand((layers, b, hkv, s), generator=gen,
                           device=dev) * 0.015 + 0.005
     return [codes(), scales(), codes(), scales()]
+
+
+def rand_cache4(gen, layers: int, b: int, hkv: int, s: int, d: int) -> list:
+    """A random int4 head-pair K/V cache on the card: uint8 codes of
+    ``hkv / 2`` packed heads (every nibble value) and f32 scales of ``hkv``
+    real heads, the values about the int8 cache's."""
+    dev = torch.device("cuda")
+
+    def codes():
+        return torch.randint(0, 256, (layers, b, hkv // 2, s, d),
+                             generator=gen, device=dev,
+                             dtype=torch.int16).to(torch.uint8)
+
+    def scales():
+        return torch.rand((layers, b, hkv, s), generator=gen,
+                          device=dev) * 0.24 + 0.08
+    return [codes(), scales(), codes(), scales()]
+
+
+# the kv4 Gemma-2-9B local row: 2 layers (one layer's 134 MB of codes is
+# past twice the L2 cache), the int8 row's shape, window and softcap
+KV4_WINDOW_ROWS = [("gemma-2-9b local kv4", 2, 8, 2, 256, 4096, 50.0,
+                    1 / 16)]
+
+
+def kv4_rows(gen) -> tuple[list, dict]:
+    """The int4 head-pair cache (``kv_bits=4``) through both fused inserts
+    and both decode kernels at the int8 rows' Llama-3-8B shapes: the
+    inserts at B=8 into the 32-layer cache and its pool at page 128
+    (:func:`fused_row`: codes and scales byte-equal to the plain chain);
+    decode at Hkv=8, rep=4 over the 8014-token lengths (32 layers) and 8
+    slots of 8192 tokens (2 layers), contiguous and paged at page 128, f32
+    and bf16 q (:func:`decode_row`: 1e-4 / 1e-2 of max|ref|, rerun
+    bit-equal, one launch under [kv4], each bound counting Dh bytes of K and
+    V codes a token and real head and the scales); and Gemma-2-9B's local
+    layer (Dh=256, rep=2, window 4096, softcap 50). Returns the rows and
+    the kernels line's four kv4 entries (bf16 decode at 8014 tokens, the
+    inserts)."""
+    from quant_tpu_torch.kernels.attention import (
+        flash_decode_int8, flash_decode_int8_reference)
+
+    rows, summary = [], {}
+    for L, S, lens, layer in ((32, 2048, ATT_LENGTHS, 5),
+                              (2, 8192, [8192] * 8, 1)):
+        B, H, D, rep = 8, 8, 128, 4
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        cache = rand_cache4(gen, L, B, H, S, D)
+        long = S == 8192
+        if not long:
+            summary["cache_insert_int8"] = fused_row(gen, cache, lengths,
+                                                     layer)
+            pool, tbl, _ = page_pool(cache, lengths, 128)
+            summary["paged_cache_insert_int8"] = fused_row(
+                gen, pool, lengths, layer, tbl)
+            del pool
+            torch.cuda.empty_cache()
+            for name in ("cache_insert_int8", "paged_cache_insert_int8"):
+                rows.append({"kernel": name, "kv4": True, **summary[name]})
+        n_tok = int(lengths.sum())
+        what = (f"kv4 B=8 Hkv=8 rep=4 D=128 S={S}"
+                f"{' (long context)' if long else ''} ctx={n_tok}")
+        sdpa = sdpa_time(cache, lengths, rep)
+        att = {}
+        for qdt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
+            q = torch.randn((B, H * rep, D), generator=gen,
+                            device="cuda").to(qdt)
+            att[str(qdt)] = decode_row(
+                "flash_decode_int8",
+                lambda q, i: flash_decode_int8(q, *cache, lengths, i),
+                lambda q, i: flash_decode_int8_reference(q, *cache, lengths,
+                                                         i),
+                q, tol, layer, L, n_tok, H, sdpa, what, kv4=True)
+            att[str(qdt)].pop("out")
+        paged = paged_rows(gen, cache, lengths, layer, 128, rep, sdpa, what)
+        rows += [{"kernel": "flash_decode_int8", "kv4": True, "rows": what,
+                  "per_dtype": att},
+                 {"kernel": "paged_flash_decode_int8", "kv4": True,
+                  "rows": what, "page": 128, "per_dtype": paged}]
+        if not long:
+            unit = (f"one call over the int4 head-pair cache, bf16 q: B=8, "
+                    f"Hkv=8, rep=4, Dh=128, lengths {lens}")
+            summary["flash_decode_int8"] = {
+                **att["torch.bfloat16"], "library_ms": None,
+                "unit": f"{unit}, S=2048; device time, each call on the next "
+                        f"layer of the 32-layer stack (L2-cold)"}
+            summary["paged_flash_decode_int8"] = {
+                **paged["torch.bfloat16"], "library_ms": None,
+                "unit": f"{unit}, page 128, 16-page tables; device time, "
+                        f"each call on the next layer of the 32-layer pool "
+                        f"(L2-cold)"}
+        del cache
+        torch.cuda.empty_cache()
+    windowed, _ = window_rows(gen, KV4_WINDOW_ROWS, kv4=True)
+    return rows + windowed, summary
 
 
 def attention_rows(gen) -> list:
@@ -2573,7 +2720,10 @@ def phase_dsv3(detail: dict, cfg) -> dict:
     return out
 
 
-def phase_cli(detail: dict, preset: str) -> None:
+def phase_cli(detail: dict, preset: str, extra: tuple = ()) -> None:
+    """``python -m quant_tpu_torch generate`` on a checkpoint of ``preset``
+    written by the port (``extra``: more flags, e.g. ``--kv-bits 4``):
+    three prompts, 8 new tokens each."""
     from quant_tpu_torch.checkpoint import save_checkpoint
     from quant_tpu_torch.models import PRESETS, llama
 
@@ -2586,16 +2736,45 @@ def phase_cli(detail: dict, preset: str) -> None:
             [sys.executable, "-m", "quant_tpu_torch", "generate", tmp,
              "--prompt-ids", "1,2,3;4,5,6,7;9", "--max-new", "8",
              "--slots", "2", "--max-seq", "64", "--eos-id", "-1",
-             "--device", "cuda"],
+             "--device", "cuda", *extra],
             capture_output=True, text=True, timeout=300, cwd=ROOT, env=env)
+    what = " ".join((preset,) + tuple(extra))
     if out.returncode != 0:
-        raise RuntimeError(f"cli generate failed:\n{out.stderr[-4000:]}")
+        raise RuntimeError(f"cli generate ({what}) failed:\n"
+                           f"{out.stderr[-4000:]}")
     lines = [json.loads(x) for x in out.stdout.strip().splitlines()]
     if len(lines) != 3 or any(len(x["output"]) != 8 for x in lines):
         raise AssertionError(f"unexpected cli output: {out.stdout!r}")
-    log(f"[cli] generate ({preset}) printed {len(lines)} JSON lines, e.g. "
+    log(f"[cli] generate ({what}) printed {len(lines)} JSON lines, e.g. "
         f"{json.dumps(lines[0])}")
-    detail[f"cli_{preset}"] = {"lines": lines, "stderr": out.stderr[-2000:]}
+    detail[f"cli_{preset}" + "".join(extra).replace("--", "_")] = {
+        "lines": lines, "stderr": out.stderr[-2000:]}
+
+
+def phase_cli_all(detail: dict) -> None:
+    """The cli phase: ``generate`` on each tiny preset and on test-tiny
+    with ``--kv-bits 4``, ``serve --paged`` on the first two and its refusal
+    on the MLA two, ``convert`` of three HF shapes, ``selftest``. Each check
+    runs processes of its own and shares nothing with the others, so they
+    run at once from a pool of threads (each process pays its own
+    interpreter and CUDA start); the first failure is raised after all have
+    ended."""
+    import concurrent.futures
+
+    jobs = [(phase_cli, (detail, p)) for p in (
+        "test-tiny", "test-tiny-moe", "test-tiny-mla", "test-tiny-dsv3")]
+    jobs.append((phase_cli, (detail, "test-tiny", ("--kv-bits", "4"))))
+    jobs += [(phase_cli_serve, (detail, p))
+             for p in ("test-tiny", "test-tiny-moe")]
+    jobs += [(phase_cli_paged_mla, (detail, p))
+             for p in ("test-tiny-mla", "test-tiny-dsv3")]
+    jobs += [(phase_cli_convert, (detail, p))
+             for p in ("test-tiny", "test-tiny-moe", "test-tiny-dsv3")]
+    jobs.append((phase_selftest, (detail,)))
+    with concurrent.futures.ThreadPoolExecutor(max_workers=6) as pool:
+        futures = [pool.submit(fn, *args) for fn, args in jobs]
+    for f in futures:
+        f.result()
 
 
 def phase_cli_serve(detail: dict, preset: str) -> None:
@@ -3061,7 +3240,8 @@ WINDOW_ROWS = [("gemma-2-9b local", 42, 8, 2, 256, 4096, 50.0, 1 / 16),
                ("mistral-7b", 32, 8, 4, 128, 4096, 0.0, None)]
 
 
-def window_rows(gen) -> tuple[list, dict]:
+def window_rows(gen, specs=WINDOW_ROWS, kv4: bool = False
+                ) -> tuple[list, dict]:
     """Both GQA decode kernels with a sliding window and a logit softcap at
     Gemma-2-9B's decode shape (B=8, Hkv=8, rep=2, Dh=256, 42 layers of
     S=8192, the lengths above; a local layer: window 4096, softcap 50,
@@ -3070,8 +3250,10 @@ def window_rows(gen) -> tuple[list, dict]:
     q: each through :func:`decode_row` (one launch on its path, rerun
     bit-equal, 1e-4 / 1e-2 of max|ref| against the plain version, device
     time L2-cold), its bound counting the min(window, length) keys each
-    slot reads (and, paged, the table entries of their pages). Returns the
-    rows and the bf16 rows by (kernel, label) for the kernels line."""
+    slot reads (and, paged, the table entries of their pages). ``specs``
+    names other rows of this form; ``kv4`` runs them over a random int4
+    head-pair cache. Returns the rows and the bf16 rows by (kernel, label)
+    for the kernels line."""
     from quant_tpu_torch.kernels.attention import (
         flash_decode_int8, flash_decode_int8_reference)
     from quant_tpu_torch.kernels.paged_attention import (
@@ -3081,10 +3263,10 @@ def window_rows(gen) -> tuple[list, dict]:
     lengths = torch.tensor(WINDOW_LENGTHS, dtype=torch.int32, device="cuda")
     B, S, page = len(WINDOW_LENGTHS), 8192, 128
     shapes = {}
-    for row in WINDOW_ROWS:
+    for row in specs:
         shapes.setdefault(row[1:5], []).append(row)
     for (L, H, rep, D), group in shapes.items():
-        cache = rand_cache(gen, L, B, H, S, D)
+        cache = (rand_cache4 if kv4 else rand_cache)(gen, L, B, H, S, D)
         pool, tbl, _ = page_pool(cache, lengths, page)
         for label, _, _, _, _, w, cap, scale in group:
             n_tok = sum(min(n, w) if w else n for n in WINDOW_LENGTHS)
@@ -3113,15 +3295,17 @@ def window_rows(gen) -> tuple[list, dict]:
                     att[str(qdt)] = decode_row(
                         name, kernel, plain, q, tol, L - 1, L, n_tok, H, sdpa,
                         (f"page={page} " if extra else "") + what,
-                        extra_bytes=extra)
+                        extra_bytes=extra, kv4=kv4)
                     att[str(qdt)].pop("out")
                 rows.append({"kernel": name, "rows": label, "window": w,
-                             "softcap": cap, "keys": n_tok,
+                             "softcap": cap, "keys": n_tok, "kv4": kv4,
                              "per_dtype": att})
                 bf16[name, label] = dict(att["torch.bfloat16"], keys=n_tok)
         del cache, pool
         torch.cuda.empty_cache()
     for name in ("flash_decode_int8", "paged_flash_decode_int8"):
+        if (name, "gemma-2-9b global") not in bf16:
+            continue
         loc, glo = (bf16[name, f"gemma-2-9b {k}"] for k in ("local", "global"))
         log(f"[kernels] {name} bf16, Gemma-2-9B local layer / global layer: "
             f"time {loc['ms'] / glo['ms']:.3f}, keys read "
@@ -3162,7 +3346,7 @@ def family_cache(cfg, b: int, max_seq: int, paged: bool, page: int = 128):
 def family_model_check(detail: dict, tag: str, params, cfg, lens: list,
                        n_decode: int = 4, paged: bool = False,
                        variants: dict | None = None,
-                       pairs=(("kernels", "plain"),)) -> dict:
+                       pairs=(("kernels", "plain"),), logged=()) -> dict:
     """Slots prefilled one at a time to ``lens`` tokens (512-token chunks,
     through a batch-1 view of the slot), then ``n_decode`` decode steps of
     all slots, under each variant (name -> (config changes, paged)):
@@ -3170,9 +3354,11 @@ def family_model_check(detail: dict, tag: str, params, cfg, lens: list,
     ("xla"), and with ``paged`` the kernels over a page pool (page 128,
     shuffled pages) against the contiguous kernels. Each prefill's last
     logits and every decode step's must agree within 5e-2 of max|logit|
-    for each pair of variants (the model limit). A kernel variant's decode
+    for each pair of variants (the model limit); the ``logged`` pairs are
+    read and logged, not held to it. A kernel variant's decode
     launches must be one decode kernel a layer and step, windowed on the
-    local layers, softcapped where the config caps; they are returned."""
+    local layers, softcapped where the config caps, under [kv4] over the
+    int4 cache; they are returned."""
     from quant_tpu_torch.kernels import _build
     from quant_tpu_torch.models import llama
 
@@ -3215,19 +3401,23 @@ def family_model_check(detail: dict, tag: str, params, cfg, lens: list,
         del cache, outs, dec
         torch.cuda.empty_cache()
     res = {"lens": lens, "n_decode": n_decode}
-    for a, r in pairs:
+    for a, r in tuple(pairs) + tuple(logged):
         x, y = logits[a], logits[r]
         rel = float((x - y).abs().max() / y.abs().max())
+        # the rows of the prefills' last positions, then the decode steps'
+        pre = float((x[:b] - y[:b]).abs().max() / y.abs().max())
         agree = float((x.argmax(-1) == y.argmax(-1)).float().mean())
-        res[f"{a} vs {r}"] = {"rel_err": rel, "argmax_agreement": agree}
+        res[f"{a} vs {r}"] = {"rel_err": rel, "prefill_rel_err": pre,
+                              "argmax_agreement": agree}
         log(f"[{tag}] slots prefilled to {lens} tokens + {n_decode} decode "
-            f"steps: {a} vs {r} max|dlogit| = {rel:.3e} of max|logit|, "
-            f"argmax agreement {agree:.3f}")
-        if not rel <= 5e-2:
+            f"steps: {a} vs {r} max|dlogit| = {rel:.3e} of max|logit| "
+            f"(prefill rows {pre:.3e}), argmax agreement {agree:.3f}"
+            f"{' (logged)' if (a, r) in logged else ''}")
+        if (a, r) not in logged and not rel <= 5e-2:
             raise AssertionError(f"{tag}: {a} vs {r} logits differ by "
                                  f"{rel:.3g}")
     for name in launches:
-        if not name.startswith("kernels") or cfg.kv_bits != 8:
+        if not name.startswith("kernels") or cfg.kv_bits not in (8, 4):
             continue
         k = launches[name]
         res[f"{name} decode_launches"] = {n: v for n, v in k.items() if v}
@@ -3237,7 +3427,8 @@ def family_model_check(detail: dict, tag: str, params, cfg, lens: list,
             f"{att}[window]": sum(map(bool, llama.layer_windows(cfg)))
             * n_decode,
             f"{att}[softcap]": cfg.n_layers * n_decode * bool(
-                cfg.attn_softcap)})
+                cfg.attn_softcap),
+            f"{att}[kv4]": cfg.n_layers * n_decode * (cfg.kv_bits == 4)})
         log(f"[{tag}] {name} decode launches: "
             f"{res[f'{name} decode_launches']}")
     detail[f"{tag}_model"] = res
@@ -3300,26 +3491,49 @@ GEMMA2_PROMPTS = [4500, 5000, 64, 200, 517, 1024, 300, 777]
 GEMMA2_NEW = 32
 
 
-def phase_gemma2_serving(detail: dict, params, cfg, paged: bool) -> dict:
-    """Full-width Gemma-2-9B behind ``Engine(max_slots=8, max_seq=6144)``,
-    contiguous or paged (page 128): 8 greedy requests (two past the
-    window, so the local layers' window masks keys at decode), exact
-    launch counts (one fused insert and one decode kernel a layer and
-    decode forward, 21 of them windowed, all 42 softcapped, every matmul
-    on a tensor-core tile and every attention call on the tc path), the
-    decode step's time, a profile of 3 B=8 decode forwards, and every
-    served token teacher-forced."""
+@contextlib.contextmanager
+def plain_decode_attention():
+    """Count the model's plain GQA attention calls at T=1 (``llama.attention``
+    with one query position) while the block runs: a decode step that took
+    the plain path instead of a decode kernel. Yields the count list."""
+    from quant_tpu_torch.models import llama
+
+    seen, inner = [], llama.attention
+
+    def counted(q, *a, **kw):
+        if q.shape[1] == 1:
+            seen.append(1)
+        return inner(q, *a, **kw)
+    llama.attention = counted
+    try:
+        yield seen
+    finally:
+        llama.attention = inner
+
+
+def phase_engine_serving(detail: dict, params, cfg, paged: bool, tag: str,
+                         prompt_lens: list, n_new: int, max_seq: int) -> dict:
+    """A dense model behind ``Engine(max_slots=8, max_seq=max_seq)``,
+    contiguous or paged (page 128), in process: 8 greedy requests of
+    ``prompt_lens`` tokens, ``n_new`` new each; exact launch counts (one
+    fused insert and one decode kernel a layer and decode forward, those
+    of the windowed layers under [window], all under [softcap] where the
+    config caps, all under [kv4] over the int4 cache, every matmul on a
+    tensor-core tile and every attention call on the tc path) and no decode
+    step on the plain attention path, the decode step's time, a profile of
+    3 B=8 decode forwards at the final lengths, and every served token
+    teacher-forced (no answer read in another request's context may
+    pass)."""
     from quant_tpu_torch.engine import Engine, Request
     from quant_tpu_torch.kernels import _build
     from quant_tpu_torch.models import llama
 
-    tag = "gemma2-paged" if paged else "gemma2-serving"
-    eng = Engine(params, cfg, max_slots=8, max_seq=6144, eos_id=-1,
+    eng = Engine(params, cfg, max_slots=8, max_seq=max_seq, eos_id=-1,
                  device="cuda", paged=paged, page_size=128 if paged else None)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
-               for n in GEMMA2_PROMPTS]
-    reqs = [Request(req_id=i, prompt=p, max_new_tokens=GEMMA2_NEW)
+               for n in prompt_lens]
+    reqs = [Request(req_id=i, prompt=p, max_new_tokens=n_new)
             for i, p in enumerate(prompts)]
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
@@ -3328,26 +3542,32 @@ def phase_gemma2_serving(detail: dict, params, cfg, paged: bool) -> dict:
     for r in reqs:
         eng.add_request(r)
     calls = []
-    while eng.has_work():
-        c0 = time.perf_counter()
-        chunks0, dec0 = eng.prefill_chunks, eng.decode_forwards
-        eng.step_block(8)
-        torch.cuda.synchronize()
-        calls.append({"s": time.perf_counter() - c0,
-                      "chunks": eng.prefill_chunks - chunks0,
-                      "decode": eng.decode_forwards - dec0})
+    with plain_decode_attention() as plain_calls:
+        while eng.has_work():
+            c0 = time.perf_counter()
+            chunks0, dec0 = eng.prefill_chunks, eng.decode_forwards
+            eng.step_block(8)
+            torch.cuda.synchronize()
+            calls.append({"s": time.perf_counter() - c0,
+                          "chunks": eng.prefill_chunks - chunks0,
+                          "decode": eng.decode_forwards - dec0})
     total = time.perf_counter() - t0
     launches = dict(_build.launches)
-    if not all(r.finished and len(r.output) == GEMMA2_NEW for r in reqs):
+    if not all(r.finished and len(r.output) == n_new for r in reqs):
         raise AssertionError(f"{tag}: not every request finished")
+    if plain_calls:
+        raise AssertionError(f"{tag}: {len(plain_calls)} decode attention "
+                             "calls took the plain path")
     pre = "paged_" if paged else ""
     att, ins = f"{pre}flash_decode_int8", f"{pre}cache_insert_int8"
     n_l, dec = cfg.n_layers, eng.decode_forwards
     local = sum(map(bool, llama.layer_windows(cfg)))
+    kv4 = cfg.kv_bits == 4
     expect = {"dequant_matmul": (4 * n_l + 1) * (eng.prefill_chunks + dec),
               ins: n_l * dec, f"{ins}[fused]": n_l * dec, att: n_l * dec,
               f"{att}[tc]": n_l * dec, f"{att}[window]": local * dec,
-              f"{att}[softcap]": n_l * dec}
+              f"{att}[softcap]": n_l * dec * bool(cfg.attn_softcap),
+              f"{att}[kv4]": n_l * dec * kv4, f"{ins}[kv4]": n_l * dec * kv4}
     if not dec:
         raise AssertionError(f"{tag}: no decode forward")
     check_launches(tag, launches, expect)
@@ -3355,21 +3575,22 @@ def phase_gemma2_serving(detail: dict, params, cfg, paged: bool) -> dict:
     decode_ms = (1e3 * sum(c["s"] for c in pure)
                  / max(1, sum(c["decode"] for c in pure)))
     ttfts = sorted(r.ttft for r in reqs)
-    out = {"prompt_lens": GEMMA2_PROMPTS, "prefill_chunks": eng.prefill_chunks,
+    out = {"prompt_lens": prompt_lens, "prefill_chunks": eng.prefill_chunks,
            "decode_forwards": dec, "launches": launches,
            "expected_launches": expect, "total_s": total,
+           "plain_decode_attention_calls": len(plain_calls),
            "decode_ms_per_step": decode_ms,
            "ttft_ms_p50": 1e3 * ttfts[len(ttfts) // 2],
            "max_memory_allocated_gib":
                torch.cuda.max_memory_allocated() / 2**30}
-    log(f"[{tag}] 8 requests, prompts {GEMMA2_PROMPTS} -> {GEMMA2_NEW} "
+    log(f"[{tag}] 8 requests, prompts {prompt_lens} -> {n_new} "
         f"tokens each in {total:.1f}s; {eng.prefill_chunks} prefill chunks, "
         f"{dec} decode steps, decode {decode_ms:.2f} ms/step (B=8), TTFT "
         f"p50 {out['ttft_ms_p50']:.0f} ms, max_memory_allocated "
         f"{out['max_memory_allocated_gib']:.2f} GiB; launches as expected "
-        f"{expect}")
+        f"{expect}, no decode on the plain attention path")
     # the profile's step at the traffic's final lengths
-    final = [n + GEMMA2_NEW for n in GEMMA2_PROMPTS]
+    final = [n + n_new for n in prompt_lens]
     if paged:
         park_at_lengths(eng, final)
     else:
@@ -3382,6 +3603,65 @@ def phase_gemma2_serving(detail: dict, params, cfg, paged: bool) -> dict:
                                                tag)
     detail[tag] = out
     return out
+
+
+def phase_gemma2_serving(detail: dict, params, cfg, paged: bool) -> dict:
+    """Full-width Gemma-2-9B behind ``Engine(max_slots=8, max_seq=6144)``,
+    contiguous or paged (page 128), through :func:`phase_engine_serving`:
+    8 greedy requests (two past the window, so the local layers' window
+    masks keys at decode), 21 of the 42 layers windowed, all softcapped."""
+    return phase_engine_serving(
+        detail, params, cfg, paged,
+        "gemma2-paged" if paged else "gemma2-serving", GEMMA2_PROMPTS,
+        GEMMA2_NEW, 6144)
+
+
+# Llama-3-8B at kv_bits=4: 8 prompts of 32-1024 tokens, 32 new tokens each
+KV4_PROMPTS = [32, 100, 517, 1024, 300, 777, 64, 900]
+KV4_NEW = 32
+
+
+def phase_kv4_llama(detail: dict, params, cfg) -> dict:
+    """Full-width Llama-3-8B (the smoke's params, all 32 layers) over the
+    int4 head-pair cache (``kv_bits=4``): slots prefilled one at a time to
+    100-2000 tokens and 4 decode steps, the kv4 kernel pair against its
+    plain versions under the same matmul kernels (``attn_kernel="xla"``:
+    the plain insert chain and attention) and the paged kernels against the
+    contiguous ones, each within 5e-2 of max|logit| (one kv4 decode kernel
+    a layer and step); beside them, logged, the kernels against the plain
+    versions throughout (``kernel_mode="xla"``), at kv4 and at int8: the
+    matmul tiles' bf16 rounding moves k and v across the int4 cache's
+    coarse code boundaries, which the 32 layers amplify; then 8 requests
+    served by the contiguous and by the paged engine
+    (:func:`phase_engine_serving`: exactly 32 kv4 decode and 32 kv4 fused
+    insert launches a decode forward, none on the plain path, every token
+    teacher-forced), each served step's time, profile and peak device
+    memory beside the int8 serving phase's."""
+    c4 = dataclasses.replace(cfg, kv_bits=4)
+    lens = [100, 700, 1500, 2000]
+    family_model_check(
+        detail, "llama-3-8b-kv4", params, c4, lens, variants={
+            "kernels": ({}, False), "kernels-paged": ({}, True),
+            "plain-attention": ({"attn_kernel": "xla"}, False),
+            "plain": ({"kernel_mode": "xla"}, False)},
+        pairs=(("kernels", "plain-attention"), ("kernels-paged", "kernels")),
+        logged=(("kernels", "plain"), ("plain-attention", "plain")))
+    family_model_check(
+        detail, "llama-3-8b-int8-same-lens", params, cfg, lens, variants={
+            "kernels": ({}, False), "plain": ({"kernel_mode": "xla"}, False)},
+        pairs=(), logged=(("kernels", "plain"),))
+    res = {}
+    for paged in (False, True):
+        tag = "llama-kv4-paged" if paged else "llama-kv4-serving"
+        res["paged" if paged else "contiguous"] = phase_engine_serving(
+            detail, params, c4, paged, tag, KV4_PROMPTS, KV4_NEW, 2048)
+    int8 = detail["serving"]["max_memory_allocated_gib"]
+    log(f"[llama-kv4] max_memory_allocated: kv4 contiguous "
+        f"{res['contiguous']['max_memory_allocated_gib']:.2f} GiB, paged "
+        f"{res['paged']['max_memory_allocated_gib']:.2f} GiB; the int8 "
+        f"serving phase {int8:.2f} GiB (same Engine(max_slots=8, "
+        f"max_seq=2048) cache)")
+    return res
 
 
 def phase_gemma2(detail: dict) -> dict:
@@ -3442,6 +3722,59 @@ def phase_families(detail: dict) -> dict:
     del params
     torch.cuda.empty_cache()
     return out
+
+
+def phase_mla_kv16(detail: dict) -> dict:
+    """DeepSeek-V2-Lite at full width and 2 layers (its dense-prefix layer
+    and one MoE layer; unit-gain router and attention) with the unquantized
+    latent cache (``kv_bits=16``, the plain MLA path, as the JAX package
+    runs it): a 16-token prefill and one T=1 step at B=2. The logits must be
+    finite and of the vocabulary's width, no MLA kernel may launch, the
+    cache must hold the latent rows in bf16 with unit scales; the step's
+    logits beside the int8 cache's with the kernels (logged)."""
+    from quant_tpu_torch.kernels import _build
+    from quant_tpu_torch.models import PRESETS, llama
+
+    cfg = dataclasses.replace(PRESETS["deepseek-v2-lite"], n_layers=2,
+                              kv_bits=16)
+    params = llama.init_params(cfg, seed=0, device="cuda")
+    unit_gain_router(params, cfg)
+    unit_gain_attention(params, cfg)
+    rng = np.random.default_rng(3)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 16)))
+    step = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 1)))
+    out = {}
+    for bits in (16, 8):
+        c = dataclasses.replace(cfg, kv_bits=bits)
+        cache = llama.init_cache(c, 2, 128, "cuda")
+        _, cache = llama.forward(params, prompt, cache, c, device="cuda")
+        _build.reset_launches()
+        lg, cache = llama.forward(params, step, cache, c, device="cuda")
+        torch.cuda.synchronize()
+        out[bits] = (lg.float(), dict(_build.launches), cache)
+    lg, launches, cache = out[16]
+    if tuple(lg.shape) != (2, 1, cfg.vocab_size) or not bool(
+            torch.isfinite(lg).all()):
+        raise AssertionError(f"mla kv16: logits {tuple(lg.shape)}, finite "
+                             f"{bool(torch.isfinite(lg).all())}")
+    if launches["mla_flash_decode_int8"] or launches["mla_cache_insert_int8"]:
+        raise AssertionError(f"mla kv16: an MLA kernel launched: {launches}")
+    if (cache.k_codes.dtype != BF16
+            or not bool((cache.k_scale[:, :, :, :17] == 1).all())):
+        raise AssertionError("mla kv16: the latent cache is not the "
+                             "unquantized rows")
+    rel = float((lg - out[8][0]).abs().max() / out[8][0].abs().max())
+    res = {"logits_shape": list(lg.shape), "kv16_vs_int8_kernels_rel": rel,
+           "mla_launches_kv16": launches["mla_flash_decode_int8"],
+           "mla_launches_int8": out[8][1]["mla_flash_decode_int8"]}
+    log(f"[mla-kv16] deepseek-v2-lite 2 layers, kv_bits=16: one T=1 step at "
+        f"B=2 on the plain MLA path, logits finite {list(lg.shape)}, no MLA "
+        f"kernel launched (int8: {res['mla_launches_int8']}); max|dlogit| "
+        f"against the int8 cache with the kernels {rel:.3e} of max|logit|")
+    detail["mla_kv16"] = res
+    del params, out, cache
+    torch.cuda.empty_cache()
+    return res
 
 
 def windowed_entries(rows: dict, gemma2: dict, families: dict) -> list:
@@ -3545,9 +3878,11 @@ def run_all(args, detail: dict) -> int:
     serving = phase_serving(detail, params, cfg)
     paged = phase_paged_serving(detail, params, cfg)
     phase_model(detail, params, cfg)
+    lap("llama")
+    kv4 = phase_kv4_llama(detail, params, cfg)
     del params
     torch.cuda.empty_cache()
-    lap("llama")
+    lap("llama-kv4")
     convert = phase_convert_eval(detail, CONVERT_LAYERS)
     lap("convert-eval")
 
@@ -3593,16 +3928,9 @@ def run_all(args, detail: dict) -> int:
     gemma2 = phase_gemma2(detail)
     lap("gemma-2-9b")
     families = phase_families(detail)
+    phase_mla_kv16(detail)
     lap("families")
-    for preset in ("test-tiny", "test-tiny-moe"):
-        phase_cli(detail, preset)
-        phase_cli_serve(detail, preset)
-    for preset in ("test-tiny-mla", "test-tiny-dsv3"):
-        phase_cli(detail, preset)
-        phase_cli_paged_mla(detail, preset)
-    for preset in ("test-tiny", "test-tiny-moe", "test-tiny-dsv3"):
-        phase_cli_convert(detail, preset)
-    phase_selftest(detail)
+    phase_cli_all(detail)
     lap("cli")
 
     kernels = []
@@ -3622,6 +3950,18 @@ def run_all(args, detail: dict) -> int:
             "bound_by": s["bound_by"], "library_ms": s["library_ms"],
             "unit": s["unit"]})
     kernels += windowed_entries(summary["windowed"], gemma2, families)
+    for name, s in summary["kv4"].items():
+        # the int4 cache's variants, with their launches from the kv4
+        # Llama-3-8B serving runs
+        run = kv4["paged" if name.startswith("paged") else "contiguous"]
+        kernels.append({
+            "name": f"{name} [kv4]", "route": "cuda",
+            "source": SOURCES[name], "replaces": REPLACES[name],
+            "launches": run["launches"][f"{name}[kv4]"],
+            "max_abs_err": s["max_abs_err"], "ms": s["ms"],
+            "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+            "bound_by": s["bound_by"], "library_ms": s["library_ms"],
+            "unit": s["unit"]})
     detail["total_s"] = time.perf_counter() - t_start
     log(f"[done] {detail['total_s']:.1f}s")
     print(json.dumps({"kernels": kernels}))

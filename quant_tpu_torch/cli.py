@@ -3,12 +3,15 @@
     python -m quant_tpu_torch convert <hf_dir> <out_dir> --bits 4 \
         --group-size 128 [--device cuda]
     python -m quant_tpu_torch generate <ckpt_dir> --prompt-ids 1,2,3;4,5 \
-        --max-new 32 [--slots 8] [--max-seq 1024] [--device cuda]
+        --max-new 32 [--slots 8] [--max-seq 1024] [--kv-bits 0|4|8|16] \
+        [--device cuda]
     python -m quant_tpu_torch serve <ckpt_dir> [--host 127.0.0.1] \
         [--port 8400] [--paged [--page-size N] [--n-pages N]] \
-        [--prefix-cache] [--max-pending N] [--device cuda]
+        [--prefix-cache] [--max-pending N] [--kv-bits 0|4|8|16] \
+        [--device cuda]
     python -m quant_tpu_torch eval <ckpt_dir> --text file.txt \
-        [--window 512] [--limit-windows N] [--kv-bits 8|16] [--device cuda]
+        [--window 512] [--limit-windows N] [--kv-bits 0|4|8|16] \
+        [--device cuda]
     python -m quant_tpu_torch selftest [--device cuda]
     python -m quant_tpu_torch encode|decode <infile> <outfile> [--bits 8]
     python -m quant_tpu_torch roundtrip <infile> [--bits 8]
@@ -19,7 +22,9 @@ checkpoint (quantized on the device, streamed tensor by tensor).
 "output": [...]}``) and the engine stats on stderr. ``serve`` answers HTTP
 (``engine/server.py``) until interrupted. ``eval`` prints ``{"nll", "ppl",
 "tokens"}`` (with the load and eval seconds) over non-overlapping windows
-of a text file (UTF-8 bytes as ids unless ``--tokenizer``). ``selftest``
+of a text file (UTF-8 bytes as ids unless ``--tokenizer``). ``--kv-bits``
+overrides the checkpoint's KV cache: 8 (int8), 4 (int4 packed across head
+pairs) or 16 (unquantized); 0 keeps the checkpoint's. ``selftest``
 checks the codec against the C++ oracle bit for bit on 1M floats, then
 generates from a test-tiny model.
 ``encode`` / ``decode`` / ``roundtrip`` read and write the QRF1 codec file
@@ -42,11 +47,21 @@ import time
 import numpy as np
 
 
-def _cmd_generate(args) -> int:
+def _load(args):
+    """(params, config) of ``args.ckpt`` on ``args.device``, the config's
+    KV cache replaced by ``--kv-bits`` unless it is 0."""
     from quant_tpu_torch.checkpoint import load_checkpoint
-    from quant_tpu_torch.engine import Engine, SamplingConfig
 
     params, cfg = load_checkpoint(args.ckpt, device=args.device)
+    if args.kv_bits:
+        cfg = dataclasses.replace(cfg, kv_bits=args.kv_bits)
+    return params, cfg
+
+
+def _cmd_generate(args) -> int:
+    from quant_tpu_torch.engine import Engine, SamplingConfig
+
+    params, cfg = _load(args)
     eng = Engine(params, cfg, max_slots=args.slots, max_seq=args.max_seq,
                  eos_id=args.eos_id, device=args.device)
     prompts = [[int(t) for t in p.split(",")]
@@ -63,11 +78,10 @@ def _cmd_generate(args) -> int:
 
 
 def _cmd_serve(args) -> int:
-    from quant_tpu_torch.checkpoint import load_checkpoint
     from quant_tpu_torch.engine import Engine
     from quant_tpu_torch.engine.server import serve
 
-    params, cfg = load_checkpoint(args.ckpt, device=args.device)
+    params, cfg = _load(args)
     eng = Engine(params, cfg, max_slots=args.slots, max_seq=args.max_seq,
                  eos_id=args.eos_id, device=args.device, paged=args.paged,
                  page_size=args.page_size, n_pages=args.n_pages,
@@ -102,17 +116,11 @@ def _cmd_convert(args) -> int:
 
 
 def _cmd_eval(args) -> int:
-    from quant_tpu_torch.checkpoint import load_checkpoint
     from quant_tpu_torch.eval import perplexity, tokens_from_file
 
-    if args.kv_bits == 4:
-        raise NotImplementedError("--kv-bits 4 (the port's cache is int8 "
-                                  "or unquantized: 0, 8 or 16)")
     toks = tokens_from_file(args.text, args.tokenizer)
     t0 = time.perf_counter()
-    params, cfg = load_checkpoint(args.ckpt, device=args.device)
-    if args.kv_bits:
-        cfg = dataclasses.replace(cfg, kv_bits=args.kv_bits)
+    params, cfg = _load(args)
     t1 = time.perf_counter()
     res = perplexity(params, cfg, toks, window=args.window,
                      limit_windows=args.limit_windows)
@@ -257,6 +265,9 @@ def main(argv=None) -> int:
     g.add_argument("--top-k", type=int, default=0)
     g.add_argument("--top-p", type=float, default=1.0)
     g.add_argument("--min-p", type=float, default=0.0)
+    g.add_argument("--kv-bits", type=int, default=0, choices=(0, 4, 8, 16),
+                   help="KV cache override: 0 (checkpoint's), 8 (int8), 4 "
+                        "(int4, head pairs packed) or 16 (unquantized)")
     g.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu")
     g.set_defaults(fn=_cmd_generate)
@@ -284,6 +295,10 @@ def main(argv=None) -> int:
                          "requests (requires --paged)")
     sv.add_argument("--max-pending", type=int, default=None,
                     help="admission queue cap (HTTP 429 beyond it)")
+    sv.add_argument("--kv-bits", type=int, default=0,
+                    choices=(0, 4, 8, 16),
+                    help="KV cache override: 0 (checkpoint's), 8 (int8), 4 "
+                         "(int4, head pairs packed) or 16 (unquantized)")
     sv.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     sv.set_defaults(fn=_cmd_serve)
     b = sub.add_parser("bench", help="not ported (exits 2)")
@@ -295,8 +310,8 @@ def main(argv=None) -> int:
                    help="local HF tokenizer dir (needs transformers)")
     e.add_argument("--window", type=int, default=512)
     e.add_argument("--kv-bits", type=int, default=0, choices=(0, 4, 8, 16),
-                   help="KV cache override: 0 (checkpoint's), 8 (int8) "
-                        "and 16 (unquantized) are ported")
+                   help="KV cache override: 0 (checkpoint's), 8 (int8), 4 "
+                        "(int4, head pairs packed) or 16 (unquantized)")
     e.add_argument("--limit-windows", type=int, default=None)
     e.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     e.set_defaults(fn=_cmd_eval)
@@ -318,7 +333,7 @@ def main(argv=None) -> int:
     rt.add_argument("--bits", type=int, default=8, choices=(4, 8))
     rt.set_defaults(fn=_cmd_roundtrip)
     # flags of the JAX CLI whose features are not ported (--mesh, --lora,
-    # --kv-bits, ...) are unknown here: argparse exits naming them
+    # --draft-ckpt, ...) are unknown here: argparse exits naming them
     args = p.parse_args(argv)
     try:
         return args.fn(args)

@@ -28,6 +28,15 @@
 // RoPE and quantization into the compiled step ahead of the Pallas insert;
 // run eagerly on the card they were about 40 small kernels per layer.
 //
+// The int4 cache (kv_bits=4) takes the same launch: codes uint8 [.., H/2,
+// .., Dh] packed across head pairs (byte d of packed head j: real head 2j's
+// code plus 8 in the low nibble, 2j + 1's in the high one), scales per real
+// head, scale = absmax times fl(1/7) (how PyTorch's CUDA absmax / 7.0
+// rounds) or 1. Two warps writing the two nibbles of one byte would race,
+// so one warp owns a (slot, head pair) of K, and one of V: it loads (and
+// for K rotates) both heads' rows, takes both absmaxes, and stores each
+// byte once.
+//
 // The result is byte-equal to that plain chain (kernels/rope_kv.py, then
 // the codes-in inserts of kernels/cache_insert.py) on the card: the RoPE
 // products and sums are rounded one by one (__fmul_rn / __fsub_rn /
@@ -96,6 +105,7 @@ constexpr int kMaxPairs = 4;     // rotary pairs per lane: Dh, dr <= 256
 constexpr int kMaxLat = 16;      // latent c lanes per lane: r <= 512
 constexpr int kMaxVec = 4;       // 16-byte q_abs pieces per lane (f32 r 512)
 constexpr float kInv127 = 1.0f / 127.0f;
+constexpr float kInv7 = 1.0f / 7.0f;
 
 // activation type: load as f32, round to the type, store
 template <typename T>
@@ -150,7 +160,7 @@ struct FusedArgs {
   const T *q, *k, *v;                // [B, Hq | Hkv, Dh], heads packed
   long long sq, sk, sv;              // slot strides (elements)
   const float *cos, *sin;            // [B, Dh / 2]
-  int8_t* kc;
+  int8_t* kc;                        // KV4: uint8 codes of H / 2 heads
   float* ks;
   int8_t* vc;
   float* vs;
@@ -159,75 +169,108 @@ struct FusedArgs {
   float attn_factor;
 };
 
-template <typename T, typename Rows>
+// KV4: the int4 head-pair cache, a K or V unit being a pair of real heads
+template <typename T, typename Rows, bool KV4>
 __global__ void __launch_bounds__(kWarps * 32)
     rope_kv_insert_kernel(const FusedArgs<T> a, const Rows rows) {
+  constexpr int NP = KV4 ? 2 : 1;    // real heads of a K or V unit
   const int lane = threadIdx.x & 31;
-  const int units = a.Hq + 2 * a.Hkv;
+  const int hu = a.Hkv / NP;          // K (and V) units of a slot
+  const int units = a.Hq + 2 * hu;
   const int r = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (r >= a.B * units) return;       // whole warps leave together
   const int b = r / units, u = r % units, half = a.Dh / 2;
-  const bool is_q = u < a.Hq, is_k = !is_q && u < a.Hq + a.Hkv;
-  const int h = is_q ? u : is_k ? u - a.Hq : u - a.Hq - a.Hkv;
+  const bool is_q = u < a.Hq, is_k = !is_q && u < a.Hq + hu;
+  // the q head, or the K / V unit (real heads NP h .. NP h + np - 1)
+  const int h = is_q ? u : is_k ? u - a.Hq : u - a.Hq - hu;
+  const int np = is_q ? 1 : NP;
   const T* src = (is_q ? a.q + b * a.sq : is_k ? a.k + b * a.sk
                                                : a.v + b * a.sv) +
-                 (long long)h * a.Dh;
-  float x1[kMaxPairs], x2[kMaxPairs];
+                 (long long)h * np * a.Dh;
+  float x1[NP][kMaxPairs], x2[NP][kMaxPairs];
 #pragma unroll
-  for (int i = 0; i < kMaxPairs; ++i) {
-    const int p = lane + 32 * i;
-    x1[i] = x2[i] = 0.f;
-    if (p < half) {
-      x1[i] = Act<T>::load(src + p);
-      x2[i] = Act<T>::load(src + p + half);
+  for (int j = 0; j < NP; ++j)
+#pragma unroll
+    for (int i = 0; i < kMaxPairs; ++i) {
+      const int p = lane + 32 * i;
+      x1[j][i] = x2[j][i] = 0.f;
+      if (j < np && p < half) {
+        x1[j][i] = Act<T>::load(src + j * a.Dh + p);
+        x2[j][i] = Act<T>::load(src + j * a.Dh + p + half);
+      }
     }
-  }
   if (is_q || is_k) {
     const float* c = a.cos + (long long)b * half;
     const float* s = a.sin + (long long)b * half;
 #pragma unroll
-    for (int i = 0; i < kMaxPairs; ++i) {
-      const int p = lane + 32 * i;
-      if (p < half) {
-        const float cp = c[p], sp = s[p];
-        const float y1 = __fsub_rn(__fmul_rn(x1[i], cp), __fmul_rn(x2[i], sp));
-        const float y2 = __fadd_rn(__fmul_rn(x2[i], cp), __fmul_rn(x1[i], sp));
-        x1[i] = Act<T>::round(__fmul_rn(y1, a.attn_factor));
-        x2[i] = Act<T>::round(__fmul_rn(y2, a.attn_factor));
+    for (int j = 0; j < NP; ++j)
+#pragma unroll
+      for (int i = 0; i < kMaxPairs; ++i) {
+        const int p = lane + 32 * i;
+        if (j < np && p < half) {
+          const float cp = c[p], sp = s[p];
+          const float y1 = __fsub_rn(__fmul_rn(x1[j][i], cp), __fmul_rn(x2[j][i], sp));
+          const float y2 = __fadd_rn(__fmul_rn(x2[j][i], cp), __fmul_rn(x1[j][i], sp));
+          x1[j][i] = Act<T>::round(__fmul_rn(y1, a.attn_factor));
+          x2[j][i] = Act<T>::round(__fmul_rn(y2, a.attn_factor));
+        }
       }
-    }
     if (is_q) {
       T* out = a.q_out + ((long long)b * a.Hq + h) * a.Dh;
 #pragma unroll
       for (int i = 0; i < kMaxPairs; ++i) {
         const int p = lane + 32 * i;
         if (p < half) {
-          Act<T>::store(out + p, x1[i]);
-          Act<T>::store(out + p + half, x2[i]);
+          Act<T>::store(out + p, x1[0][i]);
+          Act<T>::store(out + p + half, x2[0][i]);
         }
       }
       return;
     }
   }
-  // a K or V row: one scale per (slot, head), over the whole warp
-  float m = 0.f;
+  // a K or V unit: one scale per (slot, real head), over the whole warp
+  float scale[NP];
 #pragma unroll
-  for (int i = 0; i < kMaxPairs; ++i) m = fmaxf(m, fmaxf(fabsf(x1[i]), fabsf(x2[i])));
+  for (int j = 0; j < NP; ++j) {
+    float m = 0.f;
 #pragma unroll
-  for (int o = 16; o; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-  const long long row = rows.row(a.layer, b, h, a.B, a.Hkv, a.lengths[b]);
-  if (row < 0) return;
-  const float scale = m == 0.f ? 1.f : __fmul_rn(m, kInv127);
-  int8_t* codes = (is_k ? a.kc : a.vc) + row * a.Dh;
+    for (int i = 0; i < kMaxPairs; ++i) m = fmaxf(m, fmaxf(fabsf(x1[j][i]), fabsf(x2[j][i])));
 #pragma unroll
-  for (int i = 0; i < kMaxPairs; ++i) {
-    const int p = lane + 32 * i;
-    if (p < half) {
-      codes[p] = (int8_t)(int)rintf(__fdiv_rn(x1[i], scale));
-      codes[p + half] = (int8_t)(int)rintf(__fdiv_rn(x2[i], scale));
-    }
+    for (int o = 16; o; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    scale[j] = m == 0.f ? 1.f : __fmul_rn(m, KV4 ? kInv7 : kInv127);
   }
-  if (lane == 0) (is_k ? a.ks : a.vs)[row] = scale;
+  const int len = a.lengths[b];
+  const long long row = rows.row(a.layer, b, h, a.B, hu, len);
+  if (row < 0) return;
+  if constexpr (KV4) {
+    uint8_t* codes = reinterpret_cast<uint8_t*>(is_k ? a.kc : a.vc) + row * a.Dh;
+#pragma unroll
+    for (int i = 0; i < kMaxPairs; ++i) {
+      const int p = lane + 32 * i;
+      if (p < half) {
+        const int l1 = (int)rintf(__fdiv_rn(x1[0][i], scale[0])) + 8;
+        const int h1 = (int)rintf(__fdiv_rn(x1[1][i], scale[1])) + 8;
+        const int l2 = (int)rintf(__fdiv_rn(x2[0][i], scale[0])) + 8;
+        const int h2 = (int)rintf(__fdiv_rn(x2[1][i], scale[1])) + 8;
+        codes[p] = (uint8_t)(l1 | (h1 << 4));
+        codes[p + half] = (uint8_t)(l2 | (h2 << 4));
+      }
+    }
+    if (lane < 2)
+      (is_k ? a.ks : a.vs)[rows.row(a.layer, b, 2 * h + lane, a.B, a.Hkv, len)] =
+          scale[lane & 1];
+  } else {
+    int8_t* codes = (is_k ? a.kc : a.vc) + row * a.Dh;
+#pragma unroll
+    for (int i = 0; i < kMaxPairs; ++i) {
+      const int p = lane + 32 * i;
+      if (p < half) {
+        codes[p] = (int8_t)(int)rintf(__fdiv_rn(x1[0][i], scale[0]));
+        codes[p + half] = (int8_t)(int)rintf(__fdiv_rn(x2[0][i], scale[0]));
+      }
+    }
+    if (lane == 0) (is_k ? a.ks : a.vs)[row] = scale[0];
+  }
 }
 
 template <typename T, typename Rows>
@@ -235,7 +278,8 @@ int launch_fused(void* q_out, const void* q, const void* k, const void* v,
                  long long sq, long long sk, long long sv, const void* cos,
                  const void* sin, void* kc, void* ks, void* vc, void* vs,
                  const void* lengths, int layer, int B, int Hq, int Hkv,
-                 int Dh, float attn_factor, const Rows& rows, void* stream) {
+                 int Dh, float attn_factor, int kv4, const Rows& rows,
+                 void* stream) {
   const FusedArgs<T> a{
       reinterpret_cast<T*>(q_out), reinterpret_cast<const T*>(q),
       reinterpret_cast<const T*>(k), reinterpret_cast<const T*>(v), sq, sk,
@@ -244,11 +288,13 @@ int launch_fused(void* q_out, const void* q, const void* k, const void* v,
       reinterpret_cast<float*>(ks), reinterpret_cast<int8_t*>(vc),
       reinterpret_cast<float*>(vs), reinterpret_cast<const int*>(lengths),
       layer, B, Hq, Hkv, Dh, attn_factor};
-  const int n_rows = B * (Hq + 2 * Hkv);
-  rope_kv_insert_kernel<T, Rows><<<(n_rows + kWarps - 1) / kWarps,
-                                   kWarps * 32, 0,
-                                   reinterpret_cast<cudaStream_t>(stream)>>>(
-      a, rows);
+  const int n_rows = B * (Hq + 2 * (kv4 ? Hkv / 2 : Hkv));
+  const int blocks = (n_rows + kWarps - 1) / kWarps;
+  const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (kv4)
+    rope_kv_insert_kernel<T, Rows, true><<<blocks, kWarps * 32, 0, st>>>(a, rows);
+  else
+    rope_kv_insert_kernel<T, Rows, false><<<blocks, kWarps * 32, 0, st>>>(a, rows);
   return (int)cudaGetLastError();
 }
 
@@ -257,15 +303,16 @@ int launch_fused_for(int bf16, void* q_out, const void* q, const void* k,
                      const void* v, long long sq, long long sk, long long sv,
                      const void* cos, const void* sin, void* kc, void* ks,
                      void* vc, void* vs, const void* lengths, int layer, int B,
-                     int Hq, int Hkv, int Dh, float attn_factor,
+                     int Hq, int Hkv, int Dh, float attn_factor, int kv4,
                      const Rows& rows, void* stream) {
+  if (kv4 && Hkv % 2) return (int)cudaErrorInvalidValue;
   return bf16 ? launch_fused<__nv_bfloat16>(q_out, q, k, v, sq, sk, sv, cos,
                                             sin, kc, ks, vc, vs, lengths,
                                             layer, B, Hq, Hkv, Dh,
-                                            attn_factor, rows, stream)
+                                            attn_factor, kv4, rows, stream)
               : launch_fused<float>(q_out, q, k, v, sq, sk, sv, cos, sin, kc,
                                     ks, vc, vs, lengths, layer, B, Hq, Hkv,
-                                    Dh, attn_factor, rows, stream);
+                                    Dh, attn_factor, kv4, rows, stream);
 }
 
 template <typename T>
@@ -458,10 +505,10 @@ extern "C" int cache_insert_int8_fused_launch(
     long long sk, long long sv, const void* cos, const void* sin, void* kc,
     void* ks, void* vc, void* vs, const void* lengths, int layer, int s0,
     int S, int B, int Hq, int Hkv, int Dh, float attn_factor, int bf16,
-    void* stream) {
+    int kv4, void* stream) {
   return launch_fused_for(bf16, q_out, q, k, v, sq, sk, sv, cos, sin, kc, ks,
                           vc, vs, lengths, layer, B, Hq, Hkv, Dh, attn_factor,
-                          ContiguousRows{s0, S}, stream);
+                          kv4, ContiguousRows{s0, S}, stream);
 }
 
 extern "C" int paged_cache_insert_int8_fused_launch(
@@ -469,10 +516,10 @@ extern "C" int paged_cache_insert_int8_fused_launch(
     long long sk, long long sv, const void* cos, const void* sin, void* kc,
     void* ks, void* vc, void* vs, const void* page_tbl, const void* lengths,
     int layer, int P, int page, int max_pages, int B, int Hq, int Hkv, int Dh,
-    float attn_factor, int bf16, void* stream) {
+    float attn_factor, int bf16, int kv4, void* stream) {
   return launch_fused_for(
       bf16, q_out, q, k, v, sq, sk, sv, cos, sin, kc, ks, vc, vs, lengths,
-      layer, B, Hq, Hkv, Dh, attn_factor,
+      layer, B, Hq, Hkv, Dh, attn_factor, kv4,
       PagedRows{reinterpret_cast<const int*>(page_tbl), P, page, max_pages},
       stream);
 }

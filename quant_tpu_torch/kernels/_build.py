@@ -45,7 +45,8 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # sliding window or a logit softcap also under "[window]" / "[softcap]"),
 # and the inserts under
 # "[fused]" (RoPE and K/V quantization in the same launch; the MLA latent's
-# RMSNorm too)
+# RMSNorm too); the GQA decode and insert calls over the int4 head-pair
+# cache also under "[kv4]"
 launches: dict[str, int] = {"dequant_matmul": 0, "dequant_matmul_moe": 0,
                             "cache_insert_int8": 0, "flash_decode_int8": 0,
                             "paged_cache_insert_int8": 0,
@@ -62,10 +63,12 @@ launches.update({f"{k}[{path}]": 0
                  for path in ("tc", "cuda_core")})
 launches.update({f"{k}[{opt}]": 0
                  for k in ("flash_decode_int8", "paged_flash_decode_int8")
-                 for opt in ("window", "softcap")})
+                 for opt in ("window", "softcap", "kv4")})
 launches.update({f"{k}[fused]": 0
                  for k in ("cache_insert_int8", "paged_cache_insert_int8",
                            "mla_cache_insert_int8")})
+launches.update({f"{k}[kv4]": 0
+                 for k in ("cache_insert_int8", "paged_cache_insert_int8")})
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

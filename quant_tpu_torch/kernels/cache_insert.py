@@ -9,10 +9,11 @@ cache tensors are written in place. The CUDA kernels are in
 
 The GQA pair is fused with its producers: :func:`cache_insert_int8_fused`
 and :func:`paged_cache_insert_int8_fused` take q, k and v as the projection
-left them, apply RoPE to q and k, quantize k and v to int8 with one scale
-per (slot, head), write the K/V rows and return the rotated q, in one
-launch, where the model's unfused chain takes about 40 (XLA fuses the same
-chain on the TPU before its Pallas insert). Their plain versions compose
+left them, apply RoPE to q and k, quantize k and v to int8 (or to the
+int4 head-pair codes at ``kv_bits=4``) with one scale per (slot, real
+head), write the K/V rows and return the rotated q, in one launch, where
+the model's unfused chain takes about 40 (XLA fuses the same chain on the
+TPU before its Pallas insert). Their plain versions compose
 the unchanged pieces: :func:`~quant_tpu_torch.kernels.rope_kv.rope_apply`,
 :func:`~quant_tpu_torch.kernels.rope_kv.quantize_kv` and the codes-in
 inserts :func:`cache_insert_int8_reference` /
@@ -68,9 +69,10 @@ def paged_insert_rows(cc, cs, codes, scale, lengths, layer: int, page_tbl):
     """Write T entries per slot into layer ``layer`` of a page pool, in
     place: entry t of slot b (position ``p = lengths[b] + t``) goes to
     ``cc[layer, page_tbl[b, p // page], :, p % page]``; positions outside
-    ``[0, max_pages * page)`` are dropped. ``cc`` ``[L, P, H, page, D]``,
-    ``cs`` ``[L, P, H, page]``; ``codes`` ``[B, T, H, D]``, ``scale``
-    ``[B, T, H]``. Returns (cc, cs)."""
+    ``[0, max_pages * page)`` are dropped. ``cc`` ``[L, P, Hc, page, D]``,
+    ``cs`` ``[L, P, H, page]``; ``codes`` ``[B, T, Hc, D]``, ``scale``
+    ``[B, T, H]`` (``Hc = H / 2`` packed heads for the int4 cache).
+    Returns (cc, cs)."""
     page, max_pages = cc.shape[3], page_tbl.shape[1]
     t = codes.shape[1]
     pos = (lengths.to(torch.int64)[:, None]
@@ -102,14 +104,16 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 
 def cache_insert_int8_fused_reference(q, k, v, cos, sin, kc, ks, vc, vs,
                                       lengths, layer: int, s0: int = 0, *,
-                                      attn_factor: float | None = None):
+                                      attn_factor: float | None = None,
+                                      kv_bits: int = 8):
     """Plain version of :func:`cache_insert_int8_fused`: the chain the model
     runs without the kernel, unchanged (:func:`rope_apply` of q and k,
-    :func:`quantize_kv` of k and v, :func:`cache_insert_int8_reference`).
-    Returns the rotated q ``[B, Hq, Dh]``."""
+    :func:`quantize_kv` of k and v at ``kv_bits``,
+    :func:`cache_insert_int8_reference`). Returns the rotated q
+    ``[B, Hq, Dh]``."""
     q, k = (rope_apply(x, cos, sin, attn_factor=attn_factor) for x in (q, k))
-    k_q, k_s = quantize_kv(k)
-    v_q, v_s = quantize_kv(v)
+    k_q, k_s = quantize_kv(k, kv_bits)
+    v_q, v_s = quantize_kv(v, kv_bits)
     cache_insert_int8_reference(kc, ks, vc, vs, k_q, k_s, v_q, v_s, lengths,
                                 layer, s0)
     return q[:, 0]
@@ -118,13 +122,14 @@ def cache_insert_int8_fused_reference(q, k, v, cos, sin, kc, ks, vc, vs,
 def paged_cache_insert_int8_fused_reference(q, k, v, cos, sin, kc, ks, vc,
                                             vs, lengths, layer: int,
                                             page_tbl, *,
-                                            attn_factor: float | None = None):
+                                            attn_factor: float | None = None,
+                                            kv_bits: int = 8):
     """Plain version of :func:`paged_cache_insert_int8_fused`: RoPE and
     quantization as :func:`cache_insert_int8_fused_reference`, then
     :func:`paged_cache_insert_int8_reference`. Returns the rotated q."""
     q, k = (rope_apply(x, cos, sin, attn_factor=attn_factor) for x in (q, k))
-    k_q, k_s = quantize_kv(k)
-    v_q, v_s = quantize_kv(v)
+    k_q, k_s = quantize_kv(k, kv_bits)
+    v_q, v_s = quantize_kv(v, kv_bits)
     paged_cache_insert_int8_reference(kc, ks, vc, vs, k_q, k_s, v_q, v_s,
                                       lengths, layer, page_tbl)
     return q[:, 0]
@@ -136,8 +141,9 @@ def _fused_checks(q, interleaved: bool, kv_bits: int) -> None:
         raise NotImplementedError("the fused insert rotates halves; "
                                   "interleaved rotary pairs (MLA) are not "
                                   "fused")
-    if kv_bits != 8:
-        raise NotImplementedError(f"kv_bits {kv_bits} is not ported")
+    if kv_bits not in (8, 4):
+        raise NotImplementedError(f"the fused insert writes the int8 or the "
+                                  f"int4 cache, not kv_bits {kv_bits}")
     if q.dim() != 4 or q.shape[1] != 1:
         raise ValueError("the fused insert is the decode (T=1) path: q "
                          f"[B, 1, Hq, Dh], got {tuple(q.shape)}")
@@ -145,16 +151,24 @@ def _fused_checks(q, interleaved: bool, kv_bits: int) -> None:
 
 def _fused_launch(symbol: str, argtypes: list, name: str, q, k, v, cos, sin,
                   caches, cache_shape, lengths, extra: tuple, tail: tuple,
-                  attn_factor):
+                  attn_factor, kv_bits: int):
     """Check the activations, tables and caches of a fused insert on the
-    card, launch ``symbol`` and count it. ``extra``: (tensor, dtype, shape)
-    checks beside the common ones; ``tail``: the entry point's integer
-    arguments after the pointers (``layer`` first)."""
+    card, launch ``symbol`` and count it. ``cache_shape``: the code
+    tensors' shape at ``Hkv`` heads (halved for the int4 cache's packed
+    heads); ``extra``: (tensor, dtype, shape) checks beside the common
+    ones; ``tail``: the entry point's integer arguments after the pointers
+    (``layer`` first)."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     b, _, hq, dh = q.shape
     hkv = k.shape[2]
+    kv4 = kv_bits == 4
+    if kv4 and hkv % 2:
+        raise ValueError(f"the int4 cache packs head pairs: Hkv {hkv} is odd")
+    cdt = torch.uint8 if kv4 else torch.int8
+    code_shape = (cache_shape[:2] + (hkv // 2,) + cache_shape[3:] if kv4
+                  else cache_shape)
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"activations must be bf16 or f32, got {q.dtype}")
     if dh % 2 or not 2 <= dh <= 256:
@@ -169,8 +183,8 @@ def _fused_launch(symbol: str, argtypes: list, name: str, q, k, v, cos, sin,
             raise ValueError(f"expected {q.dtype} {shape} with packed heads "
                              f"on {dev}, got {t.dtype} {tuple(t.shape)} "
                              f"strides {t.stride()}")
-    checks = ((caches[0], torch.int8, cache_shape),
-              (caches[2], torch.int8, cache_shape),
+    checks = ((caches[0], cdt, code_shape),
+              (caches[2], cdt, code_shape),
               (caches[1], torch.float32, cache_shape[:4]),
               (caches[3], torch.float32, cache_shape[:4]),
               (cos, torch.float32, (b, 1, 1, dh // 2)),
@@ -193,17 +207,19 @@ def _fused_launch(symbol: str, argtypes: list, name: str, q, k, v, cos, sin,
             sin.data_ptr(), *[c.data_ptr() for c in caches],
             *[t.data_ptr() for t, _, _ in extra], lengths.data_ptr(), *tail,
             b, hq, hkv, dh, 1.0 if attn_factor is None else attn_factor,
-            int(q.dtype == torch.bfloat16), stream)
+            int(q.dtype == torch.bfloat16), int(kv4), stream)
     _build.check(rc, name, "cache_insert")
     _build.count_launch(name)
     _build.count_launch(f"{name}[fused]")
+    if kv4:
+        _build.count_launch(f"{name}[kv4]")
     return out
 
 
 # q_out, q, k, v, slot strides of q, k, v, cos, sin, k_codes, k_scale,
 # v_codes, v_scale, lengths, layer, s0, S, B, Hq, Hkv, Dh, attn_factor,
-# bf16, stream
-_FUSED_ARGTYPES = ([_P] * 4 + [_L] * 3 + [_P] * 7 + [_I] * 7 + [_F, _I]
+# bf16, kv4, stream
+_FUSED_ARGTYPES = ([_P] * 4 + [_L] * 3 + [_P] * 7 + [_I] * 7 + [_F, _I, _I]
                    + [_P])
 
 
@@ -217,29 +233,32 @@ def cache_insert_int8_fused(q, k, v, cos, sin, kc, ks, vc, vs, lengths,
     ``attn_factor``), then k and v ``[B, 1, Hkv, Dh]`` quantized per (slot,
     head) to int8 codes and an f32 scale, written in place into the stacked
     caches ``[L, B, Hkv, S, Dh]`` / ``[L, B, Hkv, S]`` at row ``lengths[b]
-    - s0`` of ``layer`` (positions outside ``[0, S)`` write nothing). q, k
-    and v are bf16 or f32 and may be strided views of one projection row.
-    Returns the rotated q ``[B, Hq, Dh]`` in their dtype. Interleaved rotary
-    pairs, ``kv_bits`` other than 8 and T > 1 raise."""
+    - s0`` of ``layer`` (positions outside ``[0, S)`` write nothing); at
+    ``kv_bits=4`` into the int4 cache, uint8 codes ``[L, B, Hkv/2, S, Dh]``
+    packed across head pairs (:func:`~quant_tpu_torch.kernels.rope_kv.
+    quantize_kv`) beside the same scales. q, k and v are bf16 or f32 and
+    may be strided views of one projection row. Returns the rotated q
+    ``[B, Hq, Dh]`` in their dtype. Interleaved rotary pairs, ``kv_bits``
+    other than 8 or 4 and T > 1 raise."""
     _fused_checks(q, interleaved, kv_bits)
     if q.device.type == "cpu":
         return cache_insert_int8_fused_reference(
             q, k, v, cos, sin, kc, ks, vc, vs, lengths, layer, s0,
-            attn_factor=attn_factor)
+            attn_factor=attn_factor, kv_bits=kv_bits)
     if kc.dim() != 5:
         raise ValueError("expected stacked caches [L, B, H, S, D]")
     shape = (kc.shape[0], q.shape[0], k.shape[2], kc.shape[3], q.shape[3])
     return _fused_launch("cache_insert_int8_fused_launch", _FUSED_ARGTYPES,
                          "cache_insert_int8", q, k, v, cos, sin,
                          (kc, ks, vc, vs), shape, lengths, (),
-                         (layer, s0, kc.shape[3]), attn_factor)
+                         (layer, s0, kc.shape[3]), attn_factor, kv_bits)
 
 
 # q_out, q, k, v, slot strides of q, k, v, cos, sin, k_codes, k_scale,
 # v_codes, v_scale, page_tbl, lengths, layer, P, page, max_pages, B, Hq,
-# Hkv, Dh, attn_factor, bf16, stream
+# Hkv, Dh, attn_factor, bf16, kv4, stream
 _PAGED_FUSED_ARGTYPES = ([_P] * 4 + [_L] * 3 + [_P] * 8 + [_I] * 8
-                         + [_F, _I] + [_P])
+                         + [_F, _I, _I] + [_P])
 
 
 def paged_cache_insert_int8_fused(q, k, v, cos, sin, kc, ks, vc, vs, lengths,
@@ -251,13 +270,14 @@ def paged_cache_insert_int8_fused(q, k, v, cos, sin, kc, ks, vc, vs, lengths,
     page, Dh]`` / ``[L, P, Hkv, page]``: the K/V rows go to
     ``(page_tbl[b, pos // page], pos % page)`` of ``layer`` with ``pos =
     lengths[b]``; positions outside ``[0, max_pages * page)`` write nothing,
-    a parked slot (length 0, table row 0) writes into the scratch page 0.
+    a parked slot (length 0, table row 0) writes into the scratch page 0;
+    ``kv_bits=4`` writes the int4 pool (codes ``[L, P, Hkv/2, page, Dh]``).
     Returns the rotated q ``[B, Hq, Dh]``."""
     _fused_checks(q, interleaved, kv_bits)
     if q.device.type == "cpu":
         return paged_cache_insert_int8_fused_reference(
             q, k, v, cos, sin, kc, ks, vc, vs, lengths, layer, page_tbl,
-            attn_factor=attn_factor)
+            attn_factor=attn_factor, kv_bits=kv_bits)
     if kc.dim() != 5:
         raise ValueError("expected page pools [L, P, H, page, D]")
     l, n_pool, _, page, _ = kc.shape
@@ -267,7 +287,8 @@ def paged_cache_insert_int8_fused(q, k, v, cos, sin, kc, ks, vc, vs, lengths,
                          _PAGED_FUSED_ARGTYPES, "paged_cache_insert_int8", q,
                          k, v, cos, sin, (kc, ks, vc, vs), shape, lengths,
                          ((page_tbl, torch.int32, (b, max_pages)),),
-                         (layer, n_pool, page, max_pages), attn_factor)
+                         (layer, n_pool, page, max_pages), attn_factor,
+                         kv_bits)
 
 
 def mla_cache_insert_int8_reference(kc, ks, k_new, k_s, lengths, layer: int,

@@ -1,9 +1,10 @@
-"""Paged INT8-KV flash-decode attention (decode step, T=1).
+"""Paged INT8- and INT4-KV flash-decode attention (decode step, T=1).
 
 The port of the JAX package's ``kernels/paged_attention.py``. The KV cache
 lives in a page pool shared by all slots::
 
-    pool codes  int8 [L, P, Hkv, page, Dh]
+    pool codes  int8 [L, P, Hkv, page, Dh]   (kv4: uint8 [L, P, Hkv/2,
+                                               page, Dh], head pairs)
     pool scales f32  [L, P, Hkv, page]
 
 and each slot owns an ordered list of page ids ``page_tbl int32
@@ -18,7 +19,8 @@ block loads the page ids of its own chunk on the card);
 path and under the plan of the contiguous kernel
 (:func:`~quant_tpu_torch.kernels.attention.decode_path`, ``decode_plan`` at
 ``S = max_pages * page``), counted as ``paged_flash_decode_int8[tc]`` or
-``[cuda_core]`` (and ``[window]`` / ``[softcap]``), and takes the plain version
+``[cuda_core]`` (and ``[window]`` / ``[softcap]`` / ``[kv4]``), and takes the
+plain version
 :func:`paged_attention_reference` only for tensors on the CPU.
 :func:`paged_gather` builds a slot-contiguous copy of one layer's pages for
 the plain versions and for prefill.
@@ -33,7 +35,7 @@ import torch
 from quant_tpu_torch.kernels import _build
 from quant_tpu_torch.kernels.attention import (
     _check_q, _count_call, _sm_count, _window, _workspace, decode_path,
-    decode_plan, flash_decode_int8_reference)
+    decode_plan, flash_decode_int8_reference, kv_layout)
 
 __all__ = ["paged_flash_decode_int8", "paged_attention_reference",
            "paged_gather"]
@@ -69,9 +71,9 @@ _MAX_IDS = 4096 // 8 + 2  # csrc/flash_decode.cu MAX_IDS: page ids per block
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # q, q_bf16, tc, k_codes, k_scale, v_codes, v_scale, page_tbl, lengths, out,
-# part_o, part_ml, counters, layer, B, Hkv, P, page, max_pages, Dh, rep,
-# scale, window, softcap, chunk, n_chunks, stream
-_ARGTYPES = ([_P, _I, _I] + [_P] * 10 + [_I] * 8 + [ctypes.c_float, _I,
+# part_o, part_ml, counters, layer, B, Hkv (code heads), P, page, max_pages,
+# Dh, rep, kv4, scale, window, softcap, chunk, n_chunks, stream
+_ARGTYPES = ([_P, _I, _I] + [_P] * 10 + [_I] * 9 + [ctypes.c_float, _I,
                                                     ctypes.c_float]
              + [_I] * 2 + [_P])
 
@@ -90,9 +92,7 @@ def paged_flash_decode_int8(q, pool_kc, pool_ks, pool_vc, pool_vs, page_tbl,
     ``1/sqrt(Dh)``."""
     if softcap < 0:
         raise ValueError(f"softcap must be >= 0, got {softcap}")
-    if pool_kc.dtype != torch.int8 or pool_kc.shape[2] != pool_ks.shape[2]:
-        raise NotImplementedError("only the int8 pool is ported (kv_bits 8; "
-                                  "the kv4 head-pair pool is not)")
+    kv4, hc = kv_layout(pool_kc, pool_ks)
     if q.device.type == "cpu":
         return paged_attention_reference(q, pool_kc, pool_ks, pool_vc,
                                          pool_vs, page_tbl, lengths, layer,
@@ -100,14 +100,15 @@ def paged_flash_decode_int8(q, pool_kc, pool_ks, pool_vc, pool_vs, page_tbl,
                                          scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    l, n_pool, hkv, page, dh = pool_kc.shape
+    l, n_pool, _, page, dh = pool_kc.shape
+    hkv = pool_ks.shape[2]
     b = q.shape[0]
     max_pages = page_tbl.shape[1]
     rep = _check_q(q, hkv, dh)
     if not 0 <= layer < l:
         raise ValueError(f"layer {layer} outside [0, {l})")
     checks = ((q, q.dtype, (b, hkv * rep, dh)),
-              (pool_vc, torch.int8, (l, n_pool, hkv, page, dh)),
+              (pool_vc, pool_kc.dtype, (l, n_pool, hc, page, dh)),
               (pool_ks, torch.float32, (l, n_pool, hkv, page)),
               (pool_vs, torch.float32, (l, n_pool, hkv, page)),
               (page_tbl, torch.int32, (b, max_pages)),
@@ -126,7 +127,7 @@ def paged_flash_decode_int8(q, pool_kc, pool_ks, pool_vc, pool_vs, page_tbl,
         return out
     w = _window(window)
     plan = decode_plan(b, hkv, max_pages * page, rep, dh, _sm_count(q.device),
-                       w)
+                       w, kv4)
     if plan.chunk // page + 2 > _MAX_IDS:
         raise ValueError(f"pages of {page} tokens are too small for chunks "
                          f"of {plan.chunk}")
@@ -140,10 +141,10 @@ def paged_flash_decode_int8(q, pool_kc, pool_ks, pool_vc, pool_vs, page_tbl,
             pool_vs.data_ptr(), page_tbl.data_ptr(), lengths.data_ptr(),
             out.data_ptr(), None if part_o is None else part_o.data_ptr(),
             None if part_ml is None else part_ml.data_ptr(),
-            None if counters is None else counters.data_ptr(), layer, b, hkv,
-            n_pool, page, max_pages, dh, rep,
+            None if counters is None else counters.data_ptr(), layer, b, hc,
+            n_pool, page, max_pages, dh, rep, int(kv4),
             float(scale if scale is not None else 1.0 / dh ** 0.5), w,
             float(softcap), plan.chunk, plan.n_chunks, stream)
     _build.check(rc, "paged_flash_decode_int8", "flash_decode")
-    _count_call("paged_flash_decode_int8", path, w, softcap)
+    _count_call("paged_flash_decode_int8", path, w, softcap, kv4)
     return out

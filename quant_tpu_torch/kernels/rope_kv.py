@@ -1,5 +1,6 @@
-"""RMSNorm, rotate-half RoPE and per-(token, head) int8 KV quantization
-(or the unquantized cache at 16 bits), in plain PyTorch.
+"""RMSNorm, rotate-half RoPE and per-(token, head) KV quantization (int8,
+the int4 head-pair cache, or the unquantized cache at 16 bits), in plain
+PyTorch.
 
 The model's unfused chain (``models/llama.py``: prefill, the plain paths)
 and the plain versions of the fused inserts (``kernels/cache_insert.py``:
@@ -13,7 +14,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["deinterleave", "rmsnorm", "rope_apply", "quantize_kv"]
+__all__ = ["deinterleave", "rmsnorm", "rope_apply", "quantize_kv",
+           "dequant_kv4"]
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float,
@@ -56,17 +58,43 @@ def rope_apply(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, *,
 
 
 def quantize_kv(x: torch.Tensor, bits: int = 8):
-    """Per-(token, head) symmetric int8: x [B, T, H, Dh] -> (codes int8
-    [B, T, H, Dh], scales f32 [B, T, H]). ``bits=16`` keeps the cache
-    unquantized, as the JAX package does: the codes are ``x`` itself and
-    the scales ones, so every reader's ``codes * scale`` is unchanged."""
+    """Per-(token, head) symmetric quantization: x [B, T, H, Dh] ->
+    (codes, scales f32 [B, T, H]), as the JAX package's ``quantize_kv``.
+
+    ``bits=8``: int8 codes ``round(x / scale)``, ``scale = absmax / 127``
+    (1 where absmax is 0). ``bits=4``: ``scale = absmax / 7`` and the codes
+    ``round(x / scale) + 8`` packed two to a byte across HEAD PAIRS: packed
+    head j holds real head 2j in the low nibble and 2j+1 in the high one,
+    at the same token and dim, so the codes are uint8 [B, T, H/2, Dh] while
+    the scales stay per real head. (Not the split-K layout of the int4
+    weights, whose high nibble is another row.) ``bits=16`` keeps the cache
+    unquantized: the codes are ``x`` itself and the scales ones, so every
+    reader's ``codes * scale`` is unchanged."""
     if bits == 16:
         return x, torch.ones(x.shape[:-1], dtype=torch.float32,
                              device=x.device)
-    if bits != 8:
+    if bits not in (4, 8):
         raise NotImplementedError(f"kv_bits {bits} is not ported")
     xf = x.to(torch.float32)
     absmax = xf.abs().amax(dim=-1)
-    scale = torch.where(absmax == 0, torch.ones_like(absmax), absmax / 127.0)
+    qmax = 7.0 if bits == 4 else 127.0
+    scale = torch.where(absmax == 0, torch.ones_like(absmax), absmax / qmax)
     codes = torch.round(xf / scale[..., None])
+    if bits == 4:
+        u = (codes + 8).to(torch.uint8)
+        return u[..., 0::2, :] | (u[..., 1::2, :] << 4), scale
     return codes.to(torch.int8), scale
+
+
+def dequant_kv4(codes: torch.Tensor, head_axis: int = -3) -> torch.Tensor:
+    """Head-pair int4 codes (:func:`quantize_kv` at 4 bits) -> float32
+    codes minus 8 of the real heads: each byte's low nibble is real head
+    2j and its high nibble 2j+1, interleaved back along ``head_axis``, the
+    packed head axis (-3 in the cache layouts ``[.., H/2, S, D]``, -2 in
+    the per-token ``[B, T, H/2, D]``)."""
+    lo = (codes & 0xF).to(torch.float32) - 8.0
+    hi = (codes >> 4).to(torch.float32) - 8.0
+    ax = head_axis % codes.dim()
+    st = torch.stack([lo, hi], dim=ax + 1)
+    return st.reshape(*codes.shape[:ax], 2 * codes.shape[ax],
+                      *codes.shape[ax + 1:])

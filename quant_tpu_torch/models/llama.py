@@ -1,5 +1,5 @@
-"""Llama-family models in PyTorch: INT4/INT8 weights, INT8 or unquantized
-KV cache.
+"""Llama-family models in PyTorch: INT4/INT8 weights, INT8, INT4 or
+unquantized KV cache.
 
 The port of the JAX package's ``models/llama.py`` for the dense families
 (Llama-3, Qwen2, Mistral, Gemma, Gemma-2, Gemma-3 and the test configs),
@@ -9,13 +9,16 @@ optional per-head QK-RMSNorm (Qwen3, Gemma-3), rotate-half RoPE with
 ``none``, ``linear``, ``llama3`` or ``yarn`` scaling (interleaved pairs
 de-interleaved first; Gemma-3's local layers on their own base), GQA
 attention with an optional q/k/v bias (Qwen2) over an int8 cache with one
-f32 scale per (token, head), or over an unquantized one (``kv_bits=16``),
-under per-layer sliding windows and a tanh logit softcap (Mistral,
-Gemma-2/3), or DeepSeek's multi-head latent attention (MLA) over an int8
-latent cache with one scale per token, and a GLU MLP (SwiGLU, or Gemma's
-tanh GeLU), dense or a top-k routed mixture of experts (with DeepSeek's
-shared experts, selection bias, group-limited routing and dense-prefix
-layers), then Gemma-2's final logit softcap. Every projection is a
+f32 scale per (token, head), an int4 one packed across head pairs
+(``kv_bits=4``: packed head j holds real heads 2j and 2j+1 in its low and
+high nibbles, the scales stay per real head), or an unquantized one
+(``kv_bits=16``), under per-layer sliding windows and a tanh logit softcap
+(Mistral, Gemma-2/3), or DeepSeek's multi-head latent attention (MLA)
+over an int8 (or unquantized) latent cache with one scale per token, and
+a GLU MLP (SwiGLU, or Gemma's tanh GeLU), dense or a top-k routed
+mixture of experts (with DeepSeek's shared experts, selection bias,
+group-limited routing and dense-prefix layers), then Gemma-2's final logit
+softcap. Every projection is a
 :class:`QTensor` consumed by
 :func:`quant_tpu_torch.kernels.dequant_matmul`; the experts by
 :func:`quant_tpu_torch.kernels.dequant_matmul.dequant_matmul_moe`.
@@ -33,11 +36,13 @@ PyTorch idiom in place of JAX's:
 
 The cache is either contiguous (:class:`KVCache`, ``[L, B, Hkv, S, Dh]``)
 or a page pool shared by all slots (:class:`PagedKVCache`,
-``[L, P, Hkv, page, Dh]`` addressed through per-slot page tables).
+``[L, P, Hkv, page, Dh]`` addressed through per-slot page tables); at
+``kv_bits=4`` the code tensors hold ``Hkv/2`` packed heads
+(:func:`_kv_code_dims`).
 
 Kernel selection mirrors the JAX ``make_layer_step``: decode (T=1) with an
-int8 cache (``kv_bits=8``) takes ``cache_insert_int8_fused`` (RoPE of q
-and k, K/V quantization and the insert in one launch) then
+int8 or int4 cache (``kv_bits`` 8 or 4) takes ``cache_insert_int8_fused``
+(RoPE of q and k, K/V quantization and the insert in one launch) then
 ``flash_decode_int8``
 (their paged counterparts over a pool; over an MLA latent cache
 ``mla_cache_insert_int8_fused``, the latent's RMSNorm, RoPE, quantization
@@ -71,7 +76,8 @@ from quant_tpu_torch.kernels.dequant_matmul import (dequant_matmul,
 from quant_tpu_torch.kernels.mla_attention import mla_flash_decode_int8
 from quant_tpu_torch.kernels.paged_attention import (paged_flash_decode_int8,
                                                      paged_gather)
-from quant_tpu_torch.kernels.rope_kv import quantize_kv, rmsnorm, rope_apply
+from quant_tpu_torch.kernels.rope_kv import (dequant_kv4, quantize_kv, rmsnorm,
+                                             rope_apply)
 from quant_tpu_torch.models.config import ModelConfig
 from quant_tpu_torch.utils.device import check_on, resolve_device
 
@@ -154,12 +160,14 @@ class LlamaParams:
 @dataclasses.dataclass
 class KVCache:
     """INT8 KV cache at static ``max_seq``, per-(token, head) f32 scales
-    (at ``kv_bits=16`` the codes are the activations and the scales ones).
+    (at ``kv_bits=4`` uint8 codes of ``Hkv/2`` packed heads beside scales
+    of ``Hkv``; at ``kv_bits=16`` the codes are the activations and the
+    scales ones).
     ``lengths[b]`` = valid tokens of slot b (the next write position).
     An MLA cache holds one latent row per token on the K side
     (``[L, B, 1, S, mla_cache_dim]``, one scale per row) and zero-width V
     tensors, so slot copies treat both kinds alike."""
-    k_codes: torch.Tensor   # int8 [L, B, Hkv, S, Dh]
+    k_codes: torch.Tensor   # int8 [L, B, Hkv, S, Dh] (kv4: uint8, Hkv/2)
     k_scale: torch.Tensor   # f32  [L, B, Hkv, S]
     v_codes: torch.Tensor
     v_scale: torch.Tensor
@@ -177,7 +185,7 @@ class PagedKVCache:
     slots x max_seq. The engine's allocator owns the tables; entries past a
     slot's length may hold any valid page id (the kernels never read them,
     the plain path masks them)."""
-    k_codes: torch.Tensor   # int8 [L, P, Hkv, page, Dh]
+    k_codes: torch.Tensor   # int8 [L, P, Hkv, page, Dh] (kv4: uint8, Hkv/2)
     k_scale: torch.Tensor   # f32  [L, P, Hkv, page]
     v_codes: torch.Tensor
     v_scale: torch.Tensor
@@ -207,8 +215,7 @@ def check_supported(cfg: ModelConfig) -> None:
         f"act_fn={cfg.act_fn!r}": cfg.act_fn not in ("silu", "gelu_tanh"),
         f"rope_scaling={cfg.rope_scaling!r}":
             cfg.rope_scaling not in ("none", "linear", "llama3", "yarn"),
-        f"kv_bits={cfg.kv_bits}": cfg.kv_bits not in (8, 16),
-        "the MLA latent cache at kv_bits=16": cfg.is_mla and cfg.kv_bits != 8,
+        f"kv_bits={cfg.kv_bits}": cfg.kv_bits not in (4, 8, 16),
         "act_quant (W8A8)": cfg.act_quant,
         "codebook (lut) weights": cfg.codebook is not None,
         f"kernel_mode={cfg.kernel_mode!r}":
@@ -240,24 +247,37 @@ def _make_embed(table: torch.Tensor, cfg: ModelConfig):
 
 
 def _kv_dtype(cfg: ModelConfig) -> torch.dtype:
-    """The cache codes' dtype: int8, or the activation type at
-    ``kv_bits=16``."""
-    return torch.int8 if cfg.kv_bits == 8 else _dtype(cfg)
+    """The cache codes' dtype: int8, uint8 (two head-pair nibbles a byte)
+    at ``kv_bits=4``, or the activation type at ``kv_bits=16``."""
+    if cfg.kv_bits == 8:
+        return torch.int8
+    if cfg.kv_bits == 4:
+        return torch.uint8
+    return _dtype(cfg)
+
+
+def _kv_code_dims(cfg: ModelConfig) -> tuple[int, int]:
+    """(heads, width) of the cache CODE tensors, as the JAX package's
+    ``_kv_code_dims``: ``kv_bits=4`` packs nibbles across head pairs
+    (packed head j = real heads 2j low | 2j+1 high), so the codes have
+    ``Hkv/2`` heads of ``Dh`` bytes; the scales keep ``Hkv``. An MLA
+    cache's row is the latent, ``mla_cache_dim`` wide."""
+    h = cfg.n_kv_heads // 2 if cfg.kv_bits == 4 else cfg.n_kv_heads
+    return h, cfg.mla_cache_dim if cfg.is_mla else cfg.head_dim
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                device=None) -> KVCache:
     check_supported(cfg)
     dev = resolve_device(device)
-    l, h, d = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    # MLA: one latent row [c_kv | k_rope] per token, padded to a 128
+    # multiple (the layout contract of the JAX package); V is zero-width
+    l, h = cfg.n_layers, cfg.n_kv_heads
+    hc, d = _kv_code_dims(cfg)
     cdt = _kv_dtype(cfg)
-    if cfg.is_mla:
-        # one latent row [c_kv | k_rope] per token, padded to a 128 multiple
-        # (the layout contract of the JAX package); V is zero-width
-        d = cfg.mla_cache_dim
 
     def codes(width):
-        return torch.zeros((l, batch, h, max_seq, width), dtype=cdt,
+        return torch.zeros((l, batch, hc, max_seq, width), dtype=cdt,
                            device=dev)
 
     def scales(heads):
@@ -289,14 +309,15 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_seq: int,
     dev = resolve_device(device)
     if max_seq % page:
         raise ValueError(f"max_seq {max_seq} must divide by page {page}")
-    l, h, d = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    l, h = cfg.n_layers, cfg.n_kv_heads
+    hc, d = _kv_code_dims(cfg)
     cdt = _kv_dtype(cfg)
     return PagedKVCache(
-        k_codes=torch.zeros((l, n_pages, h, page, d), dtype=cdt,
+        k_codes=torch.zeros((l, n_pages, hc, page, d), dtype=cdt,
                             device=dev),
         k_scale=torch.zeros((l, n_pages, h, page), dtype=torch.float32,
                             device=dev),
-        v_codes=torch.zeros((l, n_pages, h, page, d), dtype=cdt,
+        v_codes=torch.zeros((l, n_pages, hc, page, d), dtype=cdt,
                             device=dev),
         v_scale=torch.zeros((l, n_pages, h, page), dtype=torch.float32,
                             device=dev),
@@ -780,12 +801,18 @@ def _rope_sets(positions: torch.Tensor, cfg: ModelConfig, dh: int) -> dict:
             "local": _rope_tables(positions, cfg.rope_local_theta, dh)}
 
 
-def dequant_kv(codes: torch.Tensor, bits: int = 8) -> torch.Tensor:
-    """Cache codes -> float32 values (codes*scale is the caller's job); at
-    16 bits the codes are the values."""
-    if bits not in (8, 16):
+def dequant_kv(codes: torch.Tensor, bits: int = 8,
+               head_axis: int = -3) -> torch.Tensor:
+    """Cache codes -> float32 values with the real head order restored
+    (codes*scale is the caller's job); at 16 bits the codes are the values.
+    At 4 bits each byte's low nibble is real head 2j and its high nibble
+    2j+1, each minus 8, interleaved back along ``head_axis``, the packed
+    head axis: -3 in the cache layouts (``[.., H/2, S, D]``), -2 in the
+    per-token one (``[B, T, H/2, D]``)."""
+    if bits not in (4, 8, 16):
         raise NotImplementedError(f"kv_bits {bits} is not ported")
-    return codes.to(torch.float32)
+    return dequant_kv4(codes, head_axis) if bits == 4 else codes.to(
+        torch.float32)
 
 
 def _cache_insert_at_layer(cc: torch.Tensor, cs: torch.Tensor,
@@ -924,12 +951,13 @@ def _mm(cfg: ModelConfig):
 
 def _use_kernels(cfg: ModelConfig, t: int, paged: bool) -> bool:
     """The decode kernel pair (in-place insert + flash decode) for T=1 over
-    an int8 cache, as ``make_layer_step`` selects it: ``attn_kernel``
-    "auto" or "flash", and "paged" over a page pool; the plain path
-    otherwise (``kv_bits=16`` too, as in the JAX package). An MLA cache
-    takes its own pair unless ``attn_kernel`` is "xla" (the port does not
-    carry over the TPU kernel's r and S alignment conditions)."""
-    if cfg.kernel_mode == "xla" or t != 1 or cfg.kv_bits != 8:
+    an int8 or int4 cache, as ``make_layer_step`` selects it:
+    ``attn_kernel`` "auto" or "flash", and "paged" over a page pool; the
+    plain path otherwise (``kv_bits=16`` too, as in the JAX package). An
+    MLA cache (int8) takes its own pair unless ``attn_kernel`` is "xla"
+    (the port does not carry over the TPU kernel's r and S alignment
+    conditions)."""
+    if cfg.kernel_mode == "xla" or t != 1 or cfg.kv_bits not in (8, 4):
         return False
     if cfg.is_mla:
         return cfg.attn_kernel != "xla"

@@ -5,6 +5,7 @@
     python -m quant_tpu_torch.tools.attn_probe plan   # GQA chunk sizes
     python -m quant_tpu_torch.tools.attn_probe ramp   # GQA time by context
     python -m quant_tpu_torch.tools.attn_probe mla [time|plan|ramp ...]
+    python -m quant_tpu_torch.tools.attn_probe time --kv-bits 4
 
 ``time`` gives the device time (``torch.profiler`` kernel events, each call
 on the next layer of the stack, so L2-cold) of ``flash_decode_int8`` and
@@ -16,7 +17,11 @@ each row's byte bound. ``plan`` times the bf16 rows under chunks of 64 to
 512 tokens in place of :func:`decode_plan`'s choice. ``ramp`` times the
 contiguous bf16 kernel with every slot at one length, 1 to 8192 tokens
 (B=8, Hkv=8, rep=4): the intercept is the call's fixed cost (launch, the
-first copies' latency, the merge), the slope its streaming rate.
+first copies' latency, the merge), the slope its streaming rate. The GQA
+modes run over the int8 cache, or with ``--kv-bits 4`` over the int4
+head-pair cache (uint8 codes of Hkv/2 packed heads; each bound counts Dh
+bytes of K and V codes a token and real head); run both in one call to
+compare them on one card.
 
 ``mla`` does the same for ``mla_flash_decode_int8`` (all three by default):
 ``time`` at B=8, Dq=640, r=512 (DeepSeek's latent rows) over the smoke's
@@ -39,11 +44,17 @@ BF16_FLOPS = 989e12                # dense bf16 tensor-core peak
 SMOKE_LENGTHS = [1, 100, 517, 1024, 1500, 2047, 2048, 777]
 
 
-def _rows(gen, layers: int, b: int, hkv: int, s: int, d: int, lengths):
-    """A random int8 cache stack and its lengths on the card."""
+def _rows(gen, layers: int, b: int, hkv: int, s: int, d: int, lengths,
+          kv_bits: int = 8):
+    """A random int8 (or, ``kv_bits=4``, int4 head-pair) cache stack and its
+    lengths on the card."""
     import torch
 
     def codes():
+        if kv_bits == 4:
+            return torch.randint(0, 256, (layers, b, hkv // 2, s, d),
+                                 generator=gen, device="cuda",
+                                 dtype=torch.int16).to(torch.uint8)
         return torch.randint(-127, 128, (layers, b, hkv, s, d), generator=gen,
                              device="cuda", dtype=torch.int8)
 
@@ -59,7 +70,7 @@ def _pool(cache, lengths, page: int):
     import numpy as np
     import torch
 
-    layers, b, hkv, s, _ = cache[0].shape
+    layers, b, _, s, _ = cache[0].shape
     max_pages = s // page
     n_pool = 1 + b * max_pages
     used = [-(-int(n) // page) for n in lengths.tolist()]
@@ -69,8 +80,8 @@ def _pool(cache, lengths, page: int):
         tbl[i, :u] = perm[i * max_pages:i * max_pages + u]
     pool = []
     for a in cache:
-        p = torch.zeros((layers, n_pool, hkv, page) + tuple(a.shape[4:]),
-                        dtype=a.dtype, device="cuda")
+        p = torch.zeros((layers, n_pool, a.shape[2], page)
+                        + tuple(a.shape[4:]), dtype=a.dtype, device="cuda")
         for i, u in enumerate(used):
             for j in range(u):
                 p[:, tbl[i, j]] = a[:, i, :, j * page:(j + 1) * page]
@@ -78,7 +89,12 @@ def _pool(cache, lengths, page: int):
     return pool, torch.from_numpy(tbl).to("cuda")
 
 
-def _cases(gen):
+def _code_bytes(kv_bits: int, d: int) -> int:
+    """K and V code bytes a token and real kv head."""
+    return d if kv_bits == 4 else 2 * d
+
+
+def _cases(gen, kv_bits: int = 8):
     """(name, layers, call(q, layer), q shape, bytes) of each timed row."""
     import torch
 
@@ -91,9 +107,9 @@ def _cases(gen):
             ("smoke rows", 32, 8, 8, 4, 2048, SMOKE_LENGTHS, (128, 512)),
             ("rep 8", 32, 8, 4, 8, 2048, SMOKE_LENGTHS, ()),
             ("8 x 8192", 2, 8, 8, 4, 8192, [8192] * 8, (128,))):
-        cache, ln = _rows(gen, layers, b, hkv, s, 128, lengths)
+        cache, ln = _rows(gen, layers, b, hkv, s, 128, lengths, kv_bits)
         n_tok = int(ln.sum())
-        nbytes = n_tok * hkv * (2 * 128 + 8)
+        nbytes = n_tok * hkv * (_code_bytes(kv_bits, 128) + 8)
         out.append((f"{name} contiguous", layers, (b, hkv * rep, 128),
                     nbytes, lambda q, i, c=cache, ln=ln: flash_decode_int8(
                         q, *c, ln, i)))
@@ -118,33 +134,35 @@ def _time(call, layers: int, q) -> float:
     return kernel_times(step, max(8, layers))[0]
 
 
-def time_rows(gen) -> None:
+def time_rows(gen, kv_bits: int = 8) -> None:
     import torch
 
-    for name, layers, shape, nbytes, call in _cases(gen):
+    for name, layers, shape, nbytes, call in _cases(gen, kv_bits):
         bound = nbytes / HBM_BYTES_PER_S * 1e3
         for qdt in (torch.bfloat16, torch.float32):
             q = torch.randn(shape, generator=gen, device="cuda").to(qdt)
             ms = _time(call, layers, q)
-            print(f"{name:28s} {str(qdt)[6:]:8s} {ms:.4f} ms  bound "
+            print(f"kv{kv_bits} {name:28s} {str(qdt)[6:]:8s} {ms:.4f} ms  bound "
                   f"{bound:.4f} ms ({100 * bound / ms:.0f}%)", flush=True)
 
 
-def plan(gen) -> None:
+def plan(gen, kv_bits: int = 8) -> None:
     import torch
 
     from quant_tpu_torch.kernels import attention, paged_attention
 
     real = attention.decode_plan
-    cases = _cases(gen)
+    cases = _cases(gen, kv_bits)
     for chunk in (64, 128, 256, 512):
-        def forced(b, hkv, s, rep, dh, sms=132, window=0, c=chunk):
-            p = real(b, hkv, s, rep, dh, sms, window)
+        def forced(b, hkv, s, rep, dh, sms=132, window=0, kv4=False,
+                   c=chunk):
+            p = real(b, hkv, s, rep, dh, sms, window, kv4)
             if window > 0:
                 s = min(s, window)
+            hc, rows = (hkv // 2, 2 * rep) if kv4 else (hkv, rep)
             n = max(1, -(-s // c))
-            parts = b * hkv * n * rep if n > 1 else 0
-            return attention.DecodePlan(c, n, b * hkv * n, parts * dh,
+            parts = b * hc * n * rows if n > 1 else 0
+            return attention.DecodePlan(c, n, b * hc * n, parts * dh,
                                         parts * 2, p.counters)
         attention.decode_plan = paged_attention.decode_plan = forced
         try:
@@ -153,16 +171,16 @@ def plan(gen) -> None:
                                 device="cuda").to(torch.bfloat16)
                 ms = _time(call, layers, q)
                 bound = nbytes / HBM_BYTES_PER_S * 1e3
-                print(f"chunk {chunk:4d} {name:28s} {ms:.4f} ms "
+                print(f"kv{kv_bits} chunk {chunk:4d} {name:28s} {ms:.4f} ms "
                       f"({100 * bound / ms:.0f}% of bound)", flush=True)
         finally:
             attention.decode_plan = paged_attention.decode_plan = real
     print("decode_plan's own choices:",
-          {n: real(8, 8, s, 4, 128).chunk for n, s in
+          {n: real(8, 8, s, 4, 128, kv4=kv_bits == 4).chunk for n, s in
            (("S 2048", 2048), ("S 8192", 8192))})
 
 
-def ramp(gen) -> None:
+def ramp(gen, kv_bits: int = 8) -> None:
     import torch
 
     from quant_tpu_torch.kernels.attention import (decode_plan,
@@ -171,16 +189,17 @@ def ramp(gen) -> None:
     q = torch.randn((8, 32, 128), generator=gen,
                     device="cuda").to(torch.bfloat16)
     for s, layers in ((2048, 32), (8192, 8)):
-        cache, _ = _rows(gen, layers, 8, 8, s, 128, [s] * 8)
-        chunk = decode_plan(8, 8, s, 4, 128).chunk
+        cache, _ = _rows(gen, layers, 8, 8, s, 128, [s] * 8, kv_bits)
+        chunk = decode_plan(8, 8, s, 4, 128, kv4=kv_bits == 4).chunk
         for n in sorted({1, 64, 128, 129, 256, 512, 1024, 2048, s}):
             if n > s:
                 continue
             ln = torch.full((8,), n, dtype=torch.int32, device="cuda")
             ms = _time(lambda q, i: flash_decode_int8(q, *cache, ln, i),
                        layers, q)
-            nbytes = 8 * 8 * n * (2 * 128 + 8)
-            print(f"S={s} chunk {chunk} length {n:5d}: {ms:.4f} ms, "
+            nbytes = 8 * 8 * n * (_code_bytes(kv_bits, 128) + 8)
+            print(f"kv{kv_bits} S={s} chunk {chunk} length {n:5d}: "
+                  f"{ms:.4f} ms, "
                   f"{nbytes / ms / 1e6:.0f} GB/s", flush=True)
         del cache
         torch.cuda.empty_cache()
@@ -335,6 +354,9 @@ def main(argv=None) -> int:
     ap.add_argument("mode", choices=("time", "plan", "ramp", "mla"))
     ap.add_argument("mla_modes", nargs="*", choices=("time", "plan", "ramp"),
                     help="with mla: which of its modes (default all)")
+    ap.add_argument("--kv-bits", type=int, default=8, choices=(8, 4),
+                    help="the GQA modes' cache: int8, or the int4 "
+                         "head-pair cache")
     args = ap.parse_args(argv)
     import torch
 
@@ -345,7 +367,8 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     if args.mode != "mla":
-        {"time": time_rows, "plan": plan, "ramp": ramp}[args.mode](gen)
+        {"time": time_rows, "plan": plan, "ramp": ramp}[args.mode](
+            gen, args.kv_bits)
         return 0
     for mode in args.mla_modes or ("time", "plan", "ramp"):
         {"time": mla_time, "plan": mla_plan, "ramp": mla_ramp}[mode](gen)

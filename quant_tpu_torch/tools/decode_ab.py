@@ -2,6 +2,7 @@
 
     python -m quant_tpu_torch.tools.decode_ab TREE_A TREE_B
     python -m quant_tpu_torch.tools.decode_ab --preset deepseek-v2-lite A B
+    python -m quant_tpu_torch.tools.decode_ab --kv-bits 8,4 . .
 
 Starts one worker process per tree; each imports ``quant_tpu_torch`` from
 its own tree and holds a full-width model (random weights, seed 0) behind
@@ -20,12 +21,16 @@ traces 3 bare decode forwards with ``torch.profiler`` (A, then B): device
 kernels per step, the runtime's kernel-launch calls per step, device busy
 time per step and the host-clock time of the traced steps. One JSON line
 per turn and per profile, then a summary line with each tree's medians and
-profile. Needs a CUDA device.
+profile. ``--kv-bits`` serves the KV cache at another width: one value for
+both workers, or two (tree A's, tree B's), so that one checkout's int8 and
+int4 caches run in turns (``--kv-bits 8,4 . .``); each worker is then named
+by its tree and width. Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import importlib.util
 import json
 import os
@@ -88,7 +93,7 @@ def profile(fn, steps: int = PROFILED) -> dict:
             "traced_ms_per_step": 1e3 * wall / steps}
 
 
-def worker(tree: str, preset: str) -> None:
+def worker(tree: str, preset: str, kv_bits: int = 0) -> None:
     # the protocol goes to the original stdout; prints of the package (and
     # of nvcc) go to stderr
     proto = os.fdopen(os.dup(1), "w", buffering=1)
@@ -103,6 +108,8 @@ def worker(tree: str, preset: str) -> None:
 
     cfg = MODELS[preset]
     params = llama.init_params(cfg, seed=0, device="cuda")
+    if kv_bits:
+        cfg = dataclasses.replace(cfg, kv_bits=kv_bits)
     unit_gain(params, cfg)
     eng = Engine(params, cfg, max_slots=8, max_seq=2048, eos_id=-1,
                  device="cuda")
@@ -151,13 +158,23 @@ def main(argv=None) -> int:
     ap.add_argument("--preset", choices=list(PRESETS),
                     default="llama-3-8b", help="the model (default "
                     "%(default)s)")
+    ap.add_argument("--kv-bits", default="",
+                    help="KV cache width for both workers (8, 4 or 16), or "
+                         "A's and B's (e.g. 8,4); default the preset's")
     ap.add_argument("--worker", metavar="TREE", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    bits = [int(b) for b in args.kv_bits.split(",") if b]
     if args.worker:
-        worker(args.worker, args.preset)
+        worker(args.worker, args.preset, bits[0] if bits else 0)
         return 0
     if len(args.trees) != 2:
         ap.error("give the roots of two checkouts")
+    if len(bits) not in (0, 1, 2) or any(b not in (4, 8, 16) for b in bits):
+        ap.error("--kv-bits takes one or two of 4, 8, 16")
+    bits = (bits * 2)[:2] if bits else []
+    # each worker's name: its tree, and its KV width where one is given
+    names = [f"{t} kv{b}" for t, b in zip(args.trees, bits)] or list(
+        args.trees)
     import torch
     if not torch.cuda.is_available():
         print("decode_ab: no CUDA device is available", file=sys.stderr)
@@ -165,24 +182,26 @@ def main(argv=None) -> int:
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--worker",
-         os.path.abspath(t), "--preset", args.preset], cwd=t, env=env,
+         os.path.abspath(t), "--preset", args.preset]
+        + (["--kv-bits", str(bits[k])] if bits else []), cwd=t, env=env,
         stdin=subprocess.PIPE,
-        stdout=subprocess.PIPE, text=True, bufsize=1) for t in args.trees]
+        stdout=subprocess.PIPE, text=True, bufsize=1)
+        for k, t in enumerate(args.trees)]
     try:
         for p in procs:
             ready = p.stdout.readline()
             if not ready:
                 raise RuntimeError("a worker ended before it was ready")
-        times = {t: [] for t in args.trees}
+        times = {t: [] for t in names}
         for r in range(ROUNDS):
             for k in (0, 1, 1, 0):
                 procs[k].stdin.write("turn\n")
                 res = json.loads(procs[k].stdout.readline())
-                res.update(tree=args.trees[k], round=r)
-                times[args.trees[k]].append(res)
+                res.update(tree=names[k], round=r)
+                times[names[k]].append(res)
                 print(json.dumps(res), flush=True)
         profiles = {}
-        for k, t in enumerate(args.trees):
+        for k, t in enumerate(names):
             procs[k].stdin.write("profile\n")
             profiles[t] = json.loads(procs[k].stdout.readline())
             print(json.dumps({"tree": t, "profile": profiles[t]}), flush=True)

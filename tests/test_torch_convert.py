@@ -437,8 +437,7 @@ def test_cli_qrf1_matches_jax(bits, tmp_path, capsys):
     (["convert", "hf", "out", "--codebook", "nf4", "--device", "cpu"],
      "codebook"),
     (["convert", "hf", "out", "--tp", "2", "--device", "cpu"], "tp=2"),
-    (["eval", "ckpt", "--text", "t", "--kv-bits", "4", "--device", "cpu"],
-     "kv-bits 4"),
+    (["convert", "hf", "out", "--algo", "awq", "--device", "cpu"], "AWQ"),
     (["bench"], "bench")])
 def test_cli_unported_exits_2(argv, feature, tmp_path, monkeypatch, capsys):
     monkeypatch.chdir(tmp_path)

@@ -480,16 +480,16 @@ def test_hf_gemma2_convert_load_matches_jax(tmp_path):
 
 
 def test_loader_refuses_before_decoding(tmp_path, monkeypatch):
-    """A checkpoint whose config the port refuses (kv_bits=4) raises
-    naming it before a single blob is decoded; the same file at kv_bits=8
+    """A checkpoint whose config the port refuses (act_quant, W8A8) raises
+    naming it before a single blob is decoded; the same file without it
     decodes and loads."""
     tc = TConfig(**dataclasses.asdict(JPRESETS["test-tiny"]))
     t_save(tmp_path / "ok", tllama.init_params(tc, seed=0, device="cpu"), tc)
     manifest = json.loads((tmp_path / "ok" / "manifest.json").read_text())
-    manifest["config"]["kv_bits"] = 4
-    (tmp_path / "kv4").mkdir()
-    (tmp_path / "kv4" / "manifest.json").write_text(json.dumps(manifest))
-    (tmp_path / "kv4" / "data.bin").write_bytes(
+    manifest["config"]["act_quant"] = True
+    (tmp_path / "w8a8").mkdir()
+    (tmp_path / "w8a8" / "manifest.json").write_text(json.dumps(manifest))
+    (tmp_path / "w8a8" / "data.bin").write_bytes(
         (tmp_path / "ok" / "data.bin").read_bytes())
     decoded = []
     real = t_format._read_leaf
@@ -498,8 +498,8 @@ def test_loader_refuses_before_decoding(tmp_path, monkeypatch):
         decoded.append(1)
         return real(*a)
     monkeypatch.setattr(t_format, "_read_leaf", counted)
-    with pytest.raises(NotImplementedError, match="kv_bits=4"):
-        t_load(tmp_path / "kv4", device="cpu")
+    with pytest.raises(NotImplementedError, match="act_quant"):
+        t_load(tmp_path / "w8a8", device="cpu")
     assert not decoded
     t_load(tmp_path / "ok", device="cpu")
     assert decoded
@@ -509,14 +509,17 @@ def test_check_supported_takes_the_families():
     for preset in ("qwen2-7b", "mistral-7b", "gemma-7b", "gemma-2-2b",
                    "gemma-2-9b", "gemma-3-1b"):
         tllama.check_supported(TPRESETS[preset])
-    tllama.check_supported(dataclasses.replace(TPRESETS["llama-3-8b"],
+    for kv_bits in (16, 4):
+        tllama.check_supported(dataclasses.replace(TPRESETS["llama-3-8b"],
+                                                   kv_bits=kv_bits))
+    tllama.check_supported(dataclasses.replace(TPRESETS["deepseek-v2-lite"],
                                                kv_bits=16))
     refused = [
-        ("llama-3-8b", {"kv_bits": 4}, "kv_bits=4"),
+        ("llama-3-8b", {"embed_bits": 4}, "embed_bits=4"),
         ("llama-3-8b", {"codebook": "nf4"}, "codebook"),
         ("llama-3-8b", {"act_quant": True}, "act_quant"),
         ("mixtral-8x7b", {"moe_prefill": "capacity"}, "capacity"),
-        ("deepseek-v2-lite", {"kv_bits": 16}, "MLA latent cache"),
+        ("deepseek-v2-lite", {"moe_fused": False}, "moe_fused"),
     ]
     for preset, change, name in refused:
         with pytest.raises(NotImplementedError, match=name):

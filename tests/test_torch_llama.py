@@ -111,8 +111,8 @@ def test_config_matches_jax():
 
 @pytest.mark.parametrize("preset,change,kwargs", [
     ("test-tiny-moe", {"moe_fused": False}, {}),
-    ("test-tiny-mla", {"kv_bits": 16}, {}),
-    ("test-tiny", {"kv_bits": 4}, {}),
+    ("test-tiny-mla", {}, {"adapter_ids": [0]}),
+    ("test-tiny", {"codebook": "lloyd"}, {}),
     ("test-tiny", {"codebook": "nf4"}, {}),
     ("test-tiny", {"embed_bits": 4}, {}),
     ("test-tiny", {}, {"return_hidden": True}),
@@ -123,11 +123,11 @@ def test_config_matches_jax():
 ])
 def test_outside_the_slice_raises(preset, change, kwargs):
     """A config or argument outside the ported slices (the dense families,
-    sparse-MoE Llama, DeepSeek MLA; int8 or unquantized GQA KV) raises
+    sparse-MoE Llama, DeepSeek MLA; int8, int4 or unquantized KV) raises
     NotImplementedError; nothing falls back silently. MoE, qk_norm, MLA,
-    windows, softcaps and the unquantized cache are ported: their cases ask
-    for the parts that are not (the per-expert loop, the capacity dispatch,
-    an unquantized latent cache)."""
+    windows, softcaps and every KV cache are ported: their cases ask for
+    the parts that are not (the per-expert loop, the capacity dispatch,
+    LoRA adapters on an MLA model)."""
     cfg = dataclasses.replace(TConfig(**dataclasses.asdict(
         JPRESETS[preset])), **change)
     base = TConfig(**dataclasses.asdict(JPRESETS["test-tiny"]))

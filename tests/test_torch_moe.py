@@ -480,14 +480,14 @@ def test_moe_checkpoint_round_trips_both_ways(tmp_path, jax_engine):
 
 
 @pytest.mark.parametrize("change", [
-    {"act_quant": True}, {"kv_bits": 4},
+    {"act_quant": True}, {"embed_bits": 4},
     {"moe_prefill": "capacity"}, {"codebook": "nf4"},
     {"moe_fused": False}])
 def test_moe_outside_the_slice_raises(change):
     """Shared experts, dense-prefix layers and the selection bias are
-    ported (``tests/test_torch_mla.py``), and so is the unquantized
-    cache; the capacity dispatch, the per-expert loop, W8A8, codebooks and
-    the int4 cache are not."""
+    ported (``tests/test_torch_mla.py``), and so are the unquantized and
+    the int4 caches; the capacity dispatch, the per-expert loop, W8A8,
+    codebooks and 4-bit embeddings are not."""
     cfg = dataclasses.replace(TTINY, **change)
     with pytest.raises(NotImplementedError):
         tllama.init_params(cfg, seed=0, device="cpu")

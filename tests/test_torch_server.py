@@ -277,7 +277,8 @@ def test_cli_serve_answers(tmp_path, params):
         proc.wait(timeout=30)
 
 
-@pytest.mark.parametrize("flag", [["--mesh", "data=2"], ["--kv-bits", "4"],
+@pytest.mark.parametrize("flag", [["--mesh", "data=2"],
+                                  ["--draft-ckpt", "/x"],
                                   ["--lora", "a=/x"], ["--spec-gamma", "4"]])
 def test_cli_serve_refuses_unported_flags(flag, capsys):
     from quant_tpu_torch.cli import main
