@@ -8,7 +8,7 @@ Run from the root of the repository, with one CUDA device:
 Phases; the first failure ends the run with a non-zero exit code:
 
 1. device    name, count, and ``nvidia-smi`` name / power limit.
-2. build     nvcc of the five CUDA sources (one process each, in parallel),
+2. build     nvcc of the six CUDA sources (one process each, in parallel),
              with the register / shared-memory report of ``-Xptxas -v``.
 3. kernels   each kernel against its plain PyTorch version at the
              Llama-3-8B shapes and the output dtypes the forward gives
@@ -76,7 +76,18 @@ Phases; the first failure ends the run with a non-zero exit code:
              contiguous and paged at page 128, and Gemma-2-9B's local
              layer (window 4096, softcap 50), each like the int8 rows and
              counted under [kv4], its bound counting Dh bytes of K and V
-             codes a token and real head.
+             codes a token and real head. ``dequant_matmul``'s codebook
+             and int8-activation variants at the Llama-3-8B shapes (M = 1,
+             8, 512; bf16 x, the forward's output dtypes): word4 and sel15
+             (an NF4 table; also f32 x at M=8 on the CUDA-core tile), aq at
+             4 and 8-bit weights (x codes and scales equal to the plain
+             quantizer's on the card), each against its plain version
+             (2e-2 of max|ref|, 1e-4 in f32), counted under its variant,
+             beside the linear kernel's time on the same codes and, for aq
+             at M=512, ``torch._int_mm`` of the int8 operands quantized
+             ahead of time; a two-layer stack with an NF4 and a Lloyd-Max
+             table, each layer through its own; the x pre-pass
+             (``act_quant_int8``) alone.
 4. serving   full-width Llama-3-8B (32 layers, random weights from seed 0,
              made on the card) behind ``Engine(max_slots=8, max_seq=2048)``:
              8 greedy requests of 32-1024 prompt tokens, 64 new tokens each.
@@ -119,9 +130,20 @@ Phases; the first failure ends the run with a non-zero exit code:
              launches a decode forward, no decode on the plain attention
              path, a profile of 3 B=8 decode forwards, every served token
              teacher-forced, peak device memory beside the int8 phase's.
-7. convert   full-width Llama-3-8B (32 layers) from a Hugging Face
+   act-quant the same params at W4A8 (``act_quant``): slots prefilled to
+             64-1000 tokens and 4 decode steps, kernels against plain
+             (5e-2 of max|logit|), every matmul under [aq] with one x
+             pre-pass each; a profile of 3 B=8 decode forwards; W8A8 at
+             4 layers (8-bit weights), kernels against plain.
+   codebook  full-width Llama-3-8B with random NF4 weights (seed 0, made
+             on the card): word4 and sel15 kernels against their plain
+             versions and the int8 transcode against word4 (5e-2), then 8
+             requests of 32-1024 tokens, 32 new, served at word4: every
+             matmul under [lut_word4], none plain, a profile, teacher
+             forcing.
+7. convert   full-width Llama-3-8B (8 layers) from a Hugging Face
              directory: random bf16 weights made on the card from seed 0,
-             written as ``*.safetensors`` (16 GB), ``python -m
+             written as ``*.safetensors`` (5.6 GB), ``python -m
              quant_tpu_torch convert`` (int4, g128; the C++ coder is
              required), the checkpoint loaded on the card; layer 0's wqkv,
              w_gate_up and w_down and lm_head byte-equal to
@@ -132,7 +154,15 @@ Phases; the first failure ends the run with a non-zero exit code:
              within 5e-2 of max|logit|, mean NLL within 1e-2); then ``eval``
              over 4 windows of 512 and ``generate`` on two prompts, each in
              its own process. It prints the write, convert, load and eval
-             times and each process's peak RSS.
+             times and each process's peak RSS. Then ``convert --codebook
+             nf4`` (beside linear int4 and int8) of a 2-layer full-width
+             Llama-3-8B and ``--codebook lloyd`` of a 2-layer one of width
+             512, all at once: layer 0's codes, scales and tables
+             byte-equal to ``quantize_tensor_device`` (nf4) or the host
+             codec (lloyd) of the source tensors, the nf4 checkpoint's
+             logits nearer than linear int4's to the int8 checkpoint's,
+             and ``eval --lut-runtime sel15`` / ``word4`` and ``generate
+             --lut-runtime word4``.
 8. moe       full-width Mixtral-8x7B (the Llama-3-8B params freed first)
              over HTTP from the paged, prefix-cached engine: 8 requests
              from 4 client threads, a shared 512-token prefix plus 16-128
@@ -210,6 +240,7 @@ fails).
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import json
@@ -232,6 +263,7 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, 700 W (data sheet)
 BF16_FLOPS = 989e12                # dense bf16 tensor-core peak
+INT8_OPS = 1979e12                 # dense int8 tensor-core peak
 L2_BYTES = 50 * 2 ** 20
 
 # Llama-3-8B projections: (K, N, launches per forward, out_dtype that
@@ -286,9 +318,11 @@ SOURCES = {
     "mla_flash_decode_int8": "quant_tpu_torch/csrc/mla_attention.cu",
     "unpack_int4_device": "quant_tpu_torch/csrc/unpack.cu",
 }
-# depth of the converted full-width Llama-3-8B (all of it: the HF directory
-# and the packed checkpoint take 20.6 GB of the temporary disk's 74.7 GiB)
-CONVERT_LAYERS = 32
+# depth of the converted full-width Llama-3-8B (a quarter of it: the whole
+# model's HF directory took 16 GB and 137-173 s of the smoke's time limit
+# with its convert, load and eval, 16 layers 112 s; the codebook phases
+# need the time)
+CONVERT_LAYERS = 8
 # unpack_int4_device: (K, N) of 512x512 random codes and Llama-3-8B's
 # w_gate_up and lm_head (padded vocab)
 UNPACK_SHAPES = [(512, 512), (4096, 28672), (4096, 131072)]
@@ -298,8 +332,11 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+def bound_ms(nbytes: float, flops: float,
+             peak: float = None) -> tuple[float, str]:
+    """The larger of bytes over the memory rate and operations over the
+    peak (bf16 unless ``peak`` names another: INT8_OPS for int8 x int8)."""
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / (peak or BF16_FLOPS)
     return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations")
 
 
@@ -1906,6 +1943,7 @@ def profile_decode(eng, steps: int = 3, label: str = "decode",
     ours = {}
     for name, ms in by_name.items():
         for kernel in ("dequant_matmul_moe_kernel", "dequant_matmul_kernel",
+                       "dequant_matmul_aq_kernel", "act_quant_kernel",
                        "mla_decode", "mla_rope_insert_kernel",
                        "paged_flash_decode", "flash_decode",
                        "rope_kv_insert_kernel"):
@@ -2168,6 +2206,7 @@ def check_tiles(what: str, launches: dict) -> None:
     """Every matmul of a bf16 run took a tensor-core tile: the CUDA-core
     tile served none, and the tiles' counts add up to each kernel's; every
     decode-attention call (GQA and MLA) took the tensor-core path."""
+    launches = collections.defaultdict(int, launches)
     for k in ("dequant_matmul", "dequant_matmul_moe"):
         tc = launches[f"{k}[tc_decode]"] + launches[f"{k}[tc_prefill]"]
         if launches[f"{k}[cuda_core]"] or tc != launches[k]:
@@ -2209,6 +2248,9 @@ def check_mla_profile(profile: dict, n_layers: int) -> None:
 
 
 def check_launches(what: str, launches: dict, expect: dict) -> None:
+    """Each count of ``expect`` exact (a name left out of ``launches``
+    counts 0), every matmul on a tensor-core tile (:func:`check_tiles`)."""
+    launches = collections.defaultdict(int, launches)
     for k, v in expect.items():
         if launches[k] != v:
             raise AssertionError(f"{what}: {k}: {launches[k]} launches, "
@@ -3375,14 +3417,16 @@ def family_model_check(detail: dict, tag: str, params, cfg, lens: list,
              for _ in range(n_decode)]
     max_seq = -(-(max(lens) + n_decode) // 128) * 128
     logits, launches = {}, {}
-    for name, (change, paged) in variants.items():
+    for name, (change, paged, *own) in variants.items():
+        # a variant may bring its own params (a transcoded copy)
+        p_v = own[0] if own else params
         c = dataclasses.replace(cfg, **change)
         cache = family_cache(c, b, max_seq, paged)
         outs = []
         for i, p in enumerate(prompts):
             one = slot_cache(cache, i)
             for a in range(0, len(p), 512):
-                lg, one = llama.forward(params, [p[a:a + 512]], one, c,
+                lg, one = llama.forward(p_v, [p[a:a + 512]], one, c,
                                         device="cuda")
             outs.append(lg[0, -1].float())
             del lg
@@ -3391,7 +3435,7 @@ def family_model_check(detail: dict, tag: str, params, cfg, lens: list,
         _build.reset_launches()
         dec = []
         for tok in steps:
-            lg, cache = llama.forward(params, tok, cache, c, device="cuda")
+            lg, cache = llama.forward(p_v, tok, cache, c, device="cuda")
             dec.append(lg[:, -1].float())
         torch.cuda.synchronize()
         launches[name] = dict(_build.launches)
@@ -3511,8 +3555,29 @@ def plain_decode_attention():
         llama.attention = inner
 
 
+@contextlib.contextmanager
+def plain_matmuls():
+    """Count calls of the plain ``dequant_matmul_reference`` (the model's
+    and the wrapper's name for it) while the block runs: a matmul that took
+    the plain path. Yields the count list."""
+    from quant_tpu_torch.kernels import dequant_matmul as dmm
+    from quant_tpu_torch.models import llama
+
+    seen, inner = [], dmm.dequant_matmul_reference
+
+    def counted(*a, **kw):
+        seen.append(1)
+        return inner(*a, **kw)
+    dmm.dequant_matmul_reference = llama.dequant_matmul_reference = counted
+    try:
+        yield seen
+    finally:
+        dmm.dequant_matmul_reference = llama.dequant_matmul_reference = inner
+
+
 def phase_engine_serving(detail: dict, params, cfg, paged: bool, tag: str,
-                         prompt_lens: list, n_new: int, max_seq: int) -> dict:
+                         prompt_lens: list, n_new: int, max_seq: int,
+                         variant: str | None = None) -> dict:
     """A dense model behind ``Engine(max_slots=8, max_seq=max_seq)``,
     contiguous or paged (page 128), in process: 8 greedy requests of
     ``prompt_lens`` tokens, ``n_new`` new each; exact launch counts (one
@@ -3523,7 +3588,8 @@ def phase_engine_serving(detail: dict, params, cfg, paged: bool, tag: str,
     step on the plain attention path, the decode step's time, a profile of
     3 B=8 decode forwards at the final lengths, and every served token
     teacher-forced (no answer read in another request's context may
-    pass)."""
+    pass). ``variant`` ("lut_word4", ...): every matmul launch also counted
+    under ``dequant_matmul[variant]``, and none on the plain matmul."""
     from quant_tpu_torch.engine import Engine, Request
     from quant_tpu_torch.kernels import _build
     from quant_tpu_torch.models import llama
@@ -3542,7 +3608,8 @@ def phase_engine_serving(detail: dict, params, cfg, paged: bool, tag: str,
     for r in reqs:
         eng.add_request(r)
     calls = []
-    with plain_decode_attention() as plain_calls:
+    with plain_decode_attention() as plain_calls, \
+            plain_matmuls() as plain_mm:
         while eng.has_work():
             c0 = time.perf_counter()
             chunks0, dec0 = eng.prefill_chunks, eng.decode_forwards
@@ -3555,9 +3622,10 @@ def phase_engine_serving(detail: dict, params, cfg, paged: bool, tag: str,
     launches = dict(_build.launches)
     if not all(r.finished and len(r.output) == n_new for r in reqs):
         raise AssertionError(f"{tag}: not every request finished")
-    if plain_calls:
+    if plain_calls or plain_mm:
         raise AssertionError(f"{tag}: {len(plain_calls)} decode attention "
-                             "calls took the plain path")
+                             f"calls and {len(plain_mm)} matmuls took the "
+                             "plain path")
     pre = "paged_" if paged else ""
     att, ins = f"{pre}flash_decode_int8", f"{pre}cache_insert_int8"
     n_l, dec = cfg.n_layers, eng.decode_forwards
@@ -3568,6 +3636,8 @@ def phase_engine_serving(detail: dict, params, cfg, paged: bool, tag: str,
               f"{att}[tc]": n_l * dec, f"{att}[window]": local * dec,
               f"{att}[softcap]": n_l * dec * bool(cfg.attn_softcap),
               f"{att}[kv4]": n_l * dec * kv4, f"{ins}[kv4]": n_l * dec * kv4}
+    if variant is not None:
+        expect[f"dequant_matmul[{variant}]"] = expect["dequant_matmul"]
     if not dec:
         raise AssertionError(f"{tag}: no decode forward")
     check_launches(tag, launches, expect)
@@ -3579,6 +3649,7 @@ def phase_engine_serving(detail: dict, params, cfg, paged: bool, tag: str,
            "decode_forwards": dec, "launches": launches,
            "expected_launches": expect, "total_s": total,
            "plain_decode_attention_calls": len(plain_calls),
+           "plain_matmul_calls": len(plain_mm),
            "decode_ms_per_step": decode_ms,
            "ttft_ms_p50": 1e3 * ttfts[len(ttfts) // 2],
            "max_memory_allocated_gib":
@@ -3777,6 +3848,503 @@ def phase_mla_kv16(detail: dict) -> dict:
     return res
 
 
+# ── codebook weights and int8 activations (lut_word4, lut_sel15, aq) ─────
+
+# the matmul variants of dequant_matmul: (counter, wrapper keywords, plain
+# keywords, weight bits); aq's weight bits are its name's
+LUT_AQ = {"lut_word4": ({"lut_exact": False}, {"lut_word4": True}, 4),
+          "lut_sel15": ({"lut_exact": True}, {}, 4),
+          "aq w4a8": ({"act_quant": True}, {"act_quant": True}, 4),
+          "aq w8a8": ({"act_quant": True}, {"act_quant": True}, 8)}
+
+
+def _nf4(dev):
+    from quant_tpu_torch.core.codec import NF4_TABLE
+
+    return torch.from_numpy(NF4_TABLE.copy()).to(dev)
+
+
+def variant_row(gen, variant: str, m: int, k: int, n: int, odt, per: int,
+                xdt=BF16, g: int = 128) -> dict:
+    """dequant_matmul's ``variant`` at one shape against its plain version
+    (word4: the int8-requantized table; sel15: the float32 table; aq: x on
+    its per-(row, group) int8 grid, weights exact), with the tile that
+    served it, its device time (weights rotated L2-cold; aq's includes the
+    x pre-pass), the plain version's, the linear kernel's on the same codes
+    in the same call (``linear_ms``), and its bound: the linear row's bytes
+    plus the table (64 B), bf16 operations or, for aq, int8 ones. aq's x
+    codes and scales are held equal to the plain quantizer's on the card
+    (differing codes counted). At M=512 aq also gives ``int_mm_ms``:
+    ``torch._int_mm`` of the same int8 x codes and the weight's codes as
+    int8 [K, N], quantized ahead of time (another function, never called
+    by the port)."""
+    from quant_tpu_torch.kernels import _build
+    from quant_tpu_torch.kernels import dequant_matmul as dmm
+    from quant_tpu_torch.utils.timing import device_time, kernel_times
+
+    kw, plain_kw, bits = LUT_AQ[variant]
+    aq = variant.startswith("aq")
+    dev = torch.device("cuda")
+    lut = None if aq else _nf4(dev)
+
+    def make():
+        return dataclasses.replace(_rand_qt(gen, dev, k, n, bits, g), lut=lut)
+    qt = make()
+    x = torch.randn((m, k), generator=gen, device=dev).to(xdt)
+    ref = dmm.dequant_matmul_reference(x, qt, odt, **plain_kw).float()
+    _build.reset_launches()
+    got = dmm.dequant_matmul(x, qt, out_dtype=odt, **kw)
+    torch.cuda.synchronize()
+    tile = served_tile("dequant_matmul")
+    tag = "aq" if aq else variant
+    if _build.launches[f"dequant_matmul[{tag}]"] != 1 or (
+            _build.launches["act_quant_int8"] != int(aq)):
+        raise AssertionError(f"{variant}: launches {_build.launches}")
+    err = float((got.float() - ref).abs().max())
+    rel = err / float(ref.abs().max())
+    tol = 1e-4 if odt == F32 and (aq or xdt == F32) else 2e-2
+    if not rel <= tol:
+        raise AssertionError(f"dequant_matmul [{variant}] M={m} {k}x{n} "
+                             f"{xdt} -> {odt}: error {rel:.3g} of max|ref| "
+                             f"> {tol}")
+    row = {"kernel": "dequant_matmul", "variant": variant, "bits": bits,
+           "group_size": g, "M": m, "K": k, "N": n,
+           "x_dtype": str(xdt)[6:], "out_dtype": str(odt)[6:], "tile": tile,
+           "max_abs_err": err, "rel_err": rel, "tol": tol,
+           "launches_per_step": per}
+    if aq:
+        q, sx = dmm.act_quant_int8(x, g)
+        q0, sx0 = dmm.act_quant_int8_reference(x, g)
+        row["x_codes_differing"] = int((q != q0).sum())
+        row["x_scales_differing"] = int((sx != sx0).sum())
+        if row["x_codes_differing"] or row["x_scales_differing"]:
+            raise AssertionError(f"{variant}: the x pre-pass differs from "
+                                 f"the plain quantizer: {row}")
+    wbytes = qt.codes.numel() + qt.scales.numel() * 4 + (0 if aq else 64)
+    qts = [qt] + rotating(make, wbytes)[1:]
+    nxt = cycle(qts)
+    iters = max(8, len(qts))
+    row["ms"], row["event_ms"] = kernel_times(
+        lambda: dmm.dequant_matmul(x, nxt(), out_dtype=odt, **kw), iters)
+    row["plain_ms"] = device_time(
+        lambda: dmm.dequant_matmul_reference(x, nxt(), odt, **plain_kw),
+        iters)
+    lin = [dataclasses.replace(q, lut=None) for q in qts]
+    nxt_l = cycle(lin)
+    row["linear_ms"] = device_time(
+        lambda: dmm.dequant_matmul(x, nxt_l(), out_dtype=odt), iters)
+    row["bound_ms"], row["bound_by"] = bound_ms(
+        m * k * x.element_size() + wbytes + m * n * got.element_size(),
+        2 * m * k * n, INT8_OPS if aq else BF16_FLOPS)
+    row["library_ms"] = None
+    row["pct_of_bound"] = 100 * row["bound_ms"] / row["ms"]
+    if aq and m == 512:
+        try:
+            if bits == 4:
+                w8 = torch.cat([(qt.codes & 0xF).to(torch.int8) - 8,
+                                (qt.codes >> 4).to(torch.int8) - 8])
+            else:
+                w8 = qt.codes
+            xq, _ = dmm.act_quant_int8(x, g)
+            row["int_mm_ms"] = device_time(lambda: torch._int_mm(xq, w8),
+                                           iters)
+        except RuntimeError as e:       # a build without the int8 GEMM
+            row["int_mm_ms"] = f"not measured: {e}"[:200]
+    log(f"[kernels] dequant_matmul [{variant}] M={m:<3d} {k}x{n} "
+        f"{str(xdt)[6:]} -> {str(odt)[6:]} [{tile}]: err {rel:.2e} of "
+        f"max|ref| (tol {tol:g})  {row['ms']:.4f} ms (events "
+        f"{row['event_ms']:.4f})  linear {row['linear_ms']:.4f} ms  plain "
+        f"{row['plain_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']})"
+        + (f"  int_mm {row['int_mm_ms']}" if "int_mm_ms" in row else "")
+        + (f"  x codes differing {row['x_codes_differing']}" if aq else ""))
+    del qts, lin
+    return row
+
+
+def act_quant_rows(gen) -> dict:
+    """The aq x pre-pass alone (``act_quant_int8``) at decode M=8 and
+    prefill M=512 over Llama-3-8B's two K (4096, 14336), g128, bf16 x:
+    codes and scales equal to the plain quantizer's on the card, device
+    time, plain time, byte bound (x read, codes and scales written)."""
+    from quant_tpu_torch.kernels import dequant_matmul as dmm
+    from quant_tpu_torch.utils.timing import device_time, kernel_times
+
+    rows, dev = {}, torch.device("cuda")
+    for m in (8, 512):
+        for k in (4096, 14336):
+            xs = [torch.randn((m, k), generator=gen, device=dev).to(BF16)
+                  for _ in range(4)]
+            q, sx = dmm.act_quant_int8(xs[0], 128)
+            q0, sx0 = dmm.act_quant_int8_reference(xs[0], 128)
+            diff = int((q != q0).sum()) + int((sx != sx0).sum())
+            if diff:
+                raise AssertionError(f"act_quant_int8 M={m} K={k}: {diff} "
+                                     "codes or scales differ from plain")
+            nxt = cycle(xs)
+            ms, ev = kernel_times(lambda: dmm.act_quant_int8(nxt(), 128), 16)
+            plain = device_time(
+                lambda: dmm.act_quant_int8_reference(nxt(), 128), 16)
+            b_ms, b_by = bound_ms(m * k * 2 + m * k + m * k // 128 * 4, 0)
+            rows[(m, k)] = {"M": m, "K": k, "ms": ms, "event_ms": ev,
+                            "plain_ms": plain, "bound_ms": b_ms,
+                            "bound_by": b_by, "max_abs_err": 0.0}
+            log(f"[kernels] act_quant_int8 M={m:<3d} K={k}: codes and "
+                f"scales equal to plain  {ms:.4f} ms (events {ev:.4f})  "
+                f"plain {plain:.4f} ms  bound {b_ms:.5f} ms ({b_by})")
+    return rows
+
+
+def lut_stack_row(gen) -> dict:
+    """A two-layer stacked codebook weight (Llama-3-8B's wqkv shape) with an
+    nf4 table on layer 0 and a Lloyd-Max fit to Laplace samples on layer 1:
+    each layer at word4 and sel15 against its own plain version (2e-2 of
+    max|ref|), the two layers' outputs more than 0.1 of max|ref| apart, so
+    a wrong table index fails."""
+    from quant_tpu_torch.core.codec import lloyd_max_fit
+    from quant_tpu_torch.core.qtensor import QTensor
+    from quant_tpu_torch.kernels import dequant_matmul as dmm
+
+    dev = torch.device("cuda")
+    k, n = 4096, 6144
+    fit = lloyd_max_fit(np.random.default_rng(0).laplace(
+        size=1 << 18).astype(np.float32))
+    one = _rand_qt(gen, dev, k, n, 4)
+    two = _rand_qt(gen, dev, k, n, 4)
+    stack = QTensor(codes=torch.stack([one.codes, two.codes]),
+                    scales=torch.stack([one.scales, two.scales]), bits=4,
+                    group_size=128, shape=(k, n),
+                    lut=torch.stack([_nf4(dev),
+                                     torch.from_numpy(fit).to(dev)]))
+    x = torch.randn((8, k), generator=gen, device=dev).to(BF16)
+    res = {"lloyd_table": fit.tolist()}
+    for variant in ("lut_word4", "lut_sel15"):
+        kw, plain_kw, _ = LUT_AQ[variant]
+        same = dataclasses.replace(stack, codes=stack.codes[[0, 0]],
+                                   scales=stack.scales[[0, 0]])
+        refs = [dmm.dequant_matmul_reference(x, same.layer(i), F32,
+                                             **plain_kw) for i in range(2)]
+        apart = float((refs[0] - refs[1]).abs().max() / refs[1].abs().max())
+        errs = []
+        for i in range(2):
+            ref = dmm.dequant_matmul_reference(x, stack.layer(i), F32,
+                                               **plain_kw)
+            got = dmm.dequant_matmul(x, stack, i, out_dtype=F32, **kw)
+            errs.append(float((got - ref).abs().max() / ref.abs().max()))
+        res[variant] = {"rel_err": errs, "tables_apart": apart}
+        log(f"[kernels] dequant_matmul [{variant}] stacked 2 x 4096x6144, "
+            f"nf4 / lloyd tables: err {errs[0]:.2e} / {errs[1]:.2e} of "
+            f"max|ref|; the same codes through the other table differ by "
+            f"{apart:.3f} of max|ref|")
+        if max(errs) > 2e-2 or apart < 0.1:
+            raise AssertionError(f"stacked {variant}: {res[variant]}")
+    return res
+
+
+def lut_aq_kernels(gen, detail: dict) -> dict:
+    """The codebook and int8-activation rows of dequant_matmul at the
+    Llama-3-8B shapes (``DMM_SHAPES``; M = 1, 8 and 512, bf16 x, the
+    forward's output dtypes), word4 and sel15 also with f32 x at M=8 (the
+    CUDA-core tile), the stacked two-table row and the x pre-pass. Returns
+    per variant one decode step's sums at M=8 (129 calls)."""
+    rows, summary = [], {}
+    for variant in LUT_AQ:
+        step = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                "linear_ms": 0.0, "max_abs_err": 0.0}
+        for m in (1, 8, 512):
+            for k, n, per, odt in DMM_SHAPES:
+                row = variant_row(gen, variant, m, k, n, odt, per)
+                rows.append(row)
+                step["max_abs_err"] = max(step["max_abs_err"],
+                                          row["max_abs_err"])
+                if m == 8:
+                    for key in ("ms", "plain_ms", "bound_ms", "linear_ms"):
+                        step[key] += per * row[key]
+        if not variant.startswith("aq"):
+            for k, n, _, odt in DMM_SHAPES[:2]:
+                rows.append(variant_row(gen, variant, 8, k, n, odt, 0,
+                                        xdt=F32))
+        bits = LUT_AQ[variant][2]
+        summary[variant] = {
+            **step, "bound_by": "bytes", "library_ms": None,
+            "unit": f"one decode step at B=8: the 129 calls of "
+                    f"dequant_matmul's {variant} (int{bits} g128, bf16 x) at "
+                    f"the Llama-3-8B shapes, device time, weights L2-cold; "
+                    f"linear_ms: the linear kernel on the same codes"}
+        log(f"[kernels] dequant_matmul [{variant}] one B=8 step: "
+            f"{step['ms']:.3f} ms (linear {step['linear_ms']:.3f}, plain "
+            f"{step['plain_ms']:.3f}, bound {step['bound_ms']:.3f})")
+    detail["lut_aq_stack"] = lut_stack_row(gen)
+    pre = act_quant_rows(gen)
+    detail["act_quant_rows"] = list(pre.values())
+    # the pre-pass of one B=8 step: 97 calls at K=4096, 32 at K=14336
+    summary["act_quant_int8"] = {
+        key: 97 * pre[(8, 4096)][key] + 32 * pre[(8, 14336)][key]
+        for key in ("ms", "plain_ms", "bound_ms")}
+    summary["act_quant_int8"].update(
+        max_abs_err=0.0, bound_by="bytes", library_ms=None,
+        unit="one decode step at B=8: the 129 x pre-passes of W4A8, bf16 x "
+             "[8, 4096] (97) and [8, 14336] (32), g128; device time")
+    detail["lut_aq_kernels"] = rows
+    return summary
+
+
+def transcoded(params):
+    """A copy of ``params`` whose codebook QTensors are linear int8
+    (``lut_runtime="int8"``'s load-time transcode), the rest shared."""
+    from quant_tpu_torch.core.qtensor import QTensor, transcode_lut_int8
+
+    def tr(q):
+        return transcode_lut_int8(q) if isinstance(q, QTensor) else q
+    lay = dataclasses.replace(params.layers, **{
+        f.name: tr(getattr(params.layers, f.name))
+        for f in dataclasses.fields(params.layers)})
+    return dataclasses.replace(params, layers=lay, lm_head=tr(params.lm_head))
+
+
+# Llama-3-8B over codebook weights: slots prefilled to these lengths, then 4
+# decode steps, per variant
+LUT_LENS = [64, 300, 700, 1000]
+
+
+def phase_codebook_llama(detail: dict) -> dict:
+    """Full-width Llama-3-8B (32 layers) with random NF4 codebook weights
+    made on the card from seed 0 (``codebook="nf4"``): slots prefilled to
+    ``LUT_LENS`` and 4 decode steps with the word4 kernels against the
+    word4 plain versions (the int8 transcode through the plain path: its
+    weights are the word4 table's), the sel15 kernels against the plain
+    versions on the float32 table, and the int8-transcoded kernels against
+    the word4 kernels, each within 5e-2 of max|logit|; then 8 requests of
+    32-1024 tokens, 32 new, served by the contiguous engine at word4:
+    every matmul launch under [lut_word4] (4 x 32 + 1 a forward), none on
+    the plain path, a profile of 3 B=8 decode forwards beside the linear
+    int4 one of the serving phase, every served token teacher-forced."""
+    from quant_tpu_torch.models import PRESETS, llama
+
+    cfg = dataclasses.replace(PRESETS["llama-3-8b"], codebook="nf4",
+                              lut_runtime="word4")
+    t0 = time.perf_counter()
+    params = llama.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[codebook] llama-3-8b nf4 params made on the card in "
+        f"{time.perf_counter() - t0:.1f}s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    int8 = transcoded(params)
+    res = {"model": family_model_check(
+        detail, "llama-3-8b-nf4", params, cfg, LUT_LENS, variants={
+            "kernels-word4": ({}, False),
+            "kernels-sel15": ({"lut_runtime": "sel15"}, False),
+            "kernels-int8": ({"lut_runtime": "int8"}, False, int8),
+            "plain-word4": ({"kernel_mode": "xla"}, False, int8),
+            "plain-sel15": ({"kernel_mode": "xla", "lut_runtime": "sel15"},
+                            False)},
+        pairs=(("kernels-word4", "plain-word4"),
+               ("kernels-sel15", "plain-sel15"),
+               ("kernels-int8", "kernels-word4")))}
+    del int8
+    torch.cuda.empty_cache()
+    res["serving"] = phase_engine_serving(
+        detail, params, cfg, False, "llama-nf4-serving", KV4_PROMPTS,
+        KV4_NEW, 2048, variant="lut_word4")
+    lin = detail["serving"]["profile"]
+    nf4 = res["serving"]["profile"]
+    log(f"[codebook] B=8 decode step at word4: device busy "
+        f"{nf4['device_busy_ms_per_step']} ms, {nf4['device_kernels_per_step']:.0f} "
+        f"kernels (linear int4 in the serving phase: "
+        f"{lin['device_busy_ms_per_step']} ms, "
+        f"{lin['device_kernels_per_step']:.0f} kernels)")
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_act_quant_llama(detail: dict, params, cfg) -> dict:
+    """W4A8: the smoke's full-width Llama-3-8B params with ``act_quant``:
+    slots prefilled to ``LUT_LENS`` and 4 decode steps, kernels against
+    plain within 5e-2 of max|logit|, every matmul under [aq] and one x
+    pre-pass a matmul; a profile of 3 B=8 decode forwards at the lengths
+    of the serving phase. Then W8A8 at full width and 4 layers (8-bit
+    weights made on the card from seed 0), kernels against plain."""
+    from quant_tpu_torch.engine import Engine
+    from quant_tpu_torch.models import llama
+
+    c = dataclasses.replace(cfg, act_quant=True)
+    res = {"w4a8": family_model_check(detail, "llama-3-8b-w4a8", params, c,
+                                      LUT_LENS)}
+    k = res["w4a8"]["kernels decode_launches"]
+    per = 4 * cfg.n_layers + 1
+    check_launches("llama-3-8b-w4a8", k, {
+        "dequant_matmul": per * 4, "dequant_matmul[aq]": per * 4,
+        "act_quant_int8": per * 4})
+    eng = Engine(params, c, max_slots=8, max_seq=2048, eos_id=-1,
+                 device="cuda")
+    eng.cache.lengths.copy_(torch.tensor(
+        [n + KV4_NEW for n in KV4_PROMPTS], dtype=torch.int32))
+    res["profile"] = profile_decode(eng, label="llama-w4a8")
+    lin = detail["serving"]["profile"]
+    log(f"[act-quant] B=8 decode step at W4A8: device busy "
+        f"{res['profile']['device_busy_ms_per_step']} ms (linear int4 in the "
+        f"serving phase: {lin['device_busy_ms_per_step']} ms)")
+    del eng
+    torch.cuda.empty_cache()
+    c8 = dataclasses.replace(cfg, bits=8, n_layers=4, act_quant=True)
+    p8 = llama.init_params(c8, seed=0, device="cuda")
+    res["w8a8"] = family_model_check(detail, "llama-3-8b-w8a8-4l", p8, c8,
+                                     LUT_LENS[:2])
+    del p8
+    torch.cuda.empty_cache()
+    detail["act_quant_llama"] = res
+    return res
+
+
+def phase_cli_codebook(detail: dict) -> dict:
+    """``convert --codebook``: Llama-3-8B at full width and 2 layers from
+    the smoke's HF writer, converted four ways in subprocesses at once
+    (nf4, linear int4, int8, all g128), and a 2-layer Llama of width 512
+    (vocab 4096) converted with ``--codebook lloyd`` (the host fit takes
+    about a microsecond a value: full width would take minutes). Layer 0's
+    wqkv, w_gate_up and w_down of the nf4 checkpoint byte-equal (codes,
+    scales, table) to ``quantize_tensor_device(codebook="nf4")`` of the
+    source tensors on the card, the lloyd checkpoint's to the host codec
+    (``quantize_tensor(codebook="lloyd")``); over the first 256 tokens of
+    README.md the nf4 checkpoint's logits (sel15) nearer in MSE than linear
+    int4's to the int8 checkpoint's (the port has no dense-weight forward:
+    8-bit codes stand for the bf16 source, their error a sixteenth of
+    int4's); then ``eval --lut-runtime sel15`` and ``generate
+    --lut-runtime word4`` on the nf4 checkpoint, and ``eval --lut-runtime
+    word4`` on the lloyd one, in subprocesses at once."""
+    import concurrent.futures
+
+    from quant_tpu_torch.checkpoint import load_checkpoint
+    from quant_tpu_torch.core.qtensor import (quantize_tensor,
+                                              quantize_tensor_device)
+    from quant_tpu_torch.eval import tokens_from_file
+    from quant_tpu_torch.models import PRESETS, llama
+
+    full = dataclasses.replace(PRESETS["llama-3-8b"], n_layers=2)
+    narrow = dataclasses.replace(PRESETS["llama-3-8b"], n_layers=2, dim=512,
+                                 n_heads=4, n_kv_heads=1, intermediate=1024,
+                                 vocab_size=4096)
+    p0 = "model.layers.0."
+    keep = [p0 + f"self_attn.{x}_proj.weight" for x in "qkv"] + [
+        p0 + f"mlp.{x}_proj.weight" for x in ("gate", "up", "down")]
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        _, src = write_hf_model(tmp / "hf", full, 0, keep)
+        _, src_n = write_hf_model(tmp / "hf-narrow", narrow, 1, keep)
+        out["hf_write_s"] = time.perf_counter() - t0
+        jobs = {"nf4": ["--codebook", "nf4"], "int4": [],
+                "int8": ["--bits", "8"]}
+        with concurrent.futures.ThreadPoolExecutor(max_workers=4) as pool:
+            futs = {name: pool.submit(run_cli, [
+                "convert", str(tmp / "hf"), str(tmp / name), "--group-size",
+                "128", *flags]) for name, flags in jobs.items()}
+            futs["lloyd"] = pool.submit(run_cli, [
+                "convert", str(tmp / "hf-narrow"), str(tmp / "lloyd"),
+                "--group-size", "128", "--codebook", "lloyd"])
+        for name, f in futs.items():
+            lines, wall, rss = f.result()
+            out[f"convert_{name}"] = {"s": wall, "rss_gib": rss,
+                                      "seconds": lines[-1]["seconds"]}
+        log(f"[cli-codebook] HF directories written in "
+            f"{out['hf_write_s']:.1f}s; converted at once: "
+            + ", ".join(f"{k} {out[f'convert_{k}']['s']:.1f}s"
+                        for k in futs))
+        # the CLI runs while this process checks the checkpoints
+        readme = str(ROOT / "README.md")
+        pool = concurrent.futures.ThreadPoolExecutor(max_workers=3)
+        ev = pool.submit(run_cli, [
+            "eval", str(tmp / "nf4"), "--text", readme, "--window", "256",
+            "--limit-windows", "2", "--lut-runtime", "sel15"])
+        evl = pool.submit(run_cli, [
+            "eval", str(tmp / "lloyd"), "--text", readme, "--window", "256",
+            "--limit-windows", "2", "--lut-runtime", "word4"])
+        gen = pool.submit(run_cli, [
+            "generate", str(tmp / "nf4"), "--prompt-ids", "1,2,3,4;5,6",
+            "--max-new", "8", "--slots", "2", "--max-seq", "64",
+            "--eos-id", "-1", "--lut-runtime", "word4"])
+        pool.shutdown(wait=False)
+
+        def layer0(params, source, what, direct):
+            lay = params.layers
+            for name, (qt, parts) in {
+                    "wqkv": (lay.wqkv.layer(0), [
+                        source[p0 + f"self_attn.{x}_proj.weight"]
+                        for x in "qkv"]),
+                    "w_gate_up": (lay.w_gate_up.layer(0), [
+                        source[p0 + f"mlp.{x}_proj.weight"]
+                        for x in ("gate", "up")]),
+                    "w_down": (lay.w_down.layer(0),
+                               [source[p0 + "mlp.down_proj.weight"]])
+                    }.items():
+                w = torch.cat([x.float().T for x in parts], dim=1)
+                want = direct(w)
+                same = (torch.equal(want.codes.to(qt.codes.device), qt.codes)
+                        and torch.equal(want.scales.to(qt.scales.device),
+                                        qt.scales)
+                        and torch.equal(want.lut.to(qt.lut.device), qt.lut))
+                if not same:
+                    raise AssertionError(f"{what} layers.0.{name}: the "
+                                         "checkpoint differs from direct "
+                                         "quantization of its source")
+        nf4, c_nf4 = load_checkpoint(tmp / "nf4", device="cuda",
+                                     lut_runtime="sel15")
+        layer0(nf4, src, "nf4", lambda w: quantize_tensor_device(
+            w, 4, 128, codebook="nf4"))
+        ll, _ = load_checkpoint(tmp / "lloyd", device="cuda",
+                                lut_runtime="sel15")
+        layer0(ll, src_n, "lloyd", lambda w: quantize_tensor(
+            w.cpu().numpy(), 4, 128, codebook="lloyd"))
+        tables = ll.layers.wqkv.lut
+        out["lloyd_tables_differ"] = bool((tables[0] != tables[1]).any())
+        del ll, src, src_n
+        log("[cli-codebook] layers.0 wqkv, w_gate_up, w_down: nf4 codes, "
+            "scales and table byte-equal to quantize_tensor_device, lloyd "
+            "to the host codec; the lloyd checkpoint's per-layer tables "
+            f"differ: {out['lloyd_tables_differ']}")
+        toks = torch.as_tensor(tokens_from_file(readme)[:256].astype(
+            np.int64), device="cuda")[None]
+
+        def logits(params, cfg):
+            c = dataclasses.replace(cfg, kernel_mode="auto")
+            lg, _ = llama.forward(params, toks, llama.init_cache(
+                c, 1, 256, "cuda"), c, device="cuda")
+            return lg[0].float()
+        lg = {"nf4": logits(nf4, c_nf4)}
+        del nf4
+        for name in ("int4", "int8"):
+            p, c = load_checkpoint(tmp / name, device="cuda")
+            lg[name] = logits(p, c)
+            del p
+        mse = {k: float(((lg[k] - lg["int8"]) ** 2).mean())
+               for k in ("nf4", "int4")}
+        out["logits_mse_vs_int8"] = mse
+        log(f"[cli-codebook] logits MSE against the int8 checkpoint over "
+            f"256 README tokens: nf4 {mse['nf4']:.4e}, linear int4 "
+            f"{mse['int4']:.4e}")
+        if not mse["nf4"] < mse["int4"]:
+            raise AssertionError(f"nf4 is not nearer than linear int4: {mse}")
+        del lg
+        torch.cuda.empty_cache()
+        for name, f in (("eval_nf4_sel15", ev), ("eval_lloyd_word4", evl)):
+            (res,), wall, _ = f.result()
+            if res["tokens"] != 512 or not math.isfinite(res["nll"]):
+                raise AssertionError(f"{name}: {res}")
+            out[name] = {**res, "wall_s": wall}
+        lines, wall, _ = gen.result()
+        if len(lines) != 2 or any(len(x["output"]) != 8 for x in lines):
+            raise AssertionError(f"generate --lut-runtime word4: {lines}")
+        out["generate_word4"] = [x["output"] for x in lines]
+        log(f"[cli-codebook] eval --lut-runtime sel15 (nf4): nll "
+            f"{out['eval_nf4_sel15']['nll']:.5f}; eval --lut-runtime word4 "
+            f"(lloyd): nll {out['eval_lloyd_word4']['nll']:.5f}; generate "
+            f"--lut-runtime word4: {out['generate_word4']}")
+    detail["cli_codebook"] = out
+    return out
+
+
 def windowed_entries(rows: dict, gemma2: dict, families: dict) -> list:
     """The kernels line's entries of the windowed and softcapped decode
     rows (bf16 q), each with its launches from its own path's run: the
@@ -3858,6 +4426,9 @@ def run_all(args, detail: dict) -> int:
     lap("build")
     summary = phase_kernels(detail)
     lap("kernels")
+    summary.update(lut_aq_kernels(
+        torch.Generator(device="cuda").manual_seed(0), detail))
+    lap("lut/aq kernels")
     summary["dequant_matmul_moe"] = moe_kernels(
         torch.Generator(device="cuda").manual_seed(0), detail)
     lap("moe kernels")
@@ -3880,11 +4451,17 @@ def run_all(args, detail: dict) -> int:
     phase_model(detail, params, cfg)
     lap("llama")
     kv4 = phase_kv4_llama(detail, params, cfg)
+    lap("llama-kv4")
+    aq = phase_act_quant_llama(detail, params, cfg)
     del params
     torch.cuda.empty_cache()
-    lap("llama-kv4")
+    lap("llama-act-quant")
+    lut = phase_codebook_llama(detail)
+    lap("llama-codebook")
     convert = phase_convert_eval(detail, CONVERT_LAYERS)
     lap("convert-eval")
+    phase_cli_codebook(detail)
+    lap("cli-codebook")
 
     cfg = PRESETS["mixtral-8x7b"]
     t0 = time.perf_counter()
@@ -3962,6 +4539,36 @@ def run_all(args, detail: dict) -> int:
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": s["bound_by"], "library_ms": s["library_ms"],
             "unit": s["unit"]})
+    # the codebook and int8-activation variants of dequant_matmul and the
+    # aq x pre-pass, with their launches from their own path's run: word4
+    # from the nf4 serving run, sel15 from the nf4 model check's sel15
+    # kernels, aq from the W4A8 / W8A8 model checks
+    nf4_model = detail["llama-3-8b-nf4_model"]
+    runs = {"lut_word4": lut["serving"]["launches"],
+            "lut_sel15": nf4_model["kernels-sel15 decode_launches"],
+            "aq w4a8": aq["w4a8"]["kernels decode_launches"],
+            "aq w8a8": aq["w8a8"]["kernels decode_launches"]}
+    for name, run in runs.items():
+        s = summary[name]
+        counter = "aq" if name.startswith("aq") else name
+        kernels.append({
+            "name": f"dequant_matmul [{name}]", "route": "cuda",
+            "source": SOURCES["dequant_matmul"],
+            "replaces": REPLACES["dequant_matmul"],
+            "launches": run.get(f"dequant_matmul[{counter}]", 0),
+            "max_abs_err": s["max_abs_err"], "ms": s["ms"],
+            "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+            "bound_by": s["bound_by"], "library_ms": None,
+            "linear_ms": s["linear_ms"], "unit": s["unit"]})
+    s = summary["act_quant_int8"]
+    kernels.append({
+        "name": "act_quant_int8 [the aq x pre-pass]", "route": "cuda",
+        "source": SOURCES["dequant_matmul"],
+        "replaces": "quant_tpu/kernels/dequant_matmul.py:152",
+        "launches": runs["aq w4a8"].get("act_quant_int8", 0),
+        "max_abs_err": s["max_abs_err"], "ms": s["ms"],
+        "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+        "bound_by": s["bound_by"], "library_ms": None, "unit": s["unit"]})
     detail["total_s"] = time.perf_counter() - t_start
     log(f"[done] {detail['total_s']:.1f}s")
     print(json.dumps({"kernels": kernels}))

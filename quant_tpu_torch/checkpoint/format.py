@@ -16,7 +16,11 @@ and the shared experts and selection bias (``ws_gate_up``, ``ws_down``,
 scales and float arrays are raw bytes. The coder is the C++ oracle
 (:mod:`quant_tpu_torch.core.oracle`) where it builds, else its Python
 mirror (:mod:`quant_tpu_torch.core.entropy`): byte-exact either way
-(:func:`coder` says which). :class:`CheckpointWriter` streams one tensor
+(:func:`coder` says which). A codebook weight's table (16 floats) is
+inline in the manifest entry of its tensor (``"lut"``), as the JAX writer
+puts it; ``load_checkpoint(lut_runtime=)`` picks how such weights run
+(``"int8"``, the default, transcodes them to linear int8 at load).
+:class:`CheckpointWriter` streams one tensor
 at a time (the HF converter's path); the reader decodes blobs in a thread
 pool. Checkpoints packed for tensor parallelism (tp>1, blobs split per
 rank) and the older v1 format raise ``NotImplementedError`` in this port.
@@ -34,7 +38,7 @@ import numpy as np
 import torch
 
 from quant_tpu_torch.core import entropy, oracle
-from quant_tpu_torch.core.qtensor import QTensor
+from quant_tpu_torch.core.qtensor import QTensor, transcode_lut_int8
 from quant_tpu_torch.models.config import ModelConfig
 from quant_tpu_torch.models.llama import LlamaParams, QEmbed, check_supported
 from quant_tpu_torch.models.transfer import flat_from_params, params_from_flat
@@ -141,9 +145,6 @@ class CheckpointWriter:
                 "scales": self._put(leaf.scales, "raw"),
             }
         elif isinstance(leaf, QTensor):
-            if leaf.lut is not None:
-                raise NotImplementedError("codebook (lut) weights are not "
-                                          "ported")
             ca, sa = _shard_axes(name, leaf)
             self.tensors[name] = {
                 "kind": "qtensor", "bits": leaf.bits,
@@ -152,6 +153,10 @@ class CheckpointWriter:
                 "codes": self._put(leaf.codes, "qref-huffman", ca),
                 "scales": self._put(leaf.scales, "raw", sa),
             }
+            if leaf.lut is not None:
+                # 16 floats inline; float32 -> JSON float64 round-trips
+                self.tensors[name]["lut"] = _to_numpy(leaf.lut).astype(
+                    np.float32).tolist()
         else:
             self.tensors[name] = {"kind": "array",
                                   "data": self._put(leaf, "raw")}
@@ -206,12 +211,7 @@ def read_manifest(path) -> tuple[dict, ModelConfig]:
     if manifest.get("tp", 1) != 1:
         raise NotImplementedError("checkpoints packed for tp>1 are not "
                                   "ported")
-    cfg = ModelConfig(**manifest["config"])
-    for name, meta in manifest["tensors"].items():
-        if "lut" in meta:
-            raise NotImplementedError(f"{name}: codebook (lut) weights are "
-                                      "not ported")
-    return manifest, cfg
+    return manifest, ModelConfig(**manifest["config"])
 
 
 def read_flat(path) -> tuple[dict, ModelConfig]:
@@ -242,20 +242,39 @@ def read_flat(path) -> tuple[dict, ModelConfig]:
                 if meta["kind"] == "qembed":
                     flat[name] = QEmbed(codes=codes, scales=scales)
                 else:
+                    lut = meta.get("lut")
                     flat[name] = QTensor(
                         codes=codes, scales=scales, bits=meta["bits"],
                         group_size=meta["group_size"],
-                        shape=tuple(meta["shape"]), kshards=meta["kshards"])
+                        shape=tuple(meta["shape"]), kshards=meta["kshards"],
+                        lut=None if lut is None else torch.tensor(
+                            lut, dtype=torch.float32))
     finally:
         os.close(fd)
     return flat, cfg
 
 
-def load_checkpoint(path, device=None) -> tuple[LlamaParams, ModelConfig]:
+def _transcode_luts(flat: dict, cfg: ModelConfig) -> dict:
+    """``lut_runtime="int8"`` (the default): every codebook QTensor becomes
+    linear int8 once, here (:func:`transcode_lut_int8`), and runs on the
+    int8 kernels; "word4" and "sel15" keep the tables for the matmul."""
+    if cfg.lut_runtime != "int8":
+        return flat
+    return {k: transcode_lut_int8(v) if isinstance(v, QTensor) else v
+            for k, v in flat.items()}
+
+
+def load_checkpoint(path, device=None, lut_runtime: str | None = None
+                    ) -> tuple[LlamaParams, ModelConfig]:
     """Read a packed checkpoint -> (LlamaParams on ``device``, ModelConfig).
     ``device`` is the card unless "cpu"; codes stay packed. A config the
-    port does not serve raises before any blob is decoded."""
+    port does not serve raises before any blob is decoded. ``lut_runtime``
+    overrides the manifest's codebook execution mode (``ModelConfig.
+    lut_runtime``: "int8" transcode at load, "word4" or "sel15")."""
     device = resolve_device(device)
-    check_supported(read_manifest(path)[1])
-    flat, cfg = read_flat(path)
-    return params_from_flat(flat, cfg, device), cfg
+    cfg = read_manifest(path)[1]
+    if lut_runtime is not None:
+        cfg = dataclasses.replace(cfg, lut_runtime=lut_runtime)
+    check_supported(cfg)
+    flat, _ = read_flat(path)
+    return params_from_flat(_transcode_luts(flat, cfg), cfg, device), cfg

@@ -1,7 +1,10 @@
 """Hugging Face checkpoint -> packed quantized checkpoint (``convert``).
 
 The port of the JAX package's ``checkpoint/hf.py`` for round-to-nearest
-quantization (``algo="rtn"``), tp=1 and no codebook. It streams: the
+quantization (``algo="rtn"``), linear or codebook (``codebook`` "nf4", or
+"lloyd": a Lloyd-Max table fitted on the host to each source tensor, as
+the JAX converter fits it, then the codes made on ``device``), at tp=1. It
+streams: the
 ``*.safetensors`` tensors are read lazily, one at a time
 (:class:`~quant_tpu_torch.checkpoint.safetensors.SafetensorsDir`, no
 ``safetensors`` package), moved to ``device`` (the card unless "cpu"),
@@ -18,12 +21,14 @@ fused ``qkv_proj`` / ``gate_up_proj``), the Mixtral and Qwen3-MoE experts,
 and DeepSeek-V2/V3 (MLA, shared experts, selection bias, dense prefix).
 The port's forward serves all of them (Gemma, Gemma-2 and Gemma-3 too). A
 config outside it still converts; ``load_checkpoint`` refuses it
-(``llama.check_supported``) before it decodes a blob. GPTQ/AWQ calibration, codebooks and tp>1 packing raise
-``NotImplementedError`` naming the feature.
+(``llama.check_supported``) before it decodes a blob. GPTQ/AWQ
+calibration and tp>1 packing raise ``NotImplementedError`` naming the
+feature.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import pathlib
 
@@ -31,7 +36,8 @@ import torch
 
 from quant_tpu_torch.checkpoint.format import CheckpointWriter
 from quant_tpu_torch.checkpoint.safetensors import SafetensorsDir
-from quant_tpu_torch.core.qtensor import quantize_tensor_device
+from quant_tpu_torch.core.qtensor import (quantize_tensor_device,
+                                          resolve_codebook)
 from quant_tpu_torch.models.config import ModelConfig
 from quant_tpu_torch.models.llama import (_make_embed, _pad_moe_down_k,
                                           _pad_vocab)
@@ -242,9 +248,6 @@ def _refuse_unported(algo: str, codebook, tp: int) -> None:
         raise NotImplementedError(
             f"algo={algo!r} (GPTQ/AWQ calibration) is not ported; convert "
             "with algo='rtn'")
-    if codebook is not None:
-        raise NotImplementedError(
-            f"codebook={codebook!r} quantization is not ported")
     if tp != 1:
         raise NotImplementedError(
             f"tp={tp} packing (interleaved columns, split-K shards, blobs "
@@ -259,13 +262,17 @@ def convert_hf_llama(model_dir, out_dir, bits: int = 4,
     """Convert a HF Llama-family / MoE / DeepSeek directory into a packed
     quantized checkpoint at ``out_dir``, tensor by tensor, quantizing on
     ``device`` (the card unless "cpu"). The JAX converter's signature:
-    ``algo`` other than "rtn" (``calib_tokens`` is its input), ``codebook``
-    and ``tp`` > 1 raise ``NotImplementedError``. Returns the config."""
+    ``algo`` other than "rtn" (``calib_tokens`` is its input) and ``tp`` > 1
+    raise ``NotImplementedError``; ``codebook`` ("nf4" or "lloyd", int4)
+    sets the config's and writes each weight's table beside it. Returns the
+    config."""
     _refuse_unported(algo, codebook, tp)
     dev = resolve_device(device)
     model_dir = pathlib.Path(model_dir)
     if cfg is None:
         cfg = config_from_hf(model_dir, bits=bits, group_size=group_size)
+    if codebook is not None:
+        cfg = dataclasses.replace(cfg, codebook=codebook)
     hf_cfg = json.loads((model_dir / "config.json").read_text())
     hf = SafetensorsDir(model_dir)
     try:
@@ -286,7 +293,11 @@ def _convert(hf, hf_cfg: dict, cfg: ModelConfig, w: CheckpointWriter,
         return hf.get(name).to(dev).to(torch.float32).T
 
     def qz(arr):
-        return quantize_tensor_device(arr, cfg.bits, cfg.group_size)
+        cb = cfg.codebook
+        if cb == "lloyd":       # the fit needs the data on the host
+            cb = resolve_codebook(cb, arr)
+        return quantize_tensor_device(arr, cfg.bits, cfg.group_size,
+                                      codebook=cb)
 
     # int8 rows with per-row scales (embed_bits=8) or the table in
     # cfg.dtype: the JAX converter's numpy arithmetic, in torch

@@ -1,17 +1,17 @@
 """CLI of the port: convert, generate, serve, eval, selftest, QRF1 codec.
 
     python -m quant_tpu_torch convert <hf_dir> <out_dir> --bits 4 \
-        --group-size 128 [--device cuda]
+        --group-size 128 [--codebook nf4|lloyd] [--device cuda]
     python -m quant_tpu_torch generate <ckpt_dir> --prompt-ids 1,2,3;4,5 \
         --max-new 32 [--slots 8] [--max-seq 1024] [--kv-bits 0|4|8|16] \
-        [--device cuda]
+        [--lut-runtime int8|word4|sel15] [--device cuda]
     python -m quant_tpu_torch serve <ckpt_dir> [--host 127.0.0.1] \
         [--port 8400] [--paged [--page-size N] [--n-pages N]] \
         [--prefix-cache] [--max-pending N] [--kv-bits 0|4|8|16] \
-        [--device cuda]
+        [--lut-runtime int8|word4|sel15] [--device cuda]
     python -m quant_tpu_torch eval <ckpt_dir> --text file.txt \
         [--window 512] [--limit-windows N] [--kv-bits 0|4|8|16] \
-        [--device cuda]
+        [--lut-runtime int8|word4|sel15] [--device cuda]
     python -m quant_tpu_torch selftest [--device cuda]
     python -m quant_tpu_torch encode|decode <infile> <outfile> [--bits 8]
     python -m quant_tpu_torch roundtrip <infile> [--bits 8]
@@ -24,7 +24,12 @@ checkpoint (quantized on the device, streamed tensor by tensor).
 "tokens"}`` (with the load and eval seconds) over non-overlapping windows
 of a text file (UTF-8 bytes as ids unless ``--tokenizer``). ``--kv-bits``
 overrides the checkpoint's KV cache: 8 (int8), 4 (int4 packed across head
-pairs) or 16 (unquantized); 0 keeps the checkpoint's. ``selftest``
+pairs) or 16 (unquantized); 0 keeps the checkpoint's. ``convert
+--codebook`` writes codebook (NF4 or per-tensor Lloyd-Max) int4 weights;
+``--lut-runtime`` picks how such a checkpoint runs: ``int8`` transcodes it
+to linear int8 at load (the checkpoint's default), ``word4`` and ``sel15``
+look the table up inside the matmul kernel (int8-requantized or float32).
+``selftest``
 checks the codec against the C++ oracle bit for bit on 1M floats, then
 generates from a test-tiny model.
 ``encode`` / ``decode`` / ``roundtrip`` read and write the QRF1 codec file
@@ -49,10 +54,12 @@ import numpy as np
 
 def _load(args):
     """(params, config) of ``args.ckpt`` on ``args.device``, the config's
-    KV cache replaced by ``--kv-bits`` unless it is 0."""
+    KV cache replaced by ``--kv-bits`` unless it is 0 and its codebook
+    runtime by ``--lut-runtime`` when given."""
     from quant_tpu_torch.checkpoint import load_checkpoint
 
-    params, cfg = load_checkpoint(args.ckpt, device=args.device)
+    params, cfg = load_checkpoint(args.ckpt, device=args.device,
+                                  lut_runtime=args.lut_runtime)
     if args.kv_bits:
         cfg = dataclasses.replace(cfg, kv_bits=args.kv_bits)
     return params, cfg
@@ -246,7 +253,8 @@ def main(argv=None) -> int:
     c.add_argument("--tp", type=int, default=1,
                    help="only 1 is ported")
     c.add_argument("--codebook", default=None, choices=["nf4", "lloyd"],
-                   help="not ported")
+                   help="codebook int4 weights: nf4, or a Lloyd-Max table "
+                        "fitted per tensor on the host (needs --bits 4)")
     c.add_argument("--algo", choices=("rtn", "gptq", "awq", "awq+gptq"),
                    default="rtn", help="only rtn is ported")
     c.add_argument("--calib", help=".npy of [B, T] token ids (gptq/awq)")
@@ -268,6 +276,12 @@ def main(argv=None) -> int:
     g.add_argument("--kv-bits", type=int, default=0, choices=(0, 4, 8, 16),
                    help="KV cache override: 0 (checkpoint's), 8 (int8), 4 "
                         "(int4, head pairs packed) or 16 (unquantized)")
+    g.add_argument("--lut-runtime", default=None,
+                   choices=("int8", "word4", "sel15"),
+                   help="codebook checkpoint execution: int8 = transcode "
+                        "to linear int8 at load (the default), word4 / "
+                        "sel15 = the table inside the matmul kernel "
+                        "(int8-requantized / float32)")
     g.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu")
     g.set_defaults(fn=_cmd_generate)
@@ -299,6 +313,12 @@ def main(argv=None) -> int:
                     choices=(0, 4, 8, 16),
                     help="KV cache override: 0 (checkpoint's), 8 (int8), 4 "
                          "(int4, head pairs packed) or 16 (unquantized)")
+    sv.add_argument("--lut-runtime", default=None,
+                   choices=("int8", "word4", "sel15"),
+                   help="codebook checkpoint execution: int8 = transcode "
+                        "to linear int8 at load (the default), word4 / "
+                        "sel15 = the table inside the matmul kernel "
+                        "(int8-requantized / float32)")
     sv.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     sv.set_defaults(fn=_cmd_serve)
     b = sub.add_parser("bench", help="not ported (exits 2)")
@@ -312,6 +332,12 @@ def main(argv=None) -> int:
     e.add_argument("--kv-bits", type=int, default=0, choices=(0, 4, 8, 16),
                    help="KV cache override: 0 (checkpoint's), 8 (int8), 4 "
                         "(int4, head pairs packed) or 16 (unquantized)")
+    e.add_argument("--lut-runtime", default=None,
+                   choices=("int8", "word4", "sel15"),
+                   help="codebook checkpoint execution: int8 = transcode "
+                        "to linear int8 at load (the default), word4 / "
+                        "sel15 = the table inside the matmul kernel "
+                        "(int8-requantized / float32)")
     e.add_argument("--limit-windows", type=int, default=None)
     e.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     e.set_defaults(fn=_cmd_eval)

@@ -10,8 +10,9 @@ sources and the flags, so an edited source is rebuilt)::
         cpp/quantref.cpp
 
 A copy of the JAX package's ``core/oracle.py`` binding (the port imports
-nothing of that package). The codebook functions (``nf4_table``,
-``quantize_lut*``) are not ported. The checkpoint coder uses
+nothing of that package), codebook functions (``nf4_table``,
+``quantize_lut``, ``quantize_lut_grouped``, ``dequantize_lut``) included.
+The checkpoint coder uses
 :func:`entropy_encode` / :func:`entropy_decode` when :func:`available`;
 foreign calls release the GIL, so blobs decode in parallel threads.
 """
@@ -30,7 +31,8 @@ import numpy as np
 
 __all__ = ["OracleUnavailable", "build", "available", "quantize",
            "quantize_grouped", "dequantize", "pack_int4", "unpack_int4",
-           "mse", "entropy_encode", "entropy_decode"]
+           "mse", "entropy_encode", "entropy_decode", "nf4_table",
+           "quantize_lut", "quantize_lut_grouped", "dequantize_lut"]
 
 _CPP_DIR = pathlib.Path(__file__).resolve().parents[2] / "cpp"
 _BUILD_DIR = pathlib.Path(__file__).resolve().parents[1] / "csrc" / "build"
@@ -87,6 +89,10 @@ def _lib() -> ctypes.CDLL:
         "qr_quantize_grouped": (ctypes.c_int, [f32p, i64, i64, ctypes.c_int,
                                                i64, f32p, i8p]),
         "qr_dequantize": (None, [i8p, i64, ctypes.c_float, f32p]),
+        "qr_quantize_lut": (ctypes.c_int, [f32p, i64, f32p, f32p, i8p]),
+        "qr_quantize_lut_grouped": (ctypes.c_int, [f32p, i64, i64, i64, f32p,
+                                                   f32p, i8p]),
+        "qr_dequantize_lut": (None, [i8p, i64, f32p, ctypes.c_float, f32p]),
         "qr_pack_int4": (i64, [i8p, i64, u8p]),
         "qr_unpack_int4": (i64, [u8p, i64, i8p]),
         "qr_mse": (ctypes.c_double, [f32p, f32p, i64]),
@@ -154,6 +160,55 @@ def dequantize(codes: np.ndarray, scale: float) -> np.ndarray:
     c = np.ascontiguousarray(codes, dtype=np.int8).reshape(-1)
     out = np.empty(c.size, dtype=np.float32)
     _lib().qr_dequantize(_i8p(c), c.size, scale, _f32p(out))
+    return out.reshape(np.shape(codes))
+
+
+def nf4_table() -> np.ndarray:
+    """The oracle's normative 16-entry NF4 codebook (``QR_NF4_TABLE``)."""
+    tbl = (ctypes.c_float * 16).in_dll(_lib(), "QR_NF4_TABLE")
+    return np.array(tbl, dtype=np.float32)
+
+
+def quantize_lut(x: np.ndarray, lut: np.ndarray) -> tuple[np.ndarray, float]:
+    """Per-tensor codebook codes (int8 ``code = index - 8``, flat) and the
+    scale (the absmax)."""
+    x = np.ascontiguousarray(x, dtype=np.float32).reshape(-1)
+    lut = np.ascontiguousarray(lut, dtype=np.float32)
+    codes = np.empty(x.size, dtype=np.int8)
+    scale = ctypes.c_float()
+    rc = _lib().qr_quantize_lut(_f32p(x), x.size, _f32p(lut),
+                                ctypes.byref(scale), _i8p(codes))
+    if rc:
+        raise ValueError(f"qr_quantize_lut failed: rc={rc}")
+    return codes, scale.value
+
+
+def quantize_lut_grouped(x: np.ndarray, lut: np.ndarray,
+                         group_size: int) -> tuple[np.ndarray, np.ndarray]:
+    """Codebook codes of ``x``'s shape and one scale per (row, last-axis
+    group)."""
+    x2 = np.ascontiguousarray(x, dtype=np.float32)
+    lut = np.ascontiguousarray(lut, dtype=np.float32)
+    rows = int(np.prod(x2.shape[:-1])) if x2.ndim > 1 else 1
+    cols = x2.shape[-1]
+    codes = np.empty(x2.size, dtype=np.int8)
+    scales = np.empty(rows * (cols // group_size), dtype=np.float32)
+    rc = _lib().qr_quantize_lut_grouped(_f32p(x2.reshape(-1)), rows, cols,
+                                        group_size, _f32p(lut),
+                                        _f32p(scales), _i8p(codes))
+    if rc:
+        raise ValueError(f"qr_quantize_lut_grouped failed: rc={rc}")
+    return (codes.reshape(x2.shape),
+            scales.reshape(*x2.shape[:-1], cols // group_size))
+
+
+def dequantize_lut(codes: np.ndarray, lut: np.ndarray,
+                   scale: float) -> np.ndarray:
+    """``lut[code + 8] * scale`` (float32 multiply), codes' shape."""
+    c = np.ascontiguousarray(codes, dtype=np.int8).reshape(-1)
+    lut = np.ascontiguousarray(lut, dtype=np.float32)
+    out = np.empty(c.size, dtype=np.float32)
+    _lib().qr_dequantize_lut(_i8p(c), c.size, _f32p(lut), scale, _f32p(out))
     return out.reshape(np.shape(codes))
 
 

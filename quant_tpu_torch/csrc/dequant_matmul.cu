@@ -12,7 +12,9 @@
 // is read as stored: nothing is repacked at load time.
 //
 // Three tiles; the wrapper (kernels/dequant_matmul.py) picks one from x's
-// dtype, M and the shape, and counts each launch under the tile's name.
+// dtype, M and the shape, and counts each launch under the tile's name. The
+// tensor-core tiles, the int8-activation (aq) tile and its x pre-pass are
+// here; the CUDA-core tile is csrc/dequant_matmul_cc.cu, built beside it.
 //
 // * tc_decode, bf16 x and M <= 16 (tc::decode_tile). Bound by the bytes of
 //   the codes (half a byte per weight). On the CUDA cores each weight costs
@@ -43,15 +45,19 @@
 //   multiplies the bf16 weights (one bf16x2 multiply per two weights; the
 //   plain version scales its weights before the product too). Split-K only
 //   where the output tiles would not fill the SMs.
-// * cuda_core, f32 x, or a bf16 shape the tensor-core tiles do not take
-//   (K/2, K or G not a multiple of 16, N not a multiple of 16, x or the
-//   codes not 16-byte aligned) (cc::dmm_tile). f32 weights and activations
-//   on the CUDA cores: the f32 checks hold it to 1e-4 of the plain version,
-//   which bf16 products cannot meet. A block owns 256 columns (64 threads x
-//   4 adjacent columns) and BM = TM * TY rows of x staged in shared memory as
-//   f32; the weight is dequantized in registers and rounded to the
-//   activation type like the plain version; split-K partials meet by
-//   atomicAdd in a cleared f32 buffer, which a second kernel casts to bf16.
+//
+// Codebook weights (the JAX kernel's lut_mode; int4 codes whose nibble is an
+// index into a float32 table lut[16] of the layer): both tensor-core tiles
+// look each nibble up in a 16-word table in shared memory (lut_frags) where
+// the linear tiles turn it into 128 + q. word4 takes round(lut * 127),
+// exact in bf16, and multiplies the group scales by fl(1/127), as the JAX
+// kernel folds 1/127 in; sel15 takes the float32 table, split into bf16 hi
+// and lo parts at decode M (two mma a k-step) and rounded to bf16 at
+// prefill M, as the JAX kernel's bf16 compute type rounds it above M = 64.
+// Int8 activations (aq, the JAX kernel's _scaled_dots_aq; W8A8 and W4A8):
+// a pre-pass (act_quant_kernel) puts x on its per-(row, group) int8 grid
+// and the aq tile (aq_tile) runs mma.m16n8k32.s8, each group's dot exact in
+// int32 before its scales; its note gives the layout.
 //
 // Mixture of experts (dequant_matmul_moe_kernel, every tile): the expert
 // weights are one expert-major stack [E * L, K/2 or K, N]; expert e of layer
@@ -74,317 +80,23 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// ── CUDA-core tile (f32 x) ─────────────────────────────────────────────────
-namespace cc {
+// word4 (LUT 1): the table's entries arrive times 127, so the group scales
+// are multiplied by fl(1/127), as the JAX kernel and transcode_lut_int8 do
+constexpr float INV127 = 1.0f / 127.0f;
+template <int LUT> __device__ __forceinline__ float4 fold(float4 s) {
+  if (LUT == 1) {
+    s.x *= INV127;
+    s.y *= INV127;
+    s.z *= INV127;
+    s.w *= INV127;
+  }
+  return s;
+}
 
-
-constexpr int TX = 64;        // threads along N
-constexpr int COLS = 4;       // adjacent columns per thread
-constexpr int BN = TX * COLS; // columns per block
-constexpr int BKP = 64;       // packed rows staged per tile
-constexpr int U = 16;         // packed rows whose code words load together
-
-template <typename T> __device__ __forceinline__ float to_f32(T v);
-template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
-
-// The plain version dequantizes the weight to the activation type before the
-// product; do the same so both round alike.
-template <typename T> __device__ __forceinline__ float round_w(float w);
-template <> __device__ __forceinline__ float round_w<float>(float w) { return w; }
-template <> __device__ __forceinline__ float round_w<__nv_bfloat16>(float w) {
-  return __bfloat162float(__float2bfloat16_rn(w));
-}
-
-__device__ __forceinline__ float lane4(const float4& v, int c) {
-  return c == 0 ? v.x : (c == 1 ? v.y : (c == 2 ? v.z : v.w));
-}
-
-// One block's tile: rows [blockIdx.y * BM, + BM) of x against the 256 columns
-// of blockIdx.x of one weight, over packed rows [kp_begin, kp_end). Output
-// element (row, n) lands at row * ldo + col0 + n of `out` (or of `partial`,
-// by atomicAdd, when `atomic`).
-template <typename T, int BITS, int TM, int TY, int KS>
-__device__ __forceinline__ void dmm_tile(
-    const T* __restrict__ x, const uint8_t* __restrict__ codes,
-    const float* __restrict__ scales, void* __restrict__ out, int out_f32,
-    float* __restrict__ partial, bool atomic, size_t ldo, size_t col0, int M,
-    int K, int N, int G, int kp_begin, int kp_end) {
-  constexpr int BM = TM * TY;
-  constexpr int HALVES = BITS == 4 ? 2 : 1;
-  constexpr int NT = TX * TY * KS;
-  constexpr int BMP = BM + 1;  // padded row: conflict-free staging stores
-  __shared__ float xs[HALVES][BKP][BMP];
-  __shared__ float red[KS > 1 ? KS - 1 : 1][KS > 1 ? BM : 1][KS > 1 ? BN : 1];
-
-  const int tx = threadIdx.x, ty = threadIdx.y, tz = threadIdx.z;
-  const int tid = tx + TX * (ty + TY * tz);
-  const int n0 = (blockIdx.x * TX + tx) * COLS;
-  const int mb = blockIdx.y * BM;
-  const int KP = BITS == 4 ? K / 2 : K;          // packed code rows
-  const bool col_ok = n0 < N;
-
-  float acc[TM][COLS];
-#pragma unroll
-  for (int m = 0; m < TM; ++m)
-#pragma unroll
-    for (int c = 0; c < COLS; ++c) acc[m][c] = 0.f;
-
-  int g_lo = -1, g_hi = -1;
-  float4 s_lo = make_float4(0.f, 0.f, 0.f, 0.f), s_hi = s_lo;
-
-  for (int t0 = kp_begin; t0 < kp_end; t0 += BKP) {
-    const int rows = min(BKP, kp_end - t0);
-    __syncthreads();
-    for (int idx = tid; idx < HALVES * BKP * BM; idx += NT) {
-      const int r = idx % BKP;
-      const int m = (idx / BKP) % BM;
-      const int h = idx / (BKP * BM);
-      float v = 0.f;
-      if (r < rows && mb + m < M)
-        v = to_f32(x[(size_t)(mb + m) * K + (size_t)h * KP + t0 + r]);
-      xs[h][r][m] = v;
-    }
-    __syncthreads();
-    if (!col_ok) continue;
-    // slice tz takes runs of U rows, KS * U apart; the U code words of a run
-    // are loaded before any is used, so U loads per thread are in flight
-    for (int r0 = tz * U; r0 < rows; r0 += KS * U) {
-      uint32_t words[U];
-#pragma unroll
-      for (int u = 0; u < U; ++u)
-        words[u] = r0 + u < rows ? *reinterpret_cast<const uint32_t*>(
-                                       codes + (size_t)(t0 + r0 + u) * N + n0)
-                                 : 0u;
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int r = r0 + u;
-        if (r >= rows) break;
-        const int kp = t0 + r;
-        const uint32_t word = words[u];
-        const int gl = kp / G;
-        if (gl != g_lo) {
-          g_lo = gl;
-          s_lo = *reinterpret_cast<const float4*>(scales + (size_t)gl * N + n0);
-        }
-        float w_lo[COLS], w_hi[COLS];
-        if (BITS == 4) {
-          const int gh = (kp + KP) / G;
-          if (gh != g_hi) {
-            g_hi = gh;
-            s_hi = *reinterpret_cast<const float4*>(scales + (size_t)gh * N + n0);
-          }
-#pragma unroll
-          for (int c = 0; c < COLS; ++c) {
-            const int b = (word >> (8 * c)) & 0xFF;
-            w_lo[c] = round_w<T>(float((b & 0xF) - 8) * lane4(s_lo, c));
-            w_hi[c] = round_w<T>(float((b >> 4) - 8) * lane4(s_hi, c));
-          }
-        } else {
-#pragma unroll
-          for (int c = 0; c < COLS; ++c) {
-            const int8_t q = (int8_t)((word >> (8 * c)) & 0xFF);
-            w_lo[c] = round_w<T>(float(q) * lane4(s_lo, c));
-            w_hi[c] = 0.f;
-          }
-        }
-#pragma unroll
-        for (int m = 0; m < TM; ++m) {
-          const float a = xs[0][r][ty * TM + m];
-#pragma unroll
-          for (int c = 0; c < COLS; ++c) acc[m][c] = fmaf(a, w_lo[c], acc[m][c]);
-          if (BITS == 4) {
-            const float a2 = xs[HALVES - 1][r][ty * TM + m];
-#pragma unroll
-            for (int c = 0; c < COLS; ++c) acc[m][c] = fmaf(a2, w_hi[c], acc[m][c]);
-          }
-        }
-      }
-    }
-  }
-
-  if (KS > 1) {  // sum the in-block K slices
-    __syncthreads();
-    if (tz > 0) {
-#pragma unroll
-      for (int m = 0; m < TM; ++m)
-#pragma unroll
-        for (int c = 0; c < COLS; ++c)
-          red[tz - 1][ty * TM + m][tx * COLS + c] = acc[m][c];
-    }
-    __syncthreads();
-    if (tz > 0) return;
-#pragma unroll
-    for (int z = 0; z < KS - 1; ++z)
-#pragma unroll
-      for (int m = 0; m < TM; ++m)
-#pragma unroll
-        for (int c = 0; c < COLS; ++c) acc[m][c] += red[z][ty * TM + m][tx * COLS + c];
-  }
-  if (!col_ok) return;
-#pragma unroll
-  for (int m = 0; m < TM; ++m) {
-    const int row = mb + ty * TM + m;
-    if (row >= M) break;
-    const size_t o = (size_t)row * ldo + col0 + n0;
-    if (atomic) {
-#pragma unroll
-      for (int c = 0; c < COLS; ++c) atomicAdd(partial + o + c, acc[m][c]);
-    } else if (out_f32) {
-      float* y = reinterpret_cast<float*>(out) + o;
-#pragma unroll
-      for (int c = 0; c < COLS; ++c) y[c] = acc[m][c];
-    } else {
-      __nv_bfloat16* y = reinterpret_cast<__nv_bfloat16*>(out) + o;
-#pragma unroll
-      for (int c = 0; c < COLS; ++c) y[c] = __float2bfloat16_rn(acc[m][c]);
-    }
-  }
-}
-
-template <typename T, int BITS, int TM, int TY, int KS>
-__global__ void __launch_bounds__(TX * TY * KS)
-dequant_matmul_kernel(const T* __restrict__ x, const uint8_t* __restrict__ codes,
-                      const float* __restrict__ scales, void* __restrict__ out,
-                      int out_f32, float* __restrict__ partial, int M, int K,
-                      int N, int G, int kp_per_split) {
-  const int KP = BITS == 4 ? K / 2 : K;
-  const int kp_begin = blockIdx.z * kp_per_split;
-  dmm_tile<T, BITS, TM, TY, KS>(x, codes, scales, out, out_f32, partial,
-                                gridDim.z > 1, N, 0, M, K, N, G, kp_begin,
-                                min(KP, kp_begin + kp_per_split));
-}
-
-struct MoeArgs {
-  const int* hot;           // [1 + slots]: n_hot, then expert ids; null: slot j is expert j
-  long long codes_stride;   // bytes between stack entries (K/2 or K) * N
-  long long scales_stride;  // floats between stack entries (K / G) * N
-  int layer, stride;        // stack entry of expert e: e * stride + layer
-  int experts;              // experts in the stack (ids outside stream nothing)
-  int slots;                // expert slots (columns of y in concat)
-  int sum;                  // 1: x [slots, M, K] -> y [M, N]; 0: concat
-};
-
-// With a hot list the output is always the cleared atomic buffer (`atomic`):
-// the cold slots get no block at all.
-template <typename T, int BITS, int TM, int TY, int KS>
-__global__ void __launch_bounds__(TX * TY * KS)
-dequant_matmul_moe_kernel(const T* __restrict__ x,
-                          const uint8_t* __restrict__ codes,
-                          const float* __restrict__ scales, void* __restrict__ out,
-                          int out_f32, float* __restrict__ partial, int atomic,
-                          int M, int K, int N, int G, MoeArgs a) {
-  const int KP = BITS == 4 ? K / 2 : K;
-  // read on the device: no host sync per layer
-  const int active =
-      a.hot == nullptr ? a.slots : min(max(a.hot[0], 0), a.slots);
-  if (active == 0) return;
-  // the z blocks shared out among the active slots, at least one staged tile
-  // of K per partition; without a hot list this is the host's split
-  const int per_slot = min((int)gridDim.z / active, (KP + BKP - 1) / BKP);
-  const int slot = blockIdx.z / per_slot;
-  const int split = blockIdx.z - slot * per_slot;
-  const int kp_per = ((KP + per_slot - 1) / per_slot + BKP - 1) / BKP * BKP;
-  const int kp_begin = split * kp_per;
-  if (slot >= active || kp_begin >= KP) return;
-  const int e = a.hot == nullptr ? slot : a.hot[1 + slot];
-  if (e < 0 || e >= a.experts) return;
-  const size_t w = (size_t)e * a.stride + a.layer;
-  dmm_tile<T, BITS, TM, TY, KS>(
-      x + (a.sum ? (size_t)slot * M * K : 0), codes + w * a.codes_stride,
-      scales + w * a.scales_stride, out, out_f32, partial, atomic != 0,
-      a.sum ? (size_t)N : (size_t)a.slots * N, a.sum ? 0 : (size_t)slot * N,
-      M, K, N, G, kp_begin, min(KP, kp_begin + kp_per));
-}
-
-__global__ void f32_to_bf16_kernel(const float* __restrict__ src,
-                                   __nv_bfloat16* __restrict__ dst, size_t n) {
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * blockDim.x)
-    dst[i] = __float2bfloat16_rn(src[i]);
-}
-
-// One call's operands; acc is the f32 [M, ldo] buffer the partials meet in
-// (null: direct stores).
-struct Call {
-  const void* x;
-  const void* codes;
-  const float* scales;
-  void* out;
-  int out_f32;
-  float* acc;
-  int M, K, N, G, splits, kp_per_split;
-};
-
-template <typename T, int BITS, int TM, int TY, int KS>
-void launch(const Call& c, const MoeArgs* moe, cudaStream_t st) {
-  constexpr int BM = TM * TY;
-  const int slots = moe ? moe->slots : 1;
-  dim3 grid((c.N + BN - 1) / BN, (c.M + BM - 1) / BM, c.splits * slots);
-  dim3 block(TX, TY, KS);
-  const T* x = reinterpret_cast<const T*>(c.x);
-  const uint8_t* codes = reinterpret_cast<const uint8_t*>(c.codes);
-  if (moe)
-    dequant_matmul_moe_kernel<T, BITS, TM, TY, KS><<<grid, block, 0, st>>>(
-        x, codes, c.scales, c.out, c.out_f32, c.acc, c.acc != nullptr, c.M,
-        c.K, c.N, c.G, *moe);
-  else
-    dequant_matmul_kernel<T, BITS, TM, TY, KS><<<grid, block, 0, st>>>(
-        x, codes, c.scales, c.out, c.out_f32, c.acc, c.M, c.K, c.N, c.G,
-        c.kp_per_split);
-}
-
-template <typename T, int BITS>
-void dispatch(const Call& c, const MoeArgs* moe, cudaStream_t st) {
-  // decode M: one row tile, K split over 4 slices per block; prefill M:
-  // 64-row tiles of 8 x 8 rows
-  if (c.M <= 1)
-    launch<T, BITS, 1, 1, 4>(c, moe, st);
-  else if (c.M <= 2)
-    launch<T, BITS, 2, 1, 4>(c, moe, st);
-  else if (c.M <= 4)
-    launch<T, BITS, 4, 1, 4>(c, moe, st);
-  else if (c.M <= 8)
-    launch<T, BITS, 8, 1, 4>(c, moe, st);
-  else
-    launch<T, BITS, 8, 8, 1>(c, moe, st);
-}
-
-// Clears the f32 buffer the partials meet in (when they do), launches, and
-// casts that buffer to bf16 when the output is bf16. `atomic`: the partials
-// of split-K or of summed slots add up by atomicAdd; the buffer is `out`
-// itself for f32 output, else `partial`.
-int run(Call c, int x_bf16, int bits, const MoeArgs* moe, bool atomic,
-        size_t ldo, void* partial, cudaStream_t st) {
-  const size_t n = (size_t)c.M * ldo;
-  if (atomic) {
-    c.acc = c.out_f32 ? reinterpret_cast<float*>(c.out)
-                      : reinterpret_cast<float*>(partial);
-    const cudaError_t err = cudaMemsetAsync(c.acc, 0, n * sizeof(float), st);
-    if (err != cudaSuccess) return (int)err;
-  }
-  if (x_bf16) {
-    if (bits == 4)
-      dispatch<__nv_bfloat16, 4>(c, moe, st);
-    else
-      dispatch<__nv_bfloat16, 8>(c, moe, st);
-  } else {
-    if (bits == 4)
-      dispatch<float, 4>(c, moe, st);
-    else
-      dispatch<float, 8>(c, moe, st);
-  }
-  if (atomic && !c.out_f32) {
-    const int blocks = (int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096);
-    f32_to_bf16_kernel<<<blocks, 256, 0, st>>>(
-        c.acc, reinterpret_cast<__nv_bfloat16*>(c.out), n);
-  }
-  return (int)cudaGetLastError();
-}
-
-}  // namespace cc
 
 // ── tensor-core tiles (bf16 x) ─────────────────────────────────────────────
 namespace tc {
@@ -506,6 +218,53 @@ __device__ __forceinline__ void weight_frags(const uint2 (&rows)[4],
   }
 }
 
+// A codebook weight's fragments, in weight_frags's layout: the nibble is an
+// index into tab[16], each entry a bf16x2 {hi, lo} (hi in the low half):
+// fh[h][c][p] the pair {rows[2p], rows[2p+1]} of the entries' hi parts, fl
+// of their lo parts (LO; sel15 on the decode tile splits the float32 table
+// into hi + lo). Eight shared-memory lookups per code word; a table of
+// 16 words sits in 16 banks, so lanes that read one entry share the read.
+template <bool LO>
+__device__ __forceinline__ void lut_frags(const uint2 (&rows)[4],
+                                          const uint32_t* __restrict__ tab,
+                                          uint32_t (&fh)[2][8][2],
+                                          uint32_t (&fl)[2][8][2]) {
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t ua = i < 2 ? rows[2 * p].x : rows[2 * p].y;
+      const uint32_t ub = i < 2 ? rows[2 * p + 1].x : rows[2 * p + 1].y;
+      // nibbles 0..7: (a, 2i) lo, hi, (a, 2i+1) lo, hi, then row b's
+      const uint32_t w = __byte_perm(ua, ub, (i & 1) ? 0x7632 : 0x5410);
+      uint32_t e[8];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) e[q] = tab[(w >> (4 * q)) & 0xF];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        fh[h][2 * i][p] = __byte_perm(e[h], e[4 + h], 0x5410);
+        fh[h][2 * i + 1][p] = __byte_perm(e[2 + h], e[6 + h], 0x5410);
+        if constexpr (LO) {
+          fl[h][2 * i][p] = __byte_perm(e[h], e[4 + h], 0x7632);
+          fl[h][2 * i + 1][p] = __byte_perm(e[2 + h], e[6 + h], 0x7632);
+        }
+      }
+    }
+  }
+}
+
+// The table entry of float32 value v: word4 (LUT 1) rint(v * 127), exact in
+// bf16; sel15 (LUT 2) bf16(v), with bf16(v - hi) in the high half when LO.
+template <int LUT, bool LO>
+__device__ __forceinline__ uint32_t lut_entry(float v) {
+  const float q = LUT == 1 ? rintf(v * 127.f) : v;
+  const __nv_bfloat16 hi = __float2bfloat16_rn(q);
+  const __nv_bfloat16 lo =
+      __float2bfloat16_rn(LO ? q - __bfloat162float(hi) : 0.f);
+  const __nv_bfloat162 h2 = __halves2bfloat162(hi, lo);
+  return *reinterpret_cast<const uint32_t*>(&h2);
+}
+
 // Code rows in shared memory: 16-byte chunk c of row r lives at chunk
 // c ^ cswz<S>(r), so the four rows a warp reads at once (rows 4t + q at
 // decode, S = 2; rows 2t + q at prefill, S = 1; t = 0..3) fall in both
@@ -516,6 +275,9 @@ template <int S> __device__ __forceinline__ int cswz(int r) {
 
 struct Args {
   const __nv_bfloat16* x;
+  const int8_t* xq;     // aq: x's int8 codes [M, K] and scales [M, K/G]
+  const float* sx;
+  const float* lut;     // a codebook weight's table [16] (null: linear)
   const uint8_t* codes;
   const float* scales;
   void* out;
@@ -756,10 +518,10 @@ __device__ void fix_up(const Args& a, const Job& j, int m0, int n0, int tid) {
 // k-step, of an all-ones A against the same x, gives sum(x), and 136 times
 // it comes off each group's partial sums. The group scales multiply those
 // f32 partial sums, per group and half, not weights.
-template <int BITS_, int NT_>
+template <int BITS_, int NT_, int LUT_ = 0>
 struct Decode {
   static constexpr bool DECODE = true;
-  static constexpr int BITS = BITS_, NT = NT_;
+  static constexpr int BITS = BITS_, NT = NT_, LUT = LUT_;
   static constexpr int BKP = 64;                    // packed rows per stage
   static constexpr int HALVES = BITS == 4 ? 2 : 1;
   static constexpr int BM = 8 * NT;                 // token rows
@@ -768,14 +530,22 @@ struct Decode {
                                                     // half-warp's 8-byte B
                                                     // loads hit 32 banks
   static constexpr int CODE_BYTES = STAGES * BKP * BN;
-  static constexpr int SMEM = CODE_BYTES + STAGES * BM * XP * 2;
+  static constexpr int TAB = CODE_BYTES + STAGES * BM * XP * 2;  // table
+  static constexpr int SMEM = TAB + (LUT ? 64 : 0);
   static constexpr int MIN_BLOCKS = NT == 1 ? 3 : 2;  // per SM: registers
 };
 
-template <int BITS, int NT>
+// A codebook weight (LUT 1 word4, 2 sel15) takes the table's entries for
+// its nibbles in place of 128 + q, so no sum(x) correction runs; sel15
+// splits each float32 entry into bf16 hi + lo and runs a second mma per
+// k-step on the lo parts into the same partial sums (about 2^-17 of the
+// entry, where bf16 alone keeps 2^-9); word4's entries are exact integers
+// and its scales carry the 1/127.
+template <int BITS, int NT, int LUT>
 __device__ void decode_tile(const Args& a, const Job& j, uint8_t* smem) {
-  using D = Decode<BITS, NT>;
+  using D = Decode<BITS, NT, LUT>;
   constexpr int H = D::HALVES, BKP = D::BKP;
+  constexpr bool BIASED = BITS == 4 && LUT == 0, LO = LUT == 2;
   constexpr uint32_t ONES = 0x3F803F80u;            // bf16x2 {1, 1}
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -787,6 +557,9 @@ __device__ void decode_tile(const Args& a, const Job& j, uint8_t* smem) {
   const int nst = cdiv(j.e1 - j.e0, BKP);
   uint8_t* codes_s = smem;
   __nv_bfloat16* x_s = reinterpret_cast<__nv_bfloat16*>(smem + D::CODE_BYTES);
+  uint32_t* tab = reinterpret_cast<uint32_t*>(smem + D::TAB);
+  // read after the first stage's barrier
+  if (LUT && tid < 16) tab[tid] = lut_entry<LUT, LO>(a.lut[tid]);
 
   // the stage the loader fills next and the stage the warps compute
   Cursor<BKP> ld, cu;
@@ -891,23 +664,30 @@ __device__ void decode_tile(const Args& a, const Job& j, uint8_t* smem) {
           if (col_ok) {
             const float4* p = reinterpret_cast<const float4*>(
                 st.scales + (size_t)grp[h] * a.N + ncol);
-            sc[h][0] = __ldg(p);
-            sc[h][1] = __ldg(p + 1);
+            sc[h][0] = fold<LUT>(__ldg(p));
+            sc[h][1] = fold<LUT>(__ldg(p + 1));
           }
         }
       }
-      uint32_t f[H][8][2];
-      weight_frags<BITS, BITS == 4>(rows[kk], f);
+      uint32_t f[H][8][2], fl[H][8][2];
+      if constexpr (LUT != 0)
+        lut_frags<LO>(rows[kk], tab, f, fl);
+      else
+        weight_frags<BITS, BIASED>(rows[kk], f);
 #pragma unroll
       for (int h = 0; h < H; ++h)
 #pragma unroll
         for (int n = 0; n < NT; ++n) {
           const uint2 b = bx[kk][h][n];
 #pragma unroll
-          for (int i = 0; i < 4; ++i)
+          for (int i = 0; i < 4; ++i) {
             mma(part[h][i][n], f[h][2 * i][0], f[h][2 * i + 1][0],
                 f[h][2 * i][1], f[h][2 * i + 1][1], b.x, b.y);
-          if (BITS == 4) mma(xsum[h][n], ONES, ONES, ONES, ONES, b.x, b.y);
+            if (LO)
+              mma(part[h][i][n], fl[h][2 * i][0], fl[h][2 * i + 1][0],
+                  fl[h][2 * i][1], fl[h][2 * i + 1][1], b.x, b.y);
+          }
+          if (BIASED) mma(xsum[h][n], ONES, ONES, ONES, ONES, b.x, b.y);
         }
       if (!valid) continue;
       const bool slot_end = kp + 16 == KP;
@@ -924,7 +704,7 @@ __device__ void decode_tile(const Args& a, const Job& j, uint8_t* smem) {
           for (int n = 0; n < NT; ++n)
 #pragma unroll
             for (int c = 0; c < 4; ++c) {
-              u[n][c] = BITS == 4 ? -136.f * xsum[h][n][c] : 0.f;
+              u[n][c] = BIASED ? -136.f * xsum[h][n][c] : 0.f;
               xsum[h][n][c] = 0.f;
             }
 #pragma unroll
@@ -951,8 +731,8 @@ __device__ void decode_tile(const Args& a, const Job& j, uint8_t* smem) {
           if (!slot_end && col_ok) {
             const float4* p = reinterpret_cast<const float4*>(
                 st.scales + (size_t)grp[h] * a.N + ncol);
-            sc[h][0] = __ldg(p);
-            sc[h][1] = __ldg(p + 1);
+            sc[h][0] = fold<LUT>(__ldg(p));
+            sc[h][1] = fold<LUT>(__ldg(p + 1));
           }
         }
       }
@@ -996,16 +776,17 @@ __device__ void decode_tile(const Args& a, const Job& j, uint8_t* smem) {
 // room for per-group partial sums, so here the scale multiplies the bf16
 // weights (one bf16x2 multiply per two weights), as the plain version
 // scales its weights before the product.
-template <int BITS_>
+template <int BITS_, int LUT_ = 0>
 struct Prefill {
   static constexpr bool DECODE = false;
-  static constexpr int BITS = BITS_;
+  static constexpr int BITS = BITS_, LUT = LUT_;
   static constexpr int BKP = 32;                    // packed rows per stage
   static constexpr int HALVES = BITS == 4 ? 2 : 1;
   static constexpr int BM = 128, BN = 128;
   static constexpr int XROW = HALVES * BKP * 2;     // bytes per staged x row
   static constexpr int CODE_BYTES = STAGES * BKP * BN;
-  static constexpr int SMEM = CODE_BYTES + STAGES * BM * XROW;
+  static constexpr int TAB = CODE_BYTES + STAGES * BM * XROW;  // table
+  static constexpr int SMEM = TAB + (LUT ? 64 : 0);
   static constexpr int MIN_BLOCKS = 1;
 };
 
@@ -1017,9 +798,13 @@ __device__ __forceinline__ int xswz(int r, int c) {
   return HALVES == 2 ? c ^ (r & 7) : c ^ ((r >> 1) & 3);
 }
 
-template <int BITS>
+// A codebook weight's B fragments come from the table (LUT 1 word4's exact
+// integers with the scales times fl(1/127); LUT 2 sel15's float32 entries
+// rounded to bf16, as the JAX kernel's bf16 compute type rounds them above
+// M = 64) and are scaled like linear codes.
+template <int BITS, int LUT>
 __device__ void prefill_tile(const Args& a, const Job& j, uint8_t* smem) {
-  using P = Prefill<BITS>;
+  using P = Prefill<BITS, LUT>;
   constexpr int H = P::HALVES, BKP = P::BKP;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -1032,6 +817,8 @@ __device__ void prefill_tile(const Args& a, const Job& j, uint8_t* smem) {
   const int nst = cdiv(j.e1 - j.e0, BKP);
   uint8_t* codes_s = smem;
   uint8_t* x_s = smem + P::CODE_BYTES;
+  uint32_t* tab = reinterpret_cast<uint32_t*>(smem + P::TAB);
+  if (LUT && tid < 16) tab[tid] = lut_entry<LUT, false>(a.lut[tid]);
 
   // the stage the loader fills next and the stage the warps compute
   Cursor<BKP> ld, cu;
@@ -1076,7 +863,7 @@ __device__ void prefill_tile(const Args& a, const Job& j, uint8_t* smem) {
     if (!col_ok) return;
     const float4* p = reinterpret_cast<const float4*>(
         st.scales + (size_t)grp[h] * a.N + ncol);
-    const float4 u = __ldg(p), v = __ldg(p + 1);
+    const float4 u = fold<LUT>(__ldg(p)), v = fold<LUT>(__ldg(p + 1));
     const float f8[8] = {u.x, u.y, u.z, u.w, v.x, v.y, v.z, v.w};
 #pragma unroll
     for (int c = 0; c < 8; ++c) {
@@ -1122,7 +909,10 @@ __device__ void prefill_tile(const Args& a, const Job& j, uint8_t* smem) {
             cs + r * P::BN + 16 * (chunk ^ cswz<1>(r)) + 8 * (g & 1));
       }
       uint32_t f[H][8][2];
-      weight_frags<BITS, false>(rows, f);
+      if constexpr (LUT != 0)
+        lut_frags<false>(rows, tab, f, f);
+      else
+        weight_frags<BITS, false>(rows, f);
 #pragma unroll
       for (int h = 0; h < H; ++h) {
 #pragma unroll
@@ -1200,9 +990,9 @@ __device__ __forceinline__ void body(const Args& a) {
   Job j;
   if (!plan(a, cdiv(KP, Tile::BKP) * Tile::BKP, Tile::BKP, active, j)) return;
   if constexpr (Tile::DECODE)
-    decode_tile<Tile::BITS, Tile::NT>(a, j, smem);
+    decode_tile<Tile::BITS, Tile::NT, Tile::LUT>(a, j, smem);
   else
-    prefill_tile<Tile::BITS>(a, j, smem);
+    prefill_tile<Tile::BITS, Tile::LUT>(a, j, smem);
 }
 
 template <class Tile>
@@ -1219,7 +1009,9 @@ dequant_matmul_moe_kernel(const Args a) {
 
 template <class Tile>
 int launch_one(const Args& a, bool moe, int gridz, cudaStream_t st) {
-  auto* k = moe ? dequant_matmul_moe_kernel<Tile> : dequant_matmul_kernel<Tile>;
+  auto* k = dequant_matmul_kernel<Tile>;
+  if constexpr (Tile::LUT == 0)    // the MoE kernel runs linear codes only
+    if (moe) k = dequant_matmul_moe_kernel<Tile>;
   // dynamic and static shared memory together above 48 KB only by opting in
   const cudaError_t err = cudaFuncSetAttribute(
       k, cudaFuncAttributeMaxDynamicSharedMemorySize, Tile::SMEM);
@@ -1229,61 +1021,365 @@ int launch_one(const Args& a, bool moe, int gridz, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-// tile: 0 decode (M <= 16), 1 prefill
-int launch(const Args& a, int bits, int tile, bool moe, int gridz,
-           cudaStream_t st) {
+template <int LUT>
+int launch_lut(const Args& a, int bits, int tile, bool moe, int gridz,
+               cudaStream_t st) {
   if (tile == 0) {
     if (a.M <= 8)
-      return bits == 4 ? launch_one<Decode<4, 1>>(a, moe, gridz, st)
+      return bits == 4 ? launch_one<Decode<4, 1, LUT>>(a, moe, gridz, st)
                        : launch_one<Decode<8, 1>>(a, moe, gridz, st);
-    return bits == 4 ? launch_one<Decode<4, 2>>(a, moe, gridz, st)
+    return bits == 4 ? launch_one<Decode<4, 2, LUT>>(a, moe, gridz, st)
                      : launch_one<Decode<8, 2>>(a, moe, gridz, st);
   }
-  return bits == 4 ? launch_one<Prefill<4>>(a, moe, gridz, st)
+  return bits == 4 ? launch_one<Prefill<4, LUT>>(a, moe, gridz, st)
                    : launch_one<Prefill<8>>(a, moe, gridz, st);
+}
+
+// tile: 0 decode (M <= 16), 1 prefill; lut_mode: 0 linear, 1 word4, 2 sel15
+// (int4 codes; the wrapper passes a table only with them)
+int launch(const Args& a, int bits, int tile, bool moe, int gridz,
+           cudaStream_t st, int lut_mode = 0) {
+  if (lut_mode == 1) return launch_lut<1>(a, bits, tile, moe, gridz, st);
+  if (lut_mode == 2) return launch_lut<2>(a, bits, tile, moe, gridz, st);
+  return launch_lut<0>(a, bits, tile, moe, gridz, st);
+}
+
+
+// ── aq tile: int8 activations x int8 (or int4) weights ─────────────────────
+// W8A8 / W4A8 (the JAX kernel's _scaled_dots_aq): x arrives as int8 codes
+// [M, K] with f32 scales [M, K/G] per (row, group) from act_quant_kernel,
+// and each group's dot runs exactly in int32 on mma.m16n8k32.s8 before
+// acc += float(dot) * sx[row, g] * s[g, col]. The decode tile's layout and
+// ring, with the weight as A (16 output columns x 32 k) and x^T as B (8
+// token rows), so no mma row pads M; a block owns 256 columns and BM = 8 NT
+// token rows, and prefill M runs cdiv(M, 16) row blocks of the same tile.
+// Lane (g, t) reads 8 code bytes (columns 8g .. 8g+7) of the 8 packed rows
+// 8t .. 8t+7 of each k-step, standing in k slots 4t .. 4t+3 and 16+4t ..
+// 16+4t+3, so its x^T fragment is one 8-byte load of those rows; a 4 x 4
+// byte transpose (8 prmt) turns 4 rows of 4 columns into 4 columns of 4 k.
+// An int4 nibble becomes the signed byte 16 (q - 8) by one lop3 (the high
+// nibble) or a shift and a lop3 (the low), so its dot comes out times 16,
+// which the scale step takes off exactly. Code row r's 16-byte chunk c sits
+// at c ^ 2 ((r >> 3) & 3), so the lanes of a half-warp, four rows apart in
+// t, read all 32 banks. A block's K partition covers whole groups of both
+// halves (the host's plan), so every group's dot is whole before scaling.
+template <int BITS_, int NT_>
+struct DecodeAQ {
+  static constexpr int BITS = BITS_, NT = NT_;
+  static constexpr int BKP = 64;                    // packed rows per stage
+  static constexpr int HALVES = BITS == 4 ? 2 : 1;
+  static constexpr int BM = 8 * NT, BN = 256;
+  static constexpr int XP = HALVES * BKP + 32;      // x code row pitch (bytes)
+  static constexpr int CODE_BYTES = STAGES * BKP * BN;
+  static constexpr int SMEM = CODE_BYTES + STAGES * BM * XP;
+  static constexpr int MIN_BLOCKS = 2;
+};
+
+// d += a (16x32 s8, row) * b (32x8 s8, col), exact in int32
+__device__ __forceinline__ void mma_s8(int (&d)[4], uint32_t a0, uint32_t a1,
+                                       uint32_t a2, uint32_t a3, uint32_t b0,
+                                       uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// c[k] = byte k of r0 .. r3 (a 4 x 4 byte transpose)
+__device__ __forceinline__ void transpose4(uint32_t r0, uint32_t r1,
+                                           uint32_t r2, uint32_t r3,
+                                           uint32_t (&c)[4]) {
+  const uint32_t t0 = __byte_perm(r0, r1, 0x5140), t1 = __byte_perm(r0, r1, 0x7362);
+  const uint32_t t2 = __byte_perm(r2, r3, 0x5140), t3 = __byte_perm(r2, r3, 0x7362);
+  c[0] = __byte_perm(t0, t2, 0x5410);
+  c[1] = __byte_perm(t0, t2, 0x7632);
+  c[2] = __byte_perm(t1, t3, 0x5410);
+  c[3] = __byte_perm(t1, t3, 0x7632);
+}
+
+// four int4 codes (nibble h of each byte) as signed bytes 16 (q - 8)
+template <int H> __device__ __forceinline__ uint32_t nib_s8x16(uint32_t w) {
+  return ((H == 0 ? w << 4 : w) & 0xF0F0F0F0u) ^ 0x80808080u;
+}
+
+template <int BITS, int NT>
+__device__ void aq_tile(const Args& a, const Job& j, uint8_t* smem) {
+  using D = DecodeAQ<BITS, NT>;
+  constexpr int H = D::HALVES, BKP = D::BKP;
+  constexpr float UNIT = BITS == 4 ? 1.f / 16.f : 1.f;   // int4 dots are x16
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int KP = BITS == 4 ? a.K / 2 : a.K;
+  const int KPpad = cdiv(KP, BKP) * BKP;
+  const int KG = a.K / a.G;
+  const int n0 = blockIdx.x * D::BN, m0 = blockIdx.y * D::BM;
+  const int ncol = n0 + 64 * warp + 8 * g;          // this lane's 8 columns
+  const bool col_ok = ncol < a.N;
+  const int nst = cdiv(j.e1 - j.e0, BKP);
+  uint8_t* codes_s = smem;
+  uint8_t* x_s = smem + D::CODE_BYTES;
+
+  Cursor<BKP> ld, cu;
+  ld.start(a, j.e0, KP, KPpad);
+  cu = ld;
+  // codes: chunk cc of rows cr + 8 q (16 chunks a row, 8 rows a pass)
+  const int cr = tid >> 4, ccol = tid & 15;
+  const bool ccol_ok = n0 + 16 * ccol < a.N;
+  // x codes: chunk xc (half xh) of token row xm
+  constexpr int XCH = H * BKP / 16, XR = THREADS / XCH;
+  constexpr int XQ = cdiv(D::BM * XCH, THREADS);
+  const int xm = tid / XCH, xc = tid % XCH;
+  const int xh = xc / (BKP / 16), xk16 = 16 * (xc % (BKP / 16));
+  auto load = [&](int s) {
+    const int slot = s % STAGES;
+    uint8_t* cs = codes_s + slot * BKP * D::BN;
+    const uint8_t* src = ld.codes + (size_t)ld.kp0 * a.N + n0 + 16 * ccol;
+#pragma unroll
+    for (int q = 0; q < BKP / 8; ++q) {
+      const int r = cr + 8 * q;
+      cp16(cs + r * D::BN + 16 * (ccol ^ (2 * (q & 3))), src + (size_t)r * a.N,
+           ld.live && ccol_ok && r < ld.rows);
+    }
+    uint8_t* xs = x_s + slot * D::BM * D::XP + xm * D::XP + xh * BKP + xk16;
+    const int8_t* xsrc = a.xq + (size_t)(m0 + xm) * a.K + xh * KP + ld.kp0 + xk16;
+#pragma unroll
+    for (int q = 0; q < XQ; ++q) {
+      if (xm + XR * q >= D::BM) break;
+      cp16(xs + q * XR * D::XP, xsrc + (size_t)q * XR * a.K,
+           ld.live && m0 + xm + XR * q < a.M && xk16 < ld.rows);
+    }
+    ld.next(a, KP, KPpad, s + 1 < nst);
+  };
+
+  float acc[4][NT][4];
+  int part[H][4][NT][4];
+  float4 sc[H][2];
+  float sxv[H][NT][2];
+  int rem[H], grp[H];
+#pragma unroll
+  for (int h = 0; h < H; ++h) {
+    rem[h] = grp[h] = 0;
+    sc[h][0] = sc[h][1] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      sxv[h][n][0] = sxv[h][n][1] = 0.f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) part[h][i][n][c] = 0;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][n][c] = 0.f;
+  // half h's weight scales and this lane's token scales of group grp[h]
+  auto load_scales = [&](const Cursor<BKP>& st, int h) {
+    if (col_ok) {
+      const float4* p = reinterpret_cast<const float4*>(
+          st.scales + (size_t)grp[h] * a.N + ncol);
+      sc[h][0] = __ldg(p);
+      sc[h][1] = __ldg(p + 1);
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int b = 0; b < 2; ++b) {
+        const int m = m0 + 8 * n + 2 * t + b;
+        sxv[h][n][b] = m < a.M ? __ldg(a.sx + (size_t)m * KG + grp[h]) : 0.f;
+      }
+  };
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nst) load(s);
+    cp_commit();
+  }
+  for (int s = 0; s < nst; ++s) {
+    cp_wait<STAGES - 2>();
+    __syncthreads();
+    if (s + STAGES - 1 < nst) load(s + STAGES - 1);
+    cp_commit();
+    const Cursor<BKP> st = cu;
+    cu.next(a, KP, KPpad, s + 1 < nst);
+    if (!st.live) continue;
+    const uint8_t* cs = codes_s + (s % STAGES) * BKP * D::BN;
+    const uint8_t* xs = x_s + (s % STAGES) * D::BM * D::XP;
+#pragma unroll
+    for (int ks = 0; ks < BKP / 32; ++ks) {
+      if (32 * ks >= st.rows) break;
+      const int kp = st.kp0 + 32 * ks;
+      if ((s == 0 && ks == 0) || kp == 0) {         // a slot's first k-step
+#pragma unroll
+        for (int h = 0; h < H; ++h) {
+          const int kh = kp + h * KP;
+          grp[h] = kh / a.G;
+          rem[h] = (a.G - kh % a.G) / 32;
+          load_scales(st, h);
+        }
+      }
+      // this lane's 8 code rows (columns 8g .. 8g+7), transposed into
+      // columns of 4 k: tr[v][r][c], v = 0 columns 8g .. 8g+3, 1 the next
+      // four; r = 0 rows 8t .. 8t+3, 1 rows 8t+4 .. 8t+7
+      uint2 rows[8];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int r = 32 * ks + 8 * t + q;
+        rows[q] = *reinterpret_cast<const uint2*>(
+            cs + r * D::BN + 16 * ((4 * warp + (g >> 1)) ^ (2 * t)) + 8 * (g & 1));
+      }
+      uint32_t tr[2][2][4];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        transpose4(rows[4 * r].x, rows[4 * r + 1].x, rows[4 * r + 2].x,
+                   rows[4 * r + 3].x, tr[0][r]);
+        transpose4(rows[4 * r].y, rows[4 * r + 1].y, rows[4 * r + 2].y,
+                   rows[4 * r + 3].y, tr[1][r]);
+      }
+#pragma unroll
+      for (int h = 0; h < H; ++h) {
+        uint2 bx[NT];
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+          bx[n] = *reinterpret_cast<const uint2*>(
+              xs + (8 * n + g) * D::XP + h * BKP + 32 * ks + 8 * t);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          // A tile i: rows g and g + 8 are columns 8g + 2i and 8g + 2i + 1
+          const int v = i >> 1, c0 = 2 * (i & 1);
+          uint32_t f[4] = {tr[v][0][c0], tr[v][0][c0 + 1], tr[v][1][c0],
+                           tr[v][1][c0 + 1]};
+          if (BITS == 4) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+              f[q] = h == 0 ? nib_s8x16<0>(f[q]) : nib_s8x16<1>(f[q]);
+          }
+#pragma unroll
+          for (int n = 0; n < NT; ++n)
+            mma_s8(part[h][i][n], f[0], f[1], f[2], f[3], bx[n].x, bx[n].y);
+        }
+      }
+      const bool slot_end = kp + 32 == KP;
+      const bool last = slot_end ||
+                        (s == nst - 1 && (ks == BKP / 32 - 1 || 32 * (ks + 1) >= st.rows));
+#pragma unroll
+      for (int h = 0; h < H; ++h) {
+        --rem[h];
+        if (rem[h] == 0 || last) {
+          // column 8g + 2i + (c >> 1) of tile i, token 8n + 2t + (c & 1)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float s0 = i < 2 ? (i == 0 ? sc[h][0].x : sc[h][0].z)
+                                   : (i == 2 ? sc[h][1].x : sc[h][1].z);
+            const float s1 = i < 2 ? (i == 0 ? sc[h][0].y : sc[h][0].w)
+                                   : (i == 2 ? sc[h][1].y : sc[h][1].w);
+#pragma unroll
+            for (int n = 0; n < NT; ++n)
+#pragma unroll
+              for (int c = 0; c < 4; ++c) {
+                const float dot = float(part[h][i][n][c]) * UNIT;
+                acc[i][n][c] += dot * sxv[h][n][c & 1] * (c < 2 ? s0 : s1);
+                part[h][i][n][c] = 0;
+              }
+          }
+        }
+        if (rem[h] == 0) {
+          rem[h] = a.G / 32;
+          ++grp[h];
+          if (!slot_end) load_scales(st, h);
+        }
+      }
+    }
+  }
+  cp_wait<0>();
+
+  const bool direct = j.parts == 1;
+  void* dst = direct ? a.out : a.ws;
+  const int dst_f32 = direct ? a.out_f32 : 1;
+  const size_t base = direct ? 0 : (size_t)j.part * a.M * a.N;
+  if (col_ok) {
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int b = 0; b < 2; ++b) {
+        const int m = m0 + 8 * n + 2 * t + b;
+        if (m >= a.M) continue;
+        float v[8];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          v[2 * i] = acc[i][n][b];
+          v[2 * i + 1] = acc[i][n][2 + b];
+        }
+        store8(dst, dst_f32, base + (size_t)m * a.N + ncol, v);
+      }
+  }
+  if (!direct) fix_up<D::BM, D::BN>(a, j, m0, n0, tid);
+}
+
+template <int BITS, int NT>
+__global__ void __launch_bounds__(THREADS, DecodeAQ<BITS, NT>::MIN_BLOCKS)
+dequant_matmul_aq_kernel(const Args a) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  constexpr int BKP = DecodeAQ<BITS, NT>::BKP;
+  const int KP = BITS == 4 ? a.K / 2 : a.K;
+  Job j;
+  if (!plan(a, cdiv(KP, BKP) * BKP, BKP, 1, j)) return;
+  aq_tile<BITS, NT>(a, j, smem);
+}
+
+template <int BITS, int NT>
+int launch_aq(const Args& a, cudaStream_t st) {
+  using D = DecodeAQ<BITS, NT>;
+  auto* k = dequant_matmul_aq_kernel<BITS, NT>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      k, cudaFuncAttributeMaxDynamicSharedMemorySize, D::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(cdiv(a.N, D::BN), cdiv(a.M, D::BM), a.splits);
+  k<<<grid, THREADS, D::SMEM, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// x [M, K] (f32 or bf16) -> int8 codes [M, K] and f32 scales [M, K/G], one
+// warp per (row, group): sx = absmax * fl(1/127) (1 where absmax is 0; the
+// card's torch computes absmax / 127.0 so), codes rint(x / sx) by an IEEE
+// division, as the plain version's tensor division. The replaced JAX kernel
+// quantizes x inside _scaled_dots_aq; here one pass per call quantizes each
+// value once, where each column block of the matmul would redo it, and a
+// group's absmax needs all of it before its first code (the matmul stages
+// 64 rows at a time).
+template <typename T>
+__global__ void act_quant_kernel(const T* __restrict__ x, int8_t* __restrict__ xq,
+                                 float* __restrict__ sx, int M, int K, int G) {
+  const int w = (int)((blockIdx.x * (size_t)blockDim.x + threadIdx.x) >> 5);
+  const int lane = threadIdx.x & 31, groups = K / G;
+  if (w >= M * groups) return;
+  const int row = w / groups, grp = w - row * groups;
+  const size_t off = (size_t)row * K + (size_t)grp * G;
+  float amax = 0.f;
+  for (int i = lane; i < G; i += 32) amax = fmaxf(amax, fabsf(to_f32(x[off + i])));
+#pragma unroll
+  for (int o = 16; o; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+  float s = amax * INV127;
+  if (s == 0.f) s = 1.f;
+  for (int i = lane; i < G; i += 32)
+    xq[off + i] = (int8_t)rintf(__fdiv_rn(to_f32(x[off + i]), s));
+  if (lane == 0) sx[(size_t)row * groups + grp] = s;
 }
 
 }  // namespace tc
 
-extern "C" int dequant_matmul_launch(const void* x, int x_bf16, const void* codes,
-                                     const void* scales, void* out, int out_f32,
-                                     void* partial, int M, int K, int N, int G,
-                                     int bits, int splits, int kp_per_split,
-                                     void* stream) {
-  const cc::Call c{x, codes, reinterpret_cast<const float*>(scales), out, out_f32,
-               nullptr, M, K, N, G, splits, kp_per_split};
-  return cc::run(c, x_bf16, bits, nullptr, splits > 1, N, partial,
-             reinterpret_cast<cudaStream_t>(stream));
-}
-
-// x: [M, K] (concat) or [slots, M, K] (sum); codes / scales: the whole
-// expert-major stack; hot: device int32 [1 + slots] or null; the grid has
-// slots * splits blocks in z. `atomic`: the partials meet by atomicAdd in a
-// cleared f32 buffer (`out` itself for f32 output, else `partial`); the
-// caller sets it when K is split, slots are summed or a hot list is given.
-extern "C" int dequant_matmul_moe_launch(
-    const void* x, int x_bf16, const void* codes, const void* scales, void* out,
-    int out_f32, void* partial, int atomic, int M, int K, int N, int G,
-    int bits, int splits, int slots, int sum, int layer, int stride,
-    int experts, const void* hot, void* stream) {
-  const long long kp = bits == 4 ? K / 2 : K;
-  cc::MoeArgs a{reinterpret_cast<const int*>(hot), kp * N, (long long)(K / G) * N,
-            layer, stride, experts, slots, sum};
-  const cc::Call c{x, codes, reinterpret_cast<const float*>(scales), out, out_f32,
-               nullptr, M, K, N, G, splits, 0};
-  return cc::run(c, x_bf16, bits, &a, atomic != 0,
-             sum ? (size_t)N : (size_t)slots * N, partial,
-             reinterpret_cast<cudaStream_t>(stream));
-}
-
 // The tensor-core tiles (bf16 x). tile: 0 tc_decode (M <= 16), 1 tc_prefill.
 // ws: f32 [splits, M, N] for the split-K partials (null when splits == 1);
-// counters: int32 per output tile, zero, left zero.
+// counters: int32 per output tile, zero, left zero; lut / lut_mode as for
+// dequant_matmul_launch.
 extern "C" int dequant_matmul_tc_launch(const void* x, const void* codes,
                                         const void* scales, void* out,
                                         int out_f32, void* ws, void* counters,
                                         int M, int K, int N, int G, int bits,
                                         int tile, int splits, int per,
+                                        const void* lut, int lut_mode,
                                         void* stream) {
   tc::Args a{};
   a.x = reinterpret_cast<const __nv_bfloat16*>(x);
@@ -1296,8 +1392,55 @@ extern "C" int dequant_matmul_tc_launch(const void* x, const void* codes,
   a.M = M, a.K = K, a.N = N, a.G = G;
   a.experts = 1, a.slots = 1;
   a.splits = splits, a.per = per, a.cap = splits;
+  a.lut = reinterpret_cast<const float*>(lut);
   return tc::launch(a, bits, tile, false, splits,
-                    reinterpret_cast<cudaStream_t>(stream));
+                    reinterpret_cast<cudaStream_t>(stream), lut_mode);
+}
+
+// W8A8 / W4A8: xq int8 [M, K] and sx f32 [M, K/G] from act_quant_launch;
+// rows: token rows a block (8 or 16); K / 2 (int4) or K and G multiples of
+// 32, N of 16; ws / counters as for dequant_matmul_tc_launch, each
+// partition of `per` packed rows covering whole groups of both halves.
+extern "C" int dequant_matmul_aq_launch(const void* xq, const void* sx,
+                                        const void* codes, const void* scales,
+                                        void* out, int out_f32, void* ws,
+                                        void* counters, int M, int K, int N,
+                                        int G, int bits, int rows, int splits,
+                                        int per, void* stream) {
+  tc::Args a{};
+  a.xq = reinterpret_cast<const int8_t*>(xq);
+  a.sx = reinterpret_cast<const float*>(sx);
+  a.codes = reinterpret_cast<const uint8_t*>(codes);
+  a.scales = reinterpret_cast<const float*>(scales);
+  a.out = out;
+  a.ws = reinterpret_cast<float*>(ws);
+  a.counters = reinterpret_cast<int*>(counters);
+  a.out_f32 = out_f32;
+  a.M = M, a.K = K, a.N = N, a.G = G;
+  a.experts = 1, a.slots = 1;
+  a.splits = splits, a.per = per, a.cap = splits;
+  const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (rows == 8)
+    return bits == 4 ? tc::launch_aq<4, 1>(a, st) : tc::launch_aq<8, 1>(a, st);
+  return bits == 4 ? tc::launch_aq<4, 2>(a, st) : tc::launch_aq<8, 2>(a, st);
+}
+
+// x [M, K] (bf16 when x_bf16, else f32) -> xq int8 [M, K], sx f32 [M, K/G];
+// G a multiple of 32 dividing K.
+extern "C" int act_quant_launch(const void* x, int x_bf16, void* xq, void* sx,
+                                int M, int K, int G, void* stream) {
+  const long long warps = (long long)M * (K / G);
+  const int blocks = (int)((warps * 32 + 255) / 256);
+  const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (x_bf16)
+    tc::act_quant_kernel<__nv_bfloat16><<<blocks, 256, 0, st>>>(
+        reinterpret_cast<const __nv_bfloat16*>(x), reinterpret_cast<int8_t*>(xq),
+        reinterpret_cast<float*>(sx), M, K, G);
+  else
+    tc::act_quant_kernel<float><<<blocks, 256, 0, st>>>(
+        reinterpret_cast<const float*>(x), reinterpret_cast<int8_t*>(xq),
+        reinterpret_cast<float*>(sx), M, K, G);
+  return (int)cudaGetLastError();
 }
 
 // x: [M, K] (concat) or [slots, M, K] (sum); codes / scales: the whole

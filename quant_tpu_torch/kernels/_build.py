@@ -33,8 +33,8 @@ __all__ = ["SOURCES", "BUILD_DIR", "build", "load", "entry", "check",
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-SOURCES = ("dequant_matmul", "cache_insert", "flash_decode", "mla_attention",
-           "unpack")
+SOURCES = ("dequant_matmul", "dequant_matmul_cc", "cache_insert",
+           "flash_decode", "mla_attention", "unpack")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -46,8 +46,12 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # and the inserts under
 # "[fused]" (RoPE and K/V quantization in the same launch; the MLA latent's
 # RMSNorm too); the GQA decode and insert calls over the int4 head-pair
-# cache also under "[kv4]"
+# cache also under "[kv4]"; the matmuls of a codebook weight under
+# "dequant_matmul[lut_word4]" / "[lut_sel15]" and those with int8
+# activations under "dequant_matmul[aq]", whose x pre-pass counts as
+# "act_quant_int8"
 launches: dict[str, int] = {"dequant_matmul": 0, "dequant_matmul_moe": 0,
+                            "act_quant_int8": 0,
                             "cache_insert_int8": 0, "flash_decode_int8": 0,
                             "paged_cache_insert_int8": 0,
                             "paged_flash_decode_int8": 0,
@@ -69,6 +73,8 @@ launches.update({f"{k}[fused]": 0
                            "mla_cache_insert_int8")})
 launches.update({f"{k}[kv4]": 0
                  for k in ("cache_insert_int8", "paged_cache_insert_int8")})
+launches.update({f"dequant_matmul[{v}]": 0
+                 for v in ("lut_word4", "lut_sel15", "aq")})
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

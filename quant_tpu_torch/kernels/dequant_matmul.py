@@ -3,14 +3,30 @@
 The port of the JAX package's ``kernels/dequant_matmul.py``
 (``dequant_matmul`` and ``dequant_matmul_moe``). The codes stay packed in
 device memory (int4: half a byte per weight) and are unpacked and scaled
-inside the CUDA kernels of ``csrc/dequant_matmul.cu``, whose header note
-gives their design.
+inside the CUDA kernels of ``csrc/dequant_matmul.cu`` (the tensor-core
+tiles, the aq tile) and ``csrc/dequant_matmul_cc.cu`` (the CUDA-core tile),
+whose header notes give their design.
 
 Each call runs one of three tiles, chosen here from x's dtype, M and the
 shape (:func:`_tile`) and counted under its name beside the kernel's total
 (``dequant_matmul[tc_decode]``, ``[tc_prefill]``, ``[cuda_core]``): the
 tensor-core tiles take bf16 x (decode at M <= 16, prefill above), the
 CUDA-core tile f32 x and the bf16 shapes the tensor-core tiles do not take.
+
+Two variants of ``dequant_matmul`` (the JAX kernel's ``lut_mode`` and
+``aq``), each counted beside its tile:
+
+* a codebook QTensor (``qt.lut``, int4) runs every tile with the nibble as
+  a table index: ``lut_exact=False`` the int8-requantized table
+  (``[lut_word4]``: ``round(lut * 127)`` with ``fl(1/127)`` folded into the
+  group scales), ``lut_exact=True`` the float32 table (``[lut_sel15]``);
+* ``act_quant=True`` (W8A8 at 8 bits, W4A8 at 4) quantizes x to int8 per
+  (row, K-group) in a pre-pass kernel (:func:`act_quant_int8`, counted as
+  ``act_quant_int8``) and multiplies int8 by int8 on the tensor cores
+  (``[aq]``, under ``tc_decode`` at M <= 16, ``tc_prefill`` above).
+
+A codebook weight with ``act_quant`` raises on the card (the JAX package
+sends that pair to its XLA reference); its plain version computes it.
 
 :func:`dequant_matmul` and :func:`dequant_matmul_moe` launch those kernels
 for tensors on the card and take their plain versions
@@ -23,14 +39,16 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
-from quant_tpu_torch.core.qtensor import QTensor
+from quant_tpu_torch.core.qtensor import QTensor, transcode_lut_int8
 from quant_tpu_torch.kernels import _build
 
 __all__ = ["dequant_matmul", "dequant_matmul_reference", "dequant_matmul_moe",
-           "dequant_matmul_moe_reference"]
+           "dequant_matmul_moe_reference", "act_quant_int8",
+           "act_quant_int8_reference"]
 
 # csrc/dequant_matmul.cu: the CUDA-core tile's columns per block and packed
 # rows per staged tile (cc::BN, cc::BKP); the decode tile's packed rows per
@@ -43,13 +61,48 @@ _TC_DECODE_BN = 256
 _TC_DECODE_M = 16
 _TC_PREFILL_BM = _TC_PREFILL_BN = 128
 TILES = ("tc_decode", "tc_prefill", "cuda_core")
+# the aq tile: K rows per tensor-core step and the groups it takes
+_AQ_K = 32
+_LUT_MODES = {None: 0, "word4": 1, "sel15": 2}
 
 
-def dequant_matmul_reference(x: torch.Tensor, qt: QTensor,
-                             out_dtype=None) -> torch.Tensor:
+def act_quant_int8_reference(x: torch.Tensor, group_size: int
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`act_quant_int8`: x [M, K] -> (int8 codes
+    [M, K], float32 scales [M, K/G]) per (row, K-group): ``sx = absmax /
+    127`` (1 where absmax is 0), codes ``round_half_even(x / sx)``. On the
+    card torch computes ``absmax / 127.0`` as absmax times fl(1/127); the
+    kernel does the same."""
+    m, k = x.shape
+    xg = x.to(torch.float32).reshape(m, k // group_size, group_size)
+    sx = xg.abs().amax(dim=-1, keepdim=True) / 127.0
+    sx = torch.where(sx == 0, torch.ones_like(sx), sx)
+    q = torch.round(xg / sx).to(torch.int8)
+    return q.reshape(m, k), sx.reshape(m, k // group_size)
+
+
+def dequant_matmul_reference(x: torch.Tensor, qt: QTensor, out_dtype=None,
+                             act_quant: bool = False,
+                             lut_word4: bool = False) -> torch.Tensor:
     """Plain version: weights dequantized to ``x.dtype`` (bf16 in serving),
-    product accumulated in float32, cast to ``out_dtype``."""
+    product accumulated in float32, cast to ``out_dtype``. ``lut_word4``: a
+    codebook weight through the word4 kernel's table, ``round(lut * 127)``
+    with the scales times fl(1/127), which is its int8 transcode
+    (:func:`transcode_lut_int8`); else its float32 table. ``act_quant``: the
+    W8A8 form of the JAX package's reference: x rounded to its per-(row,
+    group) int8 grid (:func:`act_quant_int8_reference`), weights exact in
+    float32 (a codebook weight through its float32 table)."""
     out_dtype = out_dtype or x.dtype
+    k = qt.shape[0]
+    if act_quant:
+        q, sx = act_quant_int8_reference(x.reshape(-1, k), qt.group_size)
+        g = qt.group_size
+        xhat = (q.to(torch.float32).reshape(-1, k // g, g)
+                * sx[..., None]).reshape(x.shape)
+        y = torch.matmul(xhat, qt.dequantize(torch.float32))
+        return y.to(out_dtype)
+    if lut_word4:
+        qt = transcode_lut_int8(qt)
     w = qt.dequantize(x.dtype)
     y = torch.matmul(x.to(torch.float32), w.to(torch.float32))
     return y.to(out_dtype)
@@ -118,21 +171,48 @@ def _tc_plan(tile: str, m: int, k: int, n: int, bits: int, slots: int = 1,
     return _cdiv(total, per), per
 
 
-def _count(name: str, tile: str) -> None:
+def _aq_plan(m: int, k: int, n: int, bits: int, g: int,
+             sms: int = 132) -> tuple[int, int, int]:
+    """The aq tile: (token rows a block, partitions, packed rows each).
+    Blocks of 8 token rows at M <= 8, else 16; split-K only at decode M,
+    enough blocks to cover the card's ``sms`` twice, every partition a whole
+    number of stages and of both halves' K groups (so each group's int32
+    dot is whole before its scales apply, as in the JAX kernel)."""
+    kp = k // 2 if bits == 4 else k
+    rows = 8 if m <= 8 else 16
+    bkp = _TC_BKP["tc_decode"]
+    unit = bkp * g // math.gcd(bkp, g)
+    tiles = _cdiv(n, _TC_DECODE_BN) * _cdiv(m, rows)
+    splits = 1
+    if m <= _TC_DECODE_M and kp % g == 0:
+        splits = max(1, min(_cdiv(2 * sms, tiles), kp // unit))
+    per = _cdiv(_cdiv(kp, splits), unit) * unit
+    return rows, _cdiv(kp, per), per
+
+
+def _count(name: str, tile: str, variant: str | None = None) -> None:
     _build.count_launch(name)
     _build.count_launch(f"{name}[{tile}]")
+    if variant is not None:
+        _build.count_launch(f"{name}[{variant}]")
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # x, x_bf16, codes, scales, out, out_f32, partial, M, K, N, G, bits, splits,
-# kp_per_split, stream
-_ARGTYPES = [_P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P]
+# kp_per_split, lut, lut_mode, stream
+_ARGTYPES = [_P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I,
+             _P]
 # x, x_bf16, codes, scales, out, out_f32, partial, atomic, M, K, N, G, bits,
 # splits, slots, sum, layer, stride, experts, hot, stream
 _MOE_ARGTYPES = [_P, _I, _P, _P, _P, _I, _P] + [_I] * 12 + [_P, _P]
 # x, codes, scales, out, out_f32, ws, counters, M, K, N, G, bits, tile,
+# splits, per, lut, lut_mode, stream
+_TC_ARGTYPES = [_P, _P, _P, _P, _I, _P, _P] + [_I] * 8 + [_P, _I, _P]
+# xq, sx, codes, scales, out, out_f32, ws, counters, M, K, N, G, bits, rows,
 # splits, per, stream
-_TC_ARGTYPES = [_P, _P, _P, _P, _I, _P, _P] + [_I] * 8 + [_P]
+_AQ_ARGTYPES = [_P, _P, _P, _P, _P, _I, _P, _P] + [_I] * 8 + [_P]
+# x, x_bf16, xq, sx, M, K, G, stream
+_ACT_ARGTYPES = [_P, _I, _P, _P, _I, _I, _I, _P]
 # x, codes, scales, out, out_f32, ws, counters, M, K, N, G, bits, tile,
 # splits, per, cap, slots, sum, layer, stride, experts, hot, stream
 _MOE_TC_ARGTYPES = [_P, _P, _P, _P, _I, _P, _P] + [_I] * 14 + [_P, _P]
@@ -142,8 +222,12 @@ def _check_operands(x: torch.Tensor, qt: QTensor, out_dtype, lead: tuple):
     """Raise on what the kernels do not take; ``lead`` is the codes' and
     scales' leading (stack) shape."""
     k, n = qt.shape
-    if qt.lut is not None:
-        raise NotImplementedError("codebook (lut) QTensors are not ported")
+    if qt.lut is not None and (qt.bits != 4 or qt.lut.dtype != torch.float32
+                               or tuple(qt.lut.shape) != (16,)
+                               or qt.lut.device != x.device
+                               or not qt.lut.is_contiguous()):
+        raise ValueError("lut must be a contiguous float32 [16] table of an "
+                         "int4 QTensor on x's device")
     if qt.bits == 4 and qt.kshards != 1:
         raise NotImplementedError("kshards > 1 (tensor parallel) is not "
                                   "ported")
@@ -172,7 +256,79 @@ def _check_operands(x: torch.Tensor, qt: QTensor, out_dtype, lead: tuple):
                          "4 / 16-byte aligned")
 
 
-def _launch(x: torch.Tensor, qt: QTensor, out_dtype) -> torch.Tensor:
+def act_quant_int8(x: torch.Tensor, group_size: int
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x [M, K] (float32 or bfloat16) -> (int8 codes [M, K], float32 scales
+    [M, K/G]) per (row, K-group), the activation side of the JAX kernel's
+    ``_scaled_dots_aq``, as one pre-pass launch. Plain version on the CPU:
+    :func:`act_quant_int8_reference`."""
+    m, k = x.shape
+    if x.device.type == "cpu":
+        return act_quant_int8_reference(x, group_size)
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if (not x.is_contiguous() or k % group_size or group_size % 16
+            or x.data_ptr() % 16):
+        raise ValueError("act_quant_int8 takes a contiguous, 16-byte aligned "
+                         "x [M, K] and groups of a multiple of 16 dividing K")
+    xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
+    sx = torch.empty((m, k // group_size), dtype=torch.float32,
+                     device=x.device)
+    if m == 0:
+        return xq, sx
+    fn = _build.entry("dequant_matmul", "act_quant_launch", _ACT_ARGTYPES)
+    rc = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), xq.data_ptr(),
+            sx.data_ptr(), m, k, group_size,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(rc, "act_quant_int8", "dequant_matmul")
+    _build.count_launch("act_quant_int8")
+    return xq, sx
+
+
+def _launch_aq(x: torch.Tensor, qt: QTensor, out_dtype) -> torch.Tensor:
+    """W8A8 / W4A8: the x pre-pass, then the int8 x int8 tensor-core tile."""
+    m, k = x.shape
+    n = qt.n
+    _check_operands(x, qt, out_dtype, ())
+    if qt.lut is not None:
+        raise NotImplementedError(
+            "a codebook (lut) weight with act_quant at lut_runtime word4 or "
+            "sel15 is not ported (the JAX package runs that pair on its XLA "
+            "reference; lut_runtime='int8' transcodes it to int8)")
+    kp = k // 2 if qt.bits == 4 else k
+    g = qt.group_size
+    if kp % _AQ_K or g % _AQ_K or n % 16 or qt.codes.data_ptr() % 16:
+        raise NotImplementedError(
+            f"act_quant needs K rows and groups in multiples of {_AQ_K} and N "
+            f"a multiple of 16 (K={k}, G={g}, N={n})")
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    if m == 0:
+        return out
+    xq, sx = act_quant_int8(x, g)
+    rows, splits, per = _aq_plan(m, k, n, qt.bits, g, _sm_count(x.device))
+    ws = counters = None
+    if splits > 1:
+        ws = torch.empty((splits, m, n), dtype=torch.float32,
+                         device=x.device)
+        counters = _build.zero_counters(x.device, _cdiv(n, _TC_DECODE_BN)
+                                        * _cdiv(m, rows))
+    fn = _build.entry("dequant_matmul", "dequant_matmul_aq_launch",
+                      _AQ_ARGTYPES)
+    rc = fn(xq.data_ptr(), sx.data_ptr(), qt.codes.data_ptr(),
+            qt.scales.data_ptr(), out.data_ptr(),
+            int(out_dtype == torch.float32),
+            None if ws is None else ws.data_ptr(),
+            None if counters is None else counters.data_ptr(),
+            m, k, n, g, qt.bits, rows, splits, per,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(rc, "dequant_matmul", "dequant_matmul")
+    _count("dequant_matmul", "tc_decode" if m <= _TC_DECODE_M
+           else "tc_prefill", "aq")
+    return out
+
+
+def _launch(x: torch.Tensor, qt: QTensor, out_dtype,
+            lut_exact: bool = False) -> torch.Tensor:
     m, k = x.shape
     n = qt.n
     _check_operands(x, qt, out_dtype, ())
@@ -182,19 +338,22 @@ def _launch(x: torch.Tensor, qt: QTensor, out_dtype) -> torch.Tensor:
     tile = _tile(x, qt, m)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     sms = _sm_count(x.device)
+    mode = None if qt.lut is None else ("sel15" if lut_exact else "word4")
+    lut = None if qt.lut is None else qt.lut.data_ptr()
     if tile == "cuda_core":
         splits, per = _split_plan(m, k, n, qt.bits, sms=sms)
         partial = None
         if splits > 1 and out_dtype != torch.float32:
             partial = torch.empty((m, n), dtype=torch.float32,
                                   device=x.device)
-        fn = _build.entry("dequant_matmul", "dequant_matmul_launch",
+        fn = _build.entry("dequant_matmul_cc", "dequant_matmul_launch",
                           _ARGTYPES)
         rc = fn(x.data_ptr(), int(x.dtype == torch.bfloat16),
                 qt.codes.data_ptr(), qt.scales.data_ptr(), out.data_ptr(),
                 int(out_dtype == torch.float32),
                 None if partial is None else partial.data_ptr(),
-                m, k, n, qt.group_size, qt.bits, splits, per, stream)
+                m, k, n, qt.group_size, qt.bits, splits, per, lut,
+                _LUT_MODES[mode], stream)
     else:
         splits, per = _tc_plan(tile, m, k, n, qt.bits, sms=sms)
         ws = counters = None
@@ -209,17 +368,23 @@ def _launch(x: torch.Tensor, qt: QTensor, out_dtype) -> torch.Tensor:
                 None if ws is None else ws.data_ptr(),
                 None if counters is None else counters.data_ptr(),
                 m, k, n, qt.group_size, qt.bits, TILES.index(tile), splits,
-                per, stream)
-    _build.check(rc, "dequant_matmul", "dequant_matmul")
-    _count("dequant_matmul", tile)
+                per, lut, _LUT_MODES[mode], stream)
+    _build.check(rc, "dequant_matmul", "dequant_matmul_cc"
+                 if tile == "cuda_core" else "dequant_matmul")
+    _count("dequant_matmul", tile, None if mode is None else f"lut_{mode}")
     return out
 
 
 def dequant_matmul(x: torch.Tensor, qt: QTensor, layer: int | None = None,
-                   *, out_dtype=None) -> torch.Tensor:
+                   *, out_dtype=None, act_quant: bool = False,
+                   lut_exact: bool = False) -> torch.Tensor:
     """``x [.., K] @ QTensor [K, N] -> [.., N]`` in ``out_dtype`` (default
     ``x.dtype``). ``layer`` selects one layer of a stacked ``[L, ...]``
-    QTensor as a view of the stack (no copy)."""
+    QTensor as a view of the stack (no copy), its table too where the
+    stack has one per layer. A codebook weight runs its float32 table with
+    ``lut_exact`` (sel15), else the int8-requantized one (word4);
+    ``act_quant`` quantizes x to int8 per (row, K-group) and multiplies
+    int8 by int8 (W8A8 / W4A8)."""
     out_dtype = out_dtype or x.dtype
     if qt.stacked:
         if layer is None:
@@ -232,13 +397,17 @@ def dequant_matmul(x: torch.Tensor, qt: QTensor, layer: int | None = None,
         raise ValueError(f"x last dim {x.shape[-1]} != K {k}")
     lead = x.shape[:-1]
     if x.device.type == "cpu":
-        y = dequant_matmul_reference(x.reshape(-1, k), qt, out_dtype)
+        y = dequant_matmul_reference(
+            x.reshape(-1, k), qt, out_dtype, act_quant=act_quant,
+            lut_word4=qt.lut is not None and not lut_exact)
         return y.reshape(*lead, n)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
-    return _launch(x.view(-1, k), qt, out_dtype).view(*lead, n)
+    if act_quant:
+        return _launch_aq(x.view(-1, k), qt, out_dtype).view(*lead, n)
+    return _launch(x.view(-1, k), qt, out_dtype, lut_exact).view(*lead, n)
 
 
 # ── mixture of experts ──────────────────────────────────────────────────
@@ -253,6 +422,10 @@ def _moe_checks(x: torch.Tensor, qt: QTensor, layer: int, n_experts: int,
             "ported")
     if mode not in ("concat", "sum", "psum"):
         raise ValueError(f"mode must be concat|sum|psum, got {mode!r}")
+    if qt.lut is not None:
+        raise NotImplementedError(
+            "codebook (lut) expert stacks are not ported (the JAX package "
+            "runs them as a per-expert loop)")
     if not qt.stacked:
         raise ValueError("dequant_matmul_moe needs the merged [E*L, ...] "
                          "expert stack")
@@ -370,7 +543,7 @@ def dequant_matmul_moe(x: torch.Tensor, qt: QTensor, layer: int, *,
         if atomic and out_dtype != torch.float32:
             partial = torch.empty((m, width), dtype=torch.float32,
                                   device=x.device)
-        fn = _build.entry("dequant_matmul", "dequant_matmul_moe_launch",
+        fn = _build.entry("dequant_matmul_cc", "dequant_matmul_moe_launch",
                           _MOE_ARGTYPES)
         rc = fn(x.data_ptr(), int(x.dtype == torch.bfloat16),
                 qt.codes.data_ptr(), qt.scales.data_ptr(), out.data_ptr(),
@@ -402,6 +575,7 @@ def dequant_matmul_moe(x: torch.Tensor, qt: QTensor, layer: int, *,
                 m, k, n, qt.group_size, qt.bits, TILES.index(tile), splits,
                 per, cap, n_experts, int(sum_mode), layer, stride, experts,
                 hot_ptr, stream)
-    _build.check(rc, "dequant_matmul_moe", "dequant_matmul")
+    _build.check(rc, "dequant_matmul_moe", "dequant_matmul_cc"
+                 if tile == "cuda_core" else "dequant_matmul")
     _count("dequant_matmul_moe", tile)
     return out.view(*lead, width)

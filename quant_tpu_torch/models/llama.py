@@ -21,7 +21,11 @@ group-limited routing and dense-prefix layers), then Gemma-2's final logit
 softcap. Every projection is a
 :class:`QTensor` consumed by
 :func:`quant_tpu_torch.kernels.dequant_matmul`; the experts by
-:func:`quant_tpu_torch.kernels.dequant_matmul.dequant_matmul_moe`.
+:func:`quant_tpu_torch.kernels.dequant_matmul.dequant_matmul_moe`. A model
+without experts also takes codebook weights (``codebook`` "nf4" or
+"lloyd": the table in the kernel at ``lut_runtime`` "word4" or "sel15";
+"int8" transcodes at load) and int8 activations (``act_quant``: W8A8,
+W4A8), as the JAX package's ``_mm`` passes them to its kernel.
 
 PyTorch idiom in place of JAX's:
 
@@ -65,7 +69,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from quant_tpu_torch.core.qtensor import QTensor, quantize_tensor_device
+from quant_tpu_torch.core.qtensor import (QTensor, quantize_tensor_device,
+                                          resolve_codebook)
 from quant_tpu_torch.kernels.attention import flash_decode_int8
 from quant_tpu_torch.kernels.cache_insert import (
     cache_insert_int8_fused, mla_cache_insert_int8_fused, mla_latent_rows,
@@ -216,8 +221,9 @@ def check_supported(cfg: ModelConfig) -> None:
         f"rope_scaling={cfg.rope_scaling!r}":
             cfg.rope_scaling not in ("none", "linear", "llama3", "yarn"),
         f"kv_bits={cfg.kv_bits}": cfg.kv_bits not in (4, 8, 16),
-        "act_quant (W8A8)": cfg.act_quant,
-        "codebook (lut) weights": cfg.codebook is not None,
+        "act_quant (W8A8) with experts": cfg.n_experts and cfg.act_quant,
+        "codebook (lut) weights with experts":
+            cfg.n_experts and cfg.codebook is not None,
         f"kernel_mode={cfg.kernel_mode!r}":
             cfg.kernel_mode not in ("auto", "pallas", "xla"),
         f"embed_bits={cfg.embed_bits}": cfg.embed_bits not in (8, 16),
@@ -360,23 +366,34 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> LlamaParams:
                            dtype=torch.float32) / float(np.sqrt(k))
 
     def quant(w):
-        return quantize_tensor_device(w, cfg.bits, cfg.group_size)
+        # a lloyd table is fitted on the host, one per weight, as the JAX
+        # package's host init fits it; nf4 quantizes on the device
+        cb = cfg.codebook
+        if cb == "lloyd":
+            cb = resolve_codebook(cb, w)
+        return quantize_tensor_device(w, cfg.bits, cfg.group_size,
+                                      codebook=cb)
 
     def stacked(k, n, make, lead):
         """Fill a preallocated ``lead + [...]`` stack (``[L]``, or
         ``[E, L]`` for experts) one weight at a time: the stack is never
-        assembled from a list, which would double its peak memory."""
+        assembled from a list, which would double its peak memory. A
+        codebook model's tables stack to ``lead + [16]``."""
         kp = k // 2 if cfg.bits == 4 else k
         codes = torch.empty(lead + (kp, n), device=dev,
                             dtype=torch.uint8 if cfg.bits == 4 else torch.int8)
         scales = torch.empty(lead + (k // cfg.group_size, n),
                              dtype=torch.float32, device=dev)
+        lut = (None if cfg.codebook is None
+               else torch.empty(lead + (16,), device=dev))
         for idx in np.ndindex(*lead):
             qt = quant(make())
             codes[idx], scales[idx] = qt.codes, qt.scales
+            if lut is not None:
+                lut[idx] = qt.lut
             del qt
         return QTensor(codes=codes, scales=scales, bits=cfg.bits,
-                       group_size=cfg.group_size, shape=(k, n))
+                       group_size=cfg.group_size, shape=(k, n), lut=lut)
 
     def glu(n_l, width):
         """(gate|up, down) stacks of a dense GLU of ``width``."""
@@ -934,18 +951,27 @@ def attention_blockwise(q, k_codes, k_scale, v_codes, v_scale, positions,
 
 def _mm(cfg: ModelConfig):
     """The projection for ``cfg.kernel_mode``: the plain version by name
-    ("xla"), else the dispatcher (the CUDA kernel for card tensors)."""
+    ("xla"; a codebook weight through its float32 table, as the JAX
+    reference), else the dispatcher (the CUDA kernel for card tensors).
+    Both carry ``act_quant``; the dispatcher runs a codebook weight's
+    float32 table at ``lut_runtime="sel15"`` and the word4 table otherwise
+    (a weight that no load transcoded, as ``init_params`` makes them)."""
+    aq = cfg.act_quant
     if cfg.kernel_mode == "xla":
         def mm(x, qt, layer=None, out_dtype=None):
             if layer is not None:
                 qt = qt.layer(layer)
             k = qt.shape[0]
-            y = dequant_matmul_reference(x.reshape(-1, k), qt, out_dtype)
+            y = dequant_matmul_reference(x.reshape(-1, k), qt, out_dtype,
+                                         act_quant=aq)
             return y.reshape(*x.shape[:-1], qt.shape[1])
         return mm
 
+    exact = cfg.lut_runtime == "sel15"
+
     def mm(x, qt, layer=None, out_dtype=None):
-        return dequant_matmul(x, qt, layer, out_dtype=out_dtype)
+        return dequant_matmul(x, qt, layer, out_dtype=out_dtype,
+                              act_quant=aq, lut_exact=exact)
     return mm
 
 

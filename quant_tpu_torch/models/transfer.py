@@ -57,30 +57,44 @@ def to_torch(a, device=None) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
+def _lut(leaf, device):
+    """A leaf's codebook table as float32 on ``device`` (None: linear)."""
+    lut = getattr(leaf, "lut", None)
+    return None if lut is None else to_torch(
+        np.asarray(lut, np.float32) if not isinstance(lut, torch.Tensor)
+        else lut, device).to(torch.float32)
+
+
 def _stack_q(leaves, device) -> QTensor:
+    """Per-layer (or per-expert) QTensors as one stack; their codebook
+    tables, where they have them, as one ``[n, 16]`` stack (a table that is
+    already stacked is kept)."""
     first = leaves[0]
-    if getattr(first, "lut", None) is not None:
-        raise NotImplementedError("codebook (lut) weights are not ported")
     if first.kshards != 1:
         raise NotImplementedError("kshards > 1 (tensor parallel packing) is "
                                   "not ported")
     # stacked where they go: no second host copy of a whole stack
     codes = torch.stack([to_torch(q.codes, device) for q in leaves])
     scales = torch.stack([to_torch(q.scales, device) for q in leaves])
+    luts = [_lut(q, device) for q in leaves]
+    if any((t is None) != (luts[0] is None) for t in luts):
+        raise ValueError("a stack mixes codebook and linear weights")
     return QTensor(codes=codes, scales=scales, bits=int(first.bits),
                    group_size=int(first.group_size),
-                   shape=tuple(int(v) for v in first.shape))
+                   shape=tuple(int(v) for v in first.shape),
+                   lut=None if luts[0] is None else torch.stack(luts))
 
 
 def _qtensor(leaf, device) -> QTensor:
-    if getattr(leaf, "lut", None) is not None:
-        raise NotImplementedError("codebook (lut) weights are not ported")
+    """One QTensor on ``device``; its table ([16], or [L, 16] for a leaf
+    that is already a stack) carried as it is."""
     if leaf.kshards != 1:
         raise NotImplementedError("kshards > 1 is not ported")
     return QTensor(codes=to_torch(leaf.codes, device),
                    scales=to_torch(leaf.scales, device), bits=int(leaf.bits),
                    group_size=int(leaf.group_size),
-                   shape=tuple(int(v) for v in leaf.shape))
+                   shape=tuple(int(v) for v in leaf.shape),
+                   lut=_lut(leaf, device))
 
 
 def params_from_flat(flat: dict, cfg: ModelConfig, device=None) -> LlamaParams:
@@ -132,7 +146,9 @@ def _stack_from_flat(flat: dict, cfg: ModelConfig, prefix: str, n: int,
             qt, codes=qt.codes.reshape((cfg.n_experts, n)
                                        + tuple(qt.codes.shape[1:])),
             scales=qt.scales.reshape((cfg.n_experts, n)
-                                     + tuple(qt.scales.shape[1:])))
+                                     + tuple(qt.scales.shape[1:])),
+            lut=None if qt.lut is None else qt.lut.reshape(cfg.n_experts, n,
+                                                           16))
 
     def dense_stack(field, default=None):
         if not has(field):
@@ -182,7 +198,8 @@ def flat_from_params(params: LlamaParams) -> dict:
                     for e in range(leaf.codes.shape[0]):
                         out[f"{prefix}.{i}.{f}.{e}"] = dataclasses.replace(
                             leaf, codes=leaf.codes[e, i],
-                            scales=leaf.scales[e, i])
+                            scales=leaf.scales[e, i],
+                            lut=None if leaf.lut is None else leaf.lut[e, i])
                 else:
                     out[f"{prefix}.{i}.{f}"] = (leaf.layer(i)
                                                 if isinstance(leaf, QTensor)

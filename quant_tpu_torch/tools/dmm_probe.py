@@ -143,7 +143,8 @@ def time_shapes(gen) -> None:
     from quant_tpu_torch.utils.timing import device_time
 
     bf = torch.bfloat16
-    cc = _build.entry("dequant_matmul", "dequant_matmul_launch", D._ARGTYPES)
+    cc = _build.entry("dequant_matmul_cc", "dequant_matmul_launch",
+                      D._ARGTYPES)
     sms = D._sm_count(torch.device("cuda"))
 
     def cuda_core(x, qt, odt):
@@ -156,9 +157,9 @@ def time_shapes(gen) -> None:
         rc = cc(x.data_ptr(), 1, qt.codes.data_ptr(), qt.scales.data_ptr(),
                 out.data_ptr(), int(odt == torch.float32),
                 None if partial is None else partial.data_ptr(), m, k, n,
-                qt.group_size, qt.bits, splits, per,
+                qt.group_size, qt.bits, splits, per, None, 0,
                 torch.cuda.current_stream().cuda_stream)
-        _build.check(rc, "dequant_matmul", "dequant_matmul")
+        _build.check(rc, "dequant_matmul", "dequant_matmul_cc")
         return out
 
     for m in (1, 8, 512):
@@ -260,7 +261,7 @@ def main(argv=None) -> int:
         raise SystemExit("dmm_probe measures the card; no CUDA device")
     from quant_tpu_torch.kernels import _build
 
-    _build.build(("dequant_matmul",))
+    _build.build(("dequant_matmul", "dequant_matmul_cc"))
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     if args.mode == "check":

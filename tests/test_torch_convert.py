@@ -21,7 +21,8 @@ JAX package (CPU).
 * The CLI through ``cli.main`` with ``--device cpu``: ``convert``, ``eval``
   and ``generate``; ``selftest``; QRF1 ``encode`` / ``decode`` /
   ``roundtrip`` files byte-equal with the JAX CLI's ``_qrf1_encode``;
-  unported options exit 2 naming the feature.
+  unported options exit 2 naming the feature. (``convert --codebook``:
+  ``tests/test_torch_quant.py``.)
 
 Every JAX conversion runs once per module (``jax_converted``).
 """
@@ -276,7 +277,7 @@ def test_convert_byte_equal_to_jax(fam, jax_converted, tmp_path):
 
 @pytest.mark.parametrize("kw,feature", [
     ({"algo": "gptq", "calib_tokens": np.zeros((1, 8), np.int32)}, "GPTQ"),
-    ({"codebook": "nf4"}, "codebook"),
+    ({"algo": "awq", "calib_tokens": np.zeros((1, 8), np.int32)}, "AWQ"),
     ({"tp": 2}, "tp=2")])
 def test_convert_refuses_unported_options(kw, feature, tmp_path):
     with pytest.raises(NotImplementedError, match=feature):
@@ -434,8 +435,8 @@ def test_cli_qrf1_matches_jax(bits, tmp_path, capsys):
 
 @pytest.mark.parametrize("argv,feature", [
     (["convert", "hf", "out", "--algo", "gptq", "--device", "cpu"], "GPTQ"),
-    (["convert", "hf", "out", "--codebook", "nf4", "--device", "cpu"],
-     "codebook"),
+    (["convert", "hf", "out", "--algo", "awq+gptq", "--device", "cpu"],
+     "GPTQ/AWQ"),
     (["convert", "hf", "out", "--tp", "2", "--device", "cpu"], "tp=2"),
     (["convert", "hf", "out", "--algo", "awq", "--device", "cpu"], "AWQ"),
     (["bench"], "bench")])

@@ -480,13 +480,13 @@ def test_hf_gemma2_convert_load_matches_jax(tmp_path):
 
 
 def test_loader_refuses_before_decoding(tmp_path, monkeypatch):
-    """A checkpoint whose config the port refuses (act_quant, W8A8) raises
+    """A checkpoint whose config the port refuses (4-bit embeddings) raises
     naming it before a single blob is decoded; the same file without it
     decodes and loads."""
     tc = TConfig(**dataclasses.asdict(JPRESETS["test-tiny"]))
     t_save(tmp_path / "ok", tllama.init_params(tc, seed=0, device="cpu"), tc)
     manifest = json.loads((tmp_path / "ok" / "manifest.json").read_text())
-    manifest["config"]["act_quant"] = True
+    manifest["config"]["embed_bits"] = 4
     (tmp_path / "w8a8").mkdir()
     (tmp_path / "w8a8" / "manifest.json").write_text(json.dumps(manifest))
     (tmp_path / "w8a8" / "data.bin").write_bytes(
@@ -498,7 +498,7 @@ def test_loader_refuses_before_decoding(tmp_path, monkeypatch):
         decoded.append(1)
         return real(*a)
     monkeypatch.setattr(t_format, "_read_leaf", counted)
-    with pytest.raises(NotImplementedError, match="act_quant"):
+    with pytest.raises(NotImplementedError, match="embed_bits"):
         t_load(tmp_path / "w8a8", device="cpu")
     assert not decoded
     t_load(tmp_path / "ok", device="cpu")
@@ -514,10 +514,14 @@ def test_check_supported_takes_the_families():
                                                    kv_bits=kv_bits))
     tllama.check_supported(dataclasses.replace(TPRESETS["deepseek-v2-lite"],
                                                kv_bits=16))
+    for change in ({"codebook": "nf4"}, {"codebook": "lloyd"},
+                   {"act_quant": True}, {"act_quant": True, "bits": 8}):
+        tllama.check_supported(dataclasses.replace(TPRESETS["llama-3-8b"],
+                                                   **change))
     refused = [
         ("llama-3-8b", {"embed_bits": 4}, "embed_bits=4"),
-        ("llama-3-8b", {"codebook": "nf4"}, "codebook"),
-        ("llama-3-8b", {"act_quant": True}, "act_quant"),
+        ("mixtral-8x7b", {"codebook": "nf4"}, "codebook"),
+        ("mixtral-8x7b", {"act_quant": True}, "act_quant"),
         ("mixtral-8x7b", {"moe_prefill": "capacity"}, "capacity"),
         ("deepseek-v2-lite", {"moe_fused": False}, "moe_fused"),
     ]

@@ -825,6 +825,125 @@ def _nan_block(shape, dtype, dev) -> int:
     return ptr
 
 
+def _lut_table(gen, dev, spread: float = 1.0):
+    """A strictly ascending float32 table spanning [-1, 1] (16 entries)."""
+    t = torch.sort(torch.rand(14, generator=gen, device=dev) * 2 - 1).values
+    return torch.cat([torch.tensor([-1.0], device=dev), t * spread,
+                      torch.tensor([1.0], device=dev)]).contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["word4", "sel15", "aq4", "aq8"])
+def test_lut_and_aq_matmuls_match_plain_on_card(variant):
+    """The codebook tiles (word4, sel15) and the int8-activation tile (aq, 4
+    and 8-bit weights) against their plain versions, each launch counted
+    under its tile and variant, at the M, N and group edges of
+    ``test_cuda_kernels_match_plain_on_card`` and a two-layer stack with a
+    table per layer (a wrong index is off by far more than the tolerance).
+    Tolerances: bf16 x or bf16 out 2e-2 of max|ref| (the tiles' bf16
+    products and stores, as the linear rows); float32 x and out 1e-4
+    (CUDA-core tile) or, at aq, 1e-4 with bf16 x (the int32 dots are exact:
+    only the f32 sums' order differs); aq's x codes and scales equal the
+    plain quantizer's on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    _build.build()
+    aq = variant.startswith("aq")
+    bits = 8 if variant == "aq8" else 4
+    shapes = ((512, 768, 128), (2048, 3648, 64), (1408, 2048, 64),
+              (192, 64, 64))
+    if not aq:
+        shapes += ((512, 4, 128),)
+    for k, n, g in shapes:
+        kp = k // 2 if bits == 4 else k
+        codes = torch.randint(0, 256, (kp, n), generator=gen, device=dev,
+                              dtype=torch.int32)
+        codes = codes.to(torch.uint8) if bits == 4 else (codes - 128).to(
+            torch.int8)
+        qt = QTensor(codes=codes, scales=torch.rand(
+            (k // g, n), generator=gen, device=dev) * 0.1, bits=bits,
+            group_size=g, shape=(k, n),
+            lut=None if aq else _lut_table(gen, dev))
+        for m in (1, 3, 8, 9, 16, 17, 64, 130):
+            for dt in (torch.float32, torch.bfloat16):
+                x = torch.randn((m, k), generator=gen, device=dev).to(dt)
+                if aq:
+                    tile = "tc_decode" if m <= 16 else "tc_prefill"
+                    q, sx = dmm.act_quant_int8(x, g)
+                    q0, sx0 = dmm.act_quant_int8_reference(x, g)
+                    assert torch.equal(q, q0) and torch.equal(sx, sx0)
+                else:
+                    tile = ("cuda_core" if dt == torch.float32 or n % 16
+                            else "tc_decode" if m <= 16 else "tc_prefill")
+                for odt in (torch.float32, torch.bfloat16):
+                    ref = dequant_matmul_reference(
+                        x, qt, odt, act_quant=aq,
+                        lut_word4=variant == "word4").float()
+                    _build.reset_launches()
+                    got = dequant_matmul(x, qt, out_dtype=odt, act_quant=aq,
+                                         lut_exact=variant == "sel15")
+                    torch.cuda.synchronize()
+                    assert got.dtype == odt
+                    tag = "aq" if aq else f"lut_{variant}"
+                    assert _build.launches["dequant_matmul"] == 1
+                    assert _build.launches[f"dequant_matmul[{tile}]"] == 1
+                    assert _build.launches[f"dequant_matmul[{tag}]"] == 1
+                    f32 = odt == torch.float32 and (aq or dt == odt)
+                    tol = 1e-4 if f32 else 2e-2
+                    err = (got.float() - ref).abs().max()
+                    assert err <= tol * ref.abs().max(), (variant, k, n, m,
+                                                          dt, odt, float(err))
+    if aq:
+        return
+    # two layers, two tables: each layer reads its own
+    stack = QTensor(codes=torch.randint(0, 256, (2, 256, 768), generator=gen,
+                                        device=dev, dtype=torch.int32).to(
+                                            torch.uint8),
+                    scales=torch.rand((2, 4, 768), generator=gen,
+                                      device=dev) * 0.1,
+                    bits=4, group_size=128, shape=(512, 768),
+                    lut=torch.stack([_lut_table(gen, dev),
+                                     _lut_table(gen, dev, 0.3)]))
+    for m in (8, 64):
+        x = torch.randn((m, 512), generator=gen, device=dev).to(torch.bfloat16)
+        refs = [dequant_matmul_reference(x, stack.layer(i), torch.float32,
+                                         lut_word4=variant == "word4")
+                for i in range(2)]
+        assert (refs[0] - refs[1]).abs().max() > 0.1 * refs[1].abs().max()
+        for i in range(2):
+            got = dequant_matmul(x, stack, i, out_dtype=torch.float32,
+                                 lut_exact=variant == "sel15")
+            assert ((got - refs[i]).abs().max()
+                    <= 2e-2 * refs[i].abs().max()), (variant, m, i)
+
+
+def test_lut_and_aq_refusals():
+    """What the card refuses raises before any launch: a codebook weight
+    with act_quant, a codebook expert stack, aq at K rows or groups off the
+    tile's 32 (the launcher's checks, run here on CPU tensors)."""
+    lut = torch.linspace(-1, 1, 16)
+    qt = QTensor(codes=torch.zeros((64, 32), dtype=torch.uint8),
+                 scales=torch.ones((2, 32)), bits=4, group_size=64,
+                 shape=(128, 32), lut=lut)
+    x = torch.zeros((2, 128), dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="act_quant"):
+        dmm._launch_aq(x, qt, torch.float32)
+    stack = QTensor(codes=torch.zeros((2, 64, 32), dtype=torch.uint8),
+                    scales=torch.ones((2, 2, 32)), bits=4, group_size=64,
+                    shape=(128, 32), lut=torch.stack([lut, lut]))
+    with pytest.raises(NotImplementedError, match="expert"):
+        dequant_matmul_moe(x, stack, 0, n_experts=2, stride=1)
+    odd = QTensor(codes=torch.zeros((48, 32), dtype=torch.uint8),
+                  scales=torch.ones((6, 32)), bits=4, group_size=16,
+                  shape=(96, 32))
+    with pytest.raises(NotImplementedError, match="multiples of 32"):
+        dmm._launch_aq(torch.zeros((2, 96), dtype=torch.bfloat16), odd,
+                       torch.float32)
+
+
 @pytest.mark.gpu
 def test_moe_cuda_kernel_matches_plain_on_card():
     """dequant_matmul_moe against its plain version: concat and psum, int4

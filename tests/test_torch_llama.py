@@ -112,11 +112,11 @@ def test_config_matches_jax():
 @pytest.mark.parametrize("preset,change,kwargs", [
     ("test-tiny-moe", {"moe_fused": False}, {}),
     ("test-tiny-mla", {}, {"adapter_ids": [0]}),
-    ("test-tiny", {"codebook": "lloyd"}, {}),
-    ("test-tiny", {"codebook": "nf4"}, {}),
+    ("test-tiny", {"n_experts": 4, "codebook": "lloyd"}, {}),
+    ("test-tiny", {"n_experts": 4, "codebook": "nf4"}, {}),
     ("test-tiny", {"embed_bits": 4}, {}),
     ("test-tiny", {}, {"return_hidden": True}),
-    ("test-tiny", {"act_quant": True}, {}),
+    ("test-tiny", {"n_experts": 4, "act_quant": True}, {}),
     ("test-tiny", {"n_experts": 4, "moe_prefill": "capacity"}, {}),
     ("test-tiny", {}, {"seq_axis": "seq"}),
     ("test-tiny", {}, {"axis": "model"}),
@@ -125,9 +125,10 @@ def test_outside_the_slice_raises(preset, change, kwargs):
     """A config or argument outside the ported slices (the dense families,
     sparse-MoE Llama, DeepSeek MLA; int8, int4 or unquantized KV) raises
     NotImplementedError; nothing falls back silently. MoE, qk_norm, MLA,
-    windows, softcaps and every KV cache are ported: their cases ask for
-    the parts that are not (the per-expert loop, the capacity dispatch,
-    LoRA adapters on an MLA model)."""
+    windows, softcaps, every KV cache, codebook weights and act_quant are
+    ported: their cases ask for the parts that are not (the per-expert
+    loop, the capacity dispatch, LoRA adapters on an MLA model, codebooks
+    and act_quant with experts)."""
     cfg = dataclasses.replace(TConfig(**dataclasses.asdict(
         JPRESETS[preset])), **change)
     base = TConfig(**dataclasses.asdict(JPRESETS["test-tiny"]))
