@@ -87,7 +87,16 @@ Phases; the first failure ends the run with a non-zero exit code:
              at M=512, ``torch._int_mm`` of the int8 operands quantized
              ahead of time; a two-layer stack with an NF4 and a Lloyd-Max
              table, each layer through its own; the x pre-pass
-             (``act_quant_int8``) alone.
+             (``act_quant_int8``) alone. ``dequant_matmul_moe``'s grouped
+             mode (the capacity dispatch's grouped GEMM) at the four MoE
+             shapes, gate|up and down, at C rows a slot of the capacity
+             dispatch (Mixtral 8 and 192, Qwen3 48, V2-Lite 72, V3 8), and
+             its int8 activations (aq: concat and psum at M=8 with and
+             without hot lists, grouped at Mixtral's C=192), each against
+             its plain version like the MoE rows (2e-2 of max|ref|; aq's x
+             codes equal to the plain quantizer's), counted under
+             ``[grouped]`` / ``[aq]``, with its bound at the bf16 or int8
+             peak.
 4. serving   full-width Llama-3-8B (32 layers, random weights from seed 0,
              made on the card) behind ``Engine(max_slots=8, max_seq=2048)``:
              8 greedy requests of 32-1024 prompt tokens, 64 new tokens each.
@@ -176,7 +185,19 @@ Phases; the first failure ends the run with a non-zero exit code:
              ``moe_routed`` "on" and "off". Then full-width Qwen3-30B-A3B
              in process: 8 requests of 64-256 prompt tokens, 16 new tokens,
              hot lists at every decode step, teacher forcing, kernels
-             against plain. A MoE model's comparisons hold every token to
+             against plain. Between the two, Mixtral's capacity dispatch
+             and W4A8 experts: the phase's prompts served in process under
+             ``moe_prefill="capacity"`` (cf 1.5) from the paged,
+             prefix-cached engine, every prefill chunk and B=8 decode step
+             on the grouped kernel (exact counts, no concat or psum); the
+             B=4 model check also holds capacity kernels against capacity
+             plain, capacity at cf 4 against dense, W4A8 kernels against
+             W4A8 plain, W4A8 with capacity (cf 4) against W4A8 dense and
+             ``moe_fused=False`` against fused, with a control (cf 0.3
+             against cf 4) that must differ; then the prompts served at
+             W4A8 from the contiguous engine (exact [aq] counts, a profile
+             of 3 B=8 decode forwards, peak memory, every token
+             teacher-forced). A MoE model's comparisons hold every token to
              the experts one pass kept (``held_routing``), and its random
              routers are scaled to unit gain (``unit_gain_router``).
 9. deepseek  full-width DeepSeek-V2-Lite (27 layers: MLA, 64 experts top-6,
@@ -596,20 +617,9 @@ def moe_kernels(gen, detail: dict) -> dict:
     shapes, with the out dtype the forward gives each projection (bf16
     gate|up concat, f32 down psum): all experts at decode and prefill M,
     and hot lists of n_hot experts (V2-Lite at B=8 holds about 35 of 64
-    hot, V3 at B=4 at most 32 of 256). Each output comes out of
-    a NaN-filled block of the caching allocator, and in psum the x rows of
-    the slots past n_hot are NaN: a hot call must not read them, and its
-    concat tail must be exactly zero. Bound: the bytes of the n_hot slots'
-    codes and scales plus x and the output, or their operations at the bf16
-    peak. Returns the per-step summary of a Mixtral B=8 decode step (32
-    layers of all-experts concat and psum at M=8)."""
-    from quant_tpu_torch.kernels import _build
-    from quant_tpu_torch.kernels.dequant_matmul import (
-        dequant_matmul_moe, dequant_matmul_moe_reference)
-    from quant_tpu_torch.utils.timing import device_time, kernel_times
-
-    dev = torch.device("cuda")
-    nan = float("nan")
+    hot, V3 at B=4 at most 32 of 256), each row by :func:`moe_variant_row`.
+    Returns the per-step summary of a Mixtral B=8 decode step (32 layers of
+    all-experts concat and psum at M=8)."""
     cases = [("mixtral-8x7b", mode, m, None)
              for mode in ("concat", "psum") for m in (1, 8, 512)]
     cases += [("mixtral-8x7b", mode, m, h) for m in (1, 4)
@@ -622,95 +632,192 @@ def moe_kernels(gen, detail: dict) -> dict:
     cases += [("deepseek-v3", mode, m, h)
               for m, h in ((4, None), (512, None), (4, 8), (4, 32))
               for mode in ("concat", "psum")]
-    stacks, rows = {}, []
-    step = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
-    max_err = 0.0
-    for model, mode, m, n_hot in cases:
-        t_row = time.perf_counter()
-        e, gu, dn, g = MOE_SHAPES[model]
-        k, n = gu if mode == "concat" else dn
-        if (model, mode) not in stacks:
-            if any(key[0] != model for key in stacks):
-                stacks.clear()
-                torch.cuda.empty_cache()
-            stacks[model, mode] = _rand_stack(gen, dev, e, k, n, g)
-        qt = stacks[model, mode]
-        odt = BF16 if mode == "concat" else F32
-        nh = e if n_hot is None else n_hot
-        x = torch.randn((m, k) if mode == "concat" else (e, m, k),
-                        generator=gen, device=dev).to(BF16)
-        if mode != "concat":
-            x[nh:] = nan
-        hots = _hot_lists(e, nh, dev) if n_hot is not None else [None]
-        nxt = cycle(hots)
-        kw = dict(n_experts=e, stride=1, mode=mode, out_dtype=odt)
-        ref = dequant_matmul_moe_reference(x, qt, 0, hot=hots[0], **kw)
-        ref = ref.float()
-        width = e * n if mode == "concat" else n
-        blk = torch.full((m, width), nan, dtype=odt, device=dev)
-        ptr = blk.data_ptr()
-        del blk
-        _build.reset_launches()
-        got = dequant_matmul_moe(x, qt, 0, hot=hots[0], **kw)
-        torch.cuda.synchronize()
-        tile = served_tile("dequant_matmul_moe")
-        nan_preset = got.data_ptr() == ptr
-        if not bool(torch.isfinite(got).all()):
-            raise AssertionError(f"dequant_matmul_moe {model} {mode} M={m} "
-                                 f"n_hot={nh}: non-finite output")
-        if mode == "concat" and bool(got.view(m, e, n)[:, nh:].any()):
-            raise AssertionError(f"dequant_matmul_moe {model} concat M={m} "
-                                 f"n_hot={nh}: the tail is not zero")
-        err = float((got.float() - ref).abs().max())
-        rel = err / float(ref.abs().max())
-        if not rel <= 2e-2:
-            raise AssertionError(f"dequant_matmul_moe {model} {mode} M={m} "
-                                 f"n_hot={nh}: error {rel:.3g} of max|ref| "
-                                 "> 2e-2")
-        max_err = max(max_err, err)
-        w_bytes = qt.codes[0].numel() + qt.scales[0].numel() * 4
-        x_bytes = m * k * 2 * (1 if mode == "concat" else nh)
-        b_ms, b_by = bound_ms(nh * w_bytes + x_bytes
-                              + m * width * got.element_size(),
-                              2 * m * k * n * nh)
-        # a call of a millisecond or more needs no average over 8 calls;
-        # the plain version (one launch or more per expert, 0.4-290 ms a
-        # call) is averaged over 2: its trace's events, not its calls, set
-        # the wall time of a row
-        iters = max(2 if b_ms >= 1.0 else 8, len(hots))
-        ms, ev = kernel_times(lambda: dequant_matmul_moe(x, qt, 0, hot=nxt(),
-                                                         **kw), iters)
-        plain = device_time(lambda: dequant_matmul_moe_reference(
-            x, qt, 0, hot=nxt(), **kw), 2)
-        del ref, got, x
-        rows.append({"kernel": "dequant_matmul_moe", "model": model,
-                     "mode": mode, "M": m, "K": k, "N": n, "experts": e,
-                     "n_hot": nh, "hot_list": n_hot is not None,
-                     "out_dtype": str(odt)[6:], "tile": tile,
-                     "max_abs_err": err,
-                     "rel_err": rel, "nan_preset_output": nan_preset,
-                     "ms": ms, "event_ms": ev, "plain_ms": plain,
-                     "bound_ms": b_ms, "bound_by": b_by,
-                     "pct_of_bound": 100 * b_ms / ms, "library_ms": None,
-                     "wall_s": time.perf_counter() - t_row})
-        log(f"[kernels] dequant_matmul_moe {model} {mode} M={m:<3d} {k}x{n} "
-            f"x{e} n_hot={nh}{' (hot list)' if n_hot else ''} [{tile}]: err "
-            f"{rel:.2e} of max|ref|  {ms:.4f} ms (events {ev:.4f})  plain "
-            f"{plain:.4f} ms  bound {b_ms:.4f} ms ({b_by}); row in "
-            f"{rows[-1]['wall_s']:.1f}s")
-        if model == "mixtral-8x7b" and m == 8 and n_hot is None:
-            step["ms"] += 32 * ms
-            step["plain_ms"] += 32 * plain
-            step["bound_ms"] += 32 * b_ms
+    stacks = {}
+    rows = [moe_variant_row(gen, stacks, model, mode,
+                            "gu" if mode == "concat" else "dn", m, n_hot,
+                            False) for model, mode, m, n_hot in cases]
     stacks.clear()
     torch.cuda.empty_cache()
     detail["moe_kernels"] = rows
-    return {"max_abs_err": max_err, **step, "bound_by": "bytes",
-            "library_ms": None,
+    step = [r for r in rows if r["model"] == "mixtral-8x7b" and r["M"] == 8
+            and not r["hot_list"]]
+    return {"max_abs_err": max(r["max_abs_err"] for r in rows),
+            **{key: 32 * sum(r[key] for r in step)
+               for key in ("ms", "plain_ms", "bound_ms")},
+            "bound_by": "bytes", "library_ms": None,
             "unit": "one Mixtral-8x7B decode step at B=8: 32 x (all 8 "
                     "experts' gate|up concat 4096x28672 bf16 out + down "
                     "psum 14336x4096 f32 out), int4 g128, bf16 x; device "
                     "time, weights L2-cold"}
+
+
+# the capacity dispatch's grouped GEMM: (model, rows a slot C) -- Mixtral's
+# B=8 decode (C = 8) and 512-token prefill chunk at cf 1.5 (C = 192),
+# Qwen3-30B-A3B's (128 experts top-8: C = 48), DeepSeek-V2-Lite's (64
+# top-6: C = 72) and a DeepSeek-V3 B=8 decode (C = 8)
+GROUPED_ROWS = [("mixtral-8x7b", 8), ("mixtral-8x7b", 192),
+                ("qwen3-30b-a3b", 48), ("deepseek-v2-lite", 72),
+                ("deepseek-v3", 8)]
+# int8-activation expert slots: (model, mode, M, n_hot or None)
+AQ_MOE_ROWS = [("mixtral-8x7b", "concat", 8, None),
+               ("mixtral-8x7b", "psum", 8, None),
+               ("mixtral-8x7b", "concat", 8, 4),
+               ("mixtral-8x7b", "psum", 8, 4),
+               ("qwen3-30b-a3b", "concat", 8, 52),
+               ("qwen3-30b-a3b", "psum", 8, 52),
+               ("mixtral-8x7b", "grouped", 192, None)]
+
+
+def moe_variant_row(gen, stacks: dict, model: str, mode: str, proj: str,
+                    m: int, n_hot, aq: bool) -> dict:
+    """One ``dequant_matmul_moe`` call (``mode`` concat, psum or grouped;
+    ``aq``: int8 activations) against its plain version: the output comes
+    out of a NaN-filled block of the caching allocator, the x rows of the
+    slots past n_hot are NaN (a hot call must not read them, and its
+    concat or grouped tail must be exactly zero), 2e-2 of max|ref| in bf16;
+    at aq the x codes and scales equal to the plain quantizer's. ``proj``:
+    the expert's gate|up ("gu", bf16 out) or down ("dn", f32 out); each
+    model's random int4 stacks are kept in ``stacks`` while its rows run.
+    Time: device time (the x pre-pass included at aq), weights L2-cold (a
+    hot list cycles through windows of experts); the plain version over 2
+    calls (one launch or more per expert, 0.4-290 ms a call: its trace's
+    events, not its calls, set a row's wall time). Bound: the n_hot slots'
+    codes and scales, x and the output, or their operations at the bf16
+    (int8 at aq) peak."""
+    from quant_tpu_torch.kernels import _build
+    from quant_tpu_torch.kernels import dequant_matmul as dmm
+    from quant_tpu_torch.utils.timing import device_time, kernel_times
+
+    dev = torch.device("cuda")
+    nan = float("nan")
+    t_row = time.perf_counter()
+    e, gu, dn, g = MOE_SHAPES[model]
+    k, n = gu if proj == "gu" else dn
+    if (model, proj) not in stacks:
+        if any(key[0] != model for key in stacks):
+            stacks.clear()
+            torch.cuda.empty_cache()
+        stacks[model, proj] = _rand_stack(gen, dev, e, k, n, g)
+    qt = stacks[model, proj]
+    odt = BF16 if proj == "gu" else F32
+    nh = e if n_hot is None else n_hot
+    x = torch.randn((m, k) if mode == "concat" else (e, m, k),
+                    generator=gen, device=dev).to(BF16)
+    if mode != "concat":
+        x[nh:] = nan
+    hots = _hot_lists(e, nh, dev) if n_hot is not None else [None]
+    nxt = cycle(hots)
+    kw = dict(n_experts=e, stride=1, mode=mode, out_dtype=odt, act_quant=aq)
+    ref = dmm.dequant_matmul_moe_reference(x, qt, 0, hot=hots[0],
+                                           **kw).float()
+    shape = ((m, e * n) if mode == "concat" else (e, m, n)
+             if mode == "grouped" else (m, n))
+    blk = torch.full(shape, nan, dtype=odt, device=dev)
+    ptr = blk.data_ptr()
+    del blk
+    _build.reset_launches()
+    got = dmm.dequant_matmul_moe(x, qt, 0, hot=hots[0], **kw)
+    torch.cuda.synchronize()
+    tile = served_tile("dequant_matmul_moe")
+    variant = "aq" if aq else "grouped" if mode == "grouped" else None
+    want = {"dequant_matmul_moe[aq]": int(aq), "act_quant_int8": int(aq),
+            "dequant_matmul_moe[grouped]": int(mode == "grouped")}
+    what = (f"dequant_matmul_moe{f' [{variant}]' if variant else ''} "
+            f"{model} {mode} {proj} M={m} n_hot={nh}")
+    if any(_build.launches[c] != v for c, v in want.items()):
+        raise AssertionError(f"{what}: launches {dict(_build.launches)}")
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: non-finite output")
+    tail = (got.view(m, e, n)[:, nh:] if mode == "concat"
+            else got[nh:] if mode == "grouped" else None)
+    if tail is not None and bool(tail.any()):
+        raise AssertionError(f"{what}: the cold slots are not zero")
+    err = float((got.float() - ref).abs().max())
+    rel = err / float(ref.abs().max())
+    if not rel <= 2e-2:
+        raise AssertionError(f"{what}: error {rel:.3g} of max|ref| > 2e-2")
+    row = {"kernel": "dequant_matmul_moe", "variant": variant, "model": model,
+           "mode": mode, "proj": proj, "M": m, "K": k, "N": n, "experts": e,
+           "n_hot": nh, "hot_list": n_hot is not None,
+           "out_dtype": str(odt)[6:], "tile": tile, "max_abs_err": err,
+           "rel_err": rel, "nan_preset_output": got.data_ptr() == ptr}
+    if aq:
+        rows = x.reshape(-1, k)[:m * (1 if mode == "concat" else nh)]
+        q, sx = dmm.act_quant_int8(rows, g)
+        q0, sx0 = dmm.act_quant_int8_reference(rows, g)
+        row["x_codes_differing"] = int((q != q0).sum())
+        row["x_scales_differing"] = int((sx != sx0).sum())
+        if row["x_codes_differing"] or row["x_scales_differing"]:
+            raise AssertionError(f"{what}: the x pre-pass differs from the "
+                                 f"plain quantizer: {row}")
+    w_bytes = qt.codes[0].numel() + qt.scales[0].numel() * 4
+    x_bytes = m * k * 2 * (1 if mode == "concat" else nh)
+    row["bound_ms"], row["bound_by"] = bound_ms(
+        nh * w_bytes + x_bytes + got.numel() * got.element_size(),
+        2 * m * k * n * nh, INT8_OPS if aq else BF16_FLOPS)
+    iters = max(2 if row["bound_ms"] >= 1.0 else 8, len(hots))
+    row["ms"], row["event_ms"] = kernel_times(
+        lambda: dmm.dequant_matmul_moe(x, qt, 0, hot=nxt(), **kw), iters)
+    row["plain_ms"] = device_time(lambda: dmm.dequant_matmul_moe_reference(
+        x, qt, 0, hot=nxt(), **kw), 2)
+    row["library_ms"] = None
+    row["pct_of_bound"] = 100 * row["bound_ms"] / row["ms"]
+    row["wall_s"] = time.perf_counter() - t_row
+    log(f"[kernels] {what} {k}x{n} x{e} [{tile}]: err {rel:.2e} of max|ref|"
+        f"  {row['ms']:.4f} ms (events {row['event_ms']:.4f})  plain "
+        f"{row['plain_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']})"
+        + (f"  x codes differing {row['x_codes_differing']}" if aq else "")
+        + f"; row in {row['wall_s']:.1f}s")
+    return row
+
+
+def moe_variant_kernels(gen, detail: dict) -> dict:
+    """The grouped (capacity dispatch) and int8-activation variants of
+    ``dequant_matmul_moe`` against their plain versions
+    (:func:`moe_variant_row`): grouped gate|up and down at
+    ``GROUPED_ROWS``, aq at ``AQ_MOE_ROWS`` (Mixtral's grouped aq rows both
+    projections). Returns the kernels line's two entries: grouped, one
+    Mixtral-8x7B layer of a 512-token prefill chunk at cf 1.5 (gate|up and
+    down at C = 192); aq, one Mixtral-8x7B B=8 decode step at W4A8 (32 x
+    concat and psum at M = 8, x pre-passes included)."""
+    stacks, rows = {}, []
+    for model, c in GROUPED_ROWS:
+        for proj in ("gu", "dn"):
+            rows.append(moe_variant_row(gen, stacks, model, "grouped", proj,
+                                        c, None, False))
+    for model, mode, m, n_hot in AQ_MOE_ROWS:
+        for proj in (("gu", "dn") if mode == "grouped"
+                     else ("gu",) if mode == "concat" else ("dn",)):
+            rows.append(moe_variant_row(gen, stacks, model, mode, proj, m,
+                                        n_hot, True))
+    stacks.clear()
+    torch.cuda.empty_cache()
+    detail["moe_variant_kernels"] = rows
+
+    def entry(variant, pick, times, unit):
+        sel = [r for r in rows if r["variant"] == variant and pick(r)]
+        return {"max_abs_err": max(r["max_abs_err"] for r in rows
+                                   if r["variant"] == variant),
+                **{key: times * sum(r[key] for r in sel)
+                   for key in ("ms", "plain_ms", "bound_ms")},
+                "bound_by": sel[0]["bound_by"], "library_ms": None,
+                "unit": unit}
+    return {
+        "moe grouped": entry(
+            "grouped", lambda r: r["model"] == "mixtral-8x7b"
+            and r["M"] == 192, 1,
+            "one Mixtral-8x7B layer of a 512-token prefill chunk under the "
+            "capacity dispatch at cf 1.5: grouped gate|up 4096x28672 bf16 "
+            "out + down 14336x4096 f32 out, 8 experts x C=192 rows, int4 "
+            "g128, bf16 x; device time, weights L2-cold"),
+        "moe aq": entry(
+            "aq", lambda r: r["model"] == "mixtral-8x7b" and r["M"] == 8
+            and not r["hot_list"], 32,
+            "one Mixtral-8x7B B=8 decode step at W4A8: 32 x (aq concat "
+            "4096x28672 bf16 out + aq psum 14336x4096 f32 out, all 8 "
+            "experts, M=8), int4 g128, the x pre-passes included; device "
+            "time, weights L2-cold")}
 
 
 def page_pool(cache, lengths, page: int):
@@ -1942,7 +2049,8 @@ def profile_decode(eng, steps: int = 3, label: str = "decode",
                     if "LaunchKernel" in e.key}
     ours = {}
     for name, ms in by_name.items():
-        for kernel in ("dequant_matmul_moe_kernel", "dequant_matmul_kernel",
+        for kernel in ("dequant_matmul_aq_moe_kernel",
+                       "dequant_matmul_moe_kernel", "dequant_matmul_kernel",
                        "dequant_matmul_aq_kernel", "act_quant_kernel",
                        "mla_decode", "mla_rope_insert_kernel",
                        "paged_flash_decode", "flash_decode",
@@ -2325,12 +2433,9 @@ def phase_moe_serving(detail: dict, params, cfg) -> dict:
     teacher forcing through the contiguous cache."""
     from quant_tpu_torch.engine import Engine
 
-    n_req, n_new, prefix_len = 8, 32, 512
-    rng = np.random.default_rng(0)
-    prefix = [int(t) for t in rng.integers(0, cfg.vocab_size, prefix_len)]
-    suffix_lens = rng.integers(16, 129, n_req)
-    prompts = [prefix + [int(t) for t in rng.integers(0, cfg.vocab_size, n)]
-               for n in suffix_lens]
+    n_new = 32
+    prompts, prefix_len, suffix_lens = moe_prompts(cfg)
+    n_req = len(prompts)
     torch.cuda.reset_peak_memory_stats()
     eng = Engine(params, cfg, max_slots=8, max_seq=2048, eos_id=-1,
                  device="cuda", paged=True, page_size=128, prefix_cache=True)
@@ -2397,6 +2502,131 @@ def phase_moe_serving(detail: dict, params, cfg) -> dict:
            "teacher_forced": tf, "profile": profile, "stats": stats,
            "healthz": traffic["healthz"], "steps": steps}
     detail["moe_serving"] = out
+    return out
+
+
+def moe_prompts(cfg) -> tuple[list, int, np.ndarray]:
+    """The Mixtral phases' 8 prompts: a shared 512-token prefix plus a
+    16-128-token suffix each (seed 0); (prompts, prefix length, suffix
+    lengths)."""
+    n_req, prefix_len = 8, 512
+    rng = np.random.default_rng(0)
+    prefix = [int(t) for t in rng.integers(0, cfg.vocab_size, prefix_len)]
+    suffix_lens = rng.integers(16, 129, n_req)
+    prompts = [prefix + [int(t) for t in rng.integers(0, cfg.vocab_size, n)]
+               for n in suffix_lens]
+    return prompts, prefix_len, suffix_lens
+
+
+def drive(eng, prompts, n_new: int) -> dict:
+    """Serve ``prompts`` in process (``n_new`` greedy tokens each) from the
+    launch counters' reset to the drain: the outputs, the counts, the host
+    time of each step that only decoded, the wall time and the peak device
+    memory."""
+    from quant_tpu_torch.engine import Request
+    from quant_tpu_torch.kernels import _build
+
+    reqs = [Request(req_id=i, prompt=p, max_new_tokens=n_new)
+            for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    chunks0, dec0 = eng.prefill_chunks, eng.decode_forwards
+    pure, t_start = [], time.perf_counter()
+    for r in reqs:
+        eng.add_request(r)
+    while eng.has_work():
+        c0, t0 = eng.prefill_chunks, time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        if eng.prefill_chunks == c0:
+            pure.append(time.perf_counter() - t0)
+    total = time.perf_counter() - t_start
+    if any(len(r.output) != n_new for r in reqs):
+        raise AssertionError(f"served {[len(r.output) for r in reqs]} tokens")
+    return {"outs": [list(r.output) for r in reqs],
+            "launches": dict(_build.launches),
+            "prefill_chunks": eng.prefill_chunks - chunks0,
+            "decode_forwards": eng.decode_forwards - dec0,
+            "decode_ms_per_step": 1e3 * sum(pure) / max(1, len(pure)),
+            "total_s": total,
+            "max_memory_allocated_gib":
+                torch.cuda.max_memory_allocated() / 2**30}
+
+
+def phase_moe_capacity(detail: dict, params, cfg) -> dict:
+    """The Mixtral phase's prompts served in process under the capacity
+    dispatch (``moe_prefill="capacity"``, cf 1.5) from the paged,
+    prefix-cached engine, 16 new tokens each: every prefill chunk (16 to
+    512 tokens) and every B=8 decode step has tokens x top-2 >= 2E, so
+    each MoE layer of each forward launches the grouped kernel twice and
+    the concat and psum modes never (exact counts)."""
+    from quant_tpu_torch.engine import Engine
+
+    c = dataclasses.replace(cfg, moe_prefill="capacity")
+    prompts, _, _ = moe_prompts(cfg)
+    eng = Engine(params, c, max_slots=8, max_seq=2048, eos_id=-1,
+                 device="cuda", paged=True, page_size=128, prefix_cache=True)
+    run = drive(eng, prompts, 16)
+    expect = moe_expected(c, run["prefill_chunks"], run["decode_forwards"],
+                          paged=True)
+    expect["dequant_matmul_moe[grouped]"] = expect["dequant_matmul_moe"]
+    check_launches("moe capacity", run["launches"], expect)
+    del eng
+    torch.cuda.empty_cache()
+    log(f"[moe-capacity] {len(prompts)} requests (shared 512-token prefix), "
+        f"16 new tokens each, capacity dispatch at cf "
+        f"{c.moe_capacity_factor}: {run['prefill_chunks']} prefill chunks, "
+        f"{run['decode_forwards']} decode steps, launches "
+        f"{run['launches']} (expected {expect}); decode "
+        f"{run['decode_ms_per_step']:.2f} ms/step (B=8, in process), "
+        f"{run['total_s']:.1f}s in all, max_memory_allocated "
+        f"{run['max_memory_allocated_gib']:.2f} GiB")
+    out = {k: v for k, v in run.items() if k != "outs"}
+    out["expected_launches"] = expect
+    detail["moe_capacity"] = out
+    return out
+
+
+def phase_moe_w4a8(detail: dict, params, cfg) -> dict:
+    """The Mixtral phase's prompts at W4A8 (``act_quant``: the experts'
+    matmuls on the aq tile under the slot plan, every dense one too),
+    served in process by ``Engine(max_slots=8, max_seq=2048)``, 16 new
+    tokens each: exact launch counts (every matmul under [aq], one x
+    pre-pass each), a profile of 3 B=8 decode forwards (device busy time,
+    kernels per step), peak device memory, and every served token
+    teacher-forced through the W4A8 kernels with the served experts
+    held."""
+    from quant_tpu_torch.engine import Engine
+
+    c = dataclasses.replace(cfg, act_quant=True)
+    prompts, prefix_len, _ = moe_prompts(cfg)
+    eng = Engine(params, c, max_slots=8, max_seq=2048, eos_id=-1,
+                 device="cuda")
+    with held_routing(cfg.n_layers,
+                      served_rows(eng, prompts, prefix_len)) as routing:
+        run = drive(eng, prompts, 16)
+    expect = moe_expected(c, run["prefill_chunks"], run["decode_forwards"],
+                          paged=False)
+    expect["dequant_matmul[aq]"] = expect["dequant_matmul"]
+    expect["dequant_matmul_moe[aq]"] = expect["dequant_matmul_moe"]
+    expect["act_quant_int8"] = (expect["dequant_matmul"]
+                                + expect["dequant_matmul_moe"])
+    check_launches("moe w4a8", run["launches"], expect)
+    profile = profile_decode(eng, label="Mixtral-8x7B W4A8 decode")
+    del eng
+    torch.cuda.empty_cache()
+    tf = teacher_forced(params, c, prompts, prefix_len, run["outs"],
+                        tag="moe-w4a8", kept=routing["kept"])
+    log(f"[moe-w4a8] {len(prompts)} requests, 16 new tokens each: "
+        f"{run['prefill_chunks']} prefill chunks, {run['decode_forwards']} "
+        f"decode steps, launches {run['launches']} (expected {expect}); "
+        f"decode {run['decode_ms_per_step']:.2f} ms/step (B=8, in process, "
+        f"routing recorded), max_memory_allocated "
+        f"{run['max_memory_allocated_gib']:.2f} GiB")
+    out = {k: v for k, v in run.items() if k != "outs"}
+    out.update(expected_launches=expect, profile=profile, teacher_forced=tf)
+    detail["moe_w4a8"] = out
     return out
 
 
@@ -4432,6 +4662,9 @@ def run_all(args, detail: dict) -> int:
     summary["dequant_matmul_moe"] = moe_kernels(
         torch.Generator(device="cuda").manual_seed(0), detail)
     lap("moe kernels")
+    summary.update(moe_variant_kernels(
+        torch.Generator(device="cuda").manual_seed(0), detail))
+    lap("moe grouped/aq kernels")
     summary.update(mla_kernels(
         torch.Generator(device="cuda").manual_seed(0), detail))
     lap("mla kernels")
@@ -4473,15 +4706,31 @@ def run_all(args, detail: dict) -> int:
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     moe = phase_moe_serving(detail, params, cfg)
     phase_moe_single(detail, params, cfg)
+    lap("mixtral")
+    moe_cap = phase_moe_capacity(detail, params, cfg)
+    cap = {"moe_prefill": "capacity"}
     moe_model_check(detail, "moe-model", params, cfg, 4, 128, 4,
                     {"kernels": {}, "plain": {"kernel_mode": "xla"},
                      "routed-on": {"moe_routed": "on"},
-                     "routed-off": {"moe_routed": "off"}},
+                     "routed-off": {"moe_routed": "off"},
+                     "capacity": cap,
+                     "capacity-plain": {**cap, "kernel_mode": "xla"},
+                     "capacity-cf4": {**cap, "moe_capacity_factor": 4.0},
+                     "capacity-cf0.3": {**cap, "moe_capacity_factor": 0.3},
+                     "w4a8": {"act_quant": True},
+                     "w4a8-plain": {"act_quant": True, "kernel_mode": "xla"},
+                     "w4a8-capacity-cf4": {"act_quant": True, **cap,
+                                           "moe_capacity_factor": 4.0},
+                     "unfused": {"moe_fused": False}},
                     [("kernels", "plain"), ("routed-on", "routed-off"),
-                     ("routed-off", "plain")])
+                     ("routed-off", "plain"), ("capacity", "capacity-plain"),
+                     ("capacity-cf4", "kernels"), ("w4a8", "w4a8-plain"),
+                     ("w4a8-capacity-cf4", "w4a8"), ("unfused", "kernels")],
+                    controls=[("capacity-cf0.3", "capacity-cf4")])
+    moe_aq = phase_moe_w4a8(detail, params, cfg)
     del params
     torch.cuda.empty_cache()
-    lap("mixtral")
+    lap("mixtral capacity/w4a8")
     phase_qwen3(detail, PRESETS["qwen3-30b-a3b"])
     torch.cuda.empty_cache()
     lap("qwen3")
@@ -4560,6 +4809,20 @@ def run_all(args, detail: dict) -> int:
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": s["bound_by"], "library_ms": None,
             "linear_ms": s["linear_ms"], "unit": s["unit"]})
+    # the MoE kernel's grouped and int8-activation variants, with their
+    # launches from the Mixtral capacity and W4A8 serving runs
+    for name, run in (("grouped", moe_cap), ("aq", moe_aq)):
+        s = summary[f"moe {name}"]
+        kernels.append({
+            "name": f"dequant_matmul_moe [{name}]", "route": "cuda",
+            "source": SOURCES["dequant_matmul_moe"],
+            "replaces": REPLACES["dequant_matmul_moe"],
+            "launches": run["launches"].get(f"dequant_matmul_moe[{name}]",
+                                            0),
+            "max_abs_err": s["max_abs_err"], "ms": s["ms"],
+            "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+            "bound_by": s["bound_by"], "library_ms": None,
+            "unit": s["unit"]})
     s = summary["act_quant_int8"]
     kernels.append({
         "name": "act_quant_int8 [the aq x pre-pass]", "route": "cuda",

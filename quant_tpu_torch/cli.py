@@ -54,15 +54,35 @@ import numpy as np
 
 def _load(args):
     """(params, config) of ``args.ckpt`` on ``args.device``, the config's
-    KV cache replaced by ``--kv-bits`` unless it is 0 and its codebook
-    runtime by ``--lut-runtime`` when given."""
+    KV cache replaced by ``--kv-bits`` unless it is 0, its codebook runtime
+    by ``--lut-runtime`` and its MoE dispatch by ``--moe-prefill`` /
+    ``--moe-routed`` when given."""
     from quant_tpu_torch.checkpoint import load_checkpoint
 
     params, cfg = load_checkpoint(args.ckpt, device=args.device,
                                   lut_runtime=args.lut_runtime)
     if args.kv_bits:
         cfg = dataclasses.replace(cfg, kv_bits=args.kv_bits)
+    for field in ("moe_prefill", "moe_routed"):
+        if getattr(args, field, None):
+            cfg = dataclasses.replace(cfg, **{field: getattr(args, field)})
     return params, cfg
+
+
+def _moe_flags(p) -> None:
+    """``--moe-prefill`` and ``--moe-routed``, as the JAX CLI has them."""
+    p.add_argument("--moe-prefill", default=None,
+                   choices=("dense", "capacity"),
+                   help="MoE high-load dispatch: exact dense all-experts "
+                        "(the checkpoint's default) or the GShard capacity "
+                        "dispatch past tokens*k >= 2E (prefill and "
+                        "high-batch decode; a token past an expert's "
+                        "capacity loses that expert)")
+    p.add_argument("--moe-routed", default=None,
+                   choices=("auto", "on", "off"),
+                   help="routed-hot MoE decode: auto streams only the hot "
+                        "experts when expected coverage < 7/8, on/off "
+                        "force it")
 
 
 def _cmd_generate(args) -> int:
@@ -284,6 +304,7 @@ def main(argv=None) -> int:
                         "(int8-requantized / float32)")
     g.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu")
+    _moe_flags(g)
     g.set_defaults(fn=_cmd_generate)
     sv = sub.add_parser("serve", help="HTTP serving frontend")
     sv.add_argument("ckpt")
@@ -320,6 +341,7 @@ def main(argv=None) -> int:
                         "sel15 = the table inside the matmul kernel "
                         "(int8-requantized / float32)")
     sv.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    _moe_flags(sv)
     sv.set_defaults(fn=_cmd_serve)
     b = sub.add_parser("bench", help="not ported (exits 2)")
     b.set_defaults(fn=_cmd_bench)

@@ -70,11 +70,23 @@
 // * sum: slot j reads its own rows x[j] of [slots, M, K] and y is [M, N].
 //   The tensor-core tiles run the slots as one long contraction (the slots'
 //   K ranges end to end); the CUDA-core tile adds them by atomicAdd.
+// * grouped (the capacity dispatch's grouped GEMM, the JAX kernel's
+//   mode="grouped"): slot j reads its own rows x[j] of [slots, M, K], as
+//   sum does, and writes its own y[j] of [slots, M, N], as concat writes
+//   its own columns; jobs, split-K and the fix-up are concat's, per (slot,
+//   output tile). JAX builds [M, slots * N] and moves the axis; the values
+//   are the same.
 // * hot: each block reads n_hot and its slot's expert id on the device (no
 //   host sync, no grid sized per step), and the grid's z blocks are shared
 //   out among the n_hot active slots only, so the whole grid streams the hot
 //   experts' bytes and a slot at or past n_hot streams nothing: its concat
-//   columns are exact zeros, and in sum mode it adds nothing.
+//   columns (grouped: its rows) are exact zeros, and in sum mode it adds
+//   nothing; its x rows are never read.
+// * aq (int8 activations) runs every mode under the same slot plan: the
+//   pre-pass quantizes x as rows ([M, K] for concat, [slots * M, K] for the
+//   per-slot modes), and the aq tile reads a slot's codes and scales at the
+//   slot's first row; its partitions hold whole K groups (the plan rounds
+//   them to lcm(64, G) packed rows), so each group's int32 dot is whole.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -287,6 +299,7 @@ struct Args {
   long long codes_stride, scales_stride;  // per stack entry (bytes, floats)
   int out_f32, M, K, N, G;
   int layer, stride, experts, slots, sum;
+  int grouped;          // x [slots, M, K] -> y [slots, M, N]
   int splits, per, cap;  // host plan: partitions, packed rows each; cap:
                          // most partitions of a concat slot under a hot list
 };
@@ -306,6 +319,14 @@ constexpr __host__ __device__ __forceinline__ int cdiv(int a, int b) {
 
 __device__ __forceinline__ int active_slots(const Args& a) {
   return a.hot == nullptr ? a.slots : min(max(__ldg(a.hot), 0), a.slots);
+}
+
+// Where output row m of slot `slot` starts: y [M, N] (sum), [M, slots * N]
+// (concat) or [slots, M, N] (grouped).
+__device__ __forceinline__ size_t out_row(const Args& a, int slot, int m) {
+  if (a.sum) return (size_t)m * a.N;
+  if (a.grouped) return ((size_t)slot * a.M + m) * a.N;
+  return (size_t)m * a.slots * a.N + (size_t)slot * a.N;
 }
 
 // Without a hot list the host's plan; with one, the grid's z blocks shared
@@ -349,6 +370,7 @@ struct Cursor {
   const uint8_t* codes;
   const float* scales;
   const __nv_bfloat16* x;
+  size_t xrow;          // the slot's first row of x (and of the aq codes)
   int rank, kp0, rows;  // the stage holds packed rows [kp0, kp0 + rows)
   bool live;            // false: the slot's expert id is outside the stack
 
@@ -358,7 +380,8 @@ struct Cursor {
     const size_t w = live ? (size_t)ex * a.stride + a.layer : 0;
     codes = a.codes + w * a.codes_stride;
     scales = a.scales + w * a.scales_stride;
-    x = a.x + (a.sum ? (size_t)rank * a.M * a.K : 0);
+    xrow = a.sum || a.grouped ? (size_t)rank * a.M : 0;
+    x = a.x == nullptr ? nullptr : a.x + xrow * a.K;
   }
   __device__ __forceinline__ void start(const Args& a, int e, int KP,
                                         int KPpad) {
@@ -442,15 +465,14 @@ __device__ __forceinline__ void store4(void* out, int out_f32, size_t idx,
   }
 }
 
-// Output tile [m0, m0 + BM) x [n0, n0 + BN) of slot `slot`'s columns: exact
+// Output tile [m0, m0 + BM) x [n0, n0 + BN) of slot `slot`'s output: exact
 // zeros (a cold slot under a hot list, or a sum over no slot).
 template <int BM, int BN>
 __device__ void zero_tile(const Args& a, int slot, int m0, int n0, int tid) {
-  const size_t ldo = a.sum ? (size_t)a.N : (size_t)a.slots * a.N;
   for (int i = tid; i < BM * BN / 4; i += THREADS) {
     const int m = m0 + i / (BN / 4), n = n0 + 4 * (i % (BN / 4));
     if (m < a.M && n < a.N)
-      store4(a.out, a.out_f32, m * ldo + (size_t)slot * a.N + n,
+      store4(a.out, a.out_f32, out_row(a, slot, m) + n,
              make_float4(0.f, 0.f, 0.f, 0.f));
   }
 }
@@ -470,8 +492,6 @@ __device__ void fix_up(const Args& a, const Job& j, int m0, int n0, int tid) {
   __syncthreads();
   if (!last) return;
   __threadfence();
-  const size_t ldo = a.sum ? (size_t)a.N : (size_t)a.slots * a.N;
-  const size_t col0 = (size_t)j.slot * a.N;
   // each thread sums its float4s of the tile four at a time, so 16 loads
   // are in flight per thread and a partial's sum does not wait on the last
   constexpr int PER = BM * BN / 4 / THREADS, CHUNK = PER < 4 ? PER : 4;
@@ -488,7 +508,7 @@ __device__ void fix_up(const Args& a, const Job& j, int m0, int n0, int tid) {
       const int m = m0 + e / (BN / 4), n = n0 + 4 * (e % (BN / 4));
       ok[k] = m < a.M && n < a.N;
       off[k] = ok[k] ? ((size_t)m * a.N + n) / 4 : 0;
-      dst[k] = m * ldo + col0 + n;
+      dst[k] = ok[k] ? out_row(a, j.slot, m) + n : 0;
       sum[k] = make_float4(0.f, 0.f, 0.f, 0.f);
     }
 #pragma unroll 4
@@ -520,7 +540,7 @@ __device__ void fix_up(const Args& a, const Job& j, int m0, int n0, int tid) {
 // f32 partial sums, per group and half, not weights.
 template <int BITS_, int NT_, int LUT_ = 0>
 struct Decode {
-  static constexpr bool DECODE = true;
+  static constexpr bool DECODE = true, AQ = false;
   static constexpr int BITS = BITS_, NT = NT_, LUT = LUT_;
   static constexpr int BKP = 64;                    // packed rows per stage
   static constexpr int HALVES = BITS == 4 ? 2 : 1;
@@ -745,9 +765,7 @@ __device__ void decode_tile(const Args& a, const Job& j, uint8_t* smem) {
   const bool direct = j.parts == 1;
   void* dst = direct ? a.out : a.ws;
   const int dst_f32 = direct ? a.out_f32 : 1;
-  const size_t ldo = !direct ? (size_t)a.N : a.sum ? (size_t)a.N : (size_t)a.slots * a.N;
-  const size_t base = direct ? (size_t)j.slot * a.N
-                             : (size_t)(j.zbase + j.part) * a.M * a.N;
+  const size_t base = (size_t)(j.zbase + j.part) * a.M * a.N;
   if (col_ok) {
 #pragma unroll
     for (int n = 0; n < NT; ++n)
@@ -761,7 +779,9 @@ __device__ void decode_tile(const Args& a, const Job& j, uint8_t* smem) {
           v[2 * i] = acc[i][n][b];
           v[2 * i + 1] = acc[i][n][2 + b];
         }
-        store8(dst, dst_f32, base + m * ldo + ncol, v);
+        store8(dst, dst_f32,
+               (direct ? out_row(a, j.slot, m) : base + (size_t)m * a.N) + ncol,
+               v);
       }
   }
   if (!direct) fix_up<D::BM, D::BN>(a, j, 0, n0, tid);
@@ -778,7 +798,7 @@ __device__ void decode_tile(const Args& a, const Job& j, uint8_t* smem) {
 // scales its weights before the product.
 template <int BITS_, int LUT_ = 0>
 struct Prefill {
-  static constexpr bool DECODE = false;
+  static constexpr bool DECODE = false, AQ = false;
   static constexpr int BITS = BITS_, LUT = LUT_;
   static constexpr int BKP = 32;                    // packed rows per stage
   static constexpr int HALVES = BITS == 4 ? 2 : 1;
@@ -949,9 +969,7 @@ __device__ void prefill_tile(const Args& a, const Job& j, uint8_t* smem) {
   const bool direct = j.parts == 1;
   void* dst = direct ? a.out : a.ws;
   const int dst_f32 = direct ? a.out_f32 : 1;
-  const size_t ldo = !direct ? (size_t)a.N : a.sum ? (size_t)a.N : (size_t)a.slots * a.N;
-  const size_t base = direct ? (size_t)j.slot * a.N
-                             : (size_t)(j.zbase + j.part) * a.M * a.N;
+  const size_t base = (size_t)(j.zbase + j.part) * a.M * a.N;
   const int col = n0 + 64 * wn + 16 * t;
   if (col < a.N) {
 #pragma unroll
@@ -960,88 +978,18 @@ __device__ void prefill_tile(const Args& a, const Job& j, uint8_t* smem) {
       for (int rh = 0; rh < 2; ++rh) {
         const int m = m0 + 64 * wm + 16 * i + g + 8 * rh;
         if (m >= a.M) continue;
+        const size_t row =
+            direct ? out_row(a, j.slot, m) : base + (size_t)m * a.N;
 #pragma unroll
         for (int cb = 0; cb < 2; ++cb) {
           float v[8];
 #pragma unroll
           for (int n = 0; n < 8; ++n) v[n] = acc[i][n][2 * rh + cb];
-          store8(dst, dst_f32, base + m * ldo + col + 8 * cb, v);
+          store8(dst, dst_f32, row + col + 8 * cb, v);
         }
       }
   }
   if (!direct) fix_up<P::BM, P::BN>(a, j, m0, n0, tid);
-}
-
-// Shared by both kernels: zero what a hot list leaves cold, plan, run the
-// tile.
-template <class Tile>
-__device__ __forceinline__ void body(const Args& a) {
-  extern __shared__ __align__(128) uint8_t smem[];
-  const int active = active_slots(a);
-  const int m0 = blockIdx.y * Tile::BM, n0 = blockIdx.x * Tile::BN;
-  if (a.hot != nullptr) {
-    const int z = blockIdx.z;
-    if (!a.sum && z >= active && z < a.slots)
-      zero_tile<Tile::BM, Tile::BN>(a, z, m0, n0, threadIdx.x);
-    if (a.sum && active == 0 && z == 0)
-      zero_tile<Tile::BM, Tile::BN>(a, 0, m0, n0, threadIdx.x);
-  }
-  const int KP = Tile::BITS == 4 ? a.K / 2 : a.K;
-  Job j;
-  if (!plan(a, cdiv(KP, Tile::BKP) * Tile::BKP, Tile::BKP, active, j)) return;
-  if constexpr (Tile::DECODE)
-    decode_tile<Tile::BITS, Tile::NT, Tile::LUT>(a, j, smem);
-  else
-    prefill_tile<Tile::BITS, Tile::LUT>(a, j, smem);
-}
-
-template <class Tile>
-__global__ void __launch_bounds__(THREADS, Tile::MIN_BLOCKS)
-dequant_matmul_kernel(const Args a) {
-  body<Tile>(a);
-}
-
-template <class Tile>
-__global__ void __launch_bounds__(THREADS, Tile::MIN_BLOCKS)
-dequant_matmul_moe_kernel(const Args a) {
-  body<Tile>(a);
-}
-
-template <class Tile>
-int launch_one(const Args& a, bool moe, int gridz, cudaStream_t st) {
-  auto* k = dequant_matmul_kernel<Tile>;
-  if constexpr (Tile::LUT == 0)    // the MoE kernel runs linear codes only
-    if (moe) k = dequant_matmul_moe_kernel<Tile>;
-  // dynamic and static shared memory together above 48 KB only by opting in
-  const cudaError_t err = cudaFuncSetAttribute(
-      k, cudaFuncAttributeMaxDynamicSharedMemorySize, Tile::SMEM);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(cdiv(a.N, Tile::BN), cdiv(a.M, Tile::BM), gridz);
-  k<<<grid, THREADS, Tile::SMEM, st>>>(a);
-  return (int)cudaGetLastError();
-}
-
-template <int LUT>
-int launch_lut(const Args& a, int bits, int tile, bool moe, int gridz,
-               cudaStream_t st) {
-  if (tile == 0) {
-    if (a.M <= 8)
-      return bits == 4 ? launch_one<Decode<4, 1, LUT>>(a, moe, gridz, st)
-                       : launch_one<Decode<8, 1>>(a, moe, gridz, st);
-    return bits == 4 ? launch_one<Decode<4, 2, LUT>>(a, moe, gridz, st)
-                     : launch_one<Decode<8, 2>>(a, moe, gridz, st);
-  }
-  return bits == 4 ? launch_one<Prefill<4, LUT>>(a, moe, gridz, st)
-                   : launch_one<Prefill<8>>(a, moe, gridz, st);
-}
-
-// tile: 0 decode (M <= 16), 1 prefill; lut_mode: 0 linear, 1 word4, 2 sel15
-// (int4 codes; the wrapper passes a table only with them)
-int launch(const Args& a, int bits, int tile, bool moe, int gridz,
-           cudaStream_t st, int lut_mode = 0) {
-  if (lut_mode == 1) return launch_lut<1>(a, bits, tile, moe, gridz, st);
-  if (lut_mode == 2) return launch_lut<2>(a, bits, tile, moe, gridz, st);
-  return launch_lut<0>(a, bits, tile, moe, gridz, st);
 }
 
 
@@ -1065,7 +1013,8 @@ int launch(const Args& a, int bits, int tile, bool moe, int gridz,
 // halves (the host's plan), so every group's dot is whole before scaling.
 template <int BITS_, int NT_>
 struct DecodeAQ {
-  static constexpr int BITS = BITS_, NT = NT_;
+  static constexpr bool DECODE = false, AQ = true;
+  static constexpr int BITS = BITS_, NT = NT_, LUT = 0;
   static constexpr int BKP = 64;                    // packed rows per stage
   static constexpr int HALVES = BITS == 4 ? 2 : 1;
   static constexpr int BM = 8 * NT, BN = 256;
@@ -1141,7 +1090,8 @@ __device__ void aq_tile(const Args& a, const Job& j, uint8_t* smem) {
            ld.live && ccol_ok && r < ld.rows);
     }
     uint8_t* xs = x_s + slot * D::BM * D::XP + xm * D::XP + xh * BKP + xk16;
-    const int8_t* xsrc = a.xq + (size_t)(m0 + xm) * a.K + xh * KP + ld.kp0 + xk16;
+    const int8_t* xsrc =
+        a.xq + (ld.xrow + m0 + xm) * a.K + xh * KP + ld.kp0 + xk16;
 #pragma unroll
     for (int q = 0; q < XQ; ++q) {
       if (xm + XR * q >= D::BM) break;
@@ -1188,7 +1138,8 @@ __device__ void aq_tile(const Args& a, const Job& j, uint8_t* smem) {
 #pragma unroll
       for (int b = 0; b < 2; ++b) {
         const int m = m0 + 8 * n + 2 * t + b;
-        sxv[h][n][b] = m < a.M ? __ldg(a.sx + (size_t)m * KG + grp[h]) : 0.f;
+        sxv[h][n][b] =
+            m < a.M ? __ldg(a.sx + (st.xrow + m) * KG + grp[h]) : 0.f;
       }
   };
 
@@ -1298,7 +1249,7 @@ __device__ void aq_tile(const Args& a, const Job& j, uint8_t* smem) {
   const bool direct = j.parts == 1;
   void* dst = direct ? a.out : a.ws;
   const int dst_f32 = direct ? a.out_f32 : 1;
-  const size_t base = direct ? 0 : (size_t)j.part * a.M * a.N;
+  const size_t base = (size_t)(j.zbase + j.part) * a.M * a.N;
   if (col_ok) {
 #pragma unroll
     for (int n = 0; n < NT; ++n)
@@ -1312,33 +1263,125 @@ __device__ void aq_tile(const Args& a, const Job& j, uint8_t* smem) {
           v[2 * i] = acc[i][n][b];
           v[2 * i + 1] = acc[i][n][2 + b];
         }
-        store8(dst, dst_f32, base + (size_t)m * a.N + ncol, v);
+        store8(dst, dst_f32,
+               (direct ? out_row(a, j.slot, m) : base + (size_t)m * a.N) + ncol,
+               v);
       }
   }
   if (!direct) fix_up<D::BM, D::BN>(a, j, m0, n0, tid);
 }
 
-template <int BITS, int NT>
-__global__ void __launch_bounds__(THREADS, DecodeAQ<BITS, NT>::MIN_BLOCKS)
-dequant_matmul_aq_kernel(const Args a) {
+// Shared by every kernel: zero what a hot list leaves cold, plan, run the
+// tile. The aq tile's partitions hold whole K groups: on the device (a hot
+// list) they are rounded to lcm(64, G) packed rows, as the host's plan is.
+template <class Tile>
+__device__ __forceinline__ void body(const Args& a) {
   extern __shared__ __align__(128) uint8_t smem[];
-  constexpr int BKP = DecodeAQ<BITS, NT>::BKP;
-  const int KP = BITS == 4 ? a.K / 2 : a.K;
+  const int active = active_slots(a);
+  const int m0 = blockIdx.y * Tile::BM, n0 = blockIdx.x * Tile::BN;
+  if (a.hot != nullptr) {
+    const int z = blockIdx.z;
+    if (!a.sum && z >= active && z < a.slots)
+      zero_tile<Tile::BM, Tile::BN>(a, z, m0, n0, threadIdx.x);
+    if (a.sum && active == 0 && z == 0)
+      zero_tile<Tile::BM, Tile::BN>(a, 0, m0, n0, threadIdx.x);
+  }
+  const int KP = Tile::BITS == 4 ? a.K / 2 : a.K;
+  int unit = Tile::BKP;
+  if constexpr (Tile::AQ)
+    while (unit % a.G) unit += Tile::BKP;
   Job j;
-  if (!plan(a, cdiv(KP, BKP) * BKP, BKP, 1, j)) return;
-  aq_tile<BITS, NT>(a, j, smem);
+  if (!plan(a, cdiv(KP, Tile::BKP) * Tile::BKP, unit, active, j)) return;
+  if constexpr (Tile::AQ)
+    aq_tile<Tile::BITS, Tile::NT>(a, j, smem);
+  else if constexpr (Tile::DECODE)
+    decode_tile<Tile::BITS, Tile::NT, Tile::LUT>(a, j, smem);
+  else
+    prefill_tile<Tile::BITS, Tile::LUT>(a, j, smem);
+}
+
+template <class Tile>
+__global__ void __launch_bounds__(THREADS, Tile::MIN_BLOCKS)
+dequant_matmul_kernel(const Args a) {
+  body<Tile>(a);
+}
+
+template <class Tile>
+__global__ void __launch_bounds__(THREADS, Tile::MIN_BLOCKS)
+dequant_matmul_moe_kernel(const Args a) {
+  body<Tile>(a);
 }
 
 template <int BITS, int NT>
-int launch_aq(const Args& a, cudaStream_t st) {
+__global__ void __launch_bounds__(THREADS, DecodeAQ<BITS, NT>::MIN_BLOCKS)
+dequant_matmul_aq_kernel(const Args a) {
+  body<DecodeAQ<BITS, NT>>(a);
+}
+
+template <int BITS, int NT>
+__global__ void __launch_bounds__(THREADS, DecodeAQ<BITS, NT>::MIN_BLOCKS)
+dequant_matmul_aq_moe_kernel(const Args a) {
+  body<DecodeAQ<BITS, NT>>(a);
+}
+
+template <class Tile>
+int launch_one(const Args& a, bool moe, int gridz, cudaStream_t st) {
+  auto* k = dequant_matmul_kernel<Tile>;
+  if constexpr (Tile::LUT == 0)    // the MoE kernel runs linear codes only
+    if (moe) k = dequant_matmul_moe_kernel<Tile>;
+  // dynamic and static shared memory together above 48 KB only by opting in
+  const cudaError_t err = cudaFuncSetAttribute(
+      k, cudaFuncAttributeMaxDynamicSharedMemorySize, Tile::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(cdiv(a.N, Tile::BN), cdiv(a.M, Tile::BM), gridz);
+  k<<<grid, THREADS, Tile::SMEM, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int LUT>
+int launch_lut(const Args& a, int bits, int tile, bool moe, int gridz,
+               cudaStream_t st) {
+  if (tile == 0) {
+    if (a.M <= 8)
+      return bits == 4 ? launch_one<Decode<4, 1, LUT>>(a, moe, gridz, st)
+                       : launch_one<Decode<8, 1>>(a, moe, gridz, st);
+    return bits == 4 ? launch_one<Decode<4, 2, LUT>>(a, moe, gridz, st)
+                     : launch_one<Decode<8, 2>>(a, moe, gridz, st);
+  }
+  return bits == 4 ? launch_one<Prefill<4, LUT>>(a, moe, gridz, st)
+                   : launch_one<Prefill<8>>(a, moe, gridz, st);
+}
+
+// tile: 0 decode (M <= 16), 1 prefill; lut_mode: 0 linear, 1 word4, 2 sel15
+// (int4 codes; the wrapper passes a table only with them)
+int launch(const Args& a, int bits, int tile, bool moe, int gridz,
+           cudaStream_t st, int lut_mode = 0) {
+  if (lut_mode == 1) return launch_lut<1>(a, bits, tile, moe, gridz, st);
+  if (lut_mode == 2) return launch_lut<2>(a, bits, tile, moe, gridz, st);
+  return launch_lut<0>(a, bits, tile, moe, gridz, st);
+}
+
+template <int BITS, int NT>
+int launch_aq_tile(const Args& a, bool moe, int gridz, cudaStream_t st) {
   using D = DecodeAQ<BITS, NT>;
-  auto* k = dequant_matmul_aq_kernel<BITS, NT>;
+  auto* k = moe ? dequant_matmul_aq_moe_kernel<BITS, NT>
+                : dequant_matmul_aq_kernel<BITS, NT>;
   const cudaError_t err = cudaFuncSetAttribute(
       k, cudaFuncAttributeMaxDynamicSharedMemorySize, D::SMEM);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(cdiv(a.N, D::BN), cdiv(a.M, D::BM), a.splits);
+  dim3 grid(cdiv(a.N, D::BN), cdiv(a.M, D::BM), gridz);
   k<<<grid, THREADS, D::SMEM, st>>>(a);
   return (int)cudaGetLastError();
+}
+
+// rows: token rows a block, 8 (NT 1) or 16 (NT 2)
+int launch_aq(const Args& a, int bits, int rows, bool moe, int gridz,
+              cudaStream_t st) {
+  if (rows == 8)
+    return bits == 4 ? launch_aq_tile<4, 1>(a, moe, gridz, st)
+                     : launch_aq_tile<8, 1>(a, moe, gridz, st);
+  return bits == 4 ? launch_aq_tile<4, 2>(a, moe, gridz, st)
+                   : launch_aq_tile<8, 2>(a, moe, gridz, st);
 }
 
 // x [M, K] (f32 or bf16) -> int8 codes [M, K] and f32 scales [M, K/G], one
@@ -1419,10 +1462,8 @@ extern "C" int dequant_matmul_aq_launch(const void* xq, const void* sx,
   a.M = M, a.K = K, a.N = N, a.G = G;
   a.experts = 1, a.slots = 1;
   a.splits = splits, a.per = per, a.cap = splits;
-  const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (rows == 8)
-    return bits == 4 ? tc::launch_aq<4, 1>(a, st) : tc::launch_aq<8, 1>(a, st);
-  return bits == 4 ? tc::launch_aq<4, 2>(a, st) : tc::launch_aq<8, 2>(a, st);
+  return tc::launch_aq(a, bits, rows, false, splits,
+                       reinterpret_cast<cudaStream_t>(stream));
 }
 
 // x [M, K] (bf16 when x_bf16, else f32) -> xq int8 [M, K], sx f32 [M, K/G];
@@ -1443,17 +1484,31 @@ extern "C" int act_quant_launch(const void* x, int x_bf16, void* xq, void* sx,
   return (int)cudaGetLastError();
 }
 
-// x: [M, K] (concat) or [slots, M, K] (sum); codes / scales: the whole
-// expert-major stack; hot: device int32 [1 + slots] or null. The grid has
-// slots * splits z blocks (concat) or splits (sum); cap: the most of them
-// one concat slot takes under a hot list. ws: f32 [z blocks, M, N] when a
-// tile can have more than one partition, else null.
+// The MoE launches' slot arguments. mode: 0 concat (x [M, K]), 1 sum (x
+// [slots, M, K] -> y [M, N]), 2 grouped (x [slots, M, K] -> y [slots, M,
+// N]); codes / scales: the whole expert-major stack; hot: device int32
+// [1 + slots] or null.
+static void moe_args(tc::Args& a, int K, int N, int G, int bits, int slots,
+                     int mode, int layer, int stride, int experts,
+                     const void* hot) {
+  const long long kp = bits == 4 ? K / 2 : K;
+  a.hot = reinterpret_cast<const int*>(hot);
+  a.codes_stride = kp * N;
+  a.scales_stride = (long long)(K / G) * N;
+  a.layer = layer, a.stride = stride, a.experts = experts;
+  a.slots = slots, a.sum = mode == 1, a.grouped = mode == 2;
+}
+
+// x: [M, K] (concat) or [slots, M, K] (sum, grouped); mode, the stack and
+// hot as moe_args. The grid has slots * splits z blocks (concat, grouped)
+// or splits (sum); cap: the most of them one slot takes under a hot list
+// (concat, grouped). ws: f32 [z blocks, M, N] when a tile can have more
+// than one partition, else null; counters: one per (slot, output tile).
 extern "C" int dequant_matmul_moe_tc_launch(
     const void* x, const void* codes, const void* scales, void* out,
     int out_f32, void* ws, void* counters, int M, int K, int N, int G,
-    int bits, int tile, int splits, int per, int cap, int slots, int sum,
+    int bits, int tile, int splits, int per, int cap, int slots, int mode,
     int layer, int stride, int experts, const void* hot, void* stream) {
-  const long long kp = bits == 4 ? K / 2 : K;
   tc::Args a{};
   a.x = reinterpret_cast<const __nv_bfloat16*>(x);
   a.codes = reinterpret_cast<const uint8_t*>(codes);
@@ -1461,16 +1516,40 @@ extern "C" int dequant_matmul_moe_tc_launch(
   a.out = out;
   a.ws = reinterpret_cast<float*>(ws);
   a.counters = reinterpret_cast<int*>(counters);
-  a.hot = reinterpret_cast<const int*>(hot);
-  a.codes_stride = kp * N;
-  a.scales_stride = (long long)(K / G) * N;
   a.out_f32 = out_f32;
   a.M = M, a.K = K, a.N = N, a.G = G;
-  a.layer = layer, a.stride = stride, a.experts = experts;
-  a.slots = slots, a.sum = sum;
+  moe_args(a, K, N, G, bits, slots, mode, layer, stride, experts, hot);
   a.splits = splits, a.per = per, a.cap = cap;
-  return tc::launch(a, bits, tile, true, sum ? splits : slots * splits,
+  return tc::launch(a, bits, tile, true, a.sum ? splits : slots * splits,
                     reinterpret_cast<cudaStream_t>(stream));
+}
+
+// W8A8 / W4A8 over the expert stack: xq int8 and sx f32 from
+// act_quant_launch over x's rows ([M, K] concat, [slots * M, K] sum and
+// grouped); rows, splits, per as for dequant_matmul_aq_launch (each
+// partition whole K groups; in sum mode the slots' rows end to end); cap,
+// slots, mode, the stack, hot, ws and counters as for
+// dequant_matmul_moe_tc_launch.
+extern "C" int dequant_matmul_aq_moe_launch(
+    const void* xq, const void* sx, const void* codes, const void* scales,
+    void* out, int out_f32, void* ws, void* counters, int M, int K, int N,
+    int G, int bits, int rows, int splits, int per, int cap, int slots,
+    int mode, int layer, int stride, int experts, const void* hot,
+    void* stream) {
+  tc::Args a{};
+  a.xq = reinterpret_cast<const int8_t*>(xq);
+  a.sx = reinterpret_cast<const float*>(sx);
+  a.codes = reinterpret_cast<const uint8_t*>(codes);
+  a.scales = reinterpret_cast<const float*>(scales);
+  a.out = out;
+  a.ws = reinterpret_cast<float*>(ws);
+  a.counters = reinterpret_cast<int*>(counters);
+  a.out_f32 = out_f32;
+  a.M = M, a.K = K, a.N = N, a.G = G;
+  moe_args(a, K, N, G, bits, slots, mode, layer, stride, experts, hot);
+  a.splits = splits, a.per = per, a.cap = cap;
+  return tc::launch_aq(a, bits, rows, true, a.sum ? splits : slots * splits,
+                       reinterpret_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* error_string(int err) {

@@ -242,7 +242,9 @@ struct MoeArgs {
   int layer, stride;        // stack entry of expert e: e * stride + layer
   int experts;              // experts in the stack (ids outside stream nothing)
   int slots;                // expert slots (columns of y in concat)
-  int sum;                  // 1: x [slots, M, K] -> y [M, N]; 0: concat
+  int sum;                  // 1: x [slots, M, K] -> y [M, N]
+  int grouped;              // 1: x [slots, M, K] -> y [slots, M, N]
+                            // (neither: concat, x [M, K] -> y [M, slots * N])
 };
 
 // With a hot list the output is always the cleared atomic buffer (`atomic`):
@@ -270,11 +272,16 @@ dequant_matmul_moe_kernel(const T* __restrict__ x,
   const int e = a.hot == nullptr ? slot : a.hot[1 + slot];
   if (e < 0 || e >= a.experts) return;
   const size_t w = (size_t)e * a.stride + a.layer;
+  // output row m of the slot at m * ldo + col0
+  const size_t ldo = a.sum || a.grouped ? (size_t)N : (size_t)a.slots * N;
+  const size_t col0 = a.sum       ? 0
+                      : a.grouped ? (size_t)slot * M * N
+                                  : (size_t)slot * N;
   dmm_tile<T, BITS, TM, TY, KS, 0>(
-      x + (a.sum ? (size_t)slot * M * K : 0), codes + w * a.codes_stride,
-      scales + w * a.scales_stride, out, out_f32, partial, atomic != 0,
-      a.sum ? (size_t)N : (size_t)a.slots * N, a.sum ? 0 : (size_t)slot * N,
-      M, K, N, G, kp_begin, min(KP, kp_begin + kp_per), nullptr);
+      x + (a.sum || a.grouped ? (size_t)slot * M * K : 0),
+      codes + w * a.codes_stride, scales + w * a.scales_stride, out, out_f32,
+      partial, atomic != 0, ldo, col0, M, K, N, G, kp_begin,
+      min(KP, kp_begin + kp_per), nullptr);
 }
 
 __global__ void f32_to_bf16_kernel(const float* __restrict__ src,
@@ -392,23 +399,26 @@ extern "C" int dequant_matmul_launch(const void* x, int x_bf16, const void* code
              reinterpret_cast<cudaStream_t>(stream));
 }
 
-// x: [M, K] (concat) or [slots, M, K] (sum); codes / scales: the whole
-// expert-major stack; hot: device int32 [1 + slots] or null; the grid has
-// slots * splits blocks in z. `atomic`: the partials meet by atomicAdd in a
-// cleared f32 buffer (`out` itself for f32 output, else `partial`); the
-// caller sets it when K is split, slots are summed or a hot list is given.
+// mode: 0 concat (x [M, K] -> y [M, slots * N]), 1 sum (x [slots, M, K]
+// -> y [M, N]), 2 grouped (x [slots, M, K] -> y [slots, M, N]); codes /
+// scales: the whole expert-major stack; hot: device int32 [1 + slots] or
+// null; the grid has slots * splits blocks in z. `atomic`: the partials
+// meet by atomicAdd in a cleared f32 buffer of y's size (`out` itself for
+// f32 output, else `partial`); the caller sets it when K is split, slots
+// are summed or a hot list is given.
 extern "C" int dequant_matmul_moe_launch(
     const void* x, int x_bf16, const void* codes, const void* scales, void* out,
     int out_f32, void* partial, int atomic, int M, int K, int N, int G,
-    int bits, int splits, int slots, int sum, int layer, int stride,
+    int bits, int splits, int slots, int mode, int layer, int stride,
     int experts, const void* hot, void* stream) {
   const long long kp = bits == 4 ? K / 2 : K;
   cc::MoeArgs a{reinterpret_cast<const int*>(hot), kp * N, (long long)(K / G) * N,
-            layer, stride, experts, slots, sum};
+            layer, stride, experts, slots, mode == 1, mode == 2};
   const cc::Call c{x, codes, reinterpret_cast<const float*>(scales), out, out_f32,
                nullptr, M, K, N, G, splits, 0, nullptr};
+  // run() clears and casts M * ldo values: all of y
   return cc::run(c, x_bf16, bits, 0, &a, atomic != 0,
-             sum ? (size_t)N : (size_t)slots * N, partial,
+             mode == 1 ? (size_t)N : (size_t)slots * N, partial,
              reinterpret_cast<cudaStream_t>(stream));
 }
 

@@ -49,7 +49,9 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # cache also under "[kv4]"; the matmuls of a codebook weight under
 # "dequant_matmul[lut_word4]" / "[lut_sel15]" and those with int8
 # activations under "dequant_matmul[aq]", whose x pre-pass counts as
-# "act_quant_int8"
+# "act_quant_int8"; the MoE kernel's grouped launches (the capacity
+# dispatch) under "dequant_matmul_moe[grouped]" and its int8-activation ones
+# under "dequant_matmul_moe[aq]"
 launches: dict[str, int] = {"dequant_matmul": 0, "dequant_matmul_moe": 0,
                             "act_quant_int8": 0,
                             "cache_insert_int8": 0, "flash_decode_int8": 0,
@@ -75,6 +77,7 @@ launches.update({f"{k}[kv4]": 0
                  for k in ("cache_insert_int8", "paged_cache_insert_int8")})
 launches.update({f"dequant_matmul[{v}]": 0
                  for v in ("lut_word4", "lut_sel15", "aq")})
+launches.update({f"dequant_matmul_moe[{v}]": 0 for v in ("grouped", "aq")})
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

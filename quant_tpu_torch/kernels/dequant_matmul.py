@@ -28,6 +28,13 @@ Two variants of ``dequant_matmul`` (the JAX kernel's ``lut_mode`` and
 A codebook weight with ``act_quant`` raises on the card (the JAX package
 sends that pair to its XLA reference); its plain version computes it.
 
+``dequant_matmul_moe`` runs every expert slot in one launch of the same
+tiles, counted under ``dequant_matmul_moe`` and its tile: ``concat``,
+``sum`` / ``psum`` and ``grouped`` (the capacity dispatch's grouped GEMM,
+also counted as ``dequant_matmul_moe[grouped]``), with or without a hot
+list, and each with ``act_quant`` (the x pre-pass, then the aq tile under
+the slot plan: ``dequant_matmul_moe[aq]``).
+
 :func:`dequant_matmul` and :func:`dequant_matmul_moe` launch those kernels
 for tensors on the card and take their plain versions
 (:func:`dequant_matmul_reference`, :func:`dequant_matmul_moe_reference`)
@@ -171,30 +178,46 @@ def _tc_plan(tile: str, m: int, k: int, n: int, bits: int, slots: int = 1,
     return _cdiv(total, per), per
 
 
-def _aq_plan(m: int, k: int, n: int, bits: int, g: int,
-             sms: int = 132) -> tuple[int, int, int]:
+def _aq_whole_groups(kp: int, g: int, sum_mode: bool) -> bool:
+    """Whether partitions of whole lcm(64, G) runs of packed rows hold whole
+    K groups of both halves: the K rows end on a group, and in sum mode each
+    slot's stage-padded rows end on a run too."""
+    bkp = _TC_BKP["tc_decode"]
+    unit = bkp * g // math.gcd(bkp, g)
+    return kp % g == 0 and (not sum_mode or _cdiv(kp, bkp) * bkp % unit == 0)
+
+
+def _aq_plan(m: int, k: int, n: int, bits: int, g: int, slots: int = 1,
+             sum_mode: bool = False, sms: int = 132
+             ) -> tuple[int, int, int]:
     """The aq tile: (token rows a block, partitions, packed rows each).
     Blocks of 8 token rows at M <= 8, else 16; split-K only at decode M,
     enough blocks to cover the card's ``sms`` twice, every partition a whole
     number of stages and of both halves' K groups (so each group's int32
-    dot is whole before its scales apply, as in the JAX kernel)."""
+    dot is whole before its scales apply, as in the JAX kernel). The expert
+    slots count as more tiles, or, in sum mode, as one contraction of the
+    slots' rows end to end (each slot's rows padded to a whole stage)."""
     kp = k // 2 if bits == 4 else k
     rows = 8 if m <= 8 else 16
     bkp = _TC_BKP["tc_decode"]
     unit = bkp * g // math.gcd(bkp, g)
+    kp_pad = _cdiv(kp, bkp) * bkp
+    total = kp_pad * (slots if sum_mode else 1)
     tiles = _cdiv(n, _TC_DECODE_BN) * _cdiv(m, rows)
+    if not sum_mode:
+        tiles *= slots
     splits = 1
-    if m <= _TC_DECODE_M and kp % g == 0:
-        splits = max(1, min(_cdiv(2 * sms, tiles), kp // unit))
-    per = _cdiv(_cdiv(kp, splits), unit) * unit
-    return rows, _cdiv(kp, per), per
+    if m <= _TC_DECODE_M and _aq_whole_groups(kp, g, sum_mode):
+        splits = max(1, min(_cdiv(2 * sms, tiles), total // unit))
+    per = _cdiv(_cdiv(total, splits), unit) * unit
+    return rows, _cdiv(total, per), per
 
 
-def _count(name: str, tile: str, variant: str | None = None) -> None:
+def _count(name: str, tile: str, *variants: str) -> None:
     _build.count_launch(name)
     _build.count_launch(f"{name}[{tile}]")
-    if variant is not None:
-        _build.count_launch(f"{name}[{variant}]")
+    for v in variants:
+        _build.count_launch(f"{name}[{v}]")
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -214,8 +237,13 @@ _AQ_ARGTYPES = [_P, _P, _P, _P, _P, _I, _P, _P] + [_I] * 8 + [_P]
 # x, x_bf16, xq, sx, M, K, G, stream
 _ACT_ARGTYPES = [_P, _I, _P, _P, _I, _I, _I, _P]
 # x, codes, scales, out, out_f32, ws, counters, M, K, N, G, bits, tile,
-# splits, per, cap, slots, sum, layer, stride, experts, hot, stream
+# splits, per, cap, slots, mode, layer, stride, experts, hot, stream
 _MOE_TC_ARGTYPES = [_P, _P, _P, _P, _I, _P, _P] + [_I] * 14 + [_P, _P]
+# xq, sx, codes, scales, out, out_f32, ws, counters, M, K, N, G, bits, rows,
+# splits, per, cap, slots, mode, layer, stride, experts, hot, stream
+_AQ_MOE_ARGTYPES = [_P, _P, _P, _P, _P, _I, _P, _P] + [_I] * 14 + [_P, _P]
+# the MoE launches' mode argument
+_MOE_MODES = {"concat": 0, "sum": 1, "psum": 1, "grouped": 2}
 
 
 def _check_operands(x: torch.Tensor, qt: QTensor, out_dtype, lead: tuple):
@@ -295,17 +323,14 @@ def _launch_aq(x: torch.Tensor, qt: QTensor, out_dtype) -> torch.Tensor:
             "a codebook (lut) weight with act_quant at lut_runtime word4 or "
             "sel15 is not ported (the JAX package runs that pair on its XLA "
             "reference; lut_runtime='int8' transcodes it to int8)")
-    kp = k // 2 if qt.bits == 4 else k
+    _check_aq(qt)
     g = qt.group_size
-    if kp % _AQ_K or g % _AQ_K or n % 16 or qt.codes.data_ptr() % 16:
-        raise NotImplementedError(
-            f"act_quant needs K rows and groups in multiples of {_AQ_K} and N "
-            f"a multiple of 16 (K={k}, G={g}, N={n})")
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0:
         return out
     xq, sx = act_quant_int8(x, g)
-    rows, splits, per = _aq_plan(m, k, n, qt.bits, g, _sm_count(x.device))
+    rows, splits, per = _aq_plan(m, k, n, qt.bits, g,
+                                 sms=_sm_count(x.device))
     ws = counters = None
     if splits > 1:
         ws = torch.empty((splits, m, n), dtype=torch.float32,
@@ -325,6 +350,18 @@ def _launch_aq(x: torch.Tensor, qt: QTensor, out_dtype) -> torch.Tensor:
     _count("dequant_matmul", "tc_decode" if m <= _TC_DECODE_M
            else "tc_prefill", "aq")
     return out
+
+
+def _check_aq(qt: QTensor) -> None:
+    """What the aq tile takes: K rows (packed) and groups in multiples of
+    32, N a multiple of 16, 16-byte aligned codes."""
+    k, n = qt.shape
+    kp = k // 2 if qt.bits == 4 else k
+    g = qt.group_size
+    if kp % _AQ_K or g % _AQ_K or n % 16 or qt.codes.data_ptr() % 16:
+        raise NotImplementedError(
+            f"act_quant needs K rows and groups in multiples of {_AQ_K} and N "
+            f"a multiple of 16 (K={k}, G={g}, N={n})")
 
 
 def _launch(x: torch.Tensor, qt: QTensor, out_dtype,
@@ -371,7 +408,8 @@ def _launch(x: torch.Tensor, qt: QTensor, out_dtype,
                 per, lut, _LUT_MODES[mode], stream)
     _build.check(rc, "dequant_matmul", "dequant_matmul_cc"
                  if tile == "cuda_core" else "dequant_matmul")
-    _count("dequant_matmul", tile, None if mode is None else f"lut_{mode}")
+    _count("dequant_matmul", tile,
+           *(() if mode is None else (f"lut_{mode}",)))
     return out
 
 
@@ -416,16 +454,16 @@ def dequant_matmul(x: torch.Tensor, qt: QTensor, layer: int | None = None,
 def _moe_checks(x: torch.Tensor, qt: QTensor, layer: int, n_experts: int,
                 stride: int, mode: str, hot) -> int:
     """Validate a MoE call; returns the experts the stack holds."""
-    if mode == "grouped":
-        raise NotImplementedError(
-            "mode='grouped' (the capacity dispatch's grouped GEMM) is not "
-            "ported")
-    if mode not in ("concat", "sum", "psum"):
-        raise ValueError(f"mode must be concat|sum|psum, got {mode!r}")
+    if mode not in _MOE_MODES:
+        raise ValueError(f"mode must be concat|sum|psum|grouped, got {mode!r}")
     if qt.lut is not None:
         raise NotImplementedError(
-            "codebook (lut) expert stacks are not ported (the JAX package "
-            "runs them as a per-expert loop)")
+            "codebook (lut) expert stacks are not ported: the JAX reference "
+            "fails on them (its _merge_experts leaves the [E, L, 16] table "
+            "unmerged; see ROADMAP.md queue 3)")
+    if qt.bits == 4 and qt.kshards != 1:
+        raise NotImplementedError("kshards > 1 (tensor parallel) expert "
+                                  "stacks are not ported")
     if not qt.stacked:
         raise ValueError("dequant_matmul_moe needs the merged [E*L, ...] "
                          "expert stack")
@@ -454,11 +492,13 @@ def _moe_checks(x: torch.Tensor, qt: QTensor, layer: int, n_experts: int,
 def dequant_matmul_moe_reference(x: torch.Tensor, qt: QTensor, layer: int,
                                  *, n_experts: int, stride: int,
                                  mode: str = "concat", out_dtype=None,
-                                 hot: torch.Tensor | None = None
-                                 ) -> torch.Tensor:
+                                 hot: torch.Tensor | None = None,
+                                 act_quant: bool = False) -> torch.Tensor:
     """Plain version of :func:`dequant_matmul_moe`: a loop over the expert
-    slots through :func:`dequant_matmul_reference`. Slots at or past
-    ``n_hot`` give exact zeros (concat) or nothing (sum)."""
+    slots through :func:`dequant_matmul_reference` (``act_quant`` its W8A8
+    form, each slot's x rows on their own int8 grid). Slots at or past
+    ``n_hot`` give exact zeros (concat, grouped) or nothing (sum), and their
+    x rows are not read."""
     out_dtype = out_dtype or x.dtype
     _moe_checks(x, qt, layer, n_experts, stride, mode, hot)
     k, n = qt.shape
@@ -468,8 +508,10 @@ def dequant_matmul_moe_reference(x: torch.Tensor, qt: QTensor, layer: int,
         h = hot.tolist()
         n_hot, ids = min(max(h[0], 0), n_experts), h[1:]
 
-    def weight(j):
-        return qt.layer(ids[j] * stride + layer)
+    def slot(j, x_j, dt):
+        return dequant_matmul_reference(x_j.reshape(-1, k),
+                                        qt.layer(ids[j] * stride + layer),
+                                        dt, act_quant=act_quant)
 
     if mode == "concat":
         # each slot's columns written in place (a torch.cat of the slots
@@ -479,22 +521,91 @@ def dequant_matmul_moe_reference(x: torch.Tensor, qt: QTensor, layer: int,
         y = torch.zeros((x2.shape[0], n_experts * n), dtype=out_dtype,
                         device=x.device)
         for j in range(n_hot):
-            y[:, j * n:(j + 1) * n] = dequant_matmul_reference(
-                x2, weight(j), out_dtype)
+            y[:, j * n:(j + 1) * n] = slot(j, x2, out_dtype)
         return y.reshape(*x.shape[:-1], n_experts * n)
     lead = x.shape[1:-1]
+    if mode == "grouped":
+        y = torch.zeros((n_experts, x[0].numel() // k, n), dtype=out_dtype,
+                        device=x.device)
+        for j in range(n_hot):
+            y[j] = slot(j, x[j], out_dtype)
+        return y.reshape(n_experts, *lead, n)
     acc = torch.zeros((x[0].numel() // k, n), dtype=torch.float32,
                       device=x.device)
     for j in range(n_hot):
-        acc += dequant_matmul_reference(x[j].reshape(-1, k), weight(j),
-                                        torch.float32)
+        acc += slot(j, x[j], torch.float32)
     return acc.to(out_dtype).reshape(*lead, n)
+
+
+def _moe_out(x: torch.Tensor, n: int, n_experts: int, mode: str,
+             out_dtype) -> tuple[torch.Tensor, tuple]:
+    """The output buffer of a MoE call, [M, width] or [n_experts * M, N]
+    (grouped), and the shape the caller gets."""
+    if mode == "concat":
+        lead, m = x.shape[:-1], x.numel() // x.shape[-1]
+        return (torch.empty((m, n_experts * n), dtype=out_dtype,
+                            device=x.device), (*lead, n_experts * n))
+    lead = x.shape[1:-1]
+    m = x[0].numel() // x.shape[-1]
+    rows = n_experts * m if mode == "grouped" else m
+    shape = (n_experts, *lead, n) if mode == "grouped" else (*lead, n)
+    return torch.empty((rows, n), dtype=out_dtype, device=x.device), shape
+
+
+def _launch_moe_aq(x: torch.Tensor, qt: QTensor, layer: int, n_experts: int,
+                   stride: int, experts: int, mode: str, out_dtype,
+                   hot) -> torch.Tensor:
+    """W8A8 / W4A8 expert slots: the x pre-pass over x's rows (a cold
+    slot's rows are quantized and never read), then the aq tile under the
+    slot plan."""
+    _check_aq(qt)
+    k, n = qt.shape
+    g = qt.group_size
+    out, shape = _moe_out(x, n, n_experts, mode, out_dtype)
+    per_slot = mode != "concat"
+    m = x.numel() // (k * (n_experts if per_slot else 1))
+    if m == 0:
+        return out.view(shape)
+    sum_mode = _MOE_MODES[mode] == 1
+    xq, sx = act_quant_int8(x.reshape(-1, k), g)
+    kp = k // 2 if qt.bits == 4 else k
+    rows, splits, per = _aq_plan(m, k, n, qt.bits, g, n_experts, sum_mode,
+                                 _sm_count(x.device))
+    grid_z = splits if sum_mode else n_experts * splits
+    # under a hot list a slot takes up to grid_z / n_hot partitions at
+    # decode M where its partitions can hold whole groups
+    cap = (grid_z if m <= _TC_DECODE_M
+           and _aq_whole_groups(kp, g, sum_mode) else splits)
+    multi = splits > 1 or (hot is not None and not sum_mode and cap > 1)
+    ws = counters = None
+    if multi:
+        ws = torch.empty((grid_z, m, n), dtype=torch.float32,
+                         device=x.device)
+        counters = _build.zero_counters(
+            x.device, _cdiv(n, _TC_DECODE_BN) * _cdiv(m, rows)
+            * (1 if sum_mode else n_experts))
+    fn = _build.entry("dequant_matmul", "dequant_matmul_aq_moe_launch",
+                      _AQ_MOE_ARGTYPES)
+    rc = fn(xq.data_ptr(), sx.data_ptr(), qt.codes.data_ptr(),
+            qt.scales.data_ptr(), out.data_ptr(),
+            int(out_dtype == torch.float32),
+            None if ws is None else ws.data_ptr(),
+            None if counters is None else counters.data_ptr(),
+            m, k, n, g, qt.bits, rows, splits, per, cap, n_experts,
+            _MOE_MODES[mode], layer, stride, experts,
+            None if hot is None else hot.data_ptr(),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(rc, "dequant_matmul_moe", "dequant_matmul")
+    _count("dequant_matmul_moe", "tc_decode" if m <= _TC_DECODE_M
+           else "tc_prefill", "aq", *(("grouped",) if mode == "grouped"
+                                      else ()))
+    return out.view(shape)
 
 
 def dequant_matmul_moe(x: torch.Tensor, qt: QTensor, layer: int, *,
                        n_experts: int, stride: int, mode: str = "concat",
-                       out_dtype=None, hot: torch.Tensor | None = None
-                       ) -> torch.Tensor:
+                       out_dtype=None, hot: torch.Tensor | None = None,
+                       act_quant: bool = False) -> torch.Tensor:
     """Every expert slot's matmul in ONE kernel launch, over the merged
     expert-major stack ``qt`` [E*L, ...] (expert e of layer ``layer`` is
     entry ``e * stride + layer``).
@@ -505,31 +616,40 @@ def dequant_matmul_moe(x: torch.Tensor, qt: QTensor, layer: int, *,
       over slots of x[j] @ W_j (fold the routing weights into x first). The
       two names are one function here: the slots meet in the kernel's f32
       accumulation buffer.
+    * ``mode="grouped"``: x [n_experts, .., K] -> [n_experts, .., N], slot
+      j's own x[j] @ W_j (the capacity dispatch's grouped GEMM).
     * ``hot``: int32 [1 + n_experts] on the device, ``[n_hot, ids...]``:
       slot j uses expert ``hot[1 + j]``; slots at or past ``n_hot`` stream
-      no weights and give exact zeros (concat) or add nothing (sum). The
-      kernel reads the list on the device, so the call needs no host sync.
-    * ``mode="grouped"`` (the capacity dispatch) raises
-      ``NotImplementedError``.
+      no weights, read no x rows and give exact zeros (concat, grouped) or
+      add nothing (sum). The kernel reads the list on the device, so the
+      call needs no host sync.
+    * ``act_quant``: x quantized to int8 per (row, K-group) in a pre-pass
+      (``[M, K]`` for concat, ``[n_experts * M, K]`` for the per-slot
+      modes), then int8 x int8 products (W8A8 / W4A8), in every mode.
+
+    Each launch counts under ``dequant_matmul_moe`` and its tile, and under
+    ``dequant_matmul_moe[grouped]`` / ``[aq]`` for those. A codebook (lut)
+    expert stack and ``kshards > 1`` raise ``NotImplementedError``.
     """
     out_dtype = out_dtype or x.dtype
     if x.device.type == "cpu":
         return dequant_matmul_moe_reference(
             x, qt, layer, n_experts=n_experts, stride=stride, mode=mode,
-            out_dtype=out_dtype, hot=hot)
+            out_dtype=out_dtype, hot=hot, act_quant=act_quant)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     experts = _moe_checks(x, qt, layer, n_experts, stride, mode, hot)
     _check_operands(x, qt, out_dtype, (qt.codes.shape[0],))
+    if act_quant:
+        return _launch_moe_aq(x, qt, layer, n_experts, stride, experts, mode,
+                              out_dtype, hot)
     k, n = qt.shape
-    total = 1 if mode == "concat" else n_experts
-    m = x.numel() // (k * total)
-    sum_mode = mode != "concat"
-    width = n if sum_mode else n_experts * n
-    lead = x.shape[1:-1] if sum_mode else x.shape[:-1]
-    out = torch.empty((m, width), dtype=out_dtype, device=x.device)
+    per_slot = mode != "concat"
+    m = x.numel() // (k * (n_experts if per_slot else 1))
+    sum_mode = _MOE_MODES[mode] == 1
+    out, shape = _moe_out(x, n, n_experts, mode, out_dtype)
     if m == 0:
-        return out.view(*lead, width)
+        return out.view(shape)
     tile = _tile(x, qt, m)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     sms = _sm_count(x.device)
@@ -541,7 +661,7 @@ def dequant_matmul_moe(x: torch.Tensor, qt: QTensor, layer: int, *,
         atomic = splits > 1 or (sum_mode and n_experts > 1) or hot is not None
         partial = None
         if atomic and out_dtype != torch.float32:
-            partial = torch.empty((m, width), dtype=torch.float32,
+            partial = torch.empty(out.shape, dtype=torch.float32,
                                   device=x.device)
         fn = _build.entry("dequant_matmul_cc", "dequant_matmul_moe_launch",
                           _MOE_ARGTYPES)
@@ -550,14 +670,14 @@ def dequant_matmul_moe(x: torch.Tensor, qt: QTensor, layer: int, *,
                 int(out_dtype == torch.float32),
                 None if partial is None else partial.data_ptr(), int(atomic),
                 m, k, n, qt.group_size, qt.bits, splits, n_experts,
-                int(sum_mode), layer, stride, experts, hot_ptr, stream)
+                _MOE_MODES[mode], layer, stride, experts, hot_ptr, stream)
     else:
         splits, per = _tc_plan(tile, m, k, n, qt.bits, n_experts, sum_mode,
                                sms)
         grid_z = splits if sum_mode else n_experts * splits
-        # under a hot list a concat slot takes up to grid_z / n_hot
-        # partitions at decode M (the grid streams the hot experts' bytes),
-        # at most the planned ones at prefill M
+        # under a hot list a concat or grouped slot takes up to
+        # grid_z / n_hot partitions at decode M (the grid streams the hot
+        # experts' bytes), at most the planned ones at prefill M
         cap = grid_z if tile == "tc_decode" else splits
         multi = splits > 1 or (hot is not None and not sum_mode and cap > 1)
         ws = counters = None
@@ -573,9 +693,10 @@ def dequant_matmul_moe(x: torch.Tensor, qt: QTensor, layer: int, *,
                 None if ws is None else ws.data_ptr(),
                 None if counters is None else counters.data_ptr(),
                 m, k, n, qt.group_size, qt.bits, TILES.index(tile), splits,
-                per, cap, n_experts, int(sum_mode), layer, stride, experts,
-                hot_ptr, stream)
+                per, cap, n_experts, _MOE_MODES[mode], layer, stride,
+                experts, hot_ptr, stream)
     _build.check(rc, "dequant_matmul_moe", "dequant_matmul_cc"
                  if tile == "cuda_core" else "dequant_matmul")
-    _count("dequant_matmul_moe", tile)
-    return out.view(*lead, width)
+    _count("dequant_matmul_moe", tile,
+           *(("grouped",) if mode == "grouped" else ()))
+    return out.view(shape)

@@ -24,8 +24,9 @@ softcap. Every projection is a
 :func:`quant_tpu_torch.kernels.dequant_matmul.dequant_matmul_moe`. A model
 without experts also takes codebook weights (``codebook`` "nf4" or
 "lloyd": the table in the kernel at ``lut_runtime`` "word4" or "sel15";
-"int8" transcodes at load) and int8 activations (``act_quant``: W8A8,
-W4A8), as the JAX package's ``_mm`` passes them to its kernel.
+"int8" transcodes at load); every model takes int8 activations
+(``act_quant``: W8A8, W4A8, the experts' matmuls too), as the JAX
+package's ``_mm`` and ``_moe`` pass them to its kernels.
 
 PyTorch idiom in place of JAX's:
 
@@ -65,6 +66,7 @@ slices raises ``NotImplementedError``.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -214,14 +216,12 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for anything outside the ported dense,
     sparse-MoE and DeepSeek (MLA) slices."""
     unsupported = {
-        "moe_prefill='capacity'": cfg.moe_prefill == "capacity",
-        "moe_fused=False (the per-expert loop is only the plain path)":
-            cfg.n_experts and not cfg.moe_fused,
         f"act_fn={cfg.act_fn!r}": cfg.act_fn not in ("silu", "gelu_tanh"),
         f"rope_scaling={cfg.rope_scaling!r}":
             cfg.rope_scaling not in ("none", "linear", "llama3", "yarn"),
         f"kv_bits={cfg.kv_bits}": cfg.kv_bits not in (4, 8, 16),
-        "act_quant (W8A8) with experts": cfg.n_experts and cfg.act_quant,
+        # the JAX reference fails on these (its _merge_experts leaves the
+        # [E, L, 16] tables unmerged; ROADMAP.md queue 3)
         "codebook (lut) weights with experts":
             cfg.n_experts and cfg.codebook is not None,
         f"kernel_mode={cfg.kernel_mode!r}":
@@ -620,8 +620,15 @@ def mlp_block(x: torch.Tensor, lay: LayerParams, i: int, cfg: ModelConfig,
       slots are the routed experts only: the hot list is built on the device
       and the kernel streams no cold expert. ``moe_routed="off"`` keeps all
       E slots.
+    * ``moe_prefill="capacity"`` at ``B*T*k >= 2E`` (prefill and high-batch
+      decode): the GShard capacity dispatch (:func:`_moe_capacity`).
+    * ``moe_fused=False``: a loop over all E experts through
+      ``dequant_matmul`` (each expert's output times its routing weights,
+      zero where no token routed to it), no host sync.
     * plain (``kernel_mode="xla"``): a loop over the experts some token
       routed to, through the plain matmul.
+
+    Every expert matmul carries ``act_quant`` (W8A8 / W4A8).
     """
     if not cfg.n_experts:
         return _glu(x, lay.w_gate_up, lay.w_down, i, cfg, mm, dt)
@@ -652,19 +659,27 @@ def _moe(x: torch.Tensor, lay: LayerParams, i: int, cfg: ModelConfig, mm,
     wdn = _merge_experts(lay.we_down)
     e, n_l = cfg.n_experts, lay.attn_norm.shape[0]
     b, t = x.shape[0], x.shape[1]
+    n_tok = b * t
+    k = cfg.experts_per_token
+    if cfg.moe_prefill == "capacity" and n_tok * k >= 2 * e:
+        return _moe_capacity(x, w, wgu, wdn, i, n_l, cfg, mm, dt)
+    if cfg.kernel_mode != "xla" and not cfg.moe_fused:
+        # the per-expert loop through the kernel, every expert weighted (no
+        # host sync; an unrouted expert's weights are zero)
+        out = torch.zeros((b, t, wdn.n), dtype=torch.float32,
+                          device=x.device)
+        for j in range(e):
+            out = out + _expert(x, wgu, wdn, j * n_l + i, cfg, mm,
+                                dt) * w[..., j:j + 1]
+        return out
     if cfg.kernel_mode == "xla":
         out = torch.zeros((b, t, wdn.n), dtype=torch.float32,
                           device=x.device)
         routed = (w > 0).reshape(-1, e).any(dim=0).tolist()
         for j in (j for j in range(e) if routed[j]):
-            gate, up = mm(x, wgu, j * n_l + i).chunk(2, dim=-1)
-            a_e = _act(cfg)(gate.to(torch.float32)).to(dt) * up
-            y = mm(_pad_x_to_k(a_e, wdn.k), wdn, j * n_l + i,
-                   out_dtype=torch.float32)
-            out = out + y * w[..., j:j + 1]
+            out = out + _expert(x, wgu, wdn, j * n_l + i, cfg, mm,
+                                dt) * w[..., j:j + 1]
         return out
-    n_tok = b * t
-    k = cfg.experts_per_token
     exp_hot = 1.0 - (1.0 - k / e) ** n_tok
     routed = cfg.moe_routed != "off" and (
         n_tok * k * 2 <= e
@@ -673,13 +688,85 @@ def _moe(x: torch.Tensor, lay: LayerParams, i: int, cfg: ModelConfig, mm,
     if routed:
         hot, w = _hot_list(w)
     gu = dequant_matmul_moe(x, wgu, i, n_experts=e, stride=n_l,
-                            mode="concat", hot=hot)      # [B, T, E * 2I]
+                            mode="concat", hot=hot,
+                            act_quant=cfg.act_quant)     # [B, T, E * 2I]
     gate, up = gu.reshape(b, t, e, -1).chunk(2, dim=-1)
     a = _act(cfg)(gate.to(torch.float32)).to(dt) * up
     a = _pad_x_to_k(a * w.to(dt)[..., None], wdn.k)
     return dequant_matmul_moe(a.permute(2, 0, 1, 3).contiguous(), wdn, i,
                               n_experts=e, stride=n_l, mode="psum",
-                              out_dtype=torch.float32, hot=hot)
+                              out_dtype=torch.float32, hot=hot,
+                              act_quant=cfg.act_quant)
+
+
+def _expert(x, wgu: QTensor, wdn: QTensor, entry: int, cfg: ModelConfig, mm,
+            dt: torch.dtype) -> torch.Tensor:
+    """One expert's GLU on x through ``mm`` at stack entry ``entry`` (gate|up,
+    activation, the down projection's K padding, down in f32)."""
+    gate, up = mm(x, wgu, entry).chunk(2, dim=-1)
+    a_e = _act(cfg)(gate.to(torch.float32)).to(dt) * up
+    return mm(_pad_x_to_k(a_e, wdn.k), wdn, entry, out_dtype=torch.float32)
+
+
+def capacity_slots(w2: torch.Tensor, cap: int
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The capacity dispatch's slots, on the device: routing weights [N, E]
+    -> (token of each slot, int64 [E, C]; its routing weight, f32 [E, C]).
+    Each token's rank among its expert's routed tokens comes from a cumsum;
+    a rank at or past C (a dropped token) and every unrouted pair land in a
+    spare column C that is sliced away. Unused slots hold token 0 with
+    weight 0."""
+    n, e = w2.shape
+    sel = w2 > 0
+    pos = torch.cumsum(sel.to(torch.int32), dim=0) - 1
+    slot = torch.where(sel & (pos < cap), pos,
+                       torch.full_like(pos, cap)).T.to(torch.int64)
+    toks = torch.arange(n, device=w2.device).expand(e, n)
+    st = torch.zeros((e, cap + 1), dtype=torch.int64,
+                     device=w2.device).scatter_(1, slot, toks)[:, :cap]
+    sw = torch.zeros((e, cap + 1), dtype=torch.float32,
+                     device=w2.device).scatter_(
+        1, slot, w2.T.to(torch.float32))[:, :cap]
+    return st, sw
+
+
+def _moe_capacity(x: torch.Tensor, w: torch.Tensor, wgu: QTensor,
+                  wdn: QTensor, i: int, n_l: int, cfg: ModelConfig, mm,
+                  dt: torch.dtype) -> torch.Tensor:
+    """The GShard fixed-capacity dispatch (``moe_prefill="capacity"``, past
+    ``B*T*k >= 2E``), the JAX package's ``_moe_capacity``: each expert takes
+    its first C routed tokens, ``C = min(max(8, round_up(ceil(N*k/E * cf),
+    8)), N)``; a token past an expert's capacity loses that expert's
+    contribution. Kernels (``moe_fused``): the tokens gathered into
+    ``[E, C, D]``, gate|up and down each ONE grouped ``dequant_matmul_moe``
+    launch, the rows scatter-added back weighted by their routing weights.
+    Plain (``kernel_mode="xla"``) or ``moe_fused=False``: a loop over the
+    experts through ``mm`` on each expert's C rows. No host sync."""
+    b, t, d = x.shape
+    n, e = b * t, cfg.n_experts
+    cap = math.ceil(n * cfg.experts_per_token / e * cfg.moe_capacity_factor)
+    cap = min(max(8, -(-cap // 8) * 8), n)
+    x2 = x.reshape(n, d)
+    st, sw = capacity_slots(w.reshape(n, e), cap)
+    out = torch.zeros((n, wdn.n), dtype=torch.float32, device=x.device)
+    if cfg.kernel_mode == "xla" or not cfg.moe_fused:
+        for j in range(e):
+            ye = _expert(x2.index_select(0, st[j]), wgu, wdn, j * n_l + i,
+                         cfg, mm, dt)
+            out.index_add_(0, st[j], ye * sw[j, :, None])
+        return out.reshape(b, t, -1)
+    xs = x2.index_select(0, st.reshape(-1)).reshape(e, cap, d)
+    gu = dequant_matmul_moe(xs, wgu, i, n_experts=e, stride=n_l,
+                            mode="grouped",
+                            act_quant=cfg.act_quant)     # [E, C, 2I]
+    gate, up = gu.chunk(2, dim=-1)
+    a = _pad_x_to_k(_act(cfg)(gate.to(torch.float32)).to(dt) * up, wdn.k)
+    y = dequant_matmul_moe(a, wdn, i, n_experts=e, stride=n_l,
+                           mode="grouped", out_dtype=torch.float32,
+                           act_quant=cfg.act_quant)      # [E, C, D]
+    out.index_add_(0, st.reshape(-1), y.reshape(e * cap, -1)
+                   * sw.reshape(-1, 1))
+    return out.reshape(b, t, -1)
 
 
 def _q_scale(cfg: ModelConfig, dh: int) -> float:

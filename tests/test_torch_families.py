@@ -518,12 +518,15 @@ def test_check_supported_takes_the_families():
                    {"act_quant": True}, {"act_quant": True, "bits": 8}):
         tllama.check_supported(dataclasses.replace(TPRESETS["llama-3-8b"],
                                                    **change))
+    # the MoE capacity dispatch, W8A8 experts and the per-expert loop
+    for preset, change in (("mixtral-8x7b", {"act_quant": True}),
+                           ("mixtral-8x7b", {"moe_prefill": "capacity"}),
+                           ("deepseek-v2-lite", {"moe_fused": False})):
+        tllama.check_supported(dataclasses.replace(TPRESETS[preset],
+                                                   **change))
     refused = [
         ("llama-3-8b", {"embed_bits": 4}, "embed_bits=4"),
         ("mixtral-8x7b", {"codebook": "nf4"}, "codebook"),
-        ("mixtral-8x7b", {"act_quant": True}, "act_quant"),
-        ("mixtral-8x7b", {"moe_prefill": "capacity"}, "capacity"),
-        ("deepseek-v2-lite", {"moe_fused": False}, "moe_fused"),
     ]
     for preset, change, name in refused:
         with pytest.raises(NotImplementedError, match=name):

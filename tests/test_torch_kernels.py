@@ -1034,6 +1034,84 @@ def test_moe_cuda_kernel_matches_plain_on_card():
 
 
 @pytest.mark.gpu
+def test_moe_grouped_and_aq_match_plain_on_card():
+    """dequant_matmul_moe's grouped mode (the capacity dispatch) and its
+    int8 activations (aq: concat, psum and grouped) against the plain
+    version: int4 and int8 stacks, groups of 128 and of 64 (K/2 = 704 rows:
+    the padded-down shape's odd stage count), M at both tiles' sizes and
+    edges, without a hot list and with hot lists of none, some and all of
+    the slots, bf16 and f32 out, and f32 x on the CUDA-core tile (grouped).
+    Each output is handed out NaN-filled and the cold slots' x rows are NaN:
+    a cold slot must come out exactly zero (concat, grouped) or not at all
+    (psum). Each launch counts under its tile and variant. Tolerances: bf16
+    out or bf16 x without aq 2e-2 of max|ref|; f32 out 1e-4 (aq's int32
+    dots are exact; the CUDA-core tile is f32)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    _build.build()
+    e, nl = 4, 3
+    hots = [None] + [torch.tensor(h, dtype=torch.int32, device=dev)
+                     for h in ([0, 0, 0, 0, 0], [2, 3, 1, 1, 1],
+                               [4, 2, 0, 3, 1])]
+    cases = [("grouped", False, torch.bfloat16),
+             ("grouped", False, torch.float32), ("grouped", True,
+                                                  torch.bfloat16),
+             ("concat", True, torch.bfloat16), ("psum", True, torch.bfloat16)]
+    for bits in (4, 8):
+        for k, n, g in ((512, 768, 128), (1408, 256, 64)):
+            qt = _rand_stack(gen, dev, e * nl, k, n, bits, g)
+            for m in (1, 8, 17, 130):
+                for mode, aq, xdt in cases:
+                    tile = ("cuda_core" if xdt == torch.float32 and not aq
+                            else "tc_decode" if m <= 16 else "tc_prefill")
+                    for h in hots:
+                        n_hot = e if h is None else int(h[0])
+                        shape = (m, k) if mode == "concat" else (e, m, k)
+                        x = torch.randn(shape, generator=gen,
+                                        device=dev).to(xdt)
+                        if mode != "concat":
+                            x[n_hot:] = float("nan")
+                        for odt in (torch.float32, torch.bfloat16):
+                            kw = dict(n_experts=e, stride=nl, mode=mode,
+                                      out_dtype=odt, hot=h, act_quant=aq)
+                            ref = dequant_matmul_moe_reference(
+                                x, qt, 2, **kw).float()
+                            rows = (m * e if mode == "grouped" else m)
+                            width = e * n if mode == "concat" else n
+                            ptr = _nan_block((rows, width), odt, dev)
+                            _build.reset_launches()
+                            got = dequant_matmul_moe(x, qt, 2, **kw)
+                            torch.cuda.synchronize()
+                            what = (bits, k, m, mode, aq, str(xdt), n_hot,
+                                    str(odt))
+                            for name, want in (
+                                    ("dequant_matmul_moe", 1),
+                                    (f"dequant_matmul_moe[{tile}]", 1),
+                                    ("dequant_matmul_moe[grouped]",
+                                     int(mode == "grouped")),
+                                    ("dequant_matmul_moe[aq]", int(aq)),
+                                    ("act_quant_int8", int(aq))):
+                                assert _build.launches[name] == want, (
+                                    what, name)
+                            assert got.data_ptr() == ptr and got.dtype == odt
+                            assert got.shape == ref.shape, what
+                            assert torch.isfinite(got).all(), what
+                            if mode == "concat":
+                                assert not got.view(m, e, n)[:, n_hot:].any()
+                            if mode == "grouped":
+                                assert not got[n_hot:].any(), what
+                            f32 = odt == torch.float32 and (
+                                aq or xdt == torch.float32)
+                            tol = 1e-4 if f32 else 2e-2
+                            err = (got.float() - ref).abs().max()
+                            assert err <= tol * max(float(ref.abs().max()),
+                                                    1e-30), (what, float(err))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dq", [128, 576, 640])
 @pytest.mark.parametrize("h", [4, 16, 32, 128])
 def test_mla_cuda_kernels_match_plain_on_card(h, dq):

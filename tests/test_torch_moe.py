@@ -250,13 +250,25 @@ def test_dequant_matmul_moe_matches_jax(jax_moe, mode, bits, use_hot):
     assert err <= 1e-5 * np.max(np.abs(ref)), err
 
 
-def test_moe_grouped_mode_is_not_ported():
-    tq = QTensor(codes=torch.zeros((2, 8, 8), dtype=torch.uint8),
-                 scales=torch.ones((2, 1, 8)), bits=4, group_size=16,
-                 shape=(16, 8))
-    with pytest.raises(NotImplementedError, match="grouped"):
-        dequant_matmul_moe(torch.zeros((2, 1, 16)), tq, 0, n_experts=2,
-                           stride=1, mode="grouped")
+def test_moe_grouped_mode_runs():
+    """mode="grouped" (the capacity dispatch's grouped GEMM): x [E, .., K]
+    -> [E, .., N], slot j's own rows through its own expert, equal to one
+    plain matmul per slot (``tests/test_torch_moe_capacity.py`` holds it
+    against the JAX kernel)."""
+    rng = np.random.default_rng(5)
+    jq = jax.tree.map(lambda *a: np.stack(a), *[
+        j_quantize(rng.standard_normal((64, 32), dtype=np.float32), 4,
+                   group_size=32) for _ in range(4)])
+    tq = QTensor(codes=torch.from_numpy(np.asarray(jq.codes)),
+                 scales=torch.from_numpy(np.asarray(jq.scales)), bits=4,
+                 group_size=32, shape=(64, 32))
+    x = torch.from_numpy(rng.standard_normal((2, 3, 5, 64),
+                                             dtype=np.float32))
+    got = dequant_matmul_moe(x, tq, 1, n_experts=2, stride=2,
+                             mode="grouped")
+    assert got.shape == (2, 3, 5, 32)
+    for j in range(2):
+        assert torch.equal(got[j], x[j] @ tq.layer(2 * j + 1).dequantize())
 
 
 @pytest.mark.parametrize("k", [768, 1024])
@@ -479,18 +491,31 @@ def test_moe_checkpoint_round_trips_both_ways(tmp_path, jax_engine):
             assert a.shape == b.shape and a.tobytes() == b.tobytes(), name
 
 
-@pytest.mark.parametrize("change", [
-    {"act_quant": True}, {"embed_bits": 4},
-    {"moe_prefill": "capacity"}, {"codebook": "nf4"},
-    {"moe_fused": False}])
+@pytest.mark.parametrize("change", [{"embed_bits": 4}, {"codebook": "nf4"}])
 def test_moe_outside_the_slice_raises(change):
     """Shared experts, dense-prefix layers and the selection bias are
     ported (``tests/test_torch_mla.py``), and so are the unquantized and
-    the int4 caches; the capacity dispatch, the per-expert loop, W8A8,
-    codebooks and 4-bit embeddings are not."""
+    the int4 caches, the capacity dispatch, the per-expert loop and W8A8 /
+    W4A8 experts (``tests/test_torch_moe_capacity.py``); 4-bit embeddings
+    are not, and codebook expert stacks are not because the JAX reference
+    itself fails on them (ROADMAP.md queue 3)."""
     cfg = dataclasses.replace(TTINY, **change)
     with pytest.raises(NotImplementedError):
         tllama.init_params(cfg, seed=0, device="cpu")
+
+
+@pytest.mark.parametrize("change", [
+    {"act_quant": True}, {"moe_prefill": "capacity"}, {"moe_fused": False}])
+def test_moe_variants_are_in_the_slice(change):
+    """W8A8 experts, the capacity dispatch and the per-expert loop:
+    init_params and a kernel-mode Engine run them (4
+    slots: at B=4 decode 4 x top-2 >= 2E engages the capacity dispatch)."""
+    cfg = dataclasses.replace(TTINY, kernel_mode="auto", **change)
+    params = tllama.init_params(cfg, seed=0, device="cpu")
+    eng = TEngine(params, cfg, device="cpu", max_slots=4, max_seq=32,
+                  eos_id=-1)
+    out = eng.generate([[1, 2, 3, 4, 5, 6, 7, 8]] * 4, max_new_tokens=2)
+    assert all(len(o) == 2 for o in out)
 
 
 def test_moe_init_params_structure():
