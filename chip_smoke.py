@@ -130,6 +130,25 @@ Phases; the first failure ends the run with a non-zero exit code:
              (kernel_mode "auto") and with the plain versions ("xla"), with
              the kernels over a paged pool, and with the kernels again (the
              run-to-run spread the paged difference is read against).
+   serving-api  the same params behind an in-process server with a byte
+             tokenizer (ids 0-94 printable ASCII, the others fixed 2-4
+             letter strings, EOS 128001) and a contiguous engine of 8
+             slots: an unconstrained greedy request, then 8 requests of 32
+             new tokens at once, half streamed: a -100 logit bias on that
+             run's first token (never served) and a +100 bias (every token
+             the forced one), presence 1.5 + repetition 1.3 and top-5
+             logprobs (each served token teacher-forced with the plain
+             ``apply_penalties``, 1e-1 of max|logit|), a guided regex on a
+             text prompt, a guided choice on a chat prompt, a guided JSON
+             schema (matched, parsed and checked) and a stop string (2
+             tokens' text of the first run: finish_reason "stop", the text
+             cut before the match), with exact launch counts; the FSMs'
+             host build times and states; /v1/embeddings of 2 inputs
+             against the plain path's pooled ``return_hidden`` states
+             (5e-2 relative, norm 1 within 1e-5); one B=8 ``step_block(8)``
+             with penalties, bias, an FSM and top-5 logprobs on every slot
+             and with none, on the host clock and under ``torch.profiler``:
+             as many device-to-host copies and synchronizations either way.
    kv4       the same params over the int4 head-pair cache: slots
              prefilled to 100-2000 tokens and 4 decode steps, kernels
              against plain and paged against contiguous logits (5e-2 of
@@ -2090,6 +2109,396 @@ def profile_decode(eng, steps: int = 3, label: str = "decode",
         log(f"[profile]   host   {ms:8.3f} ms/step  {calls:6.0f} calls/step  "
             f"{name[:80]}")
     return res
+
+
+class ByteTokenizer:
+    """A duck-typed tokenizer over a model vocab: ids 0-94 are the printable
+    ASCII characters, each other id a fixed 2-4 letter string from a seeded
+    rng, ``eos_id`` the empty string. ``encode`` spells text one character
+    a token."""
+
+    def __init__(self, vocab: int, eos_id: int, seed: int = 0):
+        rng = np.random.default_rng(seed)
+        letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz", np.uint8)
+        self.strs = [chr(32 + i) for i in range(95)] + [
+            bytes(rng.choice(letters, int(n))).decode()
+            for n in rng.integers(2, 5, vocab - 95)]
+        self.strs[eos_id] = ""
+        self.eos_id = eos_id
+
+    def encode(self, text: str) -> list[int]:
+        return [ord(c) - 32 for c in text if 32 <= ord(c) < 127]
+
+    def decode(self, ids) -> str:
+        return "".join(self.strs[int(t)] for t in ids)
+
+    def apply_chat_template(self, messages, add_generation_prompt=False):
+        text = "".join(f"<{m['role']}>{m['content']}\n" for m in messages)
+        return self.encode(text + ("<assistant>" if add_generation_prompt
+                                   else ""))
+
+
+# the serving-api phase: the guided fields, and a block of requests with
+# every feature on for the step profile
+API_REGEX = "[0-9]{3}-[a-z]{4}"
+API_CHOICES = ["yes", "no", "maybe"]
+API_SCHEMA = {"type": "object", "properties": {
+    "ok": {"type": "boolean"}, "tag": {"enum": ["a", "b"]}}}
+API_EOS = 128001
+
+
+def count_syncs(fn) -> dict:
+    """``torch.profiler`` over one call of ``fn``: its device-to-host and
+    host-to-device copies (device events) and the host's stream, device and
+    event synchronizations (CUDA runtime calls), with its device kernels.
+    The profiler may lose a trace's first device events, so empty spin
+    kernels and a marker go first and only the device events after the
+    marker count (``utils.timing._trace``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from quant_tpu_torch.utils.timing import _MARK_CYCLES, _PAD_KERNELS
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(_PAD_KERNELS):
+            torch.cuda._sleep(1)
+        torch.cuda._sleep(_MARK_CYCLES)
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    marks = [e.time_range.end for e in events
+             if e.device_type == DeviceType.CUDA and "spin_kernel" in e.name]
+    if not marks:
+        raise AssertionError("serving-api profile: the marker went missing")
+    res = {"d2h_copies": 0, "h2d_copies": 0, "syncs": 0, "kernels": 0}
+    for e in events:
+        if e.device_type == DeviceType.CUDA:
+            if e.time_range.start < marks[-1] or "spin_kernel" in e.name:
+                continue
+            if "DtoH" in e.name:
+                res["d2h_copies"] += 1
+            elif "HtoD" in e.name:
+                res["h2d_copies"] += 1
+            elif not e.name.startswith(("Memcpy", "Memset")):
+                res["kernels"] += 1
+        elif e.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                        "cudaEventSynchronize"):
+            res["syncs"] += 1
+    # the call's own closing synchronize
+    res["syncs"] -= 1
+    return res
+
+
+def api_block_profile(eng, tok, prompts, features: bool, n: int = 8) -> dict:
+    """8 requests decoding together (penalties, a logit bias, a regex FSM
+    and top-5 logprobs on each, or none), admitted and warmed by one block;
+    then one ``step_block(n)`` on the host clock and one under the
+    profiler, with its copies and synchronizations counted."""
+    from quant_tpu_torch.engine import Request, SamplingConfig
+    from quant_tpu_torch.engine.grammar import regex_fsm, vocab_bytes
+
+    kw = {}
+    if features:
+        fsm = regex_fsm("[a-z ]{150,200}", vocab_bytes(tok, eng.cfg.vocab_size),
+                        eng.eos_id)
+        kw = dict(fsm=fsm, top_logprobs=5, sampling=SamplingConfig(
+            repetition_penalty=1.3, presence_penalty=1.5,
+            logit_bias=((11, 5.0), (12, -100.0))))
+    reqs = [Request(req_id=1000 + i, prompt=p, max_new_tokens=8 + 3 * n,
+                    **kw) for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.add_request(r)
+    eng.step_block(4)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.step_block(n)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / n
+    res = count_syncs(lambda: eng.step_block(n))
+    # the first token, then 4 + n + n
+    if not all(len(r.output) == 5 + 2 * n and not r.finished for r in reqs):
+        raise AssertionError("serving-api profile: a request finished or "
+                             "another was admitted inside the blocks")
+    for r in reqs:
+        eng.cancel(r.req_id)
+    return {"host_ms_per_step": host_ms,
+            "device_kernels_per_step": res["kernels"] / n, **res}
+
+
+def teacher_forced_api(params, cfg, prompt, out, pen=None, top=None) -> dict:
+    """One served answer fed back through a contiguous cache with the
+    kernels: at each served position, the teacher-forced logits with the
+    port's plain ``apply_penalties`` over the counts so far (``pen`` = the
+    request's repetition, frequency and presence penalties). The served
+    token must lie within ``TF_MARGIN`` of max|logit| of the maximum; with
+    ``top`` = (ids, logprobs) served, each logprob within that rule of the
+    teacher-forced log-softmax, and each id the teacher-forced one wherever
+    the gap to the next candidate exceeds the rule."""
+    from quant_tpu_torch.engine import sampler
+    from quant_tpu_torch.models import llama
+
+    toks = prompt + out[:-1]
+    cache = llama.init_cache(cfg, 1, 1024, "cuda")
+    lg, _ = llama.forward(params, [toks], cache, cfg, device="cuda")
+    lg = lg[0, len(prompt) - 1:]                        # [n_out, V]
+    gaps, lp_err, id_checked, id_wrong = [], 0.0, 0, 0
+    for j, t in enumerate(out):
+        row = lg[j:j + 1]
+        scale = float(row.abs().max())
+        if pen is not None:
+            counts = torch.bincount(torch.tensor(prompt + out[:j],
+                                                 device="cuda"),
+                                    minlength=cfg.vocab_size)[None]
+            row = sampler.apply_penalties(
+                row, counts, *(torch.tensor([v], device="cuda")
+                               for v in pen))
+        gaps.append(float((row.max() - row[0, t]) / row.abs().max()))
+        if top is not None:
+            lsm = torch.log_softmax(lg[j].float(), -1)
+            ids, lps = top[0][j], top[1][j]
+            ref = lsm[torch.tensor(ids, device="cuda")].cpu().numpy()
+            lp_err = max(lp_err, float(np.max(np.abs(ref - lps))) / scale)
+            srt = torch.sort(lsm, descending=True)
+            vals, order = srt.values[:len(ids) + 1].cpu().numpy(), srt.indices
+            for k in range(len(ids)):
+                if vals[k] - vals[k + 1] > TF_MARGIN * scale and (
+                        k == 0 or vals[k - 1] - vals[k] > TF_MARGIN * scale):
+                    id_checked += 1
+                    id_wrong += int(order[k]) != ids[k]
+    res = {"max_gap": max(gaps), "top_lp_max_err": lp_err,
+           "top_ids_checked": id_checked, "top_ids_wrong": id_wrong}
+    if res["max_gap"] > TF_MARGIN or lp_err > TF_MARGIN or id_wrong:
+        raise AssertionError(f"serving-api teacher forcing: {res} (limit "
+                             f"{TF_MARGIN})")
+    return res
+
+
+def phase_serving_api(detail: dict, params, cfg) -> dict:
+    """The serving API on the full-width Llama-3-8B: an in-process server
+    with a byte tokenizer in front of a contiguous engine (8 slots, EOS
+    128001). An unconstrained greedy request first; then 8 requests of 32
+    new tokens at once from 8 threads, half streamed: a -100 bias on that
+    run's first token, a +100 bias, presence + repetition penalties and
+    top-5 logprobs (each served token teacher-forced), a guided regex (a
+    text prompt), a guided choice (a chat prompt), a guided JSON schema and
+    a stop string (2 tokens' text of the first run), with exact launch
+    counts; /v1/embeddings of 2 inputs against the plain path's pooled
+    hidden states; then one B=8 ``step_block`` with every feature on and
+    with none, on the host clock and under the profiler, whose copies and
+    synchronizations must agree."""
+    import re
+
+    from quant_tpu_torch.engine import Engine
+    from quant_tpu_torch.engine.grammar import vocab_bytes
+    from quant_tpu_torch.engine.server import serve_async
+    from quant_tpu_torch.kernels import _build
+    from quant_tpu_torch.models import llama
+
+    n_new = 32
+    eng = Engine(params, cfg, max_slots=8, max_seq=1024, eos_id=API_EOS,
+                 device="cuda")
+    tok = ByteTokenizer(cfg.vocab_size, API_EOS)
+    rng = np.random.default_rng(11)
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, n)]
+               for n in rng.integers(24, 200, 8)]
+    httpd, srv = serve_async(eng, tokenizer=tok, model_name="llama-3-8b")
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    out: dict = {}
+    try:
+        t0 = time.perf_counter()
+        vocab_bytes_s = None
+        fsm_build = {}
+        for name, body in (("regex", {"guided_regex": API_REGEX}),
+                           ("choice", {"guided_choice": API_CHOICES}),
+                           ("json", {"guided_json": API_SCHEMA})):
+            t1 = time.perf_counter()
+            fsm = srv.guided_fsm(body)
+            fsm_build[name] = {"s": time.perf_counter() - t1,
+                               "states": fsm.n_states}
+            if vocab_bytes_s is None and name == "regex":
+                vocab_bytes_s = fsm_build[name]["s"]
+        log(f"[serving-api] FSMs built on the host (the first with the "
+            f"vocab's bytes): {fsm_build}")
+        free = http_json(base + "/generate", {"prompt_ids": prompts[0],
+                                              "max_new_tokens": n_new})
+        first = free["output_ids"]
+        free_text = tok.decode(first)
+        stop = tok.decode(first[3:5])
+        forced = 1234 % cfg.vocab_size
+        pen = (1.3, 0.0, 1.5)
+        bodies = [
+            ("ban", "/generate", {"prompt_ids": prompts[0],
+                                  "logit_bias": {str(first[0]): -100}}),
+            ("force", "/generate", {"prompt_ids": prompts[1],
+                                    "logit_bias": {str(forced): 100}}),
+            ("penalties", "/generate", {"prompt_ids": prompts[2],
+                                        "repetition_penalty": pen[0],
+                                        "presence_penalty": pen[2],
+                                        "stream": True}),
+            ("top", "/generate", {"prompt_ids": prompts[3],
+                                  "top_logprobs": 5, "logprobs": True,
+                                  "stream": True}),
+            ("regex", "/v1/completions", {"prompt": "the code is ",
+                                          "guided_regex": API_REGEX}),
+            ("choice", "/v1/chat/completions", {
+                "messages": [{"role": "user", "content": "yes or no?"}],
+                "guided_choice": API_CHOICES}),
+            ("json", "/v1/completions", {"prompt": prompts[4],
+                                         "guided_json": API_SCHEMA,
+                                         "max_tokens": 2 * n_new,
+                                         "stream": True}),
+            ("stop", "/v1/completions", {"prompt": prompts[0],
+                                         "stop": stop}),
+        ]
+        answers, errors = {}, []
+
+        def client(name, path, body):
+            body = {"max_new_tokens": n_new, "max_tokens": n_new,
+                    "temperature": 0, **body}
+            try:
+                if path == "/generate" and body.get("stream"):
+                    toks, done = http_stream(base + path, body)
+                    answers[name] = {"stream": toks, **done}
+                elif body.get("stream"):
+                    answers[name] = sse_answer(base + path, body)
+                else:
+                    answers[name] = http_json(base + path, body)
+            except Exception as e:      # noqa: BLE001 (reported below)
+                errors.append(f"{name}: {e!r}")
+        torch.cuda.synchronize()
+        chunks0, dec0 = eng.prefill_chunks, eng.decode_forwards
+        _build.reset_launches()
+        threads = [threading.Thread(target=client, args=b) for b in bodies]
+        t1 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        traffic_s = time.perf_counter() - t1
+        launches = dict(_build.launches)
+        chunks = eng.prefill_chunks - chunks0
+        decodes = eng.decode_forwards - dec0
+        if errors or len(answers) != len(bodies):
+            raise AssertionError(f"serving-api: {errors}")
+        check_launches("serving-api", launches, {
+            "dequant_matmul": (4 * cfg.n_layers + 1) * (chunks + decodes),
+            "cache_insert_int8[fused]": cfg.n_layers * decodes,
+            "flash_decode_int8": cfg.n_layers * decodes})
+        a = answers
+        ids = {k: (v["output_ids"] if "output_ids" in v
+                   else v["choices"][0]["token_ids"]) for k, v in a.items()}
+        if first[0] in ids["ban"]:
+            raise AssertionError("serving-api: a -100 bias let its token in")
+        if ids["force"] != [forced] * n_new:
+            raise AssertionError(f"serving-api: +100 bias gave {ids['force']}")
+        for k in ("penalties", "top"):
+            if a[k]["stream"] != a[k]["output_ids"]:
+                raise AssertionError(f"serving-api: {k} stream differs")
+        regex_text = a["regex"]["choices"][0]["text"]
+        if not re.fullmatch(API_REGEX, regex_text):
+            raise AssertionError(f"serving-api: regex answer {regex_text!r}")
+        choice_text = a["choice"]["choices"][0]["message"]["content"]
+        if choice_text not in API_CHOICES:
+            raise AssertionError(f"serving-api: choice {choice_text!r}")
+        json_text = a["json"]["text"]
+        doc = json.loads(json_text)
+        if (set(doc) != {"ok", "tag"} or not isinstance(doc["ok"], bool)
+                or doc["tag"] not in ("a", "b")):
+            raise AssertionError(f"serving-api: json answer {json_text!r}")
+        st = a["stop"]["choices"][0]
+        want = free_text[:free_text.find(stop)]
+        if st["finish_reason"] != "stop" or st["text"] != want:
+            raise AssertionError(f"serving-api: stop {stop!r}: "
+                                 f"{st['finish_reason']} {st['text']!r}, "
+                                 f"expected {want!r}")
+        tf_pen = teacher_forced_api(params, cfg, prompts[2],
+                                    ids["penalties"], pen=pen)
+        tf_top = teacher_forced_api(
+            params, cfg, prompts[3], ids["top"],
+            top=(a["top"]["top_token_ids"], a["top"]["top_logprobs"]))
+        if len(a["top"]["top_token_ids"]) != n_new or any(
+                len(r) != 5 for r in a["top"]["top_token_ids"]):
+            raise AssertionError("serving-api: top_logprobs shape")
+        # embeddings against the plain path's pooled hidden states
+        inputs = ["a plain text input", prompts[5][:100]]
+        emb = http_json(base + "/v1/embeddings", {"input": inputs})
+        plain_cfg = dataclasses.replace(cfg, kernel_mode="xla")
+        emb_err = []
+        for item, got in zip(inputs, emb["data"]):
+            ids_in = tok.encode(item) if isinstance(item, str) else item
+            h, _ = llama.forward(params, [ids_in], llama.init_cache(
+                plain_cfg, 1, 128, "cuda"), plain_cfg, return_hidden=True,
+                device="cuda")
+            ref = h[0].mean(0)
+            ref = (ref / ref.norm()).cpu().numpy()
+            v = np.asarray(got["embedding"], np.float32)
+            emb_err.append({"rel_err": float(np.linalg.norm(v - ref)
+                                             / np.linalg.norm(ref)),
+                            "norm_minus_1": float(np.linalg.norm(v) - 1)})
+        if any(e["rel_err"] > 5e-2 or abs(e["norm_minus_1"]) > 1e-5
+               for e in emb_err):
+            raise AssertionError(f"serving-api: embeddings {emb_err}")
+        out.update({
+            "fsm_build": fsm_build, "vocab_bytes_and_regex_s": vocab_bytes_s,
+            "traffic_s": traffic_s, "prefill_chunks": chunks,
+            "decode_forwards": decodes, "launches": launches,
+            "teacher_forced_penalties": tf_pen,
+            "teacher_forced_top_logprobs": tf_top,
+            "embeddings": emb_err, "stop": stop,
+            "answers": {k: ids[k] for k in ids},
+            "texts": {"regex": regex_text, "choice": choice_text,
+                      "json": json_text, "stop": st["text"]}})
+        log(f"[serving-api] 8 requests of {n_new} tokens at once in "
+            f"{traffic_s:.2f}s: {chunks} prefill chunks, {decodes} decode "
+            f"forwards, launches {({k: v for k, v in launches.items() if v})}"
+            f"; regex {regex_text!r}, choice "
+            f"{choice_text!r}, json {json_text!r}, stop {stop!r} -> "
+            f"{st['text']!r}; teacher forced: penalties {tf_pen}, top-5 "
+            f"{tf_top}; embeddings {emb_err}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        srv.stop()
+    prof = {}
+    for on in (False, True):
+        prof["on" if on else "off"] = api_block_profile(
+            eng, tok, prompts, on)
+    on, off = prof["on"], prof["off"]
+    log(f"[serving-api] B=8 step_block(8), features off: "
+        f"{off['host_ms_per_step']:.2f} ms/step on the host clock, "
+        f"{off['device_kernels_per_step']:.1f} device kernels/step, "
+        f"{off['d2h_copies']} device-to-host copies, {off['syncs']} syncs; "
+        f"features on: {on['host_ms_per_step']:.2f} ms/step, "
+        f"{on['device_kernels_per_step']:.1f} kernels/step, "
+        f"{on['d2h_copies']} device-to-host copies, {on['syncs']} syncs")
+    if (on["d2h_copies"], on["syncs"]) != (off["d2h_copies"], off["syncs"]):
+        raise AssertionError(f"serving-api: the features add host syncs to "
+                             f"step_block: on {on}, off {off}")
+    out["step_block_profile"] = prof
+    out["total_s"] = time.perf_counter() - t0
+    detail["serving_api"] = out
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def sse_answer(url: str, payload) -> dict:
+    """POST an SSE /v1/completions; returns the last chunk's choice with the
+    concatenated token ids and text."""
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    toks, text, last = [], "", None
+    with _HTTP.open(req, timeout=600) as r:
+        for raw in r:
+            raw = raw.strip()
+            if not raw.startswith(b"data: ") or raw[6:] == b"[DONE]":
+                continue
+            last = json.loads(raw[6:])["choices"][0]
+            toks += last["token_ids"]
+            text += last.get("text", "")
+    return {**last, "token_ids": toks, "text": text, "output_ids": toks}
 
 
 def phase_model(detail: dict, params, cfg) -> None:
@@ -4683,6 +5092,8 @@ def run_all(args, detail: dict) -> int:
     paged = phase_paged_serving(detail, params, cfg)
     phase_model(detail, params, cfg)
     lap("llama")
+    phase_serving_api(detail, params, cfg)
+    lap("serving-api")
     kv4 = phase_kv4_llama(detail, params, cfg)
     lap("llama-kv4")
     aq = phase_act_quant_llama(detail, params, cfg)

@@ -5,8 +5,13 @@
     python -m quant_tpu_torch generate <ckpt_dir> --prompt-ids 1,2,3;4,5 \
         --max-new 32 [--slots 8] [--max-seq 1024] [--kv-bits 0|4|8|16] \
         [--lut-runtime int8|word4|sel15] [--device cuda]
+    python -m quant_tpu_torch generate <ckpt_dir> --prompt TEXT \
+        --tokenizer <hf_tokenizer_dir> [--repetition-penalty R] \
+        [--frequency-penalty F] [--presence-penalty P] \
+        [--logit-bias 13:-100,42:5] [--guided-regex REGEX]
     python -m quant_tpu_torch serve <ckpt_dir> [--host 127.0.0.1] \
-        [--port 8400] [--paged [--page-size N] [--n-pages N]] \
+        [--port 8400] [--tokenizer <hf_tokenizer_dir>] \
+        [--paged [--page-size N] [--n-pages N]] \
         [--prefix-cache] [--max-pending N] [--kv-bits 0|4|8|16] \
         [--lut-runtime int8|word4|sel15] [--device cuda]
     python -m quant_tpu_torch eval <ckpt_dir> --text file.txt \
@@ -19,8 +24,12 @@
 ``convert`` turns a Hugging Face safetensors directory into a packed
 checkpoint (quantized on the device, streamed tensor by tensor).
 ``generate`` prints one JSON line per prompt (``{"prompt": [...],
-"output": [...]}``) and the engine stats on stderr. ``serve`` answers HTTP
-(``engine/server.py``) until interrupted. ``eval`` prints ``{"nll", "ppl",
+"output": [...]}``, with ``"text"`` when a tokenizer decodes it) and the
+engine stats on stderr. ``serve`` answers HTTP (``engine/server.py``) until
+interrupted. ``--tokenizer`` loads a local Hugging Face tokenizer directory
+with ``transformers`` (for text prompts, decoded text, ``--guided-regex``,
+and the server's text, chat, ``stop`` and guided fields); without that
+package it exits with code 2. ``eval`` prints ``{"nll", "ppl",
 "tokens"}`` (with the load and eval seconds) over non-overlapping windows
 of a text file (UTF-8 bytes as ids unless ``--tokenizer``). ``--kv-bits``
 overrides the checkpoint's KV cache: 8 (int8), 4 (int4 packed across head
@@ -85,21 +94,69 @@ def _moe_flags(p) -> None:
                         "force it")
 
 
+def _tokenizer(path: str | None):
+    """The Hugging Face tokenizer in the local directory ``path`` (None
+    without one). ``transformers`` is imported here only: without it the
+    command exits with code 2 and names the package."""
+    if not path:
+        return None
+    try:
+        from transformers import AutoTokenizer
+    except ImportError:
+        print("quant_tpu_torch: --tokenizer needs the transformers package, "
+              "which this machine lacks", file=sys.stderr)
+        raise SystemExit(2)
+    return AutoTokenizer.from_pretrained(path)
+
+
+def _logit_bias(spec: str | None) -> tuple:
+    """'13:-100,42:5' -> ((13, -100.0), (42, 5.0))."""
+    if not spec:
+        return ()
+    return tuple((int(t), float(v)) for t, v in
+                 (pair.split(":") for pair in spec.split(",")))
+
+
 def _cmd_generate(args) -> int:
     from quant_tpu_torch.engine import Engine, SamplingConfig
 
+    tok = _tokenizer(args.tokenizer)
+    if args.prompt is not None and tok is None:
+        raise SystemExit("--prompt requires --tokenizer")
+    if args.guided_regex and tok is None:
+        raise SystemExit("--guided-regex requires --tokenizer")
+    if args.prompt is None and not args.prompt_ids:
+        raise SystemExit("give --prompt-ids or --prompt")
     params, cfg = _load(args)
+    # a tokenizer's EOS replaces the default --eos-id, as in the JAX CLI
     eng = Engine(params, cfg, max_slots=args.slots, max_seq=args.max_seq,
-                 eos_id=args.eos_id, device=args.device)
-    prompts = [[int(t) for t in p.split(",")]
-               for p in args.prompt_ids.split(";")]
+                 eos_id=(tok.eos_token_id if tok and args.eos_id == 2
+                         else args.eos_id), device=args.device)
+    if args.prompt is not None:
+        prompts = [tok(p)["input_ids"] for p in args.prompt]
+    else:
+        prompts = [[int(t) for t in p.split(",")]
+                   for p in args.prompt_ids.split(";")]
+    fsm = None
+    if args.guided_regex:
+        from quant_tpu_torch.engine.grammar import regex_fsm, vocab_bytes
+
+        fsm = regex_fsm(args.guided_regex, vocab_bytes(tok, cfg.vocab_size),
+                        eng.eos_id)
     outs = eng.generate(
-        prompts, max_new_tokens=args.max_new,
-        sampling=SamplingConfig(temperature=args.temperature,
-                                top_k=args.top_k, top_p=args.top_p,
-                                min_p=args.min_p))
+        prompts, max_new_tokens=args.max_new, fsm=fsm,
+        sampling=SamplingConfig(
+            temperature=args.temperature, top_k=args.top_k,
+            top_p=args.top_p, min_p=args.min_p,
+            repetition_penalty=args.repetition_penalty,
+            frequency_penalty=args.frequency_penalty,
+            presence_penalty=args.presence_penalty,
+            logit_bias=_logit_bias(args.logit_bias)))
     for p, o in zip(prompts, outs):
-        print(json.dumps({"prompt": p, "output": o}))
+        rec = {"prompt": p, "output": o}
+        if tok is not None:
+            rec["text"] = tok.decode(o)
+        print(json.dumps(rec))
     print(json.dumps({"stats": eng.stats}), file=sys.stderr)
     return 0
 
@@ -108,6 +165,7 @@ def _cmd_serve(args) -> int:
     from quant_tpu_torch.engine import Engine
     from quant_tpu_torch.engine.server import serve
 
+    tok = _tokenizer(args.tokenizer)
     params, cfg = _load(args)
     eng = Engine(params, cfg, max_slots=args.slots, max_seq=args.max_seq,
                  eos_id=args.eos_id, device=args.device, paged=args.paged,
@@ -116,7 +174,7 @@ def _cmd_serve(args) -> int:
                  max_pending=args.max_pending)
     logging.basicConfig(level=logging.INFO, stream=sys.stderr,
                         format="%(asctime)s %(name)s %(message)s")
-    serve(eng, host=args.host, port=args.port,
+    serve(eng, host=args.host, port=args.port, tokenizer=tok,
           model_name=args.served_name or args.ckpt)
     return 0
 
@@ -283,8 +341,13 @@ def main(argv=None) -> int:
     c.set_defaults(fn=_cmd_convert)
     g = sub.add_parser("generate", help="generate from a packed ckpt")
     g.add_argument("ckpt")
-    g.add_argument("--prompt-ids", required=True,
+    g.add_argument("--prompt-ids",
                    help="comma-separated ids; ';' separates prompts")
+    g.add_argument("--prompt", action="append",
+                   help="text prompt (repeatable); needs --tokenizer")
+    g.add_argument("--tokenizer", default=None,
+                   help="local HF tokenizer dir for text prompts and "
+                        "decoding (needs transformers)")
     g.add_argument("--max-new", type=int, default=32)
     g.add_argument("--max-seq", type=int, default=1024)
     g.add_argument("--slots", type=int, default=8)
@@ -293,6 +356,14 @@ def main(argv=None) -> int:
     g.add_argument("--top-k", type=int, default=0)
     g.add_argument("--top-p", type=float, default=1.0)
     g.add_argument("--min-p", type=float, default=0.0)
+    g.add_argument("--repetition-penalty", type=float, default=1.0)
+    g.add_argument("--frequency-penalty", type=float, default=0.0)
+    g.add_argument("--presence-penalty", type=float, default=0.0)
+    g.add_argument("--logit-bias", default=None,
+                   help="comma list of token:bias, e.g. '13:-100,42:5'")
+    g.add_argument("--guided-regex", default=None,
+                   help="constrain the output to this regex (a token FSM "
+                        "on the device; needs --tokenizer)")
     g.add_argument("--kv-bits", type=int, default=0, choices=(0, 4, 8, 16),
                    help="KV cache override: 0 (checkpoint's), 8 (int8), 4 "
                         "(int4, head pairs packed) or 16 (unquantized)")
@@ -310,6 +381,9 @@ def main(argv=None) -> int:
     sv.add_argument("ckpt")
     sv.add_argument("--host", default="127.0.0.1")
     sv.add_argument("--port", type=int, default=8400)
+    sv.add_argument("--tokenizer", default=None,
+                    help="local HF tokenizer dir: text prompts, chat, stop "
+                         "strings and guided decoding (needs transformers)")
     sv.add_argument("--served-name", default=None,
                     help="model id reported by /v1/models (default: the "
                          "ckpt path)")

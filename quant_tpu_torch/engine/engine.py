@@ -34,8 +34,21 @@ PyTorch runs eagerly, so there are no per-shape programs: a chunk is run at
 its true length (the JAX engine pads chunks to power-of-two buckets for its
 jit shapes). Each slot owns a ``torch.Generator`` seeded from the request's
 ``seed`` (or ``req_id``), so a sampled stream does not depend on co-batched
-traffic. Meshes, speculation, LoRA, grammar FSMs, top-logprobs and
-embeddings raise ``NotImplementedError``.
+traffic.
+
+Per-request serving features live on the device beside the decode, as in
+the JAX engine: the slots' sampling knobs, penalty knobs and ``logit_bias``
+rows (written once at admission), the token-history ``counts``
+``[max_slots, V]`` (rebuilt from prompt + output at admission for a
+penalized request, then scatter-added by every decode forward), and the
+registry of grammar FSMs (:meth:`Engine.register_fsm`: each ``TokenFSM``'s
+bitmask, byte DFA and token bytes uploaded once), whose per-slot states
+advance by walking the sampled tokens' bytes on the device. Top-N logprobs
+of the raw logits ride the same fetch as the tokens. So ``step_block(n)``
+uploads one ``[max_slots, 3]`` block (tokens, FSM ids and states) before its
+n forwards and fetches one packed block after them, whatever features its
+slots use. :meth:`Engine.embed` pools the final-norm hidden states of a
+prompt. Meshes, speculation and LoRA raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -75,9 +88,14 @@ class Request:
     deadline: float | None = None
     # extra per-request stop tokens (besides the engine's eos_id)
     stop_ids: tuple[int, ...] = ()
-    # not ported yet: must stay at their defaults
+    # grammar-constrained decoding: a grammar.TokenFSM (registered on the
+    # device at add_request); the decode masks illegal tokens and advances
+    # the slot's state on the device
     fsm: Any = None
+    # OpenAI top-logprobs: the top-K raw-model logprobs of every output
+    # position, fetched with the tokens (0 = off, at most 20)
     top_logprobs: int = 0
+    # LoRA adapters are not ported: must stay None
     lora: Any = None
     # per-request seed of the slot's generator; None derives it from req_id
     seed: int | None = None
@@ -89,6 +107,9 @@ class Request:
     logprobs: list[float] = dataclasses.field(default_factory=list)
     finished: bool = False
     timed_out: bool = False
+    # per-position top-K alternatives when top_logprobs > 0
+    top_ids: list = dataclasses.field(default_factory=list)
+    top_lps: list = dataclasses.field(default_factory=list)
     submit_t: float | None = None
     first_token_t: float | None = None
     finish_t: float | None = None
@@ -109,10 +130,61 @@ class Request:
         return (self.finish_t - self.first_token_t) / (len(self.output) - 1)
 
 
+def _fsm_mask_rows(bits: torch.Tensor, ids: torch.Tensor,
+                   states: torch.Tensor, vocab: int) -> torch.Tensor:
+    """Per-slot legality rows for the sampler (0 legal, -1 forbidden) from
+    the packed ``[F, S, V/32]`` bitmask stack (the uint32 words held as
+    int32: a shift and a mask read each bit whatever its sign)."""
+    w = bits[ids, states]                               # [B, Vw]
+    shifts = torch.arange(32, dtype=torch.int32, device=w.device)
+    exp = (w[:, :, None] >> shifts) & 1
+    return torch.where(exp.reshape(w.shape[0], -1)[:, :vocab] > 0, 0,
+                       -1).to(torch.int32)
+
+
+def _fsm_walk(bt: torch.Tensor, tokb: torch.Tensor, tokl: torch.Tensor,
+              ids: torch.Tensor, states: torch.Tensor, toks: torch.Tensor,
+              eos_id: int) -> torch.Tensor:
+    """Advance per-slot FSM states by walking the sampled tokens' bytes
+    through the byte-DFA stack ``[F, S, 256]``: a fixed number of ``[B]``
+    gathers (the registry's longest token), no host branch. EOS walks zero
+    bytes (the state stays; the request is finishing)."""
+    tb = tokb[ids, toks].to(torch.int64)                # [B, L]
+    tl = torch.where(toks == eos_id, 0, tokl[ids, toks])
+    smax = bt.shape[1] - 1
+    cur = states
+    for p in range(tb.shape[1]):
+        nxt = bt[ids, cur.clamp(0, smax), tb[:, p]].to(cur.dtype)
+        cur = torch.where(p < tl, nxt, cur)
+    return cur.clamp_min(0)
+
+
+@dataclasses.dataclass(frozen=True)
+class _Flags:
+    """What one dispatch's active slots ask of the sampler (host values)."""
+    sampled: bool
+    pen: bool
+    bias: bool
+    fsm: bool
+    k_lp: int
+
+    @property
+    def adjusted(self) -> bool:
+        return self.sampled or self.pen or self.bias or self.fsm
+
+
 class Engine:
     """Continuous-batching engine over ``max_slots`` decode slots."""
 
     PREFILL_CHUNK = 512
+    # registry cap (the JAX engine's)
+    MAX_FSMS = 64
+    # logit_bias entries a request may carry: the per-slot rows have this
+    # fixed width
+    MAX_LOGIT_BIAS = 300
+    # slot knob columns: temperature, top_k, top_p, min_p, repetition,
+    # frequency, presence
+    _N_KNOBS = 7
 
     def __init__(self, params: llama.LlamaParams, cfg: ModelConfig,
                  max_slots: int = 8, max_seq: int = 1024, eos_id: int = 2,
@@ -192,6 +264,36 @@ class Engine:
         self._admit_finished: list[Request] = []
         self._gens = [torch.Generator(device=self.dev)
                       for _ in range(max_slots)]
+        v = cfg.vocab_size
+        # per-slot token-history counts (prompt + committed output) for the
+        # penalties: rebuilt at admission for a penalized request, then
+        # scatter-added by every decode forward
+        self.counts = torch.zeros((max_slots, v), dtype=torch.int32,
+                                  device=self.dev)
+        # per-slot sampling knobs (_N_KNOBS columns) and logit_bias rows,
+        # written at admission; unused bias entries add 0 to token 0
+        self._knobs = torch.zeros((max_slots, self._N_KNOBS),
+                                  dtype=torch.float32, device=self.dev)
+        self._bias_toks = torch.zeros((max_slots, self.MAX_LOGIT_BIAS),
+                                      dtype=torch.int64, device=self.dev)
+        self._bias_vals = torch.zeros((max_slots, self.MAX_LOGIT_BIAS),
+                                      dtype=torch.float32, device=self.dev)
+        # the FSM registry: [F, S, V/32] legality bits, [F, S, 256] byte
+        # DFA, [F, V, L] token bytes, [F, V] token lengths; id 0 is the
+        # trivial all-legal single-state FSM of unconstrained slots
+        self._fsm_bits = torch.full((1, 1, -(-v // 32)), -1,
+                                    dtype=torch.int32, device=self.dev)
+        self._fsm_bt = torch.zeros((1, 1, 256), dtype=torch.int32,
+                                   device=self.dev)
+        self._fsm_tokb = torch.zeros((1, v, 1), dtype=torch.uint8,
+                                     device=self.dev)
+        self._fsm_tokl = torch.zeros((1, v), dtype=torch.int32,
+                                     device=self.dev)
+        self._fsm_key: dict[int, int] = {}
+        self._fsm_objs: list = [None]
+        # per-slot FSM id and state on the host, uploaded with the tokens
+        self._fsm_ids = np.zeros((max_slots,), np.int64)
+        self._fsm_state = np.zeros((max_slots,), np.int64)
         self._steps = 0
         self._tok_ema = 0.0
         self._last_t = time.perf_counter()
@@ -235,36 +337,108 @@ class Engine:
             pool[:, ids] = blocks                      # [L, n, H, page(, D)]
         c.lengths[slot] = pf.lengths[0]
 
-    def _knobs(self, active):
-        """Per-slot sampling knobs on the device + the generator list
-        (None for greedy and inactive slots); only a batch with a sampled
-        slot needs them."""
-        temps = np.zeros((self.max_slots,), np.float32)
-        topks = np.zeros((self.max_slots,), np.int64)
-        topps = np.ones((self.max_slots,), np.float32)
-        minps = np.zeros((self.max_slots,), np.float32)
-        for i in active:
-            sc = self.slots[i].sampling
-            temps[i], topks[i], topps[i], minps[i] = (
-                sc.temperature, sc.top_k, sc.top_p, sc.min_p)
-        to = lambda a: torch.from_numpy(a).to(self.dev)
-        gens = [self._gens[i] if self.slots[i] is not None and temps[i] != 0
-                else None for i in range(self.max_slots)]
-        return to(temps), to(topks), to(topps), to(minps), gens
+    def _flags(self, active) -> _Flags:
+        reqs = [self.slots[i] for i in active]
+        return _Flags(
+            sampled=any(not r.sampling.greedy for r in reqs),
+            pen=any(r.sampling.has_penalties for r in reqs),
+            bias=any(bool(r.sampling.logit_bias) for r in reqs),
+            fsm=any(r.fsm is not None for r in reqs),
+            # the largest top_logprobs among the active slots (each request
+            # keeps its own first K)
+            k_lp=min(20, max((r.top_logprobs for r in reqs), default=0)))
 
-    def _decode(self, tokens: torch.Tensor, knobs, sampled: bool):
-        """One forward of every slot: tokens [B] -> (next [B], logprob [B])
-        on the device."""
+    def _upload_slots(self) -> torch.Tensor:
+        """The one host-to-device copy of a dispatch: ``[max_slots, 3]``
+        (last token, FSM id, FSM state)."""
+        return torch.from_numpy(np.stack(
+            [self.last_tokens, self._fsm_ids, self._fsm_state], 1)).to(
+                self.dev)
+
+    def _decode(self, tokens: torch.Tensor, fsm_ids: torch.Tensor,
+                fsm_state: torch.Tensor, flags: _Flags, gens):
+        """One forward of every slot: tokens ``[B]`` -> (next ``[B]``, the
+        FSM states after it, packed ``[B, 2 + 2k]`` int32: the token, its
+        logprob's bits and, with top-logprobs, k ids and k logprob bits),
+        all on the device."""
         logits, self.cache = self._forward(tokens[:, None], self.cache)
         self.decode_forwards += 1
         lg = logits[:, -1]
-        if sampled:
-            nxt = sampler.sample_batch(lg, *knobs)
+        if flags.adjusted:
+            kn = self._knobs
+            nxt = sampler.sample_batch(
+                lg, kn[:, 0], kn[:, 1].to(torch.int64), kn[:, 2], kn[:, 3],
+                gens,
+                penalties=((self.counts, kn[:, 4], kn[:, 5], kn[:, 6])
+                           if flags.pen else None),
+                bias=((self._bias_toks, self._bias_vals)
+                      if flags.bias else None),
+                fsm_rows=(_fsm_mask_rows(self._fsm_bits, fsm_ids, fsm_state,
+                                         self.cfg.vocab_size)
+                          if flags.fsm else None))
         else:
             nxt = lg.argmax(dim=-1)
-        return nxt, sampler.token_logprob(lg, nxt)
+        rows = torch.arange(nxt.shape[0], device=self.dev)
+        self.counts.index_put_((rows, nxt), torch.ones_like(
+            nxt, dtype=torch.int32), accumulate=True)
+        if flags.fsm:
+            fsm_state = _fsm_walk(self._fsm_bt, self._fsm_tokb,
+                                  self._fsm_tokl, fsm_ids, fsm_state, nxt,
+                                  self.eos_id)
+        cols = [nxt.to(torch.int32)[:, None],
+                sampler.token_logprob(lg, nxt).view(torch.int32)[:, None]]
+        if flags.k_lp:
+            ti, tl = sampler.top_logprobs(lg, flags.k_lp)
+            cols += [ti.to(torch.int32), tl.contiguous().view(torch.int32)]
+        return nxt, fsm_state, torch.cat(cols, 1)
 
     # ── public API ──────────────────────────────────────────────────
+
+    def _stack_set(self, stack: torch.Tensor, fid: int, table: np.ndarray,
+                   fill: int = 0) -> torch.Tensor:
+        """Grow a ``[F, R, C...]`` registry stack to cover (fid, table) on
+        the device and write the table's rows (the only upload)."""
+        table = torch.from_numpy(np.ascontiguousarray(table)).to(self.dev)
+        shape = ((max(fid + 1, stack.shape[0]),)
+                 + tuple(max(t, c) for t, c in zip(table.shape,
+                                                   stack.shape[1:])))
+        if shape != tuple(stack.shape):
+            grown = torch.full(shape, fill, dtype=stack.dtype,
+                               device=self.dev)
+            grown[tuple(slice(0, d) for d in stack.shape)] = stack
+            stack = grown
+        stack[(fid,) + tuple(slice(0, d) for d in table.shape)] = table
+        return stack
+
+    def register_fsm(self, fsm) -> int:
+        """Upload a ``grammar.TokenFSM``'s tables to the device registry
+        once; returns its id (idempotent per object). Its vocab and EOS must
+        be the engine's."""
+        key = id(fsm)
+        if key in self._fsm_key:
+            return self._fsm_key[key]
+        if len(self._fsm_objs) - 1 >= self.MAX_FSMS:
+            raise ValueError(
+                f"fsm registry full ({self.MAX_FSMS}); reuse TokenFSM "
+                "objects (the HTTP layer caches per pattern/schema)")
+        if fsm.vocab_size != self.cfg.vocab_size:
+            raise ValueError(
+                f"fsm vocab {fsm.vocab_size} != {self.cfg.vocab_size}")
+        if fsm.eos_id != self.eos_id:
+            raise ValueError(
+                f"fsm eos_id {fsm.eos_id} != engine eos_id {self.eos_id}")
+        fid = len(self._fsm_objs)
+        self._fsm_bits = self._stack_set(self._fsm_bits, fid,
+                                         fsm.bits.view(np.int32))
+        self._fsm_bt = self._stack_set(self._fsm_bt, fid, fsm.byte_trans,
+                                       fill=-1)
+        self._fsm_tokb = self._stack_set(self._fsm_tokb, fid, fsm.tok_bytes)
+        self._fsm_tokl = self._stack_set(self._fsm_tokl, fid, fsm.tok_len)
+        self._fsm_key[key] = fid
+        # keep the object: an id()-keyed entry must never meet another
+        # TokenFSM at a reused address
+        self._fsm_objs.append(fsm)
+        return fid
 
     def add_request(self, req: Request) -> None:
         if not req.prompt or any(
@@ -272,10 +446,15 @@ class Engine:
             raise ValueError(
                 f"request {req.req_id}: prompt ids must be in "
                 f"[0, {self.cfg.vocab_size}) and non-empty")
-        if req.fsm is not None or req.top_logprobs or req.lora is not None:
-            raise NotImplementedError(
-                "grammar FSMs, top_logprobs and LoRA are not ported")
-        sampler.check_supported(req.sampling)
+        if not 0 <= req.top_logprobs <= 20:
+            raise ValueError("top_logprobs must be in [0, 20]")
+        if req.lora is not None:
+            raise NotImplementedError("LoRA adapters are not ported")
+        if len(req.sampling.logit_bias) > self.MAX_LOGIT_BIAS:
+            raise ValueError(f"at most {self.MAX_LOGIT_BIAS} logit_bias "
+                             "entries")
+        if req.fsm is not None:
+            self.register_fsm(req.fsm)
         if len(req.prompt) + req.max_new_tokens > self.max_seq:
             raise ValueError(
                 f"request {req.req_id}: prompt({len(req.prompt)}) + "
@@ -397,11 +576,58 @@ class Engine:
         else:
             seed = req.seed if req.seed is not None else req.req_id
             gen.manual_seed(int(seed) & 0x7FFFFFFF)
-        tok_t = sampler.sample(last[None], req.sampling, generator=gen)
+        sc = req.sampling
+        row = np.zeros((self._N_KNOBS + 2 * self.MAX_LOGIT_BIAS,),
+                       np.float32)
+        row[:self._N_KNOBS] = (sc.temperature, sc.top_k, sc.top_p, sc.min_p,
+                               sc.repetition_penalty, sc.frequency_penalty,
+                               sc.presence_penalty)
+        for j, (t, v) in enumerate(sc.logit_bias):
+            row[self._N_KNOBS + j] = t
+            row[self._N_KNOBS + self.MAX_LOGIT_BIAS + j] = v
+        row = torch.from_numpy(row).to(self.dev)
+        self._knobs[slot] = row[:self._N_KNOBS]
+        self._bias_toks[slot] = row[self._N_KNOBS:self._N_KNOBS
+                                    + self.MAX_LOGIT_BIAS].to(torch.int64)
+        self._bias_vals[slot] = row[self._N_KNOBS + self.MAX_LOGIT_BIAS:]
+        fsm_row = None
+        if req.fsm is not None:
+            # the constraint applies to the output: replay what a preempted
+            # request already produced, then mask the first sample
+            fid = self.register_fsm(req.fsm)
+            st = req.fsm.advance(req.fsm.start, req.output)
+            self._fsm_ids[slot], self._fsm_state[slot] = fid, st
+            fsm_row = _fsm_mask_rows(
+                self._fsm_bits, torch.tensor([fid], device=self.dev),
+                torch.tensor([st], device=self.dev), self.cfg.vocab_size)
+        else:
+            self._fsm_ids[slot] = self._fsm_state[slot] = 0
+        if sc.has_penalties:
+            # exact prompt (+ resumed output, + a cached prefix) counts; the
+            # decode forwards' adds to this row while it prefilled are
+            # overwritten here
+            ids = torch.tensor(stream, dtype=torch.int64, device=self.dev)
+            self.counts[slot].zero_()
+            self.counts[slot].index_put_((ids,), torch.ones_like(
+                ids, dtype=torch.int32), accumulate=True)
+            tok_t = sampler.sample(last[None], sc, generator=gen,
+                                   counts=self.counts[slot][None],
+                                   fsm_rows=fsm_row)
+            self.counts[slot, tok_t[0]] += 1
+        else:
+            tok_t = sampler.sample(last[None], sc, generator=gen,
+                                   fsm_rows=fsm_row)
         lp = sampler.token_logprob(last[None], tok_t)
         tok = int(tok_t[0])
+        if req.fsm is not None:
+            self._fsm_state[slot] = req.fsm.advance(
+                int(self._fsm_state[slot]), [tok])
         req.output.append(tok)
         req.logprobs.append(float(lp[0]))
+        if req.top_logprobs:
+            ti, tl = sampler.top_logprobs(last[None], req.top_logprobs)
+            req.top_ids.append([int(t) for t in ti[0].cpu()])
+            req.top_lps.append([float(v) for v in tl[0].cpu()])
         req.first_token_t = time.monotonic()
         self.slots[slot] = req
         if self.paged:
@@ -619,21 +845,57 @@ class Engine:
                     raise RuntimeError(
                         "page pool exhausted with nothing to preempt")
 
-    def _commit(self, active, toks: np.ndarray, lps: np.ndarray,
+    def _commit(self, active, packed: np.ndarray, k_lp: int,
                 finished: list[Request]) -> None:
-        """Append each active slot's tokens (columns of [B, n]) until it
-        finishes."""
+        """Append each active slot's tokens from the fetched ``[B, n, 2 +
+        2k]`` block until it finishes: logprobs, top-logprobs and the host
+        mirror of its FSM state with them."""
+        toks = packed[:, :, 0]
+        lps = packed[:, :, 1].view(np.float32)
+        t_ids = packed[:, :, 2:2 + k_lp]
+        t_lps = packed[:, :, 2 + k_lp:].view(np.float32)
         for i in active:
             req = self.slots[i]
+            kk = req.top_logprobs
             for j in range(toks.shape[1]):
                 tok = int(toks[i, j])
                 req.output.append(tok)
                 req.logprobs.append(float(lps[i, j]))
+                if kk:
+                    req.top_ids.append([int(t) for t in t_ids[i, j, :kk]])
+                    req.top_lps.append([float(v) for v in t_lps[i, j, :kk]])
+                if req.fsm is not None:
+                    # replay the device's transition on the host
+                    self._fsm_state[i] = req.fsm.advance(
+                        int(self._fsm_state[i]), [tok])
                 self.last_tokens[i] = tok
                 self._maybe_finish(i, tok)
                 if req.finished:
                     finished.append(req)
                     break
+
+    def _gens_of(self, active) -> list:
+        """The generators of the active sampled slots (None elsewhere)."""
+        gens = [None] * self.max_slots
+        for i in active:
+            if not self.slots[i].sampling.greedy:
+                gens[i] = self._gens[i]
+        return gens
+
+    def _run_block(self, active, n: int, finished: list[Request]) -> None:
+        """n decode forwards with tokens, counts and FSM states kept on the
+        device: one upload before them, one fetch after them."""
+        flags = self._flags(active)
+        gens = self._gens_of(active)
+        up = self._upload_slots()
+        tokens, fsm_ids, fsm_state = up[:, 0], up[:, 1], up[:, 2]
+        outs = []
+        for _ in range(n):
+            tokens, fsm_state, packed = self._decode(tokens, fsm_ids,
+                                                     fsm_state, flags, gens)
+            outs.append(packed)
+        self._commit(active, torch.stack(outs, 1).cpu().numpy(), flags.k_lp,
+                     finished)
 
     def step(self) -> list[Request]:
         """One prefill chunk of admission (budgeted) + one decode forward
@@ -648,12 +910,7 @@ class Engine:
         finished += self._admit_finished
         self._admit_finished = []
         if active:
-            sampled = any(not self.slots[i].sampling.greedy for i in active)
-            knobs = self._knobs(active) if sampled else None
-            tokens = torch.from_numpy(self.last_tokens).to(self.dev)
-            nxt, lp = self._decode(tokens, knobs, sampled)
-            self._commit(active, nxt.cpu().numpy()[:, None],
-                         lp.cpu().numpy()[:, None], finished)
+            self._run_block(active, 1, finished)
         self._steps += 1
         now = time.perf_counter()
         rate = len(active) / max(now - self._last_t, 1e-6)
@@ -662,10 +919,11 @@ class Engine:
         return finished
 
     def step_block(self, n: int) -> list[Request]:
-        """Up to n decode forwards with the tokens kept on the device and
-        fetched once; pending requests are admitted first (at most
-        ``block_admit_chunks`` chunks while slots are decoding). ``n`` is
-        capped by the longest-remaining active slot."""
+        """Up to n decode forwards with the tokens, penalty counts and FSM
+        states kept on the device and fetched once; pending requests are
+        admitted first (at most ``block_admit_chunks`` chunks while slots
+        are decoding). ``n`` is capped by the longest-remaining active
+        slot."""
         finished: list[Request] = []
         self._expire_deadlines(finished)
         self._drain_admission(
@@ -680,16 +938,7 @@ class Engine:
             return finished
         n = max(1, min(n, max(self.slots[i].max_new_tokens
                               - len(self.slots[i].output) for i in active)))
-        sampled = any(not self.slots[i].sampling.greedy for i in active)
-        knobs = self._knobs(active) if sampled else None
-        tokens = torch.from_numpy(self.last_tokens).to(self.dev)
-        outs, lps = [], []
-        for _ in range(n):
-            tokens, lp = self._decode(tokens, knobs, sampled)
-            outs.append(tokens)
-            lps.append(lp)
-        self._commit(active, torch.stack(outs, 1).cpu().numpy(),
-                     torch.stack(lps, 1).cpu().numpy(), finished)
+        self._run_block(active, n, finished)
         self._steps += n
         return finished
 
@@ -714,6 +963,8 @@ class Engine:
             "decode_forwards": self.decode_forwards,
             **self._pcts(self._ttfts, "ttft"),
             **self._pcts(self._tpots, "tpot"),
+            **({"fsms": len(self._fsm_objs) - 1}
+               if len(self._fsm_objs) > 1 else {}),
             **({"prefix_hit_tokens": self._prefix_hit_tokens,
                 "cached_blocks": len(self._prefix_map)}
                if self.prefix_cache else {}),
@@ -722,21 +973,39 @@ class Engine:
                if self.paged else {}),
         }
 
-    def embed(self, prompt_ids):
-        """Mean-pooled prompt embeddings: not ported yet."""
-        raise NotImplementedError("embeddings are not ported")
+    def embed(self, prompt_ids) -> np.ndarray:
+        """``[dim]`` L2-normalized mean of the prompt's final-norm hidden
+        states (the /v1/embeddings payload), through a throwaway single-slot
+        cache at the prompt's true length: the engine's slots and caches are
+        untouched."""
+        n = len(prompt_ids)
+        if not 0 < n <= self.max_seq:
+            raise ValueError(f"embedding input length {n} outside "
+                             f"(0, {self.max_seq}]")
+        if any(not 0 <= int(t) < self.cfg.vocab_size for t in prompt_ids):
+            raise ValueError(f"embedding ids must be in "
+                             f"[0, {self.cfg.vocab_size})")
+        cache = llama.init_cache(self.cfg, 1, n, self.dev)
+        toks = torch.tensor([list(prompt_ids)], dtype=torch.int64,
+                            device=self.dev)
+        h, _ = llama.forward(self.params, toks, cache, self.cfg,
+                             return_hidden=True, device=self.dev)
+        v = h[0].mean(dim=0)
+        v = v / torch.linalg.vector_norm(v).clamp_min(1e-9)
+        return v.cpu().numpy()
 
     def has_work(self) -> bool:
         return (bool(self.pending) or self._prefilling is not None
                 or any(s is not None for s in self.slots))
 
     def generate(self, prompts: list[list[int]], max_new_tokens: int = 32,
-                 sampling: SamplingConfig = SamplingConfig()
+                 sampling: SamplingConfig = SamplingConfig(), fsm=None
                  ) -> list[list[int]]:
         """Batch API over the continuous-batching loop (``step_block(16)``
         until every request is done)."""
         reqs = [Request(req_id=i, prompt=p, max_new_tokens=max_new_tokens,
-                        sampling=sampling) for i, p in enumerate(prompts)]
+                        sampling=sampling, fsm=fsm)
+                for i, p in enumerate(prompts)]
         for r in reqs:
             self.add_request(r)
         while self.has_work():

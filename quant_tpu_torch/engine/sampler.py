@@ -5,8 +5,10 @@ The port of the JAX package's ``engine/sampler.py``: the same
 sampling and ``token_logprob``. Randomness comes from explicit
 ``torch.Generator`` objects (one per engine slot), so the sampled stream
 differs from the JAX package's (another generator) while the filtering is
-the same. Penalties, ``logit_bias``, grammar (FSM) masks and speculative
-commits are not ported yet and raise ``NotImplementedError``.
+the same. Token-history penalties (:func:`apply_penalties`), OpenAI
+``logit_bias`` (:func:`apply_logit_bias`) and grammar (FSM) masks follow
+the JAX formulas and order. Speculative commits are not ported yet and
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -16,8 +18,9 @@ import math
 
 import torch
 
-__all__ = ["SamplingConfig", "sample", "filter_logits", "sample_batch",
-           "token_logprob", "spec_commit"]
+__all__ = ["SamplingConfig", "apply_logit_bias", "apply_penalties",
+           "sample", "filter_logits", "sample_batch", "token_logprob",
+           "top_logprobs", "spec_commit"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -26,11 +29,12 @@ class SamplingConfig:
     top_k: int = 0             # 0 → disabled
     top_p: float = 1.0         # 1 → disabled
     min_p: float = 0.0         # 0 → disabled; keep p(tok) ≥ min_p·p_max
-    # token-history penalties (not ported: must stay at their defaults)
-    repetition_penalty: float = 1.0
-    frequency_penalty: float = 0.0
-    presence_penalty: float = 0.0
-    # OpenAI logit_bias ((token_id, bias), ...) (not ported: must be empty)
+    # token-history penalties (counts cover prompt + committed output):
+    repetition_penalty: float = 1.0  # HF semantics; 1 → disabled
+    frequency_penalty: float = 0.0   # OpenAI: logit -= fp·count
+    presence_penalty: float = 0.0    # OpenAI: logit -= pp·(count>0)
+    # OpenAI logit_bias: ((token_id, bias), ...); -100 effectively bans,
+    # +100 effectively forces
     logit_bias: tuple = ()
 
     @property
@@ -44,11 +48,45 @@ class SamplingConfig:
                 or self.presence_penalty != 0.0)
 
 
-def check_supported(cfg: SamplingConfig) -> None:
-    if cfg.has_penalties:
-        raise NotImplementedError("sampling penalties are not ported")
-    if cfg.logit_bias:
-        raise NotImplementedError("logit_bias is not ported")
+def apply_logit_bias(logits: torch.Tensor, bias_toks: torch.Tensor,
+                     bias_vals: torch.Tensor) -> torch.Tensor:
+    """Additive per-slot logit bias (OpenAI ``logit_bias``): ``bias_toks``
+    ``[B, K]`` ids and ``bias_vals`` ``[B, K]`` f32; unused entries point at
+    token 0 with value 0 (a no-op add), repeated ids add up. Applied after
+    the penalties, so a -100 ban survives every other adjustment. Logits
+    ``[B, V]`` -> f32 ``[B, V]``."""
+    lg = logits.to(torch.float32)
+    dense = torch.zeros_like(lg)
+    rows = torch.arange(lg.shape[0], device=lg.device)[:, None].expand_as(
+        bias_toks)
+    dense.index_put_((rows, bias_toks.to(torch.int64)),
+                     bias_vals.to(torch.float32), accumulate=True)
+    return lg + dense
+
+
+def apply_penalties(logits: torch.Tensor, counts: torch.Tensor,
+                    reps: torch.Tensor, freqs: torch.Tensor,
+                    press: torch.Tensor) -> torch.Tensor:
+    """Token-history penalties on RAW logits (before temperature).
+    ``counts`` ``[B, V]`` int: occurrences of each token in the slot's
+    prompt + committed output; per-slot knobs ``[B]``. Greedy slots honour
+    them too (the argmax is taken over the penalized logits):
+
+    * repetition_penalty r (HF): seen & logit>0 → logit/r, seen &
+      logit<0 → logit·r
+    * frequency/presence (OpenAI): logit -= fp·count + pp·(count>0)
+    """
+    lg = logits.to(torch.float32)
+    seen = counts > 0
+    r = reps.to(torch.float32).clamp_min(1e-6)[:, None]
+    lg = torch.where(seen, torch.where(lg > 0, lg / r, lg * r), lg)
+    return lg - (freqs.to(torch.float32)[:, None] * counts.to(torch.float32)
+                 + press.to(torch.float32)[:, None] * seen.to(torch.float32))
+
+
+def _fsm_mask(logits: torch.Tensor, fsm_rows: torch.Tensor) -> torch.Tensor:
+    """-inf where the grammar forbids a token (``fsm_rows`` < 0)."""
+    return logits.to(torch.float32).masked_fill(fsm_rows < 0, -math.inf)
 
 
 def filter_logits(logits: torch.Tensor, temps: torch.Tensor,
@@ -64,27 +102,42 @@ def filter_logits(logits: torch.Tensor, temps: torch.Tensor,
     kth = torch.gather(sorted_desc, -1,
                        (topks - 1).clamp(0, v - 1).to(torch.int64)[:, None])
     topk_on = (topks > 0)[:, None]
-    neg = torch.tensor(-math.inf, device=lg.device)
-    l2 = torch.where(topk_on & (l2 < kth), neg, l2)
-    sorted_desc = torch.where(topk_on & (sorted_desc < kth), neg, sorted_desc)
+    # masked_fill with a Python scalar: no host-to-device copy, no sync
+    neg = -math.inf
+    l2 = l2.masked_fill(topk_on & (l2 < kth), neg)
+    sorted_desc = sorted_desc.masked_fill(topk_on & (sorted_desc < kth), neg)
     cum = torch.cumsum(torch.softmax(sorted_desc, dim=-1), dim=-1)
     cutoff_idx = (cum < topps[:, None]).sum(dim=-1).clamp(0, v - 1)
     cutoff = torch.gather(sorted_desc, -1, cutoff_idx[:, None])
-    l2 = torch.where((topps < 1.0)[:, None] & (l2 < cutoff), neg, l2)
+    l2 = l2.masked_fill((topps < 1.0)[:, None] & (l2 < cutoff), neg)
     if minps is not None:
         mx = l2.amax(dim=-1, keepdim=True)
         thresh = mx + torch.log(minps.clamp_min(1e-38))[:, None]
-        l2 = torch.where((minps > 0.0)[:, None] & (l2 < thresh), neg, l2)
+        l2 = l2.masked_fill((minps > 0.0)[:, None] & (l2 < thresh), neg)
     return l2
 
 
 def sample_batch(logits: torch.Tensor, temps: torch.Tensor,
                  topks: torch.Tensor, topps: torch.Tensor,
-                 minps: torch.Tensor | None, generators) -> torch.Tensor:
+                 minps: torch.Tensor | None, generators, penalties=None,
+                 bias=None, fsm_rows: torch.Tensor | None = None
+                 ) -> torch.Tensor:
     """Per-slot sampling: logits ``[B, V]`` -> ids ``[B]`` (int64).
-    Rows whose ``generators[b]`` is None take the argmax (``temps[b]`` is 0
-    there); the others draw from their filtered distribution with their
-    own generator. The row choice is made on the host: no device sync."""
+
+    ``penalties`` = (counts ``[B, V]``, reps, freqs, press) applies the
+    token-history penalties first, ``bias`` = (bias_toks, bias_vals) the
+    logit bias after them, and ``fsm_rows`` ``[B, V]`` (0 legal, -1
+    forbidden) the grammar mask last, so a forbidden token stays forbidden
+    whatever the penalties and the bias did. Rows whose ``generators[b]``
+    is None take the argmax of the adjusted logits (``temps[b]`` is 0
+    there); the others draw from their filtered distribution with their own
+    generator. The row choice is made on the host: no device sync."""
+    if penalties is not None:
+        logits = apply_penalties(logits, *penalties)
+    if bias is not None:
+        logits = apply_logit_bias(logits, *bias)
+    if fsm_rows is not None:
+        logits = _fsm_mask(logits, fsm_rows)
     out = logits.argmax(dim=-1)
     rows = [i for i, g in enumerate(generators) if g is not None]
     if not rows:
@@ -97,17 +150,32 @@ def sample_batch(logits: torch.Tensor, temps: torch.Tensor,
 
 
 def sample(logits: torch.Tensor, cfg: SamplingConfig,
-           generator: torch.Generator | None = None, counts=None,
-           fsm_rows=None) -> torch.Tensor:
-    """logits ``[B, V]`` -> ids ``[B]`` under one config."""
-    check_supported(cfg)
-    if counts is not None or fsm_rows is not None:
-        raise NotImplementedError("penalty counts and FSM masks are not "
-                                  "ported")
-    if cfg.greedy:
-        return logits.argmax(dim=-1)
+           generator: torch.Generator | None = None,
+           counts: torch.Tensor | None = None,
+           fsm_rows: torch.Tensor | None = None) -> torch.Tensor:
+    """logits ``[B, V]`` -> ids ``[B]`` under one config. ``counts``
+    ``[B, V]`` enables the config's token-history penalties (ignored when
+    it has none); ``fsm_rows`` ``[B, V]`` masks the tokens the grammar
+    forbids out entirely (the JAX ``sample``: mask, penalties, then the
+    bias)."""
+    if fsm_rows is not None:
+        logits = _fsm_mask(logits, fsm_rows)
     b = logits.shape[0]
     dev = logits.device
+    if cfg.has_penalties and counts is not None:
+        logits = apply_penalties(
+            logits, counts, torch.full((b,), cfg.repetition_penalty,
+                                       device=dev),
+            torch.full((b,), cfg.frequency_penalty, device=dev),
+            torch.full((b,), cfg.presence_penalty, device=dev))
+    if cfg.logit_bias:
+        toks = torch.tensor([t for t, _ in cfg.logit_bias], device=dev)
+        vals = torch.tensor([v for _, v in cfg.logit_bias],
+                            dtype=torch.float32, device=dev)
+        logits = apply_logit_bias(logits, toks.expand(b, -1),
+                                  vals.expand(b, -1))
+    if cfg.greedy:
+        return logits.argmax(dim=-1)
     l2 = filter_logits(
         logits, torch.full((b,), cfg.temperature, device=dev),
         torch.full((b,), cfg.top_k, device=dev, dtype=torch.int64),
@@ -124,6 +192,15 @@ def token_logprob(logits: torch.Tensor, toks: torch.Tensor) -> torch.Tensor:
     lse = torch.logsumexp(lg, dim=-1)
     chosen = torch.gather(lg, -1, toks.to(torch.int64)[..., None])[..., 0]
     return chosen - lse
+
+
+def top_logprobs(logits: torch.Tensor, k: int
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(ids ``[B, k]`` int64, logprobs ``[B, k]`` f32) of the raw model
+    distribution, largest first: the OpenAI top-logprobs payload."""
+    lg = logits.to(torch.float32)
+    vals, ids = torch.topk(lg, k, dim=-1)
+    return ids, vals - torch.logsumexp(lg, dim=-1, keepdim=True)
 
 
 def spec_commit(*args, **kwargs):

@@ -1194,20 +1194,20 @@ def forward(params: LlamaParams, tokens, cache: KVCache | PagedKVCache,
     code/scale tensors (a page pool's too) are written IN PLACE; the
     returned cache holds them (and the same page table) with
     ``lengths + T``. Returns (logits f32 ``[B, T, vocab_size]``,
-    cache). ``device`` is where the step runs (the card unless "cpu");
-    params and cache must already lie there, ``tokens`` ([B, T] ids) are
-    moved there. A ``first_k_dense`` model runs its dense-prefix stack
-    ``layers0`` (config :func:`dense_prefix_cfg`) and then ``layers``,
-    whose cache rows start at ``first_k_dense``. The JAX package's mesh axes
-    (``axis``, ``seq_axis``, ``expert_axis``), LoRA ``adapter_ids`` and
-    ``return_hidden`` are not ported and raise ``NotImplementedError`` when
+    cache). ``return_hidden`` returns the f32 final-norm hidden states
+    ``[B, T, dim]`` in place of the logits (the embeddings API); the cache
+    is updated all the same. ``device`` is where the step runs (the card
+    unless "cpu"); params and cache must already lie there, ``tokens``
+    ([B, T] ids) are moved there. A ``first_k_dense`` model runs its
+    dense-prefix stack ``layers0`` (config :func:`dense_prefix_cfg`) and
+    then ``layers``, whose cache rows start at ``first_k_dense``. The JAX
+    package's mesh axes (``axis``, ``seq_axis``, ``expert_axis``) and LoRA
+    ``adapter_ids`` are not ported and raise ``NotImplementedError`` when
     given.
     """
     asked = {"axis (tensor parallel)": axis, "seq_axis": seq_axis,
-             "expert_axis": expert_axis, "adapter_ids (LoRA)": adapter_ids,
-             "return_hidden": return_hidden}
-    bad = [name for name, v in asked.items()
-           if v is not None and v is not False]
+             "expert_axis": expert_axis, "adapter_ids (LoRA)": adapter_ids}
+    bad = [name for name, v in asked.items() if v is not None]
     if bad:
         raise NotImplementedError("not ported yet: " + ", ".join(bad))
     check_supported(cfg)
@@ -1259,6 +1259,9 @@ def forward(params: LlamaParams, tokens, cache: KVCache | PagedKVCache,
                 m = rmsnorm(m, lay.post_mlp_norm[i], c.norm_eps, off_n)
             h = h + m.to(dt)
     h = rmsnorm(h, params.final_norm, cfg.norm_eps, off_n)
+    if return_hidden:
+        return (h.to(torch.float32),
+                dataclasses.replace(cache, lengths=new_lengths))
     logits = mm(h, params.lm_head, out_dtype=torch.float32)
     logits = logits[..., :cfg.vocab_size]
     if cfg.final_softcap:

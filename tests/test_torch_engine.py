@@ -99,32 +99,55 @@ def test_greedy_matches_jax_engine(jax_greedy, tparams, use_block):
 
 
 @pytest.mark.parametrize("what", ["paged", "prefix_cache", "spec_gamma",
-                                  "mesh", "embed", "fsm", "top_logprobs",
-                                  "penalty", "logit_bias"])
+                                  "mesh"])
 def test_unported_engine_features_raise(tparams, what):
     """The cases "paged" and "prefix_cache" are ported features: the paged
     engine with speculation, and the prefix-cached one with LoRA adapters,
     still raise."""
-    from quant_tpu_torch.engine import SamplingConfig
-
     engine_kw = {"paged": {"paged": True, "spec_gamma": 2},
                  "prefix_cache": {"paged": True, "prefix_cache": True,
                                   "loras": {"a": object()}},
                  "spec_gamma": {"spec_gamma": 2},
-                 "mesh": {"mesh": object()}}.get(what, {})
-    request_kw = {"fsm": {"fsm": object()},
+                 "mesh": {"mesh": object()}}[what]
+    with pytest.raises(NotImplementedError):
+        eng = TEngine(tparams, TCFG, max_slots=1, max_seq=16, device="cpu",
+                      **engine_kw)
+        eng.add_request(TRequest(req_id=0, prompt=[1], max_new_tokens=1))
+
+
+@pytest.mark.parametrize("what", ["embed", "fsm", "top_logprobs", "penalty",
+                                  "logit_bias"])
+def test_ported_engine_features_run(tparams, what):
+    """The features that once raised NotImplementedError run: embeddings
+    are unit vectors, an FSM forces its choice, top-logprobs lead with the
+    greedy token, a penalty and a -100 bias keep the engine serving."""
+    from quant_tpu_torch.engine import SamplingConfig
+    from quant_tpu_torch.engine.grammar import choice_fsm
+
+    eng = TEngine(tparams, TCFG, max_slots=1, max_seq=16, eos_id=7,
+                  device="cpu")
+    if what == "embed":
+        v = eng.embed([1, 2])
+        assert v.shape == (TCFG.dim,)
+        assert abs(float(np.linalg.norm(v)) - 1.0) < 1e-5
+        return
+    request_kw = {"fsm": {"fsm": choice_fsm([[5, 6]], TCFG.vocab_size, 7)},
                   "top_logprobs": {"top_logprobs": 2},
                   "penalty": {"sampling": SamplingConfig(
                       repetition_penalty=1.1)},
                   "logit_bias": {"sampling": SamplingConfig(
-                      logit_bias=((1, 2.0),))}}.get(what, {})
-    with pytest.raises(NotImplementedError):
-        eng = TEngine(tparams, TCFG, max_slots=1, max_seq=16, device="cpu",
-                      **engine_kw)
-        if what == "embed":
-            eng.embed([1, 2])
-        eng.add_request(TRequest(req_id=0, prompt=[1], max_new_tokens=1,
-                                 **request_kw))
+                      logit_bias=((1, -100.0),))}}[what]
+    req = TRequest(req_id=0, prompt=[1, 2], max_new_tokens=4, **request_kw)
+    eng.add_request(req)
+    while eng.has_work():
+        eng.step()
+    assert req.finished and 1 <= len(req.output) <= 4
+    if what == "fsm":
+        assert req.output == [5, 6, 7]
+    if what == "top_logprobs":
+        assert [t[0] for t in req.top_ids] == req.output
+    if what == "logit_bias":
+        assert 1 not in req.output
 
 
 def test_prefix_cache_requires_paged(tparams):

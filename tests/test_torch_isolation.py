@@ -3,8 +3,9 @@
 * An ``ast`` scan of ``quant_tpu_torch/**/*.py`` and ``chip_smoke.py`` finds
   no import of ``jax``, ``jaxlib`` or ``quant_tpu`` (other than
   ``quant_tpu_torch``), and none of ``safetensors`` or ``transformers``
-  (packages the card's machine lacks) but one: ``transformers`` inside
-  ``tokens_from_file``, for an explicit ``--tokenizer``.
+  (packages the card's machine lacks) but two: ``transformers`` inside
+  ``tokens_from_file`` and the CLI's ``_tokenizer``, for an explicit
+  ``--tokenizer``.
 * A subprocess imports every module of the port with ``jax`` blocked.
 * Entry points called without ``device="cpu"`` raise on a machine without a
   GPU instead of falling back to the CPU.
@@ -60,7 +61,8 @@ def test_no_jax_or_reference_imports(path):
 # packages the card's machine lacks: (file, function) that may import them
 OPTIONAL = {"safetensors": set(),
             "transformers": {("quant_tpu_torch/eval/perplexity.py",
-                              "tokens_from_file")}}
+                              "tokens_from_file"),
+                             ("quant_tpu_torch/cli.py", "_tokenizer")}}
 
 
 def _optional_imports(path: pathlib.Path) -> list[tuple[str, str]]:

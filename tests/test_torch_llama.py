@@ -114,7 +114,7 @@ def test_config_matches_jax():
     ("test-tiny", {"n_experts": 4, "codebook": "lloyd"}, {}),
     ("test-tiny", {"n_experts": 4, "codebook": "nf4"}, {}),
     ("test-tiny", {"embed_bits": 4}, {}),
-    ("test-tiny", {}, {"return_hidden": True}),
+    ("test-tiny", {}, {"expert_axis": "expert"}),
     ("test-tiny", {}, {"seq_axis": "seq"}),
     ("test-tiny", {}, {"axis": "model"}),
 ])

@@ -6,9 +6,11 @@ JAX ``Engine`` and the port's ``Engine.generate`` on the same parameters;
 the NDJSON stream concatenates to the blocking answer; ``/healthz``,
 ``/metrics``, ``/v1/models`` and ``/v1/completions`` (token-id prompts,
 JSON and SSE) answer; a full queue answers 429, invalid prompt ids 400
-with the server still serving, and every field that rests on unported code
-501 with the feature's name. ``python -m quant_tpu_torch serve`` starts the
-same server from a checkpoint.
+with the server still serving, ``lora`` (unported) 501 with the feature's
+name, and the features that once answered 501 (guided decoding, top-N
+logprobs, penalties, ``logit_bias``, embeddings) a 200 of their shape, text
+and chat without a tokenizer a 400. ``python -m quant_tpu_torch serve``
+starts the same server from a checkpoint.
 """
 
 import dataclasses
@@ -205,20 +207,68 @@ def test_completions_with_token_ids(base, params):
 
 
 @pytest.mark.parametrize("path,payload,feature", [
-    ("/generate", {"guided_choice": [[5]]}, "guided decoding"),
     ("/generate", {"lora": "a"}, "LoRA"),
-    ("/generate", {"top_logprobs": 2}, "top-N logprobs"),
-    ("/generate", {"repetition_penalty": 1.2}, "penalties"),
-    ("/generate", {"logit_bias": {"5": 3.0}}, "logit_bias"),
-    ("/v1/completions", {"prompt": "hello"}, "text prompts"),
-    ("/v1/completions", {"logprobs": 3}, "top-N logprobs"),
-    ("/v1/chat/completions", {"messages": []}, "chat completions"),
-    ("/v1/embeddings", {"input": [1, 2]}, "embeddings"),
 ])
 def test_unported_features_answer_501(base, path, payload, feature):
     body = {"prompt_ids": PROMPTS[0], "prompt": PROMPTS[0], **payload}
     code, err = _status(base, path, body)
     assert code == 501 and feature in err["error"]
+
+
+@pytest.fixture(scope="module")
+def eos_base(params):
+    """A server without a tokenizer whose engine has a real EOS id (7),
+    which grammar FSMs need."""
+    eng = TEngine(params[0], TCFG, device="cpu",
+                  **dict(ENGINE, eos_id=7))
+    httpd, srv = serve_async(eng, model_name="tiny")
+    yield f"http://127.0.0.1:{httpd.server_address[1]}"
+    httpd.shutdown()
+    httpd.server_close()
+    srv.stop()
+
+
+def _dims_ok(resp, path, payload):
+    """Whether a feature's 200 answer has the shape the feature asks for."""
+    if path == "/v1/embeddings":
+        v = np.asarray(resp["data"][0]["embedding"])
+        return v.shape == (TCFG.dim,) and abs(np.linalg.norm(v) - 1) < 1e-5
+    if path == "/v1/completions":
+        lp = resp["choices"][0]["logprobs"]
+        return (len(lp["top_logprobs"]) == len(resp["choices"][0]["token_ids"])
+                and all(len(d) == 3 for d in lp["top_logprobs"]))
+    out = resp["output_ids"]
+    if "guided_choice" in payload:
+        return out == [5, 7]
+    if "top_logprobs" in payload:
+        return [t[0] for t in resp["top_token_ids"]] == out and all(
+            len(t) == 2 for t in resp["top_token_ids"])
+    if "logit_bias" in payload:
+        return out == [5] * 4
+    return 1 <= len(out) <= 4
+
+
+@pytest.mark.parametrize("path,payload,code", [
+    ("/generate", {"guided_choice": [[5]]}, 200),
+    ("/generate", {"top_logprobs": 2}, 200),
+    ("/generate", {"repetition_penalty": 1.2}, 200),
+    ("/generate", {"logit_bias": {"5": 100.0}}, 200),
+    ("/v1/completions", {"prompt": "hello"}, 400),
+    ("/v1/completions", {"logprobs": 3}, 200),
+    ("/v1/chat/completions", {"messages": []}, 400),
+    ("/v1/embeddings", {"input": [1, 2]}, 200),
+])
+def test_ported_features_answer(eos_base, path, payload, code):
+    """The features that once answered 501 answer now: a 200 of the shape
+    the feature asks for, or, for a text prompt and chat on a server
+    without a tokenizer, a 400 that says so (as the JAX server does)."""
+    body = {"prompt_ids": PROMPTS[0], "prompt": PROMPTS[0],
+            "max_new_tokens": 4, "max_tokens": 4, **payload}
+    if code == 400:
+        got, err = _status(eos_base, path, body)
+        assert got == 400 and "tokenizer" in err["error"]
+    else:
+        assert _dims_ok(_post(eos_base, path, body), path, payload)
 
 
 def test_bad_requests_answer_400_and_server_survives(base, params):
