@@ -54,8 +54,13 @@ Phases; the first failure ends the run with a non-zero exit code:
              16 and 128 heads and over 8 slots of 8192 tokens
              (4 layers) at 16, each decode row like the GQA rows (path
              counted, rerun bit-equal, ``sdpa_bf16_ms`` over the latent
-             dequantized to bf16 as MQA with Dk=640, Dv=512), and
-             ``dequant_matmul`` at the
+             dequantized to bf16 as MQA with Dk=640, Dv=512); each decode
+             row again over the same rows in a latent pool of 128-token
+             pages under a shuffled table (counted under [paged], against
+             its plain version over ``paged_gather`` and beside the
+             contiguous kernel's output and time), and the fused insert
+             into such a pool at 16 and 128 heads and into one of
+             16-token pages; and ``dequant_matmul`` at the
              DeepSeek-V2-Lite shapes (int4, groups of 64) and the
              DeepSeek-V3 shapes (groups of 128). ``unpack_int4_device``
              bit-exact against its plain version and the host codec (the
@@ -229,12 +234,23 @@ Phases; the first failure ends the run with a non-zero exit code:
              forwards (one MLA decode and one fused insert kernel a layer,
              no merge kernel; device kernels per step), every answer
              teacher-forced through
-             the plain path with the served experts held. Then
+             the plain path with the served experts held. Then the same
+             model over HTTP from the paged, prefix-cached latent pool
+             (pages of 128): 8 requests sharing a 512-token prefix plus
+             16-512 suffix tokens, 32 new tokens each; exact launch counts
+             (27 paged MLA decodes and 27 paged fused inserts a decode
+             forward, all on the tensor-core path), 7 x 512 hit tokens,
+             every page free or cached after the drain, a profile of 3
+             decode forwards over the pool, every served token
+             teacher-forced through the contiguous cache with the experts
+             held, and paged against contiguous logits. Then
              DeepSeek-V3 at full width
              and 4 layers (3 dense-prefix, 1 of 256 experts; low-rank q,
              sigmoid group-limited routing with a bias, 128 heads) in
-             process: 4 requests of 128 prompt and 8 new tokens, launch
-             counts, kernels against plain logits with the experts held.
+             process: 4 requests of 128 prompt and 8 new tokens, served
+             from the contiguous cache and from the paged, prefix-cached
+             pool, launch counts, kernels against plain logits with the
+             experts held (over a pool too).
              Both random models get unit-gain routers and unit-gain
              attention (``unit_gain_attention``: as drawn, their scores
              amplify rounding differences too much to compare two paths).
@@ -265,9 +281,10 @@ Phases; the first failure ends the run with a non-zero exit code:
 11. cli      (its checks at once, 6 at a time; each runs processes of its
              own) ``python -m quant_tpu_torch generate`` on test-tiny,
              test-tiny-moe, test-tiny-mla and test-tiny-dsv3 checkpoints
-             written by the port, and on test-tiny with ``--kv-bits 4``; ``serve --paged`` on the first two (two
-             /generate requests over HTTP) and, refused with "not ported",
-             on the two MLA ones; ``convert`` of tiny random HF directories
+             written by the port, and on test-tiny with ``--kv-bits 4``;
+             ``serve --paged`` on the first two and ``serve --paged
+             --prefix-cache`` on the two MLA ones (two /generate requests
+             over HTTP each); ``convert`` of tiny random HF directories
              of the test-tiny (Llama), test-tiny-moe (Mixtral) and
              test-tiny-dsv3 (DeepSeek-V3) shapes, each loaded and run once;
              ``selftest`` (codes bit-exact against the C++ oracle).
@@ -839,17 +856,19 @@ def moe_variant_kernels(gen, detail: dict) -> dict:
             "time, weights L2-cold")}
 
 
-def page_pool(cache, lengths, page: int):
+def page_pool(cache, lengths, page: int, ahead: bool = False):
     """The rows of a contiguous cache ``[L, B, H, S, ..]`` (codes or
     scales, each with its own head count) in a pool ``[L, 1 + B * S / page,
     H, page, ..]`` under a page table shuffled from seed 0, entries past
     each slot's pages on the scratch page 0: (pool tensors, table, table
-    entries in use)."""
+    entries in use). ``ahead``: each slot also owns the page its next
+    token goes to, as the engine allocates them (for an insert)."""
     dev = cache[0].device
     L, B, _, S = cache[0].shape[:4]
     max_pages = S // page
     n_pool = 1 + B * max_pages
-    used = [-(-int(n) // page) for n in lengths.tolist()]
+    used = [min(max_pages, int(n) // page + 1) if ahead else -(-int(n) // page)
+            for n in lengths.tolist()]
     perm = np.random.default_rng(0).permutation(np.arange(1, n_pool))
     tbl_np = np.zeros((B, max_pages), np.int32)
     for b, u in enumerate(used):
@@ -963,7 +982,7 @@ def mla_sdpa_time(kc, ks, lengths, h: int, r: int) -> dict:
 def decode_row(name: str, kernel, plain, q, tol: float, layer: int,
                layers: int, n_tok: int, hkv: int, sdpa: dict, what: str,
                extra_bytes: int = 0, work: tuple | None = None,
-               kv4: bool = False) -> dict:
+               kv4: bool = False, paged: bool = False) -> dict:
     """One decode-attention row: ``kernel(q, layer)`` against
     ``plain(q, layer)`` (``tol`` of max|ref|), one launch counted under the
     path it should take (tc for bf16 q; over the int4 cache, ``kv4``, also
@@ -972,7 +991,8 @@ def decode_row(name: str, kernel, plain, q, tol: float, layer: int,
     L2-cold), the plain version's, the bound of ``n_tok`` tokens' K/V codes
     (Dh bytes a token and real head each for K and V, Dh / 2 at int4) and
     scales (plus ``extra_bytes``; or ``work``, the call's (bytes,
-    operations)), and ``sdpa`` beside them."""
+    operations)), and ``sdpa`` beside them. ``paged``: the launch also
+    counts under [paged] (the MLA decode over a latent pool)."""
     from quant_tpu_torch.kernels import _build
     from quant_tpu_torch.utils.timing import device_time, kernel_times
 
@@ -981,7 +1001,8 @@ def decode_row(name: str, kernel, plain, q, tol: float, layer: int,
     _build.reset_launches()
     got = kernel(q, layer)
     if not (_build.launches[name] == _build.launches[f"{name}[{path}]"] == 1
-            and _build.launches.get(f"{name}[kv4]", 0) == int(kv4)):
+            and _build.launches.get(f"{name}[kv4]", 0) == int(kv4)
+            and _build.launches.get(f"{name}[paged]", 0) == int(paged)):
         raise AssertionError(f"{name} ({qdt}): one launch on the {path} path "
                              f"expected, counted {_build.launches}")
     again = kernel(q, layer)
@@ -1371,7 +1392,63 @@ def mla_rows(gen, kc, ks, lengths, layer: int, r: int, scale: float,
     return att
 
 
-def fused_mla_row(gen, kc, ks, lengths, cfg, agree: dict) -> dict:
+def mla_paged_rows(gen, kc, ks, lengths, layer: int, r: int, scale: float,
+                   heads: tuple, kv_dim: int, what: str, contiguous: dict,
+                   page: int = 128, key: str = "") -> dict:
+    """``mla_flash_decode_int8`` over the latent rows of ``kc`` / ``ks`` in
+    a pool of ``page``-token pages (:func:`page_pool`, each slot's next
+    page too), through its table: at each of ``heads``, f32 q (CUDA cores,
+    1e-4 of max|ref|) and bf16 q (tensor cores, 1e-2) against the plain
+    version (``paged_gather`` then the plain decode), counted under its
+    path and [paged], rerun bit-equal, device time L2-cold; then
+    ``|paged - contiguous|`` against the contiguous kernel on the same q
+    and rows. Bound: the contiguous row's bytes plus the table entries the
+    call reads (one per page holding context). ``sdpa_bf16_ms`` is the
+    contiguous row's (``contiguous``: :func:`mla_rows`' rows), over the
+    same context."""
+    from quant_tpu_torch.kernels.mla_attention import (
+        mla_flash_decode_int8, mla_flash_decode_int8_reference)
+
+    L, B, _, S, D = kc.shape
+    (pk, ps), tbl, _ = page_pool([kc, ks], lengths, page, ahead=True)
+    n_tok = int(lengths.clamp(max=S).sum())
+    n_read = sum(-(-int(n) // page) for n in lengths.clamp(max=S).tolist())
+    att = {}
+    for h in heads:
+        for qdt, tol in ((F32, 1e-4), (BF16, 1e-2)):
+            c_row = contiguous[f"{key}H={h} {str(qdt)[6:]}"]
+            sdpa = {k: c_row[k] for k in ("sdpa_bf16_ms", "sdpa_backend")}
+            q = torch.randn((B, h, D), generator=gen, device=kc.device).to(qdt)
+            q[..., kv_dim:] = 0
+            qb = q.element_size()
+            work = (B * h * D * qb + n_tok * (D + 4) + B * 4 + B * h * r * qb
+                    + 4 * n_read, 2 * n_tok * h * (D + r))
+            row = decode_row(
+                "mla_flash_decode_int8",
+                lambda q, i: mla_flash_decode_int8(q, pk, ps, lengths, i,
+                                                   r=r, scale=scale,
+                                                   page_tbl=tbl),
+                lambda q, i: mla_flash_decode_int8_reference(
+                    q, pk, ps, lengths, i, r=r, scale=scale, page_tbl=tbl),
+                q, tol, layer, L, n_tok, 1, sdpa,
+                f"{what} page={page} H={h} ctx={n_tok}", work=work,
+                paged=True)
+            contig = mla_flash_decode_int8(q, kc, ks, lengths, layer, r=r,
+                                           scale=scale)
+            row["max_abs_diff_vs_contiguous"] = float(
+                (row.pop("out").float() - contig.float()).abs().max())
+            row["contiguous_ms"] = c_row["ms"]
+            log(f"[kernels]   |paged - contiguous| <= "
+                f"{row['max_abs_diff_vs_contiguous']:.2e} (contiguous "
+                f"{c_row['ms']:.4f} ms)")
+            att[f"{key}H={h} {str(qdt)[6:]} page={page}"] = row
+    del pk, ps
+    torch.cuda.empty_cache()
+    return att
+
+
+def fused_mla_row(gen, kc, ks, lengths, cfg, agree: dict,
+                  tbl=None) -> dict:
     """The fused MLA latent insert (RMSNorm of c, interleaved yarn RoPE of
     k_pe and q_pe, the latent row quantized and inserted, q_eff written) at
     ``cfg``'s widths and B=8 into the latent cache ``kc`` / ``ks`` (27
@@ -1387,14 +1464,19 @@ def fused_mla_row(gen, kc, ks, lengths, cfg, agree: dict) -> dict:
     event time, the plain chain's device time, and the bound of the bytes
     the call must move (q_abs, q_pe, ckv, the gain, tables and lengths
     read; q_eff and the rows of the slots whose position lies in the cache
-    written)."""
+    written). With ``tbl``, ``kc`` / ``ks`` are a latent pool ``[L, P, 1,
+    page, Dq]`` written through that page table (counted under [paged]
+    too; the table entries read count in the bound)."""
     from quant_tpu_torch.kernels import _build
     from quant_tpu_torch.kernels.cache_insert import (
         mla_cache_insert_int8_fused, mla_cache_insert_int8_fused_reference)
     from quant_tpu_torch.models import llama
     from quant_tpu_torch.utils.timing import device_time, kernel_times
 
-    dev, (L, B, _, S, D) = kc.device, kc.shape
+    dev, (L, _, _, S, D) = kc.device, kc.shape
+    B = lengths.shape[0]
+    paged = tbl is not None
+    cap = tbl.shape[1] * S if paged else S     # S: the page size in a pool
     h, r, dr = cfg.n_heads, cfg.kv_lora_rank, cfg.qk_rope_head_dim
     dn, qw = cfg.qk_nope_head_dim, cfg.n_heads * cfg.head_dim
     akv = torch.randn((B, 1, (cfg.q_lora_rank or qw) + r + dr),
@@ -1408,7 +1490,7 @@ def fused_mla_row(gen, kc, ks, lengths, cfg, agree: dict) -> dict:
     q_abs = torch.einsum("bthn,hnr->bthr", qh[..., :dn], w_uk)
     w = 1.0 + 0.1 * torch.randn(r, generator=gen, device=dev)
     rope = llama._rope_tables(lengths[:, None], cfg.rope_theta, dr, cfg)
-    opts = dict(llama._rope_options(cfg), eps=cfg.norm_eps)
+    opts = dict(llama._rope_options(cfg), eps=cfg.norm_eps, page_tbl=tbl)
     layer = 5
     ref_c = [kc.clone(), ks.clone()]
     _build.reset_launches()
@@ -1418,15 +1500,17 @@ def fused_mla_row(gen, kc, ks, lengths, cfg, agree: dict) -> dict:
                                                 *ref_c, lengths, layer,
                                                 **opts)
     torch.cuda.synchronize()
-    what = f"mla_cache_insert_int8 [fused] H={h}"
+    label = f"mla_cache_insert_int8 [fused{', paged' if paged else ''}]"
+    what = f"{label} H={h}" + (f" page {S}" if paged else "")
     if (_build.launches["mla_cache_insert_int8"] != 1
-            or _build.launches["mla_cache_insert_int8[fused]"] != 1):
+            or _build.launches["mla_cache_insert_int8[fused]"] != 1
+            or _build.launches["mla_cache_insert_int8[paged]"] != int(paged)):
         raise AssertionError(f"{what}: one launch under [fused] expected, "
                              f"counted {_build.launches}")
     if not torch.equal(got.view(torch.int16), ref.view(torch.int16)):
         raise AssertionError(f"{what}: q_eff is not bit-equal to the plain "
                              "chain's")
-    written = int(((lengths >= 0) & (lengths < S)).sum())
+    written = int(((lengths >= 0) & (lengths < cap)).sum())
     for a, b in zip((kc, ks), ref_c):
         if not (torch.equal(a[:layer], b[:layer])
                 and torch.equal(a[layer + 1:], b[layer + 1:])):
@@ -1435,7 +1519,8 @@ def fused_mla_row(gen, kc, ks, lengths, cfg, agree: dict) -> dict:
     kl, sl, rkl, rsl = kc[layer], ks[layer], ref_c[0][layer], ref_c[1][layer]
     d = (kl.int() - rkl.int()).abs()
     differ = int((d > 0).sum())
-    scale_rel = float(((sl - rsl).abs() / rsl).max())
+    # relative to each plain scale (a pool's pages never written hold 0)
+    scale_rel = float(((sl - rsl).abs() / rsl.clamp_min(1e-30)).max())
     # the dequantized latent of the two caches' layer
     err = float((kl.float() * sl[..., None] - rkl.float()
                  * rsl[..., None]).abs().max())
@@ -1454,12 +1539,13 @@ def fused_mla_row(gen, kc, ks, lengths, cfg, agree: dict) -> dict:
     plain_ms = device_time(lambda: mla_cache_insert_int8_fused_reference(
         ckv, q_pe, q_abs, w, *rope, kc, ks, lengths, nxt(), **opts), L)
     nbytes = (2 * B * h * (r + dr) + 2 * B * (r + dr) + 4 * r
-              + 2 * rope[0].numel() * 4 + B * 4 + 2 * B * h * D
+              + 2 * rope[0].numel() * 4 + B * 4 * (1 + paged) + 2 * B * h * D
               + written * (D + 4))
     b_ms, b_by = bound_ms(nbytes, 0)
     where = (f"B=8 H={h} r={r} dr={dr} Dq={D} bf16, {L}-layer latent "
-             f"cache S={S}")
-    log(f"[kernels] mla_cache_insert_int8 [fused] {where}: {ms:.4f} ms "
+             + (f"pool of {kc.shape[1]} pages of {S}" if paged
+                else f"cache S={S}"))
+    log(f"[kernels] {label} {where}: {ms:.4f} ms "
         f"(events {ev:.4f})  plain "
         f"chain {plain_ms:.4f} ms  bound {b_ms:.6f} ms ({b_by}, {nbytes} "
         f"bytes)")
@@ -1482,8 +1568,12 @@ def mla_kernels(gen, detail: dict) -> dict:
     DeepSeek-V3's (H=128, low-rank q), at most 1e-3 of the written codes
     differing over both rows; ``mla_flash_decode_int8`` with r=512 at H=16
     and H=128 (:func:`mla_rows`), and at H=16 over 8 slots of 8192 tokens on
-    a 4-layer stack. Then dequant_matmul at the V2-Lite shapes, int4 in
-    groups of 64, and at the V3 shapes in groups of 128."""
+    a 4-layer stack. Each decode row again over the same rows in a latent
+    pool of 128-token pages (:func:`mla_paged_rows`), and the fused insert
+    into such a pool at H=16 and H=128 and into one of 16-token pages at
+    H=16 (the written codes counted with the contiguous rows'). Then
+    dequant_matmul at the V2-Lite shapes, int4 in groups of 64, and at the
+    V3 shapes in groups of 128."""
     from quant_tpu_torch.models import PRESETS
     from quant_tpu_torch.models.llama import _q_scale
 
@@ -1517,6 +1607,34 @@ def mla_kernels(gen, detail: dict) -> dict:
         "unit": f"one call, bf16 q: B=8, H=16, Dq={D}, r={r}, S=2048, "
                 f"lengths {ATT_LENGTHS}; device time, each call on the next "
                 f"layer of the {L}-layer latent cache (L2-cold)"}
+    # the same rows in a latent pool of 128-token pages, then the fused
+    # insert into it (and into one of 16-token pages)
+    paged = mla_paged_rows(gen, kc, ks, lengths, layer, r, scale, (16, 128),
+                           v2.mla_kv_dim, f"B=8 Dq={D} r={r} S=2048", att)
+    summary["mla_flash_decode_int8 [paged]"] = {
+        **paged["H=16 bfloat16 page=128"], "library_ms": None,
+        "unit": f"one call, bf16 q: B=8, H=16, Dq={D}, r={r}, page 128, "
+                f"16-page tables, lengths {ATT_LENGTHS}; device time, each "
+                f"call on the next layer of the {L}-layer latent pool "
+                f"(L2-cold)"}
+    for page, cfgs in ((128, (v2, PRESETS["deepseek-v3"])), (16, (v2,))):
+        (pk, ps), tbl, _ = page_pool([kc, ks], lengths, page, ahead=True)
+        for c in cfgs:
+            inserts[f"H={c.n_heads} page={page}"] = fused_mla_row(
+                gen, pk, ps, lengths, c, agree, tbl)
+        del pk, ps
+        torch.cuda.empty_cache()
+    share = agree["differ"] / agree["codes"]
+    log(f"[kernels] mla_cache_insert_int8 [fused] with the paged rows: "
+        f"{agree['differ']} of {agree['codes']} written latent codes differ "
+        f"from the plain chain's ({share:.2e})")
+    if share > 1e-3:
+        raise AssertionError("mla_cache_insert_int8 [fused]: more than 1e-3 "
+                             "of the written latent codes differ")
+    summary["mla_cache_insert_int8 [paged]"] = {
+        **inserts["H=16 page=128"], "max_abs_err": max(
+            row["max_abs_err"] for k, row in inserts.items() if "page" in k)}
+    att.update(paged)
     del kc, ks
     torch.cuda.empty_cache()
     # long context: 8 slots of 8192 tokens over a 4-layer stack (168 MB,
@@ -1526,9 +1644,13 @@ def mla_kernels(gen, detail: dict) -> dict:
     ks = torch.rand((4, B, 1, 8192), generator=gen,
                     device=dev) * 0.015 + 0.005
     long_len = torch.full((B,), 8192, dtype=torch.int32, device=dev)
-    att.update(mla_rows(gen, kc, ks, long_len, 3, r, scale, (16,),
-                        v2.mla_kv_dim, f"B=8 Dq={D} r={r} S=8192 (long "
-                        "context)", key="8x8192 "))
+    long = mla_rows(gen, kc, ks, long_len, 3, r, scale, (16,),
+                    v2.mla_kv_dim, f"B=8 Dq={D} r={r} S=8192 (long "
+                    "context)", key="8x8192 ")
+    att.update(long)
+    att.update(mla_paged_rows(gen, kc, ks, long_len, 3, r, scale, (16,),
+                              v2.mla_kv_dim, f"B=8 Dq={D} r={r} S=8192 (long "
+                              "context)", long, key="8x8192 "))
     del kc, ks
     torch.cuda.empty_cache()
     mm_rows = []
@@ -2781,7 +2903,8 @@ def moe_expected(cfg, chunks: int, decode: int, paged: bool) -> dict:
     and shared experts; gate|up and down of the routing layers through
     dequant_matmul_moe; and the decode pair of the cache (paged, contiguous
     or MLA latent) per decode forward and layer, a GQA insert's also under
-    [fused]."""
+    [fused]; an MLA pair over the latent pool (``paged``) also under
+    [paged]."""
     fwd, ln, k0 = chunks + decode, cfg.n_layers, cfg.first_k_dense
     pairs = {"paged": ("paged_cache_insert_int8", "paged_flash_decode_int8",
                        "paged_cache_insert_int8[fused]"),
@@ -2792,10 +2915,12 @@ def moe_expected(cfg, chunks: int, decode: int, paged: bool) -> dict:
     kind = "mla" if cfg.is_mla else "paged" if paged else "contiguous"
     dense = ((2 + bool(cfg.q_lora_rank)) * ln + 2 * k0
              + 2 * moe_layers(cfg) * bool(cfg.n_shared_experts) + 1)
+    mla_paged = {f"{k}[paged]": ln * decode * (kind == "mla" and paged)
+                 for k in pairs["mla"][:2]}
     return {"dequant_matmul": dense * fwd,
             "dequant_matmul_moe": 2 * moe_layers(cfg) * fwd,
             **{k: ln * decode * (kind == name) for name, pair in pairs.items()
-               for k in pair}}
+               for k in pair}, **mla_paged}
 
 
 def served_rows(eng, prompts, prefix_len: int):
@@ -3106,7 +3231,8 @@ def moe_model_check(detail: dict, tag: str, params, cfg, b: int, t: int,
     variants must agree within 5e-2 of max|logit| (the model limit).
     ``faults``: variant name -> a context manager that plants a fault while
     that variant runs; each pair of ``controls`` must differ by more than
-    the limit."""
+    the limit. A variant's ``page`` (not a config field) runs it over a
+    page pool of that page size under a table shuffled from seed 0."""
     from quant_tpu_torch.models import llama
 
     rng = np.random.default_rng(1)
@@ -3120,8 +3246,19 @@ def moe_model_check(detail: dict, tag: str, params, cfg, b: int, t: int,
         n = x.shape[1]
         return [(i, at[0] + j) for i in range(b) for j in range(n)]
     for name, change in variants.items():
+        change = dict(change)
+        page = change.pop("page", None)
         c = dataclasses.replace(cfg, **change)
-        cache = llama.init_cache(c, b, t + n_decode, "cuda")
+        if page is None:
+            cache = llama.init_cache(c, b, t + n_decode, "cuda")
+        else:
+            max_pages = -(-(t + n_decode) // page)
+            cache = llama.init_paged_cache(c, b, max_pages * page,
+                                           1 + b * max_pages, page,
+                                           device="cuda")
+            perm = np.random.default_rng(0).permutation(
+                np.arange(1, 1 + b * max_pages)).astype(np.int32)
+            cache.page_tbl.copy_(torch.from_numpy(perm.reshape(b, -1)))
         outs = []
         fault = (faults or {}).get(name, contextlib.nullcontext)
         with held_routing(moe_layers(cfg), rows, kept) as routing, fault():
@@ -3329,6 +3466,103 @@ def phase_dsv2_serving(detail: dict, params, cfg) -> dict:
     return out
 
 
+def phase_dsv2_paged(detail: dict, params, cfg, contiguous: dict) -> dict:
+    """Full-width DeepSeek-V2-Lite over HTTP from the paged, prefix-cached
+    latent pool ``Engine(max_slots=8, max_seq=2048, paged=True,
+    page_size=128, prefix_cache=True)``: 8 greedy requests sharing a
+    512-token prefix plus 16-512 suffix tokens, 32 new tokens each, from 4
+    client threads (half streamed). Exact launch counts (27 paged MLA
+    decodes and 27 paged fused inserts a decode forward, every decode on
+    the tensor-core path, hot lists at decode), 7 x 512 prefix-hit tokens,
+    every page free or cached after the drain, a profile of 3 B=8 decode
+    forwards over the pool, every served token teacher-forced through the
+    contiguous cache with the served experts held, and paged against
+    contiguous logits (one 200-token prefill across two pages and 4 decode
+    steps at B=4, experts held). ``contiguous``: the contiguous serving
+    phase's result, printed beside."""
+    from quant_tpu_torch.engine import Engine
+
+    n_req, n_new, prefix_len = 8, 32, 512
+    rng = np.random.default_rng(1)
+    prefix = [int(t) for t in rng.integers(0, cfg.vocab_size, prefix_len)]
+    suffix_lens = rng.integers(16, 513, n_req)
+    prompts = [prefix + [int(t) for t in rng.integers(0, cfg.vocab_size, n)]
+               for n in suffix_lens]
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(params, cfg, max_slots=8, max_seq=2048, eos_id=-1,
+                 device="cuda", paged=True, page_size=128, prefix_cache=True)
+    c = eng.cache
+    pool_bytes = sum(t.numel() * t.element_size() for t in (
+        c.k_codes, c.k_scale, c.v_codes, c.v_scale))
+    with moe_dispatch() as slots, held_routing(
+            moe_layers(cfg), served_rows(eng, prompts, prefix_len)) as routing:
+        traffic = http_traffic(eng, prompts, n_new, 4, "deepseek-v2-lite")
+    stats, launches, steps = (traffic["stats"], traffic["launches"],
+                              traffic["steps"])
+    chunks, dec = stats["prefill_chunks"], stats["decode_forwards"]
+    expect = moe_expected(cfg, chunks, dec, paged=True)
+    check_launches("dsv2 paged serving", launches, expect)
+    want = {"hot": 2 * moe_layers(cfg) * dec,
+            "all": 2 * moe_layers(cfg) * chunks}
+    if slots != want:
+        raise AssertionError(f"dsv2 paged serving: MoE calls {slots}, "
+                             f"expected {want}")
+    if stats["prefix_hit_tokens"] != (n_req - 1) * prefix_len:
+        raise AssertionError(f"prefix_hit_tokens {stats['prefix_hit_tokens']}"
+                             f", expected {(n_req - 1) * prefix_len}")
+    if stats["free_pages"] + stats["cached_blocks"] != stats["total_pages"]:
+        raise AssertionError(f"after the drain, {stats['free_pages']} free + "
+                             f"{stats['cached_blocks']} cached pages of "
+                             f"{stats['total_pages']}")
+    pure = [st for st in steps if st["decode"] and not st["chunks"]]
+    decode_ms = 1e3 * sum(st["s"] for st in pure) / max(1, len(pure))
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    ttfts = sorted(1e3 * r.ttft for r in traffic["admitted"])
+    total = traffic["total_s"]
+    log(f"[dsv2-paged] {n_req} HTTP requests (4 clients, half streamed), "
+        f"shared {prefix_len}-token prefix + {suffix_lens.min()}-"
+        f"{suffix_lens.max()} suffix, {n_new} new tokens each: {chunks} "
+        f"prefill chunks, {dec} decode steps; launches {launches} (expected "
+        f"{expect}); MoE calls {slots}")
+    log(f"[dsv2-paged] prefix_hit_tokens {stats['prefix_hit_tokens']}, after "
+        f"the drain {stats['free_pages']} free + {stats['cached_blocks']} "
+        f"cached = {stats['total_pages']} pages; at most "
+        f"{traffic['peak_pages_in_use']} pages in use")
+    log(f"[dsv2-paged] decode {decode_ms:.2f} ms/step (B=8, routing "
+        f"recorded; contiguous phase {contiguous['decode_ms_per_step']:.2f}),"
+        f" TTFT p50 {ttfts[len(ttfts) // 2]:.0f} ms max {ttfts[-1]:.0f} ms "
+        f"(contiguous phase {contiguous['ttft_ms_p50']:.0f} / "
+        f"{contiguous['ttft_ms_max']:.0f}), max_memory_allocated "
+        f"{peak_gib:.2f} GiB; latent pool {pool_bytes / 2**20:.1f} MiB "
+        f"({eng.n_pages} pages), contiguous latent cache "
+        f"{contiguous['latent_cache_bytes'] / 2**20:.1f} MiB")
+    park_at_lengths(eng, [len(p) + n_new for p in prompts])
+    profile = profile_decode(eng, label="DeepSeek-V2-Lite paged decode")
+    check_mla_profile(profile, cfg.n_layers)
+    del eng, c
+    torch.cuda.empty_cache()
+    outs = [traffic["results"][i]["output_ids"] for i in range(n_req)]
+    tf = teacher_forced(params, cfg, prompts, prefix_len, outs,
+                        tag="dsv2-paged", kept=routing["kept"])
+    moe_model_check(detail, "dsv2-paged", params, cfg, 4, 200, 4,
+                    {"contiguous": {}, "paged": {"page": 128}},
+                    [("paged", "contiguous")])
+    out = {"requests": n_req, "new_tokens": n_new, "prefix_len": prefix_len,
+           "suffix_lens": suffix_lens.tolist(), "prefill_chunks": chunks,
+           "decode_forwards": dec, "launches": launches,
+           "expected_launches": expect, "moe_calls": slots,
+           "total_s": total, "tokens_per_s": n_req * n_new / total,
+           "decode_ms_per_step": decode_ms,
+           "ttft_ms_p50": ttfts[len(ttfts) // 2], "ttft_ms_max": ttfts[-1],
+           "max_memory_allocated_gib": peak_gib, "pool_bytes": pool_bytes,
+           "contiguous_cache_bytes": contiguous["latent_cache_bytes"],
+           "peak_pages_in_use": traffic["peak_pages_in_use"],
+           "teacher_forced": tf, "profile": profile, "stats": stats,
+           "healthz": traffic["healthz"], "steps": steps}
+    detail["dsv2_paged"] = out
+    return out
+
+
 def phase_dsv3(detail: dict, cfg) -> dict:
     """DeepSeek-V3 at full width and reduced depth (3 dense-prefix layers
     and 1 MoE layer of 256 experts; low-rank q, sigmoid group-limited
@@ -3337,7 +3571,9 @@ def phase_dsv3(detail: dict, cfg) -> dict:
     greedy requests of 128 prompt tokens, 8 new tokens each. Decode at B=4
     routes (at most 32 of 256 experts hot). Exact launch counts, then one
     prefill and 2 decode steps with the kernels against the plain versions,
-    experts held."""
+    experts held. Then the same requests served from the paged,
+    prefix-cached latent pool (pages of 128; exact launch counts, [paged]
+    included), and kernels against plain logits over a pool."""
     from quant_tpu_torch.engine import Engine, Request
     from quant_tpu_torch.kernels import _build
     from quant_tpu_torch.models import llama
@@ -3350,51 +3586,70 @@ def phase_dsv3(detail: dict, cfg) -> dict:
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     unit_gain_router(params, cfg)
     unit_gain_attention(params, cfg)
-    eng = Engine(params, cfg, max_slots=4, max_seq=512, eos_id=-1,
-                 device="cuda")
     rng = np.random.default_rng(0)
-    reqs = [Request(req_id=i, prompt=[int(x) for x in rng.integers(
-        0, cfg.vocab_size, 128)], max_new_tokens=8) for i in range(4)]
-    torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
-    _build.reset_launches()
-    t0 = time.perf_counter()
-    with moe_dispatch() as slots:
-        for r in reqs:
-            eng.add_request(r)
-        while eng.has_work():
-            eng.step()
+    prompts = [[int(x) for x in rng.integers(0, cfg.vocab_size, 128)]
+               for _ in range(4)]
+    runs = {}
+    for kind, kw in (("contiguous", {}),
+                     ("paged", {"paged": True, "page_size": 128,
+                                "prefix_cache": True})):
+        eng = Engine(params, cfg, max_slots=4, max_seq=512, eos_id=-1,
+                     device="cuda", **kw)
+        reqs = [Request(req_id=i, prompt=p, max_new_tokens=8)
+                for i, p in enumerate(prompts)]
+        torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
-    total = time.perf_counter() - t0
-    launches = dict(_build.launches)
-    if not all(r.finished and len(r.output) == 8 for r in reqs):
-        raise AssertionError("dsv3: not every request finished with 8 "
-                             "tokens")
-    chunks, dec = eng.prefill_chunks, eng.decode_forwards
-    expect = moe_expected(cfg, chunks, dec, paged=False)
-    check_launches("dsv3", launches, expect)
-    want = {"hot": 2 * moe_layers(cfg) * dec,
-            "all": 2 * moe_layers(cfg) * chunks}
-    if slots != want:
-        raise AssertionError(f"dsv3: MoE calls {slots}, expected {want}")
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    log(f"[dsv3] 4 requests of 128 tokens -> 8 tokens each in {total:.2f}s: "
-        f"{chunks} prefill chunks, {dec} decode steps; launches {launches} "
-        f"(expected {expect}); MoE calls {slots}; max_memory_allocated "
-        f"{peak_gib:.2f} GiB")
-    del eng
-    torch.cuda.empty_cache()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        with moe_dispatch() as slots:
+            for r in reqs:
+                eng.add_request(r)
+            while eng.has_work():
+                eng.step()
+            torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        launches = dict(_build.launches)
+        if not all(r.finished and len(r.output) == 8 for r in reqs):
+            raise AssertionError(f"dsv3 {kind}: not every request finished "
+                                 "with 8 tokens")
+        chunks, dec = eng.prefill_chunks, eng.decode_forwards
+        expect = moe_expected(cfg, chunks, dec, paged=bool(kw))
+        check_launches(f"dsv3 {kind}", launches, expect)
+        want = {"hot": 2 * moe_layers(cfg) * dec,
+                "all": 2 * moe_layers(cfg) * chunks}
+        if slots != want:
+            raise AssertionError(f"dsv3 {kind}: MoE calls {slots}, expected "
+                                 f"{want}")
+        if kw and (eng.stats["free_pages"] + eng.stats["cached_blocks"]
+                   != eng.stats["total_pages"]):
+            raise AssertionError(f"dsv3 paged: pages lost {eng.stats}")
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        log(f"[dsv3] {kind}: 4 requests of 128 tokens -> 8 tokens each in "
+            f"{total:.2f}s: {chunks} prefill chunks, {dec} decode steps; "
+            f"launches {launches} (expected {expect}); MoE calls {slots}; "
+            f"max_memory_allocated {peak_gib:.2f} GiB")
+        runs[kind] = {"prefill_chunks": chunks, "decode_forwards": dec,
+                      "launches": launches, "expected_launches": expect,
+                      "moe_calls": slots, "total_s": total,
+                      "max_memory_allocated_gib": peak_gib,
+                      "outputs": [r.output for r in reqs]}
+        del eng
+        torch.cuda.empty_cache()
+    same = sum(a == b for a, b in zip(runs["contiguous"]["outputs"],
+                                      runs["paged"]["outputs"]))
+    log(f"[dsv3] paged streams equal to the contiguous ones: {same} of 4 "
+        "(greedy; a near-tie may part them)")
     # "rerun" repeats "kernels": the kernels' run-to-run spread, the
     # yardstick for kernels against plain
     moe_model_check(detail, "dsv3", params, cfg, 4, 128, 2,
                     {"kernels": {}, "plain": {"kernel_mode": "xla"},
-                     "rerun": {}},
-                    [("kernels", "plain"), ("rerun", "kernels")])
+                     "rerun": {}, "kernels-paged": {"page": 128},
+                     "plain-paged": {"page": 128, "kernel_mode": "xla"}},
+                    [("kernels", "plain"), ("rerun", "kernels"),
+                     ("kernels-paged", "plain-paged")])
     mla_fault_check(detail, "dsv3-short", params, cfg)
-    out = {"n_layers": cfg.n_layers, "prefill_chunks": chunks,
-           "decode_forwards": dec, "launches": launches,
-           "expected_launches": expect, "moe_calls": slots, "total_s": total,
-           "max_memory_allocated_gib": peak_gib}
+    out = {"n_layers": cfg.n_layers, **runs["contiguous"],
+           "paged": runs["paged"], "paged_streams_equal": same}
     detail["dsv3"] = out
     del params
     torch.cuda.empty_cache()
@@ -3434,8 +3689,9 @@ def phase_cli(detail: dict, preset: str, extra: tuple = ()) -> None:
 
 def phase_cli_all(detail: dict) -> None:
     """The cli phase: ``generate`` on each tiny preset and on test-tiny
-    with ``--kv-bits 4``, ``serve --paged`` on the first two and its refusal
-    on the MLA two, ``convert`` of three HF shapes, ``selftest``. Each check
+    with ``--kv-bits 4``, ``serve --paged`` on the first two and ``serve
+    --paged --prefix-cache`` on the MLA two, ``convert`` of three HF
+    shapes, ``selftest``. Each check
     runs processes of its own and shares nothing with the others, so they
     run at once from a pool of threads (each process pays its own
     interpreter and CUDA start); the first failure is raised after all have
@@ -3447,7 +3703,7 @@ def phase_cli_all(detail: dict) -> None:
     jobs.append((phase_cli, (detail, "test-tiny", ("--kv-bits", "4"))))
     jobs += [(phase_cli_serve, (detail, p))
              for p in ("test-tiny", "test-tiny-moe")]
-    jobs += [(phase_cli_paged_mla, (detail, p))
+    jobs += [(phase_cli_serve, (detail, p, ("--prefix-cache",)))
              for p in ("test-tiny-mla", "test-tiny-dsv3")]
     jobs += [(phase_cli_convert, (detail, p))
              for p in ("test-tiny", "test-tiny-moe", "test-tiny-dsv3")]
@@ -3458,10 +3714,11 @@ def phase_cli_all(detail: dict) -> None:
         f.result()
 
 
-def phase_cli_serve(detail: dict, preset: str) -> None:
+def phase_cli_serve(detail: dict, preset: str, extra: tuple = ()) -> None:
     """``python -m quant_tpu_torch serve`` on a checkpoint of ``preset``
-    with a paged pool (no prefix cache: admission scatters the prefill cache
-    into pages): poll /healthz, two /generate requests, then stop it."""
+    with a paged pool (without ``--prefix-cache`` in ``extra`` admission
+    scatters the prefill cache into pages): poll /healthz, two /generate
+    requests, then stop it."""
     from quant_tpu_torch.checkpoint import save_checkpoint
     from quant_tpu_torch.models import PRESETS, llama
 
@@ -3478,7 +3735,8 @@ def phase_cli_serve(detail: dict, preset: str) -> None:
             proc = subprocess.Popen(
                 [sys.executable, "-m", "quant_tpu_torch", "serve", tmp,
                  "--paged", "--page-size", "16", "--port", str(port),
-                 "--slots", "2", "--max-seq", "64", "--eos-id", "-1"],
+                 "--slots", "2", "--max-seq", "64", "--eos-id", "-1",
+                 *extra],
                 cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)),
                 stdout=log_f, stderr=subprocess.STDOUT)
             try:
@@ -3508,37 +3766,13 @@ def phase_cli_serve(detail: dict, preset: str) -> None:
     if any(len(o) != 8 for o in outs) or health.get("total_pages") != 2 * 4:
         raise AssertionError(f"unexpected cli serve answers {outs}, "
                              f"healthz {health}")
-    log(f"[cli] serve --paged --page-size 16 ({preset}) answered /healthz "
+    log(f"[cli] serve --paged --page-size 16 {' '.join(extra)} ({preset}) "
+        f"answered /healthz "
         f"(up in "
         f"{time.perf_counter() - t0:.1f}s) and two /generate requests: "
         f"{outs}")
-    detail[f"cli_serve_{preset}"] = {"outputs": outs, "healthz": health,
-                           "log": server_log}
-
-
-def phase_cli_paged_mla(detail: dict, preset: str) -> None:
-    """``serve --paged`` on an MLA checkpoint exits with code 2 and the
-    "not ported" message naming paged MLA (the paged latent pool is not
-    in this slice)."""
-    from quant_tpu_torch.checkpoint import save_checkpoint
-    from quant_tpu_torch.models import PRESETS, llama
-
-    cfg = dataclasses.replace(PRESETS[preset], kernel_mode="auto")
-    params = llama.init_params(cfg, seed=0, device="cuda")
-    with tempfile.TemporaryDirectory() as tmp:
-        save_checkpoint(tmp, params, cfg)
-        out = subprocess.run(
-            [sys.executable, "-m", "quant_tpu_torch", "serve", tmp,
-             "--paged", "--port", "0", "--max-seq", "64", "--device",
-             "cuda"],
-            capture_output=True, text=True, timeout=300, cwd=ROOT,
-            env=dict(os.environ, PYTHONPATH=str(ROOT)))
-    if out.returncode != 2 or "paged MLA" not in out.stderr:
-        raise AssertionError(f"serve --paged on {preset}: exit "
-                             f"{out.returncode}, stderr {out.stderr[-2000:]}")
-    log(f"[cli] serve --paged ({preset}) refused: "
-        f"{out.stderr.strip().splitlines()[-1]}")
-    detail[f"cli_serve_paged_{preset}"] = out.stderr[-2000:]
+    detail[f"cli_serve_{preset}{''.join(extra)}"] = {
+        "outputs": outs, "healthz": health, "log": server_log}
 
 
 # ── Hugging Face checkpoints: convert, load, eval ─────────────────────
@@ -5156,9 +5390,11 @@ def run_all(args, detail: dict) -> int:
     unit_gain_router(params, cfg)
     unit_gain_attention(params, cfg)
     mla = phase_dsv2_serving(detail, params, cfg)
+    lap("deepseek-v2-lite")
+    mla_paged = phase_dsv2_paged(detail, params, cfg, mla)
     del params
     torch.cuda.empty_cache()
-    lap("deepseek-v2-lite")
+    lap("deepseek-v2-lite paged")
     phase_dsv3(detail, dataclasses.replace(PRESETS["deepseek-v3"],
                                            n_layers=4))
     lap("deepseek-v3")
@@ -5182,6 +5418,18 @@ def run_all(args, detail: dict) -> int:
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
             "launches": run["launches"][name],
+            "max_abs_err": s["max_abs_err"], "ms": s["ms"],
+            "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+            "bound_by": s["bound_by"], "library_ms": s["library_ms"],
+            "unit": s["unit"]})
+    for name in ("mla_flash_decode_int8", "mla_cache_insert_int8"):
+        # the paged latent pool's row policy, with its launches from the
+        # paged DeepSeek-V2-Lite serving run
+        s = summary[f"{name} [paged]"]
+        kernels.append({
+            "name": f"{name} [paged]", "route": "cuda",
+            "source": SOURCES[name], "replaces": REPLACES[name],
+            "launches": mla_paged["launches"][f"{name}[paged]"],
             "max_abs_err": s["max_abs_err"], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": s["bound_by"], "library_ms": s["library_ms"],

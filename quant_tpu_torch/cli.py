@@ -44,8 +44,7 @@ generates from a test-tiny model.
 ``encode`` / ``decode`` / ``roundtrip`` read and write the QRF1 codec file
 of ``cpp/quantref_cli.cpp``. Everything runs on the card unless ``--device
 cpu``. A model or option outside the ported slices (``convert --algo
-gptq``, ``serve --paged`` on an MLA checkpoint, ``bench``) exits with code
-2 and a "not ported" message.
+gptq``, ``bench``) exits with code 2 and a "not ported" message.
 """
 
 from __future__ import annotations
@@ -460,7 +459,7 @@ def main(argv=None) -> int:
     try:
         return args.fn(args)
     except NotImplementedError as e:
-        # a model or option outside the ported slices (paged MLA, ...)
+        # a model or option outside the ported slices (gptq, ...)
         print(f"quant_tpu_torch: not ported: {e}", file=sys.stderr)
         return 2
 

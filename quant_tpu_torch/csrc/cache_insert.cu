@@ -1,5 +1,5 @@
 // In-place KV-cache row insert for Hopper (sm_90a), fused with what feeds
-// it: the contiguous cache, the paged pool and the MLA latent cache.
+// it: the contiguous cache, the paged pool and the MLA latent cache or pool.
 //
 // Replaces: quant_tpu/kernels/cache_insert.py, cache_insert_int8 -> _kernel,
 //   paged_cache_insert_int8 -> _paged_kernel and mla_cache_insert_int8 ->
@@ -59,7 +59,11 @@
 //   - the latent row [c | k_pe | 0 ... 0] of Dq lanes quantized to int8
 //     with one f32 scale and written into the stacked latent cache
 //     [L, B, 1, S, Dq] / [L, B, 1, S] at [layer, b, 0, lengths[b] - s0]
-//     (outside [0, S): nothing; the V side of an MLA cache is zero-width);
+//     (outside [0, S): nothing; the V side of an MLA cache is zero-width),
+//     or into the latent pool [L, P, 1, page, Dq] / [L, P, 1, page] at
+//     [layer, page_tbl[b, pos / page], 0, pos % page] with pos =
+//     lengths[b] (outside [0, max_pages * page): nothing), through the
+//     same row policies as the GQA pair;
 //   - q_eff [B, H, Dq] = [q_abs | RoPE(q_pe) | 0 ... 0] written for every
 //     slot, the query mla_flash_decode_int8 takes.
 // Its plain chain (rmsnorm, rope_apply, cat and pad, quantize_kv, the
@@ -321,10 +325,10 @@ struct MlaArgs {
   const T *q_abs, *q_pe, *ckv;       // [B, H, r], [B, H, dr], [B, r + dr]
   long long sab, sah, spb, sph, scb; // slot and head strides (elements)
   const float *w, *cos, *sin;        // [r]; [B, dr / 2]
-  int8_t* kc;                        // [L, B, 1, S, Dq]
-  float* ks;                         // [L, B, 1, S]
+  int8_t* kc;                        // [L, B, 1, S, Dq] or [L, P, 1, page, Dq]
+  float* ks;                         // [L, B, 1, S] or [L, P, 1, page]
   const int* lengths;                // [B]
-  int layer, s0, S, B, H, r, dr, Dq;
+  int layer, B, H, r, dr, Dq;
   float eps, attn_factor;
   int interleaved, vec;
 };
@@ -341,9 +345,9 @@ __device__ __forceinline__ void rotate(float& x1, float& x2, float c,
   x2 = __fmul_rn(y2, f);
 }
 
-template <typename T>
+template <typename T, typename Rows>
 __global__ void __launch_bounds__(kWarps * 32)
-    mla_rope_insert_kernel(const MlaArgs<T> a) {
+    mla_rope_insert_kernel(const MlaArgs<T> a, const Rows rows) {
   const int lane = threadIdx.x & 31;
   const int units = a.H + 1;
   const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
@@ -409,7 +413,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   // holding lanes l, l + 32, ... of it. Every load is issued first, so the
   // row pays one round trip to memory, not one per dependent step.
   const T* x = a.ckv + b * a.scb;
-  const int pos = a.lengths[b] - a.s0;
+  const int len = a.lengths[b];
   float c[kMaxLat], g[kMaxLat];
 #pragma unroll
   for (int i = 0; i < kMaxLat; ++i) {
@@ -455,8 +459,8 @@ __global__ void __launch_bounds__(kWarps * 32)
 #pragma unroll
   for (int o = 16; o; o >>= 1)
     m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-  if (pos < 0 || pos >= a.S) return;
-  const long long at = ((long long)a.layer * a.B + b) * a.S + pos;
+  const long long at = rows.row(a.layer, b, 0, a.B, 1, len);
+  if (at < 0) return;
   const float scale = m == 0.f ? 1.f : __fmul_rn(m, kInv127);
   int8_t* codes = a.kc + at * a.Dq;
 #pragma unroll
@@ -476,13 +480,13 @@ __global__ void __launch_bounds__(kWarps * 32)
   if (lane == 0) a.ks[at] = scale;
 }
 
-template <typename T>
+template <typename T, typename Rows>
 int launch_mla(void* q_out, const void* q_abs, const void* q_pe,
                const void* ckv, long long sab, long long sah, long long spb,
                long long sph, long long scb, const void* w, const void* cos,
                const void* sin, void* kc, void* ks, const void* lengths,
-               int layer, int s0, int S, int B, int H, int r, int dr, int Dq,
-               float eps, float attn_factor, int interleaved, int vec,
+               int layer, int B, int H, int r, int dr, int Dq, float eps,
+               float attn_factor, int interleaved, int vec, const Rows& rows,
                void* stream) {
   const MlaArgs<T> a{
       reinterpret_cast<T*>(q_out), reinterpret_cast<const T*>(q_abs),
@@ -491,11 +495,30 @@ int launch_mla(void* q_out, const void* q_abs, const void* q_pe,
       reinterpret_cast<const float*>(cos),
       reinterpret_cast<const float*>(sin), reinterpret_cast<int8_t*>(kc),
       reinterpret_cast<float*>(ks), reinterpret_cast<const int*>(lengths),
-      layer, s0, S, B, H, r, dr, Dq, eps, attn_factor, interleaved, vec};
+      layer, B, H, r, dr, Dq, eps, attn_factor, interleaved, vec};
   const int n_rows = B * (H + 1);
-  mla_rope_insert_kernel<T><<<(n_rows + kWarps - 1) / kWarps, kWarps * 32, 0,
-                              reinterpret_cast<cudaStream_t>(stream)>>>(a);
+  mla_rope_insert_kernel<T, Rows>
+      <<<(n_rows + kWarps - 1) / kWarps, kWarps * 32, 0,
+         reinterpret_cast<cudaStream_t>(stream)>>>(a, rows);
   return (int)cudaGetLastError();
+}
+
+template <typename Rows>
+int launch_mla_for(int bf16, void* q_out, const void* q_abs, const void* q_pe,
+                   const void* ckv, long long sab, long long sah,
+                   long long spb, long long sph, long long scb, const void* w,
+                   const void* cos, const void* sin, void* kc, void* ks,
+                   const void* lengths, int layer, int B, int H, int r,
+                   int dr, int Dq, float eps, float attn_factor,
+                   int interleaved, int vec, const Rows& rows, void* stream) {
+  return bf16 ? launch_mla<__nv_bfloat16>(
+                    q_out, q_abs, q_pe, ckv, sab, sah, spb, sph, scb, w, cos,
+                    sin, kc, ks, lengths, layer, B, H, r, dr, Dq, eps,
+                    attn_factor, interleaved, vec, rows, stream)
+              : launch_mla<float>(q_out, q_abs, q_pe, ckv, sab, sah, spb, sph,
+                                  scb, w, cos, sin, kc, ks, lengths, layer, B,
+                                  H, r, dr, Dq, eps, attn_factor, interleaved,
+                                  vec, rows, stream);
 }
 
 }  // namespace
@@ -531,14 +554,26 @@ extern "C" int mla_cache_insert_int8_fused_launch(
     void* ks, const void* lengths, int layer, int s0, int S, int B, int H,
     int r, int dr, int Dq, float eps, float attn_factor, int interleaved,
     int vec, int bf16, void* stream) {
-  return bf16 ? launch_mla<__nv_bfloat16>(
-                    q_out, q_abs, q_pe, ckv, sab, sah, spb, sph, scb, w, cos,
-                    sin, kc, ks, lengths, layer, s0, S, B, H, r, dr, Dq, eps,
-                    attn_factor, interleaved, vec, stream)
-              : launch_mla<float>(q_out, q_abs, q_pe, ckv, sab, sah, spb, sph,
-                                  scb, w, cos, sin, kc, ks, lengths, layer, s0,
-                                  S, B, H, r, dr, Dq, eps, attn_factor,
-                                  interleaved, vec, stream);
+  return launch_mla_for(bf16, q_out, q_abs, q_pe, ckv, sab, sah, spb, sph,
+                        scb, w, cos, sin, kc, ks, lengths, layer, B, H, r, dr,
+                        Dq, eps, attn_factor, interleaved, vec,
+                        ContiguousRows{s0, S}, stream);
+}
+
+// The latent pool [L, P, 1, page, Dq] / [L, P, 1, page] through page_tbl
+// int32 [B, max_pages]; the rest as above.
+extern "C" int paged_mla_cache_insert_int8_fused_launch(
+    void* q_out, const void* q_abs, const void* q_pe, const void* ckv,
+    long long sab, long long sah, long long spb, long long sph,
+    long long scb, const void* w, const void* cos, const void* sin, void* kc,
+    void* ks, const void* page_tbl, const void* lengths, int layer, int P,
+    int page, int max_pages, int B, int H, int r, int dr, int Dq, float eps,
+    float attn_factor, int interleaved, int vec, int bf16, void* stream) {
+  return launch_mla_for(
+      bf16, q_out, q_abs, q_pe, ckv, sab, sah, spb, sph, scb, w, cos, sin, kc,
+      ks, lengths, layer, B, H, r, dr, Dq, eps, attn_factor, interleaved, vec,
+      PagedRows{reinterpret_cast<const int*>(page_tbl), P, page, max_pages},
+      stream);
 }
 
 extern "C" const char* error_string(int err) {

@@ -1,13 +1,23 @@
 // MLA (DeepSeek multi-head latent attention) flash decode for Hopper
-// (sm_90a), one launch per call.
+// (sm_90a), over the contiguous latent cache and the paged latent pool, one
+// launch per call.
 //
 // Replaces: quant_tpu/kernels/mla_attention.py, mla_flash_decode_int8 ->
-//   _kernel (the Pallas TPU kernel).
+//   _kernel (the Pallas TPU kernel). The JAX package has no Pallas kernel
+//   for the paged pool: it gathers each slot's pages into a contiguous copy
+//   per layer (quant_tpu/models/llama.py _mla_attn); here the same kernel
+//   body reads the pool through the page table.
 //
 // Decode-step (T=1) attention in the absorbed form: MQA of the queries
 // q_eff [B, H, Dq] against one shared int8 latent row per token,
 // [c_kv (r) | k_rope | zero pad] of Dq lanes, with one f32 scale per row, in
-// the stacked cache [L, B, 1, S, Dq] / [L, B, 1, S]. The value read is the
+//   contiguous: the stacked cache [L, B, 1, S, Dq] / [L, B, 1, S], token t
+//               of slot b at row (layer * B + b) * S + t;
+//   paged:      the pool [L, P, 1, page, Dq] / [L, P, 1, page] through
+//               page_tbl [B, max_pages], token t at row
+//               (layer * P + page_tbl[b, t / page]) * page + t % page
+//               (S = max_pages * page).
+// The value read is the
 // row's first r lanes. The row scale multiplies the logits after the q.k
 // product and the probabilities before the p.v product (it factors out of
 // both sums), with an online softmax; rows at or past lengths[b] are masked.
@@ -71,6 +81,13 @@
 //   on a 64-token tile.
 // - f32 q (and any shape the tensor cores do not take) keeps CUDA-core dots
 //   in f32 on the same ring, split and merge, 16 heads a block.
+// - The row policy is a template argument of both paths (as in
+//   flash_decode.cu): a paged block first loads the page ids of its own
+//   chunk into shared memory (none before the chunk's first page, none past
+//   its last token), then each lane of the copy ring addresses its own row
+//   through them (a shift where the page is a power of two, else a
+//   division), so a 64-token tile may span pages of any size. The ring, the
+//   tiles and the merge are those of the contiguous cache.
 // - One launch: a block writes its chunk's unnormalised (m, l, acc) to the
 //   workspace; the last block of each (slot, head group) to finish (a
 //   self-resetting counter) merges that group's chunks in chunk order, so
@@ -89,6 +106,8 @@ constexpr int HT = 16;        // heads per row tile (the mma's M)
 constexpr int MAX_R = 512;    // the largest value width
 constexpr int MAX_DQ = 1024;  // the largest row
 constexpr int SMEM_MAX = 232448;
+constexpr int MAX_CHUNK = 4096;     // the largest chunk
+constexpr int MAX_IDS = MAX_CHUNK / 8 + 2;  // page ids of a chunk at page 8
 constexpr float NEG = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -97,11 +116,14 @@ struct Args {
   const int8_t* kc;
   const float* ks;
   const int* lengths;
+  const int* page_tbl;  // paged pool only
   void* out;
   float* part_o;    // [B * NG, n_chunks, HB, r]
   float* part_ml;   // [B * NG, n_chunks, HB, 2]
   int* counters;    // [B * NG], zero between launches
   int layer, B, H, S, Dq, r, chunk, n_chunks;
+  int P, page, page_shift, max_pages;  // paged pool only; page_shift is
+                                       // log2(page), or -1
   float qk_scale;   // softmax scale * log2(e)
 };
 
@@ -199,17 +221,17 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 
 // Copy tile [t0, t0 + TT) of the slot (tokens at or past c1 zero-filled)
 // into stage st: NT threads, the (row, unit) pairs stepped without a
-// division.
-template <int NT>
-__device__ __forceinline__ void issue(uint8_t* st, int kp, const Args& a, size_t row0, int t0,
-                                      int c1) {
+// division, each row addressed through the block's row policy.
+template <int NT, class Rows>
+__device__ __forceinline__ void issue(uint8_t* st, int kp, const Args& a, const Rows& rows,
+                                      int t0, int c1) {
   const int units = a.Dq / 16;
   const int dr = NT / units, du = NT - dr * units;
   int r = threadIdx.x / units, u = threadIdx.x - r * units;
   while (r < TT) {
     const int t = t0 + r;
     const bool ok = t < c1;
-    cp16(st + koff(kp, r, u), a.kc + (ok ? (row0 + t) * a.Dq + 16 * u : 0), ok);
+    cp16(st + koff(kp, r, u), a.kc + (ok ? rows.row(t) * a.Dq + 16 * u : 0), ok);
     r += dr;
     u += du;
     if (u >= units) {
@@ -220,7 +242,7 @@ __device__ __forceinline__ void issue(uint8_t* st, int kp, const Args& a, size_t
   if (threadIdx.x < TT) {
     const int t = t0 + threadIdx.x;
     const bool ok = t < c1;
-    cp4(st + TT * kp + 4 * threadIdx.x, a.ks + (ok ? row0 + t : 0), ok);
+    cp4(st + TT * kp + 4 * threadIdx.x, a.ks + (ok ? rows.row(t) : 0), ok);
   }
 }
 
@@ -243,6 +265,37 @@ __device__ __forceinline__ bool locate(const Args& a, int hb, Block& k) {
   k.c1 = min(len, k.c0 + a.chunk);
   return k.chunk < k.used;
 }
+
+// Row of token t of the block's slot in the contiguous stacked cache.
+struct ContigRows {
+  static constexpr int kIds = 1;  // no page ids
+  size_t row0;                    // the row of token 0
+  __device__ ContigRows(const Args& a, const Block& k, int*)
+      : row0(((size_t)a.layer * a.B + k.b) * a.S) {}
+  __device__ __forceinline__ size_t row(int t) const { return row0 + t; }
+};
+
+// Row of token t in the page pool; the constructor loads the page ids of
+// the block's chunk [c0, c1) into ids (ids[0] the page of token first *
+// page), every thread of the block calling it.
+struct PagedRows {
+  static constexpr int kIds = MAX_IDS;
+  const int* ids;
+  size_t layer_pages;  // layer * P
+  int page, shift, first;
+  __device__ PagedRows(const Args& a, const Block& k, int* ids_s)
+      : ids(ids_s), layer_pages((size_t)a.layer * a.P), page(a.page),
+        shift(a.page_shift), first(k.c0 / a.page) {
+    const int n = k.c1 > k.c0 ? (k.c1 - 1) / page - first + 1 : 0;
+    for (int i = threadIdx.x; i < n; i += blockDim.x)
+      ids_s[i] = a.page_tbl[(size_t)k.b * a.max_pages + first + i];
+    __syncthreads();
+  }
+  __device__ __forceinline__ size_t row(int t) const {
+    const int p = shift >= 0 ? t >> shift : t / page;
+    return (layer_pages + ids[p - first]) * (size_t)page + (t - p * page);
+  }
+};
 
 // After a block wrote its partial: the last block of the (slot, head
 // group) merges the group's chunks in chunk order into out, V floats at a
@@ -321,7 +374,8 @@ __device__ void merge(const Args& a, const Block& k, int hb, uint8_t* smem) {
 // them adds the others' partial sums), the values split r over all 16.
 // DQF: Dq known at compile time (0: read it from the arguments); DeepSeek's
 // 640-byte rows run 4-6% faster so (tools/attn_probe.py mla, A B B A).
-template <int RT, int DQF>
+// Rows: ContigRows or PagedRows.
+template <int RT, int DQF, class Rows>
 __global__ void __launch_bounds__(512, 1) mla_decode_tc(const Args a) {
   constexpr int NW = 16, NT = 32 * NW, HB = HT * RT, KS = 4 / RT;
   constexpr int NSLOT = MAX_R / 32 / NW;  // value groups of 32 lanes per warp
@@ -329,8 +383,10 @@ __global__ void __launch_bounds__(512, 1) mla_decode_tc(const Args a) {
   constexpr int GM = DQF ? (DQF / 16 + 3) / 4 : MAX_DQ / 64;  // the most unit groups
   constexpr int QE = (RT * GM * 128 + NT - 1) / NT;          // q fragments per thread
   extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ int ids[Rows::kIds];
   Block k;
   if (!locate(a, HB, k)) return;
+  const Rows rows(a, k, ids);
   const int Dq = DQF ? DQF : a.Dq;
   const int kp = row_pitch(Dq), sb = stage_bytes(Dq);
   const int units = Dq / 16, G = (units + 3) / 4;
@@ -343,7 +399,6 @@ __global__ void __launch_bounds__(512, 1) mla_decode_tc(const Args a) {
   // scores: token group, row tile, and the unit groups [g_lo, g_hi) of Dq
   const int tg = warp & 3, rs = (warp >> 2) % RT, kq = warp / (4 * RT);
   const int g_lo = kq * G / KS, g_hi = (kq + 1) * G / KS;
-  const size_t row0 = ((size_t)a.layer * a.B + k.b) * a.S;  // cache row of token 0
   // values: this lane's 4 codes of value group s * NW + warp sit at byte
   // voff[s][0] of token rows 16 kk + 2t and + 8, voff[s][1] of rows + 1 and
   // + 9 (row bits 0-2 set the swizzle)
@@ -359,7 +414,7 @@ __global__ void __launch_bounds__(512, 1) mla_decode_tc(const Args a) {
   const int n_tiles = (k.c1 - k.c0 + TT - 1) / TT;
 #pragma unroll
   for (int s = 0; s < NST - 1; ++s) {
-    if (s < n_tiles) issue<NT>(smem + s * sb, kp, a, row0, k.c0 + s * TT, k.c1);
+    if (s < n_tiles) issue<NT>(smem + s * sb, kp, a, rows, k.c0 + s * TT, k.c1);
     cp_commit();
   }
   // q fragments, while the first tiles are in flight, every load issued
@@ -414,7 +469,7 @@ __global__ void __launch_bounds__(512, 1) mla_decode_tc(const Args a) {
     cp_wait<NST - 2>();  // tile i has landed
     __syncthreads();
     if (i + NST - 1 < n_tiles)
-      issue<NT>(smem + ((i + NST - 1) % NST) * sb, kp, a, row0, k.c0 + (i + NST - 1) * TT, k.c1);
+      issue<NT>(smem + ((i + NST - 1) % NST) * sb, kp, a, rows, k.c0 + (i + NST - 1) * TT, k.c1);
     cp_commit();
     const int t0 = k.c0 + i * TT;
     const uint8_t* kt = smem + (i % NST) * sb;
@@ -633,12 +688,14 @@ __global__ void __launch_bounds__(512, 1) mla_decode_tc(const Args a) {
 
 // ---------------------------------------------------------------------------
 // CUDA-core dots in f32: 16 heads a block, 4 warps.
-template <typename T>
+template <typename T, class Rows>
 __global__ void __launch_bounds__(128, 2) mla_decode_cc(const Args a) {
   constexpr int NT = 128, NSLOT = MAX_R / 32 / 4;
   extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ int ids[Rows::kIds];
   Block k;
   if (!locate(a, HT, k)) return;
+  const Rows rows(a, k, ids);
   const int Dq = a.Dq, QP = Dq + QPAD;
   const int kp = row_pitch(Dq), sb = stage_bytes(Dq), units = Dq / 16;
   float* q_s = reinterpret_cast<float*>(smem + ring_bytes(Dq));  // [16][QP], times qk_scale
@@ -647,12 +704,11 @@ __global__ void __launch_bounds__(128, 2) mla_decode_cc(const Args a) {
   float* l_s = m_s + HT;
   float* a_s = l_s + HT;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const size_t row0 = ((size_t)a.layer * a.B + k.b) * a.S;
 
   const int n_tiles = (k.c1 - k.c0 + TT - 1) / TT;
 #pragma unroll
   for (int s = 0; s < NST - 1; ++s) {
-    if (s < n_tiles) issue<NT>(smem + s * sb, kp, a, row0, k.c0 + s * TT, k.c1);
+    if (s < n_tiles) issue<NT>(smem + s * sb, kp, a, rows, k.c0 + s * TT, k.c1);
     cp_commit();
   }
   const T* q = reinterpret_cast<const T*>(a.q) + ((size_t)k.b * a.H + k.h0) * Dq;
@@ -675,7 +731,7 @@ __global__ void __launch_bounds__(128, 2) mla_decode_cc(const Args a) {
     cp_wait<NST - 2>();
     __syncthreads();
     if (i + NST - 1 < n_tiles)
-      issue<NT>(smem + ((i + NST - 1) % NST) * sb, kp, a, row0, k.c0 + (i + NST - 1) * TT, k.c1);
+      issue<NT>(smem + ((i + NST - 1) % NST) * sb, kp, a, rows, k.c0 + (i + NST - 1) * TT, k.c1);
     cp_commit();
     const int t0 = k.c0 + i * TT, n_ok = min(TT, k.c1 - t0);
     const uint8_t* kt = smem + (i % NST) * sb;
@@ -798,31 +854,40 @@ int launch(int threads, int smem, const Args& a, int hb, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-template <int RT>
-int run_tc(const Args& a, cudaStream_t st) {
-  const int smem = tc_smem(a.Dq, RT);
-  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+template <int RT, class Rows>
+int run_tc(const Args& a, int smem, cudaStream_t st) {
   if (a.Dq == 640)
-    return launch<mla_decode_tc<RT, 640>>(512, smem, a, HT * RT, st);
-  return launch<mla_decode_tc<RT, 0>>(512, smem, a, HT * RT, st);
+    return launch<mla_decode_tc<RT, 640, Rows>>(512, smem, a, HT * RT, st);
+  return launch<mla_decode_tc<RT, 0, Rows>>(512, smem, a, HT * RT, st);
 }
 
-}  // namespace
+// The checks and the instance of a call: tc or CUDA cores, heads per
+// block, the row policy.
+template <class Rows>
+int dispatch(const Args& a, int q_bf16, int tc, int heads_per_block, cudaStream_t st) {
+  const int ids = Rows::kIds > 1 ? 4 * Rows::kIds : 0;  // static shared memory
+  if (a.Dq % 16 || a.Dq > MAX_DQ || a.r % 2 || a.r < 2 || a.r > a.Dq || a.r > MAX_R ||
+      a.chunk % TT || a.chunk < TT || a.chunk > MAX_CHUNK || a.n_chunks < 1 ||
+      (size_t)a.n_chunks * heads_per_block * 4 > (size_t)ring_bytes(a.Dq))
+    return (int)cudaErrorInvalidValue;
+  if (tc) {
+    if (!q_bf16 || a.Dq % 32 || a.r % 32) return (int)cudaErrorInvalidValue;
+    const int rt = heads_per_block / HT;
+    if ((rt != 1 && rt != 2) || heads_per_block % HT) return (int)cudaErrorInvalidValue;
+    const int smem = tc_smem(a.Dq, rt);
+    if (smem + ids > SMEM_MAX) return (int)cudaErrorInvalidValue;
+    return rt == 1 ? run_tc<1, Rows>(a, smem, st) : run_tc<2, Rows>(a, smem, st);
+  }
+  if (heads_per_block != HT) return (int)cudaErrorInvalidValue;
+  const int smem = cc_smem(a.Dq);
+  if (smem + ids > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  if (q_bf16) return launch<mla_decode_cc<__nv_bfloat16, Rows>>(128, smem, a, HT, st);
+  return launch<mla_decode_cc<float, Rows>>(128, smem, a, HT, st);
+}
 
-// q [B, H, Dq] (f32, or bf16 when q_bf16); latent cache [L, B, 1, S, Dq]
-// int8 / [L, B, 1, S] f32; out [B, H, r] in q's type. tc: the tensor-core
-// path (bf16 q, Dq and r multiples of 32) with heads_per_block 16 or 32;
-// otherwise CUDA cores, heads_per_block 16. chunk: tokens per block, a
-// multiple of 64. part_o f32 [B * NG * n_chunks * heads_per_block * r],
-// part_ml f32 [... * 2] (NG = ceil(H / heads_per_block); unused, and may be
-// null, when n_chunks is 1); counters int32 [B * NG], zero, left zero. Dq a
-// multiple of 16 up to 1024, r even, up to min(Dq, 512).
-extern "C" int mla_flash_decode_int8_launch(const void* q, int q_bf16, int tc, const void* kc,
-                                            const void* ks, const void* lengths, void* out,
-                                            void* part_o, void* part_ml, void* counters,
-                                            int layer, int B, int H, int S, int Dq, int r,
-                                            int heads_per_block, int chunk, int n_chunks,
-                                            float scale, void* stream) {
+Args make_args(const void* q, const void* kc, const void* ks, const void* lengths, void* out,
+               void* part_o, void* part_ml, void* counters, int layer, int B, int H, int Dq,
+               int r, int chunk, int n_chunks, float scale) {
   Args a{};
   a.q = q;
   a.kc = reinterpret_cast<const int8_t*>(kc);
@@ -835,26 +900,57 @@ extern "C" int mla_flash_decode_int8_launch(const void* q, int q_bf16, int tc, c
   a.layer = layer;
   a.B = B;
   a.H = H;
-  a.S = S;
   a.Dq = Dq;
   a.r = r;
   a.chunk = chunk;
   a.n_chunks = n_chunks;
   a.qk_scale = scale * LOG2E;
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (Dq % 16 || Dq > MAX_DQ || r % 2 || r < 2 || r > Dq || r > MAX_R || chunk % TT ||
-      chunk < TT || n_chunks < 1 || (size_t)n_chunks * heads_per_block * 4 > (size_t)ring_bytes(Dq))
-    return (int)cudaErrorInvalidValue;
-  if (tc) {
-    if (!q_bf16 || Dq % 32 || r % 32) return (int)cudaErrorInvalidValue;
-    if (heads_per_block == 16) return run_tc<1>(a, st);
-    if (heads_per_block == 32) return run_tc<2>(a, st);
-    return (int)cudaErrorInvalidValue;
-  }
-  if (heads_per_block != HT) return (int)cudaErrorInvalidValue;
-  const int smem = cc_smem(Dq);
-  if (q_bf16) return launch<mla_decode_cc<__nv_bfloat16>>(128, smem, a, HT, st);
-  return launch<mla_decode_cc<float>>(128, smem, a, HT, st);
+  return a;
+}
+
+}  // namespace
+
+// q [B, H, Dq] (f32, or bf16 when q_bf16); latent cache [L, B, 1, S, Dq]
+// int8 / [L, B, 1, S] f32; out [B, H, r] in q's type. tc: the tensor-core
+// path (bf16 q, Dq and r multiples of 32) with heads_per_block 16 or 32;
+// otherwise CUDA cores, heads_per_block 16. chunk: tokens per block, a
+// multiple of 64 up to 4096. part_o f32 [B * NG * n_chunks *
+// heads_per_block * r], part_ml f32 [... * 2] (NG = ceil(H /
+// heads_per_block); unused, and may be null, when n_chunks is 1); counters
+// int32 [B * NG], zero, left zero. Dq a multiple of 16 up to 1024, r even,
+// up to min(Dq, 512).
+extern "C" int mla_flash_decode_int8_launch(const void* q, int q_bf16, int tc, const void* kc,
+                                            const void* ks, const void* lengths, void* out,
+                                            void* part_o, void* part_ml, void* counters,
+                                            int layer, int B, int H, int S, int Dq, int r,
+                                            int heads_per_block, int chunk, int n_chunks,
+                                            float scale, void* stream) {
+  Args a = make_args(q, kc, ks, lengths, out, part_o, part_ml, counters, layer, B, H, Dq, r,
+                     chunk, n_chunks, scale);
+  a.S = S;
+  return dispatch<ContigRows>(a, q_bf16, tc, heads_per_block,
+                              reinterpret_cast<cudaStream_t>(stream));
+}
+
+// The latent pool [L, P, 1, page, Dq] int8 / [L, P, 1, page] f32 through
+// page_tbl int32 [B, max_pages]; the rest as above with S = max_pages *
+// page. chunk / page + 2 page ids must fit a block's MAX_IDS.
+extern "C" int paged_mla_flash_decode_int8_launch(
+    const void* q, int q_bf16, int tc, const void* kc, const void* ks, const void* page_tbl,
+    const void* lengths, void* out, void* part_o, void* part_ml, void* counters, int layer,
+    int B, int H, int P, int page, int max_pages, int Dq, int r, int heads_per_block, int chunk,
+    int n_chunks, float scale, void* stream) {
+  Args a = make_args(q, kc, ks, lengths, out, part_o, part_ml, counters, layer, B, H, Dq, r,
+                     chunk, n_chunks, scale);
+  if (page < 1 || max_pages < 1 || chunk / page + 2 > MAX_IDS) return (int)cudaErrorInvalidValue;
+  a.page_tbl = reinterpret_cast<const int*>(page_tbl);
+  a.S = max_pages * page;
+  a.P = P;
+  a.page = page;
+  a.page_shift = (page & (page - 1)) ? -1 : __builtin_ctz(page);
+  a.max_pages = max_pages;
+  return dispatch<PagedRows>(a, q_bf16, tc, heads_per_block,
+                             reinterpret_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* error_string(int err) {

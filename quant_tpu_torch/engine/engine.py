@@ -10,8 +10,8 @@ int8 cache, contiguous or paged:
 * **insert** — the finished single-slot cache is copied into its slot of
   the decode cache (:meth:`Engine._insert_single`; an MLA cache's
   zero-width V rows copy unchanged), or scattered into the slot's pages of
-  the pool (:meth:`Engine._insert_paged`; not for MLA, whose paged pool is
-  not ported).
+  the pool (:meth:`Engine._insert_paged`; an MLA latent pool's zero-width
+  V pages alike).
 * **decode** — every one of ``max_slots`` slots advances one token per
   forward; ``step_block(n)`` runs n such forwards with the sampled tokens
   staying on the device and fetches them once. Inactive slots compute

@@ -46,7 +46,8 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # and the inserts under
 # "[fused]" (RoPE and K/V quantization in the same launch; the MLA latent's
 # RMSNorm too); the GQA decode and insert calls over the int4 head-pair
-# cache also under "[kv4]"; the matmuls of a codebook weight under
+# cache also under "[kv4]"; the MLA pair's calls over the paged latent pool
+# also under "[paged]"; the matmuls of a codebook weight under
 # "dequant_matmul[lut_word4]" / "[lut_sel15]" and those with int8
 # activations under "dequant_matmul[aq]", whose x pre-pass counts as
 # "act_quant_int8"; the MoE kernel's grouped launches (the capacity
@@ -75,6 +76,8 @@ launches.update({f"{k}[fused]": 0
                            "mla_cache_insert_int8")})
 launches.update({f"{k}[kv4]": 0
                  for k in ("cache_insert_int8", "paged_cache_insert_int8")})
+launches.update({f"{k}[paged]": 0
+                 for k in ("mla_cache_insert_int8", "mla_flash_decode_int8")})
 launches.update({f"dequant_matmul[{v}]": 0
                  for v in ("lut_word4", "lut_sel15", "aq")})
 launches.update({f"dequant_matmul_moe[{v}]": 0 for v in ("grouped", "aq")})

@@ -3,7 +3,9 @@
 The port of the JAX package's ``kernels/cache_insert.py``
 (``cache_insert_int8`` into the contiguous cache, ``paged_cache_insert_int8``
 into the page pool, ``mla_cache_insert_int8`` into the contiguous MLA latent
-cache). The JAX kernels alias their outputs to the cache buffers; here the
+cache; the JAX package writes its paged latent pool with the plain
+``_paged_insert_at_layer``, which the port's MLA insert also takes through a
+page table). The JAX kernels alias their outputs to the cache buffers; here the
 cache tensors are written in place. The CUDA kernels are in
 ``csrc/cache_insert.cu``.
 
@@ -23,9 +25,11 @@ plain paths also run). The MLA latent insert is fused likewise:
 query's ``q_pe`` as the projections left them and ``q_abs``, applies the
 latent's RMSNorm and RoPE to k_pe and q_pe, quantizes the latent row, writes
 it and returns the decode kernel's query ``q_eff``, in one launch where the
-chain takes about 45; its plain version is :func:`mla_latent_rows` (which
-the model's unfused path runs), ``quantize_kv`` and
-:func:`mla_cache_insert_int8_reference`. Each wrapper launches its kernel
+chain takes about 45, into the contiguous latent cache or, given a page
+table, the paged latent pool; its plain version is :func:`mla_latent_rows`
+(which the model's unfused path runs), ``quantize_kv`` and
+:func:`mla_cache_insert_int8_reference` or :func:`paged_insert_rows`. Each
+wrapper launches its kernel
 for tensors on the card and takes its plain version only for tensors on the
 CPU.
 """
@@ -338,18 +342,25 @@ def mla_cache_insert_int8_fused_reference(ckv, q_pe, q_abs, norm_w, cos,
                                           sin, kc, ks, lengths, layer: int,
                                           s0: int = 0, *, eps: float,
                                           attn_factor: float | None = None,
-                                          interleaved: bool = False):
+                                          interleaved: bool = False,
+                                          page_tbl=None):
     """Plain version of :func:`mla_cache_insert_int8_fused`: the chain the
     model runs without the kernel, unchanged (:func:`mla_latent_rows`, i.e.
     :func:`rmsnorm`, :func:`rope_apply`, ``torch.cat`` and the pad; then
-    :func:`quantize_kv` and :func:`mla_cache_insert_int8_reference`).
+    :func:`quantize_kv` and :func:`mla_cache_insert_int8_reference`, or
+    :func:`paged_insert_rows` into the latent pool under ``page_tbl``).
     Returns q_eff ``[B, H, Dq]``."""
+    if page_tbl is not None and s0:
+        raise ValueError("the latent pool takes no sequence offset s0")
     q_eff, lat = mla_latent_rows(ckv, q_pe, q_abs, norm_w, cos, sin,
                                  kc.shape[-1], eps=eps,
                                  attn_factor=attn_factor,
                                  interleaved=interleaved)
     k_q, k_s = quantize_kv(lat)
-    mla_cache_insert_int8_reference(kc, ks, k_q, k_s, lengths, layer, s0)
+    if page_tbl is None:
+        mla_cache_insert_int8_reference(kc, ks, k_q, k_s, lengths, layer, s0)
+    else:
+        paged_insert_rows(kc, ks, k_q, k_s, lengths, layer, page_tbl)
     return q_eff[:, 0]
 
 
@@ -358,6 +369,10 @@ def mla_cache_insert_int8_fused_reference(ckv, q_pe, q_abs, norm_w, cos,
 # B, H, r, dr, Dq, eps, attn_factor, interleaved, vec, bf16, stream
 _MLA_FUSED_ARGTYPES = ([_P] * 4 + [_L] * 5 + [_P] * 6 + [_I] * 8 + [_F] * 2
                        + [_I] * 3 + [_P])
+# the same with page_tbl before lengths and P, page, max_pages in place of
+# s0, S
+_PAGED_MLA_FUSED_ARGTYPES = ([_P] * 4 + [_L] * 5 + [_P] * 7 + [_I] * 9
+                             + [_F] * 2 + [_I] * 3 + [_P])
 
 
 def mla_cache_insert_int8_fused(ckv, q_pe, q_abs, norm_w, cos, sin, kc, ks,
@@ -373,18 +388,23 @@ def mla_cache_insert_int8_fused(ckv, q_pe, q_abs, norm_w, cos, sin, kc, ks,
     ``Dq`` lanes quantized to int8 with one f32 scale and written in place
     into the stacked latent cache ``[L, B, 1, S, Dq]`` / ``[L, B, 1, S]`` at
     row ``lengths[b] - s0`` of ``layer`` (positions outside ``[0, S)``
-    write nothing). ``ckv`` ``[B, 1, r + dr]``, ``q_pe`` and ``q_abs``
+    write nothing), or, given ``page_tbl`` int32 ``[B, max_pages]``, into
+    the latent pool ``[L, P, 1, page, Dq]`` / ``[L, P, 1, page]`` at
+    ``(page_tbl[b, pos // page], pos % page)`` with ``pos = lengths[b]``
+    (positions outside ``[0, max_pages * page)`` write nothing; a parked
+    slot, length 0 and table row 0, writes into the scratch page 0; each
+    launch counts under ``[paged]`` too). ``ckv`` ``[B, 1, r + dr]``, ``q_pe`` and ``q_abs``
     (``[B, 1, H, r]``, the ``w_uk`` product) are bf16 or f32 and may be
     strided views (unit lane stride); ``norm_w`` is the f32 gain ``[r]``.
     The kernel takes r up to 512 and an even dr up to 256. Returns ``q_eff =
     [q_abs | RoPE(q_pe) | 0]`` ``[B, H, Dq]`` in their dtype, for every
-    slot. ``kv_bits`` other than 8, a paged latent pool (``page_tbl``) and
-    T > 1 raise."""
+    slot. ``kv_bits`` other than 8 and T > 1 raise."""
     if kv_bits != 8:
         raise NotImplementedError(f"kv_bits {kv_bits} is not ported for the "
                                   "MLA latent")
-    if page_tbl is not None:
-        raise NotImplementedError("the paged MLA latent pool is not ported")
+    paged = page_tbl is not None
+    if paged and s0:
+        raise ValueError("the latent pool takes no sequence offset s0")
     if q_abs.dim() != 4 or q_abs.shape[1] != 1:
         raise ValueError("the fused MLA insert is the decode (T=1) path: "
                          f"q_abs [B, 1, H, r], got {tuple(q_abs.shape)}")
@@ -393,15 +413,18 @@ def mla_cache_insert_int8_fused(ckv, q_pe, q_abs, norm_w, cos, sin, kc, ks,
     if q_abs.device.type == "cpu":
         return mla_cache_insert_int8_fused_reference(
             ckv, q_pe, q_abs, norm_w, cos, sin, kc, ks, lengths, layer, s0,
-            **opts)
+            page_tbl=page_tbl, **opts)
     dev = q_abs.device
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     if kc.dim() != 5 or kc.shape[2] != 1:
-        raise ValueError("expected a stacked latent cache [L, B, 1, S, Dq]")
+        raise ValueError("expected a stacked latent cache [L, B, 1, S, Dq] "
+                         "or a latent pool [L, P, 1, page, Dq]")
     b, _, h, r = q_abs.shape
     dr = q_pe.shape[-1]
-    l, _, _, s, dq = kc.shape
+    l, n_rows, _, s, dq = kc.shape      # s: the page size in a pool
+    if not paged and n_rows != b:
+        raise ValueError(f"a cache of {n_rows} slots for {b} rows")
     if q_abs.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"activations must be bf16 or f32, got "
                          f"{q_abs.dtype}")
@@ -417,12 +440,14 @@ def mla_cache_insert_int8_fused(ckv, q_pe, q_abs, norm_w, cos, sin, kc, ks,
             raise ValueError(f"expected {q_abs.dtype} {shape} with unit "
                              f"lane stride on {dev}, got {t.dtype} "
                              f"{tuple(t.shape)} strides {t.stride()}")
-    checks = ((kc, torch.int8, (l, b, 1, s, dq)),
-              (ks, torch.float32, (l, b, 1, s)),
+    checks = ((kc, torch.int8, (l, n_rows, 1, s, dq)),
+              (ks, torch.float32, (l, n_rows, 1, s)),
               (norm_w, torch.float32, (r,)),
               (cos, torch.float32, (b, 1, 1, dr // 2)),
               (sin, torch.float32, (b, 1, 1, dr // 2)),
               (lengths, torch.int32, (b,)))
+    if paged:
+        checks += ((page_tbl, torch.int32, (b, page_tbl.shape[-1])),)
     for t, dt, shape in checks:
         if t.dtype != dt or tuple(t.shape) != shape:
             raise ValueError(f"expected {dt} {shape}, got {t.dtype} "
@@ -439,16 +464,27 @@ def mla_cache_insert_int8_fused(ckv, q_pe, q_abs, norm_w, cos, sin, kc, ks,
     vec = vec and q_abs.data_ptr() % 16 == 0
     out = torch.empty((b, h, dq), dtype=q_abs.dtype, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    fn = _build.entry("cache_insert", "mla_cache_insert_int8_fused_launch",
-                      _MLA_FUSED_ARGTYPES)
-    rc = fn(out.data_ptr(), q_abs.data_ptr(), q_pe.data_ptr(),
-            ckv.data_ptr(), q_abs.stride(0), q_abs.stride(2),
-            q_pe.stride(0), q_pe.stride(2), ckv.stride(0), norm_w.data_ptr(),
-            cos.data_ptr(), sin.data_ptr(), kc.data_ptr(), ks.data_ptr(),
-            lengths.data_ptr(), layer, s0, s, b, h, r, dr, dq, eps,
-            1.0 if attn_factor is None else attn_factor, int(interleaved),
-            int(vec), int(q_abs.dtype == torch.bfloat16), stream)
+    head = (out.data_ptr(), q_abs.data_ptr(), q_pe.data_ptr(),
+            ckv.data_ptr(), q_abs.stride(0), q_abs.stride(2), q_pe.stride(0),
+            q_pe.stride(2), ckv.stride(0), norm_w.data_ptr(), cos.data_ptr(),
+            sin.data_ptr(), kc.data_ptr(), ks.data_ptr())
+    tail = (b, h, r, dr, dq, eps, 1.0 if attn_factor is None else attn_factor,
+            int(interleaved), int(vec), int(q_abs.dtype == torch.bfloat16),
+            stream)
+    if paged:
+        fn = _build.entry("cache_insert",
+                          "paged_mla_cache_insert_int8_fused_launch",
+                          _PAGED_MLA_FUSED_ARGTYPES)
+        rc = fn(*head, page_tbl.data_ptr(), lengths.data_ptr(), layer,
+                n_rows, s, page_tbl.shape[-1], *tail)
+    else:
+        fn = _build.entry("cache_insert",
+                          "mla_cache_insert_int8_fused_launch",
+                          _MLA_FUSED_ARGTYPES)
+        rc = fn(*head, lengths.data_ptr(), layer, s0, s, *tail)
     _build.check(rc, "mla_cache_insert_int8", "cache_insert")
     _build.count_launch("mla_cache_insert_int8")
     _build.count_launch("mla_cache_insert_int8[fused]")
+    if paged:
+        _build.count_launch("mla_cache_insert_int8[paged]")
     return out

@@ -1,4 +1,5 @@
-"""MLA (DeepSeek) flash-decode attention over the int8 latent cache (T=1).
+"""MLA (DeepSeek) flash-decode attention over the int8 latent cache or
+latent pool (T=1).
 
 The port of the JAX package's ``kernels/mla_attention.py``
 (``mla_flash_decode_int8``). In the absorbed form, decode attention is MQA
@@ -11,13 +12,23 @@ is ``csrc/mla_attention.cu``, whose header note gives its design;
 the plain version :func:`mla_flash_decode_int8_reference` only for tensors
 on the CPU: on a CUDA tensor it launches or raises, it never falls back.
 
+The latent rows lie in the contiguous stacked cache ``[L, B, 1, S, Dq]``
+or, given ``page_tbl``, in the paged latent pool ``[L, P, 1, page, Dq]``
+that the engine's allocator shares between slots (the GQA pool's layout of
+``kernels/paged_attention.py`` with one head): slot b's token t lies on
+page ``page_tbl[b, t // page]``. The kernel reads the pool through the
+table, so decode copies nothing; the JAX package gathers each slot's pages
+per layer instead (``paged_gather``, then ``attention``), and that is the
+plain version here.
+
 Each call runs one of two paths, chosen from q's dtype and the widths
 (:func:`mla_decode_path`) and counted under its name beside the kernel's
-total (``mla_flash_decode_int8[tc]``, ``[cuda_core]``): the tensor cores
-for bf16 q (the serving path), CUDA-core dots otherwise.
-:func:`mla_decode_plan` sizes the call's grid and workspace from static ints
-alone (B, H, S, Dq, r and the SM count), so the wrapper never reads
-``lengths`` on the host.
+total (``mla_flash_decode_int8[tc]``, ``[cuda_core]``; a call over the pool
+also under ``[paged]``): the tensor cores for bf16 q (the serving path),
+CUDA-core dots otherwise. :func:`mla_decode_plan` sizes the call's grid and
+workspace from static ints alone (B, H, S, Dq, r and the SM count; S =
+``max_pages * page`` over the pool), so the wrapper never reads ``lengths``
+or the table on the host.
 """
 
 from __future__ import annotations
@@ -29,6 +40,7 @@ import torch
 
 from quant_tpu_torch.kernels import _build
 from quant_tpu_torch.kernels.dequant_matmul import _count, _sm_count
+from quant_tpu_torch.kernels.paged_attention import paged_gather
 
 __all__ = ["mla_flash_decode_int8", "mla_flash_decode_int8_reference",
            "mla_decode_plan", "mla_decode_path", "MlaDecodePlan"]
@@ -38,7 +50,10 @@ _HT = 16           # HT: heads per mma row tile
 _MAX_DQ = 1024     # MAX_DQ
 _MAX_R = 512       # MAX_R
 _SMEM_MAX = 232448  # SMEM_MAX: the dynamic shared memory a block may use
-_MAX_CHUNK = 4096  # the largest chunk
+_MAX_CHUNK = 4096  # MAX_CHUNK: the largest chunk
+# MAX_IDS: page ids a block of the paged pool holds, chunk / page + 2 of
+# them: every chunk fits at pages of 8 tokens or more
+_MAX_IDS = _MAX_CHUNK // 8 + 2
 _WIDE_HEADS = 32   # heads per block of the tensor-core path at many heads
 
 
@@ -126,14 +141,21 @@ def mla_decode_path(q: torch.Tensor, dq: int, r: int) -> str:
 
 
 def mla_flash_decode_int8_reference(q, k_codes, k_scale, lengths, layer=None,
-                                    *, r: int, scale: float):
+                                    *, r: int, scale: float, page_tbl=None):
     """Plain version, in float32: ``q [B, H, Dq]`` against the latent cache
     ``[B, 1, S, Dq]`` / ``[B, 1, S]`` (or stacked ``[L, ...]`` with
-    ``layer``). Rows at positions ``>= lengths[b]`` are masked; the output
-    ``[B, H, r]`` is ``sum(p * ks * k[:, :r]) / max(sum(p), 1e-20)`` in
-    ``q.dtype``, so a slot of length 0 gives zeros."""
-    kc = k_codes if layer is None else k_codes[layer]
-    ks = k_scale if layer is None else k_scale[layer]
+    ``layer``), or against layer ``layer`` of the latent pool ``[L, P, 1,
+    page, Dq]`` / ``[L, P, 1, page]`` gathered through ``page_tbl``
+    (:func:`~quant_tpu_torch.kernels.paged_attention.paged_gather`). Rows
+    at positions ``>= lengths[b]`` are masked; the output ``[B, H, r]`` is
+    ``sum(p * ks * k[:, :r]) / max(sum(p), 1e-20)`` in ``q.dtype``, so a
+    slot of length 0 gives zeros."""
+    if page_tbl is not None:
+        kc = paged_gather(k_codes, page_tbl, layer)
+        ks = paged_gather(k_scale, page_tbl, layer)
+    else:
+        kc = k_codes if layer is None else k_codes[layer]
+        ks = k_scale if layer is None else k_scale[layer]
     kf = kc[:, 0].to(torch.float32)                        # [B, S, Dq]
     ksc = ks[:, 0]                                         # [B, S]
     s = kf.shape[1]
@@ -154,23 +176,37 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # q, q_bf16, tc, k_codes, k_scale, lengths, out, part_o, part_ml, counters,
 # layer, B, H, S, Dq, r, heads_per_block, chunk, n_chunks, scale, stream
 _ARGTYPES = [_P, _I, _I] + [_P] * 7 + [_I] * 9 + [ctypes.c_float, _P]
+# q, q_bf16, tc, k_codes, k_scale, page_tbl, lengths, out, part_o, part_ml,
+# counters, layer, B, H, P, page, max_pages, Dq, r, heads_per_block, chunk,
+# n_chunks, scale, stream
+_PAGED_ARGTYPES = [_P, _I, _I] + [_P] * 8 + [_I] * 11 + [ctypes.c_float, _P]
 
 
 def mla_flash_decode_int8(q, k_codes, k_scale, lengths, layer=None, *,
-                          r: int, scale: float):
+                          r: int, scale: float, page_tbl=None):
     """Latent attention output ``[B, H, r]`` in ``q.dtype``.
 
     ``q`` ``[B, H, Dq]`` float32 or bfloat16; ``k_codes`` int8
     ``[B, 1, S, Dq]``, or stacked ``[L, B, 1, S, Dq]`` with ``layer``;
     ``k_scale`` f32 ``[.., 1, S]``, one scale per latent row; ``lengths``
     int32 ``[B]``; ``r`` the value width (``kv_lora_rank``); ``scale`` the
-    score scale."""
+    score scale. With ``page_tbl`` int32 ``[B, max_pages]`` the codes and
+    scales are the latent pool ``[L, P, 1, page, Dq]`` / ``[L, P, 1,
+    page]`` and ``layer`` is required; slot b's token t lies on page
+    ``page_tbl[b, t // page]``, table entries past a slot's length are never
+    read. Pages of fewer than 8 tokens are refused where a chunk of the
+    plan would need more page ids than a block holds (``_MAX_IDS``)."""
     if k_codes.dtype != torch.int8:
         raise NotImplementedError("only the int8 latent cache is ported "
                                   "(kv_bits 8)")
+    paged = page_tbl is not None
+    if paged and (layer is None or k_codes.dim() != 5):
+        raise ValueError("the latent pool [L, P, 1, page, Dq] needs a layer "
+                         "index")
     if q.device.type == "cpu":
         return mla_flash_decode_int8_reference(q, k_codes, k_scale, lengths,
-                                               layer, r=r, scale=scale)
+                                               layer, r=r, scale=scale,
+                                               page_tbl=page_tbl)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     stacked = k_codes.dim() == 5
@@ -178,8 +214,15 @@ def mla_flash_decode_int8(q, k_codes, k_scale, lengths, layer=None, *,
         raise ValueError("stacked caches require a layer index")
     if not stacked:
         k_codes, k_scale, layer = k_codes[None], k_scale[None], 0
-    l, b, one, s, dq = k_codes.shape
     h = q.shape[1]
+    if paged:
+        l, n_pool, one, page, dq = k_codes.shape
+        b, max_pages = page_tbl.shape
+        s = max_pages * page
+        rows = (l, n_pool, 1, page)
+    else:
+        l, b, one, s, dq = k_codes.shape
+        rows = (l, b, 1, s)
     if one != 1:
         raise ValueError(f"an MLA cache holds one latent row per token, got "
                          f"{one} heads")
@@ -192,13 +235,15 @@ def mla_flash_decode_int8(q, k_codes, k_scale, lengths, layer=None, *,
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"q must be float32 or bfloat16, got {q.dtype}")
     checks = ((q, q.dtype, (b, h, dq)),
-              (k_scale, torch.float32, (l, b, 1, s)),
+              (k_scale, torch.float32, rows),
               (lengths, torch.int32, (b,)))
+    if paged:
+        checks += ((page_tbl, torch.int32, (b, max_pages)),)
     for t, dt, shape in checks:
         if t.dtype != dt or tuple(t.shape) != shape:
             raise ValueError(f"expected {dt} {shape}, got {t.dtype} "
                              f"{tuple(t.shape)}")
-    for t in (q, k_codes, k_scale, lengths):
+    for t in (q, k_codes, k_scale, lengths) + ((page_tbl,) if paged else ()):
         if t.device != q.device or not t.is_contiguous():
             raise ValueError("all inputs must be contiguous on one device")
     if k_codes.data_ptr() % 16:
@@ -208,6 +253,9 @@ def mla_flash_decode_int8(q, k_codes, k_scale, lengths, layer=None, *,
         return out
     path = mla_decode_path(q, dq, r)
     plan = mla_decode_plan(b, h, s, dq, r, _sm_count(q.device), path)
+    if paged and plan.chunk // page + 2 > _MAX_IDS:
+        raise ValueError(f"pages of {page} tokens are too small for chunks "
+                         f"of {plan.chunk}")
     part_o = part_ml = counters = None
     if plan.n_chunks > 1:
         part_o = torch.empty(plan.part_o, dtype=torch.float32,
@@ -216,15 +264,23 @@ def mla_flash_decode_int8(q, k_codes, k_scale, lengths, layer=None, *,
                               device=q.device)
         counters = _build.zero_counters(q.device, plan.counters)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    fn = _build.entry("mla_attention", "mla_flash_decode_int8_launch",
-                      _ARGTYPES)
-    rc = fn(q.data_ptr(), int(q.dtype == torch.bfloat16), int(path == "tc"),
-            k_codes.data_ptr(), k_scale.data_ptr(), lengths.data_ptr(),
-            out.data_ptr(), None if part_o is None else part_o.data_ptr(),
+    head = (q.data_ptr(), int(q.dtype == torch.bfloat16), int(path == "tc"),
+            k_codes.data_ptr(), k_scale.data_ptr())
+    work = (out.data_ptr(), None if part_o is None else part_o.data_ptr(),
             None if part_ml is None else part_ml.data_ptr(),
-            None if counters is None else counters.data_ptr(), layer, b, h,
-            s, dq, r, plan.heads, plan.chunk, plan.n_chunks, float(scale),
+            None if counters is None else counters.data_ptr(), layer, b, h)
+    tail = (dq, r, plan.heads, plan.chunk, plan.n_chunks, float(scale),
             stream)
+    if paged:
+        fn = _build.entry("mla_attention",
+                          "paged_mla_flash_decode_int8_launch",
+                          _PAGED_ARGTYPES)
+        rc = fn(*head, page_tbl.data_ptr(), lengths.data_ptr(), *work,
+                n_pool, page, max_pages, *tail)
+    else:
+        fn = _build.entry("mla_attention", "mla_flash_decode_int8_launch",
+                          _ARGTYPES)
+        rc = fn(*head, lengths.data_ptr(), *work, s, *tail)
     _build.check(rc, "mla_flash_decode_int8", "mla_attention")
-    _count("mla_flash_decode_int8", path)
+    _count("mla_flash_decode_int8", path, *(("paged",) if paged else ()))
     return out

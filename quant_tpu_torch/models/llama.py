@@ -49,10 +49,10 @@ Kernel selection mirrors the JAX ``make_layer_step``: decode (T=1) with an
 int8 or int4 cache (``kv_bits`` 8 or 4) takes ``cache_insert_int8_fused``
 (RoPE of q and k, K/V quantization and the insert in one launch) then
 ``flash_decode_int8``
-(their paged counterparts over a pool; over an MLA latent cache
-``mla_cache_insert_int8_fused``, the latent's RMSNorm, RoPE, quantization
-and insert and the query ``q_eff`` in one launch, then
-``mla_flash_decode_int8``), each layer's window and the softcap passed to
+(their paged counterparts over a pool; over an MLA latent cache or latent
+pool ``mla_cache_insert_int8_fused``, the latent's RMSNorm, RoPE,
+quantization and insert and the query ``q_eff`` in one launch, then
+``mla_flash_decode_int8``, both given the pool's page table), each layer's window and the softcap passed to
 the decode kernel; ``kv_bits=16`` decodes on the plain path, as the JAX
 package does; prefill (T>1) writes the cache with the
 plain scatter and runs the plain blockwise attention (over
@@ -191,7 +191,8 @@ class PagedKVCache:
     page tables, so device memory is bounded by the pages in use, not by
     slots x max_seq. The engine's allocator owns the tables; entries past a
     slot's length may hold any valid page id (the kernels never read them,
-    the plain path masks them)."""
+    the plain path masks them). An MLA pool holds one latent row per token
+    (``[L, P, 1, page, mla_cache_dim]``) and zero-width V tensors."""
     k_codes: torch.Tensor   # int8 [L, P, Hkv, page, Dh] (kv4: uint8, Hkv/2)
     k_scale: torch.Tensor   # f32  [L, P, Hkv, page]
     v_codes: torch.Tensor
@@ -303,29 +304,28 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_seq: int,
     """Pool of ``n_pages`` pages (page 0 is the engine's scratch page);
     per-slot tables sized for ``max_seq``. ``n_pages`` below
     ``batch * max_seq / page`` oversubscribes device memory (the point).
-    Pipeline stages (``pipe``) and the paged MLA latent pool are not
-    ported."""
+    An MLA model's pool holds one latent row per token, ``[L, P, 1, page,
+    mla_cache_dim]`` beside ``[L, P, 1, page]`` scales, with zero-width V
+    (``[L, P, 1, page, 0]`` / ``[L, P, 0, page]``), as the JAX package
+    lays it out. Pipeline stages (``pipe``) are not ported."""
     if pipe != 1:
         raise NotImplementedError("pipeline parallelism is not ported")
-    if cfg.is_mla:
-        raise NotImplementedError("the paged MLA latent pool is not ported: "
-                                  "serve MLA models from the contiguous "
-                                  "cache (paged=False)")
     check_supported(cfg)
     dev = resolve_device(device)
     if max_seq % page:
         raise ValueError(f"max_seq {max_seq} must divide by page {page}")
     l, h = cfg.n_layers, cfg.n_kv_heads
     hc, d = _kv_code_dims(cfg)
+    dv, hv = (0, 0) if cfg.is_mla else (d, h)
     cdt = _kv_dtype(cfg)
     return PagedKVCache(
         k_codes=torch.zeros((l, n_pages, hc, page, d), dtype=cdt,
                             device=dev),
         k_scale=torch.zeros((l, n_pages, h, page), dtype=torch.float32,
                             device=dev),
-        v_codes=torch.zeros((l, n_pages, hc, page, d), dtype=cdt,
+        v_codes=torch.zeros((l, n_pages, hc, page, dv), dtype=cdt,
                             device=dev),
-        v_scale=torch.zeros((l, n_pages, h, page), dtype=torch.float32,
+        v_scale=torch.zeros((l, n_pages, hv, page), dtype=torch.float32,
                             device=dev),
         page_tbl=torch.zeros((batch, max_seq // page), dtype=torch.int32,
                              device=dev),
@@ -1067,9 +1067,11 @@ def _use_kernels(cfg: ModelConfig, t: int, paged: bool) -> bool:
     an int8 or int4 cache, as ``make_layer_step`` selects it:
     ``attn_kernel`` "auto" or "flash", and "paged" over a page pool; the
     plain path otherwise (``kv_bits=16`` too, as in the JAX package). An
-    MLA cache (int8) takes its own pair unless ``attn_kernel`` is "xla"
-    (the port does not carry over the TPU kernel's r and S alignment
-    conditions)."""
+    MLA cache (int8), contiguous or paged, takes its own pair unless
+    ``attn_kernel`` is "xla" (the port does not carry over the TPU kernel's
+    r and S alignment conditions); over the latent pool both kernels
+    address rows through the page table, where the JAX package gathers
+    each slot's pages per layer on its plain path."""
     if cfg.kernel_mode == "xla" or t != 1 or cfg.kv_bits not in (8, 4):
         return False
     if cfg.is_mla:
@@ -1080,7 +1082,7 @@ def _use_kernels(cfg: ModelConfig, t: int, paged: bool) -> bool:
 
 def _mla_attn(x, lay: LayerParams, i: int, gi: int, cfg: ModelConfig, mm,
               dt: torch.dtype, rope, positions, lengths, new_lengths,
-              kc, ks, kernels: bool) -> torch.Tensor:
+              cache, kernels: bool) -> torch.Tensor:
     """DeepSeek multi-head latent attention in the absorbed form (the JAX
     package's ``_mla_attn``): one matmul over the fused down projection
     gives [q part | c_kv | k_pe]; the per-head key up-projection folds
@@ -1088,9 +1090,14 @@ def _mla_attn(x, lay: LayerParams, i: int, gi: int, cfg: ModelConfig, mm,
     latent row [c_kv | k_pe] per token (one joint scale, zero lanes up to
     ``mla_cache_dim``), and the value read is the row's first ``r`` lanes.
     Weights index with the stack position ``i``, the cache with the global
-    layer ``gi``. Returns the heads' outputs [B, T, H, dv] after the value
-    up-projection."""
+    layer ``gi``. Over a latent pool (``PagedKVCache``) the plain path
+    inserts through the page table and attends over ``paged_gather`` of
+    the layer, as the JAX package does; the kernel pair reads and writes
+    the pool in place. Returns the heads' outputs [B, T, H, dv] after the
+    value up-projection."""
     b, t = x.shape[0], x.shape[1]
+    kc, ks = cache.k_codes, cache.k_scale
+    tbl = cache.page_tbl if isinstance(cache, PagedKVCache) else None
     r, dr = cfg.kv_lora_rank, cfg.qk_rope_head_dim
     dn = cfg.qk_nope_head_dim
     akv = mm(x, lay.wqkv, i)                     # [B, T, qpart + r + dr]
@@ -1110,18 +1117,23 @@ def _mla_attn(x, lay: LayerParams, i: int, gi: int, cfg: ModelConfig, mm,
         # q_pe where the projections left them
         q_eff = mla_cache_insert_int8_fused(
             ckv, q_pe, q_abs, lay.kv_a_norm[i], *rope, kc, ks, lengths, gi,
-            kv_bits=cfg.kv_bits, **opts)
+            kv_bits=cfg.kv_bits, page_tbl=tbl, **opts)
         o_lat = mla_flash_decode_int8(
             q_eff, kc, ks, new_lengths, gi, r=r,
-            scale=_q_scale(cfg, cfg.head_dim))[:, None]
+            scale=_q_scale(cfg, cfg.head_dim), page_tbl=tbl)[:, None]
     else:
         q_eff, lat = mla_latent_rows(ckv, q_pe, q_abs, lay.kv_a_norm[i],
                                      *rope, cfg.mla_cache_dim, **opts)
         k_q, k_s = quantize_kv(lat, cfg.kv_bits)
-        _cache_insert_at_layer(kc, ks, k_q, k_s, lengths, gi)
+        if tbl is None:
+            _cache_insert_at_layer(kc, ks, k_q, k_s, lengths, gi)
+            kcl, ksl = kc[gi], ks[gi]
+        else:
+            _paged_insert_at_layer(kc, ks, k_q, k_s, lengths, gi, tbl)
+            kcl, ksl = paged_gather(kc, tbl, gi), paged_gather(ks, tbl, gi)
         att = attention_blockwise if t > 1 else attention
-        o_lat = att(q_eff, kc[gi], ks[gi], kc[gi][..., :r], ks[gi],
-                    positions, new_lengths, cfg)
+        o_lat = att(q_eff, kcl, ksl, kcl[..., :r], ksl, positions,
+                    new_lengths, cfg)
     return torch.einsum("bthr,hrv->bthv", o_lat.to(dt), lay.w_uv[i].to(dt))
 
 
@@ -1240,8 +1252,8 @@ def forward(params: LlamaParams, tokens, cache: KVCache | PagedKVCache,
             x = rmsnorm(h, lay.attn_norm[i], c.norm_eps, off_n)
             if c.is_mla:
                 attn = _mla_attn(x, lay, i, gi, c, mm, dt, ropes["global"],
-                                 positions, lengths, new_lengths,
-                                 cache.k_codes, cache.k_scale, kernels)
+                                 positions, lengths, new_lengths, cache,
+                                 kernels)
             else:
                 w = windows[gi]
                 rope = ropes["local" if w and "local" in ropes else "global"]

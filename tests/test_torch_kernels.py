@@ -1232,6 +1232,131 @@ def test_mla_fused_insert_matches_plain_on_card(h, dq, dtype):
                           sum(0 <= n - s0 < s for n in lengths))
 
 
+def _latent_pool(gen, cache, lengths, page):
+    """The rows of a latent cache ``[L, B, 1, S(, Dq)]`` (codes, scales) in
+    a pool ``[L, 1 + B * S / page, 1, page(, Dq)]`` under a shuffled page
+    table, each slot's pages up to the one its next token goes to, the
+    other entries on the scratch page 0: (pool, table)."""
+    l, b, _, s = cache[0].shape[:4]
+    max_pages = s // page
+    n_pool = 1 + b * max_pages
+    perm = torch.randperm(n_pool - 1, generator=gen, device=gen.device) + 1
+    tbl = torch.zeros((b, max_pages), dtype=torch.int32, device=gen.device)
+    for i, n in enumerate(lengths):
+        u = min(max_pages, n // page + 1)
+        tbl[i, :u] = perm[i * max_pages:i * max_pages + u]
+    ids = tbl.tolist()
+    pool = []
+    for a in cache:
+        p = torch.zeros((l, n_pool, 1, page) + tuple(a.shape[4:]),
+                        dtype=a.dtype, device=a.device)
+        for i in range(b):
+            for j in range(max_pages):
+                if ids[i][j]:
+                    p[:, ids[i][j]] = a[:, i, :, j * page:(j + 1) * page]
+        pool.append(p)
+    return pool, tbl
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("page", [16, 128])
+def test_paged_mla_kernels_match_plain_on_card(page):
+    """The MLA decode over a latent pool (f32 q on the CUDA cores within
+    1e-4 of max|ref|, bf16 q on the tensor cores within 1e-2) against its
+    plain version (``paged_gather`` then the plain decode), at
+    test-tiny-mla's rows (Dq 128, r 64) and DeepSeek's (Dq 640, r 512),
+    4, 16 and 128 heads, over the rows of a contiguous cache paged under a
+    shuffled table: bit-equal to the contiguous kernel on those rows (the
+    same plan and order of sums), each call counted under its path and
+    [paged], the empty slot all zeros; a tile crosses pages of 16. Then the
+    fused latent insert into the pool against its plain version: q_eff
+    bit-equal, the pool within :func:`latent_agrees`, a slot at capacity
+    dropped and a parked slot (length 0, table row 0) writing the scratch
+    page 0; counted under [fused] and [paged]."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(page)
+    _build.build(("mla_attention", "cache_insert"))
+    for dq, heads in ((128, (4, 16)), (640, (16, 128))):
+        r = 64 if dq == 128 else 512
+        for s in (640, 4096):
+            lengths = [0, 1, 65, 300, s - 1, s]
+            b = len(lengths)
+            cache = [torch.randint(-127, 128, (2, b, 1, s, dq), generator=gen,
+                                   device=dev, dtype=torch.int32).to(
+                                       torch.int8),
+                     torch.rand((2, b, 1, s), generator=gen, device=dev)
+                     * 0.02]
+            (kc, ks), tbl = _latent_pool(gen, cache, lengths, page)
+            ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+            for h in heads:
+                for qdt, tol, path in ((torch.float32, 1e-4, "cuda_core"),
+                                       (torch.bfloat16, 1e-2, "tc")):
+                    q = torch.randn((b, h, dq), generator=gen,
+                                    device=dev).to(qdt)
+                    what = (page, dq, s, h, qdt)
+                    _build.reset_launches()
+                    got = mla_flash_decode_int8(q, kc, ks, ln, 1, r=r,
+                                                scale=0.07, page_tbl=tbl)
+                    for k in ("", f"[{path}]", "[paged]"):
+                        assert _build.launches[
+                            f"mla_flash_decode_int8{k}"] == 1, what
+                    ref = mla_flash_decode_int8_reference(
+                        q, kc, ks, ln, 1, r=r, scale=0.07, page_tbl=tbl)
+                    contig = mla_flash_decode_int8(q, *cache, ln, 1, r=r,
+                                                   scale=0.07)
+                    torch.cuda.synchronize()
+                    assert got.dtype == qdt and got.shape == (b, h, r), what
+                    err = (got.float() - ref.float()).abs().max()
+                    assert err <= tol * ref.float().abs().max(), (
+                        what, float(err))
+                    assert torch.equal(got, contig), what
+                    assert not got[0].float().abs().max(), what
+    # the fused latent insert into a pool of DeepSeek-V2-Lite's widths
+    cfg = PRESETS["deepseek-v2-lite"]
+    h, r, dr, dn = (cfg.n_heads, cfg.kv_lora_rank, cfg.qk_rope_head_dim,
+                    cfg.qk_nope_head_dim)
+    s, dq = 512, cfg.mla_cache_dim
+    lengths = [0, 1, page - 1, page, 300, s]
+    b = len(lengths)
+    cache = [torch.randint(-127, 128, (2, b, 1, s, dq), generator=gen,
+                           device=dev, dtype=torch.int32).to(torch.int8),
+             torch.rand((2, b, 1, s), generator=gen, device=dev)]
+    pool, tbl = _latent_pool(gen, cache, lengths, page)
+    tbl[0] = 0                                  # a parked slot
+    ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    cos, sin = _rope_tables(ln[:, None], cfg.rope_theta, dr, cfg)
+    w = 1.0 + 0.1 * torch.randn(r, generator=gen, device=dev)
+    for dt in (torch.float32, torch.bfloat16):
+        akv = torch.randn((b, 1, h * (dn + dr) + r + dr), generator=gen,
+                          device=dev).to(dt)
+        qh = akv[..., :h * (dn + dr)].view(b, 1, h, dn + dr)
+        w_uk = torch.randn((h, dn, r), generator=gen, device=dev).to(dt)
+        q_abs = torch.einsum("bthn,hnr->bthr", qh[..., :dn], w_uk * 0.1)
+        got_p = [t.clone() for t in pool]
+        plain = [t.clone() for t in pool]
+        opts = dict(eps=cfg.norm_eps, interleaved=True)
+        _build.reset_launches()
+        got = mla_cache_insert_int8_fused(
+            akv[..., -(r + dr):], qh[..., dn:], q_abs, w, cos, sin, *got_p,
+            ln, 1, page_tbl=tbl, **opts)
+        ref = mla_cache_insert_int8_fused_reference(
+            akv[..., -(r + dr):], qh[..., dn:], q_abs, w, cos, sin, *plain,
+            ln, 1, page_tbl=tbl, **opts)
+        torch.cuda.synchronize()
+        for k in ("", "[fused]", "[paged]"):
+            assert _build.launches[f"mla_cache_insert_int8{k}"] == 1, (k, dt)
+        assert torch.equal(_bits(got), _bits(ref)), dt
+        latent_agrees(got_p, plain, b - 1)
+        # rows written: the scratch page's row 0 and one row per slot
+        # below capacity
+        changed = (got_p[1] != pool[1]).sum()
+        assert changed == b - 1, (dt, int(changed))
+        assert (got_p[1][:, 0, 0, 0] != pool[1][:, 0, 0, 0])[1]
+
+
 @pytest.mark.parametrize("k,n", [(512, 512), (64, 1536), (6, 10)])
 def test_unpack_int4_reference_matches_jax_kernel(k, n):
     """The plain unpack (the CPU path of ``unpack_int4_device``) equals the

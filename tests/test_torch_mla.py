@@ -34,8 +34,8 @@ with a selection bias) in float32, and ``test-tiny-mla`` in bfloat16.
   Measured on these inputs: no latent code differs, every float32 logit row
   within 2.3e-6 of max|logit|.
 * Greedy ``Engine`` streams token-identical to the JAX ``Engine`` on both
-  toys (contiguous cache); ``Engine(paged=True)``, ``init_paged_cache`` and
-  ``serve --paged`` on an MLA model raise or exit naming paged MLA.
+  toys (contiguous cache; the paged latent pool is
+  ``tests/test_torch_mla_paged.py``).
 * A ``test-tiny-dsv3`` checkpoint written by the JAX package loads in the
   port leaf for leaf, and the port's checkpoint of it equals the JAX one
   byte for byte (``data.bin``).
@@ -65,7 +65,6 @@ from quant_tpu.models import PRESETS as JPRESETS
 from quant_tpu.models import llama as jllama
 from quant_tpu_torch.checkpoint.format import load_checkpoint as t_load
 from quant_tpu_torch.checkpoint.format import save_checkpoint as t_save
-from quant_tpu_torch.cli import main as t_cli
 from quant_tpu_torch.engine import Engine as TEngine
 from quant_tpu_torch.engine import Request as TRequest
 from quant_tpu_torch.kernels.cache_insert import (
@@ -606,7 +605,7 @@ def test_mla_init_params_structure():
                                                                    4:].any()
 
 
-# ── engine, checkpoint, what is not ported ──────────────────────────────
+# ── engine, checkpoint ──────────────────────────────────────────────────
 
 
 def _prompts(vocab):
@@ -684,15 +683,3 @@ def test_dsv3_checkpoint_round_trips_both_ways(tmp_path):
     t_save(tmp_path / "t", tparams, cfg)
     assert ((tmp_path / "t" / "data.bin").read_bytes()
             == (tmp_path / "j" / "data.bin").read_bytes())
-
-
-def test_paged_mla_is_not_ported(tmp_path):
-    _, tc = _configs("test-tiny-mla", kernel_mode="auto")
-    params = tllama.init_params(tc, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="paged MLA"):
-        TEngine(params, tc, device="cpu", paged=True, **_ENGINE)
-    with pytest.raises(NotImplementedError, match="paged MLA"):
-        tllama.init_paged_cache(tc, 2, 64, n_pages=9, page=16, device="cpu")
-    t_save(tmp_path, params, tc)
-    assert t_cli(["serve", str(tmp_path), "--paged", "--device", "cpu",
-                  "--max-seq", "64"]) == 2
