@@ -154,6 +154,26 @@ Phases; the first failure ends the run with a non-zero exit code:
              with penalties, bias, an FSM and top-5 logprobs on every slot
              and with none, on the host clock and under ``torch.profiler``:
              as many device-to-host copies and synchronizations either way.
+   llama-lora  the same params with three seeded LoRA adapters (two at
+             rank 16 on all seven projections, one at rank 8 on q, k and
+             v), written as PEFT directories and read back through
+             ``load_hf_adapter``: mixed adapter ids over B=8 (prefill of 64
+             and 4 decode steps), kernels against plain (5e-2 of
+             max|logit|), each slot against its own single-adapter batch
+             and the base slots against the forward without adapters
+             within the same limit, each adapter moving its slots by more;
+             8 requests over HTTP from a paged, prefix-cached engine
+             (pages of 128) sharing a 512-token prefix, two per adapter and
+             two base, some routed by ``model``: exact launch counts,
+             4 x 512 hit tokens (hits only within an adapter), every page
+             back, ``/v1/models`` listing the adapters, every answer
+             teacher-forced through the plain path under its adapter (no
+             answer read in another context or under another adapter may
+             pass); one B=8 ``step_block(8)`` with the adapters on and off
+             on the host clock and a ``step_block(4)`` under the profiler
+             (device kernels, busy time, kernel-launch calls and the LoRA
+             products' device time a step; the ``dequant_matmul`` launches
+             equal and exact).
    kv4       the same params over the int4 head-pair cache: slots
              prefilled to 100-2000 tokens and 4 decode steps, kernels
              against plain and paged against contiguous logits (5e-2 of
@@ -256,7 +276,11 @@ Phases; the first failure ends the run with a non-zero exit code:
              amplify rounding differences too much to compare two paths).
              On each, kernels against plain at a 5-8 token context, with a
              planted control (the MLA kernel told each length less one)
-             that must fail the same comparison.
+             that must fail the same comparison. On V2-Lite, LoRA adapters
+             on q, kv_a, o and the dense-prefix MLP under mixed ids,
+             kernels against plain (experts held), and an adapter on the
+             last layer's o alone that must move the logits by more than
+             the model limit (its row is read by the global layer).
 10. gemma    full-width Gemma-2-9B (42 layers, random INT4 g128 weights
              from seed 0 made on the card): slots prefilled to 1500-5200
              tokens one at a time, then 4 decode steps at B=4, kernels
@@ -287,7 +311,8 @@ Phases; the first failure ends the run with a non-zero exit code:
              over HTTP each); ``convert`` of tiny random HF directories
              of the test-tiny (Llama), test-tiny-moe (Mixtral) and
              test-tiny-dsv3 (DeepSeek-V3) shapes, each loaded and run once;
-             ``selftest`` (codes bit-exact against the C++ oracle).
+             ``selftest`` (codes bit-exact against the C++ oracle);
+             ``generate --lora a=<PEFT dir> --use-lora a`` on test-tiny.
 
 Before the last line it prints ``{"kernels": [...]}`` and the
 ``nvidia-smi`` line; the last line is ``{"ok": true, "device": {...}}``.
@@ -1845,7 +1870,7 @@ def http_stream(url: str, payload, timeout: float = 600):
 
 
 def http_traffic(eng, prompts, n_new: int, clients: int,
-                 model_name: str) -> dict:
+                 model_name: str, extra=None) -> dict:
     """Every prompt as a greedy /generate request of ``n_new`` tokens to
     ``serve_async`` in front of ``eng``, from ``clients`` threads (client c
     sends requests c, c + clients, ... in turn; the even-numbered ones
@@ -1854,7 +1879,9 @@ def http_traffic(eng, prompts, n_new: int, clients: int,
     just before the traffic), each scheduler step on the host clock (each
     ends in a device sync: the sampled tokens come back to the host), the
     most pages in use, the admitted Request objects (for their TTFT), the
-    total time, /healthz and the engine's stats."""
+    total time, /healthz, /v1/models and the engine's stats. ``extra``:
+    more fields of each request's body (a LoRA adapter's ``lora`` or
+    ``model``)."""
     from quant_tpu_torch.engine.server import serve_async
     from quant_tpu_torch.kernels import _build
 
@@ -1884,7 +1911,8 @@ def http_traffic(eng, prompts, n_new: int, clients: int,
     def client(k):
         try:
             for i in range(k, len(prompts), clients):
-                payload = {"prompt_ids": prompts[i], "max_new_tokens": n_new}
+                payload = {"prompt_ids": prompts[i], "max_new_tokens": n_new,
+                           **(extra[i] if extra else {})}
                 if i % 2 == 0:
                     toks, done = http_stream(base + "/generate", payload)
                     results[i] = {"stream": toks, **done}
@@ -1905,6 +1933,7 @@ def http_traffic(eng, prompts, n_new: int, clients: int,
     total = time.perf_counter() - t0
     launches = dict(_build.launches)
     health = http_json(base + "/healthz")
+    models = http_json(base + "/v1/models")
     httpd.shutdown()
     httpd.server_close()
     srv.stop()
@@ -1921,7 +1950,8 @@ def http_traffic(eng, prompts, n_new: int, clients: int,
                                  "final output_ids")
     return {"results": results, "launches": launches, "steps": steps,
             "peak_pages_in_use": held[0], "admitted": admitted,
-            "total_s": total, "healthz": health, "stats": eng.stats}
+            "total_s": total, "healthz": health, "models": models,
+            "stats": eng.stats}
 
 
 def phase_paged_serving(detail: dict, params, cfg) -> dict:
@@ -2272,7 +2302,10 @@ API_EOS = 128001
 def count_syncs(fn) -> dict:
     """``torch.profiler`` over one call of ``fn``: its device-to-host and
     host-to-device copies (device events) and the host's stream, device and
-    event synchronizations (CUDA runtime calls), with its device kernels.
+    event synchronizations (CUDA runtime calls), with its device kernels,
+    their busy time (the union of the device spans, ms), the kernel-launch
+    calls of the CUDA API and the device time of cuBLAS's GEMM kernels
+    (names holding "gemm", ms; none of the port's kernels is one).
     The profiler may lose a trace's first device events, so empty spin
     kernels and a marker go first and only the device events after the
     marker count (``utils.timing._trace``)."""
@@ -2294,22 +2327,36 @@ def count_syncs(fn) -> dict:
              if e.device_type == DeviceType.CUDA and "spin_kernel" in e.name]
     if not marks:
         raise AssertionError("serving-api profile: the marker went missing")
-    res = {"d2h_copies": 0, "h2d_copies": 0, "syncs": 0, "kernels": 0}
+    res = {"d2h_copies": 0, "h2d_copies": 0, "syncs": 0, "kernels": 0,
+           "launch_calls": 0, "gemm_ms": 0.0}
+    spans = []
     for e in events:
         if e.device_type == DeviceType.CUDA:
             if e.time_range.start < marks[-1] or "spin_kernel" in e.name:
                 continue
+            spans.append((e.time_range.start, e.time_range.end))
             if "DtoH" in e.name:
                 res["d2h_copies"] += 1
             elif "HtoD" in e.name:
                 res["h2d_copies"] += 1
             elif not e.name.startswith(("Memcpy", "Memset")):
                 res["kernels"] += 1
+                if "gemm" in e.name.lower():
+                    res["gemm_ms"] += (e.time_range.end
+                                       - e.time_range.start) / 1e3
         elif e.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
                         "cudaEventSynchronize"):
             res["syncs"] += 1
-    # the call's own closing synchronize
+        elif "LaunchKernel" in e.name:
+            res["launch_calls"] += 1
+    busy_us, end = 0.0, -math.inf
+    for a, b in sorted(spans):        # union: overlapping spans count once
+        busy_us += max(0.0, b - max(a, end))
+        end = max(end, b)
+    res["busy_ms"] = busy_us / 1e3
+    # the call's own closing synchronize, and the spin kernels' launches
     res["syncs"] -= 1
+    res["launch_calls"] -= _PAD_KERNELS + 1
     return res
 
 
@@ -2621,6 +2668,376 @@ def sse_answer(url: str, payload) -> dict:
             toks += last["token_ids"]
             text += last.get("text", "")
     return {**last, "token_ids": toks, "text": text, "output_ids": toks}
+
+
+# ── multi-LoRA ──────────────────────────────────────────────────────────
+
+LORA_ALL = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+# (name, rank, projections, seed) of the Llama-3-8B phase's adapters
+LORA_ADAPTERS = [("a1", 16, LORA_ALL, 101), ("a2", 16, LORA_ALL, 102),
+                 ("a3", 8, ("wq", "wk", "wv"), 103)]
+# each projection's delta at about this share of its base output: A of
+# unit gain over K, B at LORA_GAIN / sqrt(r), alpha = r
+LORA_GAIN = 0.2
+_PEFT_MODULES = {"wq": "self_attn.q_proj", "wk": "self_attn.k_proj",
+                 "wv": "self_attn.v_proj", "wo": "self_attn.o_proj",
+                 "w_gate": "mlp.gate_proj", "w_up": "mlp.up_proj",
+                 "w_down": "mlp.down_proj",
+                 "wkv_a": "self_attn.kv_a_proj_with_mqa"}
+
+
+def lora_shapes(cfg) -> dict:
+    """projection -> (K, N) of the adapters ``make_lora_stack`` takes for
+    ``cfg`` (MLA: q(-a), kv_a, o and the dense prefix's MLP)."""
+    d = cfg.dim
+    it = (cfg.dense_intermediate or cfg.intermediate) if cfg.n_experts \
+        else cfg.intermediate
+    mlp = {"w_gate": (d, it), "w_up": (d, it), "w_down": (it, d)}
+    if cfg.is_mla:
+        qw = cfg.q_lora_rank or cfg.n_heads * (cfg.qk_nope_head_dim
+                                               + cfg.qk_rope_head_dim)
+        return {"wq": (d, qw),
+                "wkv_a": (d, cfg.kv_lora_rank + cfg.qk_rope_head_dim),
+                "wo": (cfg.n_heads * cfg.v_head_dim, d), **mlp}
+    nq, nkv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    return {"wq": (d, nq), "wk": (d, nkv), "wv": (d, nkv), "wo": (nq, d),
+            **mlp}
+
+
+def rand_adapter(cfg, projs, r: int, seed: int, layers=None,
+                 gain: float = LORA_GAIN) -> dict:
+    """A seeded adapter dict (``make_lora_stack``'s format, alpha = r) on
+    ``projs`` of ``layers`` (all by default; a MoE model's MLP only on its
+    dense prefix): A of unit gain over K, B at ``gain / sqrt(r)``."""
+    rng = np.random.default_rng(seed)
+    shapes = lora_shapes(cfg)
+    ad = {"alpha": float(r)}
+    for i in (range(cfg.n_layers) if layers is None else layers):
+        for p in projs:
+            if (p in ("w_gate", "w_up", "w_down") and cfg.n_experts
+                    and i >= cfg.first_k_dense):
+                continue
+            k, n = shapes[p]
+            ad[f"layers.{i}.{p}.a"] = rng.standard_normal(
+                (k, r), dtype=np.float32) / np.float32(np.sqrt(k))
+            ad[f"layers.{i}.{p}.b"] = rng.standard_normal(
+                (r, n), dtype=np.float32) * np.float32(gain / np.sqrt(r))
+    return ad
+
+
+def write_peft(path: pathlib.Path, ad: dict, r: int) -> int:
+    """An adapter dict as a PEFT LoRA directory (lora_A ``[r, K]``, lora_B
+    ``[N, r]``, f32, ``adapter_config.json``); returns the tensors' file
+    size."""
+    tensors = {}
+    for key, v in ad.items():
+        if key == "alpha":
+            continue
+        _, li, proj, kind = key.split(".")
+        name = (f"base_model.model.model.layers.{li}.{_PEFT_MODULES[proj]}"
+                f".lora_{'A' if kind == 'a' else 'B'}.weight")
+        tensors[name] = torch.from_numpy(np.ascontiguousarray(v.T))
+    path.mkdir(parents=True)
+    size = write_safetensors(path / "adapter_model.safetensors", tensors)
+    (path / "adapter_config.json").write_text(json.dumps(
+        {"peft_type": "LORA", "r": r, "lora_alpha": ad["alpha"],
+         "target_modules": sorted({k.split(".")[2] for k in ad
+                                   if k != "alpha"})}))
+    return size
+
+
+def lora_logits(params, cfg, mode: str, ids, tokens) -> torch.Tensor:
+    """The last position's logits of each call (a prefill, then decode
+    steps) at batch B under adapter ids ``ids`` (None: no adapters), f32
+    ``[B, calls, V]``."""
+    from quant_tpu_torch.models import llama
+
+    c = dataclasses.replace(cfg, kernel_mode=mode)
+    b = tokens[0].shape[0]
+    cache = llama.init_cache(c, b, sum(t.shape[1] for t in tokens), "cuda")
+    outs = []
+    for tok in tokens:
+        lg, cache = llama.forward(params, tok, cache, c, adapter_ids=ids,
+                                  device="cuda")
+        outs.append(lg[:, -1].float())
+        del lg
+    return torch.stack(outs, 1)
+
+
+def teacher_forced_lora(params, cfg, prompts, outs, ids) -> dict:
+    """Each served answer fed back through the plain path (kernel_mode
+    "xla") under its request's adapter: at each served position, the gap
+    from the teacher-forced maximum logit to the served token's, over
+    max|logit|, within ``TF_MARGIN``. Two controls that no answer may pass:
+    each answer read in the next request's context (its adapter), and each
+    answer in its own context under the adapter two requests on (another
+    adapter, or the base)."""
+    from quant_tpu_torch.models import llama
+
+    plain = dataclasses.replace(cfg, kernel_mode="xla")
+    n_new, n = len(outs[0]), len(outs)
+
+    def gaps(i, answer, aid):
+        toks = prompts[i] + answer[:-1]
+        cache = llama.init_cache(plain, 1, len(toks), "cuda")
+        lg, _ = llama.forward(params, [toks], cache, plain,
+                              adapter_ids=torch.tensor([aid], device="cuda"),
+                              device="cuda")
+        lg = lg[0, -n_new:]
+        top, scale = lg.max(-1).values, lg.abs().max(-1).values
+        t = torch.tensor(answer, device="cuda")[:, None]
+        return ((top - lg.gather(-1, t)[:, 0]) / scale).tolist()
+    served = [gaps(i, outs[i], ids[i]) for i in range(n)]
+    context = [gaps((i + 1) % n, outs[i], ids[(i + 1) % n])
+               for i in range(n)]
+    adapter = [gaps(i, outs[i], ids[(i + 2) % n]) for i in range(n)]
+    res = {"limit": TF_MARGIN, "max_gap": max(map(max, served)),
+           "control_context_passed": sum(max(g) <= TF_MARGIN
+                                         for g in context),
+           "control_adapter_passed": sum(max(g) <= TF_MARGIN
+                                         for g in adapter),
+           "control_adapter_median_gap": float(np.median(
+               [g for gs in adapter for g in gs]))}
+    log(f"[llama-lora] teacher-forced through the plain path under each "
+        f"request's adapter: {n * n_new} served tokens, largest gap "
+        f"{res['max_gap']:.3e} of max|logit| (limit {TF_MARGIN}); controls "
+        f"passing: another context {res['control_context_passed']} of {n}, "
+        f"another adapter {res['control_adapter_passed']} of {n} (median "
+        f"gap {res['control_adapter_median_gap']:.3e})")
+    if not res["max_gap"] <= TF_MARGIN:
+        raise AssertionError(f"llama-lora: a served token stands "
+                             f"{res['max_gap']:.3g} below the maximum")
+    if res["control_context_passed"] or res["control_adapter_passed"]:
+        raise AssertionError("llama-lora: the teacher-forced check passes "
+                             "answers read in the wrong context or under "
+                             "the wrong adapter")
+    return res
+
+
+def lora_block_profile(eng, prompts, loras, n: int = 8,
+                       n_prof: int = 4) -> dict:
+    """8 requests decoding together (``loras``: each one's adapter, or
+    None), admitted and warmed by one block; then one ``step_block(n)`` on
+    the host clock and one ``step_block(n_prof)`` under the profiler
+    (device kernels, busy time, kernel-launch calls and cuBLAS GEMM time a
+    step, the wrappers' launch counts of the block; a trace of 8 steps,
+    about 13,000 kernels, lost its marker)."""
+    from quant_tpu_torch.engine import Request
+    from quant_tpu_torch.kernels import _build
+
+    reqs = [Request(req_id=3000 + i, prompt=p,
+                    max_new_tokens=8 + n + n_prof, lora=a)
+            for i, (p, a) in enumerate(zip(prompts, loras))]
+    for r in reqs:
+        eng.add_request(r)
+    eng.step_block(4)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.step_block(n)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / n
+    _build.reset_launches()
+    res = count_syncs(lambda: eng.step_block(n_prof))
+    launches = {k: v for k, v in _build.launches.items() if v}
+    if not all(len(r.output) == 5 + n + n_prof and not r.finished
+               for r in reqs):
+        raise AssertionError("llama-lora profile: a request finished or "
+                             "another was admitted inside the blocks")
+    for r in reqs:
+        eng.cancel(r.req_id)
+    return {"host_ms_per_step": host_ms, "profiled_steps": n_prof,
+            "device_kernels_per_step": res["kernels"] / n_prof,
+            "device_busy_ms_per_step": res["busy_ms"] / n_prof,
+            "launch_calls_per_step": res["launch_calls"] / n_prof,
+            "gemm_ms_per_step": res["gemm_ms"] / n_prof,
+            "launches": launches, **res}
+
+
+def phase_llama_lora(detail: dict, params, cfg) -> dict:
+    """Multi-LoRA on the full-width Llama-3-8B params (the module docstring,
+    ``llama-lora``)."""
+    from quant_tpu_torch.engine import Engine
+    from quant_tpu_torch.kernels import _build
+    from quant_tpu_torch.models.lora import load_hf_adapter, make_lora_stack
+
+    t0 = time.perf_counter()
+    loras, peft_bytes = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, r, projs, seed in LORA_ADAPTERS:
+            ad = rand_adapter(cfg, projs, r, seed)
+            path = pathlib.Path(tmp) / name
+            peft_bytes[name] = write_peft(path, ad, r)
+            loras[name] = load_hf_adapter(path)
+            if sorted(loras[name]) != sorted(ad) or any(
+                    not np.array_equal(loras[name][k], ad[k]) for k in ad):
+                raise AssertionError(f"llama-lora: {name} read back from its "
+                                     "PEFT directory differs")
+    peft_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    stack = make_lora_stack(list(loras.values()), cfg, device="cuda")
+    torch.cuda.synchronize()
+    stack_s = time.perf_counter() - t1
+    stack_bytes = sum(getattr(stack, f).numel() * 4 for f in (
+        "a_qkv", "b_qkv", "a_o", "b_o", "a_gu", "b_gu", "a_down", "b_down"))
+    log(f"[llama-lora] 3 adapters written as PEFT directories "
+        f"({peft_bytes} bytes) and read back in {peft_s:.1f}s; the stack "
+        f"built in {stack_s:.1f}s, {stack_bytes} bytes on the card "
+        f"(ranks qkv {stack.a_qkv.shape[3]}, o {stack.a_o.shape[3]}, gate|up "
+        f"{stack.a_gu.shape[3]}, down {stack.a_down.shape[3]})")
+    pl = dataclasses.replace(params, lora=stack)
+    out: dict = {"peft_bytes": peft_bytes, "stack_bytes": stack_bytes,
+                 "stack_s": stack_s}
+
+    # logits: mixed ids against plain, each slot against its own batch
+    rng = np.random.default_rng(2)
+    b = 8
+    tokens = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, 64)))] + [
+        torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, 1)))
+        for _ in range(4)]
+    mixed = torch.tensor([0, 1, 2, 3, 0, 1, 2, 3], dtype=torch.int32,
+                         device="cuda")
+    k = lora_logits(pl, cfg, "auto", mixed, tokens)
+    pln = lora_logits(pl, cfg, "xla", mixed, tokens)
+    base = lora_logits(params, cfg, "auto", None, tokens)
+
+    def rel(x, y):
+        return float((x - y).abs().max() / y.abs().max())
+    checks = {"kernels vs plain": rel(k, pln)}
+    moved = {}
+    for j in range(4):
+        own = lora_logits(pl, cfg, "auto", torch.full_like(mixed, j),
+                          tokens)
+        rows = (mixed == j).nonzero()[:, 0]
+        checks[f"slots of id {j} vs their own batch"] = rel(k[rows],
+                                                            own[rows])
+        if j:
+            moved[j] = rel(k[rows], base[rows])
+        del own
+    checks["base slots vs no adapters"] = rel(k[mixed == 0],
+                                              base[mixed == 0])
+    log(f"[llama-lora] prefill(T=64) + 4 decode steps, B=8, ids "
+        f"{mixed.tolist()}: {checks} (limit 5e-2); each adapter against "
+        f"the base on its slots: {moved} (must exceed 5e-2)")
+    out["logits"] = {"checks": checks, "adapter_vs_base": moved}
+    if not bool(torch.isfinite(k).all()) or max(checks.values()) > 5e-2:
+        raise AssertionError(f"llama-lora: logits {checks}")
+    if min(moved.values()) <= 5e-2:
+        raise AssertionError(f"llama-lora: an adapter moves its slots by "
+                             f"only {moved}: the checks cannot see it")
+    del k, pln, base
+
+    # serving: 8 requests over HTTP sharing a page-aligned prefix
+    n_new, prefix_len = 32, 512
+    prefix = [int(t) for t in rng.integers(0, cfg.vocab_size, prefix_len)]
+    suffix_lens = rng.integers(16, 129, 8)
+    prompts = [prefix + [int(t) for t in rng.integers(0, cfg.vocab_size, n)]
+               for n in suffix_lens]
+    names = [None, "a1", "a2", "a3"] * 2
+    # the first of each pair names its adapter with "lora", the second
+    # with the OpenAI "model" (the base: the served name, or nothing)
+    extra = [({} if a is None else {"lora": a}) if i < 4
+             else {"model": a or "llama-3-8b"} for i, a in enumerate(names)]
+    eng = Engine(params, cfg, max_slots=8, max_seq=2048, eos_id=-1,
+                 device="cuda", paged=True, page_size=128, prefix_cache=True,
+                 loras=loras)
+    traffic = http_traffic(eng, prompts, n_new, 8, "llama-3-8b", extra)
+    st, launches = traffic["stats"], traffic["launches"]
+    fwd = st["prefill_chunks"] + st["decode_forwards"]
+    check_launches("llama-lora serving", launches, {
+        "dequant_matmul": (4 * cfg.n_layers + 1) * fwd,
+        "paged_cache_insert_int8[fused]": cfg.n_layers * st["decode_forwards"],
+        "paged_flash_decode_int8": cfg.n_layers * st["decode_forwards"]})
+    hits = 4 * prefix_len
+    if st["prefix_hit_tokens"] != hits:
+        raise AssertionError(f"llama-lora: prefix_hit_tokens "
+                             f"{st['prefix_hit_tokens']}, expected {hits}")
+    if st["free_pages"] + st["cached_blocks"] != st["total_pages"]:
+        raise AssertionError(f"llama-lora: after the drain {st}")
+    models = traffic["models"]["data"]
+    if [(m["id"], m.get("parent")) for m in models] != [
+            ("llama-3-8b", None)] + [(a, "llama-3-8b")
+                                     for a, *_ in LORA_ADAPTERS]:
+        raise AssertionError(f"llama-lora: /v1/models {models}")
+    outs = [traffic["results"][i]["output_ids"] for i in range(8)]
+    pure = [s for s in traffic["steps"] if s["decode"] and not s["chunks"]]
+    decode_ms = 1e3 * sum(s["s"] for s in pure) / max(1, len(pure))
+    log(f"[llama-lora] 8 HTTP requests (a shared {prefix_len}-token prefix, "
+        f"two per adapter and two base, half routed by 'model'): "
+        f"{st['prefill_chunks']} prefill chunks, {st['decode_forwards']} "
+        f"decode forwards, prefix_hit_tokens {st['prefix_hit_tokens']}, "
+        f"decode {decode_ms:.2f} ms/step over HTTP; launches "
+        f"{({k: v for k, v in launches.items() if v})}")
+    del eng, traffic
+    torch.cuda.empty_cache()
+    tf = teacher_forced_lora(pl, cfg, prompts, outs,
+                             [0 if a is None else int(a[1]) for a in names])
+    out["serving"] = {"stats": st, "launches": launches,
+                      "decode_ms_per_step": decode_ms, "teacher_forced": tf,
+                      "answers": outs}
+
+    # one B=8 step_block(8) with the adapters on and off
+    short = [p[prefix_len:] for p in prompts]
+    prof = {}
+    for on in (False, True):
+        e = Engine(params, cfg, max_slots=8, max_seq=1024, eos_id=-1,
+                   device="cuda", loras=loras if on else None)
+        prof["on" if on else "off"] = lora_block_profile(
+            e, short, names if on else [None] * 8)
+        del e
+        torch.cuda.empty_cache()
+    on, off = prof["on"], prof["off"]
+    for p in (on, off):
+        n = p["profiled_steps"]
+        check_launches("llama-lora profile", p["launches"], {
+            "dequant_matmul": (4 * cfg.n_layers + 1) * n,
+            "cache_insert_int8[fused]": cfg.n_layers * n,
+            "flash_decode_int8": cfg.n_layers * n})
+    log(f"[llama-lora] B=8 step_block(8) (profiled: step_block(4)), "
+        f"adapters off / on: host "
+        f"{off['host_ms_per_step']:.2f} / {on['host_ms_per_step']:.2f} "
+        f"ms/step, device kernels {off['device_kernels_per_step']:.1f} / "
+        f"{on['device_kernels_per_step']:.1f}, kernel-launch calls "
+        f"{off['launch_calls_per_step']:.1f} / "
+        f"{on['launch_calls_per_step']:.1f}, device busy "
+        f"{off['device_busy_ms_per_step']:.3f} / "
+        f"{on['device_busy_ms_per_step']:.3f} ms/step, cuBLAS GEMMs "
+        f"{off['gemm_ms_per_step']:.3f} / {on['gemm_ms_per_step']:.3f} "
+        f"ms/step; dequant_matmul {on['launches']['dequant_matmul']} "
+        f"launches either way")
+    out["step_block_profile"] = prof
+    out["total_s"] = time.perf_counter() - t0
+    detail["llama_lora"] = out
+    return out
+
+
+def phase_dsv2_lora(detail: dict, params, cfg) -> None:
+    """DeepSeek-V2-Lite's LoRA targets on the card: two adapters on q,
+    kv_a, o and the dense-prefix MLP under mixed ids (B=4, a 4-token
+    prefill and 4 decode steps), kernels against plain with the experts
+    held; and an adapter on the last layer's o alone, which must move the
+    logits by more than the model limit (read by the global layer)."""
+    from quant_tpu_torch.models.lora import make_lora_stack
+
+    # at a 64- or 32-token prefill the 27 random layers put kernels against
+    # plain at 4.7e-2 of max|logit| (gain 0.2 or 0.1): the short context of
+    # mla_fault_check, where the model check has room
+    projs = ("wq", "wkv_a", "wo", "w_gate", "w_up", "w_down")
+    stack = make_lora_stack([rand_adapter(cfg, projs, 8, 201, gain=0.1),
+                             rand_adapter(cfg, projs, 4, 202, gain=0.1)],
+                            cfg, device="cuda")
+    # a strong delta on one layer: the control must clear the limit
+    last = make_lora_stack([rand_adapter(cfg, ("wo",), 8, 203,
+                                         layers=[cfg.n_layers - 1],
+                                         gain=2.0)], cfg, device="cuda")
+    mixed = torch.tensor([0, 1, 2, 1], dtype=torch.int32, device="cuda")
+    ones = torch.ones(4, dtype=torch.int32, device="cuda")
+    moe_model_check(
+        detail, "deepseek-v2-lite-lora", params, cfg, 4, 4, 4,
+        {"kernels": {"lora": stack, "adapter_ids": mixed},
+         "plain": {"lora": stack, "adapter_ids": mixed,
+                   "kernel_mode": "xla"},
+         "last-layer": {"lora": last, "adapter_ids": ones}, "base": {}},
+        [("kernels", "plain")], controls=[("last-layer", "base")])
 
 
 def phase_model(detail: dict, params, cfg) -> None:
@@ -3232,7 +3649,9 @@ def moe_model_check(detail: dict, tag: str, params, cfg, b: int, t: int,
     ``faults``: variant name -> a context manager that plants a fault while
     that variant runs; each pair of ``controls`` must differ by more than
     the limit. A variant's ``page`` (not a config field) runs it over a
-    page pool of that page size under a table shuffled from seed 0."""
+    page pool of that page size under a table shuffled from seed 0; its
+    ``lora`` (a ``LoraStack``) and ``adapter_ids`` run it with those
+    adapters."""
     from quant_tpu_torch.models import llama
 
     rng = np.random.default_rng(1)
@@ -3248,6 +3667,8 @@ def moe_model_check(detail: dict, tag: str, params, cfg, b: int, t: int,
     for name, change in variants.items():
         change = dict(change)
         page = change.pop("page", None)
+        p = dataclasses.replace(params, lora=change.pop("lora", None))
+        ids = change.pop("adapter_ids", None)
         c = dataclasses.replace(cfg, **change)
         if page is None:
             cache = llama.init_cache(c, b, t + n_decode, "cuda")
@@ -3264,7 +3685,7 @@ def moe_model_check(detail: dict, tag: str, params, cfg, b: int, t: int,
         with held_routing(moe_layers(cfg), rows, kept) as routing, fault():
             at[0] = 0
             for tok in tokens:
-                lg, cache = llama.forward(params, tok, cache, c,
+                lg, cache = llama.forward(p, tok, cache, c, adapter_ids=ids,
                                           device="cuda")
                 at[0] += tok.shape[1]
                 outs.append(lg[:, -1].float())
@@ -3656,16 +4077,24 @@ def phase_dsv3(detail: dict, cfg) -> dict:
     return out
 
 
-def phase_cli(detail: dict, preset: str, extra: tuple = ()) -> None:
+def phase_cli(detail: dict, preset: str, extra: tuple = (),
+              lora: bool = False) -> None:
     """``python -m quant_tpu_torch generate`` on a checkpoint of ``preset``
     written by the port (``extra``: more flags, e.g. ``--kv-bits 4``):
-    three prompts, 8 new tokens each."""
+    three prompts, 8 new tokens each. ``lora``: with a seeded rank-4
+    adapter on every projection, written as a PEFT directory and given as
+    ``--lora a=<dir> --use-lora a`` (the stats must count it)."""
     from quant_tpu_torch.checkpoint import save_checkpoint
     from quant_tpu_torch.models import PRESETS, llama
 
     cfg = dataclasses.replace(PRESETS[preset], kernel_mode="auto")
     params = llama.init_params(cfg, seed=0, device="cuda")
     with tempfile.TemporaryDirectory() as tmp:
+        if lora:
+            peft = pathlib.Path(tmp) / "adapter"
+            write_peft(peft, rand_adapter(cfg, LORA_ALL, 4, 7), 4)
+            extra = tuple(extra) + ("--lora", f"a={peft}", "--use-lora", "a")
+            tmp = str(pathlib.Path(tmp) / "ckpt")
         save_checkpoint(tmp, params, cfg)
         env = dict(os.environ, PYTHONPATH=str(ROOT))
         out = subprocess.run(
@@ -3674,25 +4103,28 @@ def phase_cli(detail: dict, preset: str, extra: tuple = ()) -> None:
              "--slots", "2", "--max-seq", "64", "--eos-id", "-1",
              "--device", "cuda", *extra],
             capture_output=True, text=True, timeout=300, cwd=ROOT, env=env)
-    what = " ".join((preset,) + tuple(extra))
+    what = " ".join((preset,) + tuple(x.split("=")[0] for x in extra))
     if out.returncode != 0:
         raise RuntimeError(f"cli generate ({what}) failed:\n"
                            f"{out.stderr[-4000:]}")
     lines = [json.loads(x) for x in out.stdout.strip().splitlines()]
     if len(lines) != 3 or any(len(x["output"]) != 8 for x in lines):
         raise AssertionError(f"unexpected cli output: {out.stdout!r}")
+    stats = json.loads(out.stderr.strip().splitlines()[-1])["stats"]
+    if lora and stats.get("loras") != 1:
+        raise AssertionError(f"cli generate ({what}): stats {stats}")
     log(f"[cli] generate ({what}) printed {len(lines)} JSON lines, e.g. "
         f"{json.dumps(lines[0])}")
-    detail[f"cli_{preset}" + "".join(extra).replace("--", "_")] = {
-        "lines": lines, "stderr": out.stderr[-2000:]}
+    detail[f"cli_{preset}" + ("_lora" if lora else "".join(extra).replace(
+        "--", "_"))] = {"lines": lines, "stderr": out.stderr[-2000:]}
 
 
 def phase_cli_all(detail: dict) -> None:
-    """The cli phase: ``generate`` on each tiny preset and on test-tiny
-    with ``--kv-bits 4``, ``serve --paged`` on the first two and ``serve
-    --paged --prefix-cache`` on the MLA two, ``convert`` of three HF
-    shapes, ``selftest``. Each check
-    runs processes of its own and shares nothing with the others, so they
+    """The cli phase: ``generate`` on each tiny preset, on test-tiny with
+    ``--kv-bits 4`` and with ``--lora`` / ``--use-lora``, ``serve --paged``
+    on the first two and ``serve --paged --prefix-cache`` on the MLA two,
+    ``convert`` of three HF shapes, ``selftest``. Each check runs
+    processes of its own and shares nothing with the others, so they
     run at once from a pool of threads (each process pays its own
     interpreter and CUDA start); the first failure is raised after all have
     ended."""
@@ -3701,6 +4133,7 @@ def phase_cli_all(detail: dict) -> None:
     jobs = [(phase_cli, (detail, p)) for p in (
         "test-tiny", "test-tiny-moe", "test-tiny-mla", "test-tiny-dsv3")]
     jobs.append((phase_cli, (detail, "test-tiny", ("--kv-bits", "4"))))
+    jobs.append((phase_cli, (detail, "test-tiny", (), True)))
     jobs += [(phase_cli_serve, (detail, p))
              for p in ("test-tiny", "test-tiny-moe")]
     jobs += [(phase_cli_serve, (detail, p, ("--prefix-cache",)))
@@ -5328,6 +5761,8 @@ def run_all(args, detail: dict) -> int:
     lap("llama")
     phase_serving_api(detail, params, cfg)
     lap("serving-api")
+    phase_llama_lora(detail, params, cfg)
+    lap("llama-lora")
     kv4 = phase_kv4_llama(detail, params, cfg)
     lap("llama-kv4")
     aq = phase_act_quant_llama(detail, params, cfg)
@@ -5392,9 +5827,11 @@ def run_all(args, detail: dict) -> int:
     mla = phase_dsv2_serving(detail, params, cfg)
     lap("deepseek-v2-lite")
     mla_paged = phase_dsv2_paged(detail, params, cfg, mla)
+    lap("deepseek-v2-lite paged")
+    phase_dsv2_lora(detail, params, cfg)
     del params
     torch.cuda.empty_cache()
-    lap("deepseek-v2-lite paged")
+    lap("deepseek-v2-lite lora")
     phase_dsv3(detail, dataclasses.replace(PRESETS["deepseek-v3"],
                                            n_layers=4))
     lap("deepseek-v3")

@@ -8,12 +8,14 @@
     python -m quant_tpu_torch generate <ckpt_dir> --prompt TEXT \
         --tokenizer <hf_tokenizer_dir> [--repetition-penalty R] \
         [--frequency-penalty F] [--presence-penalty P] \
-        [--logit-bias 13:-100,42:5] [--guided-regex REGEX]
+        [--logit-bias 13:-100,42:5] [--guided-regex REGEX] \
+        [--lora NAME=PEFT_DIR ...] [--use-lora NAME]
     python -m quant_tpu_torch serve <ckpt_dir> [--host 127.0.0.1] \
         [--port 8400] [--tokenizer <hf_tokenizer_dir>] \
         [--paged [--page-size N] [--n-pages N]] \
         [--prefix-cache] [--max-pending N] [--kv-bits 0|4|8|16] \
-        [--lut-runtime int8|word4|sel15] [--device cuda]
+        [--lut-runtime int8|word4|sel15] [--lora NAME=PEFT_DIR ...] \
+        [--device cuda]
     python -m quant_tpu_torch eval <ckpt_dir> --text file.txt \
         [--window 512] [--limit-windows N] [--kv-bits 0|4|8|16] \
         [--lut-runtime int8|word4|sel15] [--device cuda]
@@ -38,6 +40,10 @@ pairs) or 16 (unquantized); 0 keeps the checkpoint's. ``convert
 ``--lut-runtime`` picks how such a checkpoint runs: ``int8`` transcodes it
 to linear int8 at load (the checkpoint's default), ``word4`` and ``sel15``
 look the table up inside the matmul kernel (int8-requantized or float32).
+``--lora NAME=DIR`` (repeatable) registers a Hugging Face PEFT LoRA
+adapter directory under NAME; ``generate --use-lora NAME`` generates with
+it, and a ``serve`` request picks one with its ``lora`` or OpenAI ``model``
+field.
 ``selftest``
 checks the codec against the C++ oracle bit for bit on 1M floats, then
 generates from a test-tiny model.
@@ -108,6 +114,22 @@ def _tokenizer(path: str | None):
     return AutoTokenizer.from_pretrained(path)
 
 
+def _loras(specs) -> dict | None:
+    """``--lora name=dir`` flags -> {name: adapter dict} (PEFT directories
+    read by ``load_hf_adapter``), None without any."""
+    if not specs:
+        return None
+    from quant_tpu_torch.models.lora import load_hf_adapter
+
+    loras = {}
+    for spec in specs:
+        name, _, path = spec.partition("=")
+        if not path:
+            raise SystemExit("--lora expects name=/path/to/adapter")
+        loras[name] = load_hf_adapter(path)
+    return loras
+
+
 def _logit_bias(spec: str | None) -> tuple:
     """'13:-100,42:5' -> ((13, -100.0), (42, 5.0))."""
     if not spec:
@@ -130,7 +152,8 @@ def _cmd_generate(args) -> int:
     # a tokenizer's EOS replaces the default --eos-id, as in the JAX CLI
     eng = Engine(params, cfg, max_slots=args.slots, max_seq=args.max_seq,
                  eos_id=(tok.eos_token_id if tok and args.eos_id == 2
-                         else args.eos_id), device=args.device)
+                         else args.eos_id), device=args.device,
+                 loras=_loras(args.lora))
     if args.prompt is not None:
         prompts = [tok(p)["input_ids"] for p in args.prompt]
     else:
@@ -143,7 +166,7 @@ def _cmd_generate(args) -> int:
         fsm = regex_fsm(args.guided_regex, vocab_bytes(tok, cfg.vocab_size),
                         eng.eos_id)
     outs = eng.generate(
-        prompts, max_new_tokens=args.max_new, fsm=fsm,
+        prompts, max_new_tokens=args.max_new, fsm=fsm, lora=args.use_lora,
         sampling=SamplingConfig(
             temperature=args.temperature, top_k=args.top_k,
             top_p=args.top_p, min_p=args.min_p,
@@ -170,7 +193,7 @@ def _cmd_serve(args) -> int:
                  eos_id=args.eos_id, device=args.device, paged=args.paged,
                  page_size=args.page_size, n_pages=args.n_pages,
                  prefix_cache=args.prefix_cache,
-                 max_pending=args.max_pending)
+                 max_pending=args.max_pending, loras=_loras(args.lora))
     logging.basicConfig(level=logging.INFO, stream=sys.stderr,
                         format="%(asctime)s %(name)s %(message)s")
     serve(eng, host=args.host, port=args.port, tokenizer=tok,
@@ -363,6 +386,11 @@ def main(argv=None) -> int:
     g.add_argument("--guided-regex", default=None,
                    help="constrain the output to this regex (a token FSM "
                         "on the device; needs --tokenizer)")
+    g.add_argument("--lora", action="append", default=None,
+                   metavar="NAME=PATH",
+                   help="register a HF PEFT adapter dir (repeatable)")
+    g.add_argument("--use-lora", default=None,
+                   help="generate with this registered adapter")
     g.add_argument("--kv-bits", type=int, default=0, choices=(0, 4, 8, 16),
                    help="KV cache override: 0 (checkpoint's), 8 (int8), 4 "
                         "(int4, head pairs packed) or 16 (unquantized)")
@@ -403,6 +431,11 @@ def main(argv=None) -> int:
                          "requests (requires --paged)")
     sv.add_argument("--max-pending", type=int, default=None,
                     help="admission queue cap (HTTP 429 beyond it)")
+    sv.add_argument("--lora", action="append", default=None,
+                    metavar="NAME=PATH",
+                    help="register a HF PEFT LoRA adapter dir under "
+                         "NAME (repeatable); requests select via "
+                         "'lora' or the OpenAI 'model' field")
     sv.add_argument("--kv-bits", type=int, default=0,
                     choices=(0, 4, 8, 16),
                     help="KV cache override: 0 (checkpoint's), 8 (int8), 4 "
@@ -453,8 +486,9 @@ def main(argv=None) -> int:
     rt.add_argument("infile")
     rt.add_argument("--bits", type=int, default=8, choices=(4, 8))
     rt.set_defaults(fn=_cmd_roundtrip)
-    # flags of the JAX CLI whose features are not ported (--mesh, --lora,
-    # --draft-ckpt, ...) are unknown here: argparse exits naming them
+    # flags of the JAX CLI whose features are not ported (--mesh,
+    # --draft-ckpt, --spec-gamma, ...) are unknown here: argparse exits
+    # naming them
     args = p.parse_args(argv)
     try:
         return args.fn(args)

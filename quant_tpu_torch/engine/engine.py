@@ -48,7 +48,17 @@ of the raw logits ride the same fetch as the tokens. So ``step_block(n)``
 uploads one ``[max_slots, 3]`` block (tokens, FSM ids and states) before its
 n forwards and fetches one packed block after them, whatever features its
 slots use. :meth:`Engine.embed` pools the final-norm hidden states of a
-prompt. Meshes, speculation and LoRA raise ``NotImplementedError``.
+prompt (the base model).
+
+Multi-LoRA: ``Engine(loras={name: adapter})`` stacks the adapters
+(``models/lora.py``) and a request picks one by name (``Request.lora``).
+The per-slot adapter ids live on the device (``[max_slots]``, written when a
+request's admission starts) and go to every prefill chunk and decode
+forward, so slots with different adapters decode together. The prefix
+cache's block keys chain from a seed that names the adapter: the base keeps
+the plain token keys, and no adapter's blocks match the base's or another
+adapter's (the KV an adapter writes is its own). Meshes and speculation
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -95,7 +105,8 @@ class Request:
     # OpenAI top-logprobs: the top-K raw-model logprobs of every output
     # position, fetched with the tokens (0 = off, at most 20)
     top_logprobs: int = 0
-    # LoRA adapters are not ported: must stay None
+    # multi-LoRA: the name of an adapter registered with Engine(loras=...);
+    # None is the base model
     lora: Any = None
     # per-request seed of the slot's generator; None derives it from req_id
     seed: int | None = None
@@ -193,8 +204,7 @@ class Engine:
                  paged: bool = False, page_size: int | None = None,
                  n_pages: int | None = None, prefix_cache: bool = False,
                  spec_gamma: int = 0, loras: dict | None = None):
-        unsupported = {"mesh": mesh is not None, "spec_gamma": spec_gamma,
-                       "loras": bool(loras)}
+        unsupported = {"mesh": mesh is not None, "spec_gamma": spec_gamma}
         bad = [k for k, on in unsupported.items() if on]
         if bad:
             raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
@@ -203,6 +213,21 @@ class Engine:
         llama.check_supported(cfg)
         self.dev = resolve_device(device)
         check_on(params.final_norm, self.dev, "params")
+        # multi-LoRA: adapters register at construction; requests pick one
+        # by name, 0 being the base
+        self.lora_names: dict = {None: 0}
+        self._adapter_ids = None
+        if loras:
+            from quant_tpu_torch.models.lora import make_lora_stack
+
+            params = dataclasses.replace(params, lora=make_lora_stack(
+                list(loras.values()), cfg, device=self.dev))
+            for j, name in enumerate(loras):
+                self.lora_names[name] = j + 1
+            # each slot's adapter id, on the device (stale ids of free
+            # slots only feed their masked lanes)
+            self._adapter_ids = torch.zeros((max_slots,), dtype=torch.int32,
+                                            device=self.dev)
         self.params = params
         self.cfg = cfg
         self.max_slots = max_slots
@@ -306,9 +331,14 @@ class Engine:
     # ── device steps ────────────────────────────────────────────────
 
     def _forward(self, tokens: torch.Tensor,
-                 cache: llama.KVCache | llama.PagedKVCache):
+                 cache: llama.KVCache | llama.PagedKVCache, slot=None):
+        """One forward; with adapters, under the ids of every slot, or of
+        ``slot`` alone (a batch-1 prefill chunk)."""
+        ids = self._adapter_ids
+        if ids is not None and slot is not None:
+            ids = ids[slot:slot + 1]
         return llama.forward(self.params, tokens, cache, self.cfg,
-                             device=self.dev)
+                             adapter_ids=ids, device=self.dev)
 
     def _insert_single(self, slot: int) -> None:
         """Copy the single-slot prefill cache into decode-cache ``slot``."""
@@ -448,8 +478,10 @@ class Engine:
                 f"[0, {self.cfg.vocab_size}) and non-empty")
         if not 0 <= req.top_logprobs <= 20:
             raise ValueError("top_logprobs must be in [0, 20]")
-        if req.lora is not None:
-            raise NotImplementedError("LoRA adapters are not ported")
+        if req.lora is not None and req.lora not in self.lora_names:
+            raise ValueError(
+                f"unknown lora adapter {req.lora!r} (registered: "
+                f"{[k for k in self.lora_names if k]})")
         if len(req.sampling.logit_bias) > self.MAX_LOGIT_BIAS:
             raise ValueError(f"at most {self.MAX_LOGIT_BIAS} logit_bias "
                              "entries")
@@ -503,12 +535,16 @@ class Engine:
             if free is None:
                 return
             req = self.pending.pop(0)
+            if self._adapter_ids is not None:
+                # the prefill chunks and every later decode forward use the
+                # slot's adapter
+                self._adapter_ids[free] = self.lora_names[req.lora]
             if self.prefix_cache:
                 # reuse the longest cached full-block prefix, then allocate
                 # the slot's remaining pages up front: suffix chunks write
                 # the pool's pages directly
                 stream0 = req.prompt + req.output
-                off0 = self._match_prefix(free, stream0)
+                off0 = self._match_prefix(free, stream0, req.lora)
                 while not self._ensure_pages(
                         free, min(len(stream0) + 1, self.max_seq)):
                     if not self._preempt_newest():
@@ -537,9 +573,9 @@ class Engine:
                     self._page_tbl[slot:slot + 1].copy()).to(self.dev),
                 lengths=torch.tensor([off], dtype=torch.int32,
                                      device=self.dev))
-            logits, _ = self._forward(toks, view)
+            logits, _ = self._forward(toks, view, slot)
         else:
-            logits, self.pf_cache = self._forward(toks, self.pf_cache)
+            logits, self.pf_cache = self._forward(toks, self.pf_cache, slot)
         self.prefill_chunks += 1
         off += len(chunk)
         if off < len(stream):
@@ -555,7 +591,7 @@ class Engine:
             # and the slot's length
             self._admit_counter += 1
             self._admit_seq[slot] = self._admit_counter
-            self._register_prefix(slot, stream)
+            self._register_prefix(slot, stream, req.lora)
             self._sync_paged()
             self.cache.lengths[slot] = len(stream)
         elif self.paged:
@@ -700,28 +736,33 @@ class Engine:
     def _pages_for(self, n_tokens: int) -> int:
         return -(-n_tokens // self.page_size)
 
-    def _block_keys(self, stream: list[int]) -> list[bytes]:
+    def _block_keys(self, stream: list[int], lora=None) -> list[bytes]:
         """Chained digests of the stream's full page-aligned blocks:
         key_j = H(key_{j-1} || tokens of block j), so a match at block j
         certifies the whole prefix (and the KV it produced: positions are
-        absolute under RoPE)."""
+        absolute under RoPE). The chain starts from a seed naming the
+        adapter ``lora`` (empty for the base): an adapter's KV differs from
+        the base's for the same tokens, so its blocks never match another
+        adapter's or the base's."""
         page = self.page_size
-        keys, h = [], b""
+        keys = []
+        h = (b"" if lora is None else hashlib.blake2b(
+            f"lora:{lora}".encode(), digest_size=16).digest())
         for j in range(len(stream) // page):
             blk = np.asarray(stream[j * page:(j + 1) * page], np.int32)
             h = hashlib.blake2b(h + blk.tobytes(), digest_size=16).digest()
             keys.append(h)
         return keys
 
-    def _match_prefix(self, slot: int, stream: list[int]) -> int:
+    def _match_prefix(self, slot: int, stream: list[int], lora=None) -> int:
         """Point the slot's leading table entries at cached pages matching
-        the stream's longest full-block prefix; returns the token count
-        covered (prefill resumes there). At least one token is always left
-        to prefill: its logits seed sampling."""
+        the stream's longest full-block prefix under adapter ``lora``;
+        returns the token count covered (prefill resumes there). At least
+        one token is always left to prefill: its logits seed sampling."""
         page = self.page_size
         max_k = (len(stream) - 1) // page
         k = 0
-        for j, key in enumerate(self._block_keys(stream)[:max_k]):
+        for j, key in enumerate(self._block_keys(stream, lora)[:max_k]):
             pg = self._prefix_map.get(key)
             if pg is None:
                 break
@@ -737,10 +778,12 @@ class Engine:
         self._prefix_hit_tokens += k * page
         return k * page
 
-    def _register_prefix(self, slot: int, stream: list[int]) -> None:
-        """Publish the slot's filled full blocks into the prefix map (its
-        pages now hold exactly those blocks' KV)."""
-        for j, key in enumerate(self._block_keys(stream)):
+    def _register_prefix(self, slot: int, stream: list[int],
+                         lora=None) -> None:
+        """Publish the slot's filled full blocks, keyed under adapter
+        ``lora``, into the prefix map (its pages now hold exactly those
+        blocks' KV)."""
+        for j, key in enumerate(self._block_keys(stream, lora)):
             if key in self._prefix_map:
                 continue
             pg = int(self._page_tbl[slot, j])
@@ -963,6 +1006,8 @@ class Engine:
             "decode_forwards": self.decode_forwards,
             **self._pcts(self._ttfts, "ttft"),
             **self._pcts(self._tpots, "tpot"),
+            **({"loras": len(self.lora_names) - 1}
+               if len(self.lora_names) > 1 else {}),
             **({"fsms": len(self._fsm_objs) - 1}
                if len(self._fsm_objs) > 1 else {}),
             **({"prefix_hit_tokens": self._prefix_hit_tokens,
@@ -975,9 +1020,9 @@ class Engine:
 
     def embed(self, prompt_ids) -> np.ndarray:
         """``[dim]`` L2-normalized mean of the prompt's final-norm hidden
-        states (the /v1/embeddings payload), through a throwaway single-slot
-        cache at the prompt's true length: the engine's slots and caches are
-        untouched."""
+        states (the /v1/embeddings payload) under the base model, through a
+        throwaway single-slot cache at the prompt's true length: the
+        engine's slots and caches are untouched."""
         n = len(prompt_ids)
         if not 0 < n <= self.max_seq:
             raise ValueError(f"embedding input length {n} outside "
@@ -999,12 +1044,13 @@ class Engine:
                 or any(s is not None for s in self.slots))
 
     def generate(self, prompts: list[list[int]], max_new_tokens: int = 32,
-                 sampling: SamplingConfig = SamplingConfig(), fsm=None
-                 ) -> list[list[int]]:
+                 sampling: SamplingConfig = SamplingConfig(), fsm=None,
+                 lora=None) -> list[list[int]]:
         """Batch API over the continuous-batching loop (``step_block(16)``
-        until every request is done)."""
+        until every request is done), every prompt under adapter ``lora``
+        (None: the base)."""
         reqs = [Request(req_id=i, prompt=p, max_new_tokens=max_new_tokens,
-                        sampling=sampling, fsm=fsm)
+                        sampling=sampling, fsm=fsm, lora=lora)
                 for i, p in enumerate(prompts)]
         for r in reqs:
             self.add_request(r)

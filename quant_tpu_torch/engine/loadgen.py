@@ -3,9 +3,10 @@
 The port of the JAX package's ``engine/loadgen.py``. Requests arrive on a
 Poisson clock with prompt and output lengths drawn uniformly from the
 spec's ranges (the same spec and seed give the same arrivals as the JAX
-package's), and the report holds sustained token and request throughput,
-mean occupancy and the engine's TTFT / TPOT percentiles. In process, with
-no HTTP in the loop: it measures the engine, not the sockets.
+package's; ``lora`` runs every request under one adapter), and the report
+holds sustained token and request throughput, mean occupancy and the
+engine's TTFT / TPOT percentiles. In process, with no HTTP in the loop: it
+measures the engine, not the sockets.
 """
 
 from __future__ import annotations
@@ -34,6 +35,8 @@ class LoadSpec:
     # starts (first calls build kernels and allocator pools); warmup
     # requests are left out of the latency reservoirs
     warmup: bool = True
+    # the LoRA adapter every request runs under (None: the base model)
+    lora: str | None = None
 
 
 def _bucket(n: int, lo: int = 16) -> int:
@@ -54,7 +57,7 @@ def _arrivals(spec: LoadSpec, vocab: int) -> list[tuple[float, Request]]:
         prompt = list(map(int, rng.integers(3, vocab, plen)))
         out.append((float(t[i]),
                     Request(req_id=i, prompt=prompt, max_new_tokens=mnew,
-                            sampling=spec.sampling)))
+                            sampling=spec.sampling, lora=spec.lora)))
     return out
 
 
@@ -66,7 +69,7 @@ def run_load(eng: Engine, spec: LoadSpec) -> dict:
         for j, b in enumerate(buckets):
             eng.add_request(Request(
                 req_id=-1 - j, prompt=[3] * min(b, eng.max_seq - 4),
-                max_new_tokens=2, sampling=spec.sampling))
+                max_new_tokens=2, sampling=spec.sampling, lora=spec.lora))
         while eng.has_work():
             eng.step_block(spec.block) if spec.block else eng.step()
         eng._ttfts.clear()

@@ -11,7 +11,8 @@ requests batch together in the engine.
                       "logit_bias": {"id": b}, "timeout_s": S,
                       "stop_ids": [...], "stop": "text" | [...],
                       "guided_regex" | "guided_json" | "guided_choice",
-                      "seed": s, "logprobs": true, "top_logprobs": k}
+                      "seed": s, "logprobs": true, "top_logprobs": k,
+                      "lora": "adapter name"}
         -> {"req_id": i, "output_ids": [...], "timed_out": bool
             (, "logprobs": [...])(, "top_token_ids", "top_logprobs")}
     POST /generate with "stream": true
@@ -21,9 +22,11 @@ requests batch together in the engine.
     GET  /healthz    -> {"ok": true, ...engine stats}
     GET  /metrics    -> Prometheus text (engine stats as quant_tpu_* gauges
                         plus the server's request counters)
-    GET  /v1/models  -> the served model
+    GET  /v1/models  -> the served model and its LoRA adapters (each with
+                        "parent": the served model)
     POST /v1/completions  {"prompt": "text" | [ids], "max_tokens": N, the
-                           sampling, penalty, bias, stop and guided fields,
+                           sampling, penalty, bias, stop, guided and lora
+                           fields, "model": name,
                            "n": k, "stop_token_ids": [...], "seed": s,
                            "logprobs": true | k, "stream": true -> SSE (n=1)}
     POST /v1/chat/completions  {"messages": [{"role", "content"}, ...]}
@@ -36,9 +39,11 @@ answer 400. Every choice carries ``token_ids``. ``stop`` strings are checked
 on the decoded output under the scheduler lock, before stream deltas are
 pushed: the answer is cut before the first match (``finish_reason``
 "stop"). ``guided_*`` compile to a token FSM (``engine/grammar.py``),
-cached per pattern, schema or choice list. ``QueueFullError`` answers 429; a
-malformed body or invalid ids answer 400 and the server keeps serving.
-``lora`` rests on code the port does not have yet and answers 501.
+cached per pattern, schema or choice list. A request runs under the LoRA
+adapter its ``lora`` field names, else the one its OpenAI ``model`` field
+names when that is a registered adapter, else the base model; an unknown
+``lora`` answers 400. ``QueueFullError`` answers 429; a malformed body or
+invalid ids answer 400 and the server keeps serving.
 """
 
 from __future__ import annotations
@@ -55,18 +60,7 @@ from quant_tpu_torch.engine.sampler import SamplingConfig
 
 log = logging.getLogger("quant_tpu_torch.server")
 
-__all__ = ["serve", "serve_async", "EngineServer", "NotPortedError"]
-
-
-class NotPortedError(Exception):
-    """A request asked for a feature whose code is not ported (HTTP 501)."""
-
-
-def _refuse_unported(body: dict) -> None:
-    """Raise :class:`NotPortedError` when ``body`` asks for a LoRA adapter,
-    the one request field whose code is not ported."""
-    if body.get("lora") not in (None, "", [], {}):
-        raise NotPortedError("LoRA adapters (lora)")
+__all__ = ["serve", "serve_async", "EngineServer"]
 
 
 def _parse_logit_bias(body: dict, vocab_size: int) -> tuple:
@@ -223,7 +217,8 @@ class EngineServer:
         return time.monotonic() + timeout_s if timeout_s else None
 
     def _new_request(self, prompt_ids, max_new_tokens, sampling, timeout_s,
-                     stop_ids, seed, fsm, top_logprobs, stop_strs) -> Request:
+                     stop_ids, seed, fsm, top_logprobs, stop_strs,
+                     lora=None) -> Request:
         """A request with the next id, its stop strings registered once the
         engine takes it (``_enqueue``)."""
         rid = self.next_id
@@ -232,7 +227,7 @@ class EngineServer:
                       max_new_tokens=max_new_tokens, sampling=sampling,
                       deadline=self._deadline(timeout_s),
                       stop_ids=tuple(stop_ids), seed=seed, fsm=fsm,
-                      top_logprobs=top_logprobs)
+                      top_logprobs=top_logprobs, lora=lora)
         req.stopped_text = None
         return req
 
@@ -243,16 +238,17 @@ class EngineServer:
 
     def submit(self, prompt_ids, max_new_tokens, sampling,
                timeout_s: float | None = None, stop_ids=(), seed=None,
-               fsm=None, top_logprobs: int = 0, stop_strs=()) -> Request:
+               fsm=None, top_logprobs: int = 0, stop_strs=(),
+               lora=None) -> Request:
         """Enqueue one request and wait until it finishes."""
         return self.submit_many(prompt_ids, max_new_tokens, sampling, 1,
                                 timeout_s, stop_ids, seed, fsm, top_logprobs,
-                                stop_strs)[0]
+                                stop_strs, lora)[0]
 
     def submit_many(self, prompt_ids, max_new_tokens, sampling, n,
                     timeout_s: float | None = None, stop_ids=(), seed=None,
                     fsm=None, top_logprobs: int = 0,
-                    stop_strs=()) -> list[Request]:
+                    stop_strs=(), lora=None) -> list[Request]:
         """Enqueue n copies of one prompt (OpenAI ``n`` choices; with an
         explicit seed, copy j gets seed + j) and wait for all of them."""
         evs, reqs = [], []
@@ -262,7 +258,7 @@ class EngineServer:
                     req = self._new_request(
                         prompt_ids, max_new_tokens, sampling, timeout_s,
                         stop_ids, None if seed is None else int(seed) + j,
-                        fsm, top_logprobs, stop_strs)
+                        fsm, top_logprobs, stop_strs, lora)
                     # register the event only once the engine took the
                     # request, so a refused submit leaks nothing
                     self._enqueue(req, stop_strs)
@@ -283,7 +279,7 @@ class EngineServer:
     def submit_stream(self, prompt_ids, max_new_tokens, sampling,
                       timeout_s: float | None = None, stop_ids=(),
                       seed=None, fsm=None, top_logprobs: int = 0,
-                      stop_strs=()):
+                      stop_strs=(), lora=None):
         """Enqueue a streaming request; returns (request, token queue). The
         queue yields lists of newly committed token ids, then None."""
         q: queue.Queue = queue.Queue()
@@ -291,7 +287,7 @@ class EngineServer:
             req = self._new_request(prompt_ids, max_new_tokens,
                                     sampling or SamplingConfig(), timeout_s,
                                     stop_ids, seed, fsm, top_logprobs,
-                                    stop_strs)
+                                    stop_strs, lora)
             self._enqueue(req, stop_strs)
             self.streams[req.req_id] = (req, 0, q)
         return req, q
@@ -301,6 +297,22 @@ class EngineServer:
             self.streams.pop(rid, None)
             self.stop_strs.pop(rid, None)
             self.engine.cancel(rid)
+
+    def request_lora(self, body: dict):
+        """The adapter of a request: its ``lora`` field, else the OpenAI
+        ``model`` when that names a registered adapter (multi-LoRA routing
+        by model name), else None (the base). An unknown ``lora`` is a
+        ValueError (400)."""
+        name = body.get("lora")
+        if name is None:
+            m = body.get("model")
+            if m in self.engine.lora_names:
+                name = m
+            else:
+                return None
+        if name not in self.engine.lora_names:
+            raise ValueError(f"unknown lora adapter {name!r}")
+        return name
 
     # ── request fields that need the tokenizer ───────────────────────
 
@@ -422,9 +434,13 @@ def _make_handler(srv: EngineServer):
             if self.path == "/healthz":
                 self._json(200, {"ok": True, **srv.engine.stats})
             elif self.path == "/v1/models":
-                self._json(200, {"object": "list", "data": [
-                    {"id": srv.model_name, "object": "model",
-                     "owned_by": "quant-tpu"}]})
+                models = [{"id": srv.model_name, "object": "model",
+                           "owned_by": "quant-tpu"}]
+                models += [{"id": n, "object": "model",
+                            "owned_by": "quant-tpu",
+                            "parent": srv.model_name}
+                           for n in srv.engine.lora_names if n]
+                self._json(200, {"object": "list", "data": models})
             elif self.path == "/metrics":
                 stats = dict(srv.engine.stats, requests_total=srv.next_id,
                              streams_active=len(srv.streams))
@@ -450,7 +466,7 @@ def _make_handler(srv: EngineServer):
             args = (body["prompt_ids"], int(body.get("max_new_tokens", 32)),
                     sampling, timeout_s, stop_ids, _seed(body),
                     srv.guided_fsm(body), int(body.get("top_logprobs", 0)),
-                    srv.stop_strings(body))
+                    srv.stop_strings(body), srv.request_lora(body))
             if body.get("stream"):
                 self._stream(body, srv.submit_stream(*args))
                 return
@@ -567,7 +583,8 @@ def _make_handler(srv: EngineServer):
             args = (prompt_ids, max_new, sampling, None, stop_ids,
                     _seed(body))
             kw = dict(fsm=srv.guided_fsm(body), top_logprobs=self._top_k(body),
-                      stop_strs=srv.stop_strings(body))
+                      stop_strs=srv.stop_strings(body),
+                      lora=srv.request_lora(body))
             if body.get("stream"):
                 if n != 1:
                     raise ValueError("stream requires n=1")
@@ -674,10 +691,7 @@ def _make_handler(srv: EngineServer):
                 body = json.loads(self.rfile.read(n))
                 if not isinstance(body, dict):
                     raise ValueError("the body must be a JSON object")
-                _refuse_unported(body)
                 routes[self.path](body)
-            except NotPortedError as e:
-                self._json(501, {"error": f"not ported: {e}"})
             except QueueFullError as e:
                 self._json(429, {"error": str(e)})
             except (KeyError, TypeError, ValueError,

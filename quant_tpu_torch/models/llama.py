@@ -26,7 +26,9 @@ without experts also takes codebook weights (``codebook`` "nf4" or
 "lloyd": the table in the kernel at ``lut_runtime`` "word4" or "sel15";
 "int8" transcodes at load); every model takes int8 activations
 (``act_quant``: W8A8, W4A8, the experts' matmuls too), as the JAX
-package's ``_mm`` and ``_moe`` pass them to its kernels.
+package's ``_mm`` and ``_moe`` pass them to its kernels. Multi-LoRA
+adapters (``params.lora``, ``forward(adapter_ids=)``) add their per-slot
+deltas beside the fused projections (``models/lora.py``).
 
 PyTorch idiom in place of JAX's:
 
@@ -86,6 +88,7 @@ from quant_tpu_torch.kernels.paged_attention import (paged_flash_decode_int8,
 from quant_tpu_torch.kernels.rope_kv import (dequant_kv4, quantize_kv, rmsnorm,
                                              rope_apply)
 from quant_tpu_torch.models.config import ModelConfig
+from quant_tpu_torch.models.lora import LoraBatch, LoraStack
 from quant_tpu_torch.utils.device import check_on, resolve_device
 
 __all__ = ["LayerParams", "QEmbed", "LlamaParams", "KVCache", "PagedKVCache",
@@ -158,6 +161,9 @@ class LlamaParams:
     # dense MLP of width ``dense_intermediate``), run before ``layers``;
     # None unless the config has one
     layers0: LayerParams | None = None
+    # multi-LoRA adapters (``models/lora.py``), rows by global layer; None
+    # without adapters
+    lora: LoraStack | None = None
 
     @property
     def device(self) -> torch.device:
@@ -604,10 +610,14 @@ def _hot_list(w: torch.Tensor):
 
 
 def mlp_block(x: torch.Tensor, lay: LayerParams, i: int, cfg: ModelConfig,
-              mm, dt: torch.dtype) -> torch.Tensor:
+              mm, dt: torch.dtype, lora: LoraBatch | None = None,
+              gi: int = 0) -> torch.Tensor:
     """The MLP's residual delta, float32 [B, T, D], for layer ``i``.
 
-    Dense (``n_experts`` 0): fused gate|up, SwiGLU, down. Sparse MoE, with
+    Dense (``n_experts`` 0): fused gate|up, SwiGLU, down, with the LoRA
+    deltas of global layer ``gi`` on gate|up and down when ``lora`` is
+    given (dense models and the dense prefix; the MoE layers and DeepSeek's
+    shared experts take none, as in the JAX package). Sparse MoE, with
     the JAX package's dispatch (plus DeepSeek's shared experts, a dense GLU
     added to the routed combination, and its selection bias):
 
@@ -631,7 +641,12 @@ def mlp_block(x: torch.Tensor, lay: LayerParams, i: int, cfg: ModelConfig,
     Every expert matmul carries ``act_quant`` (W8A8 / W4A8).
     """
     if not cfg.n_experts:
-        return _glu(x, lay.w_gate_up, lay.w_down, i, cfg, mm, dt)
+        gu = mm(x, lay.w_gate_up, i)
+        if lora is not None:
+            gu = gu + lora.delta("gu", x, gi).to(gu.dtype)
+        a_in = _glu_act(gu, cfg, dt)
+        out = mm(a_in, lay.w_down, i, out_dtype=torch.float32)
+        return out if lora is None else lora.delta("down", a_in, gi, out=out)
     routed = _moe(x, lay, i, cfg, mm, dt)
     if cfg.n_shared_experts:
         # DeepSeek: the always-on shared experts' GLU, added in f32
@@ -640,11 +655,17 @@ def mlp_block(x: torch.Tensor, lay: LayerParams, i: int, cfg: ModelConfig,
     return routed
 
 
+def _glu_act(gu: torch.Tensor, cfg: ModelConfig,
+             dt: torch.dtype) -> torch.Tensor:
+    """The GLU's activation of the fused gate|up output, times up."""
+    gate, up = gu.chunk(2, dim=-1)
+    return _act(cfg)(gate.to(torch.float32)).to(dt) * up
+
+
 def _glu(x, w_gate_up: QTensor, w_down: QTensor, i: int, cfg: ModelConfig,
          mm, dt: torch.dtype) -> torch.Tensor:
     """Dense SwiGLU of layer ``i``: fused gate|up, activation, down (f32)."""
-    gate, up = mm(x, w_gate_up, i).chunk(2, dim=-1)
-    a_in = _act(cfg)(gate.to(torch.float32)).to(dt) * up
+    a_in = _glu_act(mm(x, w_gate_up, i), cfg, dt)
     return mm(a_in, w_down, i, out_dtype=torch.float32)
 
 
@@ -1082,18 +1103,20 @@ def _use_kernels(cfg: ModelConfig, t: int, paged: bool) -> bool:
 
 def _mla_attn(x, lay: LayerParams, i: int, gi: int, cfg: ModelConfig, mm,
               dt: torch.dtype, rope, positions, lengths, new_lengths,
-              cache, kernels: bool) -> torch.Tensor:
+              cache, kernels: bool,
+              lora: LoraBatch | None = None) -> torch.Tensor:
     """DeepSeek multi-head latent attention in the absorbed form (the JAX
     package's ``_mla_attn``): one matmul over the fused down projection
     gives [q part | c_kv | k_pe]; the per-head key up-projection folds
     into the query (``q_abs``), so attention is MQA over one quantized
     latent row [c_kv | k_pe] per token (one joint scale, zero lanes up to
     ``mla_cache_dim``), and the value read is the row's first ``r`` lanes.
-    Weights index with the stack position ``i``, the cache with the global
-    layer ``gi``. Over a latent pool (``PagedKVCache``) the plain path
-    inserts through the page table and attends over ``paged_gather`` of
-    the layer, as the JAX package does; the kernel pair reads and writes
-    the pool in place. Returns the heads' outputs [B, T, H, dv] after the
+    Weights index with the stack position ``i``, the cache and the LoRA
+    rows (``lora``: the q(-a) | kv_a delta on the fused down projection,
+    before the fused insert reads it) with the global layer ``gi``. Over a
+    latent pool (``PagedKVCache``) the plain path inserts through the page
+    table and attends over ``paged_gather`` of the layer, as the JAX
+    package does; the kernel pair reads and writes the pool in place. Returns the heads' outputs [B, T, H, dv] after the
     value up-projection."""
     b, t = x.shape[0], x.shape[1]
     kc, ks = cache.k_codes, cache.k_scale
@@ -1101,6 +1124,8 @@ def _mla_attn(x, lay: LayerParams, i: int, gi: int, cfg: ModelConfig, mm,
     r, dr = cfg.kv_lora_rank, cfg.qk_rope_head_dim
     dn = cfg.qk_nope_head_dim
     akv = mm(x, lay.wqkv, i)                     # [B, T, qpart + r + dr]
+    if lora is not None:
+        akv = akv + lora.delta("qkv", x, gi).to(akv.dtype)
     qp, ckv = akv[..., :-(r + dr)], akv[..., -(r + dr):]
     if cfg.q_lora_rank:
         qp = rmsnorm(qp, lay.q_a_norm[i], cfg.norm_eps)
@@ -1139,10 +1164,12 @@ def _mla_attn(x, lay: LayerParams, i: int, gi: int, cfg: ModelConfig, mm,
 
 def _gqa_attn(x, lay: LayerParams, i: int, gi: int, cfg: ModelConfig, mm,
               rope, positions, lengths, new_lengths, cache, kernels: bool,
-              window: int = 0):
+              window: int = 0, lora: LoraBatch | None = None):
     """GQA attention of stack position ``i`` (cache layer ``gi``) over the
     contiguous cache or the page pool, [B, T, Hq, Dh], under the layer's
-    ``window`` (0: full causal) and ``cfg.attn_softcap``."""
+    ``window`` (0: full causal) and ``cfg.attn_softcap``. ``lora`` adds the
+    q|k|v delta of layer ``gi`` after the bias, as the JAX package does,
+    before RoPE or the fused insert reads the row."""
     b, t = x.shape[0], x.shape[1]
     kc, ks, vc, vs = cache.k_codes, cache.k_scale, cache.v_codes, cache.v_scale
     paged = isinstance(cache, PagedKVCache)
@@ -1152,6 +1179,8 @@ def _gqa_attn(x, lay: LayerParams, i: int, gi: int, cfg: ModelConfig, mm,
     if cfg.qkv_bias:
         # Qwen2; a Llama bias is all zeros, and adding it is left out
         qkv = qkv + lay.qkv_bias[i].to(qkv.dtype)
+    if lora is not None:
+        qkv = qkv + lora.delta("qkv", x, gi).to(qkv.dtype)
     nq = (qkv.shape[-1] * cfg.n_heads) // units
     nkv = (qkv.shape[-1] * cfg.n_kv_heads) // units
     q = qkv[..., :nq].reshape(b, t, -1, cfg.head_dim)
@@ -1212,13 +1241,18 @@ def forward(params: LlamaParams, tokens, cache: KVCache | PagedKVCache,
     unless "cpu"); params and cache must already lie there, ``tokens``
     ([B, T] ids) are moved there. A ``first_k_dense`` model runs its
     dense-prefix stack ``layers0`` (config :func:`dense_prefix_cfg`) and
-    then ``layers``, whose cache rows start at ``first_k_dense``. The JAX
-    package's mesh axes (``axis``, ``seq_axis``, ``expert_axis``) and LoRA
-    ``adapter_ids`` are not ported and raise ``NotImplementedError`` when
-    given.
+    then ``layers``, whose cache rows start at ``first_k_dense``.
+
+    ``adapter_ids`` ``[B]`` (on the device; 0 = the base) picks each slot's
+    LoRA adapter of ``params.lora``: the deltas on the fused qkv (or MLA's
+    q(-a) | kv_a), on ``wo`` and on a dense MLP, each at its GLOBAL layer.
+    With ``params.lora`` and no ids every slot is the base, and no delta
+    runs; without ``params.lora`` the ids are ignored, as in the JAX
+    package. The JAX package's mesh axes (``axis``, ``seq_axis``,
+    ``expert_axis``) are not ported and raise ``NotImplementedError``.
     """
     asked = {"axis (tensor parallel)": axis, "seq_axis": seq_axis,
-             "expert_axis": expert_axis, "adapter_ids (LoRA)": adapter_ids}
+             "expert_axis": expert_axis}
     bad = [name for name, v in asked.items() if v is not None]
     if bad:
         raise NotImplementedError("not ported yet: " + ", ".join(bad))
@@ -1244,6 +1278,8 @@ def forward(params: LlamaParams, tokens, cache: KVCache | PagedKVCache,
     windows = layer_windows(cfg)
     off_n = cfg.norm_offset
     h = _embed_lookup(params.embed, tokens.to(torch.int64), dt, cfg)
+    lora = (LoraBatch.of(params.lora, adapter_ids)
+            if params.lora is not None and adapter_ids is not None else None)
     stacks = [(params.layers0, dense_prefix_cfg(cfg), 0)] if k0 else []
     stacks.append((params.layers, cfg, k0))
     for lay, c, off in stacks:
@@ -1253,20 +1289,23 @@ def forward(params: LlamaParams, tokens, cache: KVCache | PagedKVCache,
             if c.is_mla:
                 attn = _mla_attn(x, lay, i, gi, c, mm, dt, ropes["global"],
                                  positions, lengths, new_lengths, cache,
-                                 kernels)
+                                 kernels, lora)
             else:
                 w = windows[gi]
                 rope = ropes["local" if w and "local" in ropes else "global"]
                 attn = _gqa_attn(x, lay, i, gi, c, mm, rope, positions,
-                                 lengths, new_lengths, cache, kernels, w)
-            o = mm(attn.reshape(b, t, -1).contiguous(), lay.wo, i,
-                   out_dtype=torch.float32)
+                                 lengths, new_lengths, cache, kernels, w,
+                                 lora)
+            attn = attn.reshape(b, t, -1).contiguous()
+            o = mm(attn, lay.wo, i, out_dtype=torch.float32)
+            if lora is not None:
+                o = lora.delta("o", attn, gi, out=o)
             if c.post_norms:
                 # Gemma-2/3: the block's output normed before the residual
                 o = rmsnorm(o, lay.post_attn_norm[i], c.norm_eps, off_n)
             h = h + o.to(dt)
             x = rmsnorm(h, lay.mlp_norm[i], c.norm_eps, off_n)
-            m = mlp_block(x, lay, i, c, mm, dt)
+            m = mlp_block(x, lay, i, c, mm, dt, lora, gi)
             if c.post_norms:
                 m = rmsnorm(m, lay.post_mlp_norm[i], c.norm_eps, off_n)
             h = h + m.to(dt)

@@ -26,9 +26,11 @@ from quant_tpu_torch.core.qtensor import QTensor
 from quant_tpu_torch.models.config import ModelConfig
 from quant_tpu_torch.models.llama import (LayerParams, LlamaParams, QEmbed,
                                           check_supported)
+from quant_tpu_torch.models.lora import GROUPS, LoraStack, stack_from_arrays
 from quant_tpu_torch.utils.device import resolve_device
 
-__all__ = ["params_from_flat", "to_torch", "flat_from_params"]
+__all__ = ["params_from_flat", "to_torch", "flat_from_params",
+           "lora_from_leaves"]
 
 # per-layer fields in the JAX package's LayerParams order (its checkpoint
 # writer's order); the expert fields hold one leaf per (layer, expert)
@@ -205,3 +207,13 @@ def flat_from_params(params: LlamaParams) -> dict:
                                                 if isinstance(leaf, QTensor)
                                                 else leaf[i])
     return out
+
+
+def lora_from_leaves(stack, device=None) -> LoraStack:
+    """The port's :class:`LoraStack` on ``device`` from an object with the
+    eight ``a_*`` / ``b_*`` leaves of ``[A, L, K, r]`` / ``[A, L, r, N]``
+    (the JAX package's ``LoraStack``, its leaves mapped through
+    ``np.asarray``)."""
+    return stack_from_arrays(
+        {f"{ab}_{g}": np.asarray(getattr(stack, f"{ab}_{g}"))
+         for g in GROUPS for ab in "ab"}, device)

@@ -56,7 +56,7 @@ def jparams():
 
 @pytest.fixture(scope="module")
 def tparams(jparams):
-    flat = jax.tree.map(np.asarray, _flatten_params(jparams))
+    flat = _flatten_params(jax.tree.map(np.asarray, jparams))
     return params_from_flat(flat, TCFG, "cpu")
 
 
@@ -98,15 +98,11 @@ def test_greedy_matches_jax_engine(jax_greedy, tparams, use_block):
     assert eng.stats["prefill_chunks"] == len(prompts)
 
 
-@pytest.mark.parametrize("what", ["paged", "prefix_cache", "spec_gamma",
-                                  "mesh"])
+@pytest.mark.parametrize("what", ["paged", "spec_gamma", "mesh"])
 def test_unported_engine_features_raise(tparams, what):
-    """The cases "paged" and "prefix_cache" are ported features: the paged
-    engine with speculation, and the prefix-cached one with LoRA adapters,
-    still raise."""
+    """The case "paged" is a ported feature: the paged engine with
+    speculation still raises."""
     engine_kw = {"paged": {"paged": True, "spec_gamma": 2},
-                 "prefix_cache": {"paged": True, "prefix_cache": True,
-                                  "loras": {"a": object()}},
                  "spec_gamma": {"spec_gamma": 2},
                  "mesh": {"mesh": object()}}[what]
     with pytest.raises(NotImplementedError):
@@ -116,16 +112,26 @@ def test_unported_engine_features_raise(tparams, what):
 
 
 @pytest.mark.parametrize("what", ["embed", "fsm", "top_logprobs", "penalty",
-                                  "logit_bias"])
+                                  "logit_bias", "lora"])
 def test_ported_engine_features_run(tparams, what):
     """The features that once raised NotImplementedError run: embeddings
     are unit vectors, an FSM forces its choice, top-logprobs lead with the
-    greedy token, a penalty and a -100 bias keep the engine serving."""
+    greedy token, a penalty and a -100 bias keep the engine serving, and a
+    paged, prefix-cached engine serves a request under a LoRA adapter
+    (``tests/test_torch_lora.py`` holds its streams against JAX)."""
     from quant_tpu_torch.engine import SamplingConfig
     from quant_tpu_torch.engine.grammar import choice_fsm
 
+    engine_kw = {}
+    if what == "lora":
+        rng = np.random.default_rng(0)
+        engine_kw = dict(paged=True, page_size=8, prefix_cache=True, loras={
+            "a": {"layers.0.wq.a": rng.standard_normal(
+                (TCFG.dim, 2)).astype(np.float32),
+                  "layers.0.wq.b": rng.standard_normal(
+                (2, TCFG.n_heads * TCFG.head_dim)).astype(np.float32)}})
     eng = TEngine(tparams, TCFG, max_slots=1, max_seq=16, eos_id=7,
-                  device="cpu")
+                  device="cpu", **engine_kw)
     if what == "embed":
         v = eng.embed([1, 2])
         assert v.shape == (TCFG.dim,)
@@ -136,7 +142,8 @@ def test_ported_engine_features_run(tparams, what):
                   "penalty": {"sampling": SamplingConfig(
                       repetition_penalty=1.1)},
                   "logit_bias": {"sampling": SamplingConfig(
-                      logit_bias=((1, -100.0),))}}[what]
+                      logit_bias=((1, -100.0),))},
+                  "lora": {"lora": "a"}}[what]
     req = TRequest(req_id=0, prompt=[1, 2], max_new_tokens=4, **request_kw)
     eng.add_request(req)
     while eng.has_work():
@@ -148,6 +155,8 @@ def test_ported_engine_features_run(tparams, what):
         assert [t[0] for t in req.top_ids] == req.output
     if what == "logit_bias":
         assert 1 not in req.output
+    if what == "lora":
+        assert eng.stats["loras"] == 1 and eng.lora_names["a"] == 1
 
 
 def test_prefix_cache_requires_paged(tparams):
@@ -214,13 +223,13 @@ def test_checkpoint_round_trips_both_ways(tmp_path, jparams, tparams):
     loaded, cfg = t_load(tmp_path / "j", device="cpu")
     assert dataclasses.asdict(cfg) == dataclasses.asdict(JCFG)
     _assert_same_bytes(_leaves(flat_from_params(loaded)),
-                       _leaves(jax.tree.map(np.asarray,
-                                            _flatten_params(jparams))))
+                       _leaves(_flatten_params(jax.tree.map(np.asarray,
+                                                            jparams))))
     t_save(tmp_path / "t", tparams, TCFG)
     jloaded, jcfg = j_load(tmp_path / "t", device=False)
     assert dataclasses.asdict(jcfg) == dataclasses.asdict(TCFG)
-    _assert_same_bytes(_leaves(jax.tree.map(np.asarray,
-                                            _flatten_params(jloaded))),
+    _assert_same_bytes(_leaves(_flatten_params(jax.tree.map(np.asarray,
+                                                            jloaded))),
                        _leaves(flat_from_params(tparams)))
 
 

@@ -308,8 +308,8 @@ def test_forward_matches_jax(name, paged):
     tc = _tc(jc)
     tllama.check_supported(tc)
     jparams = _drawn_params(jc)
-    tparams = params_from_flat(jax.tree.map(np.asarray,
-                                            _flatten_params(jparams)),
+    tparams = params_from_flat(_flatten_params(jax.tree.map(np.asarray,
+                                                            jparams)),
                                tc, "cpu")
     toks = _tokens(jc.vocab_size)
     ref, j_codes = _run_jax(jparams, jc, toks, paged)
@@ -395,19 +395,29 @@ _ENGINES = {"contiguous": dict(max_slots=2, max_seq=48, eos_id=-1),
                                  prefix_cache=True)}
 
 
+@pytest.fixture(scope="module")
+def gemma2_engine_run():
+    """(port params, the JAX contiguous engine's greedy streams): the
+    reference of both of the port's engines (the JAX paged, prefix-cached
+    engine gives the same streams on these requests)."""
+    jc = _jc("gemma2")
+    tc = dataclasses.replace(_tc(jc), kernel_mode="auto")
+    jparams = _drawn_params(jc, seed=4)
+    tparams = params_from_flat(_flatten_params(jax.tree.map(np.asarray,
+                                                            jparams)),
+                               tc, "cpu")
+    return tparams, _drive(JEngine(jparams, jc, **_ENGINES["contiguous"]),
+                           JRequest)
+
+
 @pytest.mark.parametrize("kind", list(_ENGINES))
-def test_gemma2_engine_matches_jax(kind):
+def test_gemma2_engine_matches_jax(gemma2_engine_run, kind):
     """Greedy streams of three requests (22, 19 and 21 prompt tokens, the
     first two sharing two blocks; 6 new, two slots) past the window of 8
     equal the JAX engine's; the paged engine reuses the shared blocks and
     its 7-page pool preempts."""
-    jc = _jc("gemma2")
-    tc = dataclasses.replace(_tc(jc), kernel_mode="auto")
-    jparams = _drawn_params(jc, seed=4)
-    tparams = params_from_flat(jax.tree.map(np.asarray,
-                                            _flatten_params(jparams)),
-                               tc, "cpu")
-    want = _drive(JEngine(jparams, jc, **_ENGINES[kind]), JRequest)
+    tc = dataclasses.replace(_tc(_jc("gemma2")), kernel_mode="auto")
+    tparams, want = gemma2_engine_run
     eng = TEngine(tparams, tc, device="cpu", **_ENGINES[kind])
     preempted = []
     inner = eng._preempt_newest

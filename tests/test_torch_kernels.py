@@ -1399,3 +1399,88 @@ def test_unpack_cuda_kernel_matches_plain_on_card(k, n):
         assert torch.equal(got, ref)
         np.testing.assert_array_equal(got.cpu().numpy(),
                                       unpack_int4_host(packed.cpu().numpy()))
+
+
+def _rand_adapter(cfg, seed: int, r: int) -> dict:
+    """A LoRA adapter dict on every projection ``make_lora_stack`` takes
+    for ``cfg`` (GQA: q, k, v, o and the MLP; MLA: q(-a), kv_a, o and the
+    dense prefix's MLP), A of unit scale over K, B at 0.5 / sqrt(r)."""
+    rng = np.random.default_rng(seed)
+    d = cfg.dim
+    if cfg.is_mla:
+        qw = cfg.q_lora_rank or cfg.n_heads * (cfg.qk_nope_head_dim
+                                               + cfg.qk_rope_head_dim)
+        shapes = {"wq": (d, qw),
+                  "wkv_a": (d, cfg.kv_lora_rank + cfg.qk_rope_head_dim),
+                  "wo": (cfg.n_heads * cfg.v_head_dim, d)}
+    else:
+        nq, nkv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+        shapes = {"wq": (d, nq), "wk": (d, nkv), "wv": (d, nkv),
+                  "wo": (nq, d)}
+    mlp_layers, it = range(cfg.n_layers), cfg.intermediate
+    if cfg.n_experts:
+        mlp_layers = range(cfg.first_k_dense)
+        it = cfg.dense_intermediate or cfg.intermediate
+    ad = {"alpha": float(r)}
+    for i in range(cfg.n_layers):
+        projs = dict(shapes)
+        if i in mlp_layers:
+            projs.update({"w_gate": (d, it), "w_up": (d, it),
+                          "w_down": (it, d)})
+        for p, (k, n) in projs.items():
+            ad[f"layers.{i}.{p}.a"] = (rng.standard_normal((k, r))
+                                       / np.sqrt(k)).astype(np.float32)
+            ad[f"layers.{i}.{p}.b"] = (rng.standard_normal((r, n)) * 0.5
+                                       / np.sqrt(r)).astype(np.float32)
+    return ad
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("preset", ["test-tiny", "test-tiny-mla"])
+def test_lora_forward_kernels_match_plain_on_card(preset):
+    """The forward with mixed LoRA adapter ids (base and two adapters over
+    B=4) through the kernels against the plain path on the card, prefill
+    and two decode steps: logits within 5e-2 of max|logit| (the smoke's
+    model limit), each decode step one fused insert and one decode launch a
+    layer, and the base slot moved by nothing but the kernels' rounding
+    (within the same limit of the forward without adapters). A MoE model's
+    random routers make two paths keep other experts, so the dense-prefix
+    targets are checked by ``chip_smoke.py`` with the experts held."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+
+    from quant_tpu_torch.models import llama
+    from quant_tpu_torch.models.lora import make_lora_stack
+
+    _build.build()
+    cfg = dataclasses.replace(PRESETS[preset], kernel_mode="auto")
+    params = llama.init_params(cfg, seed=0, device="cuda")
+    lora = make_lora_stack([_rand_adapter(cfg, 1, 4),
+                            _rand_adapter(cfg, 2, 2)], cfg, device="cuda")
+    ids = torch.tensor([0, 1, 2, 1], dtype=torch.int32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    calls = [torch.randint(3, cfg.vocab_size, (4, t), generator=gen,
+                           device="cuda") for t in (24, 1, 1)]
+    insert = "mla_cache_insert_int8" if cfg.is_mla else "cache_insert_int8"
+    runs = {}
+    for name, mode, lo in (("kernels", "auto", lora), ("plain", "xla", lora),
+                           ("base", "auto", None)):
+        c = dataclasses.replace(cfg, kernel_mode=mode)
+        p = dataclasses.replace(params, lora=lo)
+        cache = llama.init_cache(c, 4, 64, "cuda")
+        out = []
+        for toks in calls:
+            _build.reset_launches()
+            lg, cache = llama.forward(p, toks, cache, c,
+                                      adapter_ids=ids if lo else None,
+                                      device="cuda")
+            out.append(lg[:, -1].float())
+            if mode == "auto" and toks.shape[1] == 1:
+                assert _build.launches[insert] == cfg.n_layers, name
+        runs[name] = torch.stack(out, 1)
+    k, r, b = runs["kernels"], runs["plain"], runs["base"]
+    assert bool(torch.isfinite(k).all())
+    assert float((k - r).abs().max() / r.abs().max()) <= 5e-2
+    assert float((k[0] - b[0]).abs().max() / b[0].abs().max()) <= 5e-2
+    assert float((k[1] - b[1]).abs().max() / b[1].abs().max()) > 5e-2

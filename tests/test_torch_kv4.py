@@ -397,7 +397,7 @@ def jax_tiny():
         lambda p, x, c, cfg: _jit_forward(p, jnp.asarray(x), c, cfg=cfg),
         jp, jc, jllama.init_cache(jc, _B, _MAX_SEQ), toks,
         lambda lg: np.asarray(lg, np.float32))
-    return (jax.tree.map(np.asarray, _flatten_params(jp)), toks, outs,
+    return (_flatten_params(jax.tree.map(np.asarray, jp)), toks, outs,
             [np.asarray(cache.k_codes), np.asarray(cache.v_codes)])
 
 
@@ -500,7 +500,7 @@ def jax_engine():
     jc, _ = _tiny()
     jparams = jllama.init_params(jc, seed=4)
     want = _drive(JEngine(jparams, jc, **_ENGINES["contiguous"]), JRequest)
-    return jax.tree.map(np.asarray, _flatten_params(jparams)), want
+    return _flatten_params(jax.tree.map(np.asarray, jparams)), want
 
 
 @pytest.mark.parametrize("kind", list(_ENGINES))
@@ -574,7 +574,7 @@ def test_mla_kv16_forward_matches_jax():
     tc = TConfig(**dataclasses.asdict(jc))
     tllama.check_supported(tc)
     jp = jllama.init_params(jc, seed=3)
-    tparams = params_from_flat(jax.tree.map(np.asarray, _flatten_params(jp)),
+    tparams = params_from_flat(_flatten_params(jax.tree.map(np.asarray, jp)),
                                tc, "cpu")
     rng = np.random.default_rng(7)
     toks = [rng.integers(0, jc.vocab_size, (2, 12)).astype(np.int32)] + [

@@ -64,7 +64,7 @@ def _configs(name, dtype):
 
 
 def _flat(jparams):
-    return jax.tree.map(np.asarray, _flatten_params(jparams))
+    return _flatten_params(jax.tree.map(np.asarray, jparams))
 
 
 # one trace for the prefill and one for the decode steps (eager, each step
@@ -110,7 +110,6 @@ def test_config_matches_jax():
 
 
 @pytest.mark.parametrize("preset,change,kwargs", [
-    ("test-tiny-mla", {}, {"adapter_ids": [0]}),
     ("test-tiny", {"n_experts": 4, "codebook": "lloyd"}, {}),
     ("test-tiny", {"n_experts": 4, "codebook": "nf4"}, {}),
     ("test-tiny", {"embed_bits": 4}, {}),
@@ -124,9 +123,9 @@ def test_outside_the_slice_raises(preset, change, kwargs):
     NotImplementedError; nothing falls back silently. MoE (with the
     capacity dispatch, the per-expert loop and act_quant), qk_norm, MLA,
     windows, softcaps, every KV cache, codebook weights and act_quant are
-    ported: their cases ask for the parts that are not (LoRA adapters on an
-    MLA model, 4-bit embeddings, codebooks with experts, which the JAX
-    reference itself fails on: ROADMAP.md queue 3)."""
+    ported: their cases ask for the parts that are not (4-bit embeddings,
+    codebooks with experts, which the JAX reference itself fails on:
+    ROADMAP.md queue 3)."""
     cfg = dataclasses.replace(TConfig(**dataclasses.asdict(
         JPRESETS[preset])), **change)
     base = TConfig(**dataclasses.asdict(JPRESETS["test-tiny"]))
@@ -134,6 +133,45 @@ def test_outside_the_slice_raises(preset, change, kwargs):
     cache = tllama.init_cache(base, 1, 16, device="cpu")
     with pytest.raises(NotImplementedError):
         tllama.forward(params, [[1, 2]], cache, cfg, device="cpu", **kwargs)
+
+
+def test_adapter_ids_run_on_mla():
+    """LoRA adapters on test-tiny-mla (q, kv_a and o of layer 0; the ids a
+    tensor), through a prefill and a kernel-mode decode step: the base
+    slot keeps the logits of the forward without adapters bit for bit, the
+    adapter's slot moves (``tests/test_torch_lora.py`` holds the deltas
+    against JAX)."""
+    from quant_tpu_torch.models.lora import make_lora_stack
+
+    cfg = dataclasses.replace(TConfig(**dataclasses.asdict(
+        JPRESETS["test-tiny-mla"])), kernel_mode="auto", dtype="float32")
+    params = tllama.init_params(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(0)
+    qw = cfg.n_heads * (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
+    shapes = {"wq": (cfg.dim, qw),
+              "wkv_a": (cfg.dim, cfg.kv_lora_rank + cfg.qk_rope_head_dim),
+              "wo": (cfg.n_heads * cfg.v_head_dim, cfg.dim)}
+    ad = {"alpha": 4.0}
+    for p, (k, n) in shapes.items():
+        ad[f"layers.0.{p}.a"] = rng.standard_normal((k, 2)).astype(
+            np.float32)
+        ad[f"layers.0.{p}.b"] = 0.1 * rng.standard_normal((2, n)).astype(
+            np.float32)
+    runs = []
+    for lora, ids in ((None, None),
+                      (make_lora_stack([ad], cfg, device="cpu"),
+                       torch.tensor([0, 1]))):
+        p = dataclasses.replace(params, lora=lora)
+        cache = tllama.init_cache(cfg, 2, 16, "cpu")
+        out = []
+        for toks in ([[1, 2, 3], [1, 2, 3]], [[4], [4]]):
+            lg, cache = tllama.forward(p, toks, cache, cfg, adapter_ids=ids,
+                                       device="cpu")
+            out.append(lg[:, -1])
+        runs.append(torch.stack(out, 1))
+    base, got = runs
+    assert torch.equal(got[0], base[0])
+    assert (got[1] - base[1]).abs().amax() > 1e-3 * base[1].abs().amax()
 
 
 @pytest.mark.parametrize("change", [

@@ -94,7 +94,7 @@ def _configs(preset, dtype="float32", **kw):
 
 
 def _flat(jparams):
-    return jax.tree.map(np.asarray, _flatten_params(jparams))
+    return _flatten_params(jax.tree.map(np.asarray, jparams))
 
 
 # ── config and rope ─────────────────────────────────────────────────────
@@ -408,14 +408,22 @@ _jit_forward = jax.jit(jllama.forward, static_argnames=("cfg",))
 
 
 @pytest.fixture(scope="module")
-def jax_forward():
+def jax_params():
+    """name -> the JAX params of each forward config (one init each, shared
+    by the forward and engine runs)."""
+    return {name: jllama.init_params(_configs(preset, dtype)[0], seed=seed)
+            for name, (preset, dtype, seed) in _FWD.items()}
+
+
+@pytest.fixture(scope="module")
+def jax_forward(jax_params):
     """name -> (flat params, {"xla": (logits per call, cache),
     "pallas_interpret": (decode logits, cache)}); the Pallas chain decodes
     from the "xla" chain's prefilled cache (float32 configs only)."""
     out = {}
     for name, (preset, dtype, seed) in _FWD.items():
         jc, _ = _configs(preset, dtype)
-        jp = jllama.init_params(jc, seed=seed)
+        jp = jax_params[name]
         prompt, steps = _fwd_inputs(jc.vocab_size)
         lg, cache = _jit_forward(jp, jnp.asarray(prompt),
                                  jllama.init_cache(jc, 2, 64), cfg=jc)
@@ -627,16 +635,15 @@ _ENGINE = dict(max_slots=2, max_seq=64, eos_id=-1)
 
 
 @pytest.fixture(scope="module")
-def jax_engine(jax_forward):
+def jax_engine(jax_params):
     """preset -> (flat params, the JAX Engine's greedy streams), on the
     float32 forward runs' parameters."""
     out = {}
     for preset, name in (("test-tiny-mla", "mla-float32"),
                          ("test-tiny-dsv3", "dsv3-float32")):
         jc, _ = _configs(preset)
-        jp = jllama.init_params(jc, seed=_FWD[name][2])
-        out[preset] = _drive(JEngine(jp, jc, **_ENGINE), JRequest,
-                             jc.vocab_size)
+        out[preset] = _drive(JEngine(jax_params[name], jc, **_ENGINE),
+                             JRequest, jc.vocab_size)
     return out
 
 

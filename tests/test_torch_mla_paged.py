@@ -253,7 +253,7 @@ def jax_runs():
             logits.append(np.asarray(lg, np.float32))
         eng = JEngine(jp, jc, **_ENGINE)
         out[preset] = dict(
-            flat=jax.tree.map(np.asarray, _flatten_params(jp)),
+            flat=_flatten_params(jax.tree.map(np.asarray, jp)),
             logits=logits, pool=jax.tree.map(np.asarray, cache),
             engine=_drive(eng, JRequest, _engine_prompts(jc.vocab_size)))
     return out

@@ -156,8 +156,8 @@ def test_paged_forward_matches_jax():
     codes differ by at most 1 in at most 0.1% of entries, scales within
     1e-5 relative."""
     jparams = jllama.init_params(JCFG, seed=3)
-    tparams = params_from_flat(jax.tree.map(np.asarray,
-                                            _flatten_params(jparams)),
+    tparams = params_from_flat(_flatten_params(jax.tree.map(np.asarray,
+                                                            jparams)),
                                TCFG, "cpu")
     rng = np.random.default_rng(7)
     b, t, max_seq, page = 2, 12, 32, 8
@@ -274,7 +274,7 @@ def jparams():
 
 @pytest.fixture(scope="module")
 def tparams(jparams):
-    flat = jax.tree.map(np.asarray, _flatten_params(jparams))
+    flat = _flatten_params(jax.tree.map(np.asarray, jparams))
     return params_from_flat(flat, TCFG, "cpu")
 
 

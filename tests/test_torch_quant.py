@@ -291,7 +291,7 @@ def jax_forwards():
                 outs.append(np.asarray(lg, np.float32))
         finally:
             jllama.dequant_matmul_reference = real
-        out[name] = (jax.tree.map(np.asarray, _flatten_params(jp)), outs,
+        out[name] = (_flatten_params(jax.tree.map(np.asarray, jp)), outs,
                      np.asarray(cache.k_codes), xs)
     return out
 
@@ -388,8 +388,8 @@ def test_nf4_forward_beats_linear_int4():
     def logits(change):
         jc, tc = _cfg(change)
         tc = dataclasses.replace(tc, kernel_mode="auto")
-        params = params_from_flat(jax.tree.map(np.asarray, _flatten_params(
-            jllama.init_params(jc, seed=4))), tc, "cpu")
+        params = params_from_flat(_flatten_params(jax.tree.map(
+            np.asarray, jllama.init_params(jc, seed=4))), tc, "cpu")
         lg, _ = tllama.forward(params, torch.from_numpy(toks),
                                tllama.init_cache(tc, 1, 16, "cpu"), tc,
                                device="cpu")
@@ -433,7 +433,7 @@ def jax_ckpts(tmp_path_factory):
         loaded = {}
         for rt in ("int8", "word4", "sel15"):
             jp, _ = j_load(root / cb, lut_runtime=rt)
-            loaded[rt] = jax.tree.map(np.asarray, _flatten_params(jp))
+            loaded[rt] = _flatten_params(jax.tree.map(np.asarray, jp))
         out[cb] = (root / cb, loaded)
     return out
 
@@ -452,7 +452,7 @@ def test_codebook_checkpoints_cross_load(jax_ckpts, cb, tmp_path):
             assert (cb == "lloyd") == bool((luts[0] != luts[1]).any())
             t_save(tmp_path / "t", params, cfg)
     jp, _ = j_load(tmp_path / "t", lut_runtime="sel15")
-    _assert_same_leaves(jax.tree.map(np.asarray, _flatten_params(jp)),
+    _assert_same_leaves(_flatten_params(jax.tree.map(np.asarray, jp)),
                         loaded["sel15"], (cb, "port-written"))
 
 

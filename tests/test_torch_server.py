@@ -6,11 +6,12 @@ JAX ``Engine`` and the port's ``Engine.generate`` on the same parameters;
 the NDJSON stream concatenates to the blocking answer; ``/healthz``,
 ``/metrics``, ``/v1/models`` and ``/v1/completions`` (token-id prompts,
 JSON and SSE) answer; a full queue answers 429, invalid prompt ids 400
-with the server still serving, ``lora`` (unported) 501 with the feature's
-name, and the features that once answered 501 (guided decoding, top-N
-logprobs, penalties, ``logit_bias``, embeddings) a 200 of their shape, text
-and chat without a tokenizer a 400. ``python -m quant_tpu_torch serve``
-starts the same server from a checkpoint.
+with the server still serving, a ``lora`` the engine does not hold 400 (the
+served model's name routes to the base), and the features that once
+answered 501 (guided decoding, top-N logprobs, penalties, ``logit_bias``,
+embeddings, LoRA) a 200 of their shape, text and chat without a tokenizer
+a 400. ``python -m quant_tpu_torch serve`` starts the same server from a
+checkpoint, with ``--lora`` adapters registered.
 """
 
 import dataclasses
@@ -65,7 +66,7 @@ def params():
     jparams = jllama.init_params(JCFG, seed=0)
     jax_out = JEngine(jparams, JCFG, **ENGINE).generate(PROMPTS,
                                                         max_new_tokens=6)
-    flat = jax.tree.map(np.asarray, _flatten_params(jparams))
+    flat = _flatten_params(jax.tree.map(np.asarray, jparams))
     return params_from_flat(flat, TCFG, "cpu"), jax_out
 
 
@@ -206,13 +207,16 @@ def test_completions_with_token_ids(base, params):
     assert chunks[-1]["finish_reason"] == "length"
 
 
-@pytest.mark.parametrize("path,payload,feature", [
-    ("/generate", {"lora": "a"}, "LoRA"),
-])
-def test_unported_features_answer_501(base, path, payload, feature):
-    body = {"prompt_ids": PROMPTS[0], "prompt": PROMPTS[0], **payload}
-    code, err = _status(base, path, body)
-    assert code == 501 and feature in err["error"]
+def test_lora_routes_to_the_base_or_answers_400(base, params):
+    """Without adapters, the served model's name as ``model`` is the base
+    (the JAX engine's tokens) and an adapter name as ``lora`` answers 400,
+    as the JAX server does."""
+    out = _post(base, "/generate", {"prompt_ids": PROMPTS[0],
+                                    "max_new_tokens": 6, "model": "tiny"})
+    assert out["output_ids"] == params[1][0]
+    code, err = _status(base, "/generate", {"prompt_ids": PROMPTS[0],
+                                            "lora": "a"})
+    assert code == 400 and "unknown lora adapter 'a'" in err["error"]
 
 
 @pytest.fixture(scope="module")
@@ -329,7 +333,7 @@ def test_cli_serve_answers(tmp_path, params):
 
 @pytest.mark.parametrize("flag", [["--mesh", "data=2"],
                                   ["--draft-ckpt", "/x"],
-                                  ["--lora", "a=/x"], ["--spec-gamma", "4"]])
+                                  ["--spec-gamma", "4"]])
 def test_cli_serve_refuses_unported_flags(flag, capsys):
     from quant_tpu_torch.cli import main
 
@@ -338,3 +342,39 @@ def test_cli_serve_refuses_unported_flags(flag, capsys):
     assert e.value.code == 2
     err = capsys.readouterr().err
     assert f"unrecognized arguments: {' '.join(flag)}" in err
+
+
+def test_cli_serve_registers_lora_adapters(tmp_path, params, monkeypatch):
+    """``serve --lora name=dir`` reads the PEFT directory and serves an
+    engine holding the adapter (the server call is replaced by one that
+    returns at once); a flag without a path exits with the JAX CLI's
+    message."""
+    from safetensors.numpy import save_file
+
+    from quant_tpu_torch.checkpoint.format import save_checkpoint
+    from quant_tpu_torch.cli import main
+    from quant_tpu_torch.engine import server
+
+    save_checkpoint(tmp_path / "ckpt", params[0], TCFG)
+    rng = np.random.default_rng(0)
+    peft = tmp_path / "a"
+    peft.mkdir()
+    pre = "base_model.model.model.layers.1.self_attn.q_proj"
+    save_file({f"{pre}.lora_A.weight": rng.standard_normal(
+        (2, TCFG.dim)).astype(np.float32),
+        f"{pre}.lora_B.weight": rng.standard_normal(
+            (TCFG.n_heads * TCFG.head_dim, 2)).astype(np.float32)},
+        str(peft / "adapter_model.safetensors"))
+    (peft / "adapter_config.json").write_text('{"lora_alpha": 4.0}')
+    served = []
+    monkeypatch.setattr(server, "serve",
+                        lambda eng, **kw: served.append((eng, kw)))
+    argv = ["serve", str(tmp_path / "ckpt"), "--paged", "--page-size", "8",
+            "--max-seq", "64", "--device", "cpu", "--served-name", "tiny"]
+    assert main(argv + ["--lora", f"a={peft}"]) == 0
+    (eng, kw), = served
+    assert eng.lora_names == {None: 0, "a": 1}
+    assert eng.params.lora.n_adapters == 2 and kw["model_name"] == "tiny"
+    assert float(eng.params.lora.b_qkv[1, 1].abs().max()) > 0
+    with pytest.raises(SystemExit, match="name=/path/to/adapter"):
+        main(argv + ["--lora", "a"])

@@ -83,7 +83,7 @@ def _one_torch_thread():
 
 
 def _flat(jparams):
-    return jax.tree.map(np.asarray, _flatten_params(jparams))
+    return _flatten_params(jax.tree.map(np.asarray, jparams))
 
 
 @pytest.fixture(scope="module")
