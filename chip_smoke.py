@@ -174,6 +174,29 @@ Phases; the first failure ends the run with a non-zero exit code:
              (device kernels, busy time, kernel-launch calls and the LoRA
              products' device time a step; the ``dequant_matmul`` launches
              equal and exact).
+   llama-spec  speculative decoding (gamma 4) on the same params: 8
+             prompts of 256-1024 tokens (seeded motifs repeated) with 64
+             new tokens each, n-gram drafts, served in process by the
+             contiguous ``Engine(max_slots=8, max_seq=2048, spec_gamma=4)``
+             beside the plain engine: exact launch counts (every matmul
+             on a tensor-core tile, no T=1 kernel), more than one token a
+             slot step, the first position where each stream leaves the
+             plain engine's, every token teacher-forced, decode tokens/s
+             over each whole run; 8 verify ``step()`` calls against 8
+             plain ones on the host clock and one of each under the
+             profiler (device busy, kernels, kernel-launch calls, syncs,
+             copies). Then 8 HTTP
+             requests sharing a 512-token prefix to the paged,
+             prefix-cached speculative engine: exact counts, 7 x 512 hit
+             tokens, every page back, every answer teacher-forced. Then a
+             random full-width Llama-3.2-1B draft (gamma 4, B=8): its
+             kernels against plain at its own shapes (Dh 64, rep 4, llama3
+             RoPE; a 256-token prefill cut to 64-256 and 4 T=1 forwards,
+             logits within 5e-2 of max|logit|), the
+             draft chain's and the verify's time a step and the
+             acceptance, exact counts of both models' launches; and the
+             target as its own draft (a second cache): more than one token
+             a slot step, teacher forcing.
    kv4       the same params over the int4 head-pair cache: slots
              prefilled to 100-2000 tokens and 4 decode steps, kernels
              against plain and paged against contiguous logits (5e-2 of
@@ -194,9 +217,9 @@ Phases; the first failure ends the run with a non-zero exit code:
              requests of 32-1024 tokens, 32 new, served at word4: every
              matmul under [lut_word4], none plain, a profile, teacher
              forcing.
-7. convert   full-width Llama-3-8B (8 layers) from a Hugging Face
+7. convert   full-width Llama-3-8B (2 layers) from a Hugging Face
              directory: random bf16 weights made on the card from seed 0,
-             written as ``*.safetensors`` (5.6 GB), ``python -m
+             written as ``*.safetensors``, ``python -m
              quant_tpu_torch convert`` (int4, g128; the C++ coder is
              required), the checkpoint loaded on the card; layer 0's wqkv,
              w_gate_up and w_down and lm_head byte-equal to
@@ -208,7 +231,7 @@ Phases; the first failure ends the run with a non-zero exit code:
              over 4 windows of 512 and ``generate`` on two prompts, each in
              its own process. It prints the write, convert, load and eval
              times and each process's peak RSS. Then ``convert --codebook
-             nf4`` (beside linear int4 and int8) of a 2-layer full-width
+             nf4`` (beside linear int4 and int8) of a 1-layer full-width
              Llama-3-8B and ``--codebook lloyd`` of a 2-layer one of width
              512, all at once: layer 0's codes, scales and tables
              byte-equal to ``quantize_tensor_device`` (nf4) or the host
@@ -312,7 +335,10 @@ Phases; the first failure ends the run with a non-zero exit code:
              of the test-tiny (Llama), test-tiny-moe (Mixtral) and
              test-tiny-dsv3 (DeepSeek-V3) shapes, each loaded and run once;
              ``selftest`` (codes bit-exact against the C++ oracle);
-             ``generate --lora a=<PEFT dir> --use-lora a`` on test-tiny.
+             ``generate --lora a=<PEFT dir> --use-lora a`` on test-tiny;
+             ``serve --paged --spec-gamma 4`` on test-tiny, n-gram and with
+             ``--draft-ckpt`` (the served checkpoint as its own draft), every
+             decode a verify.
 
 Before the last line it prints ``{"kernels": [...]}`` and the
 ``nvidia-smi`` line; the last line is ``{"ok": true, "device": {...}}``.
@@ -400,11 +426,14 @@ SOURCES = {
     "mla_flash_decode_int8": "quant_tpu_torch/csrc/mla_attention.cu",
     "unpack_int4_device": "quant_tpu_torch/csrc/unpack.cu",
 }
-# depth of the converted full-width Llama-3-8B (a quarter of it: the whole
-# model's HF directory took 16 GB and 137-173 s of the smoke's time limit
-# with its convert, load and eval, 16 layers 112 s; the codebook phases
-# need the time)
-CONVERT_LAYERS = 8
+# depth of the converted full-width Llama-3-8B (2 of its 32 layers: the
+# whole model's HF directory took 16 GB and 137-173 s of the smoke's time
+# limit with its convert, load and eval, 16 layers 112 s, 8 layers 78 s;
+# the codebook and speculative phases need the time)
+CONVERT_LAYERS = 2
+# depth of cli-codebook's full-width Llama-3-8B (its checks read layer 0;
+# 2 layers took 51-59 s with the four converts and three CLI runs)
+CLI_CODEBOOK_LAYERS = 1
 # unpack_int4_device: (K, N) of 512x512 random codes and Llama-3-8B's
 # w_gate_up and lm_head (padded vocab)
 UNPACK_SHAPES = [(512, 512), (4096, 28672), (4096, 131072)]
@@ -543,8 +572,8 @@ def dmm_row(gen, bits: int, m: int, k: int, n: int, odt, g: int,
     nxt_w = cycle(dense_w)
     dense = device_time(lambda: torch.matmul(x, nxt_w()), iters)
     del dense_w
-    b_ms, b_by = bound_ms(m * k * 2 + wbytes + m * n * got.element_size(),
-                          2 * m * k * n)
+    nbytes = m * k * 2 + wbytes + m * n * got.element_size()
+    b_ms, b_by = bound_ms(nbytes, 2 * m * k * n)
     dt_name = str(odt)[6:]
     log(f"[kernels] dequant_matmul int{bits} g{g} M={m:<3d} {k}x{n} -> "
         f"{dt_name} [{tile}]: err {rel:.2e} of max|ref|  {ms:.4f} ms (events "
@@ -555,6 +584,8 @@ def dmm_row(gen, bits: int, m: int, k: int, n: int, odt, g: int,
             "max_abs_err": err, "launches_per_step": per,
             "rel_err": rel, "ms": ms, "event_ms": ev, "plain_ms": plain,
             "dense_bf16_ms": dense, "bound_ms": b_ms, "bound_by": b_by,
+            "bound_bytes_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
+            "bound_ops_ms": 1e3 * 2 * m * k * n / BF16_FLOPS,
             "pct_of_bound": 100 * b_ms / ms}
 
 
@@ -572,11 +603,15 @@ def phase_kernels(detail: dict) -> dict:
     # where the host's enqueue shows whenever it is slower than the kernel.
     # dequant_matmul, int4 at decode and prefill M with the out_dtype the
     # forward gives each projection; int8 at one shape.
-    cases = [(4, m, k, n, per, odt) for m in (1, 8, 512)
+    cases = [(4, m, k, n, per, odt) for m in (1, 8, 40, 512)
              for k, n, per, odt in DMM_SHAPES]
     cases += [(4, 64, 4096, 6144, 0, BF16)]       # a short prefill chunk
     cases += [(8, 8, 4096, 4096, 0, F32), (8, 8, 4096, 6144, 0, BF16)]
     step = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    # the speculative verify's M = B (gamma + 1) = 40 at B=8, gamma 4
+    verify = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+              "bound_bytes_ms": 0.0, "bound_ops_ms": 0.0, "max_abs_err": 0.0,
+              "tiles": []}
     max_err = 0.0
     for bits, m, k, n, per, odt in cases:
         row = dmm_row(gen, bits, m, k, n, odt, 128, per)
@@ -586,6 +621,13 @@ def phase_kernels(detail: dict) -> dict:
             step["ms"] += per * row["ms"]
             step["plain_ms"] += per * row["plain_ms"]
             step["bound_ms"] += per * row["bound_ms"]
+        if bits == 4 and m == SPEC_GAMMA * 8 + 8:
+            for key in ("ms", "plain_ms", "bound_ms", "bound_bytes_ms",
+                        "bound_ops_ms"):
+                verify[key] += per * row[key]
+            verify["max_abs_err"] = max(verify["max_abs_err"],
+                                        row["max_abs_err"])
+            verify["tiles"].append(row["tile"])
     summary["dequant_matmul"] = {
         "max_abs_err": max_err, **step, "bound_by": "bytes",
         "library_ms": None,
@@ -593,6 +635,18 @@ def phase_kernels(detail: dict) -> dict:
                 "4096x4096 f32 + 4096x28672 bf16 + 14336x4096 f32) + "
                 "4096x131072 f32, int4 g128, bf16 x; device time, weights "
                 "L2-cold"}
+    summary["dequant_matmul [spec verify]"] = {
+        **verify, "bound_by": ("bytes" if verify["bound_bytes_ms"]
+                               >= verify["bound_ops_ms"] else "operations"),
+        "library_ms": None,
+        "unit": "one speculative verify forward at B=8, gamma 4 (M = 40): "
+                "the decode step's five projections, int4 g128, bf16 x; "
+                "device time, weights L2-cold"}
+    log(f"[kernels] dequant_matmul at the verify's M=40, one forward: "
+        f"{verify['ms']:.3f} ms (tiles {sorted(set(verify['tiles']))}), "
+        f"plain {verify['plain_ms']:.3f} ms, bound {verify['bound_ms']:.3f} "
+        f"ms (bytes {verify['bound_bytes_ms']:.3f}, operations "
+        f"{verify['bound_ops_ms']:.3f})")
 
     # decode attention pair at B=8, Hkv=8, rep=4, Dh=128, S=2048, 32 layers
     L, B, H, S, D, rep = 32, 8, 8, 2048, 128, 4
@@ -1894,11 +1948,13 @@ def http_traffic(eng, prompts, n_new: int, clients: int,
 
     def timed_step():
         chunks0, dec0 = eng.prefill_chunks, eng.decode_forwards
+        ver0 = eng.verify_forwards
         t0 = time.perf_counter()
         out = inner_step()
         steps.append({"s": time.perf_counter() - t0,
                       "chunks": eng.prefill_chunks - chunks0,
-                      "decode": eng.decode_forwards - dec0})
+                      "decode": eng.decode_forwards - dec0,
+                      "verify": eng.verify_forwards - ver0})
         st = eng.stats
         held[0] = max(held[0], st.get("total_pages", 0)
                       - st.get("free_pages", 0))
@@ -3010,6 +3066,296 @@ def phase_llama_lora(detail: dict, params, cfg) -> dict:
     return out
 
 
+# the llama-spec phase: prompts of 256-1024 tokens, each a random motif of
+# 8-64 tokens repeated (n-gram drafts find it again), 64 new tokens each
+SPEC_GAMMA = 4
+SPEC_NEW = 64
+
+
+def spec_prompts(rng, cfg, lens) -> list:
+    """One prompt a length: a seeded motif of 8-64 tokens repeated up to
+    it."""
+    out = []
+    for n in lens:
+        motif = [int(t) for t in rng.integers(0, cfg.vocab_size,
+                                              int(rng.integers(8, 65)))]
+        out.append((motif * (-(-int(n) // len(motif))))[:int(n)])
+    return out
+
+
+def spec_step_profile(eng, prompts, n: int = 8) -> dict:
+    """8 requests admitted and warmed by one step; then ``n`` steps on the
+    host clock (tokens committed over their time) and one step under the
+    profiler (``count_syncs``: device kernels, busy time, kernel-launch
+    calls, synchronizations, copies)."""
+    from quant_tpu_torch.engine import Request
+
+    reqs = [Request(req_id=5000 + i, prompt=p, max_new_tokens=2048 - len(p)
+                    - 1) for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.add_request(r)
+    while eng.pending or eng._prefilling is not None:
+        eng.step()
+    eng.step()
+    torch.cuda.synchronize()
+    n0 = sum(len(r.output) for r in reqs)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        eng.step()
+    torch.cuda.synchronize()
+    host = (time.perf_counter() - t0) / n
+    toks = (sum(len(r.output) for r in reqs) - n0) / n
+    res = count_syncs(eng.step)
+    if any(r.finished for r in reqs):
+        raise AssertionError("llama-spec profile: a request finished")
+    for r in reqs:
+        eng.cancel(r.req_id)
+    return {"steps": n, "host_ms_per_step": 1e3 * host,
+            "tokens_per_step": toks,
+            "decode_tokens_per_s": toks / host, **res}
+
+
+def first_divergence(a: list, b: list) -> int | None:
+    """The first position where two streams differ (None: equal)."""
+    return next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                None if len(a) == len(b) else min(len(a), len(b)))
+
+
+def draft_kernel_check(dparams, dcfg, rng) -> dict:
+    """The draft chain's kernels at its own shapes (Llama-3.2-1B: Dh 64,
+    8 KV heads at rep 4, llama3 RoPE scaling, K=2048 projections, the
+    2048x128256 lm_head), held against their plain versions on the same
+    inputs: a B=8 prefill of 256 tokens, the rows then cut to the draft
+    run's lengths (64-256), and 4 T=1 forwards, each mode from its own
+    fresh cache; the logits of the prefill's last position and of each T=1
+    forward within 5e-2 of max|logit|, and the kernels' launches exact."""
+    from quant_tpu_torch.kernels import _build
+    from quant_tpu_torch.models import llama
+
+    b, t, n = 8, 256, 4
+    prompt = torch.from_numpy(rng.integers(0, dcfg.vocab_size, (b, t)))
+    lens = torch.from_numpy(rng.integers(64, t + 1, b)).to(torch.int32)
+    steps = [torch.from_numpy(rng.integers(0, dcfg.vocab_size, (b, 1)))
+             for _ in range(n)]
+    logits, launches = {}, {}
+    for mode in ("auto", "xla"):
+        c = dataclasses.replace(dcfg, kernel_mode=mode)
+        cache = llama.init_cache(c, b, 512, "cuda")
+        _build.reset_launches()
+        lg, cache = llama.forward(dparams, prompt, cache, c, device="cuda")
+        outs = [lg[:, -1].float()]
+        del lg
+        cache.lengths.copy_(lens)
+        for s in steps:
+            lg, cache = llama.forward(dparams, s, cache, c, device="cuda")
+            outs.append(lg[:, -1].float())
+        torch.cuda.synchronize()
+        launches[mode] = dict(_build.launches)
+        logits[mode] = torch.stack(outs)
+        del cache
+    a, r = logits["auto"], logits["xla"]
+    ln = dcfg.n_layers
+    check_launches("llama-spec draft-1b kernels", launches["auto"], {
+        "dequant_matmul": (4 * ln + 1) * (1 + n),
+        "dequant_matmul[tc_decode]": (4 * ln + 1) * n,
+        "cache_insert_int8[fused]": ln * n, "flash_decode_int8": ln * n})
+    if any(launches["xla"].values()):
+        raise AssertionError(f"draft-1b plain run launched kernels: "
+                             f"{launches['xla']}")
+    rel = float((a - r).abs().max() / r.abs().max())
+    agree = float((a.argmax(-1) == r.argmax(-1)).float().mean())
+    log(f"[llama-spec] draft-1b kernels vs plain (Dh {dcfg.head_dim}, "
+        f"{dcfg.n_kv_heads} KV heads, rep {dcfg.n_heads // dcfg.n_kv_heads},"
+        f" {dcfg.rope_scaling} RoPE): B=8 prefill of {t} tokens cut to "
+        f"{lens.tolist()}, {n} T=1 forwards: max|dlogit| = {rel:.3e} of "
+        f"max|logit|, argmax agreement {agree:.3f}; launches "
+        f"{({k: v for k, v in launches['auto'].items() if v})}")
+    if not (bool(torch.isfinite(a).all()) and rel <= 5e-2):
+        raise AssertionError(f"draft-1b kernel vs plain logits differ by "
+                             f"{rel:.3g}")
+    return {"rel_err": rel, "argmax_agreement": agree,
+            "lengths": lens.tolist(),
+            "launches": {k: v for k, v in launches["auto"].items() if v}}
+
+
+def phase_llama_spec(detail: dict, params, cfg) -> dict:
+    """Speculative decoding on the full-width Llama-3-8B params (the module
+    docstring, ``llama-spec``)."""
+    from quant_tpu_torch.engine import Engine
+    from quant_tpu_torch.engine.spec import DraftModelProposer
+    from quant_tpu_torch.models import PRESETS, llama
+
+    g, L = SPEC_GAMMA, cfg.n_layers
+    t_start = time.perf_counter()
+    out: dict = {"gamma": g}
+    rng = np.random.default_rng(19)
+    lens = rng.integers(256, 1025, 8)
+    prompts = spec_prompts(rng, cfg, lens)
+
+    # n-gram, contiguous, in process; the plain engine on the same requests
+    runs, engines = {}, {}
+    for name, kw in (("plain", {}), ("spec", {"spec_gamma": g})):
+        engines[name] = Engine(params, cfg, max_slots=8, max_seq=2048,
+                               eos_id=-1, device="cuda", **kw)
+        runs[name] = drive(engines[name], prompts, SPEC_NEW)
+    spec, plain = runs["spec"], runs["plain"]
+    st = spec["stats"]
+    check_launches("llama-spec n-gram", spec["launches"], {
+        "dequant_matmul": (4 * L + 1) * (st["prefill_chunks"]
+                                         + st["verify_forwards"]),
+        "cache_insert_int8": 0, "flash_decode_int8": 0})
+    if st["decode_forwards"] or not st["spec_tokens_per_slot_step"] > 1:
+        raise AssertionError(f"llama-spec: n-gram stats {st}")
+    diverge = [first_divergence(a, b)
+               for a, b in zip(spec["outs"], plain["outs"])]
+    log(f"[llama-spec] n-gram gamma {g}, 8 prompts of {lens.tolist()} "
+        f"tokens (repeated motifs), {SPEC_NEW} new each: "
+        f"{st['verify_forwards']} verify forwards, proposed "
+        f"{st['spec_proposed']}, accepted {st['spec_accepted']} "
+        f"({st['spec_acceptance']}), {st['spec_tokens_per_slot_step']} "
+        f"tokens a slot step; decode over the whole run, speculation on / "
+        f"off: {spec['tokens_per_s']:.1f} / {plain['tokens_per_s']:.1f} "
+        f"tok/s ({spec['tokens_per_s'] / plain['tokens_per_s']:.2f}x; "
+        f"verify steps {spec['decode_ms_per_step']:.2f} ms, plain B=8 "
+        f"decode steps {plain['decode_ms_per_step']:.2f} ms); total {spec['total_s']:.2f} s vs {plain['total_s']:.2f} s;"
+        f" first position each stream leaves the plain engine's: {diverge}; "
+        f"launches {({k: v for k, v in spec['launches'].items() if v})}")
+    tf = teacher_force_each(params, cfg, prompts, spec["outs"],
+                            "llama-spec n-gram")
+    prof = {name: spec_step_profile(engines[name], prompts)
+            for name in ("plain", "spec")}
+    p, s = prof["plain"], prof["spec"]
+    log(f"[llama-spec] one step at B=8 (contexts {lens.min()}-"
+        f"{lens.max() + SPEC_NEW}+), plain / verify: host "
+        f"{p['host_ms_per_step']:.2f} / {s['host_ms_per_step']:.2f} ms, "
+        f"device busy {p['busy_ms']:.3f} / {s['busy_ms']:.3f} ms, device "
+        f"kernels {p['kernels']} / {s['kernels']}, kernel-launch calls "
+        f"{p['launch_calls']} / {s['launch_calls']}, host syncs "
+        f"{p['syncs']} / {s['syncs']}, copies d2h {p['d2h_copies']} / "
+        f"{s['d2h_copies']} h2d {p['h2d_copies']} / {s['h2d_copies']}; "
+        f"over {p['steps']} timed steps {p['tokens_per_step']:.2f} / "
+        f"{s['tokens_per_step']:.2f} tokens a step, "
+        f"{p['decode_tokens_per_s']:.1f} / {s['decode_tokens_per_s']:.1f} "
+        f"tok/s")
+    out["ngram"] = {"prompt_lens": lens.tolist(), "stats": st,
+                    "launches": spec["launches"],
+                    "verify_step_ms": spec["decode_ms_per_step"],
+                    "plain_step_ms": plain["decode_ms_per_step"],
+                    "tokens_per_s": spec["tokens_per_s"],
+                    "plain_tokens_per_s": plain["tokens_per_s"],
+                    "tokens_per_s_ratio":
+                        spec["tokens_per_s"] / plain["tokens_per_s"],
+                    "total_s": spec["total_s"],
+                    "plain_total_s": plain["total_s"],
+                    "first_divergence": diverge, "teacher_forced": tf,
+                    "step_profile": prof}
+    del engines, runs
+    torch.cuda.empty_cache()
+
+    # paged and prefix-cached over HTTP: 8 requests sharing 512 tokens
+    n_new, prefix_len = 16, 512
+    prefix = spec_prompts(rng, cfg, [prefix_len])[0]
+    sfx = spec_prompts(rng, cfg, rng.integers(16, 129, 8))
+    hprompts = [prefix + x for x in sfx]
+    eng = Engine(params, cfg, max_slots=8, max_seq=2048, eos_id=-1,
+                 device="cuda", paged=True, page_size=128, prefix_cache=True,
+                 spec_gamma=g)
+    traffic = http_traffic(eng, hprompts, n_new, 8, "llama-3-8b")
+    hst = traffic["stats"]
+    check_launches("llama-spec paged", traffic["launches"], {
+        "dequant_matmul": (4 * L + 1) * (hst["prefill_chunks"]
+                                         + hst["verify_forwards"]),
+        "paged_cache_insert_int8": 0, "paged_flash_decode_int8": 0})
+    if hst["prefix_hit_tokens"] != 7 * prefix_len or hst["decode_forwards"]:
+        raise AssertionError(f"llama-spec paged: {hst}")
+    if hst["free_pages"] + hst["cached_blocks"] != hst["total_pages"]:
+        raise AssertionError(f"llama-spec paged: after the drain {hst}")
+    houts = [traffic["results"][i]["output_ids"] for i in range(8)]
+    verify = [x["s"] for x in traffic["steps"]
+              if x["verify"] and not x["chunks"]]
+    verify_ms = 1e3 * sum(verify) / max(1, len(verify))
+    log(f"[llama-spec] paged (page 128), prefix-cached, 8 HTTP requests "
+        f"sharing {prefix_len} tokens, {n_new} new each: "
+        f"{hst['prefill_chunks']} prefill chunks, {hst['verify_forwards']} "
+        f"verify forwards, prefix_hit_tokens {hst['prefix_hit_tokens']}, "
+        f"{hst['free_pages']} free + {hst['cached_blocks']} cached = "
+        f"{hst['total_pages']} pages, accepted {hst['spec_accepted']} of "
+        f"{hst['spec_proposed']}, {hst['spec_tokens_per_slot_step']} tokens "
+        f"a slot step, verify {verify_ms:.2f} ms/step over HTTP")
+    del eng, traffic
+    torch.cuda.empty_cache()
+    htf = teacher_forced(params, cfg, hprompts, prefix_len, houts,
+                         tag="llama-spec paged")
+    out["paged"] = {"stats": hst, "teacher_forced": htf, "answers": houts,
+                    "verify_ms_per_step": verify_ms}
+
+    # draft models: a random full-width Llama-3.2-1B, then the target
+    # itself (the same tensors, a second cache)
+    dcfg = PRESETS["llama-3.2-1b"]
+    t0 = time.perf_counter()
+    dparams = llama.init_params(dcfg, seed=1, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[llama-spec] llama-3.2-1b draft params made on the card in "
+        f"{time.perf_counter() - t0:.1f}s")
+    out["draft_kernels"] = draft_kernel_check(dparams, dcfg,
+                                              np.random.default_rng(20))
+    sprompts = spec_prompts(rng, cfg, rng.integers(64, 257, 8))
+    for name, dp, dc, n_new in (("draft-1b", dparams, dcfg, 16),
+                                ("self-draft", params, cfg, 16)):
+        prop = DraftModelProposer(dp, dc, gamma=g, max_slots=8, max_seq=2048,
+                                  device="cuda")
+        eng = Engine(params, cfg, max_slots=8, max_seq=2048, eos_id=-1,
+                     device="cuda", spec_gamma=g, spec_proposer=prop)
+        chain = []
+        inner = prop.draft_batch
+
+        def timed(*a, inner=inner, chain=chain):
+            torch.cuda.synchronize()
+            c0 = time.perf_counter()
+            res = inner(*a)
+            torch.cuda.synchronize()
+            chain.append(time.perf_counter() - c0)
+            return res
+        prop.draft_batch = timed
+        run = drive(eng, sprompts, n_new)
+        dst, dl = run["stats"], run["launches"]
+        dl_ = dc.n_layers * prop.chain_forwards
+        check_launches(f"llama-spec {name}", dl, {
+            "dequant_matmul": (4 * L + 1) * (dst["prefill_chunks"]
+                                             + dst["verify_forwards"])
+            + (4 * dc.n_layers + 1) * (prop.prefill_chunks
+                                       + prop.chain_forwards),
+            "cache_insert_int8[fused]": dl_, "flash_decode_int8": dl_})
+        chain_ms = 1e3 * float(np.median(chain))
+        step_ms = run["decode_ms_per_step"]
+        res = {"stats": dst, "launches": dl, "step_ms": step_ms,
+               "draft_chain_ms": chain_ms, "verify_ms": step_ms - chain_ms,
+               "tokens_per_s": run["tokens_per_s"],
+               "chain_forwards": prop.chain_forwards,
+               "draft_prefill_chunks": prop.prefill_chunks}
+        log(f"[llama-spec] {name} (gamma {g}, B=8, prompts of "
+            f"{[len(x) for x in sprompts]} tokens, {n_new} new each): "
+            f"draft chain {chain_ms:.2f} ms a step ({g + 1} T=1 forwards), "
+            f"step {step_ms:.2f} ms, so verify + commit "
+            f"{res['verify_ms']:.2f} ms; accepted {dst['spec_accepted']} of "
+            f"{dst['spec_proposed']} ({dst['spec_acceptance']}), "
+            f"{dst['spec_tokens_per_slot_step']} tokens a slot step, "
+            f"{run['tokens_per_s']:.1f} tok/s")
+        if name == "self-draft":
+            if not dst["spec_tokens_per_slot_step"] > 1:
+                raise AssertionError(f"llama-spec self-draft: {dst}")
+            res["teacher_forced"] = teacher_force_each(
+                params, cfg, sprompts, run["outs"], "llama-spec self-draft")
+        out[name] = res
+        del eng, prop, chain
+        torch.cuda.empty_cache()
+    del dparams
+    torch.cuda.empty_cache()
+    out["total_s"] = time.perf_counter() - t_start
+    detail["llama_spec"] = out
+    return out
+
+
 def phase_dsv2_lora(detail: dict, params, cfg) -> None:
     """DeepSeek-V2-Lite's LoRA targets on the card: two adapters on q,
     kv_a, o and the dense-prefix MLP under mixed ids (B=4, a 4-token
@@ -3472,8 +3818,9 @@ def moe_prompts(cfg) -> tuple[list, int, np.ndarray]:
 def drive(eng, prompts, n_new: int) -> dict:
     """Serve ``prompts`` in process (``n_new`` greedy tokens each) from the
     launch counters' reset to the drain: the outputs, the counts, the host
-    time of each step that only decoded, the wall time and the peak device
-    memory."""
+    time of each step that only decoded (or verified) and the tokens those
+    steps committed a second, the wall time, the peak device memory and
+    the engine's stats."""
     from quant_tpu_torch.engine import Request
     from quant_tpu_torch.kernels import _build
 
@@ -3488,21 +3835,26 @@ def drive(eng, prompts, n_new: int) -> dict:
         eng.add_request(r)
     while eng.has_work():
         c0, t0 = eng.prefill_chunks, time.perf_counter()
+        n0 = sum(len(r.output) for r in reqs)
         eng.step()
         torch.cuda.synchronize()
         if eng.prefill_chunks == c0:
-            pure.append(time.perf_counter() - t0)
+            pure.append((time.perf_counter() - t0,
+                         sum(len(r.output) for r in reqs) - n0))
     total = time.perf_counter() - t_start
+    pure_s = sum(t for t, _ in pure)
     if any(len(r.output) != n_new for r in reqs):
         raise AssertionError(f"served {[len(r.output) for r in reqs]} tokens")
     return {"outs": [list(r.output) for r in reqs],
             "launches": dict(_build.launches),
             "prefill_chunks": eng.prefill_chunks - chunks0,
             "decode_forwards": eng.decode_forwards - dec0,
-            "decode_ms_per_step": 1e3 * sum(pure) / max(1, len(pure)),
+            "decode_ms_per_step": 1e3 * pure_s / max(1, len(pure)),
+            "tokens_per_s": sum(n for _, n in pure) / max(pure_s, 1e-9),
             "total_s": total,
             "max_memory_allocated_gib":
-                torch.cuda.max_memory_allocated() / 2**30}
+                torch.cuda.max_memory_allocated() / 2**30,
+            "stats": eng.stats}
 
 
 def phase_moe_capacity(detail: dict, params, cfg) -> dict:
@@ -4123,6 +4475,8 @@ def phase_cli_all(detail: dict) -> None:
     """The cli phase: ``generate`` on each tiny preset, on test-tiny with
     ``--kv-bits 4`` and with ``--lora`` / ``--use-lora``, ``serve --paged``
     on the first two and ``serve --paged --prefix-cache`` on the MLA two,
+    ``serve --paged --spec-gamma 4`` on test-tiny with n-gram drafts and
+    with ``--draft-ckpt`` (the checkpoint as its own draft),
     ``convert`` of three HF shapes, ``selftest``. Each check runs
     processes of its own and shares nothing with the others, so they
     run at once from a pool of threads (each process pays its own
@@ -4138,6 +4492,8 @@ def phase_cli_all(detail: dict) -> None:
              for p in ("test-tiny", "test-tiny-moe")]
     jobs += [(phase_cli_serve, (detail, p, ("--prefix-cache",)))
              for p in ("test-tiny-mla", "test-tiny-dsv3")]
+    jobs += [(phase_cli_serve, (detail, "test-tiny", ("--spec-gamma", "4"),
+                                draft)) for draft in (False, True)]
     jobs += [(phase_cli_convert, (detail, p))
              for p in ("test-tiny", "test-tiny-moe", "test-tiny-dsv3")]
     jobs.append((phase_selftest, (detail,)))
@@ -4147,11 +4503,14 @@ def phase_cli_all(detail: dict) -> None:
         f.result()
 
 
-def phase_cli_serve(detail: dict, preset: str, extra: tuple = ()) -> None:
+def phase_cli_serve(detail: dict, preset: str, extra: tuple = (),
+                    draft: bool = False) -> None:
     """``python -m quant_tpu_torch serve`` on a checkpoint of ``preset``
     with a paged pool (without ``--prefix-cache`` in ``extra`` admission
     scatters the prefill cache into pages): poll /healthz, two /generate
-    requests, then stop it."""
+    requests, then stop it. With ``--spec-gamma`` in ``extra`` every decode
+    is a verify (/healthz after the requests counts them); ``draft`` adds
+    ``--draft-ckpt`` naming the served checkpoint itself."""
     from quant_tpu_torch.checkpoint import save_checkpoint
     from quant_tpu_torch.models import PRESETS, llama
 
@@ -4163,6 +4522,8 @@ def phase_cli_serve(detail: dict, preset: str, extra: tuple = ()) -> None:
     base = f"http://127.0.0.1:{port}"
     with tempfile.TemporaryDirectory() as tmp:
         save_checkpoint(tmp, params, cfg)
+        if draft:
+            extra = tuple(extra) + ("--draft-ckpt", tmp)
         log_path = pathlib.Path(tmp) / "serve.log"
         with open(log_path, "w") as log_f:
             proc = subprocess.Popen(
@@ -4188,6 +4549,7 @@ def phase_cli_serve(detail: dict, preset: str, extra: tuple = ()) -> None:
                 outs = [http_json(base + "/generate", {
                     "prompt_ids": p, "max_new_tokens": 8})["output_ids"]
                     for p in ([1, 2, 3], [4, 5, 6, 7, 8, 9] * 4)]
+                after = http_json(base + "/healthz", timeout=10)
             finally:
                 proc.terminate()
                 try:
@@ -4199,13 +4561,19 @@ def phase_cli_serve(detail: dict, preset: str, extra: tuple = ()) -> None:
     if any(len(o) != 8 for o in outs) or health.get("total_pages") != 2 * 4:
         raise AssertionError(f"unexpected cli serve answers {outs}, "
                              f"healthz {health}")
+    if "--spec-gamma" in extra and (after["decode_forwards"]
+                                    or not after["verify_forwards"]):
+        raise AssertionError(f"cli serve {' '.join(extra)}: {after}")
+    extra = tuple(x for x in extra if x != tmp)
+    spec = {k: v for k, v in after.items() if "spec" in k or "forwards" in k}
     log(f"[cli] serve --paged --page-size 16 {' '.join(extra)} ({preset}) "
         f"answered /healthz "
         f"(up in "
         f"{time.perf_counter() - t0:.1f}s) and two /generate requests: "
-        f"{outs}")
+        f"{outs}; stats after them {spec}")
     detail[f"cli_serve_{preset}{''.join(extra)}"] = {
-        "outputs": outs, "healthz": health, "log": server_log}
+        "outputs": outs, "healthz": health, "after": after,
+        "log": server_log}
 
 
 # ── Hugging Face checkpoints: convert, load, eval ─────────────────────
@@ -5504,7 +5872,7 @@ def phase_act_quant_llama(detail: dict, params, cfg) -> dict:
 
 
 def phase_cli_codebook(detail: dict) -> dict:
-    """``convert --codebook``: Llama-3-8B at full width and 2 layers from
+    """``convert --codebook``: Llama-3-8B at full width and 1 layer from
     the smoke's HF writer, converted four ways in subprocesses at once
     (nf4, linear int4, int8, all g128), and a 2-layer Llama of width 512
     (vocab 4096) converted with ``--codebook lloyd`` (the host fit takes
@@ -5527,7 +5895,8 @@ def phase_cli_codebook(detail: dict) -> dict:
     from quant_tpu_torch.eval import tokens_from_file
     from quant_tpu_torch.models import PRESETS, llama
 
-    full = dataclasses.replace(PRESETS["llama-3-8b"], n_layers=2)
+    full = dataclasses.replace(PRESETS["llama-3-8b"],
+                               n_layers=CLI_CODEBOOK_LAYERS)
     narrow = dataclasses.replace(PRESETS["llama-3-8b"], n_layers=2, dim=512,
                                  n_heads=4, n_kv_heads=1, intermediate=1024,
                                  vocab_size=4096)
@@ -5763,6 +6132,8 @@ def run_all(args, detail: dict) -> int:
     lap("serving-api")
     phase_llama_lora(detail, params, cfg)
     lap("llama-lora")
+    spec = phase_llama_spec(detail, params, cfg)
+    lap("llama-spec")
     kv4 = phase_kv4_llama(detail, params, cfg)
     lap("llama-kv4")
     aq = phase_act_quant_llama(detail, params, cfg)
@@ -5919,6 +6290,19 @@ def run_all(args, detail: dict) -> int:
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": s["bound_by"], "library_ms": None,
             "unit": s["unit"]})
+    # the speculative verify's matmuls (M = 40), with the launches of the
+    # n-gram serving run's verify forwards alone (4L + 1 each; the
+    # prefill chunks' launches left out)
+    s = summary["dequant_matmul [spec verify]"]
+    kernels.append({
+        "name": "dequant_matmul [spec verify M=40]", "route": "cuda",
+        "source": SOURCES["dequant_matmul"],
+        "replaces": REPLACES["dequant_matmul"],
+        "launches": (4 * PRESETS["llama-3-8b"].n_layers + 1)
+        * spec["ngram"]["stats"]["verify_forwards"],
+        "max_abs_err": s["max_abs_err"], "ms": s["ms"],
+        "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+        "bound_by": s["bound_by"], "library_ms": None, "unit": s["unit"]})
     s = summary["act_quant_int8"]
     kernels.append({
         "name": "act_quant_int8 [the aq x pre-pass]", "route": "cuda",

@@ -189,10 +189,26 @@ def _cmd_serve(args) -> int:
 
     tok = _tokenizer(args.tokenizer)
     params, cfg = _load(args)
+    proposer = None
+    if args.draft_ckpt:
+        if not args.spec_gamma:
+            raise SystemExit("--draft-ckpt requires --spec-gamma > 0")
+        from quant_tpu_torch.checkpoint import load_checkpoint
+        from quant_tpu_torch.engine.spec import DraftModelProposer
+
+        d_params, d_cfg = load_checkpoint(args.draft_ckpt, device=args.device)
+        if d_cfg.vocab_size != cfg.vocab_size:
+            raise SystemExit(
+                f"draft vocab {d_cfg.vocab_size} != target "
+                f"{cfg.vocab_size} (same tokenizer required)")
+        proposer = DraftModelProposer(
+            d_params, d_cfg, gamma=args.spec_gamma, max_slots=args.slots,
+            max_seq=args.max_seq, device=args.device)
     eng = Engine(params, cfg, max_slots=args.slots, max_seq=args.max_seq,
                  eos_id=args.eos_id, device=args.device, paged=args.paged,
                  page_size=args.page_size, n_pages=args.n_pages,
                  prefix_cache=args.prefix_cache,
+                 spec_gamma=args.spec_gamma, spec_proposer=proposer,
                  max_pending=args.max_pending, loras=_loras(args.lora))
     logging.basicConfig(level=logging.INFO, stream=sys.stderr,
                         format="%(asctime)s %(name)s %(message)s")
@@ -429,6 +445,14 @@ def main(argv=None) -> int:
     sv.add_argument("--prefix-cache", action="store_true",
                     help="share the pages of full prompt blocks between "
                          "requests (requires --paged)")
+    sv.add_argument("--spec-gamma", type=int, default=0,
+                    help="speculative decoding draft length (0 = off); "
+                         "n-gram prompt-lookup drafts unless --draft-ckpt")
+    sv.add_argument("--draft-ckpt", default=None,
+                    help="checkpoint of a small draft model with the "
+                         "target's vocabulary: draft-model speculative "
+                         "decoding in place of n-gram lookup (requires "
+                         "--spec-gamma)")
     sv.add_argument("--max-pending", type=int, default=None,
                     help="admission queue cap (HTTP 429 beyond it)")
     sv.add_argument("--lora", action="append", default=None,
@@ -487,7 +511,7 @@ def main(argv=None) -> int:
     rt.add_argument("--bits", type=int, default=8, choices=(4, 8))
     rt.set_defaults(fn=_cmd_roundtrip)
     # flags of the JAX CLI whose features are not ported (--mesh,
-    # --draft-ckpt, --spec-gamma, ...) are unknown here: argparse exits
+    # --pp-micro, --sp-prefill, ...) are unknown here: argparse exits
     # naming them
     args = p.parse_args(argv)
     try:

@@ -57,8 +57,22 @@ request's admission starts) and go to every prefill chunk and decode
 forward, so slots with different adapters decode together. The prefix
 cache's block keys chain from a seed that names the adapter: the base keeps
 the plain token keys, and no adapter's blocks match the base's or another
-adapter's (the KV an adapter writes is its own). Meshes and speculation
-raise ``NotImplementedError``.
+adapter's (the KV an adapter writes is its own).
+
+Speculative decoding: ``Engine(spec_gamma=g)`` makes every ``step()`` one
+verify of all slots instead of one decode forward. A proposer drafts g
+tokens a slot (``spec_proposer``; the n-gram proposer of
+``engine/spec.py`` by default, or a :class:`~quant_tpu_torch.engine.spec.
+DraftModelProposer`, admitted with each request); the slots' last tokens
+and drafts go through one T=g+1 forward of the target, with the adapter ids,
+the grammar rows walked along the drafts, the penalties, the bias and
+top-logprobs, and ``sampler.spec_commit`` (or, for an all-greedy batch
+without penalties or bias, the argmax chain) commits 1 to g+1 tokens a
+slot. The cache lengths move to the committed length on the device, the
+penalty counts take the committed tokens, and one packed block comes back
+to the host. Greedy streams are the target's argmax chain, whatever the
+proposer. ``step_block`` stays plain decode and ``generate`` steps singly.
+A mesh raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -170,6 +184,19 @@ def _fsm_walk(bt: torch.Tensor, tokb: torch.Tensor, tokl: torch.Tensor,
     return cur.clamp_min(0)
 
 
+def _pack(logits: torch.Tensor, toks: torch.Tensor, k_lp: int
+          ) -> torch.Tensor:
+    """The committed tokens ``[B(, n)]`` as the host fetches them, ``[B(,
+    n), 2 + 2k]`` int32: each token, its logprob's bits and, with
+    top-logprobs, k ids and k logprob bits of the raw ``logits``."""
+    cols = [toks.to(torch.int32)[..., None],
+            sampler.token_logprob(logits, toks).view(torch.int32)[..., None]]
+    if k_lp:
+        ti, tl = sampler.top_logprobs(logits, k_lp)
+        cols += [ti.to(torch.int32), tl.contiguous().view(torch.int32)]
+    return torch.cat(cols, -1)
+
+
 @dataclasses.dataclass(frozen=True)
 class _Flags:
     """What one dispatch's active slots ask of the sampler (host values)."""
@@ -203,11 +230,15 @@ class Engine:
                  block_admit_chunks: int | None = 4, mesh=None,
                  paged: bool = False, page_size: int | None = None,
                  n_pages: int | None = None, prefix_cache: bool = False,
-                 spec_gamma: int = 0, loras: dict | None = None):
-        unsupported = {"mesh": mesh is not None, "spec_gamma": spec_gamma}
-        bad = [k for k, on in unsupported.items() if on]
-        if bad:
-            raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
+                 spec_gamma: int = 0, spec_proposer=None,
+                 loras: dict | None = None):
+        if mesh is not None:
+            raise NotImplementedError("not ported yet: mesh")
+        if loras and spec_gamma and hasattr(spec_proposer, "draft_batch"):
+            raise ValueError(
+                "loras do not compose with a draft-MODEL proposer "
+                "(the draft has no adapters, so its KV would "
+                "desynchronize); n-gram speculation composes fine")
         if prefix_cache and not paged:
             raise ValueError("prefix_cache requires paged=True")
         llama.check_supported(cfg)
@@ -324,9 +355,25 @@ class Engine:
         self._last_t = time.perf_counter()
         self._ttfts: collections.deque = collections.deque(maxlen=512)
         self._tpots: collections.deque = collections.deque(maxlen=512)
-        # forwards run: each prefill chunk and each decode step is one
+        # forwards run: each prefill chunk, decode step and verify is one
         self.prefill_chunks = 0
         self.decode_forwards = 0
+        self.verify_forwards = 0
+        # speculative decoding: the proposer (a stateful one keeps per-slot
+        # KV of the committed stream) and the acceptance counts
+        self.spec_gamma = spec_gamma
+        self._stateful_proposer = False
+        self._spec_proposed = self._spec_accepted = 0
+        self._spec_committed = self._spec_slot_steps = 0
+        if spec_gamma:
+            from quant_tpu_torch.engine.spec import NgramProposer
+
+            self.proposer = spec_proposer or NgramProposer(spec_gamma)
+            self._stateful_proposer = hasattr(self.proposer, "draft_batch")
+            if self._stateful_proposer and self.proposer.gamma < spec_gamma:
+                raise ValueError(
+                    f"proposer gamma {self.proposer.gamma} < engine "
+                    f"spec_gamma {spec_gamma}")
 
     # ── device steps ────────────────────────────────────────────────
 
@@ -378,12 +425,14 @@ class Engine:
             # keeps its own first K)
             k_lp=min(20, max((r.top_logprobs for r in reqs), default=0)))
 
-    def _upload_slots(self) -> torch.Tensor:
-        """The one host-to-device copy of a dispatch: ``[max_slots, 3]``
-        (last token, FSM id, FSM state)."""
-        return torch.from_numpy(np.stack(
-            [self.last_tokens, self._fsm_ids, self._fsm_state], 1)).to(
-                self.dev)
+    def _upload_slots(self, *extra: np.ndarray) -> torch.Tensor:
+        """The one host-to-device copy of a dispatch: ``[max_slots, 3 +
+        ...]`` (last token, FSM id, FSM state, then the ``extra`` columns:
+        a verify's drafts or stream lengths)."""
+        return torch.from_numpy(np.concatenate(
+            [np.stack([self.last_tokens, self._fsm_ids, self._fsm_state], 1),
+             *(np.asarray(x, np.int64).reshape(self.max_slots, -1)
+               for x in extra)], 1)).to(self.dev)
 
     def _decode(self, tokens: torch.Tensor, fsm_ids: torch.Tensor,
                 fsm_state: torch.Tensor, flags: _Flags, gens):
@@ -415,12 +464,7 @@ class Engine:
             fsm_state = _fsm_walk(self._fsm_bt, self._fsm_tokb,
                                   self._fsm_tokl, fsm_ids, fsm_state, nxt,
                                   self.eos_id)
-        cols = [nxt.to(torch.int32)[:, None],
-                sampler.token_logprob(lg, nxt).view(torch.int32)[:, None]]
-        if flags.k_lp:
-            ti, tl = sampler.top_logprobs(lg, flags.k_lp)
-            cols += [ti.to(torch.int32), tl.contiguous().view(torch.int32)]
-        return nxt, fsm_state, torch.cat(cols, 1)
+        return nxt, fsm_state, _pack(lg, nxt, flags.k_lp)
 
     # ── public API ──────────────────────────────────────────────────
 
@@ -606,11 +650,11 @@ class Engine:
         else:
             self._insert_single(slot)
         gen = self._gens[slot]
+        seed = req.seed if req.seed is not None else req.req_id
         if req.gen_state is not None:
             gen.set_state(req.gen_state)
             req.gen_state = None
         else:
-            seed = req.seed if req.seed is not None else req.req_id
             gen.manual_seed(int(seed) & 0x7FFFFFFF)
         sc = req.sampling
         row = np.zeros((self._N_KNOBS + 2 * self.MAX_LOGIT_BIAS,),
@@ -672,6 +716,11 @@ class Engine:
         self._maybe_finish(slot, tok)
         if req.finished:
             self._admit_finished.append(req)
+        elif self._stateful_proposer:
+            # the draft's KV of the committed stream but its last token
+            self.proposer.admit(slot, req.prompt + req.output)
+            if hasattr(self.proposer, "set_slot_key"):
+                self.proposer.set_slot_key(slot, seed)
         self._prefilling = None
         log.info("admit req=%d slot=%d prompt_len=%d", req.req_id, slot,
                  len(req.prompt))
@@ -889,18 +938,22 @@ class Engine:
                         "page pool exhausted with nothing to preempt")
 
     def _commit(self, active, packed: np.ndarray, k_lp: int,
-                finished: list[Request]) -> None:
+                finished: list[Request], n_take=None) -> int:
         """Append each active slot's tokens from the fetched ``[B, n, 2 +
-        2k]`` block until it finishes: logprobs, top-logprobs and the host
-        mirror of its FSM state with them."""
+        2k]`` block (slot i's first ``n_take[i]`` with ``n_take``) until it
+        finishes: logprobs, top-logprobs and the host mirror of its FSM state
+        with them. Returns the tokens appended."""
         toks = packed[:, :, 0]
         lps = packed[:, :, 1].view(np.float32)
         t_ids = packed[:, :, 2:2 + k_lp]
         t_lps = packed[:, :, 2 + k_lp:].view(np.float32)
+        committed = 0
         for i in active:
             req = self.slots[i]
             kk = req.top_logprobs
-            for j in range(toks.shape[1]):
+            for j in range(toks.shape[1] if n_take is None
+                           else int(n_take[i])):
+                committed += 1
                 tok = int(toks[i, j])
                 req.output.append(tok)
                 req.logprobs.append(float(lps[i, j]))
@@ -916,6 +969,7 @@ class Engine:
                 if req.finished:
                     finished.append(req)
                     break
+        return committed
 
     def _gens_of(self, active) -> list:
         """The generators of the active sampled slots (None elsewhere)."""
@@ -940,23 +994,142 @@ class Engine:
         self._commit(active, torch.stack(outs, 1).cpu().numpy(), flags.k_lp,
                      finished)
 
+    def _verify(self, toks: torch.Tensor, fsm_ids: torch.Tensor,
+                fsm_state: torch.Tensor, flags: _Flags, gens,
+                q_probs: torch.Tensor | None = None) -> torch.Tensor:
+        """One T=g+1 forward of every slot over ``toks`` ``[B, g+1]`` (the
+        last committed token, then the drafts) and the commit, all on the
+        device: the cache lengths become base + acc + 1 and the penalty
+        counts take the committed tokens. Returns the one block the host
+        fetches, ``[B, (g+1)(2 + 2k) + 1]`` int32: each position's
+        :func:`_pack` row, and acc last."""
+        b, gp1 = toks.shape
+        base = self.cache.lengths
+        logits, cache = self._forward(toks, self.cache)
+        self.verify_forwards += 1
+        rows = None
+        if flags.fsm:
+            # position j's legality row: the state after walking the draft
+            # prefix toks[:, 1..j] (the last committed token's transition
+            # happened at its commit)
+            st, rows_l = fsm_state, []
+            for j in range(gp1):
+                if j:
+                    st = _fsm_walk(self._fsm_bt, self._fsm_tokb,
+                                   self._fsm_tokl, fsm_ids, st, toks[:, j],
+                                   self.eos_id)
+                rows_l.append(_fsm_mask_rows(self._fsm_bits, fsm_ids, st,
+                                             self.cfg.vocab_size))
+            rows = torch.stack(rows_l, 1)
+        if flags.sampled or flags.pen or flags.bias:
+            kn = self._knobs
+            out, acc = sampler.spec_commit(
+                logits, toks, gens, kn[:, 0], kn[:, 1].to(torch.int64),
+                kn[:, 2], kn[:, 3],
+                penalties=((self.counts, kn[:, 4], kn[:, 5], kn[:, 6])
+                           if flags.pen else None),
+                bias=((self._bias_toks, self._bias_vals)
+                      if flags.bias else None),
+                q_probs=q_probs, fsm_rows=rows)
+        else:
+            # an all-greedy batch: the argmax chain, no filtering
+            lg = logits if rows is None else sampler._fsm_mask(logits, rows)
+            out = lg.argmax(dim=-1)
+            acc = torch.cumprod((toks[:, 1:] == out[:, :-1]).to(torch.int64),
+                                dim=1).sum(dim=1)
+        # the forward advanced every length by g+1; keep the accepted prefix
+        # and the commit (the tail's entries are masked by the length and
+        # overwritten later)
+        self.cache = dataclasses.replace(
+            cache, lengths=(base + acc + 1).to(base.dtype))
+        pos = torch.arange(gp1, device=self.dev)[None]
+        self.counts.index_put_(
+            (torch.arange(b, device=self.dev)[:, None].expand(b, gp1), out),
+            (pos <= acc[:, None]).to(torch.int32), accumulate=True)
+        return torch.cat([_pack(logits, out, flags.k_lp).reshape(b, -1),
+                          acc.to(torch.int32)[:, None]], 1)
+
+    def _spec_advance(self, active, finished: list[Request]) -> int:
+        """One speculative step of the active slots: drafts (on the host
+        for the n-gram proposer, on the device for a draft model), one
+        upload, the verify, one fetch, then each slot's accepted prefix
+        and commit appended, capped at ``max_seq``. Returns the tokens
+        committed."""
+        g = self.spec_gamma
+        flags = self._flags(active)
+        gens = self._gens_of(active)
+        n_prop = np.zeros((self.max_slots,), np.int64)
+        q_probs = None
+        if self._stateful_proposer:
+            lens = np.zeros((self.max_slots,), np.int64)
+            for i in active:
+                lens[i] = len(self.slots[i].prompt) + len(self.slots[i].output)
+            up = self._upload_slots(lens)
+            kn = self._knobs
+            if flags.sampled and hasattr(self.proposer,
+                                         "draft_batch_sampled"):
+                drafts, q_probs = self.proposer.draft_batch_sampled(
+                    up[:, 0], up[:, 3], kn[:, 0], kn[:, 1].to(torch.int64),
+                    kn[:, 2], kn[:, 3],
+                    [i for i in active if gens[i] is not None])
+                q_probs = q_probs[:, :g]
+            else:
+                drafts = self.proposer.draft_batch(up[:, 0], up[:, 3])
+            toks = torch.cat([up[:, :1], drafts[:, :g]], 1)
+            n_prop[active] = g
+        else:
+            drafts = np.zeros((self.max_slots, g), np.int64)
+            for i in active:
+                req = self.slots[i]
+                d = self.proposer.propose(req.prompt + req.output)[:g]
+                drafts[i, :len(d)] = d
+                n_prop[i] = len(d)
+            up = self._upload_slots(drafts)
+            toks = torch.cat([up[:, :1], up[:, 3:]], 1)
+        self._spec_proposed += int(n_prop.sum())
+        packed = self._verify(toks, up[:, 1], up[:, 2], flags, gens,
+                              q_probs).cpu().numpy()
+        acc = packed[:, -1]
+        n_take = np.zeros((self.max_slots,), np.int64)
+        for i in active:
+            req = self.slots[i]
+            # a token at stream position p needs every KV write below p;
+            # writes at max_seq and past it were dropped
+            n_take[i] = min(int(acc[i]) + 1,
+                            self.max_seq - len(req.prompt) - len(req.output))
+            # padded drafts can be "accepted" by a sampled slot: the stat
+            # counts real proposals only
+            self._spec_accepted += min(int(acc[i]), int(n_prop[i]))
+        committed = self._commit(
+            active, packed[:, :-1].reshape(self.max_slots, g + 1, -1),
+            flags.k_lp, finished, n_take)
+        self._spec_committed += committed
+        self._spec_slot_steps += len(active)
+        return committed
+
     def step(self) -> list[Request]:
         """One prefill chunk of admission (budgeted) + one decode forward
-        for all active slots."""
+        for all active slots, or with ``spec_gamma`` one verify committing
+        1 to ``spec_gamma + 1`` tokens a slot."""
         finished: list[Request] = []
         self._expire_deadlines(finished)
         self._advance_admission()
-        self._grow_for_decode(1)
+        spec = bool(self.spec_gamma) and any(s is not None
+                                             for s in self.slots)
+        self._grow_for_decode(self.spec_gamma + 1 if spec else 1)
         self._sync_paged()
         # _grow_for_decode may have preempted slots
         active = [i for i, s in enumerate(self.slots) if s is not None]
         finished += self._admit_finished
         self._admit_finished = []
-        if active:
+        n_tok = len(active)
+        if active and spec:
+            n_tok = self._spec_advance(active, finished)
+        elif active:
             self._run_block(active, 1, finished)
         self._steps += 1
         now = time.perf_counter()
-        rate = len(active) / max(now - self._last_t, 1e-6)
+        rate = n_tok / max(now - self._last_t, 1e-6)
         self._tok_ema = 0.9 * self._tok_ema + 0.1 * rate
         self._last_t = now
         return finished
@@ -1004,6 +1177,7 @@ class Engine:
             "tokens_per_s_ema": round(self._tok_ema, 1),
             "prefill_chunks": self.prefill_chunks,
             "decode_forwards": self.decode_forwards,
+            "verify_forwards": self.verify_forwards,
             **self._pcts(self._ttfts, "ttft"),
             **self._pcts(self._tpots, "tpot"),
             **({"loras": len(self.lora_names) - 1}
@@ -1016,6 +1190,14 @@ class Engine:
             **({"free_pages": len(self._free_pages),
                 "total_pages": self.n_pages - 1}
                if self.paged else {}),
+            **({"spec_proposed": self._spec_proposed,
+                "spec_accepted": self._spec_accepted,
+                "spec_acceptance": round(
+                    self._spec_accepted / max(self._spec_proposed, 1), 3),
+                # tokens a slot commits per verify (plain decode: 1.0)
+                "spec_tokens_per_slot_step": round(
+                    self._spec_committed / max(self._spec_slot_steps, 1), 2)}
+               if self.spec_gamma else {}),
         }
 
     def embed(self, prompt_ids) -> np.ndarray:
@@ -1047,13 +1229,17 @@ class Engine:
                  sampling: SamplingConfig = SamplingConfig(), fsm=None,
                  lora=None) -> list[list[int]]:
         """Batch API over the continuous-batching loop (``step_block(16)``
-        until every request is done), every prompt under adapter ``lora``
-        (None: the base)."""
+        until every request is done, or ``step()`` with ``spec_gamma``, so
+        the proposer drafts before each verify), every prompt under adapter
+        ``lora`` (None: the base)."""
         reqs = [Request(req_id=i, prompt=p, max_new_tokens=max_new_tokens,
                         sampling=sampling, fsm=fsm, lora=lora)
                 for i, p in enumerate(prompts)]
         for r in reqs:
             self.add_request(r)
         while self.has_work():
-            self.step_block(16)
+            if self.spec_gamma:
+                self.step()
+            else:
+                self.step_block(16)
         return [r.output for r in reqs]

@@ -7,8 +7,10 @@ sampling and ``token_logprob``. Randomness comes from explicit
 differs from the JAX package's (another generator) while the filtering is
 the same. Token-history penalties (:func:`apply_penalties`), OpenAI
 ``logit_bias`` (:func:`apply_logit_bias`) and grammar (FSM) masks follow
-the JAX formulas and order. Speculative commits are not ported yet and
-raise ``NotImplementedError``.
+the JAX formulas and order. :func:`spec_commit` is the speculative
+verify's rejection sampling (the JAX ``spec_commit``): delta and draft-model
+proposals, the penalties counted along the draft, the bias and the grammar
+rows, all on the device; each sampled slot draws from its own generator.
 """
 
 from __future__ import annotations
@@ -203,6 +205,100 @@ def top_logprobs(logits: torch.Tensor, k: int
     return ids, vals - torch.logsumexp(lg, dim=-1, keepdim=True)
 
 
-def spec_commit(*args, **kwargs):
-    """Speculative rejection sampling: not ported yet."""
-    raise NotImplementedError("speculative decoding is not ported")
+def spec_commit(logits: torch.Tensor, tokens: torch.Tensor, generators,
+                temps: torch.Tensor, topks: torch.Tensor, topps: torch.Tensor,
+                minps: torch.Tensor | None = None, penalties=None, bias=None,
+                q_probs: torch.Tensor | None = None,
+                fsm_rows: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Speculative rejection sampling on the device (the JAX
+    ``spec_commit``).
+
+    ``logits`` ``[B, g+1, V]``: the verify forward's; position j predicts
+    stream token j+1. ``tokens`` ``[B, g+1]``: the fed tokens, ``tokens[:,
+    1:]`` the g drafts. With p_j the adjusted, filtered target distribution
+    at position j, a slot accepts draft j with probability p_j(d) (delta
+    proposal, ``q_probs`` None: n-gram or greedy drafts) or min(1,
+    p_j(d) / q_j(d)) (``q_probs`` ``[B, g, V]``, drafts sampled from q);
+    at the first rejection it commits a sample of the residual (p with the
+    draft zeroed, or norm((p - q)+)), and after g acceptances a bonus sample
+    of p_g. A residual row holding less than 1e-9 of mass falls back to p
+    (a rejection there has probability below 1e-9). Both rules are exact
+    ancestral sampling of the target chain.
+
+    ``penalties`` = (counts ``[B, V]``, reps, freqs, press): position j adds
+    the in-window drafts ``tokens[:, 1..j]`` to counts that already hold
+    ``tokens[:, 0]``; ``bias`` = (bias_toks, bias_vals) follows them and
+    ``fsm_rows`` ``[B, g+1, V]`` (the grammar rows walked along the draft)
+    masks last, so an illegal draft is always rejected. Rows whose
+    ``generators[b]`` is None are greedy: they accept while the draft is the
+    argmax of the adjusted logits and commit that argmax (their ``temps``
+    must be 0). A sampled row draws its g uniforms, then the noise of one
+    sample per position, from its own generator in one call. Returns (out
+    ``[B, g+1]``, acc ``[B]``), int64: ``out[:, j]`` for j <= acc is the
+    committed chain, positions past acc are garbage."""
+    b, gp1, v = logits.shape
+    g = gp1 - 1
+    dev = logits.device
+    tokens = tokens.to(torch.int64)
+
+    def rows(x):
+        """A per-slot ``[B, ...]`` tensor repeated for each position."""
+        return x.repeat_interleave(gp1, dim=0)
+    lg = logits.to(torch.float32).reshape(b * gp1, v)
+    if penalties is not None:
+        counts, reps, freqs, press = penalties
+        oh = torch.nn.functional.one_hot(tokens, v).to(counts.dtype)
+        cum = torch.cumsum(oh, dim=1) - oh[:, :1]
+        lg = apply_penalties(lg, (counts[:, None] + cum).reshape(b * gp1, v),
+                             rows(reps), rows(freqs), rows(press))
+    if bias is not None:
+        lg = apply_logit_bias(lg, rows(bias[0]), rows(bias[1]))
+    if fsm_rows is not None:
+        lg = _fsm_mask(lg, fsm_rows.reshape(b * gp1, v))
+    greedy_tok = lg.argmax(dim=-1).reshape(b, gp1)
+    l2 = filter_logits(lg, rows(temps), rows(topks), rows(topps),
+                       None if minps is None else rows(minps))
+    onehot = torch.nn.functional.one_hot(greedy_tok, v).to(torch.float32)
+    probs = torch.where((temps == 0.0)[:, None, None], onehot,
+                        torch.softmax(l2, dim=-1).reshape(b, gp1, v))
+    # each sampled row's draws, from its own generator in one call: its g
+    # uniforms, then the exponential-race noise of one sample a position;
+    # rows without a generator take 0.5, which decides a greedy row's
+    # acceptance as any uniform does (its p is one-hot: the ratio is 0 or at
+    # least 1)
+    draws = [None if gen is None else torch.rand(
+        g + gp1 * v, generator=gen, device=dev) for gen in generators]
+    r = None
+    if any(d is not None for d in draws):
+        half = torch.full((g + gp1 * v,), 0.5, device=dev)
+        r = torch.stack([half if d is None else d for d in draws])
+    if g:
+        draft = tokens[:, 1:]
+        p_draft = torch.gather(probs[:, :g], -1, draft[..., None])[..., 0]
+        if q_probs is not None:
+            q_draft = torch.gather(q_probs, -1, draft[..., None])[..., 0]
+            ratio = p_draft / q_draft.clamp_min(1e-38)
+            resid = (probs[:, :g] - q_probs).clamp_min(0.0)
+        else:
+            ratio = p_draft
+            resid = probs[:, :g].scatter(-1, draft[..., None], 0.0)
+        u = r[:, :g] if r is not None else torch.full((b, g), 0.5, device=dev)
+        acc = torch.cumprod((u < ratio).to(torch.int64), dim=1).sum(dim=1)
+        resid = torch.where(resid.sum(-1, keepdim=True) > 1e-9, resid,
+                            probs[:, :g])
+        dist = torch.cat([resid, probs[:, g:]], dim=1)
+    else:
+        acc = torch.zeros((b,), dtype=torch.int64, device=dev)
+        dist = probs
+    samples = greedy_tok
+    if r is not None:
+        # argmax of dist / Exp(1) noise: a sample of dist at each position
+        noise = -torch.log(r[:, g:].reshape(b, gp1, v))
+        samples = torch.where((temps == 0.0)[:, None], greedy_tok,
+                              (dist / noise).argmax(dim=-1))
+    pos = torch.arange(gp1, device=dev)[None]
+    out = torch.where(pos < acc[:, None],
+                      torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1),
+                      samples)
+    return out, acc

@@ -98,13 +98,23 @@ def test_greedy_matches_jax_engine(jax_greedy, tparams, use_block):
     assert eng.stats["prefill_chunks"] == len(prompts)
 
 
-@pytest.mark.parametrize("what", ["paged", "spec_gamma", "mesh"])
+@pytest.mark.parametrize("what", ["paged", "spec_gamma"])
+def test_speculative_engine_matches_jax(jax_greedy, tparams, what):
+    """Speculation, once refused, serves: the n-gram engine at gamma 2,
+    contiguous or paged, gives the JAX engine's greedy streams."""
+    engine_kw = {"paged": {"paged": True, "page_size": 8},
+                 "spec_gamma": {}}[what]
+    eng = TEngine(tparams, TCFG, max_slots=2, max_seq=64, eos_id=-1,
+                  device="cpu", spec_gamma=2, **engine_kw)
+    assert _drive(eng, TRequest, _prompts(), False) == jax_greedy
+    st = eng.stats
+    assert st["verify_forwards"] > 0 and st["decode_forwards"] == 0
+    assert st["spec_tokens_per_slot_step"] >= 1.0
+
+
+@pytest.mark.parametrize("what", ["mesh"])
 def test_unported_engine_features_raise(tparams, what):
-    """The case "paged" is a ported feature: the paged engine with
-    speculation still raises."""
-    engine_kw = {"paged": {"paged": True, "spec_gamma": 2},
-                 "spec_gamma": {"spec_gamma": 2},
-                 "mesh": {"mesh": object()}}[what]
+    engine_kw = {"mesh": {"mesh": object()}}[what]
     with pytest.raises(NotImplementedError):
         eng = TEngine(tparams, TCFG, max_slots=1, max_seq=16, device="cpu",
                       **engine_kw)

@@ -1484,3 +1484,40 @@ def test_lora_forward_kernels_match_plain_on_card(preset):
     assert float((k - r).abs().max() / r.abs().max()) <= 5e-2
     assert float((k[0] - b[0]).abs().max() / b[0].abs().max()) <= 5e-2
     assert float((k[1] - b[1]).abs().max() / b[1].abs().max()) > 5e-2
+
+
+@pytest.mark.gpu
+def test_verify_forward_kernels_match_plain_on_card():
+    """The speculative verify's forward (T=5, gamma 4, at B=8 over a cache
+    prefilled to 24 tokens and one decode step) through the kernels against
+    the plain path on the card: logits of every position within 5e-2 of
+    max|logit| (the smoke's model limit); its matmuls at M = 40 on the
+    tensor-core prefill tile, and no T=1 kernel launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+
+    from quant_tpu_torch.models import llama
+
+    _build.build()
+    cfg = dataclasses.replace(PRESETS["test-tiny"], kernel_mode="auto")
+    params = llama.init_params(cfg, seed=0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    calls = [torch.randint(3, cfg.vocab_size, (8, t), generator=gen,
+                           device="cuda") for t in (24, 1, 5)]
+    runs = {}
+    for mode in ("auto", "xla"):
+        c = dataclasses.replace(cfg, kernel_mode=mode)
+        cache = llama.init_cache(c, 8, 64, "cuda")
+        for toks in calls:
+            _build.reset_launches()
+            lg, cache = llama.forward(params, toks, cache, c, device="cuda")
+        runs[mode] = lg.float()
+        if mode == "auto":
+            launches = dict(_build.launches)
+    k, r = runs["auto"], runs["xla"]
+    assert k.shape == (8, 5, cfg.vocab_size) and bool(torch.isfinite(k).all())
+    assert float((k - r).abs().max() / r.abs().max()) <= 5e-2
+    assert launches["dequant_matmul"] == 4 * cfg.n_layers + 1
+    assert launches["dequant_matmul[tc_prefill]"] == 4 * cfg.n_layers + 1
+    assert launches["cache_insert_int8"] == launches["flash_decode_int8"] == 0

@@ -331,9 +331,33 @@ def test_cli_serve_answers(tmp_path, params):
         proc.wait(timeout=30)
 
 
-@pytest.mark.parametrize("flag", [["--mesh", "data=2"],
-                                  ["--draft-ckpt", "/x"],
+@pytest.mark.parametrize("flag", [["--draft-ckpt", "d"],
                                   ["--spec-gamma", "4"]])
+def test_cli_serve_takes_spec_flags(tmp_path, params, monkeypatch, flag):
+    """The speculative flags, once refused, build the engine (the server
+    call replaced): ``--spec-gamma 4`` an n-gram engine, ``--draft-ckpt``
+    with it a draft-model one (the target's checkpoint as its own draft);
+    either serves the JAX engine's greedy answer."""
+    from quant_tpu_torch.checkpoint.format import save_checkpoint
+    from quant_tpu_torch.cli import main
+    from quant_tpu_torch.engine import server
+
+    save_checkpoint(tmp_path / "ckpt", params[0], TCFG)
+    seen = {}
+    monkeypatch.setattr(server, "serve",
+                        lambda eng, **kw: seen.update(eng=eng))
+    extra = (["--draft-ckpt", str(tmp_path / "ckpt"), "--spec-gamma", "4"]
+             if flag[0] == "--draft-ckpt" else flag)
+    assert main(["serve", str(tmp_path / "ckpt"), "--slots", "2",
+                 "--max-seq", "64", "--eos-id", "-1", "--device", "cpu",
+                 *extra]) == 0
+    eng = seen["eng"]
+    assert eng.spec_gamma == 4
+    assert hasattr(eng.proposer, "draft_batch") == (flag[0] == "--draft-ckpt")
+    assert eng.generate([PROMPTS[0]], max_new_tokens=6)[0] == params[1][0]
+
+
+@pytest.mark.parametrize("flag", [["--mesh", "data=2"]])
 def test_cli_serve_refuses_unported_flags(flag, capsys):
     from quant_tpu_torch.cli import main
 
